@@ -1,0 +1,425 @@
+"""Ensemble sampler: red/black half-ensemble stepping on one device.
+
+PyTorch counterpart of ``mcmcpp_tpu/sampler.py`` (the reference's
+``MCMCpp/EnsembleSampler.h``):
+
+- The ensemble is two device tensors ``(W/2, P)`` (red/black halves) plus
+  log-posterior vectors and int32 per-walker accept counters.
+- One step updates red against black, then black against the *new* red
+  (``EnsembleSampler.h:342-359``).
+- ``lax.scan`` becomes a Python loop that enqueues the steps on the card and
+  writes every ``thin``-th ensemble, ``[red…, black…]``, into a preallocated
+  device chunk; chunks are copied to the host :class:`Chain`. Nothing in the
+  step loop waits on the device.
+- Randomness comes from two ``torch.Generator``s on the device, one for the
+  steps and one for auxiliary draws (``init_ball``), seeded from ``seed``.
+"""
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from mcmcpp_tpu_torch.chain import (
+    Chain,
+    append_device_chunk,
+    default_chunk_steps,
+    run_pipelined,
+)
+from mcmcpp_tpu_torch.movers.base import Mover
+from mcmcpp_tpu_torch.movers.stretch import StretchMove
+from mcmcpp_tpu_torch.ops.random import AUX_STREAM, STEP_STREAM, make_generator
+
+# per-walker accept counters are int32 on the device and gain at most one
+# per step, so a device run between two harvests stays below 2^30 steps
+_MAX_STEPS_PER_HARVEST = 1 << 30
+
+
+class EnsembleState(NamedTuple):
+    """``red``/``black``: (W/2, P); ``logp_*``: (W/2,); ``accepted_*``:
+    (W/2,) int32 per-walker accept counters (≙ ``MCMCpp/Walker/Walker.h:
+    111-122``), harvested to a host int64 array per chunk; ``step``: steps
+    taken, a host int (no key is folded from it)."""
+
+    red: torch.Tensor
+    black: torch.Tensor
+    logp_red: torch.Tensor
+    logp_black: torch.Tensor
+    accepted_red: torch.Tensor
+    accepted_black: torch.Tensor
+    step: int
+
+
+def resolve_device(device):
+    """``torch.device`` for ``device``; raises if CUDA is asked for and
+    absent (the port never falls back to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device} requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' to run the plain versions on the CPU"
+        )
+    return device
+
+
+def init_state(positions, batched_logp):
+    """:class:`EnsembleState` from initial positions (W, P): the first W/2
+    walkers are red, the rest black (≙ ``setInitialWalkerPos``,
+    ``EnsembleSampler.h:221-243``)."""
+    w = positions.shape[0]
+    if w % 2 != 0:
+        raise ValueError("number of walkers must be even (red/black halves)")
+    half = w // 2
+    red, black = positions[:half].contiguous(), positions[half:].contiguous()
+    zeros = torch.zeros((half,), dtype=torch.int32, device=positions.device)
+    return EnsembleState(
+        red=red,
+        black=black,
+        logp_red=batched_logp(red),
+        logp_black=batched_logp(black),
+        accepted_red=zeros,
+        accepted_black=zeros.clone(),
+        step=0,
+    )
+
+
+def make_step_fn(batched_logp, mover: Mover, mover_state, gen):
+    """Return ``step(state) -> state`` performing one full red+black update."""
+
+    def step(state: EnsembleState) -> EnsembleState:
+        n_r, n_b = state.red.shape[0], state.black.shape[0]
+        device, dtype = state.red.device, state.red.dtype
+        noise = mover.draw_noise(gen, n_r, n_b, device, dtype=dtype)
+        red, logp_red, acc_r = mover.apply(
+            state.red, state.logp_red, state.black, batched_logp, mover_state,
+            noise,
+        )
+        # black proposes against the *updated* red half (EnsembleSampler.h:350-354)
+        noise = mover.draw_noise(gen, n_b, n_r, device, dtype=dtype)
+        black, logp_black, acc_b = mover.apply(
+            state.black, state.logp_black, red, batched_logp, mover_state,
+            noise,
+        )
+        return EnsembleState(
+            red, black, logp_red, logp_black,
+            state.accepted_red + acc_r.to(torch.int32),
+            state.accepted_black + acc_b.to(torch.int32),
+            state.step + 1,
+        )
+
+    return step
+
+
+def run_scan(state: EnsembleState, step_fn, n_store: int, thin: int):
+    """Run ``n_store·thin`` steps, keeping every ``thin``-th ensemble.
+
+    Returns (final_state, positions (n_store, W, P), logps (n_store, W),
+    accepted): ``accepted`` is the chunk's per-walker accept counters, which
+    are zeroed in the returned state. Thinning at source (≙
+    ``EnsembleSampler.h:296-308``): skipped steps are never stored.
+    """
+    half = state.red.shape[0]
+    w = half + state.black.shape[0]
+    p = state.red.shape[1]
+    dev, dtype = state.red.device, state.red.dtype
+    positions = torch.empty((n_store, w, p), dtype=dtype, device=dev)
+    logps = torch.empty((n_store, w), dtype=state.logp_red.dtype, device=dev)
+    for s in range(n_store):
+        for _ in range(thin):
+            state = step_fn(state)
+        positions[s, :half] = state.red
+        positions[s, half:] = state.black
+        logps[s, :half] = state.logp_red
+        logps[s, half:] = state.logp_black
+    accepted = (state.accepted_red, state.accepted_black)
+    state = state._replace(
+        accepted_red=torch.zeros_like(state.accepted_red),
+        accepted_black=torch.zeros_like(state.accepted_black),
+    )
+    return state, positions, logps, accepted
+
+
+def run_nostore(state: EnsembleState, step_fn, n_steps: int):
+    """Advance ``n_steps`` without storing (burn-in path)."""
+    for _ in range(n_steps):
+        state = step_fn(state)
+    return state
+
+
+def sample_ball(gen, center, scale, n_walkers, dtype=torch.float32,
+                device="cuda"):
+    """Gaussian ball initializer for walker positions (emcee-style)."""
+    center = torch.as_tensor(center, dtype=dtype, device=device)
+    scale = torch.broadcast_to(
+        torch.as_tensor(scale, dtype=dtype, device=device), center.shape
+    )
+    z = torch.randn((n_walkers, center.shape[0]), generator=gen, dtype=dtype,
+                    device=device)
+    return center[None, :] + scale[None, :] * z
+
+
+class EnsembleSampler:
+    """User-facing sampler (public surface ≙ ``EnsembleSampler.h:89-176``).
+
+    Parameters
+    ----------
+    logp_fn : callable(theta (P,)) -> scalar log-posterior, or, with
+        ``batched=True``, (n, P) -> (n,) (for example a
+        :class:`~mcmcpp_tpu_torch.models.targets.GaussianTarget`, which
+        :class:`~mcmcpp_tpu_torch.movers.fused.FusedStretchMove` needs).
+    n_walkers, n_params : ensemble dimensions (W even, at least 4).
+    mover : a :class:`~mcmcpp_tpu_torch.movers.base.Mover` (default
+        StretchMove).
+    seed : seeds the step and auxiliary generators.
+    max_chain_bytes : host chain capacity (default 2 GiB, ≙
+        ``EnsembleSampler.h:67``).
+    batched : True if ``logp_fn`` already maps (n, P) -> (n,); otherwise it
+        is wrapped with ``torch.func.vmap``.
+    store_chunk_steps : stored steps per device chunk (default: ~64 MiB).
+    device : where the ensemble lives (default "cuda"). CUDA without a GPU
+        raises.
+    """
+
+    def __init__(
+        self,
+        logp_fn,
+        n_walkers,
+        n_params,
+        mover=None,
+        seed=0,
+        dtype=torch.float32,
+        max_chain_bytes=2 << 30,
+        batched=False,
+        store_chunk_steps=None,
+        device="cuda",
+    ):
+        if n_walkers % 2 != 0:
+            raise ValueError("n_walkers must be even")
+        if n_walkers < 4:
+            raise ValueError("need at least 4 walkers")
+        self.device = resolve_device(device)
+        self.n_walkers = int(n_walkers)
+        self.n_params = int(n_params)
+        self.dtype = dtype
+        self.mover = mover if mover is not None else StretchMove()
+        self._batched_logp = logp_fn if batched else torch.func.vmap(logp_fn)
+        self._validate_logp()
+        self._mover_state = self.mover.init_state(
+            self.n_params, dtype, self.device
+        )
+        # domain-separated streams: steps draw from _step_gen, init_ball
+        # from _aux_gen, so no auxiliary draw shifts the step stream
+        self._step_gen = make_generator(seed, STEP_STREAM, self.device)
+        self._aux_gen = make_generator(seed, AUX_STREAM, self.device)
+        self.chain = Chain(
+            n_walkers=self.n_walkers,
+            n_params=self.n_params,
+            max_bytes=max_chain_bytes,
+            dtype=torch.empty((), dtype=dtype).numpy().dtype,
+        )
+        self.state = None
+        # host-side PER-WALKER int64 accept counts in chain column order
+        # [red..., black...]; the int32 device counters are folded in after
+        # every device run
+        self._accepted_walkers_host = None
+        self._reset_step_base = 0
+        self._step_fn = make_step_fn(
+            self._batched_logp, self.mover, self._mover_state, self._step_gen
+        )
+        if store_chunk_steps is None:
+            store_chunk_steps = default_chunk_steps(
+                self.n_walkers, self.n_params, self.chain.dtype
+            )
+        self._chunk = int(store_chunk_steps)
+
+    # -- setup -----------------------------------------------------------
+
+    def _validate_logp(self):
+        """Shape-check the user's logp on a zero batch (replaces SFINAE)."""
+        half = self.n_walkers // 2
+        x = torch.zeros((half, self.n_params), dtype=self.dtype,
+                        device=self.device)
+        try:
+            out = self._batched_logp(x)
+        except Exception as e:  # noqa: BLE001 - user code; re-raise with context
+            raise TypeError(
+                "logp_fn failed on a (n, P) batch; it must map a (P,) "
+                "parameter vector to a scalar log-posterior (or set "
+                "batched=True for a (n, P)->(n,) function)"
+            ) from e
+        if tuple(out.shape) != (half,):
+            raise TypeError(
+                f"batched logp returned shape {tuple(out.shape)}, expected "
+                f"({half},); logp_fn must return a scalar"
+            )
+
+    def set_initial_walker_pos(self, positions):
+        """≙ setInitialWalkerPos (EnsembleSampler.h:221). (W, P) array."""
+        positions = torch.as_tensor(positions, dtype=self.dtype,
+                                    device=self.device)
+        if tuple(positions.shape) != (self.n_walkers, self.n_params):
+            raise ValueError(
+                f"positions shape {tuple(positions.shape)} != "
+                f"({self.n_walkers}, {self.n_params})"
+            )
+        self.state = init_state(positions, self._batched_logp)
+        return self
+
+    def init_ball(self, center, scale=1e-2, seed=None):
+        """Initialize walkers in a Gaussian ball around ``center``; draws
+        from the auxiliary generator, or from one seeded by ``seed``."""
+        gen = (self._aux_gen if seed is None
+               else make_generator(seed, AUX_STREAM, self.device))
+        pos = sample_ball(gen, center, scale, self.n_walkers, self.dtype,
+                          self.device)
+        return self.set_initial_walker_pos(pos)
+
+    # -- running ---------------------------------------------------------
+
+    def _require_state(self):
+        if self.state is None:
+            raise RuntimeError(
+                "walkers not initialized; call set_initial_walker_pos/init_ball"
+            )
+
+    def _accum_accept(self, acc_red, acc_black):
+        """Fold per-walker device accept counters into the host int64
+        vector (one device->host copy)."""
+        vec = torch.cat([acc_red, acc_black]).cpu().numpy().astype(np.int64)
+        if self._accepted_walkers_host is None:
+            self._accepted_walkers_host = vec
+        else:
+            self._accepted_walkers_host += vec
+
+    def _harvest_counters(self):
+        """Move device accept counters into the host accumulator."""
+        self._accum_accept(self.state.accepted_red, self.state.accepted_black)
+        self.state = self.state._replace(
+            accepted_red=torch.zeros_like(self.state.accepted_red),
+            accepted_black=torch.zeros_like(self.state.accepted_black),
+        )
+
+    def _current_ensemble(self):
+        pos = torch.cat([self.state.red, self.state.black])
+        logp = torch.cat([self.state.logp_red, self.state.logp_black])
+        return pos, logp
+
+    def store_current_walker_positions(self):
+        """≙ storeCurrentWalkerPositions (EnsembleSampler.h:249): push the
+        current ensemble into the chain as one stored step."""
+        self._require_state()
+        pos, logp = self._current_ensemble()
+        return append_device_chunk(self.chain, pos[None], logp[None])
+
+    def run_mcmc(self, n_steps, thin=1, store=True):
+        """Run ``n_steps`` total steps; if ``store``, save every ``thin``-th.
+
+        Returns False if the chain hit its byte capacity before finishing
+        (≙ IncrementStatus::EndOfChain, Chain/Chain.h:230-234), else True.
+        """
+        self._require_state()
+        n_steps, thin = int(n_steps), int(thin)
+        if thin < 1:
+            raise ValueError("thin must be >= 1")
+        if thin > _MAX_STEPS_PER_HARVEST:
+            raise ValueError(f"thin must be <= {_MAX_STEPS_PER_HARVEST}")
+        if not store:
+            remaining = n_steps
+            while remaining > 0:
+                take = min(remaining, _MAX_STEPS_PER_HARVEST)
+                self.state = run_nostore(self.state, self._step_fn, take)
+                self._harvest_counters()
+                remaining -= take
+            return True
+        n_store = n_steps // thin
+        leftover = n_steps - n_store * thin
+        chunk = min(self._chunk, _MAX_STEPS_PER_HARVEST // thin)
+
+        def launch(take):
+            self.state, pos, logp, acc = run_scan(
+                self.state, self._step_fn, take, thin
+            )
+            return pos, logp, acc
+
+        def fetch(chunk_data):
+            pos, logp, acc = chunk_data
+            ok = append_device_chunk(self.chain, pos, logp)
+            self._accum_accept(*acc)
+            return ok
+
+        def on_drop(chunk_data):
+            # the unstorable chunk still advanced the state: count its accepts
+            self._accum_accept(*chunk_data[2])
+
+        if not run_pipelined(n_store, chunk, launch, fetch, on_drop=on_drop):
+            return False
+        if leftover:
+            self.run_mcmc(leftover, store=False)
+        return True
+
+    def reset(self):
+        """≙ reset (EnsembleSampler.h:97): clear chain + counters, keep the
+        current walker positions so sampling can restart from here."""
+        self._require_state()
+        self.chain.clear()
+        self._accepted_walkers_host = None
+        self._reset_step_base = self.state.step
+        self.state = self.state._replace(
+            accepted_red=torch.zeros_like(self.state.accepted_red),
+            accepted_black=torch.zeros_like(self.state.accepted_black),
+        )
+        return self
+
+    # -- statistics & access ----------------------------------------------
+
+    @property
+    def total_steps(self):
+        """Walker-updates since the last reset (W per step), ≙ getTotalSteps."""
+        self._require_state()
+        return (self.state.step - self._reset_step_base) * self.n_walkers
+
+    @property
+    def per_walker_accepted(self):
+        """(W,) int64 accepted-move counts per walker since the last reset,
+        in chain column order [red..., black...] (≙ ``Walker.h:111-122``)."""
+        self._require_state()
+        dev = torch.cat([self.state.accepted_red, self.state.accepted_black])
+        counts = dev.cpu().numpy().astype(np.int64)
+        if self._accepted_walkers_host is not None:
+            counts = counts + self._accepted_walkers_host
+        return counts
+
+    @property
+    def accepted_steps(self):
+        """≙ getAcceptedSteps."""
+        return int(self.per_walker_accepted.sum())
+
+    @property
+    def acceptance_fraction(self):
+        """≙ getAcceptanceFraction (EnsembleSampler.h:245-282)."""
+        t = self.total_steps
+        return self.accepted_steps / t if t else 0.0
+
+    @property
+    def stored_steps(self):
+        """≙ getStoredSteps."""
+        return self.chain.n_steps
+
+    def get_samples(self, burn_in=0, thin=1, flat=False):
+        """Chain samples (S, W, P) (or flattened (S·W, P)), numpy."""
+        return self.chain.get(burn_in=burn_in, thin=thin, flat=flat)
+
+    def get_log_probs(self, burn_in=0, thin=1, flat=False):
+        return self.chain.get_logp(burn_in=burn_in, thin=thin, flat=flat)
+
+    def slice_and_burn_chain(self, thin, burn_in):
+        """≙ sliceAndBurnChain (EnsembleSampler.h:333): in-place chain
+        compaction to every ``thin``-th step after ``burn_in``."""
+        self.chain.compact(burn_in=burn_in, thin=thin)
+        return self
+
+    @property
+    def current_positions(self):
+        """(W, P) device tensor, [red..., black...]."""
+        self._require_state()
+        return self._current_ensemble()[0]

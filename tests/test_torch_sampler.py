@@ -1,0 +1,329 @@
+"""The port's ensemble sampler against the JAX package, and on its own.
+
+Whole-slice replays: the JAX sampler runs on the flagship 10-D target
+(Σ = 0.5·11ᵀ + 0.5·I, ``bench.py:63-73``) and the port runs the same steps
+from the same numpy start, with each half-step's random numbers replayed
+from the JAX run through the mover's ``draw_noise``. Chains, logps and
+per-walker accept counts must agree to atol 1e-5 (float32: the same formulas,
+the logp's product summed in another order).
+
+The port-only tests mirror ``tests/test_sampler_core.py`` on the 2-D skewed
+Gaussian, with the sampler on the CPU.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import mcmcpp_tpu as jref
+from mcmcpp_tpu.movers.fused import FusedStretchMove as JFusedStretchMove
+from mcmcpp_tpu.ops.random import split_for_step
+from mcmcpp_tpu_torch import (
+    EnsembleSampler,
+    FusedStretchMove,
+    GaussianTarget,
+    StretchMove,
+    equicorrelated_gaussian,
+    skewed_gaussian,
+)
+from mcmcpp_tpu_torch.convert import state_from_numpy
+from mcmcpp_tpu_torch.ops.random import UNIT_FLOOR
+from tests.targets import skewed_gaussian_cov, skewed_gaussian_logp
+
+torch.set_num_threads(1)
+
+W, P, N_STEPS, THIN = 64, 10, 12, 3
+REPLAY_ATOL = 1e-5
+
+
+def _flagship_chol():
+    cov = 0.5 * np.ones((P, P)) + 0.5 * np.eye(P)
+    return np.linalg.cholesky(np.linalg.inv(cov)).astype(np.float32)
+
+
+def _jax_logp(L):
+    Lj = jnp.asarray(L)
+
+    def logp(x):
+        y = x @ Lj
+        return -0.5 * jnp.sum(y * y, axis=-1)
+
+    return logp
+
+
+def _start(seed=0):
+    return np.random.default_rng(seed).normal(size=(W, P)).astype(np.float32)
+
+
+def _run_jax(mover, seed):
+    L = _flagship_chol()
+    s = jref.EnsembleSampler(_jax_logp(L), W, P, mover=mover, seed=seed,
+                             batched=True)
+    s.set_initial_walker_pos(_start())
+    assert s.run_mcmc(N_STEPS, thin=THIN)
+    half_keys = [k for step in range(N_STEPS)
+                 for k in split_for_step(s._effective_step_key(), step)]
+    return s, half_keys
+
+
+class _Replay:
+    """Mixin: ``draw_noise`` pops the next pre-drawn half-step noise."""
+
+    def __init__(self, noises, **kw):
+        super().__init__(**kw)
+        self._noises = iter(noises)
+
+    def draw_noise(self, gen, n, m, device, dtype=torch.float32):
+        return next(self._noises)
+
+
+class ReplayStretch(_Replay, StretchMove):
+    pass
+
+
+class ReplayFused(_Replay, FusedStretchMove):
+    pass
+
+
+def _stretch_noise(key, n):
+    """(shift, u, log_u) exactly as the JAX StretchMove draws them."""
+    kp, ka = jax.random.split(key)
+    kj, kz = jax.random.split(kp)
+    shift = jax.random.randint(jax.random.fold_in(kj, 0), (), 0, n)
+    u = jax.random.uniform(kz, (n,), jnp.float32)
+    log_u = -jax.random.exponential(ka, (n,), jnp.float32)
+    return (torch.tensor([int(shift)], dtype=torch.int32),
+            torch.from_numpy(np.array(u)),
+            torch.from_numpy(np.array(log_u)))
+
+
+def _fused_noise(key, n):
+    """(shift, u, ue) of the JAX fused kernel in interpret mode, whose
+    hardware bits are zeros: u = ue = 2^-25."""
+    shift = jax.random.randint(jax.random.split(key)[1], (), 0, n,
+                               dtype=jnp.int32)
+    floor = torch.full((n,), UNIT_FLOOR)
+    return torch.tensor([int(shift)], dtype=torch.int32), floor, floor.clone()
+
+
+def _run_port(mover):
+    s = EnsembleSampler(GaussianTarget.from_numpy(_flagship_chol(), "cpu"),
+                        W, P, mover=mover, batched=True, device="cpu")
+    s.set_initial_walker_pos(_start())
+    assert s.run_mcmc(N_STEPS, thin=THIN)
+    return s
+
+
+def _assert_same_run(j, t):
+    assert t.get_samples().shape == (N_STEPS // THIN, W, P)
+    np.testing.assert_allclose(t.get_samples(), j.get_samples(), rtol=0,
+                               atol=REPLAY_ATOL)
+    np.testing.assert_allclose(t.get_log_probs(), j.get_log_probs(), rtol=0,
+                               atol=REPLAY_ATOL)
+    np.testing.assert_array_equal(t.per_walker_accepted,
+                                  j.per_walker_accepted)
+    assert t.accepted_steps == j.accepted_steps
+    assert t.total_steps == j.total_steps
+
+
+def test_stretch_replays_jax_default_path():
+    j, keys = _run_jax(jref.StretchMove(), seed=5)
+    t = _run_port(ReplayStretch([_stretch_noise(k, W // 2) for k in keys]))
+    _assert_same_run(j, t)
+    assert 0 < j.accepted_steps < j.total_steps
+
+
+def test_fused_replays_jax_interpret():
+    j, keys = _run_jax(JFusedStretchMove(tile=32, interpret=True), seed=9)
+    t = _run_port(ReplayFused([_fused_noise(k, W // 2) for k in keys]))
+    _assert_same_run(j, t)
+
+
+def test_init_state_logp_matches_jax():
+    L = _flagship_chol()
+    j = jref.EnsembleSampler(_jax_logp(L), W, P, batched=True)
+    j.set_initial_walker_pos(_start(3))
+    t = EnsembleSampler(GaussianTarget.from_numpy(L, "cpu"), W, P,
+                        batched=True, device="cpu")
+    t.set_initial_walker_pos(_start(3))
+    for name in ("logp_red", "logp_black"):
+        np.testing.assert_allclose(getattr(t.state, name).numpy(),
+                                   np.asarray(getattr(j.state, name)),
+                                   rtol=1e-6, atol=1e-6)
+
+
+def test_state_from_numpy_roundtrip():
+    j, _ = _run_jax(jref.StretchMove(), seed=1)
+    fields = {f: np.asarray(getattr(j.state, f))
+              for f in ("red", "black", "logp_red", "logp_black",
+                        "accepted_red", "accepted_black")}
+    st = state_from_numpy(**fields, step=int(j.state.step), device="cpu")
+    for f, arr in fields.items():
+        got = getattr(st, f)
+        assert got.dtype == (torch.int32 if f.startswith("acc")
+                             else torch.float32)
+        np.testing.assert_array_equal(got.numpy(), arr)
+    assert st.step == N_STEPS
+    # the converted state is live: the port steps on from it
+    t = EnsembleSampler(GaussianTarget.from_numpy(_flagship_chol(), "cpu"),
+                        W, P, batched=True, device="cpu")
+    t.state = st
+    assert t.run_mcmc(2)
+    assert t.stored_steps == 2
+
+
+def test_cuda_without_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("this box has a GPU")
+    with pytest.raises(RuntimeError, match="is_available"):
+        EnsembleSampler(skewed_gaussian(device="cpu"), 16, 2, batched=True,
+                        device="cuda")
+
+
+# -- port-only: statistics and mechanics (≙ tests/test_sampler_core.py) ----
+
+
+def run_skewed(mover=None, n_walkers=100, n_steps=3000, burn=500, seed=3,
+               **kw):
+    s = EnsembleSampler(skewed_gaussian_logp, n_walkers, 2, mover=mover,
+                        seed=seed, device="cpu", **kw)
+    s.init_ball(np.zeros(2), scale=0.5)
+    s.run_mcmc(burn, store=False)
+    assert s.run_mcmc(n_steps)
+    return s
+
+
+@pytest.mark.parametrize("mover", ["stretch", "fused"])
+def test_moments(mover):
+    if mover == "stretch":
+        s = run_skewed(StretchMove(), n_steps=4000)
+    else:
+        s = EnsembleSampler(skewed_gaussian(device="cpu"), 100, 2,
+                            mover=FusedStretchMove(), seed=3, batched=True,
+                            device="cpu")
+        s.init_ball(np.zeros(2), scale=0.5)
+        s.run_mcmc(500, store=False)
+        assert s.run_mcmc(4000)
+    flat = s.get_samples(flat=True)
+    cov = np.cov(flat.T)
+    assert np.allclose(cov, skewed_gaussian_cov(), atol=0.12), cov
+    assert np.allclose(flat.mean(axis=0), 0.0, atol=0.15)
+
+
+def test_acceptance_fraction_reasonable():
+    s = run_skewed(StretchMove(), n_steps=1000)
+    assert 0.3 < s.acceptance_fraction < 0.95
+    assert s.total_steps == 1500 * 100
+    assert s.per_walker_accepted.sum() == s.accepted_steps
+
+
+def test_logp_stored_matches_positions():
+    s = run_skewed(n_steps=50)
+    pos = torch.from_numpy(s.get_samples())
+    expect = torch.func.vmap(torch.func.vmap(skewed_gaussian_logp))(pos)
+    np.testing.assert_allclose(expect.numpy(), s.get_log_probs(), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_determinism():
+    a = run_skewed(n_steps=100, seed=7)
+    b = run_skewed(n_steps=100, seed=7)
+    assert np.array_equal(a.get_samples(), b.get_samples())
+
+
+def test_seed_changes_chain():
+    a = run_skewed(n_steps=50, seed=1)
+    b = run_skewed(n_steps=50, seed=2)
+    assert not np.array_equal(a.get_samples(), b.get_samples())
+
+
+def test_thinning():
+    s = EnsembleSampler(skewed_gaussian_logp, 100, 2, seed=3, device="cpu")
+    s.init_ball(np.zeros(2), scale=0.5)
+    s.run_mcmc(100, store=False)
+    s.run_mcmc(105, thin=10)
+    assert s.stored_steps == 10
+    assert s.total_steps == 205 * 100
+
+
+def test_chain_capacity_endofchain():
+    row = 100 * 3 * 4  # W*(P+1)*itemsize
+    s = EnsembleSampler(skewed_gaussian_logp, 100, 2, seed=0, device="cpu",
+                        max_chain_bytes=row * 7, store_chunk_steps=3)
+    s.init_ball(np.zeros(2), scale=0.5)
+    assert not s.run_mcmc(20)  # ≙ IncrementStatus::EndOfChain
+    assert s.stored_steps == 7
+    # four chunks of 3 steps ran (the fourth was launched before the cap
+    # hit, then dropped); their accepts are all counted
+    assert s.total_steps == 12 * 100
+    assert 0 < s.accepted_steps == s.per_walker_accepted.sum() < 1200
+
+
+def test_chain_iterators():
+    s = run_skewed(n_steps=6)
+    steps = list(s.chain.iter_steps(burn_in=2, thin=2))
+    assert len(steps) == 2
+    np.testing.assert_array_equal(steps[1], s.get_samples()[4])
+    psets = list(s.chain.iter_psets())
+    assert len(psets) == 6 * 100
+    np.testing.assert_array_equal(psets[101], s.get_samples()[1, 1])
+
+
+def test_slice_and_burn():
+    s = run_skewed(n_steps=100)
+    n0 = s.stored_steps
+    kept = s.get_samples()[20::5]
+    s.slice_and_burn_chain(thin=5, burn_in=20)
+    assert s.stored_steps == len(range(20, n0, 5))
+    np.testing.assert_array_equal(s.get_samples(), kept)
+
+
+def test_reset_keeps_position():
+    s = run_skewed(n_steps=20)
+    pos_before = s.current_positions.clone()
+    s.reset()
+    assert s.stored_steps == 0
+    assert s.total_steps == 0
+    assert s.accepted_steps == 0
+    assert torch.equal(s.current_positions, pos_before)
+    assert s.run_mcmc(5)
+    assert s.stored_steps == 5
+
+
+def test_store_current_positions():
+    s = run_skewed(n_steps=5)
+    n0 = s.stored_steps
+    s.store_current_walker_positions()
+    assert s.stored_steps == n0 + 1
+    np.testing.assert_array_equal(s.get_samples()[-1],
+                                  s.current_positions.numpy())
+
+
+def test_bad_logp_rejected():
+    with pytest.raises(TypeError):
+        EnsembleSampler(lambda th: th, 10, 2, device="cpu")
+
+
+def test_odd_walkers_rejected():
+    with pytest.raises(ValueError):
+        EnsembleSampler(skewed_gaussian_logp, 7, 2, device="cpu")
+
+
+def test_fused_rejects_tempering():
+    x = torch.zeros((4, 2))
+    with pytest.raises(NotImplementedError, match="beta"):
+        FusedStretchMove().apply(x, torch.zeros(4), x, None, (), None,
+                                 beta=0.5)
+
+
+def test_flagship_target_matches_bench_form():
+    """equicorrelated_gaussian is the flagship's L, x @ L orientation."""
+    t = equicorrelated_gaussian(device="cpu")
+    x = np.random.default_rng(0).normal(size=(5, P)).astype(np.float32)
+    np.testing.assert_allclose(
+        t(torch.from_numpy(x)).numpy(),
+        np.asarray(_jax_logp(_flagship_chol())(jnp.asarray(x))),
+        rtol=1e-6, atol=1e-6,
+    )
