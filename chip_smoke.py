@@ -1,28 +1,47 @@
-"""Smoke run of the PyTorch/CUDA port's main path on one NVIDIA GPU.
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from ``mcmcpp_tpu_torch/csrc/`` (into
-``build/kernels/``), then:
+Builds the port's CUDA kernels from ``mcmcpp_tpu_torch/csrc/`` (into
+``build/kernels/``, one ``nvcc`` per source, all started together), then:
 
 1. identifies the card (torch and CUDA versions, ``nvidia-smi`` name and
-   power limit);
+   power limit) and prints ``ptxas``'s register counts;
 2. holds the fused stretch kernel against its plain PyTorch version on the
    card, at the main path's shape (n = 2^20 walkers per half, P = 10) and at
    edge shapes (P = 2, ragged n = 1000 at P = 3, P = 64, rows with
    lp_old = -inf), and times both at the main path's shape;
+2b. holds the split path's propose and accept kernels (any torch logp)
+   against their plain versions: Neal's funnel at n = 2^20, P = 10, and
+   the Rosenbrock banana (P = 2), a logistic regression at ragged n = 1000,
+   rows with lp_old = -inf (which accept) and a logp that is NaN on some
+   rows (which reject); times each kernel and the split half-step against
+   the plain versions;
 3. runs the flagship (10-D equicorrelated Gaussian, W = 2^21 walkers)
    through ``EnsembleSampler`` + ``FusedStretchMove``: 200 burn-in steps and
    40 steps stored at thin 10, counting kernel launches, checking the stored
    logp and the acceptance, and timing the burn-in against the same steps
    through the plain version;
-4. samples the 2-D skewed Gaussian oracle through the kernel and checks
-   acceptance, covariance and the autocorrelation time.
+4. samples the 2-D skewed Gaussian oracle through the fused kernel and
+   checks acceptance, covariance and the autocorrelation time;
+5. drives every other mover and partner mode at full width (W = 2^21,
+   P = 10): 20 burn-in steps whose step loop runs under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no half-step may wait on the
+   host; the slice move, which syncs by design, is the one exception), then
+   2 stored steps; checks finite rows, the stored logp and the acceptance
+   against a window taken from the JAX package; prints walker-updates/s,
+   peak device memory and the slice move's loop iterations; then times
+   roll, block and gather partners for the stretch and walk moves in turns;
+6. runs the reference's oracles on the card: the skewed Gaussian with every
+   mover, the Rosenbrock banana (BASELINE config #3) with the split-path
+   fused stretch, walk and DE moves, the AR(1) autocorrelation-time table
+   (AcTime), the deterministic sequence (InnerBenchmark) and a
+   ``step_action`` run.
 
-Any failure raises (non-zero exit). The second-to-last lines are the kernel
-table and the card's name and power limit; the last line is
-``{"ok": true, "device": {...}}``. Without a CUDA device the script raises
-before printing any result.
+Any failure raises (non-zero exit); every phase prints its seconds. The
+second-to-last lines are the kernel table and the card's name and power
+limit; the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
+device the script raises before printing any result.
 """
 
 import json
@@ -30,6 +49,7 @@ import os
 import subprocess
 import sys
 import time
+from contextlib import contextmanager, nullcontext
 
 import numpy as np
 import torch
@@ -40,6 +60,61 @@ FLOOR = 2.0 ** -25
 RTOL = ATOL = 1e-5
 # accept masks may differ only this close to the threshold
 MARGIN = 1e-4
+W_FULL = 1 << 21
+P_FULL = 10
+# burn-in steps at full width: the first WARM_FULL untimed (allocator growth,
+# library handles), all of them with no host sync allowed
+BURN_FULL = 20
+WARM_FULL = 2
+# acceptance over 20 burn-in + 2 stored steps from init_ball(0, 0.5) on the
+# flagship (the funnel for fused_funnel), measured with the JAX package on
+# the CPU at W = 4096, three seeds each (the same movers; StretchMove stands
+# for FusedStretchMove, which JAX's mixture cannot hold): stretch block
+# 0.434-0.440, gather 0.437-0.438; walk roll 0.0487-0.0492, gather
+# 0.0483-0.0492; DE roll 0.329-0.334, block 0.330-0.334; snooker
+# 0.394-0.398; MH 0.223-0.227; DRAM 0.662; mixture 0.380-0.410 (the branch
+# draws vary); the funnel 0.469-0.472. The windows allow for W = 2^21 and
+# another stream of draws.
+ACCEPT_WINDOWS = {
+    "stretch_block": (0.41, 0.47),
+    "stretch_gather": (0.41, 0.47),
+    "walk_roll": (0.035, 0.065),
+    "walk_gather": (0.035, 0.065),
+    "de_roll": (0.30, 0.36),
+    "de_block": (0.30, 0.36),
+    "snooker": (0.37, 0.42),
+    "mh": (0.20, 0.25),
+    "dram": (0.63, 0.69),
+    "slice": (0.999, 1.0),
+    "mixture": (0.30, 0.48),
+    "fused_funnel": (0.44, 0.50),
+}
+SKEWED_COV = np.array([[1.13, 0.435], [0.435, 0.2825]])
+
+
+@contextmanager
+def phase(name):
+    """Print the phase's seconds when it ends (failures propagate)."""
+    print(f"-- phase {name}", flush=True)
+    t0 = time.perf_counter()
+    yield
+    torch.cuda.synchronize()
+    print(f"-- phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+@contextmanager
+def no_host_sync():
+    """Raise on any operation that waits for the device."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def reset_launches(fs):
+    for name in fs.LAUNCHES:
+        fs.LAUNCHES[name] = 0
 
 
 def card_line():
@@ -65,59 +140,146 @@ def timed_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def in_turns(fns, iters):
+    """Mean ms per call of each of ``fns``, timed in turns a, b, …, …, b, a
+    on one card; returns the means in the order given."""
+    order = list(fns) + list(reversed(fns))
+    times = {}
+    for f in order:
+        times.setdefault(f, []).append(timed_ms(f, iters))
+    return [sum(times[f]) / 2 for f in fns], [times[f] for f in fns]
+
+
 def random_chol(p, rng):
     a = rng.normal(size=(p, p))
     cov = a @ a.T / p + np.eye(p)
     return np.linalg.cholesky(np.linalg.inv(cov))
 
 
-def kernel_case(fs, target, n, seed, neg_inf_every=0):
-    """Kernel vs plain version on one input set; returns (max_abs_err,
-    kernel args)."""
+def half_inputs(p, n, seed, neg_inf_every=0, lp_fn=None):
+    """Active rows near the mode, partners with every fourth row ×10 (far
+    partners give rejections beside the accepts), lp_old (−inf on every
+    ``neg_inf_every``-th row), a shift, u and ue on the card."""
     dev = torch.device("cuda")
-    p = target.dim
     g = torch.Generator(device=dev).manual_seed(seed)
     act = 0.5 * torch.randn((n, p), generator=g, device=dev)
     other = torch.randn((n, p), generator=g, device=dev)
-    other[::4] *= 10.0  # far partners: rejections beside the accepts
-    lp = target(act)
+    other[::4] *= 10.0
+    lp = lp_fn(act)
     if neg_inf_every:
         lp[::neg_inf_every] = -torch.inf
     u = torch.rand(n, generator=g, device=dev).clamp_(min=FLOOR)
     ue = torch.rand(n, generator=g, device=dev).clamp_(min=FLOOR)
     shift = torch.randint(0, n, (1,), generator=g, device=dev,
                           dtype=torch.int32)
-    args = (act, lp, other, shift, u, ue)
+    return act, lp, other, shift, u, ue
 
-    k_act, k_lp, k_acc = fs.fused_stretch_half(*args, logp_fn=target)
-    torch.cuda.synchronize()
-    r_act, r_lp, r_acc = fs.fused_stretch_half_reference(*args,
-                                                         logp_fn=target)
-    _, _, log_ratio = fs.stretch_proposal(*args[:5], logp_fn=target)
-    torch.cuda.synchronize()
 
+def compare_half(label, k_out, r_out, log_ratio, ue, must_accept=None,
+                 must_reject=None):
+    """A kernel half-step against the plain one: accept masks equal except
+    near the threshold, rows and logps within RTOL/ATOL. Returns the
+    largest absolute difference."""
+    k_act, k_lp, k_acc = k_out
+    r_act, r_lp, r_acc = r_out
+    n = k_acc.shape[0]
     n_acc = int(r_acc.sum())
     if not 0 < n_acc < n:
-        raise AssertionError(f"n={n} P={p}: {n_acc} accepts, need a mix")
-    if neg_inf_every and not bool((k_acc[::neg_inf_every] == 1).all()):
-        raise AssertionError("a row with lp_old = -inf was rejected")
+        raise AssertionError(f"{label}: {n_acc} accepts, need a mix")
+    if must_accept is not None and not bool((k_acc[must_accept] == 1).all()):
+        raise AssertionError(f"{label}: a row with lp_old = -inf rejected")
+    if must_reject is not None and bool((k_acc[must_reject] != 0).any()):
+        raise AssertionError(f"{label}: a row with a NaN logp accepted")
     near = ((log_ratio - torch.log(ue)).abs()
             < MARGIN * log_ratio.abs().clamp(min=1.0))
     same = k_acc == r_acc
     if not bool((same | near).all()):
         raise AssertionError(
-            f"n={n} P={p}: {int((~same & ~near).sum())} accept decisions "
-            "differ away from the threshold"
+            f"{label}: {int((~same & ~near).sum())} accept decisions differ "
+            "away from the threshold"
         )
     torch.testing.assert_close(k_act[same], r_act[same], rtol=RTOL,
                                atol=ATOL)
-    torch.testing.assert_close(k_lp[same], r_lp[same], rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(k_lp[same], r_lp[same], rtol=RTOL, atol=ATOL,
+                               equal_nan=True)
     err = max(float((k_act[same] - r_act[same]).abs().max()),
-              float((k_lp[same] - r_lp[same]).abs().max()))
-    print(f"  kernel vs plain n={n} P={p}: accepts {n_acc}/{n}, "
-          f"mask diffs {int((~same).sum())} (all near threshold), "
-          f"max abs err {err:.3e}")
+              float(torch.nan_to_num(k_lp[same] - r_lp[same],
+                                     nan=0.0).abs().max()))
+    print(f"  {label}: accepts {n_acc}/{n}, mask diffs {int((~same).sum())} "
+          f"(all near threshold), max abs err {err:.3e}")
+    return err
+
+
+def kernel_case(fs, target, n, seed, neg_inf_every=0):
+    """Fused kernel vs plain version on one input set; returns (max_abs_err,
+    kernel args)."""
+    args = half_inputs(target.dim, n, seed, neg_inf_every, target)
+    k_out = fs.fused_stretch_half(*args, logp_fn=target)
+    torch.cuda.synchronize()
+    r_out = fs.fused_stretch_half_reference(*args, logp_fn=target)
+    _, _, log_ratio = fs.stretch_proposal(*args[:5], logp_fn=target)
+    torch.cuda.synchronize()
+    neg = slice(None, None, neg_inf_every) if neg_inf_every else None
+    err = compare_half(f"fused n={n} P={target.dim}", k_out, r_out,
+                       log_ratio, args[5], must_accept=neg)
     return err, args
+
+
+def split_case(fs, target, n, seed, neg_inf_every=0, nan_every=0):
+    """The split path (propose kernel, the torch logp, accept kernel) and
+    each of its kernels alone against their plain versions; returns
+    (max_abs_err, args, logp)."""
+    dev = torch.device("cuda")
+    rows = torch.arange(n, device=dev)
+    nan_rows = (rows % nan_every == 1) if nan_every else None
+
+    def logp(x):
+        out = target(x)
+        return out if nan_rows is None else torch.where(nan_rows, torch.nan,
+                                                        out)
+
+    args = half_inputs(target.dim, n, seed, neg_inf_every, target)
+    act, lp, other, shift, u, ue = args
+    before = dict(fs.LAUNCHES)
+    k_out = fs.fused_stretch_half(*args, logp_fn=logp)
+    torch.cuda.synchronize()
+    counted = {k: fs.LAUNCHES[k] - before[k] for k in before}
+    if counted != {"fused_stretch_half": 0, "stretch_propose": 1,
+                   "stretch_accept": 1}:
+        raise AssertionError(f"split half-step launched {counted}")
+    r_out = fs.fused_stretch_half_reference(*args, logp_fn=logp)
+    proposal, lp_new, log_ratio = fs.stretch_proposal(*args[:5],
+                                                      logp_fn=logp)
+    neg = slice(None, None, neg_inf_every) if neg_inf_every else None
+    label = f"split {target.name} n={n} P={target.dim}"
+    err = compare_half(label, k_out, r_out, log_ratio, ue, must_accept=neg,
+                       must_reject=nan_rows)
+    # each kernel alone, on the plain path's own intermediates
+    k_prop, k_fac = fs.stretch_propose(act, other, shift, u)
+    r_prop, r_fac = fs.stretch_propose_reference(act, other, shift, u)
+    torch.testing.assert_close(k_prop, r_prop, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(k_fac, r_fac, rtol=RTOL, atol=ATOL)
+    k_acc_out = fs.stretch_accept(act, r_prop, lp, lp_new, r_fac, ue)
+    r_acc_out = fs.stretch_accept_reference(act, r_prop, lp, lp_new, r_fac,
+                                            ue)
+    err = max(err, float((k_prop - r_prop).abs().max()),
+              float((k_fac - r_fac).abs().max()),
+              compare_half(label + " (accept alone)", k_acc_out, r_acc_out,
+                           log_ratio, ue, must_accept=neg,
+                           must_reject=nan_rows))
+    return err, args, logp
+
+
+def check_stored(s, target, label):
+    """Finite stored rows whose stored logp equals the target there."""
+    dev = torch.device("cuda")
+    samples = s.get_samples()
+    if not np.isfinite(samples).all():
+        raise AssertionError(f"{label}: non-finite stored positions")
+    stored_lp = torch.from_numpy(s.get_log_probs()).to(dev)
+    recomputed = target(torch.from_numpy(samples).to(dev))
+    torch.testing.assert_close(stored_lp, recomputed, rtol=1e-5, atol=1e-5)
+    return samples
 
 
 def main():
@@ -128,144 +290,432 @@ def main():
     import mcmcpp_tpu_torch as mt
     from mcmcpp_tpu_torch import _build
     from mcmcpp_tpu_torch.ops import fused_stretch as fs
+    from mcmcpp_tpu_torch.sampler import run_nostore
 
     # full-float32 plain versions: TF32 would keep ~3 decimal digits and
     # break the kernel-vs-plain tolerance
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    kernels = {}
 
     # -- phase 1: the card ------------------------------------------------
-    card = card_line()
-    kind = torch.cuda.get_device_name(0)
-    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
-          f"CUDA {torch.version.cuda}")
-    print(f"card: {card}")
-    t0 = time.perf_counter()
-    _build.load_library()
-    print(f"kernel library {_build.library_path().name} ready in "
-          f"{time.perf_counter() - t0:.1f} s")
+    with phase("1 card and build"):
+        card = card_line()
+        kind = torch.cuda.get_device_name(0)
+        print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+              f"CUDA {torch.version.cuda}")
+        print(f"card: {card}")
+        t0 = time.perf_counter()
+        _build.load_library()
+        print(f"kernel library {_build.library_path().name} ready in "
+              f"{time.perf_counter() - t0:.1f} s")
+        for line in _build.log_path().read_text().splitlines():
+            if "Compiling entry" in line or "registers" in line:
+                print("  " + line.strip())
 
-    # -- phase 2: kernel vs plain version ----------------------------------
-    dev = torch.device("cuda")
-    rng = np.random.default_rng(0)
-    flagship = mt.equicorrelated_gaussian(10, 0.5, device=dev)
-    main_err, main_args = kernel_case(fs, flagship, 1 << 20, seed=1)
-    errs = [main_err]
-    for target, n, neg in [
-        (mt.skewed_gaussian(device=dev), 160, 0),
-        (mt.GaussianTarget(random_chol(3, rng), device=dev), 1000, 0),
-        (mt.GaussianTarget(random_chol(64, rng), device=dev), 1 << 14, 0),
-        (flagship, 4096, 5),
-    ]:
-        errs.append(kernel_case(fs, target, n, seed=n, neg_inf_every=neg)[0])
+    # -- phase 2: fused kernel vs plain version -----------------------------
+    with phase("2 fused kernel vs plain"):
+        rng = np.random.default_rng(0)
+        flagship = mt.equicorrelated_gaussian(10, 0.5, device=dev)
+        main_err, main_args = kernel_case(fs, flagship, 1 << 20, seed=1)
+        errs = [main_err]
+        for target, n, neg in [
+            (mt.skewed_gaussian(device=dev), 160, 0),
+            (mt.GaussianTarget(random_chol(3, rng), device=dev), 1000, 0),
+            (mt.GaussianTarget(random_chol(64, rng), device=dev), 1 << 14, 0),
+            (flagship, 4096, 5),
+        ]:
+            errs.append(kernel_case(fs, target, n, seed=n,
+                                    neg_inf_every=neg)[0])
 
-    def kernel_call():
-        fs.fused_stretch_half(*main_args, logp_fn=flagship)
+        def kernel_call():
+            fs.fused_stretch_half(*main_args, logp_fn=flagship)
 
-    def plain_call():
-        fs.fused_stretch_half_reference(*main_args, logp_fn=flagship)
+        def plain_call():
+            fs.fused_stretch_half_reference(*main_args, logp_fn=flagship)
 
-    # in turns, plain / kernel / kernel / plain, on one card
-    p1, k1, k2, p2 = (timed_ms(f, 50) for f in
-                      (plain_call, kernel_call, kernel_call, plain_call))
-    kernel_ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-    print(f"  half-step n=2^20 P=10: kernel {kernel_ms:.4f} ms "
-          f"({k1:.4f}, {k2:.4f}), plain {plain_ms:.4f} ms "
-          f"({p1:.4f}, {p2:.4f}) [{card}]")
+        # in turns, plain / kernel / kernel / plain, on one card
+        (plain_ms, kernel_ms), ((p1, p2), (k1, k2)) = in_turns(
+            [plain_call, kernel_call], 50)
+        print(f"  half-step n=2^20 P=10: kernel {kernel_ms:.4f} ms "
+              f"({k1:.4f}, {k2:.4f}), plain {plain_ms:.4f} ms "
+              f"({p1:.4f}, {p2:.4f}) [{card}]")
+        kernels["fused_stretch_half"] = {
+            "source": "mcmcpp_tpu_torch/csrc/fused_stretch.cu",
+            "max_abs_err": max(errs), "ms": kernel_ms, "plain_ms": plain_ms}
+
+    # -- phase 2b: the split kernels vs their plain versions ----------------
+    with phase("2b split kernels vs plain"):
+        funnel = mt.neal_funnel(10)
+        split_err, sargs, _ = split_case(fs, funnel, 1 << 20, seed=2)
+        split_errs = [split_err]
+        for target, n, neg, nan in [
+            (mt.rosenbrock(), 160, 0, 0),
+            (mt.logistic_regression(dim=4, device=dev), 1000, 0, 0),
+            (funnel, 4096, 5, 0),
+            (funnel, 4096, 0, 7),
+        ]:
+            split_errs.append(split_case(fs, target, n, seed=n + 1,
+                                         neg_inf_every=neg,
+                                         nan_every=nan)[0])
+        act, lp, other, shift, u, ue = sargs
+        prop, fac = fs.stretch_propose_reference(act, other, shift, u)
+        lp_new = funnel(prop)
+        calls = {
+            "split": lambda: fs.fused_stretch_half(*sargs, logp_fn=funnel),
+            "split_plain": lambda: fs.fused_stretch_half_reference(
+                *sargs, logp_fn=funnel),
+            "propose": lambda: fs.stretch_propose(act, other, shift, u),
+            "propose_plain": lambda: fs.stretch_propose_reference(
+                act, other, shift, u),
+            "accept": lambda: fs.stretch_accept(act, prop, lp, lp_new, fac,
+                                                ue),
+            "accept_plain": lambda: fs.stretch_accept_reference(
+                act, prop, lp, lp_new, fac, ue),
+        }
+        ms = {}
+        for a, b in [("split_plain", "split"), ("propose_plain", "propose"),
+                     ("accept_plain", "accept")]:
+            (ms[a], ms[b]), _ = in_turns([calls[a], calls[b]], 50)
+        print(f"  funnel n=2^20 P=10, ms per call (in turns): split half-step "
+              f"{ms['split']:.4f} vs plain {ms['split_plain']:.4f}; propose "
+              f"{ms['propose']:.4f} vs {ms['propose_plain']:.4f}; accept "
+              f"{ms['accept']:.4f} vs {ms['accept_plain']:.4f} [{card}]")
+        for name in ("propose", "accept"):
+            kernels[f"stretch_{name}"] = {
+                "source": "mcmcpp_tpu_torch/csrc/stretch_split.cu",
+                "max_abs_err": max(split_errs), "ms": ms[name],
+                "plain_ms": ms[f"{name}_plain"]}
+        del sargs, act, lp, other, shift, u, ue, prop, fac, lp_new, calls
 
     # -- phase 3: the flagship at full width --------------------------------
-    n_walkers, burn, n_store, thin = 1 << 21, 200, 40, 10
-    fs.LAUNCHES = 0
-    s = mt.EnsembleSampler(flagship, n_walkers=n_walkers, n_params=10,
-                           mover=mt.FusedStretchMove(), seed=0, batched=True,
-                           device="cuda")
-    s.init_ball(np.zeros(10), 0.5)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    s.run_mcmc(burn, store=False)
-    torch.cuda.synchronize()
-    burn_s = time.perf_counter() - t0
-    if not s.run_mcmc(n_store, thin=thin):
-        raise AssertionError("chain capacity hit in the flagship run")
-    launches = fs.LAUNCHES
-    if launches != 2 * (burn + n_store):
-        raise AssertionError(f"{launches} kernel launches, expected "
-                             f"{2 * (burn + n_store)}")
-    samples = s.get_samples()
-    if samples.shape != (n_store // thin, n_walkers, 10):
-        raise AssertionError(f"stored shape {samples.shape}")
-    if not np.isfinite(samples).all():
-        raise AssertionError("non-finite stored positions")
-    stored_lp = torch.from_numpy(s.get_log_probs()).to(dev)
-    recomputed = flagship(torch.from_numpy(samples).to(dev))
-    torch.testing.assert_close(stored_lp, recomputed, rtol=1e-5, atol=1e-5)
-    acc = s.acceptance_fraction
-    print(f"flagship W=2^21 P=10: {launches} kernel launches, acceptance "
-          f"{acc:.4f}, stored {samples.shape}")
-    if not 0.2 < acc < 0.8:
-        raise AssertionError(f"flagship acceptance {acc}")
-    del samples, stored_lp, recomputed
+    with phase("3 flagship"):
+        n_walkers, burn, n_store, thin = W_FULL, 200, 40, 10
+        reset_launches(fs)
+        s = mt.EnsembleSampler(flagship, n_walkers=n_walkers, n_params=10,
+                               mover=mt.FusedStretchMove(), seed=0,
+                               batched=True, device="cuda")
+        s.init_ball(np.zeros(10), 0.5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.run_mcmc(burn, store=False)
+        torch.cuda.synchronize()
+        burn_s = time.perf_counter() - t0
+        if not s.run_mcmc(n_store, thin=thin):
+            raise AssertionError("chain capacity hit in the flagship run")
+        launches = dict(fs.LAUNCHES)
+        if launches != {"fused_stretch_half": 2 * (burn + n_store),
+                        "stretch_propose": 0, "stretch_accept": 0}:
+            raise AssertionError(f"flagship launches {launches}, expected "
+                                 f"{2 * (burn + n_store)} fused only")
+        kernels["fused_stretch_half"]["launches"] = launches[
+            "fused_stretch_half"]
+        samples = check_stored(s, flagship, "flagship")
+        if samples.shape != (n_store // thin, n_walkers, 10):
+            raise AssertionError(f"stored shape {samples.shape}")
+        acc = s.acceptance_fraction
+        print(f"flagship W=2^21 P=10: {launches['fused_stretch_half']} "
+              f"kernel launches, acceptance {acc:.4f}, stored "
+              f"{samples.shape}")
+        if not 0.2 < acc < 0.8:
+            raise AssertionError(f"flagship acceptance {acc}")
+        del samples
 
-    class PlainFusedStretchMove(mt.FusedStretchMove):
-        """The same draws and transition through the plain version."""
+        class PlainFusedStretchMove(mt.FusedStretchMove):
+            """The same draws and transition through the plain version."""
 
-        def apply(self, active, active_logp, other, logp_fn, state, noise,
-                  beta=1.0):
-            shift, u, ue = noise
-            return fs.fused_stretch_half_reference(
-                active, active_logp, other, shift, u, ue, logp_fn=logp_fn,
-                a=self.a)
+            def apply(self, active, active_logp, other, logp_fn, state,
+                      noise, beta=1.0):
+                shift, u, ue = noise
+                return fs.fused_stretch_half_reference(
+                    active, active_logp, other, shift, u, ue,
+                    logp_fn=logp_fn, a=self.a)
 
-    sp = mt.EnsembleSampler(flagship, n_walkers=n_walkers, n_params=10,
-                            mover=PlainFusedStretchMove(), seed=0,
-                            batched=True, device="cuda")
-    sp.init_ball(np.zeros(10), 0.5)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    sp.run_mcmc(burn, store=False)
-    torch.cuda.synchronize()
-    plain_burn_s = time.perf_counter() - t0
-    rate = burn * n_walkers / burn_s
-    plain_rate = burn * n_walkers / plain_burn_s
-    print(f"flagship burn-in {burn} steps: kernel {rate:.6e} "
-          f"walker-updates/s ({burn_s:.4f} s), plain {plain_rate:.6e} "
-          f"walker-updates/s ({plain_burn_s:.4f} s) [{card}]")
-    del s, sp
-    torch.cuda.empty_cache()
+        sp = mt.EnsembleSampler(flagship, n_walkers=n_walkers, n_params=10,
+                                mover=PlainFusedStretchMove(), seed=0,
+                                batched=True, device="cuda")
+        sp.init_ball(np.zeros(10), 0.5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sp.run_mcmc(burn, store=False)
+        torch.cuda.synchronize()
+        plain_burn_s = time.perf_counter() - t0
+        rate = burn * n_walkers / burn_s
+        plain_rate = burn * n_walkers / plain_burn_s
+        print(f"flagship burn-in {burn} steps: kernel {rate:.6e} "
+              f"walker-updates/s ({burn_s:.4f} s), plain {plain_rate:.6e} "
+              f"walker-updates/s ({plain_burn_s:.4f} s) [{card}]")
+        del s, sp
+        torch.cuda.empty_cache()
 
     # -- phase 4: skewed-Gaussian oracle through the kernel -----------------
-    skewed = mt.skewed_gaussian(0.13, device=dev)
-    so = mt.EnsembleSampler(skewed, n_walkers=320, n_params=2,
-                            mover=mt.FusedStretchMove(), seed=42,
-                            batched=True, device="cuda")
-    so.init_ball(np.zeros(2), scale=0.3)
-    so.run_mcmc(1000, store=False)
-    if not so.run_mcmc(8000, thin=4):
-        raise AssertionError("chain capacity hit in the oracle run")
-    x = so.get_samples()
-    cov = np.cov(x.reshape(-1, 2).T)
-    tau = mt.analysis.autocorr_time(torch.from_numpy(x).to(dev))
-    acc = so.acceptance_fraction
-    print(f"skewed oracle: acceptance {acc:.4f}, cov {cov.tolist()}, "
-          f"tau {tau.tolist()}")
-    if not 0.6 < acc < 0.8:
-        raise AssertionError(f"oracle acceptance {acc}")
-    true_cov = np.array([[1.13, 0.435], [0.435, 0.2825]])
-    if not np.allclose(cov, true_cov, atol=0.05):
-        raise AssertionError(f"oracle covariance {cov}")
-    if not (np.all(tau > 0) and np.all(tau < 20)):
-        raise AssertionError(f"oracle autocorrelation time {tau}")
+    with phase("4 skewed oracle (fused)"):
+        skewed = mt.skewed_gaussian(0.13, device=dev)
+        so = mt.EnsembleSampler(skewed, n_walkers=320, n_params=2,
+                                mover=mt.FusedStretchMove(), seed=42,
+                                batched=True, device="cuda")
+        so.init_ball(np.zeros(2), scale=0.3)
+        so.run_mcmc(1000, store=False)
+        if not so.run_mcmc(8000, thin=4):
+            raise AssertionError("chain capacity hit in the oracle run")
+        x = so.get_samples()
+        cov = np.cov(x.reshape(-1, 2).T)
+        tau = mt.analysis.autocorr_time(torch.from_numpy(x).to(dev))
+        acc = so.acceptance_fraction
+        print(f"skewed oracle: acceptance {acc:.4f}, cov {cov.tolist()}, "
+              f"tau {tau.tolist()}")
+        if not 0.6 < acc < 0.8:
+            raise AssertionError(f"oracle acceptance {acc}")
+        if not np.allclose(cov, SKEWED_COV, atol=0.05):
+            raise AssertionError(f"oracle covariance {cov}")
+        if not (np.all(tau > 0) and np.all(tau < 20)):
+            raise AssertionError(f"oracle autocorrelation time {tau}")
 
-    print(json.dumps({"kernels": [{
-        "name": "fused_stretch_half",
-        "route": "cuda",
-        "source": "mcmcpp_tpu_torch/csrc/fused_stretch.cu",
-        "replaces": "mcmcpp_tpu/ops/pallas_stretch.py:164",
-        "launches": launches,
-        "max_abs_err": max(errs),
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]}))
+    # -- phase 5: every other mover and partner mode at full width ----------
+    class CountingMixture(mt.MixtureMover):
+        """The mixture mover, counting the branches it draws."""
+
+        def __init__(self, movers):
+            super().__init__(movers)
+            self.picks = [0] * len(self.movers)
+
+        def draw_noise(self, *args, **kwargs):
+            noise = super().draw_noise(*args, **kwargs)
+            self.picks[noise[0]] += 1
+            return noise
+
+    sigma = 0.5 * np.ones((10, 10)) + 0.5 * np.eye(10)
+    configs = [
+        ("stretch_block", flagship,
+         lambda: mt.StretchMove(partner_mode="block")),
+        ("stretch_gather", flagship,
+         lambda: mt.StretchMove(partner_mode="gather")),
+        ("walk_roll", flagship, lambda: mt.WalkMove(6)),
+        ("walk_gather", flagship,
+         lambda: mt.WalkMove(6, partner_mode="gather")),
+        ("de_roll", flagship, lambda: mt.DifferentialEvolutionMove()),
+        ("de_block", flagship,
+         lambda: mt.DifferentialEvolutionMove(partner_mode="block")),
+        ("snooker", flagship, lambda: mt.DESnookerMove()),
+        ("mh", flagship, lambda: mt.MetropolisHastingsMove(
+            covariance=2.38 ** 2 / 10 * sigma)),
+        ("dram", flagship, lambda: mt.DRAMMove()),
+        ("slice", flagship, lambda: mt.EnsembleSliceMove()),
+        ("mixture", flagship, lambda: CountingMixture([
+            (mt.FusedStretchMove(), 2.0),
+            (mt.DifferentialEvolutionMove(), 1.0),
+            (mt.DESnookerMove(), 1.0)])),
+        ("fused_funnel", funnel, lambda: mt.FusedStretchMove()),
+    ]
+    with phase("5 every path at W=2^21"):
+        steps = BURN_FULL + 2
+        for name, target, make in configs:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            mover = make()
+            s = mt.EnsembleSampler(target, W_FULL, P_FULL, mover=mover,
+                                   seed=0, batched=True, device="cuda")
+            s.init_ball(np.zeros(P_FULL), 0.5)
+            reset_launches(fs)
+            # the step loop alone (s.state carries the int32 accept
+            # counters, harvested by the stored run below)
+            # the slice move waits on the device by design
+            guard = nullcontext if name == "slice" else no_host_sync
+            timed_steps = BURN_FULL - WARM_FULL
+            with guard():
+                s.state = run_nostore(s.state, s._step_fn, WARM_FULL)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with guard():
+                s.state = run_nostore(s.state, s._step_fn, timed_steps)
+            torch.cuda.synchronize()
+            burn_s = time.perf_counter() - t0
+            if not s.run_mcmc(2):
+                raise AssertionError(f"{name}: chain capacity hit")
+            launches = dict(fs.LAUNCHES)
+            check_stored(s, target, name)
+            acc = s.acceptance_fraction
+            lo, hi = ACCEPT_WINDOWS[name]
+            if not lo <= acc <= hi:
+                raise AssertionError(f"{name}: acceptance {acc} outside "
+                                     f"[{lo}, {hi}]")
+            extra = ""
+            if name == "slice":
+                extra = (f", {mover.loop_iterations / mover.half_steps:.2f} "
+                         "loop iterations per half-step")
+            if name == "mixture":
+                want = {"fused_stretch_half": mover.picks[0],
+                        "stretch_propose": 0, "stretch_accept": 0}
+                if launches != want:
+                    raise AssertionError(f"mixture launches {launches}, "
+                                         f"expected {want}")
+                extra = f", branch picks {mover.picks}, launches {launches}"
+            if name == "fused_funnel":
+                want = {"fused_stretch_half": 0,
+                        "stretch_propose": 2 * steps,
+                        "stretch_accept": 2 * steps}
+                if launches != want:
+                    raise AssertionError(f"funnel launches {launches}, "
+                                         f"expected {want}")
+                for k in ("stretch_propose", "stretch_accept"):
+                    kernels[k]["launches"] = launches[k]
+                extra = f", launches {launches}"
+            print(f"  {name}: {timed_steps * W_FULL / burn_s:.6e} "
+                  f"walker-updates/s ({burn_s:.4f} s for {timed_steps} steps"
+                  f"{'' if name == 'slice' else ', no host sync'}), "
+                  f"acceptance {acc:.4f}, peak "
+                  f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB"
+                  f"{extra} [{card}]", flush=True)
+            del s, mover
+
+        # partner modes in turns, on one card
+        torch.cuda.empty_cache()
+        for label, make in [("stretch", lambda m: mt.StretchMove(
+                                partner_mode=m)),
+                            ("walk6", lambda m: mt.WalkMove(
+                                6, partner_mode=m))]:
+            runs = {}
+            for mode in ("roll", "block", "gather"):
+                s = mt.EnsembleSampler(flagship, W_FULL, P_FULL,
+                                       mover=make(mode), seed=1,
+                                       batched=True, device="cuda")
+                s.init_ball(np.zeros(P_FULL), 0.5)
+                s.state = run_nostore(s.state, s._step_fn, 2)
+                runs[mode] = s
+
+            def timed(mode, n=10):
+                s = runs[mode]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                s.state = run_nostore(s.state, s._step_fn, n)
+                torch.cuda.synchronize()
+                return (time.perf_counter() - t0) / n * 1e3
+
+            order = ["roll", "block", "gather", "gather", "block", "roll"]
+            got = {m: [] for m in runs}
+            for mode in order:
+                got[mode].append(timed(mode))
+            print(f"  partner modes, {label}, W=2^21, ms per step (in turns): "
+                  + ", ".join(f"{m} {sum(v) / 2:.4f} ({v[0]:.4f}, "
+                              f"{v[1]:.4f})" for m, v in got.items())
+                  + f" [{card}]", flush=True)
+            del runs, s
+            torch.cuda.empty_cache()
+
+    # -- phase 6: the reference's oracles on the card -----------------------
+    with phase("6 oracles"):
+        for name, make, n_steps, atol in [
+            ("walk", lambda: mt.WalkMove(6), 8000, 0.12),
+            ("de", lambda: mt.DifferentialEvolutionMove(), 8000, 0.15),
+            ("mh", lambda: mt.MetropolisHastingsMove(
+                covariance=SKEWED_COV, scale=1.2), 8000, 0.15),
+            ("snooker", lambda: mt.DESnookerMove(), 8000, 0.15),
+            ("dram", lambda: mt.DRAMMove(), 8000, 0.15),
+            ("mixture", lambda: mt.MixtureMover([
+                (mt.FusedStretchMove(), 2.0),
+                (mt.DifferentialEvolutionMove(), 1.0),
+                (mt.DESnookerMove(), 1.0)]), 8000, 0.15),
+            ("slice", lambda: mt.EnsembleSliceMove(), 2000, 0.12),
+        ]:
+            t0 = time.perf_counter()
+            so = mt.EnsembleSampler(skewed, 320, 2, mover=make(), seed=42,
+                                    batched=True, device="cuda")
+            so.init_ball(np.zeros(2), scale=0.3)
+            so.run_mcmc(1000, store=False)
+            if not so.run_mcmc(n_steps, thin=4):
+                raise AssertionError(f"skewed {name}: chain capacity hit")
+            flat = so.get_samples(flat=True)
+            cov = np.cov(flat.T)
+            acc = so.acceptance_fraction
+            print(f"  skewed {name}: acceptance {acc:.4f}, cov "
+                  f"{np.round(cov, 4).tolist()} "
+                  f"({time.perf_counter() - t0:.1f} s)", flush=True)
+            if not np.allclose(cov, SKEWED_COV, atol=atol):
+                raise AssertionError(f"skewed {name}: covariance {cov}")
+            if not np.allclose(flat.mean(axis=0), 0.0, atol=0.15):
+                raise AssertionError(f"skewed {name}: mean "
+                                     f"{flat.mean(axis=0)}")
+            if name == "slice" and not acc > 0.999:
+                raise AssertionError(f"slice acceptance {acc}")
+
+        banana = mt.rosenbrock(1.0, 5.0, 4.0)
+        for name, mover in [("fused a=3 (split kernels)",
+                             mt.FusedStretchMove(a=3.0)),
+                            ("walk6", mt.WalkMove(6)),
+                            ("de", mt.DifferentialEvolutionMove())]:
+            reset_launches(fs)
+            t0 = time.perf_counter()
+            sb = mt.EnsembleSampler(banana, 256, 2, mover=mover, seed=3,
+                                    batched=True, device="cuda")
+            sb.init_ball(np.array([1.0, 1.0]), scale=0.5, seed=4)
+            sb.run_mcmc(2000, store=False)
+            if not sb.run_mcmc(12000, thin=4):
+                raise AssertionError(f"banana {name}: chain capacity hit")
+            flat = sb.get_samples(flat=True)
+            mx, vx = flat[:, 0].mean(), flat[:, 0].var()
+            ry = (flat[:, 1] - flat[:, 0] ** 2).mean()
+            print(f"  banana {name}: E[x] {mx:.4f}, Var[x] {vx:.4f}, "
+                  f"E[y - x^2] {ry:.4f}, acceptance "
+                  f"{sb.acceptance_fraction:.4f}, launches {fs.LAUNCHES} "
+                  f"({time.perf_counter() - t0:.1f} s)", flush=True)
+            if not (abs(mx - 1.0) < 0.12 and abs(vx - 2.0) < 0.25 * 2.0
+                    and abs(ry) < 0.15):
+                raise AssertionError(f"banana {name}: moments")
+            if isinstance(mover, mt.FusedStretchMove) and fs.LAUNCHES != {
+                    "fused_stretch_half": 0, "stretch_propose": 28000,
+                    "stretch_accept": 28000}:
+                raise AssertionError(f"banana launches {fs.LAUNCHES}")
+
+        t0 = time.perf_counter()
+        phis = np.array([0.8, 0.904761904762])
+        ar = mt.AutoRegressiveMove(np.zeros(2), phis, np.ones(2))
+        sa = mt.EnsembleSampler(lambda t: torch.zeros_like(t[:, 0]), 100, 2,
+                                mover=ar, seed=5, batched=True, device="cuda")
+        sa.set_initial_walker_pos(ar.initial_positions(
+            torch.Generator(device=dev).manual_seed(6), 100, device=dev))
+        sa.run_mcmc(65536)
+        tau = mt.analysis.autocorr_time(
+            torch.from_numpy(sa.get_samples()).to(dev))
+        print(f"  AcTime: tau {tau.tolist()} vs {ar.true_act.tolist()} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        if not np.allclose(tau, ar.true_act, rtol=0.12):
+            raise AssertionError(f"AR(1) autocorrelation times {tau}")
+
+        seq = mt.SequenceMove([1.0, 0.5])
+        sq = mt.EnsembleSampler(lambda t: torch.zeros_like(t[:, 0]), 100, 2,
+                                mover=seq, seed=0, batched=True,
+                                device="cuda")
+        sq.set_initial_walker_pos(seq.initial_positions(None, 100,
+                                                        device=dev))
+        n_seq = 1000
+        sq.run_mcmc(n_seq, store=False)
+        want = torch.tensor([1.0, 0.5], device=dev) * n_seq
+        if not torch.equal(sq.current_positions,
+                           want.expand(100, 2).contiguous()):
+            raise AssertionError("sequence positions are not N·step")
+        print(f"  InnerBenchmark: {n_seq} steps, positions exactly N·step")
+
+        st = mt.EnsembleSampler(skewed, 320, 2, mover=mt.FusedStretchMove(),
+                                seed=7, batched=True, device="cuda")
+        st.init_ball(np.zeros(2), scale=0.3)
+        st.run_mcmc(100, step_action=lambda pos, lp: {"mean_logp": lp.mean()})
+        m = st.step_metrics["mean_logp"]
+        if m.shape != (100,):
+            raise AssertionError(f"step_metrics shape {m.shape}")
+        np.testing.assert_allclose(m, st.get_log_probs().mean(axis=1),
+                                   rtol=1e-5, atol=1e-6)
+        print("  step_action: 100 rows, equal to the chain's mean logp")
+
+    for name, k in kernels.items():
+        if not k.get("launches"):
+            raise AssertionError(f"{name} was not launched on its main path")
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": k["source"],
+         "replaces": "mcmcpp_tpu/ops/pallas_stretch.py:164",
+         "launches": k["launches"], "max_abs_err": k["max_abs_err"],
+         "ms": k["ms"], "plain_ms": k["plain_ms"]}
+        for name, k in kernels.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -3,9 +3,13 @@
 The kernels under ``mcmcpp_tpu_torch/csrc/`` are compiled by hand with
 ``nvcc`` for Hopper (``sm_90a``) into one shared library with a plain C
 interface, loaded with :mod:`ctypes` (no PyTorch headers, so a build takes
-seconds). The build runs at first use, never at import, and lands in
-``build/kernels/`` beside the package; the library's file name carries a
-hash of the sources and flags, so an edited ``.cu`` file rebuilds.
+seconds). Each ``.cu`` source compiles in its own ``nvcc`` process, all
+started together, and one more links the objects. The build runs at first
+use, never at import, and lands in ``build/kernels/`` beside the package;
+the library's file name carries a hash of the sources (headers included)
+and flags, so an edited source rebuilds. The compilers' output, with
+``ptxas``'s register and shared-memory counts, is kept beside the library
+as ``<name>.log``.
 
 A missing ``nvcc`` or a failed compile raises: there is no fallback.
 """
@@ -22,14 +26,18 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 
 def _sources():
+    """The ``.cu`` files, each compiled on its own."""
     return sorted(CSRC.glob("*.cu"))
+
+
+def _hashed_files():
+    return sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")])
 
 
 def _nvcc():
@@ -49,10 +57,36 @@ def _nvcc():
 def library_path():
     """Path of the shared library for the current sources and flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _hashed_files():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libmcmcpp_torch_kernels_{h.hexdigest()[:16]}.so"
+
+
+def log_path():
+    """The compilers' output of the last build of :func:`library_path`."""
+    return library_path().with_suffix(".log")
+
+
+def _run_all(cmds):
+    """Run the commands concurrently; raise on the first failure. Returns
+    their joined output. No process outlives the call."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    try:
+        outs = [p.communicate()[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{out}"
+            )
+    return "".join(outs)
 
 
 def build():
@@ -62,22 +96,16 @@ def build():
         return out
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a temporary name, then rename: concurrent builds never
-    # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    # compile into a private directory and rename the library into place:
+    # concurrent builds never load a half-written library
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp) / f"{src.stem}.o") for src in _sources()]
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                        for src, obj in zip(_sources(), objs)])
+        lib = str(Path(tmp) / out.name)
+        log += _run_all([[nvcc, *ARCH, "-shared", "-o", lib, *objs]])
+        out.with_suffix(".log").write_text(log)
+        os.replace(lib, out)
     return out
 
 
@@ -86,9 +114,16 @@ def load_library():
     """Build (if needed) and load the kernel library, with its C signatures."""
     lib = ctypes.CDLL(str(build()))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    fn = lib.mcmcpp_fused_stretch_half_f32
+    i64, f32 = ctypes.c_longlong, ctypes.c_float
     # every pointer and the stream as c_void_p: a bare Python int would be
     # passed as a 32-bit C int and cut the address
-    fn.argtypes = [ptr] * 10 + [i32, i32, ctypes.c_float, ptr]
-    fn.restype = i32
+    signatures = {
+        "mcmcpp_fused_stretch_half_f32": [ptr] * 10 + [i32, i32, f32, ptr],
+        "mcmcpp_stretch_propose_f32": [ptr] * 6 + [i64, i32, f32, ptr],
+        "mcmcpp_stretch_accept_f32": [ptr] * 9 + [i64, i32, ptr],
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = i32
     return lib

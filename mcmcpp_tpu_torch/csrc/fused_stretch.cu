@@ -22,11 +22,11 @@
 // inside the kernel would save their 8 B per walker), and P is capped at 64 so
 // that L fits in 16 KB of static shared memory.
 //
-// Built without --use_fast_math: IEEE logf/sqrtf keep the −inf and NaN
-// semantics the accept rule relies on (lp_old = −inf with a finite lp_new
-// accepts; a NaN log ratio rejects, as `log_u < nan` is false).
+// The partner index, z and the accept rule are the device functions of
+// stretch_common.cuh, shared with the split kernels (stretch_split.cu); the
+// header also says why the build keeps IEEE logf/sqrtf (no fast math).
 
-#include <cuda_runtime.h>
+#include "stretch_common.cuh"
 
 namespace {
 
@@ -51,20 +51,18 @@ __global__ void __launch_bounds__(kThreads) fused_stretch_half_kernel(
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
 
-  long long j = ((long long)i + (long long)(*shift)) % n;
-  if (j < 0) j += n;
+  const long long j = mcmcpp::partner_row(i, *shift, n);
   const float* x = act + (size_t)i * P;
   const float* xp = other + (size_t)j * P;
-
-  const float sqrt_a = sqrtf(a);
-  const float inv_sqrt_a = 1.0f / sqrt_a;
-  const float w = (sqrt_a - inv_sqrt_a) * u[i] + inv_sqrt_a;
-  const float z = w * w;
+  const float z = mcmcpp::stretch_z(u[i], a);
 
   float y[PMAX];
 #pragma unroll
   for (int k = 0; k < PMAX; ++k) {
     if (k < P) {
+      // contracted to an FMA, unlike the split kernels' stretch_point: this
+      // kernel's logp is its own, so no torch op has to see the same Y bit
+      // for bit, and the FMA keeps the kernel as fast as it was
       const float p = xp[k];
       y[k] = p + z * (x[k] - p);
     }
@@ -83,8 +81,8 @@ __global__ void __launch_bounds__(kThreads) fused_stretch_half_kernel(
   }
   const float lp_new = -0.5f * q;
   const float lo = lp_old[i];
-  const float log_ratio = (float)(P - 1) * logf(z) + lp_new - lo;
-  const bool accept = logf(ue[i]) < log_ratio;
+  const bool accept =
+      mcmcpp::stretch_accepts(ue[i], (float)(P - 1) * logf(z), lp_new, lo);
 
   float* xo = out_act + (size_t)i * P;
 #pragma unroll

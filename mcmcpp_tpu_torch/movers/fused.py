@@ -3,8 +3,11 @@
 Counterpart of ``mcmcpp_tpu/movers/fused.py``: the same transition as
 :class:`~mcmcpp_tpu_torch.movers.stretch.StretchMove` in roll mode, run by
 ``ops/fused_stretch.py``. The Pallas version's ``tile`` and ``interpret``
-options are gone: the tensors' device picks the CUDA kernel or the plain
-version.
+options are gone: the tensors' device picks the CUDA kernels or the plain
+version, and the logp picks the kernel: one fused launch per half-step for
+a :class:`~mcmcpp_tpu_torch.models.targets.GaussianTarget` (pass the module
+itself with ``batched=True``), the propose and accept kernels around the
+torch logp for any other.
 """
 
 import torch
@@ -22,7 +25,8 @@ class FusedStretchMove(Mover):
     def __init__(self, a=2.0):
         self.a = float(a)
 
-    def draw_noise(self, gen, n, m, device, dtype=torch.float32):
+    def draw_noise(self, gen, n, m, p, device, dtype=torch.float32,
+                   host_gen=None):
         if n != m:
             raise ValueError(f"fused stretch requires equal halves "
                              f"(n={n}, m={m})")

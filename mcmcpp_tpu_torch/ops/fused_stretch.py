@@ -1,20 +1,31 @@
-"""Fused stretch half-step: the CUDA kernel and its plain PyTorch version.
+"""Fused stretch half-step: the CUDA kernels and their plain PyTorch versions.
 
 Counterpart of ``mcmcpp_tpu/ops/pallas_stretch.py::fused_stretch_half``. One
 call updates the active half against the other half: partner
 ``other[(i + shift) % n]``, z from u, proposal, logp, and the accept select
-log(ue) < (P−1)·log z + lp_new − lp_old, in one pass.
+log(ue) < (P−1)·log z + lp_new − lp_old.
 
 The random inputs are explicit: a (1,) int32 device ``shift`` and two (n,)
 uniforms ``u`` and ``ue`` in [2^-25, 1). The Pallas kernel drew them from the
 TPU's hardware generator; here the caller draws them (``ops/random.py``), which
 also lets tests feed both packages the same numbers.
 
-:func:`fused_stretch_half` dispatches on the tensors' device: on the CPU it
-runs :func:`fused_stretch_half_reference`; on CUDA it launches the kernel in
-``csrc/fused_stretch.cu``, or raises. The kernel evaluates the Gaussian logp
-in its own body, so on CUDA the target must be a
-:class:`~mcmcpp_tpu_torch.models.targets.GaussianTarget`.
+:func:`fused_stretch_half` dispatches on the tensors' device and the logp:
+
+- CPU tensors run :func:`fused_stretch_half_reference`, for any logp;
+- CUDA tensors with a
+  :class:`~mcmcpp_tpu_torch.models.targets.GaussianTarget` launch the fused
+  kernel of ``csrc/fused_stretch.cu``, which evaluates the Gaussian logp in
+  its own body (one launch per half-step);
+- CUDA tensors with any other batched logp take the split path of
+  ``csrc/stretch_split.cu``: the propose kernel, the logp as torch ops on the
+  current stream, then the accept kernel (the Pallas kernel traced the logp
+  into its body; a torch logp cannot run inside a CUDA C++ kernel);
+- any other device raises.
+
+Each kernel has its plain twin here: :func:`stretch_propose_reference`,
+:func:`stretch_accept_reference`, and :func:`fused_stretch_half_reference`,
+which is the two with the logp between them.
 """
 
 import torch
@@ -22,25 +33,50 @@ import torch
 from mcmcpp_tpu_torch.models.targets import GaussianTarget
 from mcmcpp_tpu_torch.ops.gw import gw_sample
 
-#: launches of the CUDA kernel in this process (reset by callers that count)
-LAUNCHES = 0
+#: launches of each CUDA kernel in this process, by kernel name (callers that
+#: count set them to 0)
+LAUNCHES = {"fused_stretch_half": 0, "stretch_propose": 0,
+            "stretch_accept": 0}
 
 MAX_P = 64
+
+
+def _partner_index(n, shift, device):
+    return (torch.arange(n, device=device) + shift.to(torch.int64)) % n
+
+
+def stretch_propose_reference(active, other, shift, u, a=2.0):
+    """Plain twin of the propose kernel: (proposal (n, P), (P−1)·log z
+    (n,)) with partner ``other[(i + shift) % n]``."""
+    n, p = active.shape
+    if other.shape != (n, p):
+        raise ValueError("fused stretch requires equal halves")
+    partner = other[_partner_index(n, shift, active.device)]
+    z = gw_sample(u, a)
+    return partner + z[:, None] * (active - partner), (p - 1) * torch.log(z)
+
+
+def stretch_accept_reference(active, proposal, active_logp, lp_new,
+                             log_factor, ue):
+    """Plain twin of the accept kernel: accept iff
+    log(ue) < log_factor + lp_new − lp_old. Returns (new_active, new_logp,
+    accepted int32)."""
+    accept = torch.log(ue) < log_factor + lp_new - active_logp
+    return (
+        torch.where(accept[:, None], proposal, active),
+        torch.where(accept, lp_new, active_logp),
+        accept.to(torch.int32),
+    )
 
 
 def stretch_proposal(active, active_logp, other, shift, u, *, logp_fn,
                      a=2.0):
     """Proposal, its logp and the log acceptance ratio of one half-step,
     in plain PyTorch: (proposal (n, P), lp_new (n,), log_ratio (n,))."""
-    n, p = active.shape
-    if other.shape != (n, p):
-        raise ValueError("fused stretch requires equal halves")
-    idx = (torch.arange(n, device=active.device) + shift.to(torch.int64)) % n
-    partner = other[idx]
-    z = gw_sample(u, a)
-    proposal = partner + z[:, None] * (active - partner)
+    proposal, log_factor = stretch_propose_reference(active, other, shift, u,
+                                                     a)
     lp_new = logp_fn(proposal)
-    return proposal, lp_new, (p - 1) * torch.log(z) + lp_new - active_logp
+    return proposal, lp_new, log_factor + lp_new - active_logp
 
 
 def fused_stretch_half_reference(active, active_logp, other, shift, u, ue, *,
@@ -49,49 +85,52 @@ def fused_stretch_half_reference(active, active_logp, other, shift, u, ue, *,
 
     Returns (new_active, new_logp, accepted int32).
     """
-    proposal, lp_new, log_ratio = stretch_proposal(
-        active, active_logp, other, shift, u, logp_fn=logp_fn, a=a
-    )
-    accept = torch.log(ue) < log_ratio
-    return (
-        torch.where(accept[:, None], proposal, active),
-        torch.where(accept, lp_new, active_logp),
-        accept.to(torch.int32),
-    )
+    proposal, log_factor = stretch_propose_reference(active, other, shift, u,
+                                                     a)
+    return stretch_accept_reference(active, proposal, active_logp,
+                                    logp_fn(proposal), log_factor, ue)
 
 
-def _check_kernel_args(active, active_logp, other, shift, u, ue, prec_chol):
+def _check_args(tensors, shapes, device):
+    """float32 (int32 for ``shift``), shape, device and contiguity checks
+    of the tensors a kernel reads."""
+    for name, t in tensors.items():
+        want = torch.int32 if name == "shift" else torch.float32
+        if t.dtype != want:
+            raise TypeError(f"{name} must be {want}, got {t.dtype}")
+        if tuple(t.shape) != shapes[name]:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                             f"expected {shapes[name]}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, active on {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _half_args(active, active_logp, other, shift, u, ue):
     n, p = active.shape
     if other.shape != (n, p):
         raise ValueError("fused stretch requires equal halves")
     if n == 0:
         raise ValueError("fused stretch needs at least one walker")
-    if p > MAX_P:
-        raise NotImplementedError(
-            f"the fused CUDA kernel supports P <= {MAX_P}, got P = {p}"
-        )
-    floats = {"active": active, "active_logp": active_logp, "other": other,
-              "u": u, "ue": ue, "prec_chol": prec_chol}
+    tensors = {"active": active, "active_logp": active_logp, "other": other,
+               "shift": shift, "u": u, "ue": ue}
     shapes = {"active": (n, p), "active_logp": (n,), "other": (n, p),
-              "u": (n,), "ue": (n,), "prec_chol": (p, p)}
-    for name, t in floats.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if tuple(t.shape) != shapes[name]:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                             f"expected {shapes[name]}")
-    if shift.dtype != torch.int32 or shift.numel() != 1:
-        raise TypeError("shift must be one int32 element")
-    for name, t in {**floats, "shift": shift}.items():
-        if t.device != active.device:
-            raise ValueError(f"{name} is on {t.device}, active on "
-                             f"{active.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+              "shift": (1,), "u": (n,), "ue": (n,)}
+    _check_args(tensors, shapes, active.device)
 
 
-def _launch(active, active_logp, other, shift, u, ue, prec_chol, a):
-    global LAUNCHES
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _checked(err, name):
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed (cudaError {err})")
+    LAUNCHES[name] += 1
+
+
+def _launch_fused(active, active_logp, other, shift, u, ue, prec_chol, a):
     from mcmcpp_tpu_torch._build import load_library
 
     lib = load_library()
@@ -100,38 +139,89 @@ def _launch(active, active_logp, other, shift, u, ue, prec_chol, a):
     out_lp = torch.empty_like(active_logp)
     out_acc = torch.empty((n,), dtype=torch.int32, device=active.device)
     with torch.cuda.device(active.device):
-        stream = torch.cuda.current_stream(active.device).cuda_stream
         err = lib.mcmcpp_fused_stretch_half_f32(
             active.data_ptr(), active_logp.data_ptr(), other.data_ptr(),
             shift.data_ptr(), u.data_ptr(), ue.data_ptr(),
             prec_chol.data_ptr(), out_act.data_ptr(), out_lp.data_ptr(),
-            out_acc.data_ptr(), n, p, float(a), stream,
+            out_acc.data_ptr(), n, p, float(a), _stream(active.device),
         )
-    if err != 0:
-        raise RuntimeError(
-            f"fused stretch kernel launch failed (cudaError {err})"
+    _checked(err, "fused_stretch_half")
+    return out_act, out_lp, out_acc
+
+
+def stretch_propose(active, other, shift, u, a=2.0):
+    """The propose kernel on CUDA tensors: (proposal (n, P), (P−1)·log z
+    (n,)), as :func:`stretch_propose_reference` computes them."""
+    from mcmcpp_tpu_torch._build import load_library
+
+    n, p = active.shape
+    _check_args({"active": active, "other": other, "shift": shift, "u": u},
+                {"active": (n, p), "other": (n, p), "shift": (1,), "u": (n,)},
+                active.device)
+    lib = load_library()
+    proposal = torch.empty_like(active)
+    log_factor = torch.empty((n,), dtype=active.dtype, device=active.device)
+    with torch.cuda.device(active.device):
+        err = lib.mcmcpp_stretch_propose_f32(
+            active.data_ptr(), other.data_ptr(), shift.data_ptr(),
+            u.data_ptr(), proposal.data_ptr(), log_factor.data_ptr(), n, p,
+            float(a), _stream(active.device),
         )
-    LAUNCHES += 1
+    _checked(err, "stretch_propose")
+    return proposal, log_factor
+
+
+def stretch_accept(active, proposal, active_logp, lp_new, log_factor, ue):
+    """The accept kernel on CUDA tensors: (new_active, new_logp, accepted
+    int32), as :func:`stretch_accept_reference` computes them."""
+    from mcmcpp_tpu_torch._build import load_library
+
+    n, p = active.shape
+    tensors = {"active": active, "proposal": proposal,
+               "active_logp": active_logp, "lp_new": lp_new,
+               "log_factor": log_factor, "ue": ue}
+    shapes = {"active": (n, p), "proposal": (n, p), "active_logp": (n,),
+              "lp_new": (n,), "log_factor": (n,), "ue": (n,)}
+    _check_args(tensors, shapes, active.device)
+    lib = load_library()
+    out_act = torch.empty_like(active)
+    out_lp = torch.empty_like(active_logp)
+    out_acc = torch.empty((n,), dtype=torch.int32, device=active.device)
+    with torch.cuda.device(active.device):
+        err = lib.mcmcpp_stretch_accept_f32(
+            active.data_ptr(), proposal.data_ptr(), active_logp.data_ptr(),
+            lp_new.data_ptr(), log_factor.data_ptr(), ue.data_ptr(),
+            out_act.data_ptr(), out_lp.data_ptr(), out_acc.data_ptr(), n, p,
+            _stream(active.device),
+        )
+    _checked(err, "stretch_accept")
     return out_act, out_lp, out_acc
 
 
 def fused_stretch_half(active, active_logp, other, shift, u, ue, *, logp_fn,
                        a=2.0):
-    """One fused stretch half-step. Returns (new_active, new_logp, accepted
-    int32). CPU tensors take the plain version; CUDA tensors the kernel."""
+    """One stretch half-step. Returns (new_active, new_logp, accepted
+    int32). CPU tensors take the plain version; CUDA tensors the fused
+    kernel (a GaussianTarget) or the split kernels (any other logp)."""
     if active.device.type == "cpu":
         return fused_stretch_half_reference(
             active, active_logp, other, shift, u, ue, logp_fn=logp_fn, a=a
         )
-    if not isinstance(logp_fn, GaussianTarget):
-        raise NotImplementedError(
-            "the fused CUDA half-step evaluates a GaussianTarget in its own "
-            "body (pass the module itself, batched=True); other logps need "
-            "the propose -> torch logp -> accept split path, not yet ported. "
-            "Use StretchMove for them."
-        )
     if active.device.type != "cuda":
         raise RuntimeError(f"no fused stretch path for {active.device}")
-    prec_chol = logp_fn.prec_chol
-    _check_kernel_args(active, active_logp, other, shift, u, ue, prec_chol)
-    return _launch(active, active_logp, other, shift, u, ue, prec_chol, a)
+    _half_args(active, active_logp, other, shift, u, ue)
+    if isinstance(logp_fn, GaussianTarget):
+        p = active.shape[1]
+        if p > MAX_P:
+            raise NotImplementedError(
+                f"the fused CUDA kernel supports P <= {MAX_P}, got P = {p}"
+            )
+        prec_chol = logp_fn.prec_chol
+        _check_args({"prec_chol": prec_chol}, {"prec_chol": (p, p)},
+                    active.device)
+        return _launch_fused(active, active_logp, other, shift, u, ue,
+                             prec_chol, a)
+    proposal, log_factor = stretch_propose(active, other, shift, u, a)
+    lp_new = logp_fn(proposal).contiguous()
+    return stretch_accept(active, proposal, active_logp, lp_new, log_factor,
+                          ue)

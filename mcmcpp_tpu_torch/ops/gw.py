@@ -9,6 +9,7 @@ The scalar constants are computed in the input's dtype on the host, as the
 JAX version computes them in the array's dtype, so no device scalar is made.
 """
 
+import functools
 import math
 
 import torch
@@ -20,10 +21,18 @@ def _scalars(a, dtype):
     return a_t, sqrt_a, 1.0 / sqrt_a
 
 
+@functools.lru_cache(maxsize=64)
+def _sample_consts(a, dtype):
+    """(√a − 1/√a, 1/√a) as Python floats holding the ``dtype`` values; one
+    computation per (a, dtype), off the half-step's host path."""
+    _, sqrt_a, lo = _scalars(a, dtype)
+    return float(sqrt_a - lo), float(lo)
+
+
 def gw_sample(u, a=2.0):
     """Map uniform samples ``u`` in [0,1) to z ~ g(z) with scale ``a``."""
-    _, sqrt_a, lo = _scalars(a, u.dtype)
-    return torch.square(float(sqrt_a - lo) * u + float(lo))
+    span, lo = _sample_consts(float(a), u.dtype)
+    return torch.square(span * u + lo)
 
 
 def gw_logpdf(z, a=2.0):

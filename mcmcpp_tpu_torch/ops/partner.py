@@ -1,35 +1,97 @@
-"""Complementary-walker selection, shared-shift ("roll") mode.
+"""Complementary-walker selection: shared-shift (roll), per-block (block)
+and per-walker (gather) modes.
 
-PyTorch counterpart of ``mcmcpp_tpu/ops/partner.py``: one uniform shift r in
-[0, m) per half-step pairs walker i with ``other[(i + r) % m]``, i.e.
-``roll(other, -r)``. The shift stays a device tensor and the roll is an index
-gather, so no half-step waits on the host. The validity argument (the pairing
-is independent of the chain state) is in the JAX module's docstring.
+PyTorch counterpart of ``mcmcpp_tpu/ops/partner.py``, whose docstring has the
+validity argument (the pairing is drawn independently of the chain state) and
+the TPU measurements that chose each mode. As with the movers, each JAX
+function that draws and selects is split in two:
 
-Only "roll" is ported; "block" and "gather" raise ``NotImplementedError``.
+    noise = draw_partner_noise(gen, n, m, k, mode, device)   # the draws
+    select_partners(other, n, noise, mode) -> (k, n, P)       # the gather
+
+The draws per mode:
+
+- ``roll``: k distinct shifts r_j; walker i pairs with ``other[(i + r_j) % m]``.
+- ``block``: on the fast path (``n == m``, ``m % 128 == 0``, ``m // 128 >= k``),
+  one shift r (1,) and per-128-walker-block offsets q (m/128, k), distinct
+  per block; walker i pairs with ``other[(i + r + 128·q[i // 128, j]) % m]``.
+  Otherwise the per-walker fallback: distinct shifts s (ceil(n/128), k) in
+  [0, m) per block; walker i pairs with ``other[(i + s[i // 128, j]) % m]``.
+- ``gather``: (n, k) indices in [0, m), distinct per walker.
+
+Distinct draws use sorted insertion, as the JAX module does. Every draw is a
+device tensor and every selection an index gather in int64, so no half-step
+waits on the host.
 """
 
 import torch
 
+BLOCK = 128  # walkers per independent-shift group in "block" mode
+MODES = ("roll", "block", "gather")
+
+
+def check_mode(mode):
+    """``mode`` if it is a partner mode, else ValueError."""
+    if mode not in MODES:
+        raise ValueError(f"unknown partner mode {mode!r}")
+    return mode
+
+
+def sorted_insertion(raw):
+    """(rows, k) values distinct per row from k raw draws, the t-th in
+    [0, bound − t): each is bumped past the row's earlier values in
+    increasing order, which is exact uniform sampling without replacement."""
+    cols = []
+    for d in raw:
+        if cols:
+            prev = torch.sort(torch.stack(cols, dim=-1), dim=-1).values
+            for s in range(len(cols)):
+                d = d + (d >= prev[:, s]).to(d.dtype)
+        cols.append(d)
+    return torch.stack(cols, dim=-1)
+
+
+def distinct_batch(gen, n_rows, bound, k, device, dtype=torch.int64):
+    """(n_rows, k) draws in [0, bound), without replacement per row (the
+    batched form of :func:`distinct_shifts`)."""
+    if k > bound:
+        raise ValueError(f"need {k} distinct draws from only {bound} values")
+    return sorted_insertion([
+        torch.randint(0, bound - t, (n_rows,), generator=gen, device=device,
+                      dtype=dtype)
+        for t in range(k)
+    ])
+
 
 def distinct_shifts(gen, m, k, device):
-    """k distinct uniform shifts in [0, m) as a (k,) int32 device tensor.
-
-    Sorted-insertion sampling, as in the JAX module: draw d_t in [0, m−t)
-    and bump it past each already-chosen value in increasing order.
-    """
+    """k distinct uniform shifts in [0, m) as a (k,) int32 device tensor."""
     if k > m:
         raise ValueError(f"need {k} distinct shifts from only {m} values")
-    chosen = []
-    for t in range(k):
-        d = torch.randint(0, m - t, (1,), generator=gen, device=device,
-                          dtype=torch.int32)
-        if chosen:
-            prev = torch.sort(torch.cat(chosen)).values
-            for idx in range(t):
-                d = d + (d >= prev[idx]).to(d.dtype)
-        chosen.append(d)
-    return torch.cat(chosen)
+    return distinct_batch(gen, 1, m, k, device, torch.int32)[0]
+
+
+def block_fast_path(n, m, k, block=BLOCK):
+    """The JAX module's condition for block mode's block-granular path."""
+    return n == m and m % block == 0 and m // block >= k
+
+
+def draw_partner_noise(gen, n, m, k, mode, device, block=BLOCK):
+    """Every random draw of ``select_partners(other, n, ·, mode)`` for k
+    partners of n active walkers among m (``block``: walkers per shift
+    group in block mode)."""
+    check_mode(mode)
+    if mode == "roll":
+        if n != m:
+            raise ValueError(
+                f"roll mode requires equal halves (n={n}, m={m})"
+            )
+        return distinct_shifts(gen, m, k, device)
+    if mode == "block":
+        if block_fast_path(n, m, k, block):
+            r = torch.randint(0, m, (1,), generator=gen, device=device)
+            return r, distinct_batch(gen, m // block, m // block, k, device)
+        return (distinct_batch(gen, -(-n // block), m, k, device),)
+    return distinct_batch(gen, n, m, k, device)
 
 
 def rolled_partners(other, shifts):
@@ -40,16 +102,37 @@ def rolled_partners(other, shifts):
     return other[idx]
 
 
-def select_partners(other, n, shifts, mode="roll"):
-    """(k, n, P) partners for n active walkers, k = len(shifts)."""
+def block_partners(other, n, noise, block=BLOCK):
+    """(k, n, P) partners with one shift per ``block``-walker group (see
+    the module docstring for the two paths)."""
+    m = other.shape[0]
+    i = torch.arange(n, device=other.device, dtype=torch.int64)
+    if len(noise) == 2:  # fast path: (r, q)
+        r, q = noise
+        if not block_fast_path(n, m, q.shape[1], block):
+            raise ValueError("block fast-path draws need n == m, "
+                             f"m % {block} == 0 and m // {block} >= k")
+        offset = block * q.to(torch.int64)[i // block].T       # (k, n)
+        idx = (i[None, :] + r.to(torch.int64) + offset) % m
+    else:  # per-walker fallback: (s,)
+        (s,) = noise
+        # an int repeat count: a tensor of counts would sync to size the
+        # output
+        per_walker = s.to(torch.int64).T.repeat_interleave(block, dim=1)
+        idx = (i[None, :] + per_walker[:, :n]) % m
+    return other[idx]
+
+
+def select_partners(other, n, noise, mode="roll"):
+    """(k, n, P) partners for n active walkers from the draws of
+    :func:`draw_partner_noise`."""
+    check_mode(mode)
     if mode == "roll":
         if other.shape[0] != n:
             raise ValueError(
                 f"roll mode requires equal halves (n={n}, m={other.shape[0]})"
             )
-        return rolled_partners(other, shifts)
-    if mode in ("block", "gather"):
-        raise NotImplementedError(
-            f"partner mode {mode!r} is not ported yet; use 'roll'"
-        )
-    raise ValueError(f"unknown partner mode {mode!r}")
+        return rolled_partners(other, noise)
+    if mode == "block":
+        return block_partners(other, n, noise)
+    return other[noise.to(torch.int64).T]

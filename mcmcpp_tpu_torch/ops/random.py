@@ -4,7 +4,10 @@ Replaces ``mcmcpp_tpu/ops/random.py::split_for_step``: where the JAX package
 folds the step counter into a threefry key, the port carries explicit
 ``torch.Generator`` objects on the sampler's device and draws from them in a
 fixed order. Streams are domain-separated by seeding each generator from
-``SeedSequence([seed, stream])``. All draws stay on the device.
+``SeedSequence([seed, stream])``. All draws stay on the device, except those
+of ``HOST_STREAM``: a CPU generator for the draws that pick host-side control
+flow (the mixture mover's branch, which JAX drew on the device and ran with
+``lax.switch``), so that no half-step waits on the device to branch.
 """
 
 import numpy as np
@@ -12,6 +15,7 @@ import torch
 
 STEP_STREAM = 0
 AUX_STREAM = 1
+HOST_STREAM = 2
 
 # smallest uniform the fused half-step draws: ≙ _bits_to_unit's floor
 # (mcmcpp_tpu/ops/pallas_stretch.py:39-48), so log(u) is always finite
@@ -29,8 +33,14 @@ def make_generator(seed, stream, device):
 
 
 def uniform(gen, n, dtype, device):
-    """(n,) uniforms in [0, 1)."""
-    return torch.rand((n,), generator=gen, dtype=dtype, device=device)
+    """(n,) uniforms in [0, 1); ``n`` may also be a shape tuple."""
+    shape = n if isinstance(n, tuple) else (n,)
+    return torch.rand(shape, generator=gen, dtype=dtype, device=device)
+
+
+def normal(gen, shape, dtype, device):
+    """Standard normals of ``shape``."""
+    return torch.randn(shape, generator=gen, dtype=dtype, device=device)
 
 
 def unit_uniform(gen, n, dtype, device):
@@ -38,8 +48,13 @@ def unit_uniform(gen, n, dtype, device):
     return uniform(gen, n, dtype, device).clamp_(min=UNIT_FLOOR)
 
 
+def exponential(gen, n, dtype, device):
+    """(n,) draws of Exp(1)."""
+    e = torch.empty((n,), dtype=dtype, device=device)
+    return e.exponential_(generator=gen)
+
+
 def neg_exponential(gen, n, dtype, device):
     """(n,) draws of −Exp(1): the log of a uniform, never −inf's log(0)."""
-    e = torch.empty((n,), dtype=dtype, device=device)
-    return e.exponential_(generator=gen).neg_()
+    return exponential(gen, n, dtype, device).neg_()
 

@@ -12,7 +12,13 @@ PyTorch counterpart of ``mcmcpp_tpu/sampler.py`` (the reference's
   device chunk; chunks are copied to the host :class:`Chain`. Nothing in the
   step loop waits on the device.
 - Randomness comes from two ``torch.Generator``s on the device, one for the
-  steps and one for auxiliary draws (``init_ball``), seeded from ``seed``.
+  steps and one for auxiliary draws (``init_ball``), and one on the CPU for
+  the draws that pick host-side control flow (the mixture mover's branch),
+  all seeded from ``seed``.
+- ``step_action(pos, logp)`` runs on the device once per stored step and its
+  outputs are stacked per chunk (≙ the reference's PostStepAction,
+  ``EnsembleSampler.h:356-359``); ``chunk_action(chain)`` runs on the host
+  after each chunk lands.
 """
 
 from typing import NamedTuple
@@ -28,7 +34,12 @@ from mcmcpp_tpu_torch.chain import (
 )
 from mcmcpp_tpu_torch.movers.base import Mover
 from mcmcpp_tpu_torch.movers.stretch import StretchMove
-from mcmcpp_tpu_torch.ops.random import AUX_STREAM, STEP_STREAM, make_generator
+from mcmcpp_tpu_torch.ops.random import (
+    AUX_STREAM,
+    HOST_STREAM,
+    STEP_STREAM,
+    make_generator,
+)
 
 # per-walker accept counters are int32 on the device and gain at most one
 # per step, so a device run between two harvests stays below 2^30 steps
@@ -83,19 +94,26 @@ def init_state(positions, batched_logp):
     )
 
 
-def make_step_fn(batched_logp, mover: Mover, mover_state, gen):
-    """Return ``step(state) -> state`` performing one full red+black update."""
+def make_step_fn(batched_logp, mover: Mover, mover_state, gen,
+                 host_gen=None):
+    """Return ``step(state) -> state`` performing one full red+black update.
+
+    ``gen`` draws on the ensemble's device; ``host_gen`` is the CPU
+    generator handed to ``draw_noise`` for host-side choices.
+    """
 
     def step(state: EnsembleState) -> EnsembleState:
-        n_r, n_b = state.red.shape[0], state.black.shape[0]
+        (n_r, p), n_b = state.red.shape, state.black.shape[0]
         device, dtype = state.red.device, state.red.dtype
-        noise = mover.draw_noise(gen, n_r, n_b, device, dtype=dtype)
+        noise = mover.draw_noise(gen, n_r, n_b, p, device, dtype=dtype,
+                                 host_gen=host_gen)
         red, logp_red, acc_r = mover.apply(
             state.red, state.logp_red, state.black, batched_logp, mover_state,
             noise,
         )
         # black proposes against the *updated* red half (EnsembleSampler.h:350-354)
-        noise = mover.draw_noise(gen, n_b, n_r, device, dtype=dtype)
+        noise = mover.draw_noise(gen, n_b, n_r, p, device, dtype=dtype,
+                                 host_gen=host_gen)
         black, logp_black, acc_b = mover.apply(
             state.black, state.logp_black, red, batched_logp, mover_state,
             noise,
@@ -110,13 +128,39 @@ def make_step_fn(batched_logp, mover: Mover, mover_state, gen):
     return step
 
 
-def run_scan(state: EnsembleState, step_fn, n_store: int, thin: int):
+def _tree_map(fn, tree):
+    """``fn`` over the tensors of a tensor, or a tuple, list or dict of
+    them (nested)."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _tree_stack(trees, stack):
+    """Stack a list of equally shaped trees leaf by leaf with ``stack``."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _tree_stack([t[k] for t in trees], stack) for k in first}
+    if isinstance(first, (tuple, list)):
+        return type(first)(_tree_stack([t[i] for t in trees], stack)
+                           for i in range(len(first)))
+    return stack(trees)
+
+
+def run_scan(state: EnsembleState, step_fn, n_store: int, thin: int,
+             step_action=None):
     """Run ``n_store·thin`` steps, keeping every ``thin``-th ensemble.
 
     Returns (final_state, positions (n_store, W, P), logps (n_store, W),
-    accepted): ``accepted`` is the chunk's per-walker accept counters, which
-    are zeroed in the returned state. Thinning at source (≙
+    metrics, accepted): ``accepted`` is the chunk's per-walker accept
+    counters, which are zeroed in the returned state. Thinning at source (≙
     ``EnsembleSampler.h:296-308``): skipped steps are never stored.
+
+    ``step_action(positions (W, P), logps (W,))`` runs on the device after
+    every stored step; ``metrics`` stacks its outputs (a tensor, or a tuple
+    or dict of them) along a new leading axis, or is None without one.
     """
     half = state.red.shape[0]
     w = half + state.black.shape[0]
@@ -124,6 +168,7 @@ def run_scan(state: EnsembleState, step_fn, n_store: int, thin: int):
     dev, dtype = state.red.device, state.red.dtype
     positions = torch.empty((n_store, w, p), dtype=dtype, device=dev)
     logps = torch.empty((n_store, w), dtype=state.logp_red.dtype, device=dev)
+    metrics = []
     for s in range(n_store):
         for _ in range(thin):
             state = step_fn(state)
@@ -131,12 +176,15 @@ def run_scan(state: EnsembleState, step_fn, n_store: int, thin: int):
         positions[s, half:] = state.black
         logps[s, :half] = state.logp_red
         logps[s, half:] = state.logp_black
+        if step_action is not None:
+            metrics.append(step_action(positions[s], logps[s]))
     accepted = (state.accepted_red, state.accepted_black)
     state = state._replace(
         accepted_red=torch.zeros_like(state.accepted_red),
         accepted_black=torch.zeros_like(state.accepted_black),
     )
-    return state, positions, logps, accepted
+    stacked = _tree_stack(metrics, torch.stack) if metrics else None
+    return state, positions, logps, stacked, accepted
 
 
 def run_nostore(state: EnsembleState, step_fn, n_steps: int):
@@ -208,9 +256,11 @@ class EnsembleSampler:
             self.n_params, dtype, self.device
         )
         # domain-separated streams: steps draw from _step_gen, init_ball
-        # from _aux_gen, so no auxiliary draw shifts the step stream
+        # from _aux_gen, so no auxiliary draw shifts the step stream;
+        # _host_gen (CPU) draws the host-side choices of a step
         self._step_gen = make_generator(seed, STEP_STREAM, self.device)
         self._aux_gen = make_generator(seed, AUX_STREAM, self.device)
+        self._host_gen = make_generator(seed, HOST_STREAM, "cpu")
         self.chain = Chain(
             n_walkers=self.n_walkers,
             n_params=self.n_params,
@@ -223,8 +273,14 @@ class EnsembleSampler:
         # every device run
         self._accepted_walkers_host = None
         self._reset_step_base = 0
+        self._default_thin = 1
+        # steps per device run between two counter harvests (int32-safe)
+        self._max_steps_per_harvest = _MAX_STEPS_PER_HARVEST
+        #: ``step_action`` outputs of the last ``run_mcmc``, as numpy
+        self.step_metrics = None
         self._step_fn = make_step_fn(
-            self._batched_logp, self.mover, self._mover_state, self._step_gen
+            self._batched_logp, self.mover, self._mover_state, self._step_gen,
+            self._host_gen,
         )
         if store_chunk_steps is None:
             store_chunk_steps = default_chunk_steps(
@@ -311,50 +367,109 @@ class EnsembleSampler:
         pos, logp = self._current_ensemble()
         return append_device_chunk(self.chain, pos[None], logp[None])
 
-    def run_mcmc(self, n_steps, thin=1, store=True):
-        """Run ``n_steps`` total steps; if ``store``, save every ``thin``-th.
+    def set_sampling_mode(self, thin):
+        """Default thinning interval of later ``run_mcmc`` calls that pass
+        no ``thin``."""
+        self._default_thin = int(thin)
+        return self
+
+    def set_slicing_mode(self, use_slicing=False, slicing_interval=1):
+        """≙ setSlicingMode (EnsembleSampler.h:137,325-329): toggle
+        sub-sampling and set its interval in one call."""
+        self._default_thin = int(slicing_interval) if use_slicing else 1
+        return self
+
+    def _run_nostore(self, n_steps):
+        """Advance ``n_steps`` without storing, harvesting the counters at
+        least every ``_max_steps_per_harvest`` steps."""
+        remaining = int(n_steps)
+        while remaining > 0:
+            take = min(remaining, self._max_steps_per_harvest)
+            self.state = run_nostore(self.state, self._step_fn, take)
+            self._harvest_counters()
+            remaining -= take
+
+    def run_mcmc(self, n_steps, thin=None, store=True, step_action=None,
+                 chunk_action=None):
+        """Run ``n_steps`` total steps; if ``store``, save every ``thin``-th
+        (``thin=None`` takes the default of :meth:`set_sampling_mode`).
 
         Returns False if the chain hit its byte capacity before finishing
         (≙ IncrementStatus::EndOfChain, Chain/Chain.h:230-234), else True.
+
+        ``step_action(positions (W, P), logps (W,))`` runs on the device
+        once per stored step; its outputs (a tensor, or a tuple or dict of
+        tensors) are stacked over the stored steps into ``self.step_metrics``
+        as numpy. ``chunk_action(chain)`` runs on the host after each chunk
+        of stored steps lands in the chain.
         """
         self._require_state()
-        n_steps, thin = int(n_steps), int(thin)
+        n_steps = int(n_steps)
+        thin = self._default_thin if thin is None else int(thin)
         if thin < 1:
             raise ValueError("thin must be >= 1")
-        if thin > _MAX_STEPS_PER_HARVEST:
-            raise ValueError(f"thin must be <= {_MAX_STEPS_PER_HARVEST}")
+        self.step_metrics = None
         if not store:
-            remaining = n_steps
-            while remaining > 0:
-                take = min(remaining, _MAX_STEPS_PER_HARVEST)
-                self.state = run_nostore(self.state, self._step_fn, take)
-                self._harvest_counters()
-                remaining -= take
+            self._run_nostore(n_steps)
             return True
         n_store = n_steps // thin
         leftover = n_steps - n_store * thin
-        chunk = min(self._chunk, _MAX_STEPS_PER_HARVEST // thin)
+        metric_chunks = []
+
+        def land(pos, logp, metrics):
+            ok = append_device_chunk(self.chain, pos, logp)
+            if metrics is not None:
+                metric_chunks.append(
+                    _tree_map(lambda t: t.cpu().numpy(), metrics))
+            if chunk_action is not None:
+                chunk_action(self.chain)
+            return ok
+
+        if thin > self._max_steps_per_harvest:
+            ok = self._run_micro_chunks(n_store, thin, step_action, land)
+        else:
+            ok = self._run_chunks(n_store, thin, step_action, land)
+        if metric_chunks:
+            self.step_metrics = _tree_stack(
+                metric_chunks, lambda xs: np.concatenate(xs, axis=0))
+        if not ok:
+            return False
+        if leftover:
+            self._run_nostore(leftover)
+        return True
+
+    def _run_chunks(self, n_store, thin, step_action, land):
+        """The pipelined store loop: chunk k is enqueued before chunk k−1
+        lands."""
+        chunk = min(self._chunk, self._max_steps_per_harvest // thin)
 
         def launch(take):
-            self.state, pos, logp, acc = run_scan(
-                self.state, self._step_fn, take, thin
+            self.state, pos, logp, metrics, acc = run_scan(
+                self.state, self._step_fn, take, thin, step_action
             )
-            return pos, logp, acc
+            return pos, logp, metrics, acc
 
         def fetch(chunk_data):
-            pos, logp, acc = chunk_data
-            ok = append_device_chunk(self.chain, pos, logp)
+            pos, logp, metrics, acc = chunk_data
             self._accum_accept(*acc)
-            return ok
+            return land(pos, logp, metrics)
 
         def on_drop(chunk_data):
             # the unstorable chunk still advanced the state: count its accepts
-            self._accum_accept(*chunk_data[2])
+            self._accum_accept(*chunk_data[3])
 
-        if not run_pipelined(n_store, chunk, launch, fetch, on_drop=on_drop):
-            return False
-        if leftover:
-            self.run_mcmc(leftover, store=False)
+        return run_pipelined(n_store, chunk, launch, fetch, on_drop=on_drop)
+
+    def _run_micro_chunks(self, n_store, thin, step_action, land):
+        """Store path for a ``thin`` above the harvest cap: advance each
+        stored step in harvested runs, then store the ensemble on its own."""
+        for _ in range(n_store):
+            self._run_nostore(thin)
+            pos, logp = self._current_ensemble()
+            metrics = (None if step_action is None else
+                       _tree_map(lambda t: t[None], step_action(pos, logp)))
+            if not land(pos[None], logp[None], metrics):
+                return False
         return True
 
     def reset(self):
@@ -388,6 +503,16 @@ class EnsembleSampler:
         if self._accepted_walkers_host is not None:
             counts = counts + self._accepted_walkers_host
         return counts
+
+    @property
+    def per_walker_acceptance(self):
+        """(W,) per-walker acceptance fractions since the last reset."""
+        self._require_state()
+        steps = self.state.step - self._reset_step_base
+        counts = self.per_walker_accepted
+        if steps == 0:
+            return np.zeros_like(counts, dtype=np.float64)
+        return counts / steps
 
     @property
     def accepted_steps(self):

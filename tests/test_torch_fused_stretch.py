@@ -2,9 +2,12 @@
 
 The JAX kernel runs in CPU interpret mode, where its hardware generator
 yields zero bits, so its uniforms are exactly u = ue = 2^-25; its shift is
-``randint(split(key)[1], (), 0, n)``. The port's plain version gets those
-same numbers. The CUDA kernel itself is compared with the plain version in
-the test marked ``cuda`` (skipped without a card) and in ``chip_smoke.py``.
+``randint(split(key)[1], (), 0, n)``. The port's plain versions get those
+same numbers: the fused one for a Gaussian logp, and the split path's two
+twins (propose, accept) for the non-Gaussian targets the Pallas kernel also
+traces into its body. The CUDA kernels themselves are compared with their
+plain versions in the tests marked ``cuda`` (skipped without a card) and in
+``chip_smoke.py``.
 
 JAX is imported inside the helpers only, so the ``cuda`` test runs on a
 machine that has no JAX.
@@ -174,10 +177,11 @@ def test_kernel_matches_reference_on_card(cuda_device, n, p):
             torch.from_numpy(oth).to(cuda_device),
             torch.tensor([n // 3], dtype=torch.int32, device=cuda_device),
             u, ue)
-    before = fs.LAUNCHES
+    before = dict(fs.LAUNCHES)
     k_act, k_lp, k_acc = fs.fused_stretch_half(*args, logp_fn=target)
     torch.cuda.synchronize()
-    assert fs.LAUNCHES == before + 1
+    assert fs.LAUNCHES == {**before, "fused_stretch_half":
+                           before["fused_stretch_half"] + 1}
     r_act, r_lp, r_acc = fs.fused_stretch_half_reference(*args,
                                                          logp_fn=target)
     assert 0 < int(r_acc.sum()) < n
@@ -194,14 +198,146 @@ def test_kernel_matches_reference_on_card(cuda_device, n, p):
 
 
 def test_device_dispatch_without_card():
-    """Off the CPU the wrapper takes the kernel or raises, never the plain
-    version: a non-Gaussian logp raises NotImplementedError before any
-    launch, and a device other than CUDA raises (meta tensors stand in for
-    a device here)."""
+    """Off the CPU the wrapper takes a kernel or raises, never the plain
+    version: on a device other than CUDA (meta tensors stand in for one
+    here) both a non-Gaussian logp and a GaussianTarget raise before any
+    launch."""
     x = torch.empty((4, 2), device="meta")
     lp = torch.empty((4,), device="meta")
-    with pytest.raises(NotImplementedError, match="split path"):
+    before = dict(fs.LAUNCHES)
+    with pytest.raises(RuntimeError, match="no fused stretch path"):
         fs.fused_stretch_half(x, lp, x, lp, lp, lp, logp_fn=lambda t: t)
     target = GaussianTarget(np.eye(2, dtype=np.float32), device="meta")
     with pytest.raises(RuntimeError, match="no fused stretch path"):
         fs.fused_stretch_half(x, lp, x, lp, lp, lp, logp_fn=target)
+    assert fs.LAUNCHES == before
+
+
+def _jax_split_half(act, oth, lp, jax_logp, seed):
+    """JAX's Pallas kernel in interpret mode on any logp (traced into the
+    kernel's body); returns its shift and outputs."""
+    import jax
+    import jax.numpy as jnp
+    from mcmcpp_tpu.ops.pallas_stretch import fused_stretch_half
+
+    key = jax.random.key(seed)
+    n = act.shape[0]
+    shift = int(jax.random.randint(jax.random.split(key)[1], (), 0, n,
+                                   dtype=jnp.int32))
+    out = fused_stretch_half(key, jnp.asarray(act), jnp.asarray(lp),
+                             jnp.asarray(oth), logp_fn=jax.vmap(jax_logp),
+                             tile=32, interpret=True)
+    return shift, [np.asarray(o) for o in out]
+
+
+@pytest.mark.parametrize("name", ["rosenbrock", "logistic_regression",
+                                  "neal_funnel"])
+def test_split_references_match_pallas_interpret(name):
+    """The split path's plain twins (propose, the torch logp, accept)
+    against the Pallas kernel with the same target traced into it; the
+    logistic target's data reach the kernel as hoisted closure constants."""
+    from mcmcpp_tpu import models as jm
+    from mcmcpp_tpu_torch.models import targets as tm
+
+    jt = {"rosenbrock": lambda: jm.rosenbrock(),
+          "logistic_regression": lambda: jm.logistic_regression(dim=4),
+          "neal_funnel": lambda: jm.neal_funnel(5)}[name]()
+    tt = {"rosenbrock": lambda: tm.rosenbrock(),
+          "logistic_regression": lambda: tm.logistic_regression(
+              dim=4, device="cpu"),
+          "neal_funnel": lambda: tm.neal_funnel(5)}[name]()
+    n, p = 64, tt.dim
+    act, oth = _inputs(n, p, seed=3 + p)
+    lp = tt(torch.from_numpy(act)).numpy()
+    shift, (j_act, j_lp, j_acc) = _jax_split_half(act, oth, lp, jt.logp,
+                                                  seed=p)
+    floor = torch.full((n,), FLOOR)
+    args = (torch.from_numpy(act), torch.from_numpy(oth),
+            torch.tensor([shift], dtype=torch.int32))
+    proposal, log_factor = fs.stretch_propose_reference(*args, floor)
+    t_act, t_lp, t_acc = fs.stretch_accept_reference(
+        args[0], proposal, torch.from_numpy(lp), tt(proposal), log_factor,
+        floor.clone())
+    np.testing.assert_array_equal(t_acc.numpy(), j_acc)
+    assert 0 < int(t_acc.sum()) < n, "inputs must give accepts and rejects"
+    np.testing.assert_allclose(t_act.numpy(), j_act, rtol=RTOL, atol=ATOL)
+    # float32 logps of two libraries' sums (a 300-row dot product for the
+    # logistic target): 1e-5 relative
+    np.testing.assert_allclose(t_lp.numpy(), j_lp, rtol=1e-5, atol=1e-5)
+    # and the dispatching wrapper on the CPU is the same two twins
+    w_act, w_lp, w_acc = fs.fused_stretch_half(
+        args[0], torch.from_numpy(lp), args[1], args[2], floor,
+        floor.clone(), logp_fn=tt)
+    assert torch.equal(w_act, t_act) and torch.equal(w_acc, t_acc)
+
+
+def test_accept_reference_edge_rules():
+    """log(ue) < factor + lp_new − lp_old, as JAX evaluates it: lp_old =
+    −inf with a finite lp_new accepts, a NaN lp_new rejects, an lp_new of
+    +inf accepts, and equality rejects (strict <)."""
+    act = torch.zeros((5, 2))
+    prop = torch.ones((5, 2))
+    lp_old = torch.tensor([-torch.inf, 0.0, 0.0, 0.0, -1.0])
+    lp_new = torch.tensor([-5.0, torch.nan, torch.inf, -3.0, -1.0])
+    factor = torch.zeros(5)
+    ue = torch.tensor([0.5, 0.5, 0.5, 0.99, 1.0])
+    new, new_lp, acc = fs.stretch_accept_reference(act, prop, lp_old, lp_new,
+                                                   factor, ue)
+    assert acc.tolist() == [1, 0, 1, 0, 0]
+    assert torch.equal(new[0], prop[0]) and torch.equal(new[1], act[1])
+    assert new_lp[0] == -5.0 and new_lp[1] == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,n", [("neal_funnel", 1 << 16),
+                                    ("rosenbrock", 160),
+                                    ("logistic_regression", 1000)])
+def test_split_kernels_match_reference_on_card(cuda_device, name, n):
+    """The propose and accept kernels of the split path against their plain
+    twins on one card, on a logp that is NaN on some rows (which must
+    reject) and with lp_old = −inf on others (which must accept):
+    rtol = atol = 1e-5, masks equal except within 1e-4·max(1, |ratio|) of
+    the threshold. The GaussianTarget kernel is not launched."""
+    from mcmcpp_tpu_torch.models import targets as tm
+
+    target = {"neal_funnel": lambda: tm.neal_funnel(10),
+              "rosenbrock": lambda: tm.rosenbrock(),
+              "logistic_regression": lambda: tm.logistic_regression(
+                  dim=4, device=cuda_device)}[name]()
+    p = target.dim
+    act, oth = _inputs(n, p, seed=p)
+    rows = torch.arange(n, device=cuda_device)
+    neg = rows % 97 == 7
+    nan_rows = (rows % 89 == 3) & ~neg
+
+    def logp(x):
+        out = target(x)
+        return torch.where(nan_rows, torch.nan, out)
+
+    lp = target(torch.from_numpy(act).to(cuda_device))
+    lp[neg] = -torch.inf
+    g = torch.Generator(device=cuda_device).manual_seed(p)
+    u = torch.rand(n, generator=g, device=cuda_device).clamp_(min=FLOOR)
+    ue = torch.rand(n, generator=g, device=cuda_device).clamp_(min=FLOOR)
+    args = (torch.from_numpy(act).to(cuda_device), lp,
+            torch.from_numpy(oth).to(cuda_device),
+            torch.tensor([n // 3], dtype=torch.int32, device=cuda_device),
+            u, ue)
+    before = dict(fs.LAUNCHES)
+    k_act, k_lp, k_acc = fs.fused_stretch_half(*args, logp_fn=logp)
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES == {
+        **before, "stretch_propose": before["stretch_propose"] + 1,
+        "stretch_accept": before["stretch_accept"] + 1}
+    r_act, r_lp, r_acc = fs.fused_stretch_half_reference(*args, logp_fn=logp)
+    assert 0 < int(r_acc.sum()) < n
+    assert bool((k_acc[nan_rows] == 0).all())
+    assert bool((k_acc[neg] == 1).all())
+    _, _, log_ratio = fs.stretch_proposal(*args[:5], logp_fn=logp)
+    near = ((log_ratio - torch.log(ue)).abs()
+            < 1e-4 * torch.clamp(log_ratio.abs(), min=1.0))
+    assert bool(((k_acc == r_acc) | near).all())
+    same = k_acc == r_acc
+    torch.testing.assert_close(k_act[same], r_act[same], rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(k_lp[same], r_lp[same], rtol=1e-5, atol=1e-5)

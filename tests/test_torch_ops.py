@@ -83,13 +83,6 @@ def test_distinct_shifts_distinct_and_in_range():
         distinct_shifts(gen, 3, 4, "cpu")
 
 
-@pytest.mark.parametrize("mode", ["block", "gather"])
-def test_unported_partner_modes_raise(mode):
-    with pytest.raises(NotImplementedError):
-        select_partners(torch.zeros((8, 2)), 8,
-                        torch.zeros(1, dtype=torch.int32), mode)
-
-
 def _ar1(phi, n_steps, n_walkers, n_params=1, seed=0):
     """AR(1) chains (S, W, P); true integrated ACT (1 + phi)/(1 - phi)."""
     rng = np.random.default_rng(seed)

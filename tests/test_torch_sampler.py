@@ -75,7 +75,7 @@ class _Replay:
         super().__init__(**kw)
         self._noises = iter(noises)
 
-    def draw_noise(self, gen, n, m, device, dtype=torch.float32):
+    def draw_noise(self, *args, **kwargs):
         return next(self._noises)
 
 
@@ -327,3 +327,109 @@ def test_flagship_target_matches_bench_form():
         np.asarray(_jax_logp(_flagship_chol())(jnp.asarray(x))),
         rtol=1e-6, atol=1e-6,
     )
+
+
+# -- run hooks (≙ tests/test_diagnostics.py:53-90) -------------------------
+
+
+def _hook_sampler(n_walkers=32, seed=4, **kw):
+    s = EnsembleSampler(skewed_gaussian(device="cpu"), n_walkers, 2,
+                        seed=seed, batched=True, device="cpu", **kw)
+    s.init_ball(np.zeros(2), scale=0.5, seed=2)
+    return s
+
+
+def test_step_action_hook():
+    """PostStepAction: one metric row per stored step, on the device."""
+    s = _hook_sampler()
+
+    def action(pos, logp):
+        return {"mean": pos.mean(dim=0), "best": logp.max()}
+
+    s.run_mcmc(100, step_action=action)
+    m = s.step_metrics
+    assert m["mean"].shape == (100, 2)
+    assert m["best"].shape == (100,)
+    assert isinstance(m["mean"], np.ndarray)
+    np.testing.assert_allclose(m["mean"], s.get_samples().mean(axis=1),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(m["best"], s.get_log_probs().max(axis=1),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("shape", ["tensor", "tuple"])
+def test_step_action_tensor_and_tuple_outputs(shape):
+    s = _hook_sampler(store_chunk_steps=7)
+    if shape == "tensor":
+        s.run_mcmc(20, thin=2, step_action=lambda pos, lp: lp.mean())
+        assert s.step_metrics.shape == (10,)
+        want = s.get_log_probs().mean(axis=1)
+        np.testing.assert_allclose(s.step_metrics, want, rtol=1e-5)
+    else:
+        s.run_mcmc(20, thin=2,
+                   step_action=lambda pos, lp: (pos[0], lp[:3]))
+        first, lps = s.step_metrics
+        assert first.shape == (10, 2) and lps.shape == (10, 3)
+        np.testing.assert_array_equal(first, s.get_samples()[:, 0])
+    # a run without an action clears the metrics
+    s.run_mcmc(2)
+    assert s.step_metrics is None
+
+
+def test_chunk_action_hook():
+    s = _hook_sampler(seed=5, store_chunk_steps=25)
+    seen = []
+    s.run_mcmc(100, chunk_action=lambda chain: seen.append(chain.n_steps))
+    assert seen == [25, 50, 75, 100]
+
+
+def test_sampling_mode_alias():
+    s = _hook_sampler(n_walkers=16, seed=6)
+    s.set_sampling_mode(thin=5)
+    s.run_mcmc(50)
+    assert s.stored_steps == 10
+    s.set_slicing_mode(use_slicing=True, slicing_interval=4)
+    s.run_mcmc(20)
+    assert s.stored_steps == 15
+    s.set_slicing_mode(use_slicing=False)
+    s.run_mcmc(3)
+    assert s.stored_steps == 18
+    assert s.run_mcmc(6, thin=3) and s.stored_steps == 20
+
+
+def test_per_walker_acceptance():
+    """Per-walker fractions (≙ tests/test_per_walker_accept.py:38-45)."""
+    s = _hook_sampler(n_walkers=64, seed=5)
+    s.run_mcmc(200)
+    frac = s.per_walker_acceptance
+    assert frac.shape == (64,)
+    assert np.all((0.0 <= frac) & (frac <= 1.0))
+    assert np.ptp(frac) > 0.0
+    assert np.isclose(frac.mean(), s.acceptance_fraction, atol=1e-12)
+    np.testing.assert_allclose(frac, s.per_walker_accepted / 200)
+    s.reset()
+    assert np.all(s.per_walker_acceptance == 0.0)
+
+
+def test_huge_thin_micro_chunked_path():
+    """A thin above the harvest cap advances in harvested runs and stores
+    each row on its own (≙ tests/test_review_fixes.py:65-75), with both
+    hooks."""
+    s = _hook_sampler(n_walkers=16)
+    s._max_steps_per_harvest = 8
+    seen = []
+    assert s.run_mcmc(60, thin=20, step_action=lambda pos, lp: lp.max(),
+                      chunk_action=lambda chain: seen.append(chain.n_steps))
+    assert s.stored_steps == 3
+    assert s.total_steps == 60 * 16
+    assert 0 < s.accepted_steps <= 60 * 16
+    assert s.accepted_steps == s.per_walker_accepted.sum()
+    samples = s.get_samples()
+    assert not np.allclose(samples[0], samples[-1])
+    assert seen == [1, 2, 3]
+    np.testing.assert_array_equal(s.step_metrics,
+                                  s.get_log_probs().max(axis=1))
+    # the same draws through the pipelined path give the same chain
+    t = _hook_sampler(n_walkers=16)
+    assert t.run_mcmc(60, thin=20)
+    np.testing.assert_array_equal(t.get_samples(), samples)
