@@ -6,22 +6,31 @@ Builds the port's CUDA kernels from ``mcmcpp_tpu_torch/csrc/`` (into
 ``build/kernels/``, one ``nvcc`` per source, all started together), then:
 
 1. identifies the card (torch and CUDA versions, ``nvidia-smi`` name and
-   power limit) and prints ``ptxas``'s register counts;
+   power limit) and prints ``ptxas``'s register and shared-memory counts;
 2. holds the fused stretch kernel against its plain PyTorch version on the
-   card, at the main path's shape (n = 2^20 walkers per half, P = 10) and at
-   edge shapes (P = 2, ragged n = 1000 at P = 3, P = 64, rows with
-   lp_old = -inf), and times both at the main path's shape;
+   card. The kernel draws its uniforms u and ue from a Philox key; the plain
+   version gets the key's planes from the kernels' plain twin
+   (``philox_unit_uniforms``), and the kernels' own u and ue, written out by
+   a debug entry point, must equal the twin's bit for bit. Shapes: the main
+   path's (n = 2^20 walkers per half, P = 10) and the edges (P = 2, 3, 7,
+   33, 64; n = 50, 160, 1000; shifts 0, 1, n - 1, a wrap in the middle of a
+   tile, a negative and an out-of-range shift; rows with lp_old = -inf);
+   times both at the main path's shape;
 2b. holds the split path's propose and accept kernels (any torch logp)
-   against their plain versions: Neal's funnel at n = 2^20, P = 10, and
-   the Rosenbrock banana (P = 2), a logistic regression at ragged n = 1000,
-   rows with lp_old = -inf (which accept) and a logp that is NaN on some
-   rows (which reject); times each kernel and the split half-step against
-   the plain versions;
+   against their plain versions, each alone bit for bit: Neal's funnel at
+   n = 2^20, P = 10 and at the edge shapes and shifts above, the Rosenbrock
+   banana (P = 2), a logistic regression at ragged n = 1000, rows with
+   lp_old = -inf (which accept) and a logp that is NaN on some rows (which
+   reject); times each kernel and the split half-step against the plain
+   versions;
 3. runs the flagship (10-D equicorrelated Gaussian, W = 2^21 walkers)
-   through ``EnsembleSampler`` + ``FusedStretchMove``: 200 burn-in steps and
-   40 steps stored at thin 10, counting kernel launches, checking the stored
-   logp and the acceptance, and timing the burn-in against the same steps
-   through the plain version;
+   through ``EnsembleSampler`` + ``FusedStretchMove``: 20 steps with no host
+   sync allowed, three timed runs of 200 burn-in steps and 40 steps stored
+   at thin 10, counting
+   kernel launches, checking the stored logp and the acceptance, and timing
+   the burn-in against the same steps through the plain version (which also
+   pays for the twin's integer ops, so its time is a plain version's time
+   and no yardstick);
 4. samples the 2-D skewed Gaussian oracle through the fused kernel and
    checks acceptance, covariance and the autocorrelation time;
 5. drives every other mover and partner mode at full width (W = 2^21,
@@ -36,12 +45,22 @@ Builds the port's CUDA kernels from ``mcmcpp_tpu_torch/csrc/`` (into
    mover, the Rosenbrock banana (BASELINE config #3) with the split-path
    fused stretch, walk and DE moves, the AR(1) autocorrelation-time table
    (AcTime), the deterministic sequence (InnerBenchmark) and a
-   ``step_action`` run.
+   ``step_action`` run;
+7. times 50 steps of the flagship and of Neal's funnel (wall time and the
+   host's enqueue time per step) and takes a ``torch.profiler`` window over
+   50 more of each: device time and launches per step by kernel; a flagship
+   step must launch the fused kernel twice, a funnel step the propose and
+   accept kernels twice each, and neither a ``uniform_`` kernel (nor the
+   flagship a ``clamp_``). Last, since the profiler's tracing slows every
+   launch after it.
 
 Any failure raises (non-zero exit); every phase prints its seconds. The
-second-to-last lines are the kernel table and the card's name and power
-limit; the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
-device the script raises before printing any result.
+second-to-last lines are the kernel table (each kernel's time beside its
+plain version's and its bound: its bytes, each input read once and each
+output written once, over the card's 3.35 TB/s, or its operations over
+67 TFLOP/s, whichever is larger) and the card's name and power limit; the
+last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
+script raises before printing any result.
 """
 
 import json
@@ -54,7 +73,10 @@ from contextlib import contextmanager, nullcontext
 import numpy as np
 import torch
 
-FLOOR = 2.0 ** -25
+# published peaks of one H100 SXM: device memory rate and float32 rate
+# outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOP_PER_S = 67e12
 # kernel vs plain version: logf/sqrtf against torch's ops and another
 # summation order in the P×P product
 RTOL = ATOL = 1e-5
@@ -62,6 +84,8 @@ RTOL = ATOL = 1e-5
 MARGIN = 1e-4
 W_FULL = 1 << 21
 P_FULL = 10
+# fills of a 1 GiB buffer that a timed run of kernel calls queues up behind
+BLOCKER_FILLS = 16
 # burn-in steps at full width: the first WARM_FULL untimed (allocator growth,
 # library handles), all of them with no host sync allowed
 BURN_FULL = 20
@@ -126,28 +150,67 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def timed_ms(fn, iters):
-    """Mean ms per call of ``fn`` between CUDA events, after a warm-up."""
+def timed_ms(fn, iters, blocker):
+    """Mean ms per call of ``fn`` between CUDA events, after a warm-up, and
+    the host's microseconds to enqueue one call. The calls queue up behind
+    BLOCKER_FILLS fills of ``blocker`` (1 GiB: some 6 ms of device work), so
+    the device runs them back to back and the time between the events is
+    the device's, also when the host needs longer to enqueue a call than
+    the device to run it."""
     for _ in range(3):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    for _ in range(BLOCKER_FILLS):
+        blocker.zero_()
     start.record()
+    t0 = time.perf_counter()
     for _ in range(iters):
         fn()
+    host_us = (time.perf_counter() - t0) / iters * 1e6
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / iters, host_us
 
 
-def in_turns(fns, iters):
+def in_turns(fns, iters, blocker):
     """Mean ms per call of each of ``fns``, timed in turns a, b, …, …, b, a
-    on one card; returns the means in the order given."""
+    on one card: (the means in the order given, each one's two readings,
+    each one's mean host microseconds per enqueue)."""
     order = list(fns) + list(reversed(fns))
-    times = {}
+    times, host = {}, {}
     for f in order:
-        times.setdefault(f, []).append(timed_ms(f, iters))
-    return [sum(times[f]) / 2 for f in fns], [times[f] for f in fns]
+        ms, us = timed_ms(f, iters, blocker)
+        times.setdefault(f, []).append(ms)
+        host.setdefault(f, []).append(us)
+    return ([sum(times[f]) / 2 for f in fns], [times[f] for f in fns],
+            [sum(host[f]) / 2 for f in fns])
+
+
+def device_rows_per_step(run, steps):
+    """Device kernels and copies of ``run()`` (which takes ``steps`` sampler
+    steps) by name, as {name: (launches per step, device microseconds per
+    step)}, from a ``torch.profiler`` window. Fails if the profiler shows no
+    device rows."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    rows = {}
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+        if e.device_type == torch.autograd.DeviceType.CUDA and dev_us > 0:
+            n, us = rows.get(e.key, (0.0, 0.0))
+            rows[e.key] = (n + e.count / steps, us + dev_us / steps)
+    if not rows:
+        raise AssertionError(
+            "torch.profiler recorded no device rows, so the step's device "
+            "launches cannot be counted")
+    return rows
 
 
 def random_chol(p, rng):
@@ -156,10 +219,46 @@ def random_chol(p, rng):
     return np.linalg.cholesky(np.linalg.inv(cov))
 
 
-def half_inputs(p, n, seed, neg_inf_every=0, lp_fn=None):
+def bound_ms(n, p, row_arrays, vectors, ops_per_walker):
+    """The least time the card could take for one call on n walkers of
+    dimension p that moves ``row_arrays`` (n, p) arrays and ``vectors`` (n,)
+    4-byte vectors, each once, and does ``ops_per_walker`` operations a
+    walker: (ms, "bytes" or "operations"), whichever bounds it."""
+    by_bytes = n * 4 * (row_arrays * p + vectors) / PEAK_BYTES_PER_S * 1e3
+    by_ops = n * ops_per_walker / PEAK_FLOP_PER_S * 1e3
+    return ((by_bytes, "bytes") if by_bytes >= by_ops
+            else (by_ops, "operations"))
+
+
+def kernel_bounds(n, p):
+    """Bounds of the three kernels as their interfaces are now (the uniforms
+    are drawn in registers and move no byte). The fused kernel reads X and
+    the partner rows and writes the row, plus lp_old, out_lp and out_acc; its
+    operations are the P×P product, the proposal, the squares, and some 120
+    for Philox's ten rounds, the logs and the square root. propose reads X
+    and the partner rows and writes Y and the log factor. accept reads X and
+    Y and writes the row, plus lp_old, lp_new, the factor, out_lp, out_acc."""
+    return {"fused_stretch_half": bound_ms(n, p, 3, 3,
+                                           2 * p * p + 5 * p + 120),
+            "stretch_propose": bound_ms(n, p, 3, 1, 3 * p + 120),
+            "stretch_accept": bound_ms(n, p, 3, 5, p + 120)}
+
+
+def card_shift(n, shift):
+    """Named shifts of the edge cases; "mid" wraps the partner run of a
+    256-row tile at n in the middle of the tile."""
+    named = {"last": n - 1, "mid": n - 100 if n > 100 else n // 2,
+             "negative": -7, "beyond": 3 * n + 5}
+    return named.get(shift, shift)
+
+
+def half_inputs(fs_random, p, n, seed, neg_inf_every=0, lp_fn=None,
+                shift=None):
     """Active rows near the mode, partners with every fourth row ×10 (far
     partners give rejections beside the accepts), lp_old (−inf on every
-    ``neg_inf_every``-th row), a shift, u and ue on the card."""
+    ``neg_inf_every``-th row) and a shift on the card: the kernel's tensor
+    arguments; then the Philox key and its planes (u, ue) from the plain
+    twin."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     act = 0.5 * torch.randn((n, p), generator=g, device=dev)
@@ -168,11 +267,14 @@ def half_inputs(p, n, seed, neg_inf_every=0, lp_fn=None):
     lp = lp_fn(act)
     if neg_inf_every:
         lp[::neg_inf_every] = -torch.inf
-    u = torch.rand(n, generator=g, device=dev).clamp_(min=FLOOR)
-    ue = torch.rand(n, generator=g, device=dev).clamp_(min=FLOOR)
-    shift = torch.randint(0, n, (1,), generator=g, device=dev,
+    drawn = torch.randint(0, n, (1,), generator=g, device=dev,
                           dtype=torch.int32)
-    return act, lp, other, shift, u, ue
+    if shift is not None:
+        drawn = torch.tensor([card_shift(n, shift)], dtype=torch.int32,
+                             device=dev)
+    key = (0x9E3779B97F4A7C15 * (seed + 1) + n * p) % (1 << 64)
+    return (act, lp, other, drawn), key, fs_random.philox_unit_uniforms(
+        key, n, dev)
 
 
 def compare_half(label, k_out, r_out, log_ratio, ue, must_accept=None,
@@ -210,25 +312,30 @@ def compare_half(label, k_out, r_out, log_ratio, ue, must_accept=None,
     return err
 
 
-def kernel_case(fs, target, n, seed, neg_inf_every=0):
-    """Fused kernel vs plain version on one input set; returns (max_abs_err,
-    kernel args)."""
-    args = half_inputs(target.dim, n, seed, neg_inf_every, target)
-    k_out = fs.fused_stretch_half(*args, logp_fn=target)
+def kernel_case(fs, rnd, target, n, seed, neg_inf_every=0, shift=None):
+    """Fused kernel (uniforms from the key) vs plain version (the key's
+    planes) on one input set; returns (max_abs_err, tensor args, key,
+    planes)."""
+    args, key, (u, ue) = half_inputs(rnd, target.dim, n, seed, neg_inf_every,
+                                     target, shift)
+    k_out = fs.fused_stretch_half(*args, key=key, logp_fn=target)
     torch.cuda.synchronize()
-    r_out = fs.fused_stretch_half_reference(*args, logp_fn=target)
-    _, _, log_ratio = fs.stretch_proposal(*args[:5], logp_fn=target)
+    r_out = fs.fused_stretch_half_reference(*args, u, ue, logp_fn=target)
+    _, _, log_ratio = fs.stretch_proposal(*args, u, logp_fn=target)
     torch.cuda.synchronize()
     neg = slice(None, None, neg_inf_every) if neg_inf_every else None
-    err = compare_half(f"fused n={n} P={target.dim}", k_out, r_out,
-                       log_ratio, args[5], must_accept=neg)
-    return err, args
+    err = compare_half(f"fused n={n} P={target.dim} shift={int(args[3])}",
+                       k_out, r_out, log_ratio, ue, must_accept=neg)
+    return err, args, key, (u, ue)
 
 
-def split_case(fs, target, n, seed, neg_inf_every=0, nan_every=0):
+def split_case(fs, rnd, target, n, seed, neg_inf_every=0, nan_every=0,
+               shift=None):
     """The split path (propose kernel, the torch logp, accept kernel) and
-    each of its kernels alone against their plain versions; returns
-    (max_abs_err, args, logp)."""
+    each of its kernels alone against their plain versions on the key's
+    planes. Both kernels round after every operation as torch's ops do, so
+    each alone must equal its plain version bit for bit. Returns
+    (max_abs_err, tensor args, key, planes)."""
     dev = torch.device("cuda")
     rows = torch.arange(n, device=dev)
     nan_rows = (rows % nan_every == 1) if nan_every else None
@@ -238,36 +345,38 @@ def split_case(fs, target, n, seed, neg_inf_every=0, nan_every=0):
         return out if nan_rows is None else torch.where(nan_rows, torch.nan,
                                                         out)
 
-    args = half_inputs(target.dim, n, seed, neg_inf_every, target)
-    act, lp, other, shift, u, ue = args
+    args, key, (u, ue) = half_inputs(rnd, target.dim, n, seed, neg_inf_every,
+                                     target, shift)
+    act, lp, other, shift = args
     before = dict(fs.LAUNCHES)
-    k_out = fs.fused_stretch_half(*args, logp_fn=logp)
+    k_out = fs.fused_stretch_half(*args, key=key, logp_fn=logp)
     torch.cuda.synchronize()
     counted = {k: fs.LAUNCHES[k] - before[k] for k in before}
     if counted != {"fused_stretch_half": 0, "stretch_propose": 1,
                    "stretch_accept": 1}:
         raise AssertionError(f"split half-step launched {counted}")
-    r_out = fs.fused_stretch_half_reference(*args, logp_fn=logp)
-    proposal, lp_new, log_ratio = fs.stretch_proposal(*args[:5],
-                                                      logp_fn=logp)
+    r_out = fs.fused_stretch_half_reference(*args, u, ue, logp_fn=logp)
+    proposal, lp_new, log_ratio = fs.stretch_proposal(*args, u, logp_fn=logp)
     neg = slice(None, None, neg_inf_every) if neg_inf_every else None
-    label = f"split {target.name} n={n} P={target.dim}"
+    label = (f"split {target.name} n={n} P={target.dim} "
+             f"shift={int(shift)}")
     err = compare_half(label, k_out, r_out, log_ratio, ue, must_accept=neg,
                        must_reject=nan_rows)
     # each kernel alone, on the plain path's own intermediates
-    k_prop, k_fac = fs.stretch_propose(act, other, shift, u)
+    k_prop, k_fac = fs.stretch_propose(act, other, shift, key)
     r_prop, r_fac = fs.stretch_propose_reference(act, other, shift, u)
-    torch.testing.assert_close(k_prop, r_prop, rtol=RTOL, atol=ATOL)
-    torch.testing.assert_close(k_fac, r_fac, rtol=RTOL, atol=ATOL)
-    k_acc_out = fs.stretch_accept(act, r_prop, lp, lp_new, r_fac, ue)
+    k_acc_out = fs.stretch_accept(act, r_prop, lp, lp_new, r_fac, key)
     r_acc_out = fs.stretch_accept_reference(act, r_prop, lp, lp_new, r_fac,
                                             ue)
-    err = max(err, float((k_prop - r_prop).abs().max()),
-              float((k_fac - r_fac).abs().max()),
-              compare_half(label + " (accept alone)", k_acc_out, r_acc_out,
-                           log_ratio, ue, must_accept=neg,
-                           must_reject=nan_rows))
-    return err, args, logp
+    alone = max(float((k_prop - r_prop).abs().max()),
+                float((k_fac - r_fac).abs().max()),
+                compare_half(label + " (accept alone)", k_acc_out, r_acc_out,
+                             log_ratio, ue, must_accept=neg,
+                             must_reject=nan_rows))
+    if alone != 0.0 or not torch.equal(k_acc_out[2], r_acc_out[2]):
+        raise AssertionError(f"{label}: a split kernel alone differs from "
+                             f"its plain version (max abs err {alone})")
+    return max(err, alone), args, key, (u, ue)
 
 
 def check_stored(s, target, label):
@@ -290,6 +399,7 @@ def main():
     import mcmcpp_tpu_torch as mt
     from mcmcpp_tpu_torch import _build
     from mcmcpp_tpu_torch.ops import fused_stretch as fs
+    from mcmcpp_tpu_torch.ops import random as rnd
     from mcmcpp_tpu_torch.sampler import run_nostore
 
     # full-float32 plain versions: TF32 would keep ~3 decimal digits and
@@ -307,39 +417,77 @@ def main():
               f"CUDA {torch.version.cuda}")
         print(f"card: {card}")
         t0 = time.perf_counter()
-        _build.load_library()
+        lib = _build.load_library()
         print(f"kernel library {_build.library_path().name} ready in "
               f"{time.perf_counter() - t0:.1f} s")
         for line in _build.log_path().read_text().splitlines():
             if "Compiling entry" in line or "registers" in line:
                 print("  " + line.strip())
+        # the fused kernel's tiles are dynamic shared memory, which ptxas
+        # does not count
+        print("  fused_stretch_half dynamic shared memory per block: "
+              + ", ".join(
+                  f"P={q}: {lib.mcmcpp_fused_stretch_half_smem_bytes(q)} B"
+                  for q in (2, 10, 33, 64)))
 
     # -- phase 2: fused kernel vs plain version -----------------------------
     with phase("2 fused kernel vs plain"):
         rng = np.random.default_rng(0)
         flagship = mt.equicorrelated_gaussian(10, 0.5, device=dev)
-        main_err, main_args = kernel_case(fs, flagship, 1 << 20, seed=1)
+        # the kernels' own u and ue against the plain twin, bit for bit
+        for key, n in [(0, 50), (0xDEADBEEFCAFEF00D, 1000),
+                       ((1 << 64) - 1, 1 << 20)]:
+            k_u, k_ue = fs.kernel_unit_uniforms(key, n, dev)
+            torch.cuda.synchronize()
+            t_u, t_ue = rnd.philox_unit_uniforms(key, n, dev)
+            if not (torch.equal(k_u, t_u) and torch.equal(k_ue, t_ue)):
+                raise AssertionError(
+                    f"the kernels' uniforms differ from philox_unit_uniforms "
+                    f"(key {key:#x}, n {n})")
+        print("  kernel u, ue == philox_unit_uniforms bit for bit "
+              "(n = 50, 1000, 2^20)")
+        main_err, main_args, main_key, main_planes = kernel_case(
+            fs, rnd, flagship, 1 << 20, seed=1)
         errs = [main_err]
-        for target, n, neg in [
-            (mt.skewed_gaussian(device=dev), 160, 0),
-            (mt.GaussianTarget(random_chol(3, rng), device=dev), 1000, 0),
-            (mt.GaussianTarget(random_chol(64, rng), device=dev), 1 << 14, 0),
-            (flagship, 4096, 5),
+
+        def gauss(q):
+            return mt.GaussianTarget(random_chol(q, rng), device=dev)
+
+        skewed2 = mt.skewed_gaussian(device=dev)
+        for target, n, neg, shift in [
+            (skewed2, 160, 0, None),
+            (gauss(3), 1000, 0, None),
+            (gauss(64), 1 << 14, 0, None),
+            (flagship, 4096, 5, None),
+            (flagship, 1 << 16, 0, 0),
+            (flagship, 1 << 16, 0, 1),
+            (flagship, 1 << 16, 0, "last"),
+            (flagship, 1 << 16, 0, "mid"),
+            (flagship, 1000, 7, "negative"),
+            (flagship, 1000, 0, "beyond"),
+            (flagship, 50, 0, "mid"),
+            (skewed2, 160, 0, 1),
+            (gauss(7), 1000, 0, "mid"),
+            (gauss(33), 1000, 0, 1),
+            (gauss(64), 300, 0, "mid"),
         ]:
-            errs.append(kernel_case(fs, target, n, seed=n,
-                                    neg_inf_every=neg)[0])
+            errs.append(kernel_case(fs, rnd, target, n, seed=n,
+                                    neg_inf_every=neg, shift=shift)[0])
 
         def kernel_call():
-            fs.fused_stretch_half(*main_args, logp_fn=flagship)
+            fs.fused_stretch_half(*main_args, key=main_key, logp_fn=flagship)
 
         def plain_call():
-            fs.fused_stretch_half_reference(*main_args, logp_fn=flagship)
+            fs.fused_stretch_half_reference(*main_args, *main_planes,
+                                            logp_fn=flagship)
 
         # in turns, plain / kernel / kernel / plain, on one card
-        (plain_ms, kernel_ms), ((p1, p2), (k1, k2)) = in_turns(
-            [plain_call, kernel_call], 50)
+        blocker = torch.empty(1 << 28, dtype=torch.float32, device=dev)
+        (plain_ms, kernel_ms), ((p1, p2), (k1, k2)), (_, host_us) = in_turns(
+            [plain_call, kernel_call], 50, blocker)
         print(f"  half-step n=2^20 P=10: kernel {kernel_ms:.4f} ms "
-              f"({k1:.4f}, {k2:.4f}), plain {plain_ms:.4f} ms "
+              f"({k1:.4f}, {k2:.4f}; the host enqueues one call in "
+              f"{host_us:.1f} us), plain {plain_ms:.4f} ms "
               f"({p1:.4f}, {p2:.4f}) [{card}]")
         kernels["fused_stretch_half"] = {
             "source": "mcmcpp_tpu_torch/csrc/fused_stretch.cu",
@@ -348,36 +496,51 @@ def main():
     # -- phase 2b: the split kernels vs their plain versions ----------------
     with phase("2b split kernels vs plain"):
         funnel = mt.neal_funnel(10)
-        split_err, sargs, _ = split_case(fs, funnel, 1 << 20, seed=2)
+        split_err, sargs, skey, (u, ue) = split_case(fs, rnd, funnel, 1 << 20,
+                                                     seed=2)
         split_errs = [split_err]
-        for target, n, neg, nan in [
-            (mt.rosenbrock(), 160, 0, 0),
-            (mt.logistic_regression(dim=4, device=dev), 1000, 0, 0),
-            (funnel, 4096, 5, 0),
-            (funnel, 4096, 0, 7),
+        for target, n, neg, nan, shift in [
+            (mt.rosenbrock(), 160, 0, 0, None),
+            (mt.logistic_regression(dim=4, device=dev), 1000, 0, 0, None),
+            (funnel, 4096, 5, 0, None),
+            (funnel, 4096, 0, 7, None),
+            (funnel, 1 << 16, 0, 0, 0),
+            (funnel, 1 << 16, 0, 0, 1),
+            (funnel, 1 << 16, 0, 0, "last"),
+            (funnel, 1 << 16, 0, 0, "mid"),
+            (funnel, 1000, 0, 7, "negative"),
+            (funnel, 1000, 0, 0, "beyond"),
+            (funnel, 50, 0, 0, "mid"),
+            (mt.rosenbrock(), 160, 0, 0, 1),
+            (mt.neal_funnel(3), 1000, 0, 0, "mid"),
+            (mt.neal_funnel(7), 1000, 0, 0, 1),
+            (mt.neal_funnel(33), 1000, 0, 0, "mid"),
+            (mt.neal_funnel(64), 300, 0, 0, "last"),
         ]:
-            split_errs.append(split_case(fs, target, n, seed=n + 1,
-                                         neg_inf_every=neg,
-                                         nan_every=nan)[0])
-        act, lp, other, shift, u, ue = sargs
+            split_errs.append(split_case(fs, rnd, target, n, seed=n + 1,
+                                         neg_inf_every=neg, nan_every=nan,
+                                         shift=shift)[0])
+        act, lp, other, shift = sargs
         prop, fac = fs.stretch_propose_reference(act, other, shift, u)
         lp_new = funnel(prop)
         calls = {
-            "split": lambda: fs.fused_stretch_half(*sargs, logp_fn=funnel),
+            "split": lambda: fs.fused_stretch_half(*sargs, key=skey,
+                                                   logp_fn=funnel),
             "split_plain": lambda: fs.fused_stretch_half_reference(
-                *sargs, logp_fn=funnel),
-            "propose": lambda: fs.stretch_propose(act, other, shift, u),
+                *sargs, u, ue, logp_fn=funnel),
+            "propose": lambda: fs.stretch_propose(act, other, shift, skey),
             "propose_plain": lambda: fs.stretch_propose_reference(
                 act, other, shift, u),
             "accept": lambda: fs.stretch_accept(act, prop, lp, lp_new, fac,
-                                                ue),
+                                                skey),
             "accept_plain": lambda: fs.stretch_accept_reference(
                 act, prop, lp, lp_new, fac, ue),
         }
         ms = {}
         for a, b in [("split_plain", "split"), ("propose_plain", "propose"),
                      ("accept_plain", "accept")]:
-            (ms[a], ms[b]), _ = in_turns([calls[a], calls[b]], 50)
+            (ms[a], ms[b]), _, _ = in_turns([calls[a], calls[b]], 50,
+                                            blocker)
         print(f"  funnel n=2^20 P=10, ms per call (in turns): split half-step "
               f"{ms['split']:.4f} vs plain {ms['split_plain']:.4f}; propose "
               f"{ms['propose']:.4f} vs {ms['propose_plain']:.4f}; accept "
@@ -388,27 +551,40 @@ def main():
                 "max_abs_err": max(split_errs), "ms": ms[name],
                 "plain_ms": ms[f"{name}_plain"]}
         del sargs, act, lp, other, shift, u, ue, prop, fac, lp_new, calls
+        del blocker
 
     # -- phase 3: the flagship at full width --------------------------------
     with phase("3 flagship"):
         n_walkers, burn, n_store, thin = W_FULL, 200, 40, 10
+        nosync_steps = 20
         reset_launches(fs)
         s = mt.EnsembleSampler(flagship, n_walkers=n_walkers, n_params=10,
                                mover=mt.FusedStretchMove(), seed=0,
                                batched=True, device="cuda")
         s.init_ball(np.zeros(10), 0.5)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        s.run_mcmc(burn, store=False)
-        torch.cuda.synchronize()
-        burn_s = time.perf_counter() - t0
+        # the step loop alone may not wait on the device: the key comes
+        # from the host generator and reaches the kernel by value
+        with no_host_sync():
+            s.state = run_nostore(s.state, s._step_fn, nosync_steps)
+        # three runs, each printed: the step is bound by the host, whose
+        # pace varies from run to run
+        burn_runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s.run_mcmc(burn, store=False)
+            torch.cuda.synchronize()
+            burn_runs.append(time.perf_counter() - t0)
         if not s.run_mcmc(n_store, thin=thin):
             raise AssertionError("chain capacity hit in the flagship run")
         launches = dict(fs.LAUNCHES)
-        if launches != {"fused_stretch_half": 2 * (burn + n_store),
+        n_steps = nosync_steps + 3 * burn + n_store
+        if launches != {"fused_stretch_half": 2 * n_steps,
                         "stretch_propose": 0, "stretch_accept": 0}:
             raise AssertionError(f"flagship launches {launches}, expected "
-                                 f"{2 * (burn + n_store)} fused only")
+                                 f"{2 * n_steps} fused only")
+        kernels["fused_stretch_half"]["launches_per_step"] = (
+            launches["fused_stretch_half"] / n_steps)
         kernels["fused_stretch_half"]["launches"] = launches[
             "fused_stretch_half"]
         samples = check_stored(s, flagship, "flagship")
@@ -423,11 +599,15 @@ def main():
         del samples
 
         class PlainFusedStretchMove(mt.FusedStretchMove):
-            """The same draws and transition through the plain version."""
+            """The same draws and transition through the plain version,
+            which has to make the key's planes with the twin's integer
+            ops: its time is a plain version's time, not a yardstick."""
 
             def apply(self, active, active_logp, other, logp_fn, state,
                       noise, beta=1.0):
-                shift, u, ue = noise
+                shift, key = noise
+                u, ue = rnd.philox_unit_uniforms(key, active.shape[0],
+                                                 active.device)
                 return fs.fused_stretch_half_reference(
                     active, active_logp, other, shift, u, ue,
                     logp_fn=logp_fn, a=self.a)
@@ -441,11 +621,12 @@ def main():
         sp.run_mcmc(burn, store=False)
         torch.cuda.synchronize()
         plain_burn_s = time.perf_counter() - t0
-        rate = burn * n_walkers / burn_s
+        rates = ", ".join(f"{burn * n_walkers / t:.6e}" for t in burn_runs)
         plain_rate = burn * n_walkers / plain_burn_s
-        print(f"flagship burn-in {burn} steps: kernel {rate:.6e} "
-              f"walker-updates/s ({burn_s:.4f} s), plain {plain_rate:.6e} "
-              f"walker-updates/s ({plain_burn_s:.4f} s) [{card}]")
+        print(f"flagship burn-in, {burn} steps a run: kernel {rates} "
+              f"walker-updates/s, plain (with the twin's integer ops for u "
+              f"and ue; no yardstick) {plain_rate:.6e} walker-updates/s "
+              f"({plain_burn_s:.4f} s) [{card}]")
         del s, sp
         torch.cuda.empty_cache()
 
@@ -560,6 +741,7 @@ def main():
                                          f"expected {want}")
                 for k in ("stretch_propose", "stretch_accept"):
                     kernels[k]["launches"] = launches[k]
+                    kernels[k]["launches_per_step"] = launches[k] / steps
                 extra = f", launches {launches}"
             print(f"  {name}: {timed_steps * W_FULL / burn_s:.6e} "
                   f"walker-updates/s ({burn_s:.4f} s for {timed_steps} steps"
@@ -616,7 +798,7 @@ def main():
                 (mt.FusedStretchMove(), 2.0),
                 (mt.DifferentialEvolutionMove(), 1.0),
                 (mt.DESnookerMove(), 1.0)]), 8000, 0.15),
-            ("slice", lambda: mt.EnsembleSliceMove(), 2000, 0.12),
+            ("slice", lambda: mt.EnsembleSliceMove(), 800, 0.12),
         ]:
             t0 = time.perf_counter()
             so = mt.EnsembleSampler(skewed, 320, 2, mover=make(), seed=42,
@@ -640,17 +822,18 @@ def main():
                 raise AssertionError(f"slice acceptance {acc}")
 
         banana = mt.rosenbrock(1.0, 5.0, 4.0)
-        for name, mover in [("fused a=3 (split kernels)",
-                             mt.FusedStretchMove(a=3.0)),
-                            ("walk6", mt.WalkMove(6)),
-                            ("de", mt.DifferentialEvolutionMove())]:
+        for name, mover, n_steps in [
+                ("fused a=3 (split kernels)", mt.FusedStretchMove(a=3.0),
+                 12000),
+                ("walk6", mt.WalkMove(6), 8000),
+                ("de", mt.DifferentialEvolutionMove(), 12000)]:
             reset_launches(fs)
             t0 = time.perf_counter()
             sb = mt.EnsembleSampler(banana, 256, 2, mover=mover, seed=3,
                                     batched=True, device="cuda")
             sb.init_ball(np.array([1.0, 1.0]), scale=0.5, seed=4)
             sb.run_mcmc(2000, store=False)
-            if not sb.run_mcmc(12000, thin=4):
+            if not sb.run_mcmc(n_steps, thin=4):
                 raise AssertionError(f"banana {name}: chain capacity hit")
             flat = sb.get_samples(flat=True)
             mx, vx = flat[:, 0].mean(), flat[:, 0].var()
@@ -707,14 +890,74 @@ def main():
                                    rtol=1e-5, atol=1e-6)
         print("  step_action: 100 rows, equal to the chain's mean logp")
 
+    # -- phase 7: what a flagship step puts on the device --------------------
+    # Last, because the profiler's tracing stays attached to the process
+    # and slows every later launch: no timing may follow it.
+    with phase("7 steps under the profiler"):
+        prof_steps = 50
+        for label, target, want in [
+                ("flagship", flagship, {"fused_stretch_half": 2}),
+                ("funnel", funnel, {"stretch_propose": 2,
+                                    "stretch_accept": 2})]:
+            s = mt.EnsembleSampler(target, n_walkers=W_FULL,
+                                   n_params=P_FULL,
+                                   mover=mt.FusedStretchMove(), seed=0,
+                                   batched=True, device="cuda")
+            s.init_ball(np.zeros(P_FULL), 0.5)
+            s.state = run_nostore(s.state, s._step_fn, 20)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s.state = run_nostore(s.state, s._step_fn, prof_steps)
+            enqueue_us = (time.perf_counter() - t0) / prof_steps * 1e6
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) / prof_steps * 1e6
+            rows = device_rows_per_step(
+                lambda: run_nostore(s.state, s._step_fn, prof_steps),
+                prof_steps)
+            print(f"{label} W=2^21, {prof_steps} steps: unprofiled wall "
+                  f"{wall_us:.1f} us/step, of which the host enqueues for "
+                  f"{enqueue_us:.1f}; profiled device time "
+                  f"{sum(us for _, us in rows.values()):.1f} us/step in "
+                  f"{sum(n for n, _ in rows.values()):g} launches/step "
+                  f"[{card}]:")
+            for k, (n, us) in sorted(rows.items(), key=lambda r: -r[1][1]):
+                print(f"  {n:g} x {us / n:.2f} us  {k[:120]}")
+            for kernel in kernels:
+                got = sum(n for k, (n, _) in rows.items() if kernel in k)
+                if got != want.get(kernel, 0):
+                    raise AssertionError(
+                        f"a {label} step must launch {kernel} "
+                        f"{want.get(kernel, 0)} times, saw {got}")
+            # torch.rand's kernel is a float distribution kernel built by
+            # uniform_and_transform (the shift's randint is an unsigned int
+            # one)
+            drawn = [k for k in rows
+                     if "distribution_elementwise_grid_stride_kernel<float"
+                     in k or "uniform_and_transform" in k
+                     or "uniform_real" in k
+                     or (label == "flagship" and "clamp" in k.lower())]
+            if drawn:
+                raise AssertionError(f"a {label} step still draws or clamps "
+                                     f"planes on the device: {drawn}")
+            del s
+            torch.cuda.empty_cache()
+
     for name, k in kernels.items():
         if not k.get("launches"):
             raise AssertionError(f"{name} was not launched on its main path")
+    # ms, plain_ms and bound_ms at n = 2^20, P = 10, the half-step of the
+    # main path. library_ms is null: no one PyTorch call computes any of the
+    # three functions (the plain versions are four to ten ops each).
+    bounds = kernel_bounds(1 << 20, P_FULL)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": k["source"],
          "replaces": "mcmcpp_tpu/ops/pallas_stretch.py:164",
-         "launches": k["launches"], "max_abs_err": k["max_abs_err"],
-         "ms": k["ms"], "plain_ms": k["plain_ms"]}
+         "launches": k["launches"],
+         "launches_per_step": k["launches_per_step"],
+         "max_abs_err": k["max_abs_err"],
+         "ms": k["ms"], "plain_ms": k["plain_ms"],
+         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+         "library_ms": None}
         for name, k in kernels.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

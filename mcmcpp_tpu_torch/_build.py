@@ -27,8 +27,11 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+# --split-compile 0 optimises a source's kernels on all the host's cores:
+# the fused kernel's eight instantiations took 68 s in one thread and 41 s
+# split, the P <= 64 one alone setting the pace (nvcc 12.9, 8 cores)
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--split-compile", "0",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _sources():
@@ -115,15 +118,23 @@ def load_library():
     lib = ctypes.CDLL(str(build()))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     i64, f32 = ctypes.c_longlong, ctypes.c_float
-    # every pointer and the stream as c_void_p: a bare Python int would be
-    # passed as a 32-bit C int and cut the address
+    u64 = ctypes.c_ulonglong
+    # every pointer and the stream as c_void_p, the Philox key as
+    # c_ulonglong: a bare Python int would be passed as a 32-bit C int and
+    # cut the address or the key
     signatures = {
-        "mcmcpp_fused_stretch_half_f32": [ptr] * 10 + [i32, i32, f32, ptr],
-        "mcmcpp_stretch_propose_f32": [ptr] * 6 + [i64, i32, f32, ptr],
-        "mcmcpp_stretch_accept_f32": [ptr] * 9 + [i64, i32, ptr],
+        "mcmcpp_fused_stretch_half_f32":
+            [ptr] * 4 + [u64] + [ptr] * 4 + [i32, i32, f32, ptr],
+        "mcmcpp_stretch_propose_f32":
+            [ptr] * 3 + [u64] + [ptr] * 2 + [i64, i32, f32, ptr],
+        "mcmcpp_stretch_accept_f32":
+            [ptr] * 5 + [u64] + [ptr] * 3 + [i64, i32, ptr],
+        "mcmcpp_unit_uniforms_f32": [u64, ptr, ptr, i64, ptr],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = i32
+    lib.mcmcpp_fused_stretch_half_smem_bytes.argtypes = [i32]
+    lib.mcmcpp_fused_stretch_half_smem_bytes.restype = i64
     return lib

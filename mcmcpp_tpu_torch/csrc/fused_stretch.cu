@@ -2,132 +2,240 @@
 //
 // Replaces the TPU kernel mcmcpp_tpu/ops/pallas_stretch.py::fused_stretch_half
 // (its body `_kernel`): for every active walker i it reads the partner
-// other[(i + shift) % n], forms z = ((sqrt(a) - 1/sqrt(a))·u + 1/sqrt(a))^2 and
-// the proposal Y = partner + z·(X − partner), evaluates
-// lp_new = −0.5·‖Y @ L‖² with the precision Cholesky L (P×P, row-major), and
-// accepts iff log(ue) < (P−1)·log z + lp_new − lp_old. It writes the selected
-// row, its logp and an int32 accept flag.
+// other[(i + shift) % n], draws u and ue from the half-step's key, forms
+// z = ((sqrt(a) - 1/sqrt(a))·u + 1/sqrt(a))^2 and the proposal
+// Y = partner + z·(X − partner), evaluates lp_new = −0.5·‖Y @ L‖² with the
+// precision Cholesky L (P×P, row-major), and accepts iff
+// log(ue) < (P−1)·log z + lp_new − lp_old. It writes the selected row, its
+// logp and an int32 accept flag.
 //
-// What bounds it: at P = 10 one walker half-update moves about 140 B of device
-// memory (X, partner and the output row at 40 B each, plus lp_old, u, ue,
-// out_lp and out_acc at 4 B each) against about 200 FLOPs for the 10×10
-// product, so the kernel is memory-bound on an H100. The design keeps every
-// intermediate (partner row, proposal, y = Y @ L) in registers and L in shared
-// memory, so each walker's bytes cross device memory once.
+// What bounds it: at P = 10 one walker half-update moves 132 B of device
+// memory (X, partner and the output row at 40 B each, plus lp_old, out_lp and
+// out_acc at 4 B each; 138.4 MB and 0.0413 ms at n = 2^20 on an H100's
+// 3.35 TB/s) against about 200 FLOPs for the 10×10 product and some 80
+// integer operations for the two uniforms, so the kernel is memory-bound.
 //
-// What this simple design leaves for later: one thread owns one row, so
-// neighbouring threads read rows 4·P bytes apart (40 B at P = 10) and the loads
-// are not coalesced; a transposed (P, n) layout or a cooperative row load would
-// fix that. The uniforms u and ue are drawn by the caller (a Philox generator
-// inside the kernel would save their 8 B per walker), and P is capped at 64 so
-// that L fits in 16 KB of static shared memory.
+// What the design does about it:
+// - u and ue never touch device memory: they are Philox words of (key, i),
+//   computed in registers (stretch_common.cuh), as the Pallas kernel drew
+//   them from the TPU's generator.
+// - Every global load and store is coalesced. A block owns a tile of R
+//   consecutive walkers. Their X rows are one contiguous run of R·P floats,
+//   and with the roll so are their partner rows (two runs where the tile
+//   crosses the wrap at n). The block copies those runs into shared memory
+//   cooperatively, neighbouring threads on neighbouring addresses, so each
+//   load instruction of a warp covers whole 128-B lines (one thread per 40-B
+//   row, as this kernel first had it, used 4 B of every 40 per instruction
+//   and reached a third of the memory rate). Then each thread takes its own
+//   row from shared memory, computes in registers as before, writes an
+//   accepted proposal over its X row in shared memory, and the block stores
+//   the tile back in one contiguous run.
+// - Rows in shared memory have an odd stride (P | 1) so that the per-row
+//   reads of a warp fall into 32 different banks.
+// - The loads are plain loads, and what decides their speed is how many
+//   bytes are in flight: a thread starts all the loads of a tile before its
+//   first store to shared memory (kLoadBatch), and the kernel is
+//   compiled for six blocks an SM (kMinBlocks256), so that other
+//   blocks load while one computes. Measured at n = 2^20, P = 10 on an H100
+//   at 700 W, in turns in one run: the first design 0.1405 ms; this one
+//   0.0676 ms; with four loads a batch 0.0731 ms; at the compiler's own 53
+//   registers (four blocks an SM) and four loads a batch 0.1095 ms; seven
+//   blocks an SM spill and take 0.0920 ms.
+// - For even P every row starts 8-B aligned in X, the partner run and the
+//   output, whatever the shift, so the copies move a float2 per thread; odd
+//   P, or a base pointer that is not 8-B aligned, takes the 4-B copies
+//   (decided per launch, between two instantiations: as a run-time
+//   argument of one instantiation the choice measured 0.0682 ms against
+//   0.0672 ms). A build forced to 4 B took 0.1345 ms against 0.1095 ms,
+//   both at four blocks an SM.
+//   cp.async of 4 B straight into shared memory, which holds no value in a
+//   register, measured 0.0759 ms at six blocks an SM and lost to the plain
+//   float2 loads; it was taken out again. A TMA bulk copy needs 16-B aligned
+//   runs, which a roll by an odd number of 40-B rows does not give; it was
+//   not tried.
+// - The one modulo is per tile: the tile's first partner row; the rows after
+//   it wrap with a compare and a subtract.
 //
-// The partner index, z and the accept rule are the device functions of
-// stretch_common.cuh, shared with the split kernels (stretch_split.cu); the
-// header also says why the build keeps IEEE logf/sqrtf (no fast math).
+// P is capped at 64: L (PMAX×PMAX) and the two tiles live in dynamic shared
+// memory, 22.5 KB + 1 KB a block at P = 10 (R = 256) and 65 KB + 16 KB at
+// P = 64 (R = 128), the latter above the 48 KB that need the opt-in below.
+//
+// The partner index, z, the uniforms and the accept rule are the device
+// functions of stretch_common.cuh, shared with the split kernels
+// (stretch_split.cu); the header also says why the build keeps IEEE
+// logf/sqrtf (no fast math).
 
 #include "stretch_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+// Blocks per SM that the 256-thread instantiations (P <= 16) are compiled
+// for: 6 caps them at 42 registers (40 used at P <= 16, no spill).
+constexpr int kMinBlocks256 = 6;
+// Devices of one host that the shared-memory opt-in below keeps a flag for.
+constexpr int kMaxDevices = 64;
 
 // PMAX is a compile-time bound on P: the per-row arrays are unrolled over PMAX
-// with `k < P` guards, so they stay in registers for any P <= PMAX.
-template <int PMAX>
-__global__ void __launch_bounds__(kThreads) fused_stretch_half_kernel(
+// with `k < P` guards, so they stay in registers for any P <= PMAX. R is the
+// tile's rows and the block's threads.
+template <int PMAX, int R, int VEC>
+__global__ void __launch_bounds__(R, R == 256 ? kMinBlocks256 : 1)
+fused_stretch_half_kernel(
     const float* __restrict__ act, const float* __restrict__ lp_old,
     const float* __restrict__ other, const int* __restrict__ shift,
-    const float* __restrict__ u, const float* __restrict__ ue,
-    const float* __restrict__ prec_chol, float* __restrict__ out_act,
-    float* __restrict__ out_lp, int* __restrict__ out_acc, int n, int P,
-    float a) {
-  __shared__ float sL[PMAX * PMAX];
-  for (int t = threadIdx.x; t < P * P; t += blockDim.x) {
+    unsigned long long key, const float* __restrict__ prec_chol,
+    float* __restrict__ out_act, float* __restrict__ out_lp,
+    int* __restrict__ out_acc, int n, int P, float a) {
+  extern __shared__ float smem[];
+  const int stride = P | 1;
+  float* sL = smem;
+  float* sX = sL + PMAX * PMAX;
+  float* sP = sX + R * stride;
+
+  const long long i0 = (long long)blockIdx.x * R;
+  const int rows = (int)min((long long)R, (long long)n - i0);
+  const long long j0 = mcmcpp::partner_row(i0, *shift, n);
+
+  for (int t = threadIdx.x; t < P * P; t += R) {
     sL[(t / P) * PMAX + (t % P)] = prec_chol[t];
   }
+  mcmcpp::load_tile<VEC>(act, i0, rows, n, P, stride, sX);
+  mcmcpp::load_tile<VEC>(other, j0, rows, n, P, stride, sP);
   __syncthreads();
 
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  // ragged last tile: the threads past its rows skip the row's work and
+  // still reach both barriers
+  if ((int)threadIdx.x < rows) {
+    const long long i = i0 + threadIdx.x;
+    const float* x = sX + threadIdx.x * stride;
+    const float* xp = sP + threadIdx.x * stride;
+    const float2 uu = mcmcpp::unit_uniforms(key, (unsigned long long)i);
+    const float z = mcmcpp::stretch_z(uu.x, a);
 
-  const long long j = mcmcpp::partner_row(i, *shift, n);
-  const float* x = act + (size_t)i * P;
-  const float* xp = other + (size_t)j * P;
-  const float z = mcmcpp::stretch_z(u[i], a);
-
-  float y[PMAX];
+    float y[PMAX];
 #pragma unroll
-  for (int k = 0; k < PMAX; ++k) {
-    if (k < P) {
-      // contracted to an FMA, unlike the split kernels' stretch_point: this
-      // kernel's logp is its own, so no torch op has to see the same Y bit
-      // for bit, and the FMA keeps the kernel as fast as it was
-      const float p = xp[k];
-      y[k] = p + z * (x[k] - p);
+    for (int k = 0; k < PMAX; ++k) {
+      if (k < P) {
+        // contracted to an FMA, unlike the split kernels' stretch_point: this
+        // kernel's logp is its own, so no torch op has to see the same Y bit
+        // for bit
+        const float p = xp[k];
+        y[k] = p + z * (x[k] - p);
+      }
     }
-  }
-  float q = 0.0f;
+    float q = 0.0f;
 #pragma unroll
-  for (int c = 0; c < PMAX; ++c) {
-    if (c < P) {
-      float s = 0.0f;
+    for (int c = 0; c < PMAX; ++c) {
+      if (c < P) {
+        float s = 0.0f;
+#pragma unroll
+        for (int k = 0; k < PMAX; ++k) {
+          if (k < P) s += y[k] * sL[k * PMAX + c];
+        }
+        q += s * s;
+      }
+    }
+    const float lp_new = -0.5f * q;
+    const float lo = lp_old[i];
+    const bool accept = mcmcpp::stretch_accepts(
+        uu.y, (float)(P - 1) * logf(z), lp_new, lo);
+    if (accept) {
+      float* xo = sX + threadIdx.x * stride;
 #pragma unroll
       for (int k = 0; k < PMAX; ++k) {
-        if (k < P) s += y[k] * sL[k * PMAX + c];
+        if (k < P) xo[k] = y[k];
       }
-      q += s * s;
     }
+    out_lp[i] = accept ? lp_new : lo;
+    out_acc[i] = accept ? 1 : 0;
   }
-  const float lp_new = -0.5f * q;
-  const float lo = lp_old[i];
-  const bool accept =
-      mcmcpp::stretch_accepts(ue[i], (float)(P - 1) * logf(z), lp_new, lo);
-
-  float* xo = out_act + (size_t)i * P;
-#pragma unroll
-  for (int k = 0; k < PMAX; ++k) {
-    if (k < P) xo[k] = accept ? y[k] : x[k];
-  }
-  out_lp[i] = accept ? lp_new : lo;
-  out_acc[i] = accept ? 1 : 0;
+  __syncthreads();
+  mcmcpp::store_tile<VEC>(sX, i0, rows, P, stride, out_act);
 }
 
-template <int PMAX>
-void launch(const float* act, const float* lp_old, const float* other,
-            const int* shift, const float* u, const float* ue,
-            const float* prec_chol, float* out_act, float* out_lp,
-            int* out_acc, int n, int P, float a, cudaStream_t stream) {
-  const int blocks = (n + kThreads - 1) / kThreads;
-  fused_stretch_half_kernel<PMAX><<<blocks, kThreads, 0, stream>>>(
-      act, lp_old, other, shift, u, ue, prec_chol, out_act, out_lp, out_acc,
-      n, P, a);
+template <int PMAX, int R>
+size_t smem_bytes(int P) {
+  return sizeof(float) * ((size_t)PMAX * PMAX + 2 * (size_t)R * (P | 1));
+}
+
+template <int PMAX, int R, int VEC>
+cudaError_t launch_vec(const float* act, const float* lp_old,
+                       const float* other, const int* shift,
+                       unsigned long long key, const float* prec_chol,
+                       float* out_act, float* out_lp, int* out_acc, int n,
+                       int P, float a, cudaStream_t stream) {
+  auto kernel = fused_stretch_half_kernel<PMAX, R, VEC>;
+  const size_t bytes = smem_bytes<PMAX, R>(P);
+  if (bytes > 48 * 1024) {
+    // above 48 KB a block's dynamic shared memory has to be asked for: once
+    // for this instantiation on each device, at the most it can need
+    static bool asked[kMaxDevices] = {};
+    int device = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err != cudaSuccess) return err;
+    if (device >= kMaxDevices) return cudaErrorInvalidDevice;
+    if (!asked[device]) {
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem_bytes<PMAX, R>(PMAX));
+      if (err != cudaSuccess) return err;
+      asked[device] = true;
+    }
+  }
+  const int blocks = (n + R - 1) / R;
+  kernel<<<blocks, R, bytes, stream>>>(act, lp_old, other, shift, key,
+                                       prec_chol, out_act, out_lp, out_acc, n,
+                                       P, a);
+  return cudaGetLastError();
+}
+
+template <int PMAX, int R>
+cudaError_t launch(const float* act, const float* lp_old, const float* other,
+                   const int* shift, unsigned long long key,
+                   const float* prec_chol, float* out_act, float* out_lp,
+                   int* out_acc, int n, int P, float a, cudaStream_t stream) {
+  if (mcmcpp::rows_aligned8(P, act, other, out_act)) {
+    return launch_vec<PMAX, R, 2>(act, lp_old, other, shift, key, prec_chol,
+                                  out_act, out_lp, out_acc, n, P, a, stream);
+  }
+  return launch_vec<PMAX, R, 1>(act, lp_old, other, shift, key, prec_chol,
+                                out_act, out_lp, out_acc, n, P, a, stream);
 }
 
 }  // namespace
 
+// Dynamic shared memory of one block of the fused kernel at dimension P
+// (L and the two tiles), for the records; 0 for a P the kernel refuses.
+extern "C" long long mcmcpp_fused_stretch_half_smem_bytes(int P) {
+  if (P <= 0 || P > 64) return 0;
+  if (P <= 8) return (long long)smem_bytes<8, 256>(P);
+  if (P <= 16) return (long long)smem_bytes<16, 256>(P);
+  if (P <= 32) return (long long)smem_bytes<32, 128>(P);
+  return (long long)smem_bytes<64, 128>(P);
+}
+
 // One fused stretch half-step over n active walkers of dimension P (n == m).
-// All pointers are device pointers; `shift` points at one int32 in [0, n).
-// Returns cudaGetLastError() after the launch (0 on success).
+// All pointers are device pointers; `shift` points at one int32 (any value:
+// the partner index is taken modulo n); `key` is the half-step's Philox key,
+// walker i drawing its u and ue from (key, i). Returns the launch's
+// cudaError_t (0 on success).
 extern "C" int mcmcpp_fused_stretch_half_f32(
     const float* act, const float* lp_old, const float* other,
-    const int* shift, const float* u, const float* ue, const float* prec_chol,
+    const int* shift, unsigned long long key, const float* prec_chol,
     float* out_act, float* out_lp, int* out_acc, int n, int P, float a,
     void* stream) {
   if (n <= 0 || P <= 0 || P > 64) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (P <= 8) {
-    launch<8>(act, lp_old, other, shift, u, ue, prec_chol, out_act, out_lp,
-              out_acc, n, P, a, s);
+    return (int)launch<8, 256>(act, lp_old, other, shift, key, prec_chol,
+                               out_act, out_lp, out_acc, n, P, a, s);
   } else if (P <= 16) {
-    launch<16>(act, lp_old, other, shift, u, ue, prec_chol, out_act, out_lp,
-               out_acc, n, P, a, s);
+    return (int)launch<16, 256>(act, lp_old, other, shift, key, prec_chol,
+                                out_act, out_lp, out_acc, n, P, a, s);
   } else if (P <= 32) {
-    launch<32>(act, lp_old, other, shift, u, ue, prec_chol, out_act, out_lp,
-               out_acc, n, P, a, s);
-  } else {
-    launch<64>(act, lp_old, other, shift, u, ue, prec_chol, out_act, out_lp,
-               out_acc, n, P, a, s);
+    return (int)launch<32, 128>(act, lp_old, other, shift, key, prec_chol,
+                                out_act, out_lp, out_acc, n, P, a, s);
   }
-  return (int)cudaGetLastError();
+  return (int)launch<64, 128>(act, lp_old, other, shift, key, prec_chol,
+                              out_act, out_lp, out_acc, n, P, a, s);
 }

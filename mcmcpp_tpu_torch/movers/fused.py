@@ -8,6 +8,35 @@ version, and the logp picks the kernel: one fused launch per half-step for
 a :class:`~mcmcpp_tpu_torch.models.targets.GaussianTarget` (pass the module
 itself with ``batched=True``), the propose and accept kernels around the
 torch logp for any other.
+
+The noise of a half-step, one format per device. The Pallas kernel seeded
+the TPU's generator and drew its uniforms u and ue inside its body; the CUDA
+kernels do the same with Philox words of a 64-bit key and the walker's index
+(``csrc/stretch_common.cuh``). So ``draw_noise`` draws the shift, on the
+ensemble's device, and one key per half-step, and:
+
+- on a CUDA device the noise is ``(shift, key)`` and no plane of uniforms is
+  ever drawn or stored;
+- on the CPU the noise is ``(shift, u, ue)``, the planes that the kernels
+  would draw from that key (``ops/random.py::philox_unit_uniforms``), and
+  ``apply`` takes any such planes, which is how the tests hand the port the
+  JAX package's own numbers.
+
+The key is a Python int drawn from ``host_gen``, the sampler's CPU generator
+(two 32-bit words in one draw), and reaches the kernel by value. That
+choice keeps the half-step free of host syncs and of any extra device launch:
+device words beside ``shift`` would cost one more small launch per half-step
+on a path that is bound by the host's enqueue time, and the host generator
+is already there for the mixture mover's branch. Distinct half-steps (red,
+black, consecutive steps) get independent 64-bit keys, so a walker index
+never meets the same key twice. What it costs: a CUDA graph of the step
+bakes by-value arguments in when it is captured, so a captured step would
+replay one key; graphs need the key as device words that a captured op
+advances (a pointer argument, as ``shift`` is), which is a change to the
+kernels' interface and to this method only.
+
+Seeded runs of this mover give another stream than they did when the planes
+came from ``torch.rand``; the distribution is the same.
 """
 
 import torch
@@ -15,12 +44,13 @@ import torch
 from mcmcpp_tpu_torch.movers.base import Mover
 from mcmcpp_tpu_torch.ops.fused_stretch import fused_stretch_half
 from mcmcpp_tpu_torch.ops.partner import distinct_shifts
-from mcmcpp_tpu_torch.ops.random import unit_uniform
+from mcmcpp_tpu_torch.ops.random import draw_key, philox_unit_uniforms
 
 
 class FusedStretchMove(Mover):
-    """Stretch move through the fused kernel; ``noise`` is ``(shift, u, ue)``
-    with u, ue uniform in [2^-25, 1) so that log(ue) is finite."""
+    """Stretch move through the fused kernel; ``noise`` is ``(shift, key)``
+    on a CUDA device and ``(shift, u, ue)`` on the CPU, with u, ue uniform
+    in [2^-25, 1) so that log(ue) is finite."""
 
     def __init__(self, a=2.0):
         self.a = float(a)
@@ -30,9 +60,16 @@ class FusedStretchMove(Mover):
         if n != m:
             raise ValueError(f"fused stretch requires equal halves "
                              f"(n={n}, m={m})")
-        return (distinct_shifts(gen, m, 1, device),
-                unit_uniform(gen, n, dtype, device),
-                unit_uniform(gen, n, dtype, device))
+        key_gen = gen if host_gen is None else host_gen
+        if key_gen.device.type != "cpu":
+            raise ValueError("FusedStretchMove draws its Philox key on the "
+                             "host: pass host_gen, a CPU torch.Generator")
+        shift = distinct_shifts(gen, m, 1, device)
+        key = draw_key(key_gen)
+        if torch.device(device).type != "cpu":
+            return shift, key
+        u, ue = philox_unit_uniforms(key, n, device)
+        return shift, u.to(dtype), ue.to(dtype)
 
     def apply(self, active, active_logp, other, logp_fn, state, noise,
               beta=1.0):
@@ -41,6 +78,10 @@ class FusedStretchMove(Mover):
                 "FusedStretchMove does not support tempered acceptance "
                 "(beta != 1); use StretchMove for parallel tempering"
             )
+        if active.device.type == "cuda":
+            shift, key = noise
+            return fused_stretch_half(active, active_logp, other, shift,
+                                      key=key, logp_fn=logp_fn, a=self.a)
         shift, u, ue = noise
         return fused_stretch_half(active, active_logp, other, shift, u, ue,
                                   logp_fn=logp_fn, a=self.a)

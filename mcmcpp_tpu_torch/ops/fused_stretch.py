@@ -5,16 +5,24 @@ call updates the active half against the other half: partner
 ``other[(i + shift) % n]``, z from u, proposal, logp, and the accept select
 log(ue) < (P−1)·log z + lp_new − lp_old.
 
-The random inputs are explicit: a (1,) int32 device ``shift`` and two (n,)
-uniforms ``u`` and ``ue`` in [2^-25, 1). The Pallas kernel drew them from the
-TPU's hardware generator; here the caller draws them (``ops/random.py``), which
-also lets tests feed both packages the same numbers.
+The random inputs: a (1,) int32 device ``shift`` and the uniforms ``u`` and
+``ue`` in [2^-25, 1), one pair per active walker. The Pallas kernel seeded the
+TPU's hardware generator and drew them inside its body. The CUDA kernels do
+the same with a counter-based generator: they take a 64-bit ``key`` (a Python
+int, passed by value) and compute walker i's pair in registers as the Philox
+words of (key, i), so no plane of uniforms exists on the card. The plain
+versions keep explicit (n,) planes, which also lets tests feed both packages
+the same numbers; ``ops/random.py::philox_unit_uniforms(key, n, device)`` gives
+the planes the kernels draw, bit for bit, so a kernel run with ``key`` is held
+against its plain version run on those planes.
 
 :func:`fused_stretch_half` dispatches on the tensors' device and the logp:
 
-- CPU tensors run :func:`fused_stretch_half_reference`, for any logp;
-- CUDA tensors with a
-  :class:`~mcmcpp_tpu_torch.models.targets.GaussianTarget` launch the fused
+- CPU tensors run :func:`fused_stretch_half_reference`, for any logp, on the
+  planes ``u`` and ``ue`` (a caller that holds a key makes them with
+  ``philox_unit_uniforms``);
+- CUDA tensors take ``key`` (planes raise) and, with a
+  :class:`~mcmcpp_tpu_torch.models.targets.GaussianTarget`, launch the fused
   kernel of ``csrc/fused_stretch.cu``, which evaluates the Gaussian logp in
   its own body (one launch per half-step);
 - CUDA tensors with any other batched logp take the split path of
@@ -107,16 +115,27 @@ def _check_args(tensors, shapes, device):
             raise ValueError(f"{name} must be contiguous")
 
 
-def _half_args(active, active_logp, other, shift, u, ue):
+def _check_key(key):
+    """``key`` as the 64-bit unsigned int the kernels take."""
+    if isinstance(key, bool) or not isinstance(key, int):
+        raise TypeError("on a CUDA tensor the stretch kernels draw u and ue "
+                        "themselves: pass key, a Python int below 2^64, not "
+                        f"planes (got key={key!r})")
+    if not 0 <= key < 1 << 64:
+        raise ValueError(f"a Philox key is a 64-bit unsigned int, got {key}")
+    return key
+
+
+def _half_args(active, active_logp, other, shift):
     n, p = active.shape
     if other.shape != (n, p):
         raise ValueError("fused stretch requires equal halves")
     if n == 0:
         raise ValueError("fused stretch needs at least one walker")
     tensors = {"active": active, "active_logp": active_logp, "other": other,
-               "shift": shift, "u": u, "ue": ue}
+               "shift": shift}
     shapes = {"active": (n, p), "active_logp": (n,), "other": (n, p),
-              "shift": (1,), "u": (n,), "ue": (n,)}
+              "shift": (1,)}
     _check_args(tensors, shapes, active.device)
 
 
@@ -130,7 +149,7 @@ def _checked(err, name):
     LAUNCHES[name] += 1
 
 
-def _launch_fused(active, active_logp, other, shift, u, ue, prec_chol, a):
+def _launch_fused(active, active_logp, other, shift, key, prec_chol, a):
     from mcmcpp_tpu_torch._build import load_library
 
     lib = load_library()
@@ -141,47 +160,51 @@ def _launch_fused(active, active_logp, other, shift, u, ue, prec_chol, a):
     with torch.cuda.device(active.device):
         err = lib.mcmcpp_fused_stretch_half_f32(
             active.data_ptr(), active_logp.data_ptr(), other.data_ptr(),
-            shift.data_ptr(), u.data_ptr(), ue.data_ptr(),
-            prec_chol.data_ptr(), out_act.data_ptr(), out_lp.data_ptr(),
+            shift.data_ptr(), key, prec_chol.data_ptr(),
+            out_act.data_ptr(), out_lp.data_ptr(),
             out_acc.data_ptr(), n, p, float(a), _stream(active.device),
         )
     _checked(err, "fused_stretch_half")
     return out_act, out_lp, out_acc
 
 
-def stretch_propose(active, other, shift, u, a=2.0):
+def stretch_propose(active, other, shift, key, a=2.0):
     """The propose kernel on CUDA tensors: (proposal (n, P), (P−1)·log z
-    (n,)), as :func:`stretch_propose_reference` computes them."""
+    (n,)), as :func:`stretch_propose_reference` computes them on the plane
+    ``philox_unit_uniforms(key, n)[0]``."""
     from mcmcpp_tpu_torch._build import load_library
 
     n, p = active.shape
-    _check_args({"active": active, "other": other, "shift": shift, "u": u},
-                {"active": (n, p), "other": (n, p), "shift": (1,), "u": (n,)},
+    key = _check_key(key)
+    _check_args({"active": active, "other": other, "shift": shift},
+                {"active": (n, p), "other": (n, p), "shift": (1,)},
                 active.device)
     lib = load_library()
     proposal = torch.empty_like(active)
     log_factor = torch.empty((n,), dtype=active.dtype, device=active.device)
     with torch.cuda.device(active.device):
         err = lib.mcmcpp_stretch_propose_f32(
-            active.data_ptr(), other.data_ptr(), shift.data_ptr(),
-            u.data_ptr(), proposal.data_ptr(), log_factor.data_ptr(), n, p,
-            float(a), _stream(active.device),
+            active.data_ptr(), other.data_ptr(), shift.data_ptr(), key,
+            proposal.data_ptr(), log_factor.data_ptr(), n, p, float(a),
+            _stream(active.device),
         )
     _checked(err, "stretch_propose")
     return proposal, log_factor
 
 
-def stretch_accept(active, proposal, active_logp, lp_new, log_factor, ue):
+def stretch_accept(active, proposal, active_logp, lp_new, log_factor, key):
     """The accept kernel on CUDA tensors: (new_active, new_logp, accepted
-    int32), as :func:`stretch_accept_reference` computes them."""
+    int32), as :func:`stretch_accept_reference` computes them on the plane
+    ``philox_unit_uniforms(key, n)[1]``."""
     from mcmcpp_tpu_torch._build import load_library
 
     n, p = active.shape
+    key = _check_key(key)
     tensors = {"active": active, "proposal": proposal,
                "active_logp": active_logp, "lp_new": lp_new,
-               "log_factor": log_factor, "ue": ue}
+               "log_factor": log_factor}
     shapes = {"active": (n, p), "proposal": (n, p), "active_logp": (n,),
-              "lp_new": (n,), "log_factor": (n,), "ue": (n,)}
+              "lp_new": (n,), "log_factor": (n,)}
     _check_args(tensors, shapes, active.device)
     lib = load_library()
     out_act = torch.empty_like(active)
@@ -190,7 +213,7 @@ def stretch_accept(active, proposal, active_logp, lp_new, log_factor, ue):
     with torch.cuda.device(active.device):
         err = lib.mcmcpp_stretch_accept_f32(
             active.data_ptr(), proposal.data_ptr(), active_logp.data_ptr(),
-            lp_new.data_ptr(), log_factor.data_ptr(), ue.data_ptr(),
+            lp_new.data_ptr(), log_factor.data_ptr(), key,
             out_act.data_ptr(), out_lp.data_ptr(), out_acc.data_ptr(), n, p,
             _stream(active.device),
         )
@@ -198,18 +221,50 @@ def stretch_accept(active, proposal, active_logp, lp_new, log_factor, ue):
     return out_act, out_lp, out_acc
 
 
-def fused_stretch_half(active, active_logp, other, shift, u, ue, *, logp_fn,
-                       a=2.0):
+def kernel_unit_uniforms(key, n, device):
+    """The (u, ue) planes as the kernels' own device function computes them
+    on the card, written out by the library's debug entry point: for holding
+    it against :func:`~mcmcpp_tpu_torch.ops.random.philox_unit_uniforms`.
+    Nothing in the port reads these planes."""
+    from mcmcpp_tpu_torch._build import load_library
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise RuntimeError(f"the kernels' uniforms are drawn on a CUDA "
+                           f"device, not on {device}")
+    key = _check_key(key)
+    lib = load_library()
+    u = torch.empty((n,), dtype=torch.float32, device=device)
+    ue = torch.empty_like(u)
+    with torch.cuda.device(device):
+        err = lib.mcmcpp_unit_uniforms_f32(key, u.data_ptr(), ue.data_ptr(),
+                                           n, _stream(device))
+    if err != 0:
+        raise RuntimeError(f"unit_uniforms kernel launch failed "
+                           f"(cudaError {err})")
+    return u, ue
+
+
+def fused_stretch_half(active, active_logp, other, shift, u=None, ue=None, *,
+                       key=None, logp_fn, a=2.0):
     """One stretch half-step. Returns (new_active, new_logp, accepted
-    int32). CPU tensors take the plain version; CUDA tensors the fused
-    kernel (a GaussianTarget) or the split kernels (any other logp)."""
+    int32). CPU tensors take the plain version on the planes ``u``, ``ue``;
+    CUDA tensors take ``key`` and launch the fused kernel (a GaussianTarget)
+    or the split kernels (any other logp)."""
     if active.device.type == "cpu":
+        if key is not None or u is None or ue is None:
+            raise TypeError("on a CPU tensor pass the planes u and ue, not "
+                            "key (philox_unit_uniforms makes a key's planes)")
         return fused_stretch_half_reference(
             active, active_logp, other, shift, u, ue, logp_fn=logp_fn, a=a
         )
     if active.device.type != "cuda":
         raise RuntimeError(f"no fused stretch path for {active.device}")
-    _half_args(active, active_logp, other, shift, u, ue)
+    if u is not None or ue is not None:
+        raise TypeError("on a CUDA tensor the stretch kernels draw u and ue "
+                        "themselves: pass key, not planes")
+    key = _check_key(key)
+    _half_args(active, active_logp, other, shift)
     if isinstance(logp_fn, GaussianTarget):
         p = active.shape[1]
         if p > MAX_P:
@@ -219,9 +274,9 @@ def fused_stretch_half(active, active_logp, other, shift, u, ue, *, logp_fn,
         prec_chol = logp_fn.prec_chol
         _check_args({"prec_chol": prec_chol}, {"prec_chol": (p, p)},
                     active.device)
-        return _launch_fused(active, active_logp, other, shift, u, ue,
+        return _launch_fused(active, active_logp, other, shift, key,
                              prec_chol, a)
-    proposal, log_factor = stretch_propose(active, other, shift, u, a)
+    proposal, log_factor = stretch_propose(active, other, shift, key, a)
     lp_new = logp_fn(proposal).contiguous()
     return stretch_accept(active, proposal, active_logp, lp_new, log_factor,
-                          ue)
+                          key)

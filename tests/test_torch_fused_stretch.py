@@ -5,9 +5,10 @@ yields zero bits, so its uniforms are exactly u = ue = 2^-25; its shift is
 ``randint(split(key)[1], (), 0, n)``. The port's plain versions get those
 same numbers: the fused one for a Gaussian logp, and the split path's two
 twins (propose, accept) for the non-Gaussian targets the Pallas kernel also
-traces into its body. The CUDA kernels themselves are compared with their
-plain versions in the tests marked ``cuda`` (skipped without a card) and in
-``chip_smoke.py``.
+traces into its body. The CUDA kernels themselves, which draw u and ue from a
+Philox key, are compared with their plain versions on that key's planes
+(``philox_unit_uniforms``) in the tests marked ``cuda`` (skipped without a
+card) and in ``chip_smoke.py``.
 
 JAX is imported inside the helpers only, so the ``cuda`` test runs on a
 machine that has no JAX.
@@ -19,6 +20,7 @@ import torch
 
 from mcmcpp_tpu_torch.models.targets import GaussianTarget
 from mcmcpp_tpu_torch.ops import fused_stretch as fs
+from mcmcpp_tpu_torch.ops.random import philox_unit_uniforms
 
 torch.set_num_threads(1)
 
@@ -157,36 +159,50 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _card_shift(n, shift):
+    """Named shifts of the trouble cases: the partner run of a 256-row tile
+    wraps at n in the middle of a tile for "mid"."""
+    return {"third": n // 3, "last": n - 1, "mid": n - 100 if n > 100
+            else n // 2, "negative": -7, "beyond": 3 * n + 5}.get(shift, shift)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,p", [(1 << 16, 10), (1000, 3), (4096, 2),
-                                 (2048, 64)])
-def test_kernel_matches_reference_on_card(cuda_device, n, p):
+@pytest.mark.parametrize("n,p,shift", [
+    (1 << 16, 10, "third"), (1000, 3, "third"), (4096, 2, "third"),
+    (2048, 64, "third"), (1 << 16, 10, 0), (1 << 16, 10, 1),
+    (1 << 16, 10, "last"), (1 << 16, 10, "mid"), (50, 10, "mid"),
+    (160, 2, 1), (128, 10, "last"), (1000, 7, "mid"), (1000, 33, 1),
+    (1000, 10, "negative"), (1000, 10, "beyond"), (300, 64, "mid"),
+])
+def test_kernel_matches_reference_on_card(cuda_device, n, p, shift):
     """Kernel vs plain version on one card: rtol = atol = 1e-5 (logf/sqrtf
     vs torch's ops and the product's summation order); accept masks equal
-    except within 1e-4·max(1, |log_ratio|) of the threshold."""
+    except within 1e-4·max(1, |log_ratio|) of the threshold. The kernel
+    draws u and ue from the key; the plain version gets the key's planes."""
     L = _prec_chol(p, seed=p)
     act, oth = _inputs(n, p, seed=p)
     lp = _logp_np(act, L)
     lp[7::97] = -np.inf
-    g = torch.Generator(device=cuda_device).manual_seed(p)
-    u = torch.rand(n, generator=g, device=cuda_device).clamp_(min=FLOOR)
-    ue = torch.rand(n, generator=g, device=cuda_device).clamp_(min=FLOOR)
+    key = 0x9E3779B97F4A7C15 ^ (n * 1000003 + p)
+    u, ue = philox_unit_uniforms(key, n, cuda_device)
     target = GaussianTarget(L, device=cuda_device)
     args = (torch.from_numpy(act).to(cuda_device),
             torch.from_numpy(lp).to(cuda_device),
             torch.from_numpy(oth).to(cuda_device),
-            torch.tensor([n // 3], dtype=torch.int32, device=cuda_device),
-            u, ue)
+            torch.tensor([_card_shift(n, shift)], dtype=torch.int32,
+                         device=cuda_device))
     before = dict(fs.LAUNCHES)
-    k_act, k_lp, k_acc = fs.fused_stretch_half(*args, logp_fn=target)
+    k_act, k_lp, k_acc = fs.fused_stretch_half(*args, key=key,
+                                               logp_fn=target)
     torch.cuda.synchronize()
     assert fs.LAUNCHES == {**before, "fused_stretch_half":
                            before["fused_stretch_half"] + 1}
-    r_act, r_lp, r_acc = fs.fused_stretch_half_reference(*args,
+    r_act, r_lp, r_acc = fs.fused_stretch_half_reference(*args, u, ue,
                                                          logp_fn=target)
     assert 0 < int(r_acc.sum()) < n
+    assert bool((k_acc[7::97] == 1).all())
     # the threshold margin of each row, from the plain computation
-    _, _, log_ratio = fs.stretch_proposal(*args[:5], logp_fn=target)
+    _, _, log_ratio = fs.stretch_proposal(*args, u, logp_fn=target)
     margin = (log_ratio - torch.log(ue)).abs()
     near = margin < 1e-4 * torch.clamp(log_ratio.abs(), min=1.0)
     agree = (k_acc == r_acc) | near
@@ -195,6 +211,25 @@ def test_kernel_matches_reference_on_card(cuda_device, n, p):
     torch.testing.assert_close(k_act[same], r_act[same], rtol=1e-5,
                                atol=1e-5)
     torch.testing.assert_close(k_lp[same], r_lp[same], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_planes_on_card(cuda_device):
+    """On a CUDA tensor the wrapper takes a key; planes raise, and so do
+    P > 64 with a GaussianTarget."""
+    n, p = 64, 2
+    x = torch.zeros((n, p), device=cuda_device)
+    lp = torch.zeros(n, device=cuda_device)
+    shift = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    target = GaussianTarget(np.eye(p, dtype=np.float32), device=cuda_device)
+    with pytest.raises(TypeError, match="key"):
+        fs.fused_stretch_half(x, lp, x, shift, lp, lp, logp_fn=target)
+    with pytest.raises(TypeError, match="key"):
+        fs.fused_stretch_half(x, lp, x, shift, logp_fn=target)
+    wide = torch.zeros((n, 65), device=cuda_device)
+    big = GaussianTarget(np.eye(65, dtype=np.float32), device=cuda_device)
+    with pytest.raises(NotImplementedError, match="P <= 64"):
+        fs.fused_stretch_half(wide, lp, wide, shift, key=1, logp_fn=big)
 
 
 def test_device_dispatch_without_card():
@@ -289,21 +324,33 @@ def test_accept_reference_edge_rules():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name,n", [("neal_funnel", 1 << 16),
-                                    ("rosenbrock", 160),
-                                    ("logistic_regression", 1000)])
-def test_split_kernels_match_reference_on_card(cuda_device, name, n):
+@pytest.mark.parametrize("name,n,shift", [
+    ("neal_funnel", 1 << 16, "third"), ("rosenbrock", 160, "third"),
+    ("logistic_regression", 1000, "third"), ("neal_funnel", 1 << 16, 0),
+    ("neal_funnel", 1 << 16, 1), ("neal_funnel", 1 << 16, "last"),
+    ("neal_funnel", 1 << 16, "mid"), ("neal_funnel", 50, "mid"),
+    ("neal_funnel", 1000, "negative"), ("neal_funnel", 1000, "beyond"),
+    ("funnel3", 1000, "mid"), ("funnel7", 1000, 1), ("funnel33", 1000, "mid"),
+    ("funnel64", 300, "last"), ("funnel300", 77, "mid"),
+])
+def test_split_kernels_match_reference_on_card(cuda_device, name, n, shift):
     """The propose and accept kernels of the split path against their plain
     twins on one card, on a logp that is NaN on some rows (which must
-    reject) and with lp_old = −inf on others (which must accept):
-    rtol = atol = 1e-5, masks equal except within 1e-4·max(1, |ratio|) of
-    the threshold. The GaussianTarget kernel is not launched."""
+    reject) and with lp_old = −inf on others (which must accept). Both are
+    elementwise with per-operation rounding, so each kernel alone equals
+    its twin bit for bit; the half-step goes through the logp, so its rows
+    are held to rtol = atol = 1e-5 with masks equal except within
+    1e-4·max(1, |ratio|) of the threshold. The GaussianTarget kernel is not
+    launched."""
     from mcmcpp_tpu_torch.models import targets as tm
 
-    target = {"neal_funnel": lambda: tm.neal_funnel(10),
-              "rosenbrock": lambda: tm.rosenbrock(),
-              "logistic_regression": lambda: tm.logistic_regression(
-                  dim=4, device=cuda_device)}[name]()
+    if name.startswith("funnel"):
+        target = tm.neal_funnel(int(name[6:]))
+    else:
+        target = {"neal_funnel": lambda: tm.neal_funnel(10),
+                  "rosenbrock": lambda: tm.rosenbrock(),
+                  "logistic_regression": lambda: tm.logistic_regression(
+                      dim=4, device=cuda_device)}[name]()
     p = target.dim
     act, oth = _inputs(n, p, seed=p)
     rows = torch.arange(n, device=cuda_device)
@@ -316,28 +363,39 @@ def test_split_kernels_match_reference_on_card(cuda_device, name, n):
 
     lp = target(torch.from_numpy(act).to(cuda_device))
     lp[neg] = -torch.inf
-    g = torch.Generator(device=cuda_device).manual_seed(p)
-    u = torch.rand(n, generator=g, device=cuda_device).clamp_(min=FLOOR)
-    ue = torch.rand(n, generator=g, device=cuda_device).clamp_(min=FLOOR)
+    key = 0xD1B54A32D192ED03 ^ (n * 1000003 + p)
+    u, ue = philox_unit_uniforms(key, n, cuda_device)
     args = (torch.from_numpy(act).to(cuda_device), lp,
             torch.from_numpy(oth).to(cuda_device),
-            torch.tensor([n // 3], dtype=torch.int32, device=cuda_device),
-            u, ue)
+            torch.tensor([_card_shift(n, shift)], dtype=torch.int32,
+                         device=cuda_device))
     before = dict(fs.LAUNCHES)
-    k_act, k_lp, k_acc = fs.fused_stretch_half(*args, logp_fn=logp)
+    k_act, k_lp, k_acc = fs.fused_stretch_half(*args, key=key, logp_fn=logp)
     torch.cuda.synchronize()
     assert fs.LAUNCHES == {
         **before, "stretch_propose": before["stretch_propose"] + 1,
         "stretch_accept": before["stretch_accept"] + 1}
-    r_act, r_lp, r_acc = fs.fused_stretch_half_reference(*args, logp_fn=logp)
+    r_act, r_lp, r_acc = fs.fused_stretch_half_reference(*args, u, ue,
+                                                         logp_fn=logp)
     assert 0 < int(r_acc.sum()) < n
     assert bool((k_acc[nan_rows] == 0).all())
     assert bool((k_acc[neg] == 1).all())
-    _, _, log_ratio = fs.stretch_proposal(*args[:5], logp_fn=logp)
+    r_prop, lp_new, log_ratio = fs.stretch_proposal(*args, u, logp_fn=logp)
     near = ((log_ratio - torch.log(ue)).abs()
             < 1e-4 * torch.clamp(log_ratio.abs(), min=1.0))
     assert bool(((k_acc == r_acc) | near).all())
     same = k_acc == r_acc
     torch.testing.assert_close(k_act[same], r_act[same], rtol=1e-5,
                                atol=1e-5)
-    torch.testing.assert_close(k_lp[same], r_lp[same], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(k_lp[same], r_lp[same], rtol=1e-5, atol=1e-5,
+                               equal_nan=True)
+    # each kernel alone, on the plain path's intermediates: bit for bit
+    act_t, _, oth_t, shift_t = args
+    k_prop, k_fac = fs.stretch_propose(act_t, oth_t, shift_t, key)
+    r_prop2, r_fac = fs.stretch_propose_reference(act_t, oth_t, shift_t, u)
+    assert torch.equal(k_prop, r_prop2) and torch.equal(k_fac, r_fac)
+    k_out = fs.stretch_accept(act_t, r_prop, lp, lp_new, r_fac, key)
+    r_out = fs.stretch_accept_reference(act_t, r_prop, lp, lp_new, r_fac, ue)
+    for k_t, r_t in zip(k_out, r_out):
+        assert torch.equal(torch.nan_to_num(k_t.float(), nan=7.0),
+                           torch.nan_to_num(r_t.float(), nan=7.0))

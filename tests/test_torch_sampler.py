@@ -24,6 +24,7 @@ from mcmcpp_tpu_torch import (
     EnsembleSampler,
     FusedStretchMove,
     GaussianTarget,
+    MixtureMover,
     StretchMove,
     equicorrelated_gaussian,
     skewed_gaussian,
@@ -237,6 +238,45 @@ def test_seed_changes_chain():
     a = run_skewed(n_steps=50, seed=1)
     b = run_skewed(n_steps=50, seed=2)
     assert not np.array_equal(a.get_samples(), b.get_samples())
+
+
+def _run_fused(seed, mover=None, n_steps=40):
+    s = EnsembleSampler(skewed_gaussian(device="cpu"), 32, 2,
+                        mover=mover or FusedStretchMove(), seed=seed,
+                        batched=True, device="cpu")
+    s.init_ball(np.zeros(2), scale=0.5)
+    assert s.run_mcmc(n_steps)
+    return s
+
+
+@pytest.mark.parametrize("mover", ["fused", "mixture"])
+def test_fused_determinism_and_seed(mover):
+    """The fused mover's keys come from the sampler's host generator: the
+    same seed gives the same chain, another seed another, alone and inside
+    a mixture (whose branch draws share that generator)."""
+    def make():
+        if mover == "fused":
+            return FusedStretchMove()
+        return MixtureMover([(FusedStretchMove(), 2.0), (StretchMove(), 1.0)])
+
+    a, b, c = _run_fused(7, make()), _run_fused(7, make()), _run_fused(8, make())
+    assert np.array_equal(a.get_samples(), b.get_samples())
+    assert not np.array_equal(a.get_samples(), c.get_samples())
+    assert 0 < a.accepted_steps < a.total_steps
+
+
+def test_fused_cpu_noise_is_planes():
+    """On the CPU the fused mover's noise is (shift, u, ue) with planes in
+    [2^-25, 1), so a replay can hand ``apply`` any planes."""
+    s = _run_fused(1, n_steps=1)
+    noise = s.mover.draw_noise(s._step_gen, 16, 16, 2, s.device,
+                               host_gen=s._host_gen)
+    shift, u, ue = noise
+    assert shift.shape == (1,) and shift.dtype == torch.int32
+    for plane in (u, ue):
+        assert plane.shape == (16,) and plane.dtype == torch.float32
+        assert float(plane.min()) >= UNIT_FLOOR and float(plane.max()) < 1.0
+    assert not torch.equal(u, ue)
 
 
 def test_thinning():
