@@ -46,13 +46,27 @@ Builds the port's CUDA kernels from ``mcmcpp_tpu_torch/csrc/`` (into
    fused stretch, walk and DE moves, the AR(1) autocorrelation-time table
    (AcTime), the deterministic sequence (InnerBenchmark) and a
    ``step_action`` run;
+8. (before 7) the store, checkpoint and analysis path at the flagship's full
+   width: a storing run under ``store_dtype=torch.bfloat16`` and one under
+   ``float8_e4m3fn`` (rates with and without the store, the seconds inside
+   ``Chain.append``, the stored bits against the state cast on the card and
+   on the CPU, the refusal of an injected 8-bit-logp chain); bitwise resume
+   from a checkpoint for the fused kernel, for the split kernels on Neal's
+   funnel and with an injected ``DiskChain`` of bfloat16 rows (40 + 40 steps
+   against 40, load, 40; the checkpoint's bytes and seconds);
+   ``run_until_converged`` on the skewed Gaussian; the Analysis layer on a
+   flagship chain (``covariance_matrix`` on the card against float64 numpy
+   and against Σ, correlation, corner histograms, percentiles, summary,
+   ESS) and the CSV and NPZ writers read back; the three example programs
+   as subprocesses;
 7. times 50 steps of the flagship and of Neal's funnel (wall time and the
    host's enqueue time per step) and takes a ``torch.profiler`` window over
    50 more of each: device time and launches per step by kernel; a flagship
    step must launch the fused kernel twice, a funnel step the propose and
    accept kernels twice each, and neither a ``uniform_`` kernel (nor the
-   flagship a ``clamp_``). Last, since the profiler's tracing slows every
-   launch after it.
+   flagship a ``clamp_``), and a window over a storing run (bfloat16 rows):
+   the casting row copies and the device-to-host copies beside the steps.
+   Last, since the profiler's tracing slows every launch after it.
 
 Any failure raises (non-zero exit); every phase prints its seconds. The
 second-to-last lines are the kernel table (each kernel's time beside its
@@ -65,6 +79,7 @@ script raises before printing any result.
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -788,17 +803,17 @@ def main():
     # -- phase 6: the reference's oracles on the card -----------------------
     with phase("6 oracles"):
         for name, make, n_steps, atol in [
-            ("walk", lambda: mt.WalkMove(6), 8000, 0.12),
+            ("walk", lambda: mt.WalkMove(6), 4000, 0.12),
             ("de", lambda: mt.DifferentialEvolutionMove(), 8000, 0.15),
             ("mh", lambda: mt.MetropolisHastingsMove(
                 covariance=SKEWED_COV, scale=1.2), 8000, 0.15),
-            ("snooker", lambda: mt.DESnookerMove(), 8000, 0.15),
-            ("dram", lambda: mt.DRAMMove(), 8000, 0.15),
+            ("snooker", lambda: mt.DESnookerMove(), 4000, 0.15),
+            ("dram", lambda: mt.DRAMMove(), 4000, 0.15),
             ("mixture", lambda: mt.MixtureMover([
                 (mt.FusedStretchMove(), 2.0),
                 (mt.DifferentialEvolutionMove(), 1.0),
                 (mt.DESnookerMove(), 1.0)]), 8000, 0.15),
-            ("slice", lambda: mt.EnsembleSliceMove(), 800, 0.12),
+            ("slice", lambda: mt.EnsembleSliceMove(), 400, 0.12),
         ]:
             t0 = time.perf_counter()
             so = mt.EnsembleSampler(skewed, 320, 2, mover=make(), seed=42,
@@ -825,8 +840,8 @@ def main():
         for name, mover, n_steps in [
                 ("fused a=3 (split kernels)", mt.FusedStretchMove(a=3.0),
                  12000),
-                ("walk6", mt.WalkMove(6), 8000),
-                ("de", mt.DifferentialEvolutionMove(), 12000)]:
+                ("walk6", mt.WalkMove(6), 4000),
+                ("de", mt.DifferentialEvolutionMove(), 6000)]:
             reset_launches(fs)
             t0 = time.perf_counter()
             sb = mt.EnsembleSampler(banana, 256, 2, mover=mover, seed=3,
@@ -890,6 +905,340 @@ def main():
                                    rtol=1e-5, atol=1e-6)
         print("  step_action: 100 rows, equal to the chain's mean logp")
 
+    # -- phase 8: store, checkpoint, resume, analyse -------------------------
+    with phase("8 store, checkpoint, resume, analyse"):
+        import mcmcpp_tpu_torch.io.checkpoint as ckpt
+        from mcmcpp_tpu_torch.chain_disk import DiskChain
+        from mcmcpp_tpu_torch.convergence import run_until_converged
+        from mcmcpp_tpu_torch.io import (
+            CsvEngine, DataWriter, HistMultiOutput, MatrixOutput, NpzEngine,
+            ScalarOutput, load_checkpoint)
+        from mcmcpp_tpu_torch.io.engines import read_npz
+
+        root = os.path.dirname(os.path.abspath(__file__))
+        out_dir = os.path.join(root, "build", "smoke")
+        shutil.rmtree(out_dir, ignore_errors=True)
+        os.makedirs(out_dir)
+        fused_only = lambda n: {"fused_stretch_half": 2 * n,  # noqa: E731
+                                "stretch_propose": 0, "stretch_accept": 0}
+        split_only = lambda n: {"fused_stretch_half": 0,  # noqa: E731
+                                "stretch_propose": 2 * n,
+                                "stretch_accept": 2 * n}
+
+        def full_width(target, seed, **kw):
+            return mt.EnsembleSampler(target, W_FULL, P_FULL,
+                                      mover=mt.FusedStretchMove(), seed=seed,
+                                      batched=True, device="cuda", **kw)
+
+        def bits(t):
+            """A reduced tensor's raw bits on the host."""
+            view = torch.int16 if t.dtype.itemsize == 2 else torch.uint8
+            return t.view(view).cpu().numpy()
+
+        # (a) the store tiers: rows reduced on the card, as raw bits on the host
+        store_launches = {}
+        for store_dtype, n_steps in [(torch.bfloat16, 60),
+                                     (torch.float8_e4m3fn, 20)]:
+            thin = 10
+            s = full_width(flagship, 0, store_dtype=store_dtype)
+            s.init_ball(np.zeros(P_FULL), 0.5)
+            s.run_mcmc(20, store=False)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s.run_mcmc(n_steps, store=False)
+            torch.cuda.synchronize()
+            nostore_s = time.perf_counter() - t0
+            append_s = []
+            chain_append = s.chain.append
+
+            def timed_append(pos, logp, _append=chain_append,
+                             _into=append_s):
+                t0 = time.perf_counter()
+                ok = _append(pos, logp)
+                _into.append(time.perf_counter() - t0)
+                return ok
+
+            s.chain.append = timed_append
+            reset_launches(fs)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if not s.run_mcmc(n_steps, thin=thin):
+                raise AssertionError("chain capacity hit in the storing run")
+            torch.cuda.synchronize()
+            store_s = time.perf_counter() - t0
+            if fs.LAUNCHES != fused_only(n_steps):
+                raise AssertionError(f"storing run launched {fs.LAUNCHES}")
+            if store_dtype is torch.bfloat16:
+                store_launches = dict(fs.LAUNCHES)
+            n_rows = n_steps // thin
+            eight_bit = store_dtype.itemsize < 2
+            logp_dtype = torch.bfloat16 if eight_bit else store_dtype
+            if (s.chain.n_steps != n_rows or s.chain.dtype != store_dtype
+                    or s.chain.logp_dtype != logp_dtype):
+                raise AssertionError(
+                    f"chain holds {s.chain.n_steps} rows at {s.chain.dtype} "
+                    f"/ {s.chain.logp_dtype}")
+            row_bytes = W_FULL * (P_FULL * store_dtype.itemsize
+                                  + logp_dtype.itemsize)
+            if s.chain.nbytes != n_rows * row_bytes:
+                raise AssertionError(f"chain bytes {s.chain.nbytes}")
+            # the last stored row is the state (n_steps is a multiple of
+            # thin), cast on the card; the CPU's cast gives the same bits
+            pos, lp = s._current_ensemble()
+            held_pos = s.chain.get(held=True)[-1]
+            held_lp = s.chain.get_logp(held=True)[-1]
+            for what, held, full, dt in [("rows", held_pos, pos, store_dtype),
+                                         ("logp", held_lp, lp, logp_dtype)]:
+                if not (np.array_equal(held, bits(full.to(dt)))
+                        and np.array_equal(held, bits(full.cpu().to(dt)))):
+                    raise AssertionError(
+                        f"{store_dtype}: stored {what} are not the state "
+                        "cast on the card and on the CPU, bit for bit")
+            # the stored logp against the target at the cast-up rows. The
+            # plane alone is exact to its 8 bits (checked bit for bit above);
+            # the rows' rounding (2^-9 relative a coordinate under bf16,
+            # 2^-4 under e4m3) moves the quadratic form besides, so the
+            # bounds are 2^-6 and 2^-2 relative, four and a half times and
+            # twice what this target shows at 2^21 rows drawn from it
+            rows_up = torch.from_numpy(s.get_samples()[-1]).to(dev)
+            lp_up = torch.from_numpy(s.get_log_probs()[-1]).to(dev)
+            if rows_up.dtype != torch.float32 or not bool(
+                    torch.isfinite(rows_up).all()):
+                raise AssertionError(f"{store_dtype}: cast-up rows")
+            dev_rel = ((lp_up - flagship(rows_up)).abs()
+                       / lp_up.abs().clamp(min=1.0))
+            tol = 2.0 ** -2 if eight_bit else 2.0 ** -6
+            in_plane_tol = float((dev_rel <= 2.0 ** -8).float().mean())
+            if float(dev_rel.max()) > tol:
+                raise AssertionError(
+                    f"{store_dtype}: stored logp against the target at the "
+                    f"cast-up rows: max {float(dev_rel.max()):.3e} relative, "
+                    f"bound {tol}")
+            rate = lambda t: n_steps * W_FULL / t  # noqa: E731
+            print(f"  store_dtype={str(store_dtype).split('.')[1]}: "
+                  f"{n_steps} steps at thin {thin}, {n_rows} rows of "
+                  f"{row_bytes / 1e6:.1f} MB: {rate(store_s):.6e} "
+                  f"walker-updates/s storing ({store_s:.4f} s, of which "
+                  f"{sum(append_s):.4f} s inside Chain.append: "
+                  f"{[round(t, 4) for t in append_s]}), {rate(nostore_s):.6e}"
+                  f" with store=False ({nostore_s:.4f} s); stored bits equal "
+                  f"the state's cast (card and CPU); logp vs target at the "
+                  f"cast-up rows: max {float(dev_rel.max()):.3e} relative (bound "
+                  f"{tol:g}; {in_plane_tol:.4f} of the rows within 2^-8) "
+                  f"[{card}]", flush=True)
+            del s, pos, lp, rows_up, lp_up, dev_rel
+        refused = False
+        try:
+            full_width(flagship, 0, store_dtype=torch.float8_e4m3fn,
+                       chain=DiskChain(os.path.join(out_dir, "f8_spool"),
+                                       W_FULL, P_FULL,
+                                       dtype="float8_e4m3fn"))
+        except ValueError as e:
+            refused = "logp plane" in str(e)
+        if not refused:
+            raise AssertionError("an injected 8-bit-logp chain was accepted")
+        print("  an injected chain with an 8-bit logp plane is refused")
+        # beyond e4m3fn's range the rule is torch's own (the JAX package
+        # stores NaN there): the card must apply the rule the CPU applies
+        edge = torch.tensor([448.0, 464.0, 464.1, -1e4, float("inf")])
+        on_card = bits(edge.to(dev).to(torch.float8_e4m3fn))
+        on_cpu = bits(edge.to(torch.float8_e4m3fn))
+        if not np.array_equal(on_card, on_cpu):
+            raise AssertionError(f"e4m3fn beyond its range: card {on_card}, "
+                                 f"CPU {on_cpu}")
+        print(f"  float8_e4m3fn of {edge.tolist()} (torch "
+              f"{torch.__version__}): "
+              f"{edge.to(torch.float8_e4m3fn).float().tolist()}, the same "
+              "bits on the card and on the CPU")
+
+        # (b) resume from a checkpoint is bitwise
+        saves = []
+        real_save = ckpt.save_checkpoint
+
+        def timed_save(sampler, path):
+            t0 = time.perf_counter()
+            out = real_save(sampler, path)
+            saves.append((time.perf_counter() - t0, os.path.getsize(out)))
+            return out
+
+        ckpt.save_checkpoint = timed_save
+        try:
+            for label, target, want, kw in [
+                ("fused", flagship, fused_only, lambda tag: {}),
+                ("funnel_split", funnel, split_only, lambda tag: {}),
+                ("fused_diskchain_bf16", flagship, fused_only,
+                 lambda tag: {
+                     "store_dtype": torch.bfloat16,
+                     "chain": DiskChain(
+                         os.path.join(out_dir, f"spool_{tag}"), W_FULL,
+                         P_FULL, dtype="bfloat16")}),
+            ]:
+                path = os.path.join(out_dir, f"ck_{label}")
+                a = full_width(target, 11, **kw("a"))
+                a.init_ball(np.zeros(P_FULL), 0.5)
+                reset_launches(fs)
+                a.run_mcmc(40, thin=10, checkpoint_path=path,
+                           checkpoint_every=8)
+                if fs.LAUNCHES != want(40):
+                    raise AssertionError(f"{label}: launches {fs.LAUNCHES}")
+                if label == "funnel_split":
+                    store_launches.update(
+                        {k: v for k, v in fs.LAUNCHES.items() if v})
+                save_s, save_bytes = saves[-1]
+                b = full_width(target, 99, **kw("b"))
+                t0 = time.perf_counter()
+                load_checkpoint(b, path)
+                load_s = time.perf_counter() - t0
+                a.run_mcmc(40, thin=10)
+                b.run_mcmc(40, thin=10)
+                same = all(torch.equal(x, y)
+                           for x, y in zip(a.state[:6], b.state[:6]))
+                same = same and a.state.step == b.state.step == 80
+                same = same and np.array_equal(a.per_walker_accepted,
+                                               b.per_walker_accepted)
+                same = same and a.total_steps == b.total_steps
+                for get in ("get", "get_logp"):
+                    ra = torch.from_numpy(getattr(a.chain, get)(held=True))
+                    rb = torch.from_numpy(getattr(b.chain, get)(held=True))
+                    same = same and ra.shape[0] == 8 and torch.equal(ra, rb)
+                if not same:
+                    raise AssertionError(
+                        f"{label}: the resumed run differs from the "
+                        "uninterrupted one")
+                print(f"  resume {label}: 40 + 40 steps == 40, load, 40 "
+                      f"bitwise (state, counters, 8 rows at "
+                      f"{a.chain.dtype.name}, backend {a.chain.backend}); "
+                      f"checkpoint {save_bytes} B written in {save_s:.2f} s, "
+                      f"loaded in {load_s:.2f} s [{card}]", flush=True)
+                del a, b, ra, rb
+        finally:
+            ckpt.save_checkpoint = real_save
+
+        # (c) a convergence-driven run on the skewed Gaussian (as phase 4)
+        sc = mt.EnsembleSampler(skewed, 320, 2, mover=mt.FusedStretchMove(),
+                                seed=42, batched=True, device="cuda")
+        sc.init_ball(np.zeros(2), scale=0.3)
+        sc.run_mcmc(1000, store=False)
+        t0 = time.perf_counter()
+        rep = run_until_converged(sc, max_steps=16000, check_every=2000,
+                                  thin=4, rhat_threshold=1.01, mess_rule=True)
+        print(f"  run_until_converged: {rep.reason} after {rep.steps_run} "
+              f"steps, {rep.checks} checks, tau {rep.tau.tolist()}, rhat "
+              f"{rep.rhat.tolist()}, mESS {rep.mess:.0f} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        if not (rep.converged and np.all(rep.tau > 0)
+                and np.all(rep.tau < 20) and np.all(rep.rhat < 1.01)):
+            raise AssertionError(f"run_until_converged: {rep}")
+        chain_sk = sc.get_samples()
+        summ = mt.analysis.summary(chain_sk)
+        ess = mt.analysis.effective_sample_size(chain_sk)
+        want_sd = np.sqrt(np.diag(SKEWED_COV))
+        if not (np.allclose(summ["mean"], 0.0, atol=0.05)
+                and np.allclose(summ["sd"], want_sd, atol=0.05)
+                and np.all(summ["rhat"] < 1.01) and np.all(ess > 1000)):
+            raise AssertionError(f"summary {summ}, ess {ess}")
+        print(f"  summary: mean {summ['mean'].tolist()}, sd "
+              f"{summ['sd'].tolist()} (oracle {want_sd.tolist()}), ess "
+              f"{ess.tolist()}, ess_bulk {summ['ess_bulk'].tolist()}")
+
+        # (d) the Analysis layer on a flagship chain: 600 burn-in steps
+        # from the ball, then 4 rows of 2^21 walkers
+        s = full_width(flagship, 5)
+        s.init_ball(np.zeros(P_FULL), 0.5)
+        s.run_mcmc(600, store=False)
+        s.run_mcmc(40, thin=10)
+        x = s.get_samples()
+        flat = x.reshape(-1, P_FULL)
+        t0 = time.perf_counter()
+        cov = mt.analysis.covariance_matrix(x)
+        cov_np_input_s = time.perf_counter() - t0
+        xt = torch.from_numpy(x).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cov_t = mt.analysis.covariance_matrix(xt)
+        cov_dev_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref = np.cov(flat.astype(np.float64).T)
+        ref_s = time.perf_counter() - t0
+        rel = np.abs(cov - ref).max() / np.abs(ref).max()
+        if not (rel <= 1e-5 and np.array_equal(cov, cov_t)):
+            raise AssertionError(f"covariance on the card off by {rel}")
+        off_truth = np.abs(cov - sigma).max()
+        corr = mt.analysis.correlation_matrix(xt)
+        if not (off_truth <= 0.02 and np.allclose(np.diag(corr), 1.0)
+                and np.abs(corr - (0.5 + 0.5 * np.eye(P_FULL))).max()
+                <= 0.02):
+            raise AssertionError(f"covariance {off_truth} from the truth")
+        print(f"  covariance_matrix of {flat.shape} float32 rows: on the "
+              f"card {cov_dev_s * 1e3:.2f} ms (a tensor there), "
+              f"{cov_np_input_s * 1e3:.1f} ms from a numpy array, float64 "
+              f"np.cov on the host {ref_s * 1e3:.1f} ms; {rel:.3e} relative "
+              f"to it (bound 1e-5); {off_truth:.4f} absolute from "
+              f"Sigma after 600 + 40 steps (bound 0.02) [{card}]",
+              flush=True)
+        sub = x[-1, ::16]
+        ch = mt.analysis.CornerHistograms(n_bins=50).calculate(sub)
+        if (len(ch.hist1d) != P_FULL or len(ch.hist2d) != 45
+                or any(c.sum() != sub.shape[0] for c, _ in ch.hist1d)
+                or any(c.sum() != sub.shape[0]
+                       for c, _, _ in ch.hist2d.values())):
+            raise AssertionError("corner histograms lose samples")
+        pf = mt.analysis.PercentileAndMaximumFinder(n_bins=64)
+        pf.process_chain_data(sub)
+        med = [pf.get_value_from_percentile(i, 50.0) for i in range(P_FULL)]
+        sig = [pf.get_value_from_percentile(i, 84.134) for i in range(P_FULL)]
+        peaks = [pf.get_peak_location(i) for i in range(P_FULL)]
+        if not (np.allclose(med, 0.0, atol=0.03)
+                and np.allclose(sig, 1.0, atol=0.03)
+                and np.allclose(peaks, 0.0, atol=0.5)):
+            raise AssertionError(f"percentiles {med}, {sig}, peaks {peaks}")
+        print(f"  corner histograms (10 + 45) and percentiles of "
+              f"{sub.shape[0]} walkers: medians within "
+              f"{np.abs(med).max():.4f}, +1 sigma within "
+              f"{np.abs(np.array(sig) - 1).max():.4f} of 1")
+        outputs = [MatrixOutput("covariance", cov),
+                   ScalarOutput("acceptance", s.acceptance_fraction),
+                   HistMultiOutput("corner", ch)]
+        with DataWriter(CsvEngine(os.path.join(out_dir, "csv"))) as w:
+            for o in outputs:
+                w.add(o)
+        with DataWriter(NpzEngine(os.path.join(out_dir, "out.npz"))) as w:
+            for o in outputs:
+                w.add(o)
+        arrays, _ = read_npz(os.path.join(out_dir, "out.npz"))
+        n_written = 0
+        for o in outputs:
+            for name, array, _ in o.emit():
+                back = np.loadtxt(os.path.join(out_dir, "csv", f"{name}.csv"),
+                                  delimiter=",", comments="#", ndmin=2)
+                array = np.asarray(array)
+                if not (np.array_equal(arrays[name], array)
+                        and np.array_equal(back.reshape(array.shape),
+                                           array.astype(np.float64))):
+                    raise AssertionError(f"{name} does not read back equal")
+                n_written += 1
+        print(f"  DataWriter: {n_written} outputs through the CSV and NPZ "
+              "engines, read back equal")
+        del s, x, xt, flat
+
+        # (e) the reference's three test programs, as a user runs them
+        for mod, extra in [("skewed_gaussian",
+                            ["--outdir", os.path.join(out_dir, "skewed")]),
+                           ("actime", []), ("inner_benchmark", [])]:
+            t0 = time.perf_counter()
+            done = subprocess.run(
+                [sys.executable, "-m", f"mcmcpp_tpu_torch.examples.{mod}",
+                 "--device", "cuda", *extra],
+                cwd=root, capture_output=True, text=True, timeout=300)
+            print("    " + done.stdout.strip().replace("\n", "\n    "))
+            if done.returncode != 0:
+                raise AssertionError(
+                    f"example {mod} exited {done.returncode}: "
+                    f"{done.stderr[-2000:]}")
+            print(f"  example {mod}: exit 0 "
+                  f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        torch.cuda.empty_cache()
+
     # -- phase 7: what a flagship step puts on the device --------------------
     # Last, because the profiler's tracing stays attached to the process
     # and slows every later launch: no timing may follow it.
@@ -942,8 +1291,30 @@ def main():
             del s
             torch.cuda.empty_cache()
 
+        # a storing run in the same window: what the store path adds to the
+        # device (the row copies that cast to the stored dtype, the chunks'
+        # device-to-host copies) beside the steps
+        s = mt.EnsembleSampler(flagship, W_FULL, P_FULL,
+                               mover=mt.FusedStretchMove(), seed=0,
+                               batched=True, device="cuda",
+                               store_dtype=torch.bfloat16)
+        s.init_ball(np.zeros(P_FULL), 0.5)
+        s.run_mcmc(20, thin=10)
+        rows = device_rows_per_step(lambda: s.run_mcmc(20, thin=10), 20)
+        print(f"storing run (bf16 rows, 20 steps at thin 10, 2 rows), per "
+              f"step: profiled device time "
+              f"{sum(us for _, us in rows.values()):.1f} us in "
+              f"{sum(n for n, _ in rows.values()):g} launches [{card}]:")
+        for k, (n, us) in sorted(rows.items(), key=lambda r: -r[1][1]):
+            print(f"  {n:g} x {us / n:.2f} us  {k[:120]}")
+        if not any("Memcpy DtoH" in k for k in rows):
+            raise AssertionError("the storing run shows no device-to-host "
+                                 "copy under the profiler")
+        del s
+        torch.cuda.empty_cache()
+
     for name, k in kernels.items():
-        if not k.get("launches"):
+        if not (k.get("launches") and store_launches.get(name)):
             raise AssertionError(f"{name} was not launched on its main path")
     # ms, plain_ms and bound_ms at n = 2^20, P = 10, the half-step of the
     # main path. library_ms is null: no one PyTorch call computes any of the
@@ -954,6 +1325,7 @@ def main():
          "replaces": "mcmcpp_tpu/ops/pallas_stretch.py:164",
          "launches": k["launches"],
          "launches_per_step": k["launches_per_step"],
+         "launches_store_path": store_launches.get(name, 0),
          "max_abs_err": k["max_abs_err"],
          "ms": k["ms"], "plain_ms": k["plain_ms"],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],

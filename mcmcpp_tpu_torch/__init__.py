@@ -11,10 +11,20 @@ The one TPU kernel of the JAX package, the fused stretch half-step
 ``nvcc`` at first use: one fused kernel for a Gaussian target
 (``csrc/fused_stretch.cu``) and a propose/accept pair around any other torch
 logp (``csrc/stretch_split.cu``).
+
+Around the sampler: reduced-precision store tiers (``store_dtype=``), an
+injected or disk-backed chain (``chain=``, :class:`DiskChain`), checkpoint and
+resume (``io``), convergence-driven runs (:func:`run_until_converged`), the
+Analysis layer (``analysis``), the writers (``io``), the emcee surface
+(``compat.emcee``), the ArviZ export and the reference's three test programs
+(``examples``).
 """
 
 from mcmcpp_tpu_torch import analysis
 from mcmcpp_tpu_torch.chain import Chain
+from mcmcpp_tpu_torch.chain_disk import DiskChain
+from mcmcpp_tpu_torch.convergence import ConvergenceReport, run_until_converged
+from mcmcpp_tpu_torch.export import to_arviz, to_inference_dict
 from mcmcpp_tpu_torch.models.targets import (
     BayesianLinearRegression,
     GaussianMixture,
@@ -52,9 +62,11 @@ __all__ = [
     "AutoRegressiveMove",
     "BayesianLinearRegression",
     "Chain",
+    "ConvergenceReport",
     "DESnookerMove",
     "DRAMMove",
     "DifferentialEvolutionMove",
+    "DiskChain",
     "EnsembleSampler",
     "EnsembleSliceMove",
     "EnsembleState",
@@ -79,6 +91,9 @@ __all__ = [
     "logistic_regression",
     "neal_funnel",
     "rosenbrock",
+    "run_until_converged",
     "sample_ball",
     "skewed_gaussian",
+    "to_arviz",
+    "to_inference_dict",
 ]

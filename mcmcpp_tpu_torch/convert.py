@@ -21,7 +21,8 @@ from mcmcpp_tpu_torch.models.targets import (
 )
 from mcmcpp_tpu_torch.sampler import EnsembleState
 
-__all__ = ["GaussianTarget", "mover_state_from_numpy", "state_from_numpy",
+__all__ = ["GaussianTarget", "mover_state_from_numpy",
+           "sampler_from_jax_checkpoint", "state_from_numpy",
            "target_from_numpy"]
 
 
@@ -47,6 +48,53 @@ def state_from_numpy(red, black, logp_red, logp_black, accepted_red,
         accepted_red=i32(accepted_red), accepted_black=i32(accepted_black),
         step=int(step),
     )
+
+
+def sampler_from_jax_checkpoint(arrays, meta, sampler):
+    """Load an ensemble checkpoint written by the JAX package into a port
+    sampler, so that a long run begun there goes on here.
+
+    ``arrays`` and ``meta`` are the file's contents as numpy and a dict::
+
+        with np.load(path, allow_pickle=False) as z:
+            meta = json.loads(bytes(z["__meta__"]).decode())
+            arrays = {k: z[k] for k in z.files if k != "__meta__"}
+
+    Walkers, log-probs, the per-walker accept counters (device and host),
+    the step counter with its reset base, and the stored chain are carried
+    over, so ``total_steps``, ``acceptance_fraction`` and ``get_samples``
+    read as they did. The threefry key is not: the port draws from another
+    generator family, so the resumed chain continues under the port's own
+    ``seed``, as a valid continuation but not the one the JAX package would
+    have drawn. Returns the sampler.
+    """
+    if meta.get("port") is not None:
+        raise ValueError(
+            f"a checkpoint of the {meta['port']} port, not of the JAX "
+            "package: load it with io.load_checkpoint")
+    if meta.get("kind") != "ensemble":
+        raise ValueError(
+            f"checkpoint kind {meta.get('kind')!r}: only the ensemble "
+            "sampler's state can be carried across")
+    if meta["n_params"] != sampler.n_params:
+        raise ValueError(
+            f"checkpoint has n_params={meta['n_params']}, "
+            f"sampler has {sampler.n_params}")
+    if meta["n_walkers"] != sampler.n_walkers:
+        raise ValueError("walker count mismatch")
+    sampler.state = state_from_numpy(
+        *(arrays[k] for k in ("red", "black", "logp_red", "logp_black",
+                              "accepted_red", "accepted_black", "step")),
+        device=sampler.device)
+    awh = np.asarray(arrays["accepted_walkers_host"])
+    sampler._accepted_walkers_host = (
+        awh.astype(np.int64) if awh.shape[0] else None)
+    sampler._reset_step_base = int(meta["reset_step_base"])
+    sampler.chain.clear()
+    if arrays["chain_samples"].shape[0]:
+        sampler.chain.append(np.asarray(arrays["chain_samples"]),
+                             np.asarray(arrays["chain_logp"]))
+    return sampler
 
 
 def mover_state_from_numpy(state, device="cuda"):

@@ -28,9 +28,10 @@ import torch
 
 from mcmcpp_tpu_torch.chain import (
     Chain,
-    append_device_chunk,
     default_chunk_steps,
+    row_dtype,
     run_pipelined,
+    torch_dtype,
 )
 from mcmcpp_tpu_torch.movers.base import Mover
 from mcmcpp_tpu_torch.movers.stretch import StretchMove
@@ -150,7 +151,7 @@ def _tree_stack(trees, stack):
 
 
 def run_scan(state: EnsembleState, step_fn, n_store: int, thin: int,
-             step_action=None):
+             step_action=None, store_dtype=None):
     """Run ``n_store·thin`` steps, keeping every ``thin``-th ensemble.
 
     Returns (final_state, positions (n_store, W, P), logps (n_store, W),
@@ -161,13 +162,26 @@ def run_scan(state: EnsembleState, step_fn, n_store: int, thin: int,
     ``step_action(positions (W, P), logps (W,))`` runs on the device after
     every stored step; ``metrics`` stacks its outputs (a tensor, or a tuple
     or dict of them) along a new leading axis, or is None without one.
+
+    ``store_dtype`` (for example ``torch.bfloat16``) is the dtype of the
+    emitted chunk: it is allocated at that dtype and the row copies convert,
+    so the steps stay full precision and no full-precision chunk is held
+    (``step_action`` still sees full precision). An 8-bit tier keeps the
+    logp plane at bfloat16: e4m3's ±448 range overflows on routine |logp|,
+    and the plane is 1/(P+1) of the payload.
     """
     half = state.red.shape[0]
     w = half + state.black.shape[0]
     p = state.red.shape[1]
-    dev, dtype = state.red.device, state.red.dtype
-    positions = torch.empty((n_store, w, p), dtype=dtype, device=dev)
-    logps = torch.empty((n_store, w), dtype=state.logp_red.dtype, device=dev)
+    dev = state.red.device
+    if store_dtype is None:
+        pos_dtype, logp_dtype = state.red.dtype, state.logp_red.dtype
+    else:
+        pos_dtype = store_dtype
+        logp_dtype = (torch.bfloat16 if store_dtype.itemsize < 2
+                      else store_dtype)
+    positions = torch.empty((n_store, w, p), dtype=pos_dtype, device=dev)
+    logps = torch.empty((n_store, w), dtype=logp_dtype, device=dev)
     metrics = []
     for s in range(n_store):
         for _ in range(thin):
@@ -176,8 +190,14 @@ def run_scan(state: EnsembleState, step_fn, n_store: int, thin: int,
         positions[s, half:] = state.black
         logps[s, :half] = state.logp_red
         logps[s, half:] = state.logp_black
-        if step_action is not None:
+        if step_action is None:
+            continue
+        if store_dtype is None:
             metrics.append(step_action(positions[s], logps[s]))
+        else:
+            metrics.append(step_action(
+                torch.cat([state.red, state.black]),
+                torch.cat([state.logp_red, state.logp_black])))
     accepted = (state.accepted_red, state.accepted_black)
     state = state._replace(
         accepted_red=torch.zeros_like(state.accepted_red),
@@ -226,6 +246,13 @@ class EnsembleSampler:
     store_chunk_steps : stored steps per device chunk (default: ~64 MiB).
     device : where the ensemble lives (default "cuda"). CUDA without a GPU
         raises.
+    chain : an injected store in place of the in-memory :class:`Chain` (for
+        example :class:`~mcmcpp_tpu_torch.chain_disk.DiskChain`); it must
+        match the ensemble's geometry.
+    store_dtype : optional reduced dtype of the STORED rows only (for
+        example ``torch.bfloat16``): the steps stay ``dtype``, chunks are
+        written at ``store_dtype`` on the device and cross to the host so.
+        ``get_samples``/``get_log_probs`` cast back up to float32.
     """
 
     def __init__(
@@ -240,6 +267,8 @@ class EnsembleSampler:
         batched=False,
         store_chunk_steps=None,
         device="cuda",
+        chain=None,
+        store_dtype=None,
     ):
         if n_walkers % 2 != 0:
             raise ValueError("n_walkers must be even")
@@ -261,12 +290,45 @@ class EnsembleSampler:
         self._step_gen = make_generator(seed, STEP_STREAM, self.device)
         self._aux_gen = make_generator(seed, AUX_STREAM, self.device)
         self._host_gen = make_generator(seed, HOST_STREAM, "cpu")
-        self.chain = Chain(
-            n_walkers=self.n_walkers,
-            n_params=self.n_params,
-            max_bytes=max_chain_bytes,
-            dtype=torch.empty((), dtype=dtype).numpy().dtype,
-        )
+        self._store_dtype = (None if store_dtype is None
+                             else torch_dtype(store_dtype))
+        if chain is not None:
+            if (chain.n_walkers, chain.n_params) != (
+                self.n_walkers, self.n_params,
+            ):
+                raise ValueError(
+                    f"chain store geometry ({chain.n_walkers}, "
+                    f"{chain.n_params}) != ({self.n_walkers}, {self.n_params})"
+                )
+            chain_logp_dtype = getattr(chain, "logp_dtype", chain.dtype)
+            if (
+                self._store_dtype is not None
+                and self._store_dtype.itemsize < 2
+                and chain_logp_dtype.itemsize < 2
+            ):
+                # run_scan emits the logp plane as bf16 under 8-bit sample
+                # tiers (e4m3 range); an injected store that would squash
+                # it back to 8 bits loses every |logp| > 448
+                raise ValueError(
+                    "an 8-bit store_dtype needs an injected chain whose "
+                    "logp plane is at least 16-bit (e.g. Chain(..., "
+                    "dtype=torch.float8_e4m3fn, logp_dtype=torch.bfloat16)); "
+                    f"this chain holds logp at {chain_logp_dtype}"
+                )
+            self.chain = chain
+        else:
+            held = row_dtype(dtype if store_dtype is None else store_dtype)
+            self.chain = Chain(
+                n_walkers=self.n_walkers,
+                n_params=self.n_params,
+                max_bytes=max_chain_bytes,
+                dtype=held,
+                # reduced rows are cast up on read: numpy's FFT and
+                # covariance paths take no reduced types
+                read_dtype=(np.float32 if held.itemsize < 4 else None),
+                # 8-bit tiers keep the logp plane at bf16 (run_scan's rule)
+                logp_dtype=("bfloat16" if held.itemsize < 2 else None),
+            )
         self.state = None
         # host-side PER-WALKER int64 accept counts in chain column order
         # [red..., black...]; the int32 device counters are folded in after
@@ -283,6 +345,7 @@ class EnsembleSampler:
             self._host_gen,
         )
         if store_chunk_steps is None:
+            # sized at the STORED row dtype: a reduced store fits more steps
             store_chunk_steps = default_chunk_steps(
                 self.n_walkers, self.n_params, self.chain.dtype
             )
@@ -365,7 +428,7 @@ class EnsembleSampler:
         current ensemble into the chain as one stored step."""
         self._require_state()
         pos, logp = self._current_ensemble()
-        return append_device_chunk(self.chain, pos[None], logp[None])
+        return self.chain.append(pos[None], logp[None])
 
     def set_sampling_mode(self, thin):
         """Default thinning interval of later ``run_mcmc`` calls that pass
@@ -390,7 +453,7 @@ class EnsembleSampler:
             remaining -= take
 
     def run_mcmc(self, n_steps, thin=None, store=True, step_action=None,
-                 chunk_action=None):
+                 chunk_action=None, checkpoint_path=None, checkpoint_every=1):
         """Run ``n_steps`` total steps; if ``store``, save every ``thin``-th
         (``thin=None`` takes the default of :meth:`set_sampling_mode`).
 
@@ -402,6 +465,12 @@ class EnsembleSampler:
         tensors) are stacked over the stored steps into ``self.step_metrics``
         as numpy. ``chunk_action(chain)`` runs on the host after each chunk
         of stored steps lands in the chain.
+
+        ``checkpoint_path``: if set, a resumable checkpoint
+        (:mod:`mcmcpp_tpu_torch.io.checkpoint`) is written after every
+        ``checkpoint_every`` chunks, and once more when the run ends. The
+        in-flight chunk is landed before each save, so a snapshot is
+        consistent (state == chain == counters); saves are atomic.
         """
         self._require_state()
         n_steps = int(n_steps)
@@ -417,7 +486,7 @@ class EnsembleSampler:
         metric_chunks = []
 
         def land(pos, logp, metrics):
-            ok = append_device_chunk(self.chain, pos, logp)
+            ok = self.chain.append(pos, logp)
             if metrics is not None:
                 metric_chunks.append(
                     _tree_map(lambda t: t.cpu().numpy(), metrics))
@@ -428,7 +497,8 @@ class EnsembleSampler:
         if thin > self._max_steps_per_harvest:
             ok = self._run_micro_chunks(n_store, thin, step_action, land)
         else:
-            ok = self._run_chunks(n_store, thin, step_action, land)
+            ok = self._run_chunks(n_store, thin, step_action, land,
+                                  checkpoint_path, checkpoint_every)
         if metric_chunks:
             self.step_metrics = _tree_stack(
                 metric_chunks, lambda xs: np.concatenate(xs, axis=0))
@@ -436,16 +506,22 @@ class EnsembleSampler:
             return False
         if leftover:
             self._run_nostore(leftover)
+        if checkpoint_path is not None:
+            from mcmcpp_tpu_torch.io.checkpoint import save_checkpoint
+
+            save_checkpoint(self, checkpoint_path)  # final snapshot
         return True
 
-    def _run_chunks(self, n_store, thin, step_action, land):
+    def _run_chunks(self, n_store, thin, step_action, land,
+                    checkpoint_path=None, checkpoint_every=1):
         """The pipelined store loop: chunk k is enqueued before chunk k−1
         lands."""
         chunk = min(self._chunk, self._max_steps_per_harvest // thin)
 
         def launch(take):
             self.state, pos, logp, metrics, acc = run_scan(
-                self.state, self._step_fn, take, thin, step_action
+                self.state, self._step_fn, take, thin, step_action,
+                store_dtype=self._store_dtype,
             )
             return pos, logp, metrics, acc
 
@@ -458,7 +534,17 @@ class EnsembleSampler:
             # the unstorable chunk still advanced the state: count its accepts
             self._accum_accept(*chunk_data[3])
 
-        return run_pipelined(n_store, chunk, launch, fetch, on_drop=on_drop)
+        ckpt_save = None
+        if checkpoint_path is not None:
+            from mcmcpp_tpu_torch.io.checkpoint import save_checkpoint
+
+            def ckpt_save():
+                save_checkpoint(self, checkpoint_path)
+
+        return run_pipelined(
+            n_store, chunk, launch, fetch, on_drop=on_drop,
+            checkpoint_save=ckpt_save, checkpoint_every=checkpoint_every,
+        )
 
     def _run_micro_chunks(self, n_store, thin, step_action, land):
         """Store path for a ``thin`` above the harvest cap: advance each

@@ -30,9 +30,18 @@ def test_import_pulls_in_no_jax_or_triton():
 
 
 def test_sources_import_no_jax():
-    banned = ("jax", "jaxlib", "mcmcpp_tpu", "triton")
+    banned = ("jax", "jaxlib", "mcmcpp_tpu", "triton", "ml_dtypes")
     files = sorted(PKG.rglob("*.py"))
-    assert len(files) >= 10
+    assert len(files) >= 40
+    for new in ("chain_disk.py", "convergence.py", "export.py",
+                "compat/emcee.py", "io/checkpoint.py", "io/engines.py",
+                "io/outputs.py", "io/writer.py", "utils/metrics.py",
+                "analysis/ess.py", "analysis/covariance.py",
+                "analysis/histograms.py", "analysis/percentiles.py",
+                "analysis/streaming.py", "analysis/diagnostics.py",
+                "examples/skewed_gaussian.py", "examples/actime.py",
+                "examples/inner_benchmark.py"):
+        assert PKG / new in files, new
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
@@ -44,6 +53,23 @@ def test_sources_import_no_jax():
             for name in names:
                 root = name.split(".")[0]
                 assert root not in banned, f"{path}: imports {name}"
+
+
+def test_every_module_imports_without_optional_packages():
+    """Importing every module of the port, the examples too, loads none of
+    jax, ml_dtypes, triton, h5py, arviz (nor the JAX package)."""
+    code = (
+        "import importlib, pkgutil, sys, mcmcpp_tpu_torch as m\n"
+        "names = [i.name for i in pkgutil.walk_packages(m.__path__, "
+        "m.__name__ + '.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "assert len(names) >= 45, len(names)\n"
+        "bad = [b for b in ('jax', 'ml_dtypes', 'triton', 'h5py', 'arviz', "
+        "'mcmcpp_tpu') if b in sys.modules]\n"
+        "print(bad); sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 def test_cuda_requested_without_gpu_raises():
