@@ -59,6 +59,20 @@ Builds the port's CUDA kernels from ``mcmcpp_tpu_torch/csrc/`` (into
    and against Σ, correlation, corner histograms, percentiles, summary,
    ESS) and the CSV and NPZ writers read back; the three example programs
    as subprocesses;
+9. (before 7) the gradient engines, which run no hand kernel: (a) the repo's
+   own configuration (``benchmarks/grad_bench.py``: the flagship's 10-D
+   Gaussian, 1024 chains, 300 warmup steps or ``tune(300)``, 400 stored;
+   NUTS 100 + 50 with the diagonal metric and 150 + 100 with the dense one)
+   for NUTS, ChEES, MEADS, MCLMC, MAMS, HMC, MALA and Barker, each with its
+   transitions/s, gradient evaluations/s, worst-parameter ESS/s, host syncs
+   per step and peak device memory, and its mean and covariance within 5
+   Monte-Carlo standard errors of Σ (from the run's own ESS); (b) Bayesian
+   logistic regression at the German-credit shape (N = 1000, P = 25,
+   synthetic from a seed) with NUTS and ChEES (300 + 200 steps each)
+   at 2^14 chains (R-hat < 1.01, their means within 5 MC standard errors of
+   each other) and SGLD and SGHMC at 1024 chains on minibatches of 100
+   rows, against the NUTS posterior; (c) bitwise resume of HMC at 2^14
+   chains from a checkpoint;
 7. times 50 steps of the flagship and of Neal's funnel (wall time and the
    host's enqueue time per step) and takes a ``torch.profiler`` window over
    50 more of each: device time and launches per step by kernel; a flagship
@@ -83,6 +97,7 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
 from contextlib import contextmanager, nullcontext
 
 import numpy as np
@@ -129,6 +144,13 @@ ACCEPT_WINDOWS = {
     "fused_funnel": (0.44, 0.50),
 }
 SKEWED_COV = np.array([[1.13, 0.435], [0.435, 0.2825]])
+# phase 9's stochastic-gradient runs on the logistic target (N = 1000,
+# B = 100): steps small beside the posterior's curvature (~250), so that the
+# minibatch noise inflates the variance well inside tests/test_sgmcmc.py's
+# 2.5x, and enough of them to mix from a start on the NUTS posterior
+SGLD_STEP = 2e-5
+SGHMC_STEP = 2e-6
+SG_STEPS = 2000
 
 
 @contextmanager
@@ -404,6 +426,283 @@ def check_stored(s, target, label):
     recomputed = target(torch.from_numpy(samples).to(dev))
     torch.testing.assert_close(stored_lp, recomputed, rtol=1e-5, atol=1e-5)
     return samples
+
+
+class CountedLogp(torch.nn.Module):
+    """A batched logp that counts the rows it is evaluated on: one row is
+    one chain's logp and, through autograd, its gradient."""
+
+    def __init__(self, target):
+        super().__init__()
+        self.target = target
+        self.rows = 0
+
+    def forward(self, x, *batch):
+        self.rows += x.shape[0]
+        return self.target(x, *batch)
+
+
+@contextmanager
+def counting_syncs():
+    """Count the operations that wait for the device (CUDA's sync debug mode
+    in "warn"); yields a list whose length is the count at the end."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield caught
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    caught[:] = [w for w in caught if "synchroniz" in str(w.message)]
+
+
+def moments_within(label, samples, ess, ess_sq, mean, cov, n_se=5.0,
+                   bias=0.0):
+    """The sample mean and covariance against the truth, each within
+    ``n_se`` Monte-Carlo standard errors from the run's own ESS: sd/√ESS_i
+    for a mean (``ess`` of the draws), √((Σ_ii Σ_jj + Σ_ij²)/ESS) for a
+    covariance entry (a Gaussian's), with the smallest ESS of the centered
+    squares (``ess_sq``): a sampler whose draws are antithetic in the mean
+    (NUTS: ESS above the draws' count) is not so in the variance. An
+    unadjusted sampler's covariance may also be off by ``bias``·|Σ_ij|
+    (its stationary law is not the target's). Returns (the largest
+    deviation in standard errors beyond the bias, the largest relative
+    deviation of a covariance entry)."""
+    flat = samples.reshape(-1, samples.shape[-1]).astype(np.float64)
+    sd = np.sqrt(np.diag(cov))
+    z_mean = np.abs(flat.mean(axis=0) - mean) / (sd / np.sqrt(ess))
+    se_cov = np.sqrt((np.outer(sd ** 2, sd ** 2) + cov ** 2) / np.min(ess_sq))
+    off = np.abs(np.cov(flat.T) - cov)
+    z_cov = np.maximum(off - bias * np.abs(cov), 0.0) / se_cov
+    worst = float(max(z_mean.max(), z_cov.max()))
+    if not worst <= n_se:
+        raise AssertionError(
+            f"{label}: mean or covariance {worst:.2f} MC standard errors "
+            f"from the truth (bound {n_se}; covariance bias allowed "
+            f"{bias})")
+    return worst, float((off / np.abs(cov)).max())
+
+
+def gradient_engines(mt, card, out_dir):
+    """Phase 9: the gradient engines on the card, through the entry points
+    a user calls (``warmup``/``tune``, ``run``, ``get_samples``), with no hand
+    kernel on their path. Prints, per engine, transitions/s, gradient
+    evaluations/s (rows of the batched logp), worst-parameter ESS/s (the
+    port's ``analysis.effective_sample_size``), host syncs per step (CUDA's
+    sync debug mode) and peak device memory, and checks what comes out."""
+    import torch.nn.functional as F
+
+    from mcmcpp_tpu_torch.analysis import potential_scale_reduction
+    from mcmcpp_tpu_torch.io import load_checkpoint
+
+    dev = torch.device("cuda")
+
+    def drive(label, make, target, n_warm, n_steps, tune=False, center=0.0,
+              scale=1.0):
+        counted = CountedLogp(target)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        s = make(counted)
+        s.init_ball(center + torch.zeros(s.n_params, device=dev), scale)
+        t0 = time.perf_counter()
+        if n_warm:
+            (s.tune if tune else s.warmup)(n_warm)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        counted.rows = 0
+        with counting_syncs() as syncs:
+            t0 = time.perf_counter()
+            if not s.run(n_steps):
+                raise AssertionError(f"{label}: chain capacity hit")
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+        x = s.get_samples()
+        if x.shape != (n_steps, s.n_chains, s.n_params) or not np.isfinite(
+                x).all():
+            raise AssertionError(f"{label}: stored samples {x.shape}, "
+                                 "finite rows expected")
+        ess = np.asarray(mt.analysis.effective_sample_size(
+            torch.from_numpy(x).to(dev)))
+        worst = float(np.nanmin(ess)) if np.isfinite(ess).any() else 0.0
+        extra = ""
+        if hasattr(s, "get_sample_stats"):
+            extra = (f", divergences {int(s.divergence_count.sum())}, "
+                     f"accept {s.last_mean_accept:.3f}")
+        print(f"  {label}: C={s.n_chains} P={s.n_params}, warmup {n_warm} in "
+              f"{warm_s:.2f} s, {n_steps} steps in {run_s:.3f} s: "
+              f"{s.n_chains * n_steps / run_s:.6e} transitions/s, "
+              f"{counted.rows / run_s:.6e} gradient evaluations/s "
+              f"({counted.rows / (s.n_chains * n_steps):.2f} a transition), "
+              f"worst-parameter ESS {worst:.0f} = {worst / run_s:.6e} ESS/s, "
+              f"{len(syncs) / n_steps:.3f} host syncs per step, peak device "
+              f"memory {torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB"
+              f"{extra} [{card}]", flush=True)
+        return s, x, ess
+
+    # (a) the repo's configuration (benchmarks/grad_bench.py:42-55)
+    dim, rho, n_chains = 10, 0.5, 1024
+    sigma = rho * np.ones((dim, dim)) + (1 - rho) * np.eye(dim)
+    gauss = mt.equicorrelated_gaussian(dim, rho, device=dev)
+
+    # the gradient layer alone: wall time per call of the target and of
+    # logp_and_grad (its autograd backward) at this width, 200 calls
+    # between fences
+    from mcmcpp_tpu_torch.gradient.hmc import logp_and_grad
+
+    x = torch.randn((n_chains, dim), device=dev)
+    per_call = {}
+    for name, fn in [("logp", lambda: gauss(x)),
+                     ("logp_and_grad", lambda: logp_and_grad(gauss, x))]:
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn()
+        torch.cuda.synchronize()
+        per_call[name] = (time.perf_counter() - t0) / 200 * 1e6
+    print(f"  gradient layer, C={n_chains} P={dim}: the target "
+          f"{per_call['logp']:.1f} us a call, logp_and_grad "
+          f"{per_call['logp_and_grad']:.1f} us a call [{card}]", flush=True)
+    # (label, sampler, tune instead of warmup, warmup steps, stored steps):
+    # 300 + 400 as grad_bench.py runs them, but for NUTS, whose lockstep
+    # trees reach depth 8 in nearly every transition of the diagonal metric
+    # (~190 leaves of 2-3 ms of host time each at 1024 chains), cut so that
+    # the phase stays inside the script's time
+    engines = [
+        ("nuts", lambda f: mt.NUTSSampler(f, n_chains, dim, max_depth=8,
+                                          device="cuda"), False, 100, 50),
+        ("nuts dense", lambda f: mt.NUTSSampler(
+            f, n_chains, dim, max_depth=8, metric="dense", device="cuda"),
+         False, 150, 100),
+        ("chees", lambda f: mt.CheesHMCSampler(f, n_chains, dim,
+                                               device="cuda"), False, 300,
+         400),
+        ("meads", lambda f: mt.MEADSSampler(f, n_chains, dim, device="cuda"),
+         False, 300, 400),
+        ("mclmc", lambda f: mt.MCLMCSampler(f, n_chains, dim, device="cuda"),
+         True, 300, 400),
+        ("mams", lambda f: mt.MAMSSampler(f, n_chains, dim, device="cuda"),
+         True, 300, 400),
+        ("hmc", lambda f: mt.HMCSampler(f, n_chains, dim, n_leapfrog=16,
+                                        device="cuda"), False, 300, 400),
+        ("mala", lambda f: mt.MALASampler(f, n_chains, dim, device="cuda"),
+         False, 300, 400),
+        ("barker", lambda f: mt.BarkerSampler(f, n_chains, dim,
+                                              device="cuda"), False, 300,
+         400),
+    ]
+    for label, make, tune, n_warm, n_steps in engines:
+        s, x, ess = drive(f"gaussian {label}", make, gauss, n_warm, n_steps,
+                          tune)
+        xt = torch.from_numpy(x).to(dev)
+        ess_sq = np.asarray(mt.analysis.effective_sample_size(
+            (xt - xt.mean(dim=(0, 1))) ** 2))
+        # MCLMC has no accept step: tests/test_mclmc.py allows its variance
+        # 8% (rtol 0.08) besides the Monte-Carlo error
+        bias = 0.08 if label == "mclmc" else 0.0
+        z, rel = moments_within(label, x, ess, ess_sq, np.zeros(dim), sigma,
+                                bias=bias)
+        print(f"    mean and covariance within {z:.2f} MC standard errors of "
+              f"the truth (bound 5, covariance bias allowed {bias}); "
+              f"largest covariance deviation {rel:.4f} relative")
+        if label == "nuts":
+            syncs = s._kernel.host_syncs
+            print(f"    NUTS's own count: {syncs} syncs over the warmup and "
+                  f"the run, {s._kernel.leapfrogs} leapfrog steps")
+        del s, x, xt
+        torch.cuda.empty_cache()
+
+    # (b) a model users run at its full width: Bayesian logistic regression
+    # at the German-credit shape (N = 1000 rows, P = 25), synthetic data
+    logit = mt.logistic_regression(n_data=1000, dim=25, seed=0, device=dev)
+    wide = 1 << 14
+    fits = {}
+    for label, make, n_warm, n_steps in [
+            ("nuts", lambda f: mt.NUTSSampler(f, wide, 25, max_depth=8,
+                                              device="cuda"), 300, 200),
+            ("chees", lambda f: mt.CheesHMCSampler(f, wide, 25,
+                                                   device="cuda"), 300, 200)]:
+        s, x, ess = drive(f"logistic {label}", make, logit, n_warm, n_steps,
+                          scale=0.1)
+        rhat = potential_scale_reduction(x, rank_normalized=False)
+        flat = x.reshape(-1, 25).astype(np.float64)
+        fits[label] = (flat.mean(axis=0), flat.var(axis=0), ess)
+        print(f"    R-hat max {rhat.max():.5f} (bound 1.01)")
+        if not rhat.max() < 1.01:
+            raise AssertionError(f"logistic {label}: R-hat {rhat}")
+        del s, x, flat
+        torch.cuda.empty_cache()
+    (m_n, v_n, e_n), (m_c, v_c, e_c) = fits["nuts"], fits["chees"]
+    z = np.abs(m_n - m_c) / np.sqrt(v_n / e_n + v_c / e_c)
+    print(f"    NUTS and ChEES posterior means within {z.max():.2f} MC "
+          "standard errors (bound 5)")
+    if not z.max() <= 5.0:
+        raise AssertionError(f"NUTS and ChEES means differ by {z} SE")
+
+    # SGLD and SGHMC on the same data, minibatches of 100 rows, started on
+    # the NUTS posterior; held to tests/test_sgmcmc.py's tolerances
+    data = {"x": logit.x_t, "s": logit.sign_t}
+
+    def logprior(t):
+        return -0.5 * torch.sum(t * t, dim=-1) / logit.prior_scale ** 2
+
+    def loglike(t, batch):
+        return torch.sum(F.logsigmoid(batch["s"] * (t @ batch["x"].T)),
+                         dim=-1)
+
+    for label, make in [
+            ("sgld", lambda f: mt.SGLDSampler(
+                logprior, f, data, 1024, 25, batch_size=100,
+                step_size=SGLD_STEP, device="cuda")),
+            ("sghmc", lambda f: mt.SGHMCSampler(
+                logprior, f, data, 1024, 25, batch_size=100,
+                step_size=SGHMC_STEP, friction=0.1, device="cuda"))]:
+        s, x, _ = drive(f"logistic {label}", make, loglike, 0, SG_STEPS,
+                        center=torch.from_numpy(m_n).float().to(dev),
+                        scale=torch.from_numpy(np.sqrt(v_n)).float().to(dev))
+        flat = x[SG_STEPS // 4:].reshape(-1, 25).astype(np.float64)
+        d_mean = np.abs(flat.mean(axis=0) - m_n) / np.sqrt(v_n)
+        ratio = flat.var(axis=0) / v_n
+        print(f"    mean within {d_mean.max():.3f} posterior sd of NUTS's "
+              f"(bound 4); variance ratio {ratio.min():.3f}-{ratio.max():.3f}"
+              " (bounds 0.5-2.5)")
+        if not (d_mean.max() < 4.0 and ratio.min() > 0.5
+                and ratio.max() < 2.5):
+            raise AssertionError(f"logistic {label}: moments off NUTS's")
+        del s, x, flat
+
+    # (c) resume on the card: HMC at C = 2^14 on the logistic target
+    path = os.path.join(out_dir, "ck_hmc")
+
+    def hmc(seed):
+        return mt.HMCSampler(logit, wide, 25, n_leapfrog=8, seed=seed,
+                             device="cuda")
+
+    a = hmc(3)
+    a.init_ball(torch.zeros(25, device=dev), 0.1)
+    t0 = time.perf_counter()
+    a.run(40, checkpoint_path=path)
+    first_s = time.perf_counter() - t0
+    a.run(40)
+    b = hmc(77)
+    t0 = time.perf_counter()
+    load_checkpoint(b, path)
+    load_s = time.perf_counter() - t0
+    b.run(40)
+    same = all(torch.equal(u, v) for u, v in zip(a.state, b.state))
+    for get in ("get_samples", "get_log_probs"):
+        ra, rb = getattr(a, get)(), getattr(b, get)()
+        same = same and ra.shape[0] == 80 and np.array_equal(ra, rb)
+    sa, sb = a.get_sample_stats(), b.get_sample_stats()
+    same = same and all(np.array_equal(sa[k], sb[k]) for k in sa)
+    if not same:
+        raise AssertionError("HMC: the resumed run differs from the "
+                             "uninterrupted one")
+    print(f"  resume hmc C=2^14 P=25: 40 + 40 steps == 40, load, 40 bitwise "
+          f"(state, 80 rows, sample stats); 40 steps + checkpoint of "
+          f"{os.path.getsize(path + '.npz')} B in {first_s:.2f} s, loaded in "
+          f"{load_s:.2f} s [{card}]", flush=True)
 
 
 def main():
@@ -803,17 +1102,17 @@ def main():
     # -- phase 6: the reference's oracles on the card -----------------------
     with phase("6 oracles"):
         for name, make, n_steps, atol in [
-            ("walk", lambda: mt.WalkMove(6), 4000, 0.12),
+            ("walk", lambda: mt.WalkMove(6), 2000, 0.12),
             ("de", lambda: mt.DifferentialEvolutionMove(), 8000, 0.15),
             ("mh", lambda: mt.MetropolisHastingsMove(
                 covariance=SKEWED_COV, scale=1.2), 8000, 0.15),
-            ("snooker", lambda: mt.DESnookerMove(), 4000, 0.15),
-            ("dram", lambda: mt.DRAMMove(), 4000, 0.15),
+            ("snooker", lambda: mt.DESnookerMove(), 2000, 0.15),
+            ("dram", lambda: mt.DRAMMove(), 2000, 0.15),
             ("mixture", lambda: mt.MixtureMover([
                 (mt.FusedStretchMove(), 2.0),
                 (mt.DifferentialEvolutionMove(), 1.0),
                 (mt.DESnookerMove(), 1.0)]), 8000, 0.15),
-            ("slice", lambda: mt.EnsembleSliceMove(), 400, 0.12),
+            ("slice", lambda: mt.EnsembleSliceMove(), 200, 0.12),
         ]:
             t0 = time.perf_counter()
             so = mt.EnsembleSampler(skewed, 320, 2, mover=make(), seed=42,
@@ -840,7 +1139,7 @@ def main():
         for name, mover, n_steps in [
                 ("fused a=3 (split kernels)", mt.FusedStretchMove(a=3.0),
                  12000),
-                ("walk6", mt.WalkMove(6), 4000),
+                ("walk6", mt.WalkMove(6), 2000),
                 ("de", mt.DifferentialEvolutionMove(), 6000)]:
             reset_launches(fs)
             t0 = time.perf_counter()
@@ -872,7 +1171,7 @@ def main():
                                 mover=ar, seed=5, batched=True, device="cuda")
         sa.set_initial_walker_pos(ar.initial_positions(
             torch.Generator(device=dev).manual_seed(6), 100, device=dev))
-        sa.run_mcmc(65536)
+        sa.run_mcmc(32768)
         tau = mt.analysis.autocorr_time(
             torch.from_numpy(sa.get_samples()).to(dev))
         print(f"  AcTime: tau {tau.tolist()} vs {ar.true_act.tolist()} "
@@ -1237,6 +1536,12 @@ def main():
                     f"{done.stderr[-2000:]}")
             print(f"  example {mod}: exit 0 "
                   f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        torch.cuda.empty_cache()
+
+    # -- phase 9: the gradient engines (no hand kernel on their path) --------
+    with phase("9 gradient engines"):
+        gradient_engines(mt, card, os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "build", "smoke"))
         torch.cuda.empty_cache()
 
     # -- phase 7: what a flagship step puts on the device --------------------

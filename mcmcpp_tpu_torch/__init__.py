@@ -18,6 +18,10 @@ resume (``io``), convergence-driven runs (:func:`run_until_converged`), the
 Analysis layer (``analysis``), the writers (``io``), the emcee surface
 (``compat.emcee``), the ArviZ export and the reference's three test programs
 (``examples``).
+
+The gradient engines (``gradient``: HMC, NUTS, MALA, Barker, ChEES, MEADS,
+MCLMC/MAMS, SGLD/SGHMC) run a batch of chains on the device with autograd
+gradients of a batched logp; they need no hand kernel.
 """
 
 from mcmcpp_tpu_torch import analysis
@@ -25,6 +29,18 @@ from mcmcpp_tpu_torch.chain import Chain
 from mcmcpp_tpu_torch.chain_disk import DiskChain
 from mcmcpp_tpu_torch.convergence import ConvergenceReport, run_until_converged
 from mcmcpp_tpu_torch.export import to_arviz, to_inference_dict
+from mcmcpp_tpu_torch.gradient import (
+    BarkerSampler,
+    CheesHMCSampler,
+    HMCSampler,
+    MALASampler,
+    MAMSSampler,
+    MCLMCSampler,
+    MEADSSampler,
+    NUTSSampler,
+    SGHMCSampler,
+    SGLDSampler,
+)
 from mcmcpp_tpu_torch.models.targets import (
     BayesianLinearRegression,
     GaussianMixture,
@@ -60,8 +76,10 @@ from mcmcpp_tpu_torch.sampler import EnsembleSampler, EnsembleState, sample_ball
 
 __all__ = [
     "AutoRegressiveMove",
+    "BarkerSampler",
     "BayesianLinearRegression",
     "Chain",
+    "CheesHMCSampler",
     "ConvergenceReport",
     "DESnookerMove",
     "DRAMMove",
@@ -73,12 +91,20 @@ __all__ = [
     "FusedStretchMove",
     "GaussianMixture",
     "GaussianTarget",
+    "HMCSampler",
     "LogisticRegression",
+    "MALASampler",
+    "MAMSSampler",
+    "MCLMCSampler",
+    "MEADSSampler",
     "MetropolisHastingsMove",
     "MixtureMover",
     "Mover",
+    "NUTSSampler",
     "NealFunnel",
     "Rosenbrock",
+    "SGHMCSampler",
+    "SGLDSampler",
     "SequenceMove",
     "StretchMove",
     "Target",

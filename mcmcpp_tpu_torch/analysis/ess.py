@@ -6,17 +6,19 @@ ESS = S·W / τ per parameter, using the windowed-Sokal τ from
 """
 
 import numpy as np
+import torch
 
 from mcmcpp_tpu_torch.analysis.autocorr import autocorr_time
 
 
 def effective_sample_size(samples, window_scaling=4.0, **kw):
-    """ESS per parameter for (S, W, P) (or scalar for (S, W)) samples.
+    """ESS per parameter for (S, W, P) (or scalar for (S, W)) samples, numpy
+    or a tensor (whose autocovariance FFT then runs on its device).
 
     Unconverged τ estimates (returned negative by ``autocorr_time``) yield
     NaN so they can't silently inflate ESS.
     """
-    arr = np.asarray(samples)
+    arr = samples if isinstance(samples, torch.Tensor) else np.asarray(samples)
     tau = autocorr_time(arr, window_scaling=window_scaling, **kw)
     n_total = arr.shape[0] * arr.shape[1]
     tau = np.asarray(tau, np.float64)

@@ -3,13 +3,23 @@ package.
 
 The caller takes numpy arrays from the JAX objects (``np.asarray`` of a
 ``mcmcpp_tpu`` state's fields, the ``prec_chol`` a Gaussian target closes
-over, or the ``name``, ``dim``, ``mean``, ``cov`` and ``extras`` of a
-``mcmcpp_tpu.models.Target``); this module builds the port's objects from
-them. It imports nothing of JAX.
+over, the covariance of a dense metric, or the ``name``, ``dim``, ``mean``,
+``cov`` and ``extras`` of a ``mcmcpp_tpu.models.Target``); this module builds
+the port's objects from them. It imports nothing of JAX.
 """
+
+import warnings
 
 import numpy as np
 import torch
+
+from mcmcpp_tpu_torch.gradient.chees import AdamState
+from mcmcpp_tpu_torch.gradient.hmc import HMCState
+from mcmcpp_tpu_torch.gradient.meads import MEADSSampler, MEADSState
+from mcmcpp_tpu_torch.gradient.mclmc import MAMSSampler, MCLMCState
+from mcmcpp_tpu_torch.gradient.metric import dense_mass_from_cov
+from mcmcpp_tpu_torch.gradient.sgmcmc import SGState
+from mcmcpp_tpu_torch.io.checkpoint import FOR_SAMPLER, checkpoint_kind
 
 from mcmcpp_tpu_torch.models.targets import (
     BayesianLinearRegression,
@@ -21,9 +31,15 @@ from mcmcpp_tpu_torch.models.targets import (
 )
 from mcmcpp_tpu_torch.sampler import EnsembleState
 
-__all__ = ["GaussianTarget", "mover_state_from_numpy",
+__all__ = ["GaussianTarget", "dense_mass_from_numpy",
+           "gradient_state_from_numpy", "mover_state_from_numpy",
            "sampler_from_jax_checkpoint", "state_from_numpy",
            "target_from_numpy"]
+
+
+def _tensor(x, device, dtype=np.float32):
+    # a copy: the JAX package's host arrays are read-only views
+    return torch.from_numpy(np.array(x, dtype)).to(device)
 
 
 def state_from_numpy(red, black, logp_red, logp_black, accepted_red,
@@ -50,38 +66,91 @@ def state_from_numpy(red, black, logp_red, logp_black, accepted_red,
     )
 
 
-def sampler_from_jax_checkpoint(arrays, meta, sampler):
-    """Load an ensemble checkpoint written by the JAX package into a port
-    sampler, so that a long run begun there goes on here.
+def gradient_state_from_numpy(position, logp, grad, momentum=None,
+                              device="cuda"):
+    """The port's state of a gradient sampler from numpy arrays (float32):
+    an ``HMCState``, or a ``MEADSState`` when ``momentum`` is given."""
+    if momentum is None:
+        return HMCState(*(_tensor(x, device) for x in (position, logp, grad)))
+    return MEADSState(*(_tensor(x, device)
+                        for x in (position, momentum, logp, grad)))
 
-    ``arrays`` and ``meta`` are the file's contents as numpy and a dict::
 
-        with np.load(path, allow_pickle=False) as z:
-            meta = json.loads(bytes(z["__meta__"]).decode())
-            arrays = {k: z[k] for k in z.files if k != "__meta__"}
+def dense_mass_from_numpy(cov, device="cuda"):
+    """The port's :class:`DenseMassMatrix` from a numpy covariance (the
+    ``cov`` field of the JAX package's), factored on ``device``."""
+    return dense_mass_from_cov(_tensor(cov, device))
 
-    Walkers, log-probs, the per-walker accept counters (device and host),
-    the step counter with its reset base, and the stored chain are carried
-    over, so ``total_steps``, ``acceptance_fraction`` and ``get_samples``
-    read as they did. The threefry key is not: the port draws from another
-    generator family, so the resumed chain continues under the port's own
-    ``seed``, as a valid continuation but not the one the JAX package would
-    have drawn. Returns the sampler.
-    """
-    if meta.get("port") is not None:
-        raise ValueError(
-            f"a checkpoint of the {meta['port']} port, not of the JAX "
-            "package: load it with io.load_checkpoint")
-    if meta.get("kind") != "ensemble":
-        raise ValueError(
-            f"checkpoint kind {meta.get('kind')!r}: only the ensemble "
-            "sampler's state can be carried across")
-    if meta["n_params"] != sampler.n_params:
-        raise ValueError(
-            f"checkpoint has n_params={meta['n_params']}, "
-            f"sampler has {sampler.n_params}")
-    if meta["n_walkers"] != sampler.n_walkers:
-        raise ValueError("walker count mismatch")
+
+def _refuse_mclmc(kind, meta, sampler):
+    """The JAX package's rule for the MCLMC family: ``mams`` loads only into
+    a MAMSSampler; ``mclmc`` with the adjusted marker only into an
+    unadjusted MCLMCSampler, and a legacy ``mclmc`` file (no marker) into
+    either, with a warning under MAMS."""
+    family = checkpoint_kind(sampler)
+    if family not in ("mclmc", "mams") or (kind == "mams"
+                                           and family != "mams"):
+        raise TypeError(f"checkpoint is for {FOR_SAMPLER[kind]}")
+    if kind == "mclmc" and family == "mams":
+        if "adjusted" in meta:
+            raise TypeError(
+                "checkpoint is for an (unadjusted) MCLMCSampler — resuming "
+                "it under MAMS would silently change the algorithm")
+        warnings.warn(
+            "legacy MCLMC checkpoint without an adjusted/unadjusted marker: "
+            "resuming under MAMS with the sampler's current target_accept",
+            UserWarning)
+
+
+def _jax_gradient(arrays, meta, sampler):
+    dev = sampler.device
+    sampler.state = gradient_state_from_numpy(
+        arrays["position"], arrays["logp"], arrays["grad"],
+        arrays.get("momentum"), device=dev)
+    step_size = np.asarray(arrays["step_size"])
+    sampler.step_size = (float(step_size) if step_size.ndim == 0
+                         else _tensor(step_size, dev))
+    sampler.inv_mass = (
+        dense_mass_from_numpy(arrays["inv_mass_cov"], dev)
+        if sampler.metric == "dense" else _tensor(arrays["inv_mass"], dev))
+    div = arrays.get("stat_diverging")
+    sampler._divergences = ([np.array(div, bool)]
+                            if div is not None and div.shape[0] else [])
+    en = arrays.get("stat_energy")
+    sampler._energies = ([np.array(en, np.float32)]
+                         if en is not None and en.shape[0] else [])
+    if "traj_length" in meta and hasattr(sampler, "traj_length"):
+        sampler.traj_length = float(meta["traj_length"])
+    if hasattr(sampler, "_sadapt"):
+        sampler._sadapt = None if "sadapt_log_traj" not in arrays else (
+            _tensor(arrays["sadapt_log_traj"], "cpu"),
+            AdamState(m=_tensor(arrays["sadapt_m"], "cpu"),
+                      v=_tensor(arrays["sadapt_v"], "cpu"),
+                      count=int(arrays["sadapt_count"])))
+
+
+def _jax_sgmcmc(arrays, meta, sampler):
+    dev = sampler.device
+    sampler.state = SGState(_tensor(arrays["position"], dev),
+                            _tensor(arrays["velocity"], dev),
+                            int(arrays["sg_step"]))
+
+
+def _jax_mclmc(arrays, meta, sampler):
+    dev = sampler.device
+    sampler.state = MCLMCState(*(_tensor(arrays[k], dev)
+                                 for k in MCLMCState._fields))
+    sampler.step_size = float(meta["step_size"])
+    sampler.decoherence_length = float(meta["decoherence_length"])
+    sampler.energy_var = float(meta["energy_var"])
+    sampler.inv_mass = (np.asarray(arrays["inv_mass"]) if "inv_mass" in arrays
+                        else None)
+    if meta["kind"] == "mams" and isinstance(sampler, MAMSSampler):
+        sampler.target_accept = float(meta["target_accept"])
+        sampler.last_mean_accept = float(meta["last_mean_accept"])
+
+
+def _jax_ensemble(arrays, meta, sampler):
     sampler.state = state_from_numpy(
         *(arrays[k] for k in ("red", "black", "logp_red", "logp_black",
                               "accepted_red", "accepted_black", "step")),
@@ -90,6 +159,67 @@ def sampler_from_jax_checkpoint(arrays, meta, sampler):
     sampler._accepted_walkers_host = (
         awh.astype(np.int64) if awh.shape[0] else None)
     sampler._reset_step_base = int(meta["reset_step_base"])
+
+
+_JAX_LOADERS = {"ensemble": _jax_ensemble, "gradient": _jax_gradient,
+                "sgmcmc": _jax_sgmcmc, "mclmc": _jax_mclmc,
+                "mams": _jax_mclmc}
+
+
+def sampler_from_jax_checkpoint(arrays, meta, sampler):
+    """Load a checkpoint written by the JAX package into a port sampler, so
+    that a long run begun there goes on here.
+
+    ``arrays`` and ``meta`` are the file's contents as numpy and a dict::
+
+        with np.load(path, allow_pickle=False) as z:
+            meta = json.loads(bytes(z["__meta__"]).decode())
+            arrays = {k: z[k] for k in z.files if k != "__meta__"}
+
+    Kinds ``ensemble`` (walkers, log-probs, the per-walker accept counters,
+    the step counter with its reset base), ``gradient`` (state, step sizes,
+    ``inv_mass`` or the dense ``inv_mass_cov``, ChEES's ``traj_length`` and
+    ``sadapt_*``, MEADS's momenta, the sample stats), ``sgmcmc`` (position,
+    velocity, the decay schedule's step) and ``mclmc``/``mams`` (state, step
+    size, decoherence length, metric, MAMS's tuning), each with the stored
+    chain, so that ``get_samples`` and the statistics read as they did. The
+    threefry key is not carried: the port draws from another generator
+    family, so the resumed chain continues under the port's own ``seed``,
+    as a valid continuation but not the one the JAX package would have
+    drawn. Returns the sampler.
+    """
+    if meta.get("port") is not None:
+        raise ValueError(
+            f"a checkpoint of the {meta['port']} port, not of the JAX "
+            "package: load it with io.load_checkpoint")
+    kind = meta.get("kind")
+    if kind not in _JAX_LOADERS:
+        raise ValueError(
+            f"checkpoint kind {kind!r}: only the ensemble sampler's and the "
+            "gradient engines' states can be carried across")
+    if kind in ("mclmc", "mams"):
+        _refuse_mclmc(kind, meta, sampler)
+    elif checkpoint_kind(sampler) != kind:
+        raise TypeError(f"checkpoint is for {FOR_SAMPLER[kind]}")
+    if meta["n_params"] != sampler.n_params:
+        raise ValueError(
+            f"checkpoint has n_params={meta['n_params']}, "
+            f"sampler has {sampler.n_params}")
+    if kind == "ensemble":
+        if meta["n_walkers"] != sampler.n_walkers:
+            raise ValueError("walker count mismatch")
+    elif meta["n_chains"] != sampler.n_chains:
+        raise ValueError("chain count mismatch")
+    if kind == "gradient":
+        # the JAX package marks only a dense metric
+        if meta.get("metric", "diag") != sampler.metric:
+            raise ValueError(
+                f"checkpoint has metric={meta.get('metric', 'diag')!r}, "
+                f"sampler has {sampler.metric!r}")
+        if ("momentum" in arrays) != isinstance(sampler, MEADSSampler):
+            raise TypeError("a MEADS checkpoint (it carries momenta) loads "
+                            "into a MEADSSampler and no other")
+    _JAX_LOADERS[kind](arrays, meta, sampler)
     sampler.chain.clear()
     if arrays["chain_samples"].shape[0]:
         sampler.chain.append(np.asarray(arrays["chain_samples"]),

@@ -1,17 +1,19 @@
-"""Checkpoint / resume for the ensemble sampler.
+"""Checkpoint / resume for the ensemble sampler and the gradient engines.
 
 Counterpart of ``mcmcpp_tpu/io/checkpoint.py`` (the reference has no
-checkpointing, SURVEY.md §5), ensemble kind only. A checkpoint is one
-``.npz`` archive holding the device state (walker positions, log-probs,
-counters), the state of the sampler's three random generators and the host
-chain: enough to resume sampling bitwise-identically to an uninterrupted run
-on the same kind of device.
+checkpointing, SURVEY.md §5) for its kinds ``ensemble``, ``gradient`` (HMC,
+NUTS, MALA, Barker, ChEES, MEADS), ``sgmcmc`` (SGLD, SGHMC), ``mclmc`` and
+``mams``. A checkpoint is one ``.npz`` archive holding the device state
+(positions, log-probs, gradients, momenta, counters, step sizes, the mass
+matrix, ChEES's trajectory adaptation, the sample stats), the state of the
+sampler's random generators and the host chain: enough to resume sampling
+bitwise-identically to an uninterrupted run on the same kind of device.
 
 Format: flat name → array dict plus a JSON meta blob; no pickling, so
 checkpoints are portable and safe to load from untrusted storage. Array
 names are the JAX package's where they mean the same. Where that package
-saves one threefry key, this one saves the three ``torch.Generator`` states
-(step and auxiliary on the ensemble's device, host on the CPU) as ``uint8``
+saves one threefry key, this one saves the sampler's ``torch.Generator``
+states (step and auxiliary on its device, host on the CPU) as ``uint8``
 arrays, and the meta records the device type: a CUDA and a CPU generator
 draw different streams, so a checkpoint loads only into a sampler on the
 kind of device that wrote it. A chain whose rows are held as raw bits
@@ -36,13 +38,37 @@ _PORT = "torch"
 # checkpoint kinds of the JAX package whose engines are not ported, with the
 # ROADMAP item each waits for
 _UNPORTED_KINDS = {
-    "gradient": "A8", "sgmcmc": "A8", "mclmc": "A8", "mams": "A8",
     "pt": "A9", "smc": "A9", "nested": "A9", "elliptical": "A9",
     "pcn": "A9", "gibbs": "A9", "neutra": "A9", "advi": "A9",
     "pmmh": "A11", "ibis": "A11", "smc2": "A11",
 }
 
+# what a refused load says the file is for, by kind
+FOR_SAMPLER = {
+    "ensemble": "an EnsembleSampler",
+    "gradient": "a gradient sampler",
+    "sgmcmc": "a stochastic-gradient sampler",
+    "mclmc": "an (unadjusted) MCLMCSampler",
+    "mams": "a MAMSSampler",
+}
+
 _GENERATORS = ("step", "aux", "host")
+
+
+def checkpoint_kind(sampler):
+    """The checkpoint kind of ``sampler``, or None."""
+    from mcmcpp_tpu_torch.gradient.hmc import GradientSampler
+    from mcmcpp_tpu_torch.gradient.mclmc import MAMSSampler, MCLMCSampler
+    from mcmcpp_tpu_torch.gradient.sgmcmc import StochasticGradientSampler
+    from mcmcpp_tpu_torch.sampler import EnsembleSampler
+
+    for cls, kind in ((EnsembleSampler, "ensemble"),
+                      (GradientSampler, "gradient"),
+                      (StochasticGradientSampler, "sgmcmc"),
+                      (MAMSSampler, "mams"), (MCLMCSampler, "mclmc")):
+        if isinstance(sampler, cls):
+            return kind
+    return None
 
 
 def _npz_path(path):
@@ -54,11 +80,86 @@ def _npz_path(path):
     return path
 
 
+def _host(t):
+    return t.cpu().numpy()
+
+
+def _save_ensemble(sampler, meta, arrays):
+    s = sampler.state
+    meta.update(n_walkers=sampler.n_walkers,
+                reset_step_base=sampler._reset_step_base)
+    arrays.update(
+        red=_host(s.red), black=_host(s.black),
+        logp_red=_host(s.logp_red), logp_black=_host(s.logp_black),
+        accepted_red=_host(s.accepted_red),
+        accepted_black=_host(s.accepted_black),
+        step=np.asarray(s.step, np.int64),
+        accepted_walkers_host=(
+            sampler._accepted_walkers_host
+            if sampler._accepted_walkers_host is not None
+            else np.zeros((0,), np.int64)
+        ),
+    )
+
+
+def _save_gradient(sampler, meta, arrays):
+    from mcmcpp_tpu_torch.gradient.metric import is_dense
+
+    s = sampler.state
+    meta.update(n_chains=sampler.n_chains, metric=sampler.metric)
+    # ChEES carries an adapted trajectory length and, under
+    # continuous_adapt, the live (log T, Adam) state
+    if getattr(sampler, "traj_length", None) is not None:
+        meta["traj_length"] = float(sampler.traj_length)
+    sa = getattr(sampler, "_sadapt", None)
+    if sa is not None:
+        arrays.update(sadapt_log_traj=sa[0].numpy(), sadapt_m=sa[1].m.numpy(),
+                      sadapt_v=sa[1].v.numpy(),
+                      sadapt_count=np.asarray(sa[1].count, np.int64))
+    arrays.update({name: _host(getattr(s, name)) for name in s._fields})
+    # a per-chain tensor after warmup, else a host float (kept exactly)
+    step = sampler.step_size
+    arrays["step_size"] = (_host(step) if isinstance(step, torch.Tensor)
+                           else np.asarray(step, np.float64))
+    if is_dense(sampler.inv_mass):
+        # the factors are recomputed on load, bit for bit
+        arrays["inv_mass_cov"] = _host(sampler.inv_mass.cov)
+    else:
+        arrays["inv_mass"] = _host(sampler.inv_mass)
+    stats = sampler.get_sample_stats()
+    arrays["stat_diverging"] = stats["diverging"]
+    arrays["stat_energy"] = stats["energy"]
+
+
+def _save_sgmcmc(sampler, meta, arrays):
+    s = sampler.state
+    meta["n_chains"] = sampler.n_chains
+    arrays.update(position=_host(s.position), velocity=_host(s.velocity),
+                  sg_step=np.asarray(s.step, np.int64))
+
+
+def _save_mclmc(sampler, meta, arrays):
+    s = sampler.state
+    meta.update(n_chains=sampler.n_chains, adjusted=meta["kind"] == "mams",
+                step_size=float(sampler.step_size),
+                decoherence_length=float(sampler.decoherence_length),
+                energy_var=float(sampler.energy_var))
+    if meta["kind"] == "mams":
+        meta.update(target_accept=float(sampler.target_accept),
+                    last_mean_accept=float(sampler.last_mean_accept))
+    arrays.update({name: _host(getattr(s, name)) for name in s._fields})
+    if sampler.inv_mass is not None:
+        arrays["inv_mass"] = _host(sampler.inv_mass)
+
+
+_SAVERS = {"ensemble": _save_ensemble, "gradient": _save_gradient,
+           "sgmcmc": _save_sgmcmc, "mclmc": _save_mclmc, "mams": _save_mclmc}
+
+
 def save_checkpoint(sampler, path):
     """Write ``sampler``'s full resumable state to ``path`` (.npz)."""
-    from mcmcpp_tpu_torch.sampler import EnsembleSampler
-
-    if not isinstance(sampler, EnsembleSampler):
+    kind = checkpoint_kind(sampler)
+    if kind is None:
         raise TypeError(f"unsupported sampler type {type(sampler).__name__}")
     if sampler.state is None:
         raise RuntimeError("cannot checkpoint an uninitialized sampler")
@@ -69,36 +170,19 @@ def save_checkpoint(sampler, path):
         "format": _FORMAT_VERSION,
         "port": _PORT,
         "class": type(sampler).__name__,
-        "kind": "ensemble",
+        "kind": kind,
         "n_params": sampler.n_params,
-        "n_walkers": sampler.n_walkers,
-        "reset_step_base": sampler._reset_step_base,
         "device": sampler.device.type,
         "chain_dtype": chain.dtype.name,
         "chain_logp_dtype": getattr(chain, "logp_dtype", chain.dtype).name,
     }
-    s = sampler.state
-
-    def host(t):
-        return t.cpu().numpy()
-
-    arrays = dict(
-        red=host(s.red), black=host(s.black),
-        logp_red=host(s.logp_red), logp_black=host(s.logp_black),
-        accepted_red=host(s.accepted_red),
-        accepted_black=host(s.accepted_black),
-        step=np.asarray(s.step, np.int64),
-        accepted_walkers_host=(
-            sampler._accepted_walkers_host
-            if sampler._accepted_walkers_host is not None
-            else np.zeros((0,), np.int64)
-        ),
-        chain_samples=chain.get(held=True),
-        chain_logp=chain.get_logp(held=True),
-    )
+    arrays = dict(chain_samples=chain.get(held=True),
+                  chain_logp=chain.get_logp(held=True))
+    _SAVERS[kind](sampler, meta, arrays)
     for name in _GENERATORS:
-        gen = getattr(sampler, f"_{name}_gen")
-        arrays[f"rng_{name}"] = gen.get_state().numpy()
+        gen = getattr(sampler, f"_{name}_gen", None)
+        if gen is not None:
+            arrays[f"rng_{name}"] = gen.get_state().numpy()
     arrays["__meta__"] = np.frombuffer(json.dumps(meta).encode(), np.uint8)
     # atomic replace: a crash mid-save must not destroy the previous good
     # checkpoint (the whole point of checkpointing)
@@ -108,14 +192,118 @@ def save_checkpoint(sampler, path):
     return path
 
 
+def _load_ensemble(sampler, meta, arrays, dev):
+    from mcmcpp_tpu_torch.sampler import EnsembleState
+
+    sampler.state = EnsembleState(
+        red=dev("red"), black=dev("black"),
+        logp_red=dev("logp_red"), logp_black=dev("logp_black"),
+        accepted_red=dev("accepted_red"),
+        accepted_black=dev("accepted_black"),
+        step=int(arrays["step"]),
+    )
+    awh = arrays["accepted_walkers_host"]
+    sampler._accepted_walkers_host = (
+        awh.astype(np.int64) if awh.shape[0] else None
+    )
+    sampler._reset_step_base = int(meta["reset_step_base"])
+
+
+def _load_gradient(sampler, meta, arrays, dev):
+    from mcmcpp_tpu_torch.gradient.chees import AdamState
+    from mcmcpp_tpu_torch.gradient.hmc import HMCState
+    from mcmcpp_tpu_torch.gradient.meads import MEADSState
+    from mcmcpp_tpu_torch.gradient.metric import dense_mass_from_cov
+
+    cls = MEADSState if "momentum" in arrays else HMCState
+    sampler.state = cls(*(dev(name) for name in cls._fields))
+    step_size = arrays["step_size"]
+    sampler.step_size = (float(step_size) if step_size.ndim == 0
+                         else dev("step_size"))
+    sampler.inv_mass = (dense_mass_from_cov(dev("inv_mass_cov"))
+                        if meta["metric"] == "dense" else dev("inv_mass"))
+    sampler._divergences = ([arrays["stat_diverging"]]
+                            if arrays["stat_diverging"].shape[0] else [])
+    sampler._energies = ([arrays["stat_energy"]]
+                         if arrays["stat_energy"].shape[0] else [])
+    if "traj_length" in meta:
+        sampler.traj_length = float(meta["traj_length"])
+    if hasattr(sampler, "_sadapt"):
+        sampler._sadapt = None if "sadapt_log_traj" not in arrays else (
+            torch.from_numpy(arrays["sadapt_log_traj"]),
+            AdamState(m=torch.from_numpy(arrays["sadapt_m"]),
+                      v=torch.from_numpy(arrays["sadapt_v"]),
+                      count=int(arrays["sadapt_count"])))
+
+
+def _load_sgmcmc(sampler, meta, arrays, dev):
+    from mcmcpp_tpu_torch.gradient.sgmcmc import SGState
+
+    sampler.state = SGState(dev("position"), dev("velocity"),
+                            int(arrays["sg_step"]))
+
+
+def _load_mclmc(sampler, meta, arrays, dev):
+    from mcmcpp_tpu_torch.gradient.mclmc import MCLMCState
+
+    sampler.state = MCLMCState(*(dev(name) for name in MCLMCState._fields))
+    sampler.step_size = float(meta["step_size"])
+    sampler.decoherence_length = float(meta["decoherence_length"])
+    sampler.energy_var = float(meta["energy_var"])
+    sampler.inv_mass = dev("inv_mass") if "inv_mass" in arrays else None
+    if meta["kind"] == "mams":
+        sampler.target_accept = float(meta["target_accept"])
+        sampler.last_mean_accept = float(meta["last_mean_accept"])
+
+
+_LOADERS = {"ensemble": _load_ensemble, "gradient": _load_gradient,
+            "sgmcmc": _load_sgmcmc, "mclmc": _load_mclmc, "mams": _load_mclmc}
+
+
+def _refuse_mismatch(sampler, meta, arrays):
+    """Raise if the file cannot resume ``sampler`` (before anything moves)."""
+    kind = meta["kind"]
+    if checkpoint_kind(sampler) != kind:
+        raise TypeError(f"checkpoint is for {FOR_SAMPLER[kind]}")
+    if meta["n_params"] != sampler.n_params:
+        raise ValueError(
+            f"checkpoint has n_params={meta['n_params']}, "
+            f"sampler has {sampler.n_params}"
+        )
+    if kind == "ensemble":
+        if meta["n_walkers"] != sampler.n_walkers:
+            raise ValueError("walker count mismatch")
+    elif meta["n_chains"] != sampler.n_chains:
+        raise ValueError("chain count mismatch")
+    if meta["device"] != sampler.device.type:
+        raise ValueError(
+            f"checkpoint was written on a {meta['device']} sampler and this "
+            f"one is on {sampler.device.type}: their generators draw "
+            "different streams, so the run would not resume"
+        )
+    if kind == "gradient":
+        from mcmcpp_tpu_torch.gradient.meads import MEADSSampler
+
+        if meta["metric"] != sampler.metric:
+            raise ValueError(f"checkpoint has metric={meta['metric']!r}, "
+                             f"sampler has {sampler.metric!r}")
+        if ("momentum" in arrays) != isinstance(sampler, MEADSSampler):
+            raise TypeError("a MEADS checkpoint (it carries momenta) loads "
+                            "into a MEADSSampler and no other")
+    saved = {n for n in _GENERATORS if f"rng_{n}" in arrays}
+    held = {n for n in _GENERATORS
+            if getattr(sampler, f"_{n}_gen", None) is not None}
+    if saved != held:
+        raise ValueError(f"checkpoint holds the generators {sorted(saved)}, "
+                         f"the sampler {sorted(held)}")
+
+
 def load_checkpoint(sampler, path):
     """Restore state saved by :func:`save_checkpoint` into ``sampler``.
 
     ``sampler`` must be constructed with the same target, shape and device
     type (validated against the stored meta). Returns the sampler.
     """
-    from mcmcpp_tpu_torch.sampler import EnsembleSampler, EnsembleState
-
     path = Path(path)
     if path.suffix != ".npz" and not path.exists():
         path = path.with_name(path.name + ".npz")
@@ -141,42 +329,18 @@ def load_checkpoint(sampler, path):
             f"checkpoint kind {kind!r}: its engine is not ported yet "
             f"(ROADMAP {_UNPORTED_KINDS[kind]})"
         )
-    if kind != "ensemble":
+    if kind not in _LOADERS:
         raise ValueError(f"unknown checkpoint kind {kind!r}")
-    if not isinstance(sampler, EnsembleSampler):
-        raise TypeError("checkpoint is for an EnsembleSampler")
-    if meta["n_params"] != sampler.n_params:
-        raise ValueError(
-            f"checkpoint has n_params={meta['n_params']}, "
-            f"sampler has {sampler.n_params}"
-        )
-    if meta["n_walkers"] != sampler.n_walkers:
-        raise ValueError("walker count mismatch")
-    if meta["device"] != sampler.device.type:
-        raise ValueError(
-            f"checkpoint was written on a {meta['device']} sampler and this "
-            f"one is on {sampler.device.type}: their generators draw "
-            "different streams, so the run would not resume"
-        )
+    _refuse_mismatch(sampler, meta, arrays)
 
     def dev(name):
         return torch.from_numpy(arrays[name]).to(sampler.device)
 
-    sampler.state = EnsembleState(
-        red=dev("red"), black=dev("black"),
-        logp_red=dev("logp_red"), logp_black=dev("logp_black"),
-        accepted_red=dev("accepted_red"),
-        accepted_black=dev("accepted_black"),
-        step=int(arrays["step"]),
-    )
+    _LOADERS[kind](sampler, meta, arrays, dev)
     for name in _GENERATORS:
-        getattr(sampler, f"_{name}_gen").set_state(
-            torch.from_numpy(arrays[f"rng_{name}"]))
-    awh = arrays["accepted_walkers_host"]
-    sampler._accepted_walkers_host = (
-        awh.astype(np.int64) if awh.shape[0] else None
-    )
-    sampler._reset_step_base = int(meta["reset_step_base"])
+        if f"rng_{name}" in arrays:
+            getattr(sampler, f"_{name}_gen").set_state(
+                torch.from_numpy(arrays[f"rng_{name}"]))
     sampler.chain.clear()
     if arrays["chain_samples"].shape[0]:
         sampler.chain.append(

@@ -64,6 +64,16 @@ def neg_exponential(gen, n, dtype, device):
     return exponential(gen, n, dtype, device).neg_()
 
 
+def bernoulli(gen, shape, device, p=0.5):
+    """Booleans of ``shape``, True with probability ``p``."""
+    return torch.rand(shape, generator=gen, device=device) < p
+
+
+def randint(gen, low, high, shape, device):
+    """int64 draws of ``shape``, uniform on [low, high)."""
+    return torch.randint(low, high, shape, generator=gen, device=device)
+
+
 # Philox4x32-10 (Salmon, Moraes, Dror, Shaw, SC'11; the Random123 constants)
 _PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
 _PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85

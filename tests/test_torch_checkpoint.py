@@ -198,7 +198,7 @@ def _edit_meta(path, **changes):
     ({"n_params": P + 1}, ValueError, "n_params"),
     ({"format": 2}, ValueError, "incompatible checkpoint format"),
     ({"device": "cuda"}, ValueError, "different streams"),
-    ({"kind": "gradient"}, NotImplementedError, "A8"),
+    ({"kind": "gradient"}, TypeError, "gradient sampler"),
     ({"kind": "pt"}, NotImplementedError, "A9"),
     ({"kind": "smc2"}, NotImplementedError, "A11"),
     ({"kind": "mystery"}, ValueError, "unknown checkpoint kind"),
@@ -296,6 +296,8 @@ def test_neither_package_takes_the_others_file(tmp_path):
     with pytest.raises(ValueError, match="load_checkpoint"):
         sampler_from_jax_checkpoint(arrays, port_meta, p)
     with pytest.raises(ValueError, match="only the ensemble"):
+        sampler_from_jax_checkpoint(arrays, dict(meta, kind="pt"), p)
+    with pytest.raises(TypeError, match="gradient sampler"):
         sampler_from_jax_checkpoint(arrays, dict(meta, kind="gradient"), p)
     with pytest.raises(ValueError, match="walker count"):
         sampler_from_jax_checkpoint(arrays, dict(meta, n_walkers=32), p)

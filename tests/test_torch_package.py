@@ -40,7 +40,11 @@ def test_sources_import_no_jax():
                 "analysis/histograms.py", "analysis/percentiles.py",
                 "analysis/streaming.py", "analysis/diagnostics.py",
                 "examples/skewed_gaussian.py", "examples/actime.py",
-                "examples/inner_benchmark.py"):
+                "examples/inner_benchmark.py", "gradient/__init__.py",
+                "gradient/metric.py", "gradient/hmc.py", "gradient/mala.py",
+                "gradient/barker.py", "gradient/nuts.py", "gradient/chees.py",
+                "gradient/meads.py", "gradient/mclmc.py",
+                "gradient/sgmcmc.py"):
         assert PKG / new in files, new
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
@@ -53,6 +57,16 @@ def test_sources_import_no_jax():
             for name in names:
                 root = name.split(".")[0]
                 assert root not in banned, f"{path}: imports {name}"
+
+
+def test_gradient_import_pulls_in_no_jax_or_triton():
+    code = ("import sys, mcmcpp_tpu_torch.gradient as g; "
+            "assert len(g.__all__) == 18; "
+            "bad = [m for m in ('jax', 'triton', 'mcmcpp_tpu') "
+            "if m in sys.modules]; print(bad); sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 def test_every_module_imports_without_optional_packages():
@@ -79,6 +93,23 @@ def test_cuda_requested_without_gpu_raises():
 
     with pytest.raises(RuntimeError, match="is_available"):
         EnsembleSampler(skewed_gaussian(device="cpu"), 8, 2, batched=True)
+
+
+@pytest.mark.parametrize("name", [
+    "HMCSampler", "NUTSSampler", "MALASampler", "BarkerSampler",
+    "CheesHMCSampler", "MEADSSampler", "MCLMCSampler", "MAMSSampler",
+    "SGLDSampler", "SGHMCSampler"])
+def test_gradient_engines_on_cuda_without_gpu_raise(name):
+    if torch.cuda.is_available():
+        pytest.skip("this box has a GPU")
+    import mcmcpp_tpu_torch as mt
+
+    logp = mt.equicorrelated_gaussian(4, device="cpu")
+    args = ((lambda t: -0.5 * (t * t).sum(-1), lambda t, b: t.sum(-1),
+             torch.zeros(8, 1), 16, 4, 4) if name.startswith("SG")
+            else (logp, 16, 4))
+    with pytest.raises(RuntimeError, match="is_available"):
+        getattr(mt, name)(*args)
 
 
 def test_library_name_tracks_sources(tmp_path, monkeypatch):
