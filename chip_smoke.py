@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                   # every phase
+    python3 chip_smoke.py --phases 2b,10    # phase 1 and the phases named
 
 Builds the port's CUDA kernels from ``mcmcpp_tpu_torch/csrc/`` (into
 ``build/kernels/``, one ``nvcc`` per source, all started together), then:
@@ -21,8 +22,10 @@ Builds the port's CUDA kernels from ``mcmcpp_tpu_torch/csrc/`` (into
    n = 2^20, P = 10 and at the edge shapes and shifts above, the Rosenbrock
    banana (P = 2), a logistic regression at ragged n = 1000, rows with
    lp_old = -inf (which accept) and a logp that is NaN on some rows (which
-   reject); times each kernel and the split half-step against the plain
-   versions;
+   reject), and GaussianTargets with P = 65 and P = 100, wider than the fused
+   kernel takes, which run the split kernels around their torch logp (bit
+   for bit against the plain half-step at n = 2^20, and timed against it);
+   times each kernel and the split half-step against the plain versions;
 3. runs the flagship (10-D equicorrelated Gaussian, W = 2^21 walkers)
    through ``EnsembleSampler`` + ``FusedStretchMove``: 20 steps with no host
    sync allowed, three timed runs of 200 burn-in steps and 40 steps stored
@@ -73,22 +76,43 @@ Builds the port's CUDA kernels from ``mcmcpp_tpu_torch/csrc/`` (into
    each other) and SGLD and SGHMC at 1024 chains on minibatches of 100
    rows, against the NUTS posterior; (c) bitwise resume of HMC at 2^14
    chains from a checkpoint;
+10. (before 7) the population engines, which run no hand kernel: (a)
+   parallel tempering, K = 16 geometric rungs of 2^17 walkers on the
+   flagship's 10-D Gaussian (no host sync in the step loop, the cold chain's
+   mean and covariance within 5 Monte-Carlo standard errors, every pair's
+   swap rate above 0.05, walker-rung updates/s, peak memory) and the
+   separated-mode oracle of ``tests/test_tempering.py`` (±8, K = 8, 2^14
+   walkers started in one mode: the other mode's share within 5 SE of 1/2);
+   (b) power mode on ``tests/test_evidence.py``'s conjugate model (K = 12,
+   2^17 walkers: stepping stone within 0.1 and TI within 0.5 of the
+   quadrature log Z); (c) pCN (after ``tune``) and elliptical slice on
+   ``examples/function_space.py``'s GP latent at P = 1024, C = 4096
+   (posterior means within 5 SE of the discretized model's closed form;
+   acceptance, shrink iterations and host syncs a step, steps/s); (d)
+   blocked Gibbs on ``tests/test_gibbs.py``'s hierarchical conjugate oracle
+   at 2^14 chains (no host sync in a sweep but the slice loop's own tests;
+   each block's time alone) and its mixture data augmentation at 2^12
+   (against a quadrature of the means' posterior); (e) bitwise resume, 40 + 40 steps
+   against 40, load, 40, for power-mode PT and the Gibbs sampler;
 7. times 50 steps of the flagship and of Neal's funnel (wall time and the
    host's enqueue time per step) and takes a ``torch.profiler`` window over
    50 more of each: device time and launches per step by kernel; a flagship
    step must launch the fused kernel twice, a funnel step the propose and
    accept kernels twice each, and neither a ``uniform_`` kernel (nor the
    flagship a ``clamp_``), and a window over a storing run (bfloat16 rows):
-   the casting row copies and the device-to-host copies beside the steps.
-   Last, since the profiler's tracing slows every launch after it.
+   the casting row copies and the device-to-host copies beside the steps,
+   and 20 PT steps of phase 10 (a) (launches and device time a step; no
+   stretch kernel). Last, since the profiler's tracing slows every launch
+   after it.
 
 Any failure raises (non-zero exit); every phase prints its seconds. The
 second-to-last lines are the kernel table (each kernel's time beside its
 plain version's and its bound: its bytes, each input read once and each
 output written once, over the card's 3.35 TB/s, or its operations over
 67 TFLOP/s, whichever is larger) and the card's name and power limit; the
-last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
-script raises before printing any result.
+last line is ``{"ok": true, "device": {...}}``. With ``--phases`` the kernel
+line, which needs every phase's launches, is left out. Without a CUDA device
+the script raises before printing any result.
 """
 
 import json
@@ -385,6 +409,9 @@ def split_case(fs, rnd, target, n, seed, neg_inf_every=0, nan_every=0,
     args, key, (u, ue) = half_inputs(rnd, target.dim, n, seed, neg_inf_every,
                                      target, shift)
     act, lp, other, shift = args
+    # the target itself where no row is made NaN: a GaussianTarget wider
+    # than fs.MAX_P must take the split path on its own
+    logp = target if nan_rows is None else logp
     before = dict(fs.LAUNCHES)
     k_out = fs.fused_stretch_half(*args, key=key, logp_fn=logp)
     torch.cuda.synchronize()
@@ -395,8 +422,8 @@ def split_case(fs, rnd, target, n, seed, neg_inf_every=0, nan_every=0,
     r_out = fs.fused_stretch_half_reference(*args, u, ue, logp_fn=logp)
     proposal, lp_new, log_ratio = fs.stretch_proposal(*args, u, logp_fn=logp)
     neg = slice(None, None, neg_inf_every) if neg_inf_every else None
-    label = (f"split {target.name} n={n} P={target.dim} "
-             f"shift={int(shift)}")
+    label = (f"split {getattr(target, 'name', 'gaussian')} n={n} "
+             f"P={target.dim} shift={int(shift)}")
     err = compare_half(label, k_out, r_out, log_ratio, ue, must_accept=neg,
                        must_reject=nan_rows)
     # each kernel alone, on the plain path's own intermediates
@@ -453,7 +480,11 @@ def counting_syncs():
             yield caught
         finally:
             torch.cuda.set_sync_debug_mode(0)
-    caught[:] = [w for w in caught if "synchroniz" in str(w.message)]
+    # the mode's own notice on its first use in a process ("a prototype
+    # feature and does not yet detect all synchronizing operations") is no
+    # sync
+    caught[:] = [w for w in caught if "synchroniz" in str(w.message)
+                 and "prototype feature" not in str(w.message)]
 
 
 def moments_within(label, samples, ess, ess_sq, mean, cov, n_se=5.0,
@@ -705,6 +736,470 @@ def gradient_engines(mt, card, out_dir):
           f"{load_s:.2f} s [{card}]", flush=True)
 
 
+def phases_from_argv(argv):
+    """The phases chosen on the command line (``--phases 2b,10``; phase 1,
+    the card and the build, always runs), or None for every phase."""
+    if not argv:
+        return None
+    if len(argv) != 2 or argv[0] != "--phases":
+        raise SystemExit("usage: python3 chip_smoke.py [--phases 2,2b,...]")
+    chosen = {p.strip() for p in argv[1].split(",") if p.strip()}
+    known = {"1", "2", "2b", "3", "4", "5", "6", "7", "8", "9", "10"}
+    if not chosen <= known:
+        raise SystemExit(f"unknown phases {sorted(chosen - known)}; known: "
+                         f"{sorted(known)}")
+    return chosen
+
+
+def fenced_steps(fn, n):
+    """((result, wall seconds), host seconds to enqueue) of ``fn(n)``
+    between two device fences."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(n)
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0), enqueue_s
+
+
+# phase 10: the population engines. Widths of each cell: (a) PT at the
+# flagship's walker-rung count, (b) power mode at (a)'s walkers a rung, (c)
+# the GP latent of examples/function_space.py at its finest grid, (d) the
+# JAX tests' Gibbs oracles at 2^14 and 2^12 chains
+PT_RUNGS, PT_WALKERS = 16, 1 << 17
+PT_BURN, PT_STEPS, PT_THIN = 1000, 600, 5
+MODES_WALKERS, MODES_BURN, MODES_STEPS = 1 << 14, 2000, 3000
+POWER_RUNGS, POWER_BURN, POWER_STEPS = 12, 400, 1000
+GP_P, GP_CHAINS = 1024, 4096
+# burn-in: the GP posterior's data-informed directions relax over a few
+# hundred steps under pCN (β ≈ 0.1, acceptance ≈ 0.3) and over ~1000 under
+# the elliptical slice (its bias at 500 steps reads 2 SE at 512 chains on
+# the CPU, so more at 4096); ten and two of those
+PCN_BURN, PCN_STEPS, ESS_BURN, ESS_STEPS = 4000, 4000, 2000, 1000
+GIBBS_CHAINS, MIX_CHAINS = 1 << 14, 1 << 12
+GIBBS_SYNC_SWEEPS = 20
+# the conjugate model of tests/test_evidence.py: prior N(0, S0^2),
+# y_i ~ N(theta, 1)
+EVIDENCE_S0 = 2.0
+EVIDENCE_Y = np.array([1.14, 0.72, 0.21, 1.95, 0.38, 1.52, -0.34, 0.91,
+                       1.18, 0.43], np.float32)
+# examples/function_space.py's GP latent: RBF length 0.25, 12 noisy point
+# observations of sin(2πx)·e^{-x}
+GP_ELL, GP_SIG = 0.25, 0.15
+
+
+def evidence_model(dev):
+    """(batched log prior, batched log-likelihood, quadrature log Z) of the
+    conjugate model of ``tests/test_evidence.py``."""
+    y = torch.from_numpy(EVIDENCE_Y).to(dev)
+    s0 = EVIDENCE_S0
+
+    def logprior(t):
+        return (-0.5 * torch.sum(t * t, dim=-1) / s0 ** 2
+                - 0.5 * float(np.log(2 * np.pi * s0 ** 2)))
+
+    def loglike(t):
+        return (torch.sum(-0.5 * (y - t[:, :1]) ** 2, dim=-1)
+                - EVIDENCE_Y.size / 2 * float(np.log(2 * np.pi)))
+
+    g = np.linspace(-12, 12, 200001)
+    lp = (-0.5 * g ** 2 / s0 ** 2 - 0.5 * np.log(2 * np.pi * s0 ** 2)
+          + np.sum(-0.5 * (EVIDENCE_Y[:, None] - g[None, :]) ** 2, axis=0)
+          - EVIDENCE_Y.size / 2 * np.log(2 * np.pi))
+    m = lp.max()
+    trapezoid = getattr(np, "trapezoid", None) or np.trapz
+    return logprior, loglike, float(m + np.log(trapezoid(np.exp(lp - m), g)))
+
+
+def gp_problem(p, dev):
+    """The GP latent of ``examples/function_space.py`` on a grid of p points:
+    (float32 prior factor, batched log-likelihood, the exact posterior mean
+    of the discretized model (prior L·Lᵀ of the float32 factor,
+    observations at the nearest grid points), float64)."""
+    x_obs = np.linspace(0.05, 0.95, 12)
+    rng = np.random.default_rng(3)
+    y_obs = (np.sin(2 * np.pi * x_obs) * np.exp(-x_obs)
+             + GP_SIG * rng.standard_normal(x_obs.size))
+    grid = np.linspace(0.0, 1.0, p)
+    kern = np.exp(-0.5 * ((grid[:, None] - grid[None, :]) / GP_ELL) ** 2)
+    chol = np.linalg.cholesky(kern + 1e-6 * np.eye(p)).astype(np.float32)
+    idx = np.abs(grid[:, None] - x_obs[None, :]).argmin(axis=0)
+    prior = chol.astype(np.float64) @ chol.astype(np.float64).T
+    k_oo = prior[np.ix_(idx, idx)] + GP_SIG ** 2 * np.eye(idx.size)
+    exact = prior[:, idx] @ np.linalg.solve(k_oo, y_obs)
+    idx_t = torch.from_numpy(idx).to(dev)
+    y_t = torch.from_numpy(y_obs.astype(np.float32)).to(dev)
+
+    def loglike(f):
+        return -0.5 * torch.sum(((y_t - f[:, idx_t]) / GP_SIG) ** 2, dim=-1)
+
+    return chol, loglike, exact
+
+
+def chain_mean_z(samples, truth):
+    """The grand mean of (S, C, P) ``samples`` (C independent chains)
+    against ``truth`` (P,): the largest |deviation| in standard errors, the
+    SE being the spread of the C per-chain means over √C (which holds each
+    chain's autocorrelation)."""
+    means = samples.astype(np.float64).mean(axis=0)  # (C, P)
+    se = means.std(axis=0, ddof=1) / np.sqrt(means.shape[0])
+    return float((np.abs(means.mean(axis=0) - truth) / se).max())
+
+
+def stored(ok, label):
+    """Fail if a storing run hit its chain's byte capacity."""
+    if not ok:
+        raise AssertionError(f"{label}: chain capacity hit")
+
+
+def within_5se(label, *zs):
+    """Fail if any of the deviations ``zs`` (in MC standard errors) passes
+    5 (checked after the line that reports them is printed)."""
+    if not max(zs) <= 5.0:
+        raise AssertionError(f"{label}: {max(zs):.2f} MC standard errors "
+                             "from the truth (bound 5)")
+
+
+def population_engines(mt, card, out_dir):
+    """Phase 10: parallel tempering (logp and power mode), pCN, elliptical
+    slice and blocked Gibbs on the card, through the entry points a user
+    calls, with no hand kernel on their path; each check fails the run."""
+    from mcmcpp_tpu_torch import gibbs as tg
+    from mcmcpp_tpu_torch.io import load_checkpoint, save_checkpoint
+
+    dev = torch.device("cuda")
+
+    def fenced(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # (a) PT, logp mode: K = 16 geometric rungs of 2^17 walkers on the
+    # flagship's 10-D Gaussian (2^21 walker-rung updates a step)
+    dim, rho = 10, 0.5
+    sigma = rho * np.ones((dim, dim)) + (1 - rho) * np.eye(dim)
+    gauss = mt.equicorrelated_gaussian(dim, rho, device=dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pt = mt.ParallelTemperingSampler(gauss, PT_WALKERS, dim, n_temps=PT_RUNGS,
+                                     seed=0, batched=True, device="cuda")
+    pt.init_ball(np.zeros(dim), 1.0)
+    with counting_syncs() as syncs:
+        state = pt.state
+        for _ in range(20):
+            state = pt.step(state)
+        pt.state = state
+    if syncs:
+        raise AssertionError(f"PT: {len(syncs)} host syncs in 20 steps: "
+                             f"{[str(w.message)[:200] for w in syncs]}")
+    _, burn_s = fenced(lambda: pt.run_mcmc(PT_BURN, thin=PT_BURN))
+    pt.chain.clear()
+    ok, run_s = fenced(lambda: pt.run_mcmc(PT_STEPS, thin=PT_THIN))
+    if not ok:
+        raise AssertionError("PT: chain capacity hit")
+    x = pt.get_samples()
+    if x.shape != (PT_STEPS // PT_THIN, PT_WALKERS, dim) or not np.isfinite(
+            x).all():
+        raise AssertionError(f"PT: stored {x.shape}, finite rows expected")
+    xt = torch.from_numpy(x).to(dev)
+    ess = np.asarray(mt.analysis.effective_sample_size(xt))
+    ess_sq = np.asarray(mt.analysis.effective_sample_size(
+        (xt - xt.mean(dim=(0, 1))) ** 2))
+    z, rel = moments_within("PT cold chain", x, ess, ess_sq, np.zeros(dim),
+                            sigma)
+    rates = pt.swap_acceptance
+    if not (rates > 0.05).all():
+        raise AssertionError(f"PT swap rates {rates}")
+    updates = PT_RUNGS * PT_WALKERS
+    print(f"  PT K={PT_RUNGS} W={PT_WALKERS} P={dim}: no host sync in 20 "
+          "steps; "
+          f"burn-in {PT_BURN} steps {updates * PT_BURN / burn_s:.6e} "
+          f"walker-rung updates/s ({burn_s / PT_BURN * 1e3:.3f} ms a step), "
+          f"storing {PT_STEPS} steps at thin {PT_THIN} "
+          f"{updates * PT_STEPS / run_s:.6e} ({run_s:.3f} s); cold chain "
+          f"within {z:.2f} MC standard errors of the truth (bound 5; "
+          f"worst covariance entry {rel:.4f} relative, ESS min "
+          f"{np.nanmin(ess):.0f}); swap rates {np.round(rates, 4).tolist()} "
+          f"(bound > 0.05); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB [{card}]",
+          flush=True)
+    del pt, x, xt, state
+    torch.cuda.empty_cache()
+
+    # the separated-mode oracle of tests/test_tempering.py:46: modes at ±8
+    # (σ = 0.5), K = 8 rungs down to β = 0.005, every walker started in the
+    # left mode; the right mode's share of the cold chain within 5 SE of ½
+    twin = mt.gaussian_mixture([[-8.0], [8.0]], scales=[0.5, 0.5],
+                               device=dev)
+    pm = mt.ParallelTemperingSampler(
+        twin, MODES_WALKERS, 1, betas=np.geomspace(1.0, 0.005, 8), seed=1,
+        batched=True, device="cuda")
+    pm.init_ball(np.array([-8.0]), 0.5)
+    _, modes_s = fenced(lambda: pm.run_mcmc(MODES_BURN, thin=MODES_BURN))
+    pm.chain.clear()
+    stored(pm.run_mcmc(MODES_STEPS, thin=10), "PT separated modes")
+    right = (pm.get_samples() > 0).astype(np.float32)
+    share = float(right.mean())
+    ess = float(np.asarray(mt.analysis.effective_sample_size(
+        torch.from_numpy(right).to(dev)))[0])
+    se = np.sqrt(share * (1 - share) / ess)
+    print(f"  PT separated modes (±8, K=8, W={MODES_WALKERS}): right-mode "
+          "share "
+          f"{share:.4f}, {abs(share - 0.5) / se:.2f} MC standard errors from "
+          f"1/2 (ESS {ess:.0f}; bound 5); {MODES_BURN} steps in "
+          f"{modes_s:.2f} s [{card}]", flush=True)
+    if not abs(share - 0.5) <= 5 * se:
+        raise AssertionError(f"PT separated modes: share {share}")
+    del pm, right
+
+    # (b) power mode on tests/test_evidence.py's conjugate model: K = 12
+    # power ladder, 2^17 walkers a rung, the JAX test's bounds
+    logprior, loglike, logz = evidence_model(dev)
+
+    def power_pt(seed):
+        return mt.ParallelTemperingSampler(
+            loglike_fn=loglike, logprior_fn=logprior, n_walkers=PT_WALKERS,
+            n_params=1, betas=mt.power_ladder(POWER_RUNGS), seed=seed,
+            batched=True, device="cuda")
+
+    pp = power_pt(0)
+    pp.init_ball(np.zeros(1), 1.0, seed=1)
+    pp.run_mcmc(POWER_BURN, thin=POWER_BURN)
+    pp.reset_evidence()
+    ok, power_s = fenced(lambda: pp.run_mcmc(POWER_STEPS, thin=10))
+    stored(ok, "power PT")
+    ss, ti = pp.log_evidence("stepping_stone"), pp.log_evidence("ti")
+    post_prec = 1.0 / EVIDENCE_S0 ** 2 + EVIDENCE_Y.size
+    cold = pp.get_samples(flat=True)[:, 0]
+    print(f"  power PT K={POWER_RUNGS} W={PT_WALKERS}: log Z stepping stone "
+          f"{ss:.5f}, "
+          f"TI {ti:.5f}, quadrature {logz:.5f} (bounds 0.1, 0.5); cold "
+          f"chain mean {cold.mean():.5f} vs {EVIDENCE_Y.sum() / post_prec:.5f}"
+          f", sd {cold.std():.5f} vs {post_prec ** -0.5:.5f}; "
+          f"{PT_WALKERS * POWER_RUNGS * POWER_STEPS / power_s:.6e} "
+          f"walker-rung updates/s [{card}]", flush=True)
+    if not (abs(ss - logz) < 0.1 and abs(ti - logz) < 0.5):
+        raise AssertionError(f"power PT evidence {ss}, {ti} vs {logz}")
+    del pp, cold
+
+    # (c) pCN and elliptical slice on the GP latent at P = 1024, C = 4096
+    chol, gp_like, exact = gp_problem(GP_P, dev)
+    torch.cuda.reset_peak_memory_stats()
+    pcn = mt.PCNSampler(gp_like, prior_mean=np.zeros(GP_P), prior_chol=chol,
+                        beta=0.12, n_chains=GP_CHAINS, seed=0, batched=True,
+                        device="cuda")
+    pcn.init_prior(seed=1)
+    pcn.tune(n_steps=400, target=0.3, window=20)
+    # β ≈ 0.1 and acceptance ≈ 0.3 make the data-informed directions'
+    # autocorrelation a few hundred steps: the burn-in is ten of them
+    pcn.run(PCN_BURN, thin=PCN_BURN)  # one row: a 16.8 MB row a step
+    # would fill the chain's 2 GiB in 128 steps
+    pcn.chain.clear()
+    n_pcn = PCN_STEPS
+    ok, pcn_s = fenced(lambda: pcn.run(n_pcn, thin=n_pcn // 50))
+    stored(ok, "pCN")
+    z_pcn = chain_mean_z(pcn.get_samples(), exact)
+    rmse = float(np.sqrt(np.mean((pcn.get_samples(flat=True).mean(axis=0)
+                                  - exact) ** 2)))
+    print(f"  pCN P={GP_P} C={GP_CHAINS}: tuned beta {pcn.beta:.4f}, "
+          f"acceptance {pcn.acceptance_fraction:.4f}, {n_pcn / pcn_s:.2f} "
+          f"steps/s ({GP_CHAINS * n_pcn / pcn_s:.6e} chain-steps/s), "
+          f"posterior mean within {z_pcn:.2f} MC standard errors of the "
+          f"closed form (bound 5; RMSE {rmse:.5f}), peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB [{card}]",
+          flush=True)
+    within_5se("pCN posterior mean", z_pcn)
+    del pcn
+    ess_s = mt.EllipticalSliceSampler(
+        gp_like, prior_mean=np.zeros(GP_P), prior_chol=chol,
+        n_chains=GP_CHAINS, seed=0, batched=True, device="cuda")
+    ess_s.init_prior(seed=2)
+    ess_s.run(ESS_BURN, thin=ESS_BURN)
+    ess_s.chain.clear()
+    before = dict(ess_s.counters)
+    n_ess = ESS_STEPS
+    ok, ess_t = fenced(lambda: ess_s.run(n_ess, thin=n_ess // 50))
+    stored(ok, "elliptical slice")
+    z_ess = chain_mean_z(ess_s.get_samples(), exact)
+    iters = ess_s.counters["iterations"] - before["iterations"]
+    n_syncs = ess_s.counters["syncs"] - before["syncs"]
+    print(f"  elliptical slice P={GP_P} C={GP_CHAINS}: {iters / n_ess:.2f} "
+          f"shrink iterations and {n_syncs / n_ess:.2f} host syncs a step "
+          f"(a test every {mt.elliptical.CHECK_EVERY}), "
+          f"{n_ess / ess_t:.2f} steps/s, "
+          f"posterior mean within {z_ess:.2f} MC standard errors of the "
+          f"closed form (bound 5) [{card}]", flush=True)
+    within_5se("elliptical posterior mean", z_ess)
+    del ess_s
+    torch.cuda.empty_cache()
+
+    # (d) blocked Gibbs: the hierarchical conjugate oracle of
+    # tests/test_gibbs.py:48 at 2^14 chains (per-chain callables, vmapped)
+    tau, sig, n = 2.0, 0.5, 12
+    rng = np.random.default_rng(0)
+    y_h = (1.2 + rng.normal(0, np.sqrt(1 + sig ** 2), n)).astype(np.float32)
+    yh = torch.from_numpy(y_h).to(dev)
+
+    def mu_logp(mu, o):
+        return (-0.5 * mu[0] ** 2 / tau ** 2
+                - 0.5 * torch.sum((yh - mu[0] - o["e"]) ** 2) / sig ** 2)
+
+    def e_loglike(e, o):
+        return -0.5 * torch.sum((yh - o["mu"][0] - e) ** 2) / sig ** 2
+
+    def hierarchical(seed):
+        return mt.BlockedGibbsSampler(
+            [("mu", 1, tg.MALAKernel(mu_logp, step_size=0.15)),
+             ("e", n, tg.EllipticalSliceKernel(e_loglike,
+                                               prior_scale=np.ones(n)))],
+            n_chains=GIBBS_CHAINS, seed=seed, device="cuda")
+
+    gb = hierarchical(1)
+    gb.init({"mu": np.zeros(1), "e": np.zeros(n)})
+    gb.run(500, thin=500)  # burn-in: the mu-latent ridge relaxes in ~200
+    gb.chain.clear()
+    n_sweeps = 1000
+    ok, gibbs_s = fenced(lambda: gb.run(n_sweeps, thin=10))
+    stored(ok, "Gibbs hierarchical")
+    prec = 1.0 / tau ** 2 + n / (1.0 + sig ** 2)
+    mean_true = float(y_h.sum()) / (1.0 + sig ** 2) / prec
+    mu = gb.get_block("mu")
+    z_mu = chain_mean_z(mu, np.array([mean_true]))
+    z_var = chain_mean_z((mu - mean_true) ** 2, np.array([1.0 / prec]))
+    latent = mu + gb.get_block("e")
+    expected = mean_true + (y_h - mean_true) / (1.0 + sig ** 2)
+    z_lat = chain_mean_z(latent, expected)
+    print(f"  Gibbs hierarchical (MALA + elliptical slice) C={GIBBS_CHAINS}: "
+          f"{GIBBS_CHAINS * n_sweeps / gibbs_s:.6e} chain-sweeps/s "
+          f"({gibbs_s / n_sweeps * 1e3:.3f} ms a sweep); mu's mean "
+          f"{z_mu:.2f}, variance {z_var:.2f}, the latent's means {z_lat:.2f} "
+          f"MC standard errors from the closed form (bound 5) [{card}]",
+          flush=True)
+    within_5se("Gibbs hierarchical", z_mu, z_var, z_lat)
+    # the sweep's syncs: none but the slice loop's own host tests
+    ess_k = gb.blocks[1][2]
+    before = ess_k.counters["syncs"]
+    with counting_syncs() as syncs:
+        state = gb.state
+        for _ in range(GIBBS_SYNC_SWEEPS):
+            state = gb.sweep(state)
+        gb.state = state
+    loop_syncs = ess_k.counters["syncs"] - before
+    # the sweep's split: each block's kernel alone on the sweep's state,
+    # wall time between fences (the slice loop syncs, so no queued timing)
+    split = {}
+    for name, _, kernel in gb.blocks:
+        x = gb.state[name]
+        others = {k: v for k, v in gb.state.items() if k != name}
+
+        def go():
+            for _ in range(GIBBS_SYNC_SWEEPS):
+                tg._kernel_step(kernel, gb._step_gen, x, others)
+
+        _, block_s = fenced(go)
+        split[name] = block_s / GIBBS_SYNC_SWEEPS * 1e3
+    print(f"  Gibbs hierarchical sweep: {len(syncs)} host syncs in "
+          f"{GIBBS_SYNC_SWEEPS} sweeps, the slice loop's own count "
+          f"{loop_syncs} (bound: no other); a block alone: mu (MALA) "
+          f"{split['mu']:.3f} ms, e (elliptical slice) {split['e']:.3f} ms "
+          f"[{card}]", flush=True)
+    if len(syncs) > loop_syncs:
+        raise AssertionError(
+            f"Gibbs sweep: {len(syncs)} host syncs, {loop_syncs} of them the "
+            f"slice loop's: {[str(w.message)[:200] for w in syncs]}")
+    del gb, mu, latent, state
+
+    # the mixture data augmentation of tests/test_gibbs.py:366 at 2^12
+    # chains (categorical assignments + exact conjugate means) against a
+    # quadrature of the means' marginal posterior (the z summed out; the
+    # chains stay in the labelling they start in, mu_0 < mu_1)
+    msig, mtau, n0, n1 = 0.7, 5.0, 35, 45
+    rng = np.random.default_rng(0)
+    y_m = np.concatenate([rng.normal(-2.0, msig, n0),
+                          rng.normal(2.0, msig, n1)]).astype(np.float32)
+    ym = torch.from_numpy(y_m).to(dev)
+
+    def z_logits(o):
+        return -0.5 * ((ym[:, None] - o["mu"][None, :]) / msig) ** 2
+
+    def sample_mu(gen, o):
+        onehot = torch.stack([1.0 - o["z"], o["z"]], dim=1)
+        n_k = onehot.sum(0)
+        s_k = (onehot * ym[:, None]).sum(0)
+        p_k = 1.0 / mtau ** 2 + n_k / msig ** 2
+        return (s_k / msig ** 2) / p_k + p_k ** -0.5 * torch.randn(
+            (2,), generator=gen, device=ym.device)
+
+    gm = mt.BlockedGibbsSampler(
+        [("z", y_m.size, tg.CategoricalGibbsKernel(z_logits)),
+         ("mu", 2, tg.ExactGibbsKernel(sample_mu))],
+        n_chains=MIX_CHAINS, seed=1, device="cuda")
+    gm.init({"z": np.zeros(y_m.size), "mu": np.array([-1.0, 1.0])})
+    gm.run(100, thin=100)
+    gm.chain.clear()
+    ok, mix_s = fenced(lambda: gm.run(400, thin=4))
+    stored(ok, "Gibbs mixture")
+    g0 = np.linspace(y_m[:n0].mean() - 1.0, y_m[:n0].mean() + 1.0, 801)
+    g1 = np.linspace(y_m[n0:].mean() - 1.0, y_m[n0:].mean() + 1.0, 801)
+    yy = y_m.astype(np.float64)
+    l0 = -0.5 * ((yy[None, :] - g0[:, None]) / msig) ** 2  # (G, n)
+    l1 = -0.5 * ((yy[None, :] - g1[:, None]) / msig) ** 2
+    lp = (-0.5 * g0[:, None] ** 2 / mtau ** 2 - 0.5 * g1[None, :] ** 2
+          / mtau ** 2 + np.logaddexp(l0[:, None, :], l1[None, :, :]).sum(-1))
+    w = np.exp(lp - lp.max())
+    w /= w.sum()
+    quad = np.array([(w.sum(1) * g0).sum(), (w.sum(0) * g1).sum()])
+    mus = gm.get_block("mu")
+    z_mix = chain_mean_z(mus, quad)
+    print(f"  Gibbs mixture (categorical + exact) C={MIX_CHAINS}: "
+          f"{MIX_CHAINS * 400 / mix_s:.6e} chain-sweeps/s; the means "
+          f"{np.round(mus.reshape(-1, 2).mean(0), 5).tolist()} within "
+          f"{z_mix:.2f} MC standard errors of the quadrature "
+          f"{np.round(quad, 5).tolist()} (bound 5) [{card}]", flush=True)
+    within_5se("Gibbs mixture means", z_mix)
+    del gm, mus
+
+    # (e) bitwise resume: 40 + 40 steps against 40, save, load, 40, for
+    # power-mode PT at (b)'s width and the Gibbs sampler at (d)'s
+    for label, make, begin, go in [
+            ("power PT", power_pt,
+             lambda s: s.init_ball(np.zeros(1), 1.0, seed=1),
+             lambda s: s.run_mcmc(40, thin=10)),
+            ("Gibbs", hierarchical,
+             lambda s: s.init({"mu": np.zeros(1), "e": np.zeros(n)}),
+             lambda s: s.run(40, thin=10))]:
+        path = os.path.join(out_dir, "ck_" + label.replace(" ", "_"))
+        a = make(3)
+        begin(a)
+        go(a)
+        _, save_s = fenced(lambda: save_checkpoint(a, path))
+        go(a)
+        b = make(77)
+        _, load_s = fenced(lambda: load_checkpoint(b, path))
+        go(b)
+        sa, sb = a.state, b.state
+        if isinstance(sa, dict):
+            same = all(torch.equal(sa[k], sb[k]) for k in sa)
+        else:
+            same = all(torch.equal(u, v) if isinstance(u, torch.Tensor)
+                       else u == v for u, v in zip(sa, sb))
+        same = same and np.array_equal(a.get_samples(), b.get_samples()) \
+            and np.array_equal(a.chain.get_logp(), b.chain.get_logp()) \
+            and a.chain.n_steps == 8
+        if label == "power PT":
+            same = same and a.log_evidence() == b.log_evidence()
+        if not same:
+            raise AssertionError(f"{label}: the resumed run differs from the "
+                                 "uninterrupted one")
+        print(f"  resume {label}: 40 + 40 steps == 40, load, 40 bitwise "
+              f"(state, 8 rows); checkpoint of "
+              f"{os.path.getsize(path + '.npz')} B in {save_s:.2f} s, loaded "
+              f"in {load_s:.2f} s [{card}]", flush=True)
+        del a, b
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; "
@@ -721,7 +1216,23 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    chosen = phases_from_argv(sys.argv[1:])
+
+    def run_phase(name):
+        return chosen is None or name in chosen
+
     kernels = {}
+    store_launches = {}
+    wide_split = {}
+
+    def wide_gauss(q):
+        return mt.GaussianTarget(random_chol(q, np.random.default_rng(q)),
+                                 device=dev)
+
+    # the targets several phases share
+    flagship = mt.equicorrelated_gaussian(10, 0.5, device=dev)
+    funnel = mt.neal_funnel(10)
+    skewed = mt.skewed_gaussian(0.13, device=dev)
 
     # -- phase 1: the card ------------------------------------------------
     with phase("1 card and build"):
@@ -745,227 +1256,269 @@ def main():
                   for q in (2, 10, 33, 64)))
 
     # -- phase 2: fused kernel vs plain version -----------------------------
-    with phase("2 fused kernel vs plain"):
-        rng = np.random.default_rng(0)
-        flagship = mt.equicorrelated_gaussian(10, 0.5, device=dev)
-        # the kernels' own u and ue against the plain twin, bit for bit
-        for key, n in [(0, 50), (0xDEADBEEFCAFEF00D, 1000),
-                       ((1 << 64) - 1, 1 << 20)]:
-            k_u, k_ue = fs.kernel_unit_uniforms(key, n, dev)
-            torch.cuda.synchronize()
-            t_u, t_ue = rnd.philox_unit_uniforms(key, n, dev)
-            if not (torch.equal(k_u, t_u) and torch.equal(k_ue, t_ue)):
-                raise AssertionError(
-                    f"the kernels' uniforms differ from philox_unit_uniforms "
-                    f"(key {key:#x}, n {n})")
-        print("  kernel u, ue == philox_unit_uniforms bit for bit "
-              "(n = 50, 1000, 2^20)")
-        main_err, main_args, main_key, main_planes = kernel_case(
-            fs, rnd, flagship, 1 << 20, seed=1)
-        errs = [main_err]
+    if run_phase("2"):
+        with phase("2 fused kernel vs plain"):
+            rng = np.random.default_rng(0)
+            # the kernels' own u and ue against the plain twin, bit for bit
+            for key, n in [(0, 50), (0xDEADBEEFCAFEF00D, 1000),
+                           ((1 << 64) - 1, 1 << 20)]:
+                k_u, k_ue = fs.kernel_unit_uniforms(key, n, dev)
+                torch.cuda.synchronize()
+                t_u, t_ue = rnd.philox_unit_uniforms(key, n, dev)
+                if not (torch.equal(k_u, t_u) and torch.equal(k_ue, t_ue)):
+                    raise AssertionError(
+                        f"the kernels' uniforms differ from philox_unit_uniforms "
+                        f"(key {key:#x}, n {n})")
+            print("  kernel u, ue == philox_unit_uniforms bit for bit "
+                  "(n = 50, 1000, 2^20)")
+            main_err, main_args, main_key, main_planes = kernel_case(
+                fs, rnd, flagship, 1 << 20, seed=1)
+            errs = [main_err]
 
-        def gauss(q):
-            return mt.GaussianTarget(random_chol(q, rng), device=dev)
+            def gauss(q):
+                return mt.GaussianTarget(random_chol(q, rng), device=dev)
 
-        skewed2 = mt.skewed_gaussian(device=dev)
-        for target, n, neg, shift in [
-            (skewed2, 160, 0, None),
-            (gauss(3), 1000, 0, None),
-            (gauss(64), 1 << 14, 0, None),
-            (flagship, 4096, 5, None),
-            (flagship, 1 << 16, 0, 0),
-            (flagship, 1 << 16, 0, 1),
-            (flagship, 1 << 16, 0, "last"),
-            (flagship, 1 << 16, 0, "mid"),
-            (flagship, 1000, 7, "negative"),
-            (flagship, 1000, 0, "beyond"),
-            (flagship, 50, 0, "mid"),
-            (skewed2, 160, 0, 1),
-            (gauss(7), 1000, 0, "mid"),
-            (gauss(33), 1000, 0, 1),
-            (gauss(64), 300, 0, "mid"),
-        ]:
-            errs.append(kernel_case(fs, rnd, target, n, seed=n,
-                                    neg_inf_every=neg, shift=shift)[0])
+            skewed2 = mt.skewed_gaussian(device=dev)
+            for target, n, neg, shift in [
+                (skewed2, 160, 0, None),
+                (gauss(3), 1000, 0, None),
+                (gauss(64), 1 << 14, 0, None),
+                (flagship, 4096, 5, None),
+                (flagship, 1 << 16, 0, 0),
+                (flagship, 1 << 16, 0, 1),
+                (flagship, 1 << 16, 0, "last"),
+                (flagship, 1 << 16, 0, "mid"),
+                (flagship, 1000, 7, "negative"),
+                (flagship, 1000, 0, "beyond"),
+                (flagship, 50, 0, "mid"),
+                (skewed2, 160, 0, 1),
+                (gauss(7), 1000, 0, "mid"),
+                (gauss(33), 1000, 0, 1),
+                (gauss(64), 300, 0, "mid"),
+            ]:
+                errs.append(kernel_case(fs, rnd, target, n, seed=n,
+                                        neg_inf_every=neg, shift=shift)[0])
 
-        def kernel_call():
-            fs.fused_stretch_half(*main_args, key=main_key, logp_fn=flagship)
+            def kernel_call():
+                fs.fused_stretch_half(*main_args, key=main_key, logp_fn=flagship)
 
-        def plain_call():
-            fs.fused_stretch_half_reference(*main_args, *main_planes,
-                                            logp_fn=flagship)
+            def plain_call():
+                fs.fused_stretch_half_reference(*main_args, *main_planes,
+                                                logp_fn=flagship)
 
-        # in turns, plain / kernel / kernel / plain, on one card
-        blocker = torch.empty(1 << 28, dtype=torch.float32, device=dev)
-        (plain_ms, kernel_ms), ((p1, p2), (k1, k2)), (_, host_us) = in_turns(
-            [plain_call, kernel_call], 50, blocker)
-        print(f"  half-step n=2^20 P=10: kernel {kernel_ms:.4f} ms "
-              f"({k1:.4f}, {k2:.4f}; the host enqueues one call in "
-              f"{host_us:.1f} us), plain {plain_ms:.4f} ms "
-              f"({p1:.4f}, {p2:.4f}) [{card}]")
-        kernels["fused_stretch_half"] = {
-            "source": "mcmcpp_tpu_torch/csrc/fused_stretch.cu",
-            "max_abs_err": max(errs), "ms": kernel_ms, "plain_ms": plain_ms}
+            # in turns, plain / kernel / kernel / plain, on one card
+            blocker = torch.empty(1 << 28, dtype=torch.float32, device=dev)
+            (plain_ms, kernel_ms), ((p1, p2), (k1, k2)), (_, host_us) = in_turns(
+                [plain_call, kernel_call], 50, blocker)
+            print(f"  half-step n=2^20 P=10: kernel {kernel_ms:.4f} ms "
+                  f"({k1:.4f}, {k2:.4f}; the host enqueues one call in "
+                  f"{host_us:.1f} us), plain {plain_ms:.4f} ms "
+                  f"({p1:.4f}, {p2:.4f}) [{card}]")
+            kernels.setdefault("fused_stretch_half", {}).update(
+                source="mcmcpp_tpu_torch/csrc/fused_stretch.cu",
+                max_abs_err=max(errs), ms=kernel_ms, plain_ms=plain_ms)
 
     # -- phase 2b: the split kernels vs their plain versions ----------------
-    with phase("2b split kernels vs plain"):
-        funnel = mt.neal_funnel(10)
-        split_err, sargs, skey, (u, ue) = split_case(fs, rnd, funnel, 1 << 20,
-                                                     seed=2)
-        split_errs = [split_err]
-        for target, n, neg, nan, shift in [
-            (mt.rosenbrock(), 160, 0, 0, None),
-            (mt.logistic_regression(dim=4, device=dev), 1000, 0, 0, None),
-            (funnel, 4096, 5, 0, None),
-            (funnel, 4096, 0, 7, None),
-            (funnel, 1 << 16, 0, 0, 0),
-            (funnel, 1 << 16, 0, 0, 1),
-            (funnel, 1 << 16, 0, 0, "last"),
-            (funnel, 1 << 16, 0, 0, "mid"),
-            (funnel, 1000, 0, 7, "negative"),
-            (funnel, 1000, 0, 0, "beyond"),
-            (funnel, 50, 0, 0, "mid"),
-            (mt.rosenbrock(), 160, 0, 0, 1),
-            (mt.neal_funnel(3), 1000, 0, 0, "mid"),
-            (mt.neal_funnel(7), 1000, 0, 0, 1),
-            (mt.neal_funnel(33), 1000, 0, 0, "mid"),
-            (mt.neal_funnel(64), 300, 0, 0, "last"),
-        ]:
-            split_errs.append(split_case(fs, rnd, target, n, seed=n + 1,
-                                         neg_inf_every=neg, nan_every=nan,
-                                         shift=shift)[0])
-        act, lp, other, shift = sargs
-        prop, fac = fs.stretch_propose_reference(act, other, shift, u)
-        lp_new = funnel(prop)
-        calls = {
-            "split": lambda: fs.fused_stretch_half(*sargs, key=skey,
-                                                   logp_fn=funnel),
-            "split_plain": lambda: fs.fused_stretch_half_reference(
-                *sargs, u, ue, logp_fn=funnel),
-            "propose": lambda: fs.stretch_propose(act, other, shift, skey),
-            "propose_plain": lambda: fs.stretch_propose_reference(
-                act, other, shift, u),
-            "accept": lambda: fs.stretch_accept(act, prop, lp, lp_new, fac,
-                                                skey),
-            "accept_plain": lambda: fs.stretch_accept_reference(
-                act, prop, lp, lp_new, fac, ue),
-        }
-        ms = {}
-        for a, b in [("split_plain", "split"), ("propose_plain", "propose"),
-                     ("accept_plain", "accept")]:
-            (ms[a], ms[b]), _, _ = in_turns([calls[a], calls[b]], 50,
-                                            blocker)
-        print(f"  funnel n=2^20 P=10, ms per call (in turns): split half-step "
-              f"{ms['split']:.4f} vs plain {ms['split_plain']:.4f}; propose "
-              f"{ms['propose']:.4f} vs {ms['propose_plain']:.4f}; accept "
-              f"{ms['accept']:.4f} vs {ms['accept_plain']:.4f} [{card}]")
-        for name in ("propose", "accept"):
-            kernels[f"stretch_{name}"] = {
-                "source": "mcmcpp_tpu_torch/csrc/stretch_split.cu",
-                "max_abs_err": max(split_errs), "ms": ms[name],
-                "plain_ms": ms[f"{name}_plain"]}
-        del sargs, act, lp, other, shift, u, ue, prop, fac, lp_new, calls
-        del blocker
+    if run_phase("2b"):
+        with phase("2b split kernels vs plain"):
+            blocker = torch.empty(1 << 28, dtype=torch.float32, device=dev)
+            split_err, sargs, skey, (u, ue) = split_case(fs, rnd, funnel, 1 << 20,
+                                                         seed=2)
+            split_errs = [split_err]
+            for target, n, neg, nan, shift in [
+                (mt.rosenbrock(), 160, 0, 0, None),
+                (mt.logistic_regression(dim=4, device=dev), 1000, 0, 0, None),
+                (funnel, 4096, 5, 0, None),
+                (funnel, 4096, 0, 7, None),
+                (funnel, 1 << 16, 0, 0, 0),
+                (funnel, 1 << 16, 0, 0, 1),
+                (funnel, 1 << 16, 0, 0, "last"),
+                (funnel, 1 << 16, 0, 0, "mid"),
+                (funnel, 1000, 0, 7, "negative"),
+                (funnel, 1000, 0, 0, "beyond"),
+                (funnel, 50, 0, 0, "mid"),
+                (mt.rosenbrock(), 160, 0, 0, 1),
+                (mt.neal_funnel(3), 1000, 0, 0, "mid"),
+                (mt.neal_funnel(7), 1000, 0, 0, 1),
+                (mt.neal_funnel(33), 1000, 0, 0, "mid"),
+                (mt.neal_funnel(64), 300, 0, 0, "last"),
+                # GaussianTargets wider than the fused kernel's 64: the split
+                # path around their torch logp
+                (wide_gauss(65), 1000, 0, 0, "mid"),
+                (wide_gauss(100), 4096, 5, 0, None),
+                (wide_gauss(100), 300, 0, 0, "last"),
+            ]:
+                split_errs.append(split_case(fs, rnd, target, n, seed=n + 1,
+                                             neg_inf_every=neg, nan_every=nan,
+                                             shift=shift)[0])
+            act, lp, other, shift = sargs
+            prop, fac = fs.stretch_propose_reference(act, other, shift, u)
+            lp_new = funnel(prop)
+            calls = {
+                "split": lambda: fs.fused_stretch_half(*sargs, key=skey,
+                                                       logp_fn=funnel),
+                "split_plain": lambda: fs.fused_stretch_half_reference(
+                    *sargs, u, ue, logp_fn=funnel),
+                "propose": lambda: fs.stretch_propose(act, other, shift, skey),
+                "propose_plain": lambda: fs.stretch_propose_reference(
+                    act, other, shift, u),
+                "accept": lambda: fs.stretch_accept(act, prop, lp, lp_new, fac,
+                                                    skey),
+                "accept_plain": lambda: fs.stretch_accept_reference(
+                    act, prop, lp, lp_new, fac, ue),
+            }
+            ms = {}
+            for a, b in [("split_plain", "split"), ("propose_plain", "propose"),
+                         ("accept_plain", "accept")]:
+                (ms[a], ms[b]), _, _ = in_turns([calls[a], calls[b]], 50,
+                                                blocker)
+            print(f"  funnel n=2^20 P=10, ms per call (in turns): split half-step "
+                  f"{ms['split']:.4f} vs plain {ms['split_plain']:.4f}; propose "
+                  f"{ms['propose']:.4f} vs {ms['propose_plain']:.4f}; accept "
+                  f"{ms['accept']:.4f} vs {ms['accept_plain']:.4f} [{card}]")
+            for name in ("propose", "accept"):
+                kernels.setdefault(f"stretch_{name}", {}).update(
+                    source="mcmcpp_tpu_torch/csrc/stretch_split.cu",
+                    max_abs_err=max(split_errs), ms=ms[name],
+                    plain_ms=ms[f"{name}_plain"])
+            del sargs, act, lp, other, shift, u, ue, prop, fac, lp_new, calls
+            # a GaussianTarget with P = 65 and P = 100 at the main path's n:
+            # the split half-step bit for bit against its plain version, and
+            # timed against it in turns
+            for q in (65, 100):
+                target = wide_gauss(q)
+                wargs, wkey, (wu, wue) = half_inputs(rnd, q, 1 << 20, q,
+                                                     0, target)
+                reset_launches(fs)
+                k_out = fs.fused_stretch_half(*wargs, key=wkey,
+                                              logp_fn=target)
+                torch.cuda.synchronize()
+                if fs.LAUNCHES != {"fused_stretch_half": 0,
+                                   "stretch_propose": 1,
+                                   "stretch_accept": 1}:
+                    raise AssertionError(f"P={q} Gaussian launched "
+                                         f"{fs.LAUNCHES}")
+                r_out = fs.fused_stretch_half_reference(
+                    *wargs, wu, wue, logp_fn=target)
+                n_acc = int(r_out[2].sum())
+                if not (0 < n_acc < (1 << 20) and all(
+                        torch.equal(a, b) for a, b in zip(k_out, r_out))):
+                    raise AssertionError(
+                        f"P={q} Gaussian: the split half-step is not its "
+                        f"plain version bit for bit ({n_acc} accepts)")
+                (p_ms, k_ms), _, _ = in_turns([
+                    lambda: fs.fused_stretch_half_reference(
+                        *wargs, wu, wue, logp_fn=target),
+                    lambda: fs.fused_stretch_half(*wargs, key=wkey,
+                                                  logp_fn=target)], 20,
+                    blocker)
+                wide_split[q] = (k_ms, p_ms)
+                print(f"  GaussianTarget n=2^20 P={q} (beyond the fused "
+                      f"kernel's 64): split half-step {k_ms:.4f} ms vs plain "
+                      f"{p_ms:.4f} ms (in turns), bit for bit equal, "
+                      f"{n_acc} accepts [{card}]", flush=True)
+                del wargs, k_out, r_out
+            del blocker
 
     # -- phase 3: the flagship at full width --------------------------------
-    with phase("3 flagship"):
-        n_walkers, burn, n_store, thin = W_FULL, 200, 40, 10
-        nosync_steps = 20
-        reset_launches(fs)
-        s = mt.EnsembleSampler(flagship, n_walkers=n_walkers, n_params=10,
-                               mover=mt.FusedStretchMove(), seed=0,
-                               batched=True, device="cuda")
-        s.init_ball(np.zeros(10), 0.5)
-        # the step loop alone may not wait on the device: the key comes
-        # from the host generator and reaches the kernel by value
-        with no_host_sync():
-            s.state = run_nostore(s.state, s._step_fn, nosync_steps)
-        # three runs, each printed: the step is bound by the host, whose
-        # pace varies from run to run
-        burn_runs = []
-        for _ in range(3):
+    if run_phase("3"):
+        with phase("3 flagship"):
+            n_walkers, burn, n_store, thin = W_FULL, 200, 40, 10
+            nosync_steps = 20
+            reset_launches(fs)
+            s = mt.EnsembleSampler(flagship, n_walkers=n_walkers, n_params=10,
+                                   mover=mt.FusedStretchMove(), seed=0,
+                                   batched=True, device="cuda")
+            s.init_ball(np.zeros(10), 0.5)
+            # the step loop alone may not wait on the device: the key comes
+            # from the host generator and reaches the kernel by value
+            with no_host_sync():
+                s.state = run_nostore(s.state, s._step_fn, nosync_steps)
+            # three runs, each printed: the step is bound by the host, whose
+            # pace varies from run to run
+            burn_runs = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                s.run_mcmc(burn, store=False)
+                torch.cuda.synchronize()
+                burn_runs.append(time.perf_counter() - t0)
+            if not s.run_mcmc(n_store, thin=thin):
+                raise AssertionError("chain capacity hit in the flagship run")
+            launches = dict(fs.LAUNCHES)
+            n_steps = nosync_steps + 3 * burn + n_store
+            if launches != {"fused_stretch_half": 2 * n_steps,
+                            "stretch_propose": 0, "stretch_accept": 0}:
+                raise AssertionError(f"flagship launches {launches}, expected "
+                                     f"{2 * n_steps} fused only")
+            kernels.setdefault("fused_stretch_half", {}).update(
+                launches_per_step=launches["fused_stretch_half"] / n_steps,
+                launches=launches["fused_stretch_half"])
+            samples = check_stored(s, flagship, "flagship")
+            if samples.shape != (n_store // thin, n_walkers, 10):
+                raise AssertionError(f"stored shape {samples.shape}")
+            acc = s.acceptance_fraction
+            print(f"flagship W=2^21 P=10: {launches['fused_stretch_half']} "
+                  f"kernel launches, acceptance {acc:.4f}, stored "
+                  f"{samples.shape}")
+            if not 0.2 < acc < 0.8:
+                raise AssertionError(f"flagship acceptance {acc}")
+            del samples
+
+            class PlainFusedStretchMove(mt.FusedStretchMove):
+                """The same draws and transition through the plain version,
+                which has to make the key's planes with the twin's integer
+                ops: its time is a plain version's time, not a yardstick."""
+
+                def apply(self, active, active_logp, other, logp_fn, state,
+                          noise, beta=1.0):
+                    shift, key = noise
+                    u, ue = rnd.philox_unit_uniforms(key, active.shape[0],
+                                                     active.device)
+                    return fs.fused_stretch_half_reference(
+                        active, active_logp, other, shift, u, ue,
+                        logp_fn=logp_fn, a=self.a)
+
+            sp = mt.EnsembleSampler(flagship, n_walkers=n_walkers, n_params=10,
+                                    mover=PlainFusedStretchMove(), seed=0,
+                                    batched=True, device="cuda")
+            sp.init_ball(np.zeros(10), 0.5)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            s.run_mcmc(burn, store=False)
+            sp.run_mcmc(burn, store=False)
             torch.cuda.synchronize()
-            burn_runs.append(time.perf_counter() - t0)
-        if not s.run_mcmc(n_store, thin=thin):
-            raise AssertionError("chain capacity hit in the flagship run")
-        launches = dict(fs.LAUNCHES)
-        n_steps = nosync_steps + 3 * burn + n_store
-        if launches != {"fused_stretch_half": 2 * n_steps,
-                        "stretch_propose": 0, "stretch_accept": 0}:
-            raise AssertionError(f"flagship launches {launches}, expected "
-                                 f"{2 * n_steps} fused only")
-        kernels["fused_stretch_half"]["launches_per_step"] = (
-            launches["fused_stretch_half"] / n_steps)
-        kernels["fused_stretch_half"]["launches"] = launches[
-            "fused_stretch_half"]
-        samples = check_stored(s, flagship, "flagship")
-        if samples.shape != (n_store // thin, n_walkers, 10):
-            raise AssertionError(f"stored shape {samples.shape}")
-        acc = s.acceptance_fraction
-        print(f"flagship W=2^21 P=10: {launches['fused_stretch_half']} "
-              f"kernel launches, acceptance {acc:.4f}, stored "
-              f"{samples.shape}")
-        if not 0.2 < acc < 0.8:
-            raise AssertionError(f"flagship acceptance {acc}")
-        del samples
-
-        class PlainFusedStretchMove(mt.FusedStretchMove):
-            """The same draws and transition through the plain version,
-            which has to make the key's planes with the twin's integer
-            ops: its time is a plain version's time, not a yardstick."""
-
-            def apply(self, active, active_logp, other, logp_fn, state,
-                      noise, beta=1.0):
-                shift, key = noise
-                u, ue = rnd.philox_unit_uniforms(key, active.shape[0],
-                                                 active.device)
-                return fs.fused_stretch_half_reference(
-                    active, active_logp, other, shift, u, ue,
-                    logp_fn=logp_fn, a=self.a)
-
-        sp = mt.EnsembleSampler(flagship, n_walkers=n_walkers, n_params=10,
-                                mover=PlainFusedStretchMove(), seed=0,
-                                batched=True, device="cuda")
-        sp.init_ball(np.zeros(10), 0.5)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        sp.run_mcmc(burn, store=False)
-        torch.cuda.synchronize()
-        plain_burn_s = time.perf_counter() - t0
-        rates = ", ".join(f"{burn * n_walkers / t:.6e}" for t in burn_runs)
-        plain_rate = burn * n_walkers / plain_burn_s
-        print(f"flagship burn-in, {burn} steps a run: kernel {rates} "
-              f"walker-updates/s, plain (with the twin's integer ops for u "
-              f"and ue; no yardstick) {plain_rate:.6e} walker-updates/s "
-              f"({plain_burn_s:.4f} s) [{card}]")
-        del s, sp
-        torch.cuda.empty_cache()
+            plain_burn_s = time.perf_counter() - t0
+            rates = ", ".join(f"{burn * n_walkers / t:.6e}" for t in burn_runs)
+            plain_rate = burn * n_walkers / plain_burn_s
+            print(f"flagship burn-in, {burn} steps a run: kernel {rates} "
+                  f"walker-updates/s, plain (with the twin's integer ops for u "
+                  f"and ue; no yardstick) {plain_rate:.6e} walker-updates/s "
+                  f"({plain_burn_s:.4f} s) [{card}]")
+            del s, sp
+            torch.cuda.empty_cache()
 
     # -- phase 4: skewed-Gaussian oracle through the kernel -----------------
-    with phase("4 skewed oracle (fused)"):
-        skewed = mt.skewed_gaussian(0.13, device=dev)
-        so = mt.EnsembleSampler(skewed, n_walkers=320, n_params=2,
-                                mover=mt.FusedStretchMove(), seed=42,
-                                batched=True, device="cuda")
-        so.init_ball(np.zeros(2), scale=0.3)
-        so.run_mcmc(1000, store=False)
-        if not so.run_mcmc(8000, thin=4):
-            raise AssertionError("chain capacity hit in the oracle run")
-        x = so.get_samples()
-        cov = np.cov(x.reshape(-1, 2).T)
-        tau = mt.analysis.autocorr_time(torch.from_numpy(x).to(dev))
-        acc = so.acceptance_fraction
-        print(f"skewed oracle: acceptance {acc:.4f}, cov {cov.tolist()}, "
-              f"tau {tau.tolist()}")
-        if not 0.6 < acc < 0.8:
-            raise AssertionError(f"oracle acceptance {acc}")
-        if not np.allclose(cov, SKEWED_COV, atol=0.05):
-            raise AssertionError(f"oracle covariance {cov}")
-        if not (np.all(tau > 0) and np.all(tau < 20)):
-            raise AssertionError(f"oracle autocorrelation time {tau}")
+    if run_phase("4"):
+        with phase("4 skewed oracle (fused)"):
+            so = mt.EnsembleSampler(skewed, n_walkers=320, n_params=2,
+                                    mover=mt.FusedStretchMove(), seed=42,
+                                    batched=True, device="cuda")
+            so.init_ball(np.zeros(2), scale=0.3)
+            so.run_mcmc(1000, store=False)
+            if not so.run_mcmc(8000, thin=4):
+                raise AssertionError("chain capacity hit in the oracle run")
+            x = so.get_samples()
+            cov = np.cov(x.reshape(-1, 2).T)
+            tau = mt.analysis.autocorr_time(torch.from_numpy(x).to(dev))
+            acc = so.acceptance_fraction
+            print(f"skewed oracle: acceptance {acc:.4f}, cov {cov.tolist()}, "
+                  f"tau {tau.tolist()}")
+            if not 0.6 < acc < 0.8:
+                raise AssertionError(f"oracle acceptance {acc}")
+            if not np.allclose(cov, SKEWED_COV, atol=0.05):
+                raise AssertionError(f"oracle covariance {cov}")
+            if not (np.all(tau > 0) and np.all(tau < 20)):
+                raise AssertionError(f"oracle autocorrelation time {tau}")
 
     # -- phase 5: every other mover and partner mode at full width ----------
     class CountingMixture(mt.MixtureMover):
@@ -1003,621 +1556,677 @@ def main():
             (mt.DESnookerMove(), 1.0)])),
         ("fused_funnel", funnel, lambda: mt.FusedStretchMove()),
     ]
-    with phase("5 every path at W=2^21"):
-        steps = BURN_FULL + 2
-        for name, target, make in configs:
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            mover = make()
-            s = mt.EnsembleSampler(target, W_FULL, P_FULL, mover=mover,
-                                   seed=0, batched=True, device="cuda")
-            s.init_ball(np.zeros(P_FULL), 0.5)
-            reset_launches(fs)
-            # the step loop alone (s.state carries the int32 accept
-            # counters, harvested by the stored run below)
-            # the slice move waits on the device by design
-            guard = nullcontext if name == "slice" else no_host_sync
-            timed_steps = BURN_FULL - WARM_FULL
-            with guard():
-                s.state = run_nostore(s.state, s._step_fn, WARM_FULL)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            with guard():
-                s.state = run_nostore(s.state, s._step_fn, timed_steps)
-            torch.cuda.synchronize()
-            burn_s = time.perf_counter() - t0
-            if not s.run_mcmc(2):
-                raise AssertionError(f"{name}: chain capacity hit")
-            launches = dict(fs.LAUNCHES)
-            check_stored(s, target, name)
-            acc = s.acceptance_fraction
-            lo, hi = ACCEPT_WINDOWS[name]
-            if not lo <= acc <= hi:
-                raise AssertionError(f"{name}: acceptance {acc} outside "
-                                     f"[{lo}, {hi}]")
-            extra = ""
-            if name == "slice":
-                extra = (f", {mover.loop_iterations / mover.half_steps:.2f} "
-                         "loop iterations per half-step")
-            if name == "mixture":
-                want = {"fused_stretch_half": mover.picks[0],
-                        "stretch_propose": 0, "stretch_accept": 0}
-                if launches != want:
-                    raise AssertionError(f"mixture launches {launches}, "
-                                         f"expected {want}")
-                extra = f", branch picks {mover.picks}, launches {launches}"
-            if name == "fused_funnel":
-                want = {"fused_stretch_half": 0,
-                        "stretch_propose": 2 * steps,
-                        "stretch_accept": 2 * steps}
-                if launches != want:
-                    raise AssertionError(f"funnel launches {launches}, "
-                                         f"expected {want}")
-                for k in ("stretch_propose", "stretch_accept"):
-                    kernels[k]["launches"] = launches[k]
-                    kernels[k]["launches_per_step"] = launches[k] / steps
-                extra = f", launches {launches}"
-            print(f"  {name}: {timed_steps * W_FULL / burn_s:.6e} "
-                  f"walker-updates/s ({burn_s:.4f} s for {timed_steps} steps"
-                  f"{'' if name == 'slice' else ', no host sync'}), "
-                  f"acceptance {acc:.4f}, peak "
-                  f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB"
-                  f"{extra} [{card}]", flush=True)
-            del s, mover
-
-        # partner modes in turns, on one card
-        torch.cuda.empty_cache()
-        for label, make in [("stretch", lambda m: mt.StretchMove(
-                                partner_mode=m)),
-                            ("walk6", lambda m: mt.WalkMove(
-                                6, partner_mode=m))]:
-            runs = {}
-            for mode in ("roll", "block", "gather"):
-                s = mt.EnsembleSampler(flagship, W_FULL, P_FULL,
-                                       mover=make(mode), seed=1,
-                                       batched=True, device="cuda")
+    if run_phase("5"):
+        with phase("5 every path at W=2^21"):
+            steps = BURN_FULL + 2
+            for name, target, make in configs:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                mover = make()
+                s = mt.EnsembleSampler(target, W_FULL, P_FULL, mover=mover,
+                                       seed=0, batched=True, device="cuda")
                 s.init_ball(np.zeros(P_FULL), 0.5)
-                s.state = run_nostore(s.state, s._step_fn, 2)
-                runs[mode] = s
-
-            def timed(mode, n=10):
-                s = runs[mode]
+                reset_launches(fs)
+                # the step loop alone (s.state carries the int32 accept
+                # counters, harvested by the stored run below)
+                # the slice move waits on the device by design
+                guard = nullcontext if name == "slice" else no_host_sync
+                timed_steps = BURN_FULL - WARM_FULL
+                with guard():
+                    s.state = run_nostore(s.state, s._step_fn, WARM_FULL)
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                s.state = run_nostore(s.state, s._step_fn, n)
+                with guard():
+                    s.state = run_nostore(s.state, s._step_fn, timed_steps)
                 torch.cuda.synchronize()
-                return (time.perf_counter() - t0) / n * 1e3
+                burn_s = time.perf_counter() - t0
+                if not s.run_mcmc(2):
+                    raise AssertionError(f"{name}: chain capacity hit")
+                launches = dict(fs.LAUNCHES)
+                check_stored(s, target, name)
+                acc = s.acceptance_fraction
+                lo, hi = ACCEPT_WINDOWS[name]
+                if not lo <= acc <= hi:
+                    raise AssertionError(f"{name}: acceptance {acc} outside "
+                                         f"[{lo}, {hi}]")
+                extra = ""
+                if name == "slice":
+                    extra = (f", {mover.loop_iterations / mover.half_steps:.2f} "
+                             "loop iterations per half-step")
+                if name == "mixture":
+                    want = {"fused_stretch_half": mover.picks[0],
+                            "stretch_propose": 0, "stretch_accept": 0}
+                    if launches != want:
+                        raise AssertionError(f"mixture launches {launches}, "
+                                             f"expected {want}")
+                    extra = f", branch picks {mover.picks}, launches {launches}"
+                if name == "fused_funnel":
+                    want = {"fused_stretch_half": 0,
+                            "stretch_propose": 2 * steps,
+                            "stretch_accept": 2 * steps}
+                    if launches != want:
+                        raise AssertionError(f"funnel launches {launches}, "
+                                             f"expected {want}")
+                    for k in ("stretch_propose", "stretch_accept"):
+                        kernels.setdefault(k, {}).update(
+                            launches=launches[k],
+                            launches_per_step=launches[k] / steps)
+                    extra = f", launches {launches}"
+                print(f"  {name}: {timed_steps * W_FULL / burn_s:.6e} "
+                      f"walker-updates/s ({burn_s:.4f} s for {timed_steps} steps"
+                      f"{'' if name == 'slice' else ', no host sync'}), "
+                      f"acceptance {acc:.4f}, peak "
+                      f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB"
+                      f"{extra} [{card}]", flush=True)
+                del s, mover
 
-            order = ["roll", "block", "gather", "gather", "block", "roll"]
-            got = {m: [] for m in runs}
-            for mode in order:
-                got[mode].append(timed(mode))
-            print(f"  partner modes, {label}, W=2^21, ms per step (in turns): "
-                  + ", ".join(f"{m} {sum(v) / 2:.4f} ({v[0]:.4f}, "
-                              f"{v[1]:.4f})" for m, v in got.items())
-                  + f" [{card}]", flush=True)
-            del runs, s
+            # partner modes in turns, on one card
             torch.cuda.empty_cache()
+            for label, make in [("stretch", lambda m: mt.StretchMove(
+                                    partner_mode=m)),
+                                ("walk6", lambda m: mt.WalkMove(
+                                    6, partner_mode=m))]:
+                runs = {}
+                for mode in ("roll", "block", "gather"):
+                    s = mt.EnsembleSampler(flagship, W_FULL, P_FULL,
+                                           mover=make(mode), seed=1,
+                                           batched=True, device="cuda")
+                    s.init_ball(np.zeros(P_FULL), 0.5)
+                    s.state = run_nostore(s.state, s._step_fn, 2)
+                    runs[mode] = s
+
+                def timed(mode, n=10):
+                    s = runs[mode]
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    s.state = run_nostore(s.state, s._step_fn, n)
+                    torch.cuda.synchronize()
+                    return (time.perf_counter() - t0) / n * 1e3
+
+                order = ["roll", "block", "gather", "gather", "block", "roll"]
+                got = {m: [] for m in runs}
+                for mode in order:
+                    got[mode].append(timed(mode))
+                print(f"  partner modes, {label}, W=2^21, ms per step (in turns): "
+                      + ", ".join(f"{m} {sum(v) / 2:.4f} ({v[0]:.4f}, "
+                                  f"{v[1]:.4f})" for m, v in got.items())
+                      + f" [{card}]", flush=True)
+                del runs, s
+                torch.cuda.empty_cache()
 
     # -- phase 6: the reference's oracles on the card -----------------------
-    with phase("6 oracles"):
-        for name, make, n_steps, atol in [
-            ("walk", lambda: mt.WalkMove(6), 2000, 0.12),
-            ("de", lambda: mt.DifferentialEvolutionMove(), 8000, 0.15),
-            ("mh", lambda: mt.MetropolisHastingsMove(
-                covariance=SKEWED_COV, scale=1.2), 8000, 0.15),
-            ("snooker", lambda: mt.DESnookerMove(), 2000, 0.15),
-            ("dram", lambda: mt.DRAMMove(), 2000, 0.15),
-            ("mixture", lambda: mt.MixtureMover([
-                (mt.FusedStretchMove(), 2.0),
-                (mt.DifferentialEvolutionMove(), 1.0),
-                (mt.DESnookerMove(), 1.0)]), 8000, 0.15),
-            ("slice", lambda: mt.EnsembleSliceMove(), 200, 0.12),
-        ]:
+    if run_phase("6"):
+        with phase("6 oracles"):
+            for name, make, n_steps, atol in [
+                ("walk", lambda: mt.WalkMove(6), 2000, 0.12),
+                ("de", lambda: mt.DifferentialEvolutionMove(), 8000, 0.15),
+                ("mh", lambda: mt.MetropolisHastingsMove(
+                    covariance=SKEWED_COV, scale=1.2), 8000, 0.15),
+                ("snooker", lambda: mt.DESnookerMove(), 2000, 0.15),
+                ("dram", lambda: mt.DRAMMove(), 2000, 0.15),
+                ("mixture", lambda: mt.MixtureMover([
+                    (mt.FusedStretchMove(), 2.0),
+                    (mt.DifferentialEvolutionMove(), 1.0),
+                    (mt.DESnookerMove(), 1.0)]), 8000, 0.15),
+                ("slice", lambda: mt.EnsembleSliceMove(), 200, 0.12),
+            ]:
+                t0 = time.perf_counter()
+                so = mt.EnsembleSampler(skewed, 320, 2, mover=make(), seed=42,
+                                        batched=True, device="cuda")
+                so.init_ball(np.zeros(2), scale=0.3)
+                so.run_mcmc(1000, store=False)
+                if not so.run_mcmc(n_steps, thin=4):
+                    raise AssertionError(f"skewed {name}: chain capacity hit")
+                flat = so.get_samples(flat=True)
+                cov = np.cov(flat.T)
+                acc = so.acceptance_fraction
+                print(f"  skewed {name}: acceptance {acc:.4f}, cov "
+                      f"{np.round(cov, 4).tolist()} "
+                      f"({time.perf_counter() - t0:.1f} s)", flush=True)
+                if not np.allclose(cov, SKEWED_COV, atol=atol):
+                    raise AssertionError(f"skewed {name}: covariance {cov}")
+                if not np.allclose(flat.mean(axis=0), 0.0, atol=0.15):
+                    raise AssertionError(f"skewed {name}: mean "
+                                         f"{flat.mean(axis=0)}")
+                if name == "slice" and not acc > 0.999:
+                    raise AssertionError(f"slice acceptance {acc}")
+
+            banana = mt.rosenbrock(1.0, 5.0, 4.0)
+            for name, mover, n_steps in [
+                    ("fused a=3 (split kernels)", mt.FusedStretchMove(a=3.0),
+                     12000),
+                    ("walk6", mt.WalkMove(6), 2000),
+                    ("de", mt.DifferentialEvolutionMove(), 6000)]:
+                reset_launches(fs)
+                t0 = time.perf_counter()
+                sb = mt.EnsembleSampler(banana, 256, 2, mover=mover, seed=3,
+                                        batched=True, device="cuda")
+                sb.init_ball(np.array([1.0, 1.0]), scale=0.5, seed=4)
+                sb.run_mcmc(2000, store=False)
+                if not sb.run_mcmc(n_steps, thin=4):
+                    raise AssertionError(f"banana {name}: chain capacity hit")
+                flat = sb.get_samples(flat=True)
+                mx, vx = flat[:, 0].mean(), flat[:, 0].var()
+                ry = (flat[:, 1] - flat[:, 0] ** 2).mean()
+                print(f"  banana {name}: E[x] {mx:.4f}, Var[x] {vx:.4f}, "
+                      f"E[y - x^2] {ry:.4f}, acceptance "
+                      f"{sb.acceptance_fraction:.4f}, launches {fs.LAUNCHES} "
+                      f"({time.perf_counter() - t0:.1f} s)", flush=True)
+                if not (abs(mx - 1.0) < 0.12 and abs(vx - 2.0) < 0.25 * 2.0
+                        and abs(ry) < 0.15):
+                    raise AssertionError(f"banana {name}: moments")
+                if isinstance(mover, mt.FusedStretchMove) and fs.LAUNCHES != {
+                        "fused_stretch_half": 0, "stretch_propose": 28000,
+                        "stretch_accept": 28000}:
+                    raise AssertionError(f"banana launches {fs.LAUNCHES}")
+
             t0 = time.perf_counter()
-            so = mt.EnsembleSampler(skewed, 320, 2, mover=make(), seed=42,
-                                    batched=True, device="cuda")
-            so.init_ball(np.zeros(2), scale=0.3)
-            so.run_mcmc(1000, store=False)
-            if not so.run_mcmc(n_steps, thin=4):
-                raise AssertionError(f"skewed {name}: chain capacity hit")
-            flat = so.get_samples(flat=True)
-            cov = np.cov(flat.T)
-            acc = so.acceptance_fraction
-            print(f"  skewed {name}: acceptance {acc:.4f}, cov "
-                  f"{np.round(cov, 4).tolist()} "
+            phis = np.array([0.8, 0.904761904762])
+            ar = mt.AutoRegressiveMove(np.zeros(2), phis, np.ones(2))
+            sa = mt.EnsembleSampler(lambda t: torch.zeros_like(t[:, 0]), 100, 2,
+                                    mover=ar, seed=5, batched=True, device="cuda")
+            sa.set_initial_walker_pos(ar.initial_positions(
+                torch.Generator(device=dev).manual_seed(6), 100, device=dev))
+            sa.run_mcmc(32768)
+            tau = mt.analysis.autocorr_time(
+                torch.from_numpy(sa.get_samples()).to(dev))
+            print(f"  AcTime: tau {tau.tolist()} vs {ar.true_act.tolist()} "
                   f"({time.perf_counter() - t0:.1f} s)", flush=True)
-            if not np.allclose(cov, SKEWED_COV, atol=atol):
-                raise AssertionError(f"skewed {name}: covariance {cov}")
-            if not np.allclose(flat.mean(axis=0), 0.0, atol=0.15):
-                raise AssertionError(f"skewed {name}: mean "
-                                     f"{flat.mean(axis=0)}")
-            if name == "slice" and not acc > 0.999:
-                raise AssertionError(f"slice acceptance {acc}")
+            if not np.allclose(tau, ar.true_act, rtol=0.12):
+                raise AssertionError(f"AR(1) autocorrelation times {tau}")
 
-        banana = mt.rosenbrock(1.0, 5.0, 4.0)
-        for name, mover, n_steps in [
-                ("fused a=3 (split kernels)", mt.FusedStretchMove(a=3.0),
-                 12000),
-                ("walk6", mt.WalkMove(6), 2000),
-                ("de", mt.DifferentialEvolutionMove(), 6000)]:
-            reset_launches(fs)
-            t0 = time.perf_counter()
-            sb = mt.EnsembleSampler(banana, 256, 2, mover=mover, seed=3,
-                                    batched=True, device="cuda")
-            sb.init_ball(np.array([1.0, 1.0]), scale=0.5, seed=4)
-            sb.run_mcmc(2000, store=False)
-            if not sb.run_mcmc(n_steps, thin=4):
-                raise AssertionError(f"banana {name}: chain capacity hit")
-            flat = sb.get_samples(flat=True)
-            mx, vx = flat[:, 0].mean(), flat[:, 0].var()
-            ry = (flat[:, 1] - flat[:, 0] ** 2).mean()
-            print(f"  banana {name}: E[x] {mx:.4f}, Var[x] {vx:.4f}, "
-                  f"E[y - x^2] {ry:.4f}, acceptance "
-                  f"{sb.acceptance_fraction:.4f}, launches {fs.LAUNCHES} "
-                  f"({time.perf_counter() - t0:.1f} s)", flush=True)
-            if not (abs(mx - 1.0) < 0.12 and abs(vx - 2.0) < 0.25 * 2.0
-                    and abs(ry) < 0.15):
-                raise AssertionError(f"banana {name}: moments")
-            if isinstance(mover, mt.FusedStretchMove) and fs.LAUNCHES != {
-                    "fused_stretch_half": 0, "stretch_propose": 28000,
-                    "stretch_accept": 28000}:
-                raise AssertionError(f"banana launches {fs.LAUNCHES}")
+            seq = mt.SequenceMove([1.0, 0.5])
+            sq = mt.EnsembleSampler(lambda t: torch.zeros_like(t[:, 0]), 100, 2,
+                                    mover=seq, seed=0, batched=True,
+                                    device="cuda")
+            sq.set_initial_walker_pos(seq.initial_positions(None, 100,
+                                                            device=dev))
+            n_seq = 1000
+            sq.run_mcmc(n_seq, store=False)
+            want = torch.tensor([1.0, 0.5], device=dev) * n_seq
+            if not torch.equal(sq.current_positions,
+                               want.expand(100, 2).contiguous()):
+                raise AssertionError("sequence positions are not N·step")
+            print(f"  InnerBenchmark: {n_seq} steps, positions exactly N·step")
 
-        t0 = time.perf_counter()
-        phis = np.array([0.8, 0.904761904762])
-        ar = mt.AutoRegressiveMove(np.zeros(2), phis, np.ones(2))
-        sa = mt.EnsembleSampler(lambda t: torch.zeros_like(t[:, 0]), 100, 2,
-                                mover=ar, seed=5, batched=True, device="cuda")
-        sa.set_initial_walker_pos(ar.initial_positions(
-            torch.Generator(device=dev).manual_seed(6), 100, device=dev))
-        sa.run_mcmc(32768)
-        tau = mt.analysis.autocorr_time(
-            torch.from_numpy(sa.get_samples()).to(dev))
-        print(f"  AcTime: tau {tau.tolist()} vs {ar.true_act.tolist()} "
-              f"({time.perf_counter() - t0:.1f} s)", flush=True)
-        if not np.allclose(tau, ar.true_act, rtol=0.12):
-            raise AssertionError(f"AR(1) autocorrelation times {tau}")
-
-        seq = mt.SequenceMove([1.0, 0.5])
-        sq = mt.EnsembleSampler(lambda t: torch.zeros_like(t[:, 0]), 100, 2,
-                                mover=seq, seed=0, batched=True,
-                                device="cuda")
-        sq.set_initial_walker_pos(seq.initial_positions(None, 100,
-                                                        device=dev))
-        n_seq = 1000
-        sq.run_mcmc(n_seq, store=False)
-        want = torch.tensor([1.0, 0.5], device=dev) * n_seq
-        if not torch.equal(sq.current_positions,
-                           want.expand(100, 2).contiguous()):
-            raise AssertionError("sequence positions are not N·step")
-        print(f"  InnerBenchmark: {n_seq} steps, positions exactly N·step")
-
-        st = mt.EnsembleSampler(skewed, 320, 2, mover=mt.FusedStretchMove(),
-                                seed=7, batched=True, device="cuda")
-        st.init_ball(np.zeros(2), scale=0.3)
-        st.run_mcmc(100, step_action=lambda pos, lp: {"mean_logp": lp.mean()})
-        m = st.step_metrics["mean_logp"]
-        if m.shape != (100,):
-            raise AssertionError(f"step_metrics shape {m.shape}")
-        np.testing.assert_allclose(m, st.get_log_probs().mean(axis=1),
-                                   rtol=1e-5, atol=1e-6)
-        print("  step_action: 100 rows, equal to the chain's mean logp")
+            st = mt.EnsembleSampler(skewed, 320, 2, mover=mt.FusedStretchMove(),
+                                    seed=7, batched=True, device="cuda")
+            st.init_ball(np.zeros(2), scale=0.3)
+            st.run_mcmc(100, step_action=lambda pos, lp: {"mean_logp": lp.mean()})
+            m = st.step_metrics["mean_logp"]
+            if m.shape != (100,):
+                raise AssertionError(f"step_metrics shape {m.shape}")
+            np.testing.assert_allclose(m, st.get_log_probs().mean(axis=1),
+                                       rtol=1e-5, atol=1e-6)
+            print("  step_action: 100 rows, equal to the chain's mean logp")
 
     # -- phase 8: store, checkpoint, resume, analyse -------------------------
-    with phase("8 store, checkpoint, resume, analyse"):
-        import mcmcpp_tpu_torch.io.checkpoint as ckpt
-        from mcmcpp_tpu_torch.chain_disk import DiskChain
-        from mcmcpp_tpu_torch.convergence import run_until_converged
-        from mcmcpp_tpu_torch.io import (
-            CsvEngine, DataWriter, HistMultiOutput, MatrixOutput, NpzEngine,
-            ScalarOutput, load_checkpoint)
-        from mcmcpp_tpu_torch.io.engines import read_npz
+    if run_phase("8"):
+        with phase("8 store, checkpoint, resume, analyse"):
+            import mcmcpp_tpu_torch.io.checkpoint as ckpt
+            from mcmcpp_tpu_torch.chain import e4m3_ready, to_held
+            from mcmcpp_tpu_torch.chain_disk import DiskChain
+            from mcmcpp_tpu_torch.convergence import run_until_converged
+            from mcmcpp_tpu_torch.io import (
+                CsvEngine, DataWriter, HistMultiOutput, MatrixOutput, NpzEngine,
+                ScalarOutput, load_checkpoint)
+            from mcmcpp_tpu_torch.io.engines import read_npz
 
-        root = os.path.dirname(os.path.abspath(__file__))
-        out_dir = os.path.join(root, "build", "smoke")
-        shutil.rmtree(out_dir, ignore_errors=True)
-        os.makedirs(out_dir)
-        fused_only = lambda n: {"fused_stretch_half": 2 * n,  # noqa: E731
-                                "stretch_propose": 0, "stretch_accept": 0}
-        split_only = lambda n: {"fused_stretch_half": 0,  # noqa: E731
-                                "stretch_propose": 2 * n,
-                                "stretch_accept": 2 * n}
+            root = os.path.dirname(os.path.abspath(__file__))
+            out_dir = os.path.join(root, "build", "smoke")
+            shutil.rmtree(out_dir, ignore_errors=True)
+            os.makedirs(out_dir)
+            fused_only = lambda n: {"fused_stretch_half": 2 * n,  # noqa: E731
+                                    "stretch_propose": 0, "stretch_accept": 0}
+            split_only = lambda n: {"fused_stretch_half": 0,  # noqa: E731
+                                    "stretch_propose": 2 * n,
+                                    "stretch_accept": 2 * n}
 
-        def full_width(target, seed, **kw):
-            return mt.EnsembleSampler(target, W_FULL, P_FULL,
-                                      mover=mt.FusedStretchMove(), seed=seed,
-                                      batched=True, device="cuda", **kw)
+            def full_width(target, seed, **kw):
+                return mt.EnsembleSampler(target, W_FULL, P_FULL,
+                                          mover=mt.FusedStretchMove(), seed=seed,
+                                          batched=True, device="cuda", **kw)
 
-        def bits(t):
-            """A reduced tensor's raw bits on the host."""
-            view = torch.int16 if t.dtype.itemsize == 2 else torch.uint8
-            return t.view(view).cpu().numpy()
+            def bits(t):
+                """A reduced tensor's raw bits on the host."""
+                view = torch.int16 if t.dtype.itemsize == 2 else torch.uint8
+                return t.view(view).cpu().numpy()
 
-        # (a) the store tiers: rows reduced on the card, as raw bits on the host
-        store_launches = {}
-        for store_dtype, n_steps in [(torch.bfloat16, 60),
-                                     (torch.float8_e4m3fn, 20)]:
-            thin = 10
-            s = full_width(flagship, 0, store_dtype=store_dtype)
-            s.init_ball(np.zeros(P_FULL), 0.5)
-            s.run_mcmc(20, store=False)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            s.run_mcmc(n_steps, store=False)
-            torch.cuda.synchronize()
-            nostore_s = time.perf_counter() - t0
-            append_s = []
-            chain_append = s.chain.append
-
-            def timed_append(pos, logp, _append=chain_append,
-                             _into=append_s):
+            # (a) the store tiers: rows reduced on the card, as raw bits on the host
+            for store_dtype, n_steps in [(torch.bfloat16, 60),
+                                         (torch.float8_e4m3fn, 20)]:
+                thin = 10
+                s = full_width(flagship, 0, store_dtype=store_dtype)
+                s.init_ball(np.zeros(P_FULL), 0.5)
+                s.run_mcmc(20, store=False)
+                torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                ok = _append(pos, logp)
-                _into.append(time.perf_counter() - t0)
-                return ok
+                s.run_mcmc(n_steps, store=False)
+                torch.cuda.synchronize()
+                nostore_s = time.perf_counter() - t0
+                append_s = []
+                chain_append = s.chain.append
 
-            s.chain.append = timed_append
-            reset_launches(fs)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            if not s.run_mcmc(n_steps, thin=thin):
-                raise AssertionError("chain capacity hit in the storing run")
-            torch.cuda.synchronize()
-            store_s = time.perf_counter() - t0
-            if fs.LAUNCHES != fused_only(n_steps):
-                raise AssertionError(f"storing run launched {fs.LAUNCHES}")
-            if store_dtype is torch.bfloat16:
-                store_launches = dict(fs.LAUNCHES)
-            n_rows = n_steps // thin
-            eight_bit = store_dtype.itemsize < 2
-            logp_dtype = torch.bfloat16 if eight_bit else store_dtype
-            if (s.chain.n_steps != n_rows or s.chain.dtype != store_dtype
-                    or s.chain.logp_dtype != logp_dtype):
-                raise AssertionError(
-                    f"chain holds {s.chain.n_steps} rows at {s.chain.dtype} "
-                    f"/ {s.chain.logp_dtype}")
-            row_bytes = W_FULL * (P_FULL * store_dtype.itemsize
-                                  + logp_dtype.itemsize)
-            if s.chain.nbytes != n_rows * row_bytes:
-                raise AssertionError(f"chain bytes {s.chain.nbytes}")
-            # the last stored row is the state (n_steps is a multiple of
-            # thin), cast on the card; the CPU's cast gives the same bits
-            pos, lp = s._current_ensemble()
-            held_pos = s.chain.get(held=True)[-1]
-            held_lp = s.chain.get_logp(held=True)[-1]
-            for what, held, full, dt in [("rows", held_pos, pos, store_dtype),
-                                         ("logp", held_lp, lp, logp_dtype)]:
-                if not (np.array_equal(held, bits(full.to(dt)))
-                        and np.array_equal(held, bits(full.cpu().to(dt)))):
-                    raise AssertionError(
-                        f"{store_dtype}: stored {what} are not the state "
-                        "cast on the card and on the CPU, bit for bit")
-            # the stored logp against the target at the cast-up rows. The
-            # plane alone is exact to its 8 bits (checked bit for bit above);
-            # the rows' rounding (2^-9 relative a coordinate under bf16,
-            # 2^-4 under e4m3) moves the quadratic form besides, so the
-            # bounds are 2^-6 and 2^-2 relative, four and a half times and
-            # twice what this target shows at 2^21 rows drawn from it
-            rows_up = torch.from_numpy(s.get_samples()[-1]).to(dev)
-            lp_up = torch.from_numpy(s.get_log_probs()[-1]).to(dev)
-            if rows_up.dtype != torch.float32 or not bool(
-                    torch.isfinite(rows_up).all()):
-                raise AssertionError(f"{store_dtype}: cast-up rows")
-            dev_rel = ((lp_up - flagship(rows_up)).abs()
-                       / lp_up.abs().clamp(min=1.0))
-            tol = 2.0 ** -2 if eight_bit else 2.0 ** -6
-            in_plane_tol = float((dev_rel <= 2.0 ** -8).float().mean())
-            if float(dev_rel.max()) > tol:
-                raise AssertionError(
-                    f"{store_dtype}: stored logp against the target at the "
-                    f"cast-up rows: max {float(dev_rel.max()):.3e} relative, "
-                    f"bound {tol}")
-            rate = lambda t: n_steps * W_FULL / t  # noqa: E731
-            print(f"  store_dtype={str(store_dtype).split('.')[1]}: "
-                  f"{n_steps} steps at thin {thin}, {n_rows} rows of "
-                  f"{row_bytes / 1e6:.1f} MB: {rate(store_s):.6e} "
-                  f"walker-updates/s storing ({store_s:.4f} s, of which "
-                  f"{sum(append_s):.4f} s inside Chain.append: "
-                  f"{[round(t, 4) for t in append_s]}), {rate(nostore_s):.6e}"
-                  f" with store=False ({nostore_s:.4f} s); stored bits equal "
-                  f"the state's cast (card and CPU); logp vs target at the "
-                  f"cast-up rows: max {float(dev_rel.max()):.3e} relative (bound "
-                  f"{tol:g}; {in_plane_tol:.4f} of the rows within 2^-8) "
-                  f"[{card}]", flush=True)
-            del s, pos, lp, rows_up, lp_up, dev_rel
-        refused = False
-        try:
-            full_width(flagship, 0, store_dtype=torch.float8_e4m3fn,
-                       chain=DiskChain(os.path.join(out_dir, "f8_spool"),
-                                       W_FULL, P_FULL,
-                                       dtype="float8_e4m3fn"))
-        except ValueError as e:
-            refused = "logp plane" in str(e)
-        if not refused:
-            raise AssertionError("an injected 8-bit-logp chain was accepted")
-        print("  an injected chain with an 8-bit logp plane is refused")
-        # beyond e4m3fn's range the rule is torch's own (the JAX package
-        # stores NaN there): the card must apply the rule the CPU applies
-        edge = torch.tensor([448.0, 464.0, 464.1, -1e4, float("inf")])
-        on_card = bits(edge.to(dev).to(torch.float8_e4m3fn))
-        on_cpu = bits(edge.to(torch.float8_e4m3fn))
-        if not np.array_equal(on_card, on_cpu):
-            raise AssertionError(f"e4m3fn beyond its range: card {on_card}, "
-                                 f"CPU {on_cpu}")
-        print(f"  float8_e4m3fn of {edge.tolist()} (torch "
-              f"{torch.__version__}): "
-              f"{edge.to(torch.float8_e4m3fn).float().tolist()}, the same "
-              "bits on the card and on the CPU")
+                def timed_append(pos, logp, _append=chain_append,
+                                 _into=append_s):
+                    t0 = time.perf_counter()
+                    ok = _append(pos, logp)
+                    _into.append(time.perf_counter() - t0)
+                    return ok
 
-        # (b) resume from a checkpoint is bitwise
-        saves = []
-        real_save = ckpt.save_checkpoint
-
-        def timed_save(sampler, path):
-            t0 = time.perf_counter()
-            out = real_save(sampler, path)
-            saves.append((time.perf_counter() - t0, os.path.getsize(out)))
-            return out
-
-        ckpt.save_checkpoint = timed_save
-        try:
-            for label, target, want, kw in [
-                ("fused", flagship, fused_only, lambda tag: {}),
-                ("funnel_split", funnel, split_only, lambda tag: {}),
-                ("fused_diskchain_bf16", flagship, fused_only,
-                 lambda tag: {
-                     "store_dtype": torch.bfloat16,
-                     "chain": DiskChain(
-                         os.path.join(out_dir, f"spool_{tag}"), W_FULL,
-                         P_FULL, dtype="bfloat16")}),
-            ]:
-                path = os.path.join(out_dir, f"ck_{label}")
-                a = full_width(target, 11, **kw("a"))
-                a.init_ball(np.zeros(P_FULL), 0.5)
+                s.chain.append = timed_append
                 reset_launches(fs)
-                a.run_mcmc(40, thin=10, checkpoint_path=path,
-                           checkpoint_every=8)
-                if fs.LAUNCHES != want(40):
-                    raise AssertionError(f"{label}: launches {fs.LAUNCHES}")
-                if label == "funnel_split":
-                    store_launches.update(
-                        {k: v for k, v in fs.LAUNCHES.items() if v})
-                save_s, save_bytes = saves[-1]
-                b = full_width(target, 99, **kw("b"))
+                torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                load_checkpoint(b, path)
-                load_s = time.perf_counter() - t0
-                a.run_mcmc(40, thin=10)
-                b.run_mcmc(40, thin=10)
-                same = all(torch.equal(x, y)
-                           for x, y in zip(a.state[:6], b.state[:6]))
-                same = same and a.state.step == b.state.step == 80
-                same = same and np.array_equal(a.per_walker_accepted,
-                                               b.per_walker_accepted)
-                same = same and a.total_steps == b.total_steps
-                for get in ("get", "get_logp"):
-                    ra = torch.from_numpy(getattr(a.chain, get)(held=True))
-                    rb = torch.from_numpy(getattr(b.chain, get)(held=True))
-                    same = same and ra.shape[0] == 8 and torch.equal(ra, rb)
-                if not same:
+                if not s.run_mcmc(n_steps, thin=thin):
+                    raise AssertionError("chain capacity hit in the storing run")
+                torch.cuda.synchronize()
+                store_s = time.perf_counter() - t0
+                if fs.LAUNCHES != fused_only(n_steps):
+                    raise AssertionError(f"storing run launched {fs.LAUNCHES}")
+                if store_dtype is torch.bfloat16:
+                    store_launches = dict(fs.LAUNCHES)
+                n_rows = n_steps // thin
+                eight_bit = store_dtype.itemsize < 2
+                logp_dtype = torch.bfloat16 if eight_bit else store_dtype
+                if (s.chain.n_steps != n_rows or s.chain.dtype != store_dtype
+                        or s.chain.logp_dtype != logp_dtype):
                     raise AssertionError(
-                        f"{label}: the resumed run differs from the "
-                        "uninterrupted one")
-                print(f"  resume {label}: 40 + 40 steps == 40, load, 40 "
-                      f"bitwise (state, counters, 8 rows at "
-                      f"{a.chain.dtype.name}, backend {a.chain.backend}); "
-                      f"checkpoint {save_bytes} B written in {save_s:.2f} s, "
-                      f"loaded in {load_s:.2f} s [{card}]", flush=True)
-                del a, b, ra, rb
-        finally:
-            ckpt.save_checkpoint = real_save
+                        f"chain holds {s.chain.n_steps} rows at {s.chain.dtype} "
+                        f"/ {s.chain.logp_dtype}")
+                row_bytes = W_FULL * (P_FULL * store_dtype.itemsize
+                                      + logp_dtype.itemsize)
+                if s.chain.nbytes != n_rows * row_bytes:
+                    raise AssertionError(f"chain bytes {s.chain.nbytes}")
+                # the last stored row is the state (n_steps is a multiple of
+                # thin), cast on the card; the CPU's cast gives the same bits
+                pos, lp = s._current_ensemble()
+                held_pos = s.chain.get(held=True)[-1]
+                held_lp = s.chain.get_logp(held=True)[-1]
+                for what, held, full, dt in [("rows", held_pos, pos, store_dtype),
+                                             ("logp", held_lp, lp, logp_dtype)]:
+                    full = e4m3_ready(full, dt)
+                    if not (np.array_equal(held, bits(full.to(dt)))
+                            and np.array_equal(held, bits(full.cpu().to(dt)))):
+                        raise AssertionError(
+                            f"{store_dtype}: stored {what} are not the state "
+                            "cast on the card and on the CPU, bit for bit")
+                # the stored logp against the target at the cast-up rows. The
+                # plane alone is exact to its 8 bits (checked bit for bit above);
+                # the rows' rounding (2^-9 relative a coordinate under bf16,
+                # 2^-4 under e4m3) moves the quadratic form besides, so the
+                # bounds are 2^-6 and 2^-2 relative, four and a half times and
+                # twice what this target shows at 2^21 rows drawn from it
+                rows_up = torch.from_numpy(s.get_samples()[-1]).to(dev)
+                lp_up = torch.from_numpy(s.get_log_probs()[-1]).to(dev)
+                if rows_up.dtype != torch.float32 or not bool(
+                        torch.isfinite(rows_up).all()):
+                    raise AssertionError(f"{store_dtype}: cast-up rows")
+                dev_rel = ((lp_up - flagship(rows_up)).abs()
+                           / lp_up.abs().clamp(min=1.0))
+                tol = 2.0 ** -2 if eight_bit else 2.0 ** -6
+                in_plane_tol = float((dev_rel <= 2.0 ** -8).float().mean())
+                if float(dev_rel.max()) > tol:
+                    raise AssertionError(
+                        f"{store_dtype}: stored logp against the target at the "
+                        f"cast-up rows: max {float(dev_rel.max()):.3e} relative, "
+                        f"bound {tol}")
+                rate = lambda t: n_steps * W_FULL / t  # noqa: E731
+                print(f"  store_dtype={str(store_dtype).split('.')[1]}: "
+                      f"{n_steps} steps at thin {thin}, {n_rows} rows of "
+                      f"{row_bytes / 1e6:.1f} MB: {rate(store_s):.6e} "
+                      f"walker-updates/s storing ({store_s:.4f} s, of which "
+                      f"{sum(append_s):.4f} s inside Chain.append: "
+                      f"{[round(t, 4) for t in append_s]}), {rate(nostore_s):.6e}"
+                      f" with store=False ({nostore_s:.4f} s); stored bits equal "
+                      f"the state's cast (card and CPU); logp vs target at the "
+                      f"cast-up rows: max {float(dev_rel.max()):.3e} relative (bound "
+                      f"{tol:g}; {in_plane_tol:.4f} of the rows within 2^-8) "
+                      f"[{card}]", flush=True)
+                del s, pos, lp, rows_up, lp_up, dev_rel
+            refused = False
+            try:
+                full_width(flagship, 0, store_dtype=torch.float8_e4m3fn,
+                           chain=DiskChain(os.path.join(out_dir, "f8_spool"),
+                                           W_FULL, P_FULL,
+                                           dtype="float8_e4m3fn"))
+            except ValueError as e:
+                refused = "logp plane" in str(e)
+            if not refused:
+                raise AssertionError("an injected 8-bit-logp chain was accepted")
+            print("  an injected chain with an 8-bit logp plane is refused")
+            # beyond e4m3fn's range the port stores NaN of the value's sign,
+            # as the JAX package does, whatever torch's own cast does there:
+            # JAX's bits on the card and on the CPU
+            edge = torch.tensor([448.0, 464.0, 464.1, -1e4, float("inf")])
+            jax_bits = np.array([0x7E, 0x7E, 0x7F, 0xFF, 0x7F], np.uint8)
+            on_card = to_held(edge.to(dev), "float8_e4m3fn")
+            on_cpu = to_held(edge, "float8_e4m3fn")
+            if not (np.array_equal(on_card, jax_bits)
+                    and np.array_equal(on_cpu, jax_bits)):
+                raise AssertionError(f"e4m3fn beyond its range: card "
+                                     f"{on_card}, CPU {on_cpu}, JAX "
+                                     f"{jax_bits}")
+            print(f"  float8_e4m3fn of {edge.tolist()}: the port's bits "
+                  f"{[hex(b) for b in on_card]} on the card and on the CPU, "
+                  f"JAX's (torch {torch.__version__}'s own cast gives "
+                  f"{edge.to(torch.float8_e4m3fn).float().tolist()})")
 
-        # (c) a convergence-driven run on the skewed Gaussian (as phase 4)
-        sc = mt.EnsembleSampler(skewed, 320, 2, mover=mt.FusedStretchMove(),
-                                seed=42, batched=True, device="cuda")
-        sc.init_ball(np.zeros(2), scale=0.3)
-        sc.run_mcmc(1000, store=False)
-        t0 = time.perf_counter()
-        rep = run_until_converged(sc, max_steps=16000, check_every=2000,
-                                  thin=4, rhat_threshold=1.01, mess_rule=True)
-        print(f"  run_until_converged: {rep.reason} after {rep.steps_run} "
-              f"steps, {rep.checks} checks, tau {rep.tau.tolist()}, rhat "
-              f"{rep.rhat.tolist()}, mESS {rep.mess:.0f} "
-              f"({time.perf_counter() - t0:.1f} s)", flush=True)
-        if not (rep.converged and np.all(rep.tau > 0)
-                and np.all(rep.tau < 20) and np.all(rep.rhat < 1.01)):
-            raise AssertionError(f"run_until_converged: {rep}")
-        chain_sk = sc.get_samples()
-        summ = mt.analysis.summary(chain_sk)
-        ess = mt.analysis.effective_sample_size(chain_sk)
-        want_sd = np.sqrt(np.diag(SKEWED_COV))
-        if not (np.allclose(summ["mean"], 0.0, atol=0.05)
-                and np.allclose(summ["sd"], want_sd, atol=0.05)
-                and np.all(summ["rhat"] < 1.01) and np.all(ess > 1000)):
-            raise AssertionError(f"summary {summ}, ess {ess}")
-        print(f"  summary: mean {summ['mean'].tolist()}, sd "
-              f"{summ['sd'].tolist()} (oracle {want_sd.tolist()}), ess "
-              f"{ess.tolist()}, ess_bulk {summ['ess_bulk'].tolist()}")
+            # (b) resume from a checkpoint is bitwise
+            saves = []
+            real_save = ckpt.save_checkpoint
 
-        # (d) the Analysis layer on a flagship chain: 600 burn-in steps
-        # from the ball, then 4 rows of 2^21 walkers
-        s = full_width(flagship, 5)
-        s.init_ball(np.zeros(P_FULL), 0.5)
-        s.run_mcmc(600, store=False)
-        s.run_mcmc(40, thin=10)
-        x = s.get_samples()
-        flat = x.reshape(-1, P_FULL)
-        t0 = time.perf_counter()
-        cov = mt.analysis.covariance_matrix(x)
-        cov_np_input_s = time.perf_counter() - t0
-        xt = torch.from_numpy(x).to(dev)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        cov_t = mt.analysis.covariance_matrix(xt)
-        cov_dev_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        ref = np.cov(flat.astype(np.float64).T)
-        ref_s = time.perf_counter() - t0
-        rel = np.abs(cov - ref).max() / np.abs(ref).max()
-        if not (rel <= 1e-5 and np.array_equal(cov, cov_t)):
-            raise AssertionError(f"covariance on the card off by {rel}")
-        off_truth = np.abs(cov - sigma).max()
-        corr = mt.analysis.correlation_matrix(xt)
-        if not (off_truth <= 0.02 and np.allclose(np.diag(corr), 1.0)
-                and np.abs(corr - (0.5 + 0.5 * np.eye(P_FULL))).max()
-                <= 0.02):
-            raise AssertionError(f"covariance {off_truth} from the truth")
-        print(f"  covariance_matrix of {flat.shape} float32 rows: on the "
-              f"card {cov_dev_s * 1e3:.2f} ms (a tensor there), "
-              f"{cov_np_input_s * 1e3:.1f} ms from a numpy array, float64 "
-              f"np.cov on the host {ref_s * 1e3:.1f} ms; {rel:.3e} relative "
-              f"to it (bound 1e-5); {off_truth:.4f} absolute from "
-              f"Sigma after 600 + 40 steps (bound 0.02) [{card}]",
-              flush=True)
-        sub = x[-1, ::16]
-        ch = mt.analysis.CornerHistograms(n_bins=50).calculate(sub)
-        if (len(ch.hist1d) != P_FULL or len(ch.hist2d) != 45
-                or any(c.sum() != sub.shape[0] for c, _ in ch.hist1d)
-                or any(c.sum() != sub.shape[0]
-                       for c, _, _ in ch.hist2d.values())):
-            raise AssertionError("corner histograms lose samples")
-        pf = mt.analysis.PercentileAndMaximumFinder(n_bins=64)
-        pf.process_chain_data(sub)
-        med = [pf.get_value_from_percentile(i, 50.0) for i in range(P_FULL)]
-        sig = [pf.get_value_from_percentile(i, 84.134) for i in range(P_FULL)]
-        peaks = [pf.get_peak_location(i) for i in range(P_FULL)]
-        if not (np.allclose(med, 0.0, atol=0.03)
-                and np.allclose(sig, 1.0, atol=0.03)
-                and np.allclose(peaks, 0.0, atol=0.5)):
-            raise AssertionError(f"percentiles {med}, {sig}, peaks {peaks}")
-        print(f"  corner histograms (10 + 45) and percentiles of "
-              f"{sub.shape[0]} walkers: medians within "
-              f"{np.abs(med).max():.4f}, +1 sigma within "
-              f"{np.abs(np.array(sig) - 1).max():.4f} of 1")
-        outputs = [MatrixOutput("covariance", cov),
-                   ScalarOutput("acceptance", s.acceptance_fraction),
-                   HistMultiOutput("corner", ch)]
-        with DataWriter(CsvEngine(os.path.join(out_dir, "csv"))) as w:
-            for o in outputs:
-                w.add(o)
-        with DataWriter(NpzEngine(os.path.join(out_dir, "out.npz"))) as w:
-            for o in outputs:
-                w.add(o)
-        arrays, _ = read_npz(os.path.join(out_dir, "out.npz"))
-        n_written = 0
-        for o in outputs:
-            for name, array, _ in o.emit():
-                back = np.loadtxt(os.path.join(out_dir, "csv", f"{name}.csv"),
-                                  delimiter=",", comments="#", ndmin=2)
-                array = np.asarray(array)
-                if not (np.array_equal(arrays[name], array)
-                        and np.array_equal(back.reshape(array.shape),
-                                           array.astype(np.float64))):
-                    raise AssertionError(f"{name} does not read back equal")
-                n_written += 1
-        print(f"  DataWriter: {n_written} outputs through the CSV and NPZ "
-              "engines, read back equal")
-        del s, x, xt, flat
+            def timed_save(sampler, path):
+                t0 = time.perf_counter()
+                out = real_save(sampler, path)
+                saves.append((time.perf_counter() - t0, os.path.getsize(out)))
+                return out
 
-        # (e) the reference's three test programs, as a user runs them
-        for mod, extra in [("skewed_gaussian",
-                            ["--outdir", os.path.join(out_dir, "skewed")]),
-                           ("actime", []), ("inner_benchmark", [])]:
+            ckpt.save_checkpoint = timed_save
+            try:
+                for label, target, want, kw in [
+                    ("fused", flagship, fused_only, lambda tag: {}),
+                    ("funnel_split", funnel, split_only, lambda tag: {}),
+                    ("fused_diskchain_bf16", flagship, fused_only,
+                     lambda tag: {
+                         "store_dtype": torch.bfloat16,
+                         "chain": DiskChain(
+                             os.path.join(out_dir, f"spool_{tag}"), W_FULL,
+                             P_FULL, dtype="bfloat16")}),
+                ]:
+                    path = os.path.join(out_dir, f"ck_{label}")
+                    a = full_width(target, 11, **kw("a"))
+                    a.init_ball(np.zeros(P_FULL), 0.5)
+                    reset_launches(fs)
+                    a.run_mcmc(40, thin=10, checkpoint_path=path,
+                               checkpoint_every=8)
+                    if fs.LAUNCHES != want(40):
+                        raise AssertionError(f"{label}: launches {fs.LAUNCHES}")
+                    if label == "funnel_split":
+                        store_launches.update(
+                            {k: v for k, v in fs.LAUNCHES.items() if v})
+                    save_s, save_bytes = saves[-1]
+                    b = full_width(target, 99, **kw("b"))
+                    t0 = time.perf_counter()
+                    load_checkpoint(b, path)
+                    load_s = time.perf_counter() - t0
+                    a.run_mcmc(40, thin=10)
+                    b.run_mcmc(40, thin=10)
+                    same = all(torch.equal(x, y)
+                               for x, y in zip(a.state[:6], b.state[:6]))
+                    same = same and a.state.step == b.state.step == 80
+                    same = same and np.array_equal(a.per_walker_accepted,
+                                                   b.per_walker_accepted)
+                    same = same and a.total_steps == b.total_steps
+                    for get in ("get", "get_logp"):
+                        ra = torch.from_numpy(getattr(a.chain, get)(held=True))
+                        rb = torch.from_numpy(getattr(b.chain, get)(held=True))
+                        same = same and ra.shape[0] == 8 and torch.equal(ra, rb)
+                    if not same:
+                        raise AssertionError(
+                            f"{label}: the resumed run differs from the "
+                            "uninterrupted one")
+                    print(f"  resume {label}: 40 + 40 steps == 40, load, 40 "
+                          f"bitwise (state, counters, 8 rows at "
+                          f"{a.chain.dtype.name}, backend {a.chain.backend}); "
+                          f"checkpoint {save_bytes} B written in {save_s:.2f} s, "
+                          f"loaded in {load_s:.2f} s [{card}]", flush=True)
+                    del a, b, ra, rb
+            finally:
+                ckpt.save_checkpoint = real_save
+
+            # (c) a convergence-driven run on the skewed Gaussian (as phase 4)
+            sc = mt.EnsembleSampler(skewed, 320, 2, mover=mt.FusedStretchMove(),
+                                    seed=42, batched=True, device="cuda")
+            sc.init_ball(np.zeros(2), scale=0.3)
+            sc.run_mcmc(1000, store=False)
             t0 = time.perf_counter()
-            done = subprocess.run(
-                [sys.executable, "-m", f"mcmcpp_tpu_torch.examples.{mod}",
-                 "--device", "cuda", *extra],
-                cwd=root, capture_output=True, text=True, timeout=300)
-            print("    " + done.stdout.strip().replace("\n", "\n    "))
-            if done.returncode != 0:
-                raise AssertionError(
-                    f"example {mod} exited {done.returncode}: "
-                    f"{done.stderr[-2000:]}")
-            print(f"  example {mod}: exit 0 "
+            rep = run_until_converged(sc, max_steps=16000, check_every=2000,
+                                      thin=4, rhat_threshold=1.01, mess_rule=True)
+            print(f"  run_until_converged: {rep.reason} after {rep.steps_run} "
+                  f"steps, {rep.checks} checks, tau {rep.tau.tolist()}, rhat "
+                  f"{rep.rhat.tolist()}, mESS {rep.mess:.0f} "
                   f"({time.perf_counter() - t0:.1f} s)", flush=True)
-        torch.cuda.empty_cache()
+            if not (rep.converged and np.all(rep.tau > 0)
+                    and np.all(rep.tau < 20) and np.all(rep.rhat < 1.01)):
+                raise AssertionError(f"run_until_converged: {rep}")
+            chain_sk = sc.get_samples()
+            summ = mt.analysis.summary(chain_sk)
+            ess = mt.analysis.effective_sample_size(chain_sk)
+            want_sd = np.sqrt(np.diag(SKEWED_COV))
+            if not (np.allclose(summ["mean"], 0.0, atol=0.05)
+                    and np.allclose(summ["sd"], want_sd, atol=0.05)
+                    and np.all(summ["rhat"] < 1.01) and np.all(ess > 1000)):
+                raise AssertionError(f"summary {summ}, ess {ess}")
+            print(f"  summary: mean {summ['mean'].tolist()}, sd "
+                  f"{summ['sd'].tolist()} (oracle {want_sd.tolist()}), ess "
+                  f"{ess.tolist()}, ess_bulk {summ['ess_bulk'].tolist()}")
+
+            # (d) the Analysis layer on a flagship chain: 600 burn-in steps
+            # from the ball, then 4 rows of 2^21 walkers
+            s = full_width(flagship, 5)
+            s.init_ball(np.zeros(P_FULL), 0.5)
+            s.run_mcmc(600, store=False)
+            s.run_mcmc(40, thin=10)
+            x = s.get_samples()
+            flat = x.reshape(-1, P_FULL)
+            t0 = time.perf_counter()
+            cov = mt.analysis.covariance_matrix(x)
+            cov_np_input_s = time.perf_counter() - t0
+            xt = torch.from_numpy(x).to(dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cov_t = mt.analysis.covariance_matrix(xt)
+            cov_dev_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ref = np.cov(flat.astype(np.float64).T)
+            ref_s = time.perf_counter() - t0
+            rel = np.abs(cov - ref).max() / np.abs(ref).max()
+            if not (rel <= 1e-5 and np.array_equal(cov, cov_t)):
+                raise AssertionError(f"covariance on the card off by {rel}")
+            off_truth = np.abs(cov - sigma).max()
+            corr = mt.analysis.correlation_matrix(xt)
+            if not (off_truth <= 0.02 and np.allclose(np.diag(corr), 1.0)
+                    and np.abs(corr - (0.5 + 0.5 * np.eye(P_FULL))).max()
+                    <= 0.02):
+                raise AssertionError(f"covariance {off_truth} from the truth")
+            print(f"  covariance_matrix of {flat.shape} float32 rows: on the "
+                  f"card {cov_dev_s * 1e3:.2f} ms (a tensor there), "
+                  f"{cov_np_input_s * 1e3:.1f} ms from a numpy array, float64 "
+                  f"np.cov on the host {ref_s * 1e3:.1f} ms; {rel:.3e} relative "
+                  f"to it (bound 1e-5); {off_truth:.4f} absolute from "
+                  f"Sigma after 600 + 40 steps (bound 0.02) [{card}]",
+                  flush=True)
+            sub = x[-1, ::16]
+            ch = mt.analysis.CornerHistograms(n_bins=50).calculate(sub)
+            if (len(ch.hist1d) != P_FULL or len(ch.hist2d) != 45
+                    or any(c.sum() != sub.shape[0] for c, _ in ch.hist1d)
+                    or any(c.sum() != sub.shape[0]
+                           for c, _, _ in ch.hist2d.values())):
+                raise AssertionError("corner histograms lose samples")
+            pf = mt.analysis.PercentileAndMaximumFinder(n_bins=64)
+            pf.process_chain_data(sub)
+            med = [pf.get_value_from_percentile(i, 50.0) for i in range(P_FULL)]
+            sig = [pf.get_value_from_percentile(i, 84.134) for i in range(P_FULL)]
+            peaks = [pf.get_peak_location(i) for i in range(P_FULL)]
+            if not (np.allclose(med, 0.0, atol=0.03)
+                    and np.allclose(sig, 1.0, atol=0.03)
+                    and np.allclose(peaks, 0.0, atol=0.5)):
+                raise AssertionError(f"percentiles {med}, {sig}, peaks {peaks}")
+            print(f"  corner histograms (10 + 45) and percentiles of "
+                  f"{sub.shape[0]} walkers: medians within "
+                  f"{np.abs(med).max():.4f}, +1 sigma within "
+                  f"{np.abs(np.array(sig) - 1).max():.4f} of 1")
+            outputs = [MatrixOutput("covariance", cov),
+                       ScalarOutput("acceptance", s.acceptance_fraction),
+                       HistMultiOutput("corner", ch)]
+            with DataWriter(CsvEngine(os.path.join(out_dir, "csv"))) as w:
+                for o in outputs:
+                    w.add(o)
+            with DataWriter(NpzEngine(os.path.join(out_dir, "out.npz"))) as w:
+                for o in outputs:
+                    w.add(o)
+            arrays, _ = read_npz(os.path.join(out_dir, "out.npz"))
+            n_written = 0
+            for o in outputs:
+                for name, array, _ in o.emit():
+                    back = np.loadtxt(os.path.join(out_dir, "csv", f"{name}.csv"),
+                                      delimiter=",", comments="#", ndmin=2)
+                    array = np.asarray(array)
+                    if not (np.array_equal(arrays[name], array)
+                            and np.array_equal(back.reshape(array.shape),
+                                               array.astype(np.float64))):
+                        raise AssertionError(f"{name} does not read back equal")
+                    n_written += 1
+            print(f"  DataWriter: {n_written} outputs through the CSV and NPZ "
+                  "engines, read back equal")
+            del s, x, xt, flat
+
+            # (e) the reference's three test programs, as a user runs them
+            for mod, extra in [("skewed_gaussian",
+                                ["--outdir", os.path.join(out_dir, "skewed")]),
+                               ("actime", []), ("inner_benchmark", [])]:
+                t0 = time.perf_counter()
+                done = subprocess.run(
+                    [sys.executable, "-m", f"mcmcpp_tpu_torch.examples.{mod}",
+                     "--device", "cuda", *extra],
+                    cwd=root, capture_output=True, text=True, timeout=300)
+                print("    " + done.stdout.strip().replace("\n", "\n    "))
+                if done.returncode != 0:
+                    raise AssertionError(
+                        f"example {mod} exited {done.returncode}: "
+                        f"{done.stderr[-2000:]}")
+                print(f"  example {mod}: exit 0 "
+                      f"({time.perf_counter() - t0:.1f} s)", flush=True)
+            torch.cuda.empty_cache()
 
     # -- phase 9: the gradient engines (no hand kernel on their path) --------
-    with phase("9 gradient engines"):
-        gradient_engines(mt, card, os.path.join(
-            os.path.dirname(os.path.abspath(__file__)), "build", "smoke"))
-        torch.cuda.empty_cache()
+    if run_phase("9"):
+        with phase("9 gradient engines"):
+            gradient_engines(mt, card, os.path.join(
+                os.path.dirname(os.path.abspath(__file__)), "build", "smoke"))
+            torch.cuda.empty_cache()
+
+    # -- phase 10: the population engines (no hand kernel on their path) -----
+    if run_phase("10"):
+        with phase("10 population engines"):
+            population_engines(mt, card, os.path.join(
+                os.path.dirname(os.path.abspath(__file__)), "build", "smoke"))
+            torch.cuda.empty_cache()
 
     # -- phase 7: what a flagship step puts on the device --------------------
     # Last, because the profiler's tracing stays attached to the process
     # and slows every later launch: no timing may follow it.
-    with phase("7 steps under the profiler"):
-        prof_steps = 50
-        for label, target, want in [
-                ("flagship", flagship, {"fused_stretch_half": 2}),
-                ("funnel", funnel, {"stretch_propose": 2,
-                                    "stretch_accept": 2})]:
-            s = mt.EnsembleSampler(target, n_walkers=W_FULL,
-                                   n_params=P_FULL,
+    if run_phase("7"):
+        with phase("7 steps under the profiler"):
+            prof_steps = 50
+            for label, target, expect in [
+                    ("flagship", flagship, {"fused_stretch_half": 2}),
+                    ("funnel", funnel, {"stretch_propose": 2,
+                                        "stretch_accept": 2})]:
+                s = mt.EnsembleSampler(target, n_walkers=W_FULL,
+                                       n_params=P_FULL,
+                                       mover=mt.FusedStretchMove(), seed=0,
+                                       batched=True, device="cuda")
+                s.init_ball(np.zeros(P_FULL), 0.5)
+                s.state = run_nostore(s.state, s._step_fn, 20)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                s.state = run_nostore(s.state, s._step_fn, prof_steps)
+                enqueue_us = (time.perf_counter() - t0) / prof_steps * 1e6
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) / prof_steps * 1e6
+                rows = device_rows_per_step(
+                    lambda: run_nostore(s.state, s._step_fn, prof_steps),
+                    prof_steps)
+                print(f"{label} W=2^21, {prof_steps} steps: unprofiled wall "
+                      f"{wall_us:.1f} us/step, of which the host enqueues for "
+                      f"{enqueue_us:.1f}; profiled device time "
+                      f"{sum(us for _, us in rows.values()):.1f} us/step in "
+                      f"{sum(n for n, _ in rows.values()):g} launches/step "
+                      f"[{card}]:")
+                for k, (n, us) in sorted(rows.items(), key=lambda r: -r[1][1]):
+                    print(f"  {n:g} x {us / n:.2f} us  {k[:120]}")
+                for kernel in fs.LAUNCHES:
+                    got = sum(n for k, (n, _) in rows.items() if kernel in k)
+                    if got != expect.get(kernel, 0):
+                        raise AssertionError(
+                            f"a {label} step must launch {kernel} "
+                            f"{expect.get(kernel, 0)} times, saw {got}")
+                # torch.rand's kernel is a float distribution kernel built by
+                # uniform_and_transform (the shift's randint is an unsigned int
+                # one)
+                drawn = [k for k in rows
+                         if "distribution_elementwise_grid_stride_kernel<float"
+                         in k or "uniform_and_transform" in k
+                         or "uniform_real" in k
+                         or (label == "flagship" and "clamp" in k.lower())]
+                if drawn:
+                    raise AssertionError(f"a {label} step still draws or clamps "
+                                         f"planes on the device: {drawn}")
+                del s
+                torch.cuda.empty_cache()
+
+            # a storing run in the same window: what the store path adds to the
+            # device (the row copies that cast to the stored dtype, the chunks'
+            # device-to-host copies) beside the steps
+            s = mt.EnsembleSampler(flagship, W_FULL, P_FULL,
                                    mover=mt.FusedStretchMove(), seed=0,
-                                   batched=True, device="cuda")
+                                   batched=True, device="cuda",
+                                   store_dtype=torch.bfloat16)
             s.init_ball(np.zeros(P_FULL), 0.5)
-            s.state = run_nostore(s.state, s._step_fn, 20)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            s.state = run_nostore(s.state, s._step_fn, prof_steps)
-            enqueue_us = (time.perf_counter() - t0) / prof_steps * 1e6
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) / prof_steps * 1e6
-            rows = device_rows_per_step(
-                lambda: run_nostore(s.state, s._step_fn, prof_steps),
-                prof_steps)
-            print(f"{label} W=2^21, {prof_steps} steps: unprofiled wall "
-                  f"{wall_us:.1f} us/step, of which the host enqueues for "
-                  f"{enqueue_us:.1f}; profiled device time "
-                  f"{sum(us for _, us in rows.values()):.1f} us/step in "
+            s.run_mcmc(20, thin=10)
+            rows = device_rows_per_step(lambda: s.run_mcmc(20, thin=10), 20)
+            print(f"storing run (bf16 rows, 20 steps at thin 10, 2 rows), per "
+                  f"step: profiled device time "
+                  f"{sum(us for _, us in rows.values()):.1f} us in "
+                  f"{sum(n for n, _ in rows.values()):g} launches [{card}]:")
+            for k, (n, us) in sorted(rows.items(), key=lambda r: -r[1][1]):
+                print(f"  {n:g} x {us / n:.2f} us  {k[:120]}")
+            if not any("Memcpy DtoH" in k for k in rows):
+                raise AssertionError("the storing run shows no device-to-host "
+                                     "copy under the profiler")
+            del s
+            torch.cuda.empty_cache()
+
+            # a PT step of phase 10 (a): K = 16 rungs of 2^17 walkers as one
+            # vmapped half-step each, no hand kernel
+            pt = mt.ParallelTemperingSampler(
+                flagship, PT_WALKERS, P_FULL, n_temps=PT_RUNGS, seed=0,
+                batched=True, device="cuda")
+            pt.init_ball(np.zeros(P_FULL), 1.0)
+
+            def pt_steps(n):
+                state = pt.state
+                for _ in range(n):
+                    state = pt.step(state)
+                pt.state = state
+
+            pt_steps(10)
+            (_, wall_s), enqueue_s = fenced_steps(pt_steps, 20)
+            rows = device_rows_per_step(lambda: pt_steps(20), 20)
+            print(f"PT K={PT_RUNGS} W={PT_WALKERS} P={P_FULL}, 20 steps: "
+                  f"unprofiled "
+                  f"wall {wall_s / 20 * 1e6:.1f} us/step, of which the host "
+                  f"enqueues for {enqueue_s / 20 * 1e6:.1f}; profiled device "
+                  f"time {sum(us for _, us in rows.values()):.1f} us/step in "
                   f"{sum(n for n, _ in rows.values()):g} launches/step "
                   f"[{card}]:")
             for k, (n, us) in sorted(rows.items(), key=lambda r: -r[1][1]):
                 print(f"  {n:g} x {us / n:.2f} us  {k[:120]}")
-            for kernel in kernels:
-                got = sum(n for k, (n, _) in rows.items() if kernel in k)
-                if got != want.get(kernel, 0):
-                    raise AssertionError(
-                        f"a {label} step must launch {kernel} "
-                        f"{want.get(kernel, 0)} times, saw {got}")
-            # torch.rand's kernel is a float distribution kernel built by
-            # uniform_and_transform (the shift's randint is an unsigned int
-            # one)
-            drawn = [k for k in rows
-                     if "distribution_elementwise_grid_stride_kernel<float"
-                     in k or "uniform_and_transform" in k
-                     or "uniform_real" in k
-                     or (label == "flagship" and "clamp" in k.lower())]
-            if drawn:
-                raise AssertionError(f"a {label} step still draws or clamps "
-                                     f"planes on the device: {drawn}")
-            del s
+            if any(kernel in k for k in rows for kernel in fs.LAUNCHES):
+                raise AssertionError("a PT step launched a stretch kernel")
+            del pt
             torch.cuda.empty_cache()
 
-        # a storing run in the same window: what the store path adds to the
-        # device (the row copies that cast to the stored dtype, the chunks'
-        # device-to-host copies) beside the steps
-        s = mt.EnsembleSampler(flagship, W_FULL, P_FULL,
-                               mover=mt.FusedStretchMove(), seed=0,
-                               batched=True, device="cuda",
-                               store_dtype=torch.bfloat16)
-        s.init_ball(np.zeros(P_FULL), 0.5)
-        s.run_mcmc(20, thin=10)
-        rows = device_rows_per_step(lambda: s.run_mcmc(20, thin=10), 20)
-        print(f"storing run (bf16 rows, 20 steps at thin 10, 2 rows), per "
-              f"step: profiled device time "
-              f"{sum(us for _, us in rows.values()):.1f} us in "
-              f"{sum(n for n, _ in rows.values()):g} launches [{card}]:")
-        for k, (n, us) in sorted(rows.items(), key=lambda r: -r[1][1]):
-            print(f"  {n:g} x {us / n:.2f} us  {k[:120]}")
-        if not any("Memcpy DtoH" in k for k in rows):
-            raise AssertionError("the storing run shows no device-to-host "
-                                 "copy under the profiler")
-        del s
-        torch.cuda.empty_cache()
-
+    if chosen is not None:
+        # a chosen subset: the kernel line needs every phase's launches
+        print(f"phases {sorted(chosen)} only: no kernel line")
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return
     for name, k in kernels.items():
         if not (k.get("launches") and store_launches.get(name)):
             raise AssertionError(f"{name} was not launched on its main path")

@@ -22,13 +22,30 @@ Analysis layer (``analysis``), the writers (``io``), the emcee surface
 The gradient engines (``gradient``: HMC, NUTS, MALA, Barker, ChEES, MEADS,
 MCLMC/MAMS, SGLD/SGHMC) run a batch of chains on the device with autograd
 gradients of a batched logp; they need no hand kernel.
+
+The population engines run plain torch ops too: parallel tempering
+(``tempering``, the ladder as one vmapped half-step, with power-posterior
+evidence), pCN (``pcn``), elliptical slice sampling (``elliptical``) and
+blocked Gibbs with its eight conditional kernels (``gibbs``).
 """
 
 from mcmcpp_tpu_torch import analysis
 from mcmcpp_tpu_torch.chain import Chain
 from mcmcpp_tpu_torch.chain_disk import DiskChain
 from mcmcpp_tpu_torch.convergence import ConvergenceReport, run_until_converged
+from mcmcpp_tpu_torch.elliptical import EllipticalSliceSampler
 from mcmcpp_tpu_torch.export import to_arviz, to_inference_dict
+from mcmcpp_tpu_torch.gibbs import (
+    BlockedGibbsSampler,
+    CategoricalGibbsKernel,
+    EllipticalSliceKernel,
+    ExactGibbsKernel,
+    GaussianInterweaveKernel,
+    HMCKernel,
+    InterweaveKernel,
+    MALAKernel,
+    RWMKernel,
+)
 from mcmcpp_tpu_torch.gradient import (
     BarkerSampler,
     CheesHMCSampler,
@@ -72,12 +89,20 @@ from mcmcpp_tpu_torch.movers import (
     StretchMove,
     WalkMove,
 )
+from mcmcpp_tpu_torch.pcn import PCNSampler
 from mcmcpp_tpu_torch.sampler import EnsembleSampler, EnsembleState, sample_ball
+from mcmcpp_tpu_torch.tempering import (
+    ParallelTemperingSampler,
+    geometric_ladder,
+    power_ladder,
+)
 
 __all__ = [
     "AutoRegressiveMove",
     "BarkerSampler",
     "BayesianLinearRegression",
+    "BlockedGibbsSampler",
+    "CategoricalGibbsKernel",
     "Chain",
     "CheesHMCSampler",
     "ConvergenceReport",
@@ -88,11 +113,18 @@ __all__ = [
     "EnsembleSampler",
     "EnsembleSliceMove",
     "EnsembleState",
+    "EllipticalSliceKernel",
+    "EllipticalSliceSampler",
+    "ExactGibbsKernel",
+    "GaussianInterweaveKernel",
     "FusedStretchMove",
     "GaussianMixture",
     "GaussianTarget",
+    "HMCKernel",
     "HMCSampler",
+    "InterweaveKernel",
     "LogisticRegression",
+    "MALAKernel",
     "MALASampler",
     "MAMSSampler",
     "MCLMCSampler",
@@ -102,6 +134,9 @@ __all__ = [
     "Mover",
     "NUTSSampler",
     "NealFunnel",
+    "PCNSampler",
+    "ParallelTemperingSampler",
+    "RWMKernel",
     "Rosenbrock",
     "SGHMCSampler",
     "SGLDSampler",
@@ -114,8 +149,10 @@ __all__ = [
     "correlated_gaussian",
     "equicorrelated_gaussian",
     "gaussian_mixture",
+    "geometric_ladder",
     "logistic_regression",
     "neal_funnel",
+    "power_ladder",
     "rosenbrock",
     "run_until_converged",
     "sample_ball",

@@ -16,14 +16,14 @@ Reduced-precision rows. numpy has ``float16`` but neither ``bfloat16`` nor an
 held on the host as their raw bits (an ``int16`` or ``uint8`` array) beside
 the torch dtype they stand for, a :class:`BitsDtype`; every cast goes through
 torch. Its casts give the JAX package's bits (round to nearest even,
-subnormals, infinities and NaN included) for bfloat16, float16 and
-``float8_e5m2``, and for ``float8_e4m3fn`` up to ±464, the halfway point
-beyond its largest value 448. Beyond that, and at ±inf, the JAX package
-stores NaN (e4m3fn has no infinity) and so does torch 2.11, while torch 2.13
-saturates to ±448; the port keeps the installed torch's rule, which
-``chip_smoke.py`` prints for the card and holds to the CPU's there, and
-emulates neither. Walker coordinates that large do not fit the 8-bit tier
-under either rule.
+subnormals, infinities and NaN included) for bfloat16, float16,
+``float8_e5m2`` and ``float8_e4m3fn``. e4m3fn has no infinity: beyond ±464,
+the halfway point past its largest value 448, and at ±inf the JAX package
+stores NaN. torch's own cast does so in 2.11 but saturates to ±448 in 2.13,
+where a diverged walker would read back as a finite, plausible coordinate;
+so every cast to e4m3fn (:func:`to_held`, and the sampler's chunk writes)
+first maps |x| > 464 to NaN (:func:`e4m3_ready`), which gives JAX's bits
+under either torch.
 """
 
 import numpy as np
@@ -83,6 +83,23 @@ def torch_dtype(dtype):
         torch, dtype.name)
 
 
+#: |x| beyond this rounds past e4m3fn's largest value, 448: JAX stores NaN
+E4M3_LIMIT = 464.0
+
+
+def e4m3_ready(x, dtype):
+    """``x`` ready for a cast to ``dtype``: for ``torch.float8_e4m3fn``,
+    every |x| > 464 (±inf included) is NaN of x's sign, as the JAX package's
+    cast gives it, whatever the installed torch's cast does there; any other
+    dtype takes ``x`` as it is. A few elementwise ops, on the 8-bit tier
+    only."""
+    if dtype is not torch.float8_e4m3fn or x.dtype is dtype:
+        return x
+    # NaN with x's sign: JAX's bits are 0x7F above +464, 0xFF below -464
+    return torch.where(x.abs() > E4M3_LIMIT,
+                       torch.copysign(torch.full_like(x, torch.nan), x), x)
+
+
 def to_held(x, dtype):
     """``x`` (a tensor on any device, or an array) cast to ``dtype`` and
     brought to the host in the form a chain holds: a numpy array of
@@ -93,7 +110,8 @@ def to_held(x, dtype):
         if not isinstance(dtype, BitsDtype):
             return np.asarray(x, dtype)
         x = torch.from_numpy(np.array(x))
-    x = x.detach().to(torch_dtype(dtype))
+    target = torch_dtype(dtype)
+    x = e4m3_ready(x.detach(), target).to(target)
     if isinstance(dtype, BitsDtype):
         x = x.view(dtype._int)
     return x.cpu().numpy()

@@ -19,7 +19,12 @@ from mcmcpp_tpu_torch.gradient.meads import MEADSSampler, MEADSState
 from mcmcpp_tpu_torch.gradient.mclmc import MAMSSampler, MCLMCState
 from mcmcpp_tpu_torch.gradient.metric import dense_mass_from_cov
 from mcmcpp_tpu_torch.gradient.sgmcmc import SGState
-from mcmcpp_tpu_torch.io.checkpoint import FOR_SAMPLER, checkpoint_kind
+from mcmcpp_tpu_torch.io.checkpoint import (
+    FOR_SAMPLER,
+    checkpoint_kind,
+    load_pt_state,
+    refuse_geometry,
+)
 
 from mcmcpp_tpu_torch.models.targets import (
     BayesianLinearRegression,
@@ -161,9 +166,41 @@ def _jax_ensemble(arrays, meta, sampler):
     sampler._reset_step_base = int(meta["reset_step_base"])
 
 
+def _jax_pt(arrays, meta, sampler):
+    # the arrays' own dtypes: the counters are int32, the grids float32
+    load_pt_state(sampler, arrays, lambda name: torch.from_numpy(
+        np.array(arrays[name])).to(sampler.device))
+
+
+def _jax_pcn(arrays, meta, sampler):
+    from mcmcpp_tpu_torch.pcn import PCNState
+
+    dev = sampler.device
+    sampler.state = PCNState(_tensor(arrays["position"], dev),
+                             _tensor(arrays["loglike"], dev),
+                             _tensor(arrays["accepted"], dev, np.int32))
+    sampler.total_steps = int(meta["total_steps"])
+    if "beta" in meta:
+        sampler.beta = float(meta["beta"])
+
+
+def _jax_elliptical(arrays, meta, sampler):
+    from mcmcpp_tpu_torch.elliptical import EllipticalState
+
+    dev = sampler.device
+    sampler.state = EllipticalState(_tensor(arrays["position"], dev),
+                                    _tensor(arrays["loglike"], dev))
+
+
+def _jax_gibbs(arrays, meta, sampler):
+    sampler.state = {name: _tensor(arrays[f"block_{name}"], sampler.device)
+                     for name, _ in sampler._layout}
+
+
 _JAX_LOADERS = {"ensemble": _jax_ensemble, "gradient": _jax_gradient,
                 "sgmcmc": _jax_sgmcmc, "mclmc": _jax_mclmc,
-                "mams": _jax_mclmc}
+                "mams": _jax_mclmc, "pt": _jax_pt, "pcn": _jax_pcn,
+                "elliptical": _jax_elliptical, "gibbs": _jax_gibbs}
 
 
 def sampler_from_jax_checkpoint(arrays, meta, sampler):
@@ -181,8 +218,12 @@ def sampler_from_jax_checkpoint(arrays, meta, sampler):
     ``inv_mass`` or the dense ``inv_mass_cov``, ChEES's ``traj_length`` and
     ``sadapt_*``, MEADS's momenta, the sample stats), ``sgmcmc`` (position,
     velocity, the decay schedule's step) and ``mclmc``/``mams`` (state, step
-    size, decoherence length, metric, MAMS's tuning), each with the stored
-    chain, so that ``get_samples`` and the statistics read as they did. The
+    size, decoherence length, metric, MAMS's tuning), ``pt`` (the replica
+    grids, the step, the swap counters on the device and the host, the
+    ladder, and in power mode the log-likelihood grids and the evidence
+    accumulators; the cold chain), ``pcn`` (state, accept counters, steps,
+    the tuned β), ``elliptical`` (state) and ``gibbs`` (every block, after a
+    check of the block layout), each with the stored chain, so that ``get_samples`` and the statistics read as they did. The
     threefry key is not carried: the port draws from another generator
     family, so the resumed chain continues under the port's own ``seed``,
     as a valid continuation but not the one the JAX package would have
@@ -195,8 +236,9 @@ def sampler_from_jax_checkpoint(arrays, meta, sampler):
     kind = meta.get("kind")
     if kind not in _JAX_LOADERS:
         raise ValueError(
-            f"checkpoint kind {kind!r}: only the ensemble sampler's and the "
-            "gradient engines' states can be carried across")
+            f"checkpoint kind {kind!r}: only the ensemble sampler's, the "
+            "gradient engines' and the population engines' (pt, pcn, "
+            "elliptical, gibbs) states can be carried across")
     if kind in ("mclmc", "mams"):
         _refuse_mclmc(kind, meta, sampler)
     elif checkpoint_kind(sampler) != kind:
@@ -205,11 +247,7 @@ def sampler_from_jax_checkpoint(arrays, meta, sampler):
         raise ValueError(
             f"checkpoint has n_params={meta['n_params']}, "
             f"sampler has {sampler.n_params}")
-    if kind == "ensemble":
-        if meta["n_walkers"] != sampler.n_walkers:
-            raise ValueError("walker count mismatch")
-    elif meta["n_chains"] != sampler.n_chains:
-        raise ValueError("chain count mismatch")
+    refuse_geometry(kind, meta, sampler)
     if kind == "gradient":
         # the JAX package marks only a dense metric
         if meta.get("metric", "diag") != sampler.metric:

@@ -1,9 +1,11 @@
-"""Checkpoint / resume for the ensemble sampler and the gradient engines.
+"""Checkpoint / resume for the ensemble sampler, the gradient engines and
+the population engines.
 
 Counterpart of ``mcmcpp_tpu/io/checkpoint.py`` (the reference has no
 checkpointing, SURVEY.md §5) for its kinds ``ensemble``, ``gradient`` (HMC,
-NUTS, MALA, Barker, ChEES, MEADS), ``sgmcmc`` (SGLD, SGHMC), ``mclmc`` and
-``mams``. A checkpoint is one ``.npz`` archive holding the device state
+NUTS, MALA, Barker, ChEES, MEADS), ``sgmcmc`` (SGLD, SGHMC), ``mclmc``,
+``mams``, ``pt`` (parallel tempering, with the evidence accumulators of
+power mode), ``pcn``, ``elliptical`` and ``gibbs``. A checkpoint is one ``.npz`` archive holding the device state
 (positions, log-probs, gradients, momenta, counters, step sizes, the mass
 matrix, ChEES's trajectory adaptation, the sample stats), the state of the
 sampler's random generators and the host chain: enough to resume sampling
@@ -23,6 +25,7 @@ neither package takes the other's file for its own; a file of the JAX
 package is read with :func:`mcmcpp_tpu_torch.convert.sampler_from_jax_checkpoint`.
 """
 
+import hashlib
 import json
 import os
 from pathlib import Path
@@ -38,8 +41,7 @@ _PORT = "torch"
 # checkpoint kinds of the JAX package whose engines are not ported, with the
 # ROADMAP item each waits for
 _UNPORTED_KINDS = {
-    "pt": "A9", "smc": "A9", "nested": "A9", "elliptical": "A9",
-    "pcn": "A9", "gibbs": "A9", "neutra": "A9", "advi": "A9",
+    "smc": "A9b", "nested": "A9b", "neutra": "A9b", "advi": "A9b",
     "pmmh": "A11", "ibis": "A11", "smc2": "A11",
 }
 
@@ -50,6 +52,10 @@ FOR_SAMPLER = {
     "sgmcmc": "a stochastic-gradient sampler",
     "mclmc": "an (unadjusted) MCLMCSampler",
     "mams": "a MAMSSampler",
+    "pt": "a ParallelTemperingSampler",
+    "pcn": "a PCNSampler",
+    "elliptical": "an EllipticalSliceSampler",
+    "gibbs": "a BlockedGibbsSampler",
 }
 
 _GENERATORS = ("step", "aux", "host")
@@ -60,12 +66,19 @@ def checkpoint_kind(sampler):
     from mcmcpp_tpu_torch.gradient.hmc import GradientSampler
     from mcmcpp_tpu_torch.gradient.mclmc import MAMSSampler, MCLMCSampler
     from mcmcpp_tpu_torch.gradient.sgmcmc import StochasticGradientSampler
+    from mcmcpp_tpu_torch.elliptical import EllipticalSliceSampler
+    from mcmcpp_tpu_torch.gibbs import BlockedGibbsSampler
+    from mcmcpp_tpu_torch.pcn import PCNSampler
     from mcmcpp_tpu_torch.sampler import EnsembleSampler
+    from mcmcpp_tpu_torch.tempering import ParallelTemperingSampler
 
     for cls, kind in ((EnsembleSampler, "ensemble"),
                       (GradientSampler, "gradient"),
                       (StochasticGradientSampler, "sgmcmc"),
-                      (MAMSSampler, "mams"), (MCLMCSampler, "mclmc")):
+                      (MAMSSampler, "mams"), (MCLMCSampler, "mclmc"),
+                      (ParallelTemperingSampler, "pt"), (PCNSampler, "pcn"),
+                      (EllipticalSliceSampler, "elliptical"),
+                      (BlockedGibbsSampler, "gibbs")):
         if isinstance(sampler, cls):
             return kind
     return None
@@ -152,8 +165,51 @@ def _save_mclmc(sampler, meta, arrays):
         arrays["inv_mass"] = _host(sampler.inv_mass)
 
 
+def _save_pt(sampler, meta, arrays):
+    from mcmcpp_tpu_torch.tempering import EVIDENCE_FIELDS
+
+    s = sampler.state
+    meta.update(n_walkers=sampler.n_walkers, n_temps=sampler.n_temps,
+                power=bool(sampler._power))
+    arrays.update(
+        red=_host(s.red), black=_host(s.black),
+        logp_red=_host(s.logp_red), logp_black=_host(s.logp_black),
+        step=np.asarray(s.step, np.int64),
+        swaps_accepted=_host(s.swaps_accepted),
+        swaps_proposed=_host(s.swaps_proposed),
+        # a tuned ladder travels with the checkpoint
+        betas=_host(sampler.betas))
+    if sampler._power:
+        arrays.update({name: _host(getattr(s, name))
+                       for name in ("ll_red", "ll_black") + EVIDENCE_FIELDS})
+
+
+def _save_pcn(sampler, meta, arrays):
+    s = sampler.state
+    # tune() changes beta: it is part of the state
+    meta.update(n_chains=sampler.n_chains, total_steps=sampler.total_steps,
+                beta=sampler.beta)
+    arrays.update(position=_host(s.position), loglike=_host(s.loglike),
+                  accepted=_host(s.accepted))
+
+
+def _save_elliptical(sampler, meta, arrays):
+    s = sampler.state
+    meta.update(n_chains=sampler.n_chains, counters=dict(sampler.counters))
+    arrays.update(position=_host(s.position), loglike=_host(s.loglike))
+
+
+def _save_gibbs(sampler, meta, arrays):
+    meta.update(n_chains=sampler.n_chains,
+                layout=[[n, int(sz)] for n, sz in sampler._layout])
+    arrays.update({f"block_{name}": _host(sampler.state[name])
+                   for name, _ in sampler._layout})
+
+
 _SAVERS = {"ensemble": _save_ensemble, "gradient": _save_gradient,
-           "sgmcmc": _save_sgmcmc, "mclmc": _save_mclmc, "mams": _save_mclmc}
+           "sgmcmc": _save_sgmcmc, "mclmc": _save_mclmc, "mams": _save_mclmc,
+           "pt": _save_pt, "pcn": _save_pcn, "elliptical": _save_elliptical,
+           "gibbs": _save_gibbs}
 
 
 def save_checkpoint(sampler, path):
@@ -256,11 +312,89 @@ def _load_mclmc(sampler, meta, arrays, dev):
         sampler.last_mean_accept = float(meta["last_mean_accept"])
 
 
+def load_pt_state(sampler, arrays, dev):
+    """The PT sampler's state, ladder and swap counts from a file's arrays
+    (this package's or the JAX package's: the names are the same);
+    ``dev(name)`` gives an array as a tensor on the sampler's device."""
+    from mcmcpp_tpu_torch.tempering import EVIDENCE_FIELDS, PTState
+
+    def counts(name, host):
+        # int64 on the device; a JAX file keeps the int32 counts since its
+        # last harvest apart from the harvested total
+        c = dev(name).to(torch.int64)
+        if host in arrays:
+            c = c + torch.from_numpy(
+                np.asarray(arrays[host], np.int64)).to(c.device)
+        return c
+
+    extra = {}
+    if sampler._power:
+        extra = {name: dev(name)
+                 for name in ("ll_red", "ll_black") + EVIDENCE_FIELDS}
+    sampler.state = PTState(
+        red=dev("red"), black=dev("black"), logp_red=dev("logp_red"),
+        logp_black=dev("logp_black"), step=int(arrays["step"]),
+        swaps_accepted=counts("swaps_accepted", "swaps_acc_host"),
+        swaps_proposed=counts("swaps_proposed", "swaps_prop_host"), **extra)
+    sampler._set_betas(np.asarray(arrays["betas"]))
+
+
+def _load_pt(sampler, meta, arrays, dev):
+    load_pt_state(sampler, arrays, dev)
+
+
+def _load_pcn(sampler, meta, arrays, dev):
+    from mcmcpp_tpu_torch.pcn import PCNState
+
+    sampler.state = PCNState(dev("position"), dev("loglike"),
+                             dev("accepted").to(torch.int32))
+    sampler.total_steps = int(meta["total_steps"])
+    if "beta" in meta:  # absent in the JAX package's pre-tune() files
+        sampler.beta = float(meta["beta"])
+
+
+def _load_elliptical(sampler, meta, arrays, dev):
+    from mcmcpp_tpu_torch.elliptical import EllipticalState
+
+    sampler.state = EllipticalState(dev("position"), dev("loglike"))
+    if "counters" in meta:
+        sampler.counters = {k: int(v) for k, v in meta["counters"].items()}
+
+
+def _load_gibbs(sampler, meta, arrays, dev):
+    sampler.state = {name: dev(f"block_{name}") for name, _ in
+                     sampler._layout}
+
+
 _LOADERS = {"ensemble": _load_ensemble, "gradient": _load_gradient,
-            "sgmcmc": _load_sgmcmc, "mclmc": _load_mclmc, "mams": _load_mclmc}
+            "sgmcmc": _load_sgmcmc, "mclmc": _load_mclmc, "mams": _load_mclmc,
+            "pt": _load_pt, "pcn": _load_pcn, "elliptical": _load_elliptical,
+            "gibbs": _load_gibbs}
 
 
-def _refuse_mismatch(sampler, meta, arrays):
+def refuse_geometry(kind, meta, sampler):
+    """Raise if the file's geometry (walkers, chains, ladder, power mode,
+    block layout) differs from ``sampler``'s; shared with
+    ``convert.sampler_from_jax_checkpoint``."""
+    if kind in ("ensemble", "pt"):
+        if meta["n_walkers"] != sampler.n_walkers:
+            raise ValueError("walker count mismatch")
+    elif meta["n_chains"] != sampler.n_chains:
+        raise ValueError("chain count mismatch")
+    if kind == "pt":
+        if meta["n_temps"] != sampler.n_temps:
+            raise ValueError("ladder size mismatch")
+        if bool(meta["power"]) != bool(sampler._power):
+            raise ValueError(
+                "checkpoint/sampler disagree on power-posterior mode")
+    if kind == "gibbs":
+        layout = [(n, int(sz)) for n, sz in meta["layout"]]
+        if layout != list(sampler._layout):
+            raise ValueError(f"block layout mismatch: checkpoint {layout}, "
+                             f"sampler {list(sampler._layout)}")
+
+
+def _refuse_mismatch(sampler, meta, arrays, allow_device_change=False):
     """Raise if the file cannot resume ``sampler`` (before anything moves)."""
     kind = meta["kind"]
     if checkpoint_kind(sampler) != kind:
@@ -270,16 +404,13 @@ def _refuse_mismatch(sampler, meta, arrays):
             f"checkpoint has n_params={meta['n_params']}, "
             f"sampler has {sampler.n_params}"
         )
-    if kind == "ensemble":
-        if meta["n_walkers"] != sampler.n_walkers:
-            raise ValueError("walker count mismatch")
-    elif meta["n_chains"] != sampler.n_chains:
-        raise ValueError("chain count mismatch")
-    if meta["device"] != sampler.device.type:
+    refuse_geometry(kind, meta, sampler)
+    if meta["device"] != sampler.device.type and not allow_device_change:
         raise ValueError(
             f"checkpoint was written on a {meta['device']} sampler and this "
             f"one is on {sampler.device.type}: their generators draw "
-            "different streams, so the run would not resume"
+            "different streams, so the run would not resume (pass "
+            "allow_device_change=True to load it and go on, not bitwise)"
         )
     if kind == "gradient":
         from mcmcpp_tpu_torch.gradient.meads import MEADSSampler
@@ -298,11 +429,28 @@ def _refuse_mismatch(sampler, meta, arrays):
                          f"the sampler {sorted(held)}")
 
 
-def load_checkpoint(sampler, path):
+def _reseeded(gen, saved_state):
+    """``gen`` seeded from a digest of a generator state saved on another
+    device type (whose state ``gen`` cannot take)."""
+    digest = hashlib.sha256(np.ascontiguousarray(saved_state).tobytes())
+    gen.manual_seed(int.from_bytes(digest.digest()[:8], "little"))
+
+
+def load_checkpoint(sampler, path, allow_device_change=False):
     """Restore state saved by :func:`save_checkpoint` into ``sampler``.
 
-    ``sampler`` must be constructed with the same target, shape and device
-    type (validated against the stored meta). Returns the sampler.
+    ``sampler`` must be constructed with the same target and shape, and by
+    default on the same device type (validated against the stored meta):
+    then the run resumes bitwise. Returns the sampler.
+
+    ``allow_device_change=True`` also takes a file written on the other
+    device type (a run begun on the card, looked at or continued on the
+    CPU, or the reverse). The state and the chain load as written, and the
+    host generator (a CPU one on both) is restored; the generators on the
+    sampler's device cannot take a state of the other type's, so each is
+    reseeded from a digest of its saved state. The continuation is a valid
+    run of the same chain, deterministic for a given file, but NOT the one
+    the writing device would have drawn: it is not bitwise.
     """
     path = Path(path)
     if path.suffix != ".npz" and not path.exists():
@@ -331,16 +479,21 @@ def load_checkpoint(sampler, path):
         )
     if kind not in _LOADERS:
         raise ValueError(f"unknown checkpoint kind {kind!r}")
-    _refuse_mismatch(sampler, meta, arrays)
+    _refuse_mismatch(sampler, meta, arrays, allow_device_change)
 
     def dev(name):
         return torch.from_numpy(arrays[name]).to(sampler.device)
 
     _LOADERS[kind](sampler, meta, arrays, dev)
+    moved = meta["device"] != sampler.device.type
     for name in _GENERATORS:
         if f"rng_{name}" in arrays:
-            getattr(sampler, f"_{name}_gen").set_state(
-                torch.from_numpy(arrays[f"rng_{name}"]))
+            gen = getattr(sampler, f"_{name}_gen")
+            saved = arrays[f"rng_{name}"]
+            if moved and name != "host":  # it lived on the file's device
+                _reseeded(gen, saved)
+            else:
+                gen.set_state(torch.from_numpy(saved))
     sampler.chain.clear()
     if arrays["chain_samples"].shape[0]:
         sampler.chain.append(

@@ -20,6 +20,11 @@ diagnostic oracles) draw no log u, as in JAX, so their noise is
 ``draw_noise`` also takes ``host_gen``, a CPU generator for the draws that
 decide host-side control flow (the mixture's branch); movers that make none
 ignore it.
+
+``draw_rung_noise`` draws the noise of k independent half-steps at once,
+stacked on a leading axis: what parallel tempering's ``torch.func.vmap`` of
+``apply`` over the ladder takes (one partner draw, one z and one log u per
+rung, as the JAX package's vmap over one key per rung has them).
 """
 
 import torch
@@ -59,6 +64,15 @@ class Mover:
             return tuple(prop)
         return (*prop, neg_exponential(gen, n, dtype, device))
 
+    def draw_rung_noise(self, gen, k, n, m, p, device, dtype=torch.float32,
+                        host_gen=None):
+        """``draw_noise`` for k independent half-steps, each tensor stacked
+        on a new leading axis of length k. This default draws them one after
+        another; a mover may draw each plane for all k at once."""
+        draws = [self.draw_noise(gen, n, m, p, device, dtype=dtype,
+                                 host_gen=host_gen) for _ in range(k)]
+        return stack_noise(draws)
+
     def apply(self, active, active_logp, other, logp_fn, state, noise,
               beta=1.0):
         """One Metropolis update of the active half against the other half.
@@ -79,3 +93,13 @@ class Mover:
         new_active = torch.where(accept[:, None], proposal, active)
         new_logp = torch.where(accept, prop_logp, active_logp)
         return new_active, new_logp, accept
+
+
+def stack_noise(draws):
+    """A list of equally laid out noise tuples (tensors, nested tuples) as
+    one tuple of tensors stacked on a new leading axis."""
+    first = draws[0]
+    if isinstance(first, (tuple, list)):
+        return tuple(stack_noise([d[i] for d in draws])
+                     for i in range(len(first)))
+    return torch.stack(draws)

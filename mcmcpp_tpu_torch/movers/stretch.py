@@ -13,10 +13,11 @@ from mcmcpp_tpu_torch.movers.base import Mover
 from mcmcpp_tpu_torch.ops.gw import gw_sample
 from mcmcpp_tpu_torch.ops.partner import (
     check_mode,
+    distinct_batch,
     draw_partner_noise,
     select_partners,
 )
-from mcmcpp_tpu_torch.ops.random import uniform
+from mcmcpp_tpu_torch.ops.random import neg_exponential, uniform
 
 
 class StretchMove(Mover):
@@ -35,6 +36,19 @@ class StretchMove(Mover):
     def draw_proposal_noise(self, gen, n, m, p, dtype, device):
         return (draw_partner_noise(gen, n, m, 1, self.partner_mode, device),
                 uniform(gen, n, dtype, device))
+
+    def draw_rung_noise(self, gen, k, n, m, p, device, dtype=torch.float32,
+                        host_gen=None):
+        """In roll mode, each plane for all k rungs in one draw: shifts
+        (k, 1), u and log u (k, n)."""
+        if self.partner_mode != "roll":
+            return super().draw_rung_noise(gen, k, n, m, p, device, dtype,
+                                           host_gen)
+        if n != m:
+            raise ValueError(f"roll mode requires equal halves (n={n}, m={m})")
+        return (distinct_batch(gen, k, m, 1, device, torch.int32),
+                uniform(gen, (k, n), dtype, device),
+                neg_exponential(gen, (k, n), dtype, device))
 
     def propose(self, active, other, state, partners, u):
         n, p = active.shape

@@ -22,13 +22,16 @@ against its plain version run on those planes.
   planes ``u`` and ``ue`` (a caller that holds a key makes them with
   ``philox_unit_uniforms``);
 - CUDA tensors take ``key`` (planes raise) and, with a
-  :class:`~mcmcpp_tpu_torch.models.targets.GaussianTarget`, launch the fused
-  kernel of ``csrc/fused_stretch.cu``, which evaluates the Gaussian logp in
-  its own body (one launch per half-step);
-- CUDA tensors with any other batched logp take the split path of
-  ``csrc/stretch_split.cu``: the propose kernel, the logp as torch ops on the
-  current stream, then the accept kernel (the Pallas kernel traced the logp
-  into its body; a torch logp cannot run inside a CUDA C++ kernel);
+  :class:`~mcmcpp_tpu_torch.models.targets.GaussianTarget` of P <= ``MAX_P``
+  (64), launch the fused kernel of ``csrc/fused_stretch.cu``, which
+  evaluates the Gaussian logp in its own body (one launch per half-step);
+- CUDA tensors with any other batched logp, or a GaussianTarget wider than
+  ``MAX_P`` (whose factor no longer fits the fused kernel's shared memory),
+  take the split path of ``csrc/stretch_split.cu``: the propose kernel, the
+  logp as torch ops on the current stream, then the accept kernel (the
+  Pallas kernel traced the logp into its body; a torch logp cannot run
+  inside a CUDA C++ kernel). The split kernels take any P, as the Pallas
+  kernel does;
 - any other device raises.
 
 Each kernel has its plain twin here: :func:`stretch_propose_reference`,
@@ -46,6 +49,8 @@ from mcmcpp_tpu_torch.ops.gw import gw_sample
 LAUNCHES = {"fused_stretch_half": 0, "stretch_propose": 0,
             "stretch_accept": 0}
 
+#: the widest GaussianTarget the fused kernel takes; a wider one runs the
+#: split kernels around its torch logp
 MAX_P = 64
 
 
@@ -249,8 +254,8 @@ def fused_stretch_half(active, active_logp, other, shift, u=None, ue=None, *,
                        key=None, logp_fn, a=2.0):
     """One stretch half-step. Returns (new_active, new_logp, accepted
     int32). CPU tensors take the plain version on the planes ``u``, ``ue``;
-    CUDA tensors take ``key`` and launch the fused kernel (a GaussianTarget)
-    or the split kernels (any other logp)."""
+    CUDA tensors take ``key`` and launch the fused kernel (a GaussianTarget
+    of P <= MAX_P) or the split kernels (any other logp, any P)."""
     if active.device.type == "cpu":
         if key is not None or u is None or ue is None:
             raise TypeError("on a CPU tensor pass the planes u and ue, not "
@@ -265,12 +270,8 @@ def fused_stretch_half(active, active_logp, other, shift, u=None, ue=None, *,
                         "themselves: pass key, not planes")
     key = _check_key(key)
     _half_args(active, active_logp, other, shift)
-    if isinstance(logp_fn, GaussianTarget):
-        p = active.shape[1]
-        if p > MAX_P:
-            raise NotImplementedError(
-                f"the fused CUDA kernel supports P <= {MAX_P}, got P = {p}"
-            )
+    p = active.shape[1]
+    if isinstance(logp_fn, GaussianTarget) and p <= MAX_P:
         prec_chol = logp_fn.prec_chol
         _check_args({"prec_chol": prec_chol}, {"prec_chol": (p, p)},
                     active.device)

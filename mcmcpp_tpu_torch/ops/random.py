@@ -54,13 +54,15 @@ def normal(gen, shape, dtype, device):
 
 
 def exponential(gen, n, dtype, device):
-    """(n,) draws of Exp(1)."""
-    e = torch.empty((n,), dtype=dtype, device=device)
+    """(n,) draws of Exp(1); ``n`` may also be a shape tuple."""
+    shape = n if isinstance(n, tuple) else (n,)
+    e = torch.empty(shape, dtype=dtype, device=device)
     return e.exponential_(generator=gen)
 
 
 def neg_exponential(gen, n, dtype, device):
-    """(n,) draws of −Exp(1): the log of a uniform, never −inf's log(0)."""
+    """(n,) (or shape ``n``) draws of −Exp(1): the log of a uniform, never
+    −inf's log(0)."""
     return exponential(gen, n, dtype, device).neg_()
 
 

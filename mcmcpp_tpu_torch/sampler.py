@@ -29,6 +29,7 @@ import torch
 from mcmcpp_tpu_torch.chain import (
     Chain,
     default_chunk_steps,
+    e4m3_ready,
     row_dtype,
     run_pipelined,
     torch_dtype,
@@ -168,7 +169,8 @@ def run_scan(state: EnsembleState, step_fn, n_store: int, thin: int,
     so the steps stay full precision and no full-precision chunk is held
     (``step_action`` still sees full precision). An 8-bit tier keeps the
     logp plane at bfloat16: e4m3's ±448 range overflows on routine |logp|,
-    and the plane is 1/(P+1) of the payload.
+    and the plane is 1/(P+1) of the payload. Rows cast to e4m3fn take
+    JAX's NaN beyond ±464 (:func:`~mcmcpp_tpu_torch.chain.e4m3_ready`).
     """
     half = state.red.shape[0]
     w = half + state.black.shape[0]
@@ -186,8 +188,8 @@ def run_scan(state: EnsembleState, step_fn, n_store: int, thin: int,
     for s in range(n_store):
         for _ in range(thin):
             state = step_fn(state)
-        positions[s, :half] = state.red
-        positions[s, half:] = state.black
+        positions[s, :half] = e4m3_ready(state.red, pos_dtype)
+        positions[s, half:] = e4m3_ready(state.black, pos_dtype)
         logps[s, :half] = state.logp_red
         logps[s, half:] = state.logp_black
         if step_action is None:

@@ -232,3 +232,50 @@ def test_throughput_monitor_and_trace_profile(chain, tmp_path):
     assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
     assert any("mm" in e.key or "matmul" in e.key
                for e in prof.key_averages())
+
+
+# -- the reference's all-negative defects (tests/test_reference_defects.py) --
+
+
+def test_all_negative_data_histogram_bounds():
+    """Mirror of ``test_reference_defects.py::
+    test_all_negative_data_histogram_bounds`` on the port:
+    ``CornerHistograms.h:411`` seeds the upper bound with the smallest
+    POSITIVE float, so all-negative data got a bogus bound. The port's
+    auto-binning must cover all-negative samples, and its counts and edges
+    equal the JAX package's."""
+    from mcmcpp_tpu.analysis.histograms import CornerHistograms as JCorner
+
+    rng = np.random.default_rng(0)
+    samples = -10.0 + rng.standard_normal((2000, 2)).astype(np.float32)
+    ch = pan.CornerHistograms(n_bins=32).calculate(samples)
+    jch = JCorner(n_bins=32).calculate(samples)
+    for i in range(2):
+        counts, edges = ch.hist1d[i]
+        assert counts.sum() == 2000  # every sample landed in a bin
+        assert edges[0] <= samples[:, i].min()
+        assert edges[-1] >= samples[:, i].max()
+        assert edges[-1] < 0  # bounds track the (negative) data
+        np.testing.assert_array_equal(counts, jch.hist1d[i][0])
+        np.testing.assert_array_equal(edges, jch.hist1d[i][1])
+
+
+def test_all_negative_data_percentiles():
+    """Mirror of ``test_reference_defects.py::
+    test_all_negative_data_percentiles`` (the same defect in
+    ``PercentileAndMaximumFinder.h:542``): the median and the peak of
+    all-negative data land on the data, as in the JAX package."""
+    from mcmcpp_tpu.analysis.percentiles import (
+        PercentileAndMaximumFinder as JFinder,
+    )
+
+    rng = np.random.default_rng(1)
+    samples = (-5.0 + 0.5 * rng.standard_normal((5000, 1))).astype(np.float32)
+    pf = pan.PercentileAndMaximumFinder(n_bins=512).process_chain_data(
+        samples)
+    med = pf.get_value_from_percentile(0, 50.0)
+    assert med == pytest.approx(-5.0, abs=0.1)
+    assert pf.get_peak_location(0) == pytest.approx(-5.0, abs=0.2)
+    jpf = JFinder(n_bins=512).process_chain_data(samples)
+    assert med == jpf.get_value_from_percentile(0, 50.0)
+    assert pf.get_peak_location(0) == jpf.get_peak_location(0)

@@ -199,7 +199,7 @@ def _edit_meta(path, **changes):
     ({"format": 2}, ValueError, "incompatible checkpoint format"),
     ({"device": "cuda"}, ValueError, "different streams"),
     ({"kind": "gradient"}, TypeError, "gradient sampler"),
-    ({"kind": "pt"}, NotImplementedError, "A9"),
+    ({"kind": "pt"}, TypeError, "ParallelTemperingSampler"),
     ({"kind": "smc2"}, NotImplementedError, "A11"),
     ({"kind": "mystery"}, ValueError, "unknown checkpoint kind"),
     ({"port": None}, ValueError, "sampler_from_jax_checkpoint"),
@@ -216,6 +216,44 @@ def test_mismatches_raise(tmp_path, changes, error, match):
         load_checkpoint(s, path)
     for x, y in zip(before, s.state[:6]):  # a refused load changes nothing
         assert torch.equal(x, y)
+
+
+def test_file_from_the_card_opens_on_the_cpu_by_opt_in(tmp_path):
+    """A checkpoint whose meta says ``cuda`` (its step and auxiliary
+    generator states a CUDA generator's 16 bytes, which a CPU generator
+    cannot take) is refused by default and loads with
+    ``allow_device_change=True``: state, counters and chain as written, the
+    host generator restored, the device generators reseeded from the saved
+    states, so the run goes on deterministically (not bitwise: the card
+    would have drawn other numbers)."""
+    a = _sampler(StretchMove(), 12)
+    a.init_ball(np.zeros(P), 1.0)
+    a.run_mcmc(6)
+    path = save_checkpoint(a, tmp_path / "ck.npz")
+    with np.load(path, allow_pickle=False) as z:
+        payload = {k: z[k] for k in z.files}
+    for name in ("step", "aux"):  # a CUDA generator's (seed, offset)
+        payload[f"rng_{name}"] = np.arange(16, dtype=np.uint8) + len(name)
+    np.savez(path, **payload)
+    _edit_meta(path, device="cuda")
+    b = _sampler(StretchMove(), 99)
+    b.init_ball(np.zeros(P), 1.0)
+    with pytest.raises(ValueError, match="allow_device_change"):
+        load_checkpoint(b, path)
+    runs = []
+    for seed in (99, 98):
+        b = _sampler(StretchMove(), seed)
+        load_checkpoint(b, path, allow_device_change=True)
+        _equal_samplers(a, b)
+        assert torch.equal(b._host_gen.get_state(), a._host_gen.get_state())
+        b.run_mcmc(5)
+        runs.append(b.get_samples())
+    a.run_mcmc(5)
+    # deterministic for the file, whatever the new sampler's seed ...
+    np.testing.assert_array_equal(runs[0], runs[1])
+    assert np.isfinite(runs[0]).all() and runs[0].shape == (11, W, P)
+    # ... and not the run the writer's generators would have drawn
+    assert not np.array_equal(runs[0][6:], a.get_samples()[6:])
 
 
 def test_uninitialised_and_foreign_samplers_raise(tmp_path):
@@ -296,6 +334,8 @@ def test_neither_package_takes_the_others_file(tmp_path):
     with pytest.raises(ValueError, match="load_checkpoint"):
         sampler_from_jax_checkpoint(arrays, port_meta, p)
     with pytest.raises(ValueError, match="only the ensemble"):
+        sampler_from_jax_checkpoint(arrays, dict(meta, kind="smc"), p)
+    with pytest.raises(TypeError, match="ParallelTemperingSampler"):
         sampler_from_jax_checkpoint(arrays, dict(meta, kind="pt"), p)
     with pytest.raises(TypeError, match="gradient sampler"):
         sampler_from_jax_checkpoint(arrays, dict(meta, kind="gradient"), p)

@@ -215,8 +215,9 @@ def test_kernel_matches_reference_on_card(cuda_device, n, p, shift):
 
 @pytest.mark.cuda
 def test_kernels_refuse_planes_on_card(cuda_device):
-    """On a CUDA tensor the wrapper takes a key; planes raise, and so do
-    P > 64 with a GaussianTarget."""
+    """On a CUDA tensor the wrapper takes a key; planes raise. (A
+    GaussianTarget wider than 64 no longer raises: it runs the split
+    kernels, ``test_wide_gaussian_runs_split_kernels_on_card``.)"""
     n, p = 64, 2
     x = torch.zeros((n, p), device=cuda_device)
     lp = torch.zeros(n, device=cuda_device)
@@ -226,10 +227,41 @@ def test_kernels_refuse_planes_on_card(cuda_device):
         fs.fused_stretch_half(x, lp, x, shift, lp, lp, logp_fn=target)
     with pytest.raises(TypeError, match="key"):
         fs.fused_stretch_half(x, lp, x, shift, logp_fn=target)
-    wide = torch.zeros((n, 65), device=cuda_device)
-    big = GaussianTarget(np.eye(65, dtype=np.float32), device=cuda_device)
-    with pytest.raises(NotImplementedError, match="P <= 64"):
-        fs.fused_stretch_half(wide, lp, wide, shift, key=1, logp_fn=big)
+    with pytest.raises(ValueError, match="64-bit"):
+        fs.fused_stretch_half(x, lp, x, shift, key=-1, logp_fn=target)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [65, 100])
+def test_wide_gaussian_runs_split_kernels_on_card(cuda_device, p):
+    """A GaussianTarget with P > 64 (the fused kernel's limit) runs the
+    propose kernel, its torch logp and the accept kernel: one launch of
+    each, and the half-step equals its plain version bit for bit (the split
+    kernels round as torch's ops do)."""
+    n = 3000
+    L = _prec_chol(p, seed=p)
+    act, oth = _inputs(n, p, seed=p)
+    lp = _logp_np(act, L)
+    lp[5::61] = -np.inf
+    key = 0xC0FFEE ^ (n * 7919 + p)
+    u, ue = philox_unit_uniforms(key, n, cuda_device)
+    target = GaussianTarget(L, device=cuda_device)
+    args = (torch.from_numpy(act).to(cuda_device),
+            torch.from_numpy(lp).to(cuda_device),
+            torch.from_numpy(oth).to(cuda_device),
+            torch.tensor([n // 3], dtype=torch.int32, device=cuda_device))
+    before = dict(fs.LAUNCHES)
+    k_out = fs.fused_stretch_half(*args, key=key, logp_fn=target)
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES == {
+        "fused_stretch_half": before["fused_stretch_half"],
+        "stretch_propose": before["stretch_propose"] + 1,
+        "stretch_accept": before["stretch_accept"] + 1}
+    r_out = fs.fused_stretch_half_reference(*args, u, ue, logp_fn=target)
+    assert 0 < int(r_out[2].sum()) < n
+    assert bool((k_out[2][5::61] == 1).all())
+    for k, r in zip(k_out, r_out):
+        assert torch.equal(k, r)
 
 
 def test_device_dispatch_without_card():

@@ -8,6 +8,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -44,7 +45,8 @@ def test_sources_import_no_jax():
                 "gradient/metric.py", "gradient/hmc.py", "gradient/mala.py",
                 "gradient/barker.py", "gradient/nuts.py", "gradient/chees.py",
                 "gradient/meads.py", "gradient/mclmc.py",
-                "gradient/sgmcmc.py"):
+                "gradient/sgmcmc.py", "tempering.py", "pcn.py",
+                "elliptical.py", "gibbs.py"):
         assert PKG / new in files, new
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
@@ -136,3 +138,41 @@ def test_build_dir_is_ignored_by_git():
     ignore = (REPO / ".gitignore").read_text().split()
     assert "build/" in ignore
     assert os.path.isdir(PKG / "csrc")
+
+
+def test_population_import_pulls_in_no_jax_or_triton():
+    code = ("import sys; import mcmcpp_tpu_torch.tempering, "
+            "mcmcpp_tpu_torch.pcn, mcmcpp_tpu_torch.elliptical, "
+            "mcmcpp_tpu_torch.gibbs; "
+            "bad = [m for m in ('jax', 'triton', 'mcmcpp_tpu') "
+            "if m in sys.modules]; print(bad); sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("name", [
+    "ParallelTemperingSampler", "PCNSampler", "EllipticalSliceSampler",
+    "BlockedGibbsSampler"])
+def test_population_engines_on_cuda_without_gpu_raise(name):
+    """The population engines run on "cuda" unless asked for the CPU, and
+    never fall back to it."""
+    if torch.cuda.is_available():
+        pytest.skip("this box has a GPU")
+    import mcmcpp_tpu_torch as mt
+
+    def logp(t):
+        return -0.5 * torch.sum(t * t)
+
+    args = {
+        "ParallelTemperingSampler": (logp, 8, 2),
+        "PCNSampler": (logp, np.zeros(2)),
+        "EllipticalSliceSampler": (logp, np.zeros(2)),
+        "BlockedGibbsSampler": ([("x", 2, mt.RWMKernel(
+            lambda x, o: logp(x), 0.5))], 4),
+    }[name]
+    kw = {} if name in ("ParallelTemperingSampler",
+                        "BlockedGibbsSampler") else {"prior_scale":
+                                                     np.ones(2)}
+    with pytest.raises(RuntimeError, match="is_available"):
+        getattr(mt, name)(*args, **kw)

@@ -4,8 +4,9 @@ package.
 The same float32 arrays, made from a numpy seed, are cast by JAX
 (``astype(bfloat16 / float16 / float8_e4m3fn)``) and by the port's store path
 (torch's conversion on the way into a :class:`Chain`): the bits must be equal,
-at ±448, on ties, subnormals, infinities and NaN; beyond e4m3's range the rule
-is the installed torch's, which is documented and held here. A port chain read back
+at ±448, on ties, subnormals, infinities and NaN, and beyond e4m3's range,
+where the port maps |x| > 464 to NaN as JAX stores it, whatever the installed
+torch's own cast does there. A port chain read back
 equals the JAX ``Chain`` read back exactly. The rest mirrors the non-slow
 tests of ``tests/test_store_dtype.py`` and ``tests/test_chain_disk.py`` on the
 port, with the sampler on the CPU (tolerances as stated there).
@@ -65,15 +66,14 @@ def test_store_cast_gives_jax_bits(name, jdt, tdt, bits):
     jax_cast = np.asarray(jnp.asarray(x).astype(jdt))
     held = to_held(torch.from_numpy(x), tdt)
     assert held.dtype.itemsize == np.dtype(bits).itemsize
-    # e4m3fn beyond its range is the one place where the two may differ
-    # (the installed torch's rule, below)
-    beyond = (np.abs(x) > 464.0) if name == "float8_e4m3fn" else np.zeros(
-        x.shape, bool)
     nan = np.isnan(x)
-    same = ~beyond & ~nan
+    same = ~nan
     assert same.sum() > 3000
-    # equal bits: every binade, ties, subnormals, signed zeros, infinities
+    # equal bits: every binade, ties, subnormals, signed zeros, infinities,
+    # and e4m3fn's signed NaN beyond ±464
     assert np.array_equal(jax_cast.view(bits)[same], held.view(bits)[same])
+    if name == "float8_e4m3fn":
+        assert (np.abs(x) > 464.0).sum() > 100
     up = from_held(held, name).to(torch.float32).numpy()
     np.testing.assert_array_equal(up[same],
                                   jax_cast.astype(np.float32)[same])
@@ -86,27 +86,35 @@ def test_store_cast_gives_jax_bits(name, jdt, tdt, bits):
 
 
 def test_e4m3_beyond_range_is_the_installed_torchs_rule_and_documented():
-    """Up to ±464 (the halfway point past 448) both round to ±448. Beyond,
-    and at ±inf, JAX stores NaN (e4m3fn has no infinity); torch 2.11 does
-    too, torch 2.13 saturates to ±448. The port keeps the installed torch's
-    rule and emulates neither (``mcmcpp_tpu_torch/chain.py``'s docstring says
-    so): each value beyond the range is NaN or ±448 with its sign."""
-    x = np.array([448.0, 463.9, 464.0, -464.0, 464.1, -1e6, np.inf],
-                 np.float32)
-    port = from_held(to_held(torch.from_numpy(x), torch.float8_e4m3fn),
-                     "float8_e4m3fn").to(torch.float32).numpy()
-    ref = np.asarray(jnp.asarray(x).astype(jnp.float8_e4m3fn)
-                     ).astype(np.float32)
-    np.testing.assert_array_equal(port[:4], ref[:4])
+    """Up to ±464 (the halfway point past 448) both packages round to
+    ±448. Beyond, and at ±inf, JAX stores NaN (e4m3fn has no infinity);
+    torch 2.11's cast does too, torch 2.13's saturates to ±448. The port
+    maps |x| > 464 to NaN before every e4m3 cast (``chain.e4m3_ready``,
+    which ``chain.py``'s docstring states), so its held bits are JAX's
+    under either torch: bit for bit below the range, NaN beyond it."""
+    x = np.array([448.0, 463.9, 464.0, -464.0, 464.1, -1e6, np.inf, -np.inf,
+                  -465.0], np.float32)
+    held = to_held(torch.from_numpy(x), torch.float8_e4m3fn)
+    port = from_held(held, "float8_e4m3fn").to(torch.float32).numpy()
+    ref = np.asarray(jnp.asarray(x).astype(jnp.float8_e4m3fn))
+    np.testing.assert_array_equal(held, ref.view(np.uint8))
     np.testing.assert_array_equal(port[:4], [448.0, 448.0, 448.0, -448.0])
-    assert np.isnan(ref[4:]).all()
-    direct = torch.from_numpy(x).to(torch.float8_e4m3fn).float().numpy()
-    np.testing.assert_array_equal(port, direct)  # torch's rule, unaltered
-    for got, sat in zip(port[4:], [448.0, -448.0, 448.0]):
-        assert np.isnan(got) or got == sat
+    assert np.isnan(ref.astype(np.float32)[4:]).all()
+    assert np.isnan(port[4:]).all()
+    # a numpy array takes the same path
+    assert np.isnan(from_held(to_held(x, "float8_e4m3fn"), "float8_e4m3fn")
+                    .to(torch.float32).numpy()[4:]).all()
+    # the sampler's chunk writes take the same rule
+    from mcmcpp_tpu_torch.chain import e4m3_ready
+
+    ready = e4m3_ready(torch.from_numpy(x), torch.float8_e4m3fn)
+    np.testing.assert_array_equal(ready.numpy()[:4], x[:4])
+    assert torch.isnan(ready[4:]).all()
+    assert e4m3_ready(torch.from_numpy(x), torch.bfloat16) is not None
     import mcmcpp_tpu_torch.chain as chain_mod
 
-    assert "saturates" in chain_mod.__doc__
+    assert "saturates" in chain_mod.__doc__ and "e4m3_ready" in (
+        chain_mod.__doc__)
 
 
 @pytest.mark.parametrize("name,jdt,tdt,bits", TIERS, ids=[t[0] for t in TIERS])
