@@ -27,6 +27,14 @@ The population engines run plain torch ops too: parallel tempering
 (``tempering``, the ladder as one vmapped half-step, with power-posterior
 evidence), pCN (``pcn``), elliptical slice sampling (``elliptical``) and
 blocked Gibbs with its eight conditional kernels (``gibbs``).
+
+The evidence and variational engines: adaptive-tempering SMC (``smc``, four
+mutations; its ensemble mutation with :class:`FusedStretchMove` runs the
+split CUDA kernels around the tempered logp), nested sampling (``nested``),
+the NeuTra flows (``neutra``: RealNVP, IAF, spline coupling, as
+``nn.Module``s), ADVI (``vi``), SVGD (``svgd``), Pathfinder (``pathfinder``)
+and MAP/Laplace (``map_laplace``, with a batched BFGS), trained with optax's
+Adam (``optim``).
 """
 
 from mcmcpp_tpu_torch import analysis
@@ -34,7 +42,11 @@ from mcmcpp_tpu_torch.chain import Chain
 from mcmcpp_tpu_torch.chain_disk import DiskChain
 from mcmcpp_tpu_torch.convergence import ConvergenceReport, run_until_converged
 from mcmcpp_tpu_torch.elliptical import EllipticalSliceSampler
-from mcmcpp_tpu_torch.export import to_arviz, to_inference_dict
+from mcmcpp_tpu_torch.export import (
+    nested_to_inference_dict,
+    to_arviz,
+    to_inference_dict,
+)
 from mcmcpp_tpu_torch.gibbs import (
     BlockedGibbsSampler,
     CategoricalGibbsKernel,
@@ -89,15 +101,23 @@ from mcmcpp_tpu_torch.movers import (
     StretchMove,
     WalkMove,
 )
+from mcmcpp_tpu_torch.map_laplace import find_map, laplace, laplace_sample
+from mcmcpp_tpu_torch.nested import NestedSampler
+from mcmcpp_tpu_torch.neutra import IAF, NeuTra, RealNVP, SplineCoupling
+from mcmcpp_tpu_torch.pathfinder import multi_pathfinder, pathfinder
 from mcmcpp_tpu_torch.pcn import PCNSampler
 from mcmcpp_tpu_torch.sampler import EnsembleSampler, EnsembleState, sample_ball
+from mcmcpp_tpu_torch.smc import SMCSampler
+from mcmcpp_tpu_torch.svgd import SVGD
 from mcmcpp_tpu_torch.tempering import (
     ParallelTemperingSampler,
     geometric_ladder,
     power_ladder,
 )
+from mcmcpp_tpu_torch.vi import ADVI
 
 __all__ = [
+    "ADVI",
     "AutoRegressiveMove",
     "BarkerSampler",
     "BayesianLinearRegression",
@@ -122,6 +142,7 @@ __all__ = [
     "GaussianTarget",
     "HMCKernel",
     "HMCSampler",
+    "IAF",
     "InterweaveKernel",
     "LogisticRegression",
     "MALAKernel",
@@ -134,13 +155,19 @@ __all__ = [
     "Mover",
     "NUTSSampler",
     "NealFunnel",
+    "NestedSampler",
+    "NeuTra",
     "PCNSampler",
     "ParallelTemperingSampler",
     "RWMKernel",
+    "RealNVP",
     "Rosenbrock",
     "SGHMCSampler",
     "SGLDSampler",
+    "SMCSampler",
+    "SVGD",
     "SequenceMove",
+    "SplineCoupling",
     "StretchMove",
     "Target",
     "WalkMove",
@@ -148,10 +175,16 @@ __all__ = [
     "bayesian_linear_regression",
     "correlated_gaussian",
     "equicorrelated_gaussian",
+    "find_map",
     "gaussian_mixture",
     "geometric_ladder",
+    "laplace",
+    "laplace_sample",
     "logistic_regression",
+    "multi_pathfinder",
     "neal_funnel",
+    "nested_to_inference_dict",
+    "pathfinder",
     "power_ladder",
     "rosenbrock",
     "run_until_converged",

@@ -3,9 +3,10 @@ package.
 
 The caller takes numpy arrays from the JAX objects (``np.asarray`` of a
 ``mcmcpp_tpu`` state's fields, the ``prec_chol`` a Gaussian target closes
-over, the covariance of a dense metric, or the ``name``, ``dim``, ``mean``,
-``cov`` and ``extras`` of a ``mcmcpp_tpu.models.Target``); this module builds
-the port's objects from them. It imports nothing of JAX.
+over, the covariance of a dense metric, the ``name``, ``dim``, ``mean``,
+``cov`` and ``extras`` of a ``mcmcpp_tpu.models.Target``, the
+``jax.tree_util.tree_leaves`` of a flow's params or of an optax Adam state);
+this module builds the port's objects from them. It imports nothing of JAX.
 """
 
 import warnings
@@ -20,7 +21,9 @@ from mcmcpp_tpu_torch.gradient.mclmc import MAMSSampler, MCLMCState
 from mcmcpp_tpu_torch.gradient.metric import dense_mass_from_cov
 from mcmcpp_tpu_torch.gradient.sgmcmc import SGState
 from mcmcpp_tpu_torch.io.checkpoint import (
+    _LOADERS,
     FOR_SAMPLER,
+    SHARED_LOADERS,
     checkpoint_kind,
     load_pt_state,
     refuse_geometry,
@@ -34,9 +37,12 @@ from mcmcpp_tpu_torch.models.targets import (
     NealFunnel,
     Rosenbrock,
 )
+from mcmcpp_tpu_torch.optim import adam_from_leaves
 from mcmcpp_tpu_torch.sampler import EnsembleState
+from mcmcpp_tpu_torch.vi import FullRankParams, MeanFieldParams
 
-__all__ = ["GaussianTarget", "dense_mass_from_numpy",
+__all__ = ["GaussianTarget", "adam_state_from_numpy", "advi_params_from_numpy",
+           "dense_mass_from_numpy", "flow_params_from_numpy",
            "gradient_state_from_numpy", "mover_state_from_numpy",
            "sampler_from_jax_checkpoint", "state_from_numpy",
            "target_from_numpy"]
@@ -85,6 +91,42 @@ def dense_mass_from_numpy(cov, device="cuda"):
     """The port's :class:`DenseMassMatrix` from a numpy covariance (the
     ``cov`` field of the JAX package's), factored on ``device``."""
     return dense_mass_from_cov(_tensor(cov, device))
+
+
+@torch.no_grad()
+def flow_params_from_numpy(flow, leaves):
+    """Copy a JAX flow's params, given as ``jax.tree_util.tree_leaves(params)``
+    (numpy), into the port's ``flow`` (RealNVP, IAF or SplineCoupling of the
+    same configuration): the layouts are the same, an MLP weight ``(in,
+    out)``, so leaf i is parameter i. Returns ``flow``."""
+    params = flow.param_list()
+    if len(leaves) != len(params):
+        raise ValueError(f"{type(flow).__name__} has {len(params)} "
+                         f"parameters, got {len(leaves)} leaves")
+    for p, a in zip(params, leaves):
+        a = np.asarray(a)
+        if tuple(a.shape) != tuple(p.shape):
+            raise ValueError(f"leaf of shape {a.shape} for a parameter of "
+                             f"shape {tuple(p.shape)}")
+        p.copy_(torch.from_numpy(np.array(a)).to(p.device, p.dtype))
+    return flow
+
+
+def adam_state_from_numpy(leaves, params):
+    """The port's Adam state (:mod:`mcmcpp_tpu_torch.optim`) from an optax
+    ``adam`` state's ``jax.tree_util.tree_leaves``: ``ScaleByAdamState(count,
+    mu, nu)`` then the learning rate's empty state, i.e. ``[count, *mu,
+    *nu]``, over the tensors ``params``."""
+    return adam_from_leaves(leaves, params)
+
+
+def advi_params_from_numpy(mu, second, full_rank, device="cuda",
+                           dtype=torch.float32):
+    """The port's ``MeanFieldParams(mu, log_sigma)`` or
+    ``FullRankParams(mu, chol_raw)`` from the JAX package's fields."""
+    cls = FullRankParams if full_rank else MeanFieldParams
+    return cls(*(torch.from_numpy(np.array(a)).to(device, dtype)
+                 for a in (mu, second)))
 
 
 def _refuse_mclmc(kind, meta, sampler):
@@ -223,7 +265,13 @@ def sampler_from_jax_checkpoint(arrays, meta, sampler):
     ladder, and in power mode the log-likelihood grids and the evidence
     accumulators; the cold chain), ``pcn`` (state, accept counters, steps,
     the tuned β), ``elliptical`` (state) and ``gibbs`` (every block, after a
-    check of the block layout), each with the stored chain, so that ``get_samples`` and the statistics read as they did. The
+    check of the block layout), each with the stored chain, so that
+    ``get_samples`` and the statistics read as they did; and ``smc`` (the
+    particle state, the stage count and β ladder, the flow mutation's
+    parameters and Adam state), ``nested`` (the live set and the host
+    ledger; ``run()`` continues), ``neutra`` (the flow's parameters, the
+    Adam state, the fit traces) and ``advi`` (the variational parameters,
+    the Adam state, the ELBO trace). The
     threefry key is not carried: the port draws from another generator
     family, so the resumed chain continues under the port's own ``seed``,
     as a valid continuation but not the one the JAX package would have
@@ -234,11 +282,12 @@ def sampler_from_jax_checkpoint(arrays, meta, sampler):
             f"a checkpoint of the {meta['port']} port, not of the JAX "
             "package: load it with io.load_checkpoint")
     kind = meta.get("kind")
-    if kind not in _JAX_LOADERS:
+    if kind not in _JAX_LOADERS and kind not in SHARED_LOADERS:
         raise ValueError(
             f"checkpoint kind {kind!r}: only the ensemble sampler's, the "
-            "gradient engines' and the population engines' (pt, pcn, "
-            "elliptical, gibbs) states can be carried across")
+            "gradient engines', the population engines' (pt, pcn, "
+            "elliptical, gibbs) and the evidence and variational engines' "
+            "(smc, nested, neutra, advi) states can be carried across")
     if kind in ("mclmc", "mams"):
         _refuse_mclmc(kind, meta, sampler)
     elif checkpoint_kind(sampler) != kind:
@@ -257,6 +306,11 @@ def sampler_from_jax_checkpoint(arrays, meta, sampler):
         if ("momentum" in arrays) != isinstance(sampler, MEADSSampler):
             raise TypeError("a MEADS checkpoint (it carries momenta) loads "
                             "into a MEADSSampler and no other")
+    if kind in SHARED_LOADERS:
+        # the JAX package's arrays and leaves under the same names
+        _LOADERS[kind](sampler, meta, arrays, lambda name: torch.from_numpy(
+            np.array(arrays[name])).to(sampler.device))
+        return sampler
     _JAX_LOADERS[kind](arrays, meta, sampler)
     sampler.chain.clear()
     if arrays["chain_samples"].shape[0]:

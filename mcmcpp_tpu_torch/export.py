@@ -7,8 +7,8 @@ chain into the exact dict convention ``arviz.from_dict`` consumes —
 parameters through a ``constrain`` callable. ArviZ itself is NOT required
 (not installed in minimal environments): ``to_inference_dict`` returns plain
 numpy; ``to_arviz`` performs the gated import. Counterpart of
-``mcmcpp_tpu/export.py``; the nested/IBIS/SMC² exporters come with their
-engines.
+``mcmcpp_tpu/export.py``, with the nested-sampling exporter; the IBIS and
+SMC² exporters come with their engines.
 
     idata_kw = to_inference_dict(sampler, model=model)
     # elsewhere, with arviz installed:
@@ -82,3 +82,42 @@ def to_arviz(sampler, model=None, burn_in=0, thin=1,
         sampler, model=model, burn_in=burn_in, thin=thin,
         posterior_predictive=posterior_predictive,
     ))
+
+
+def nested_to_inference_dict(sampler_or_result, model=None, n_draws=2000,
+                             seed=0):
+    """``arviz.from_dict`` kwargs from a nested-sampling run: the posterior
+    group holds an equal-weight categorical resample of the weighted dead
+    points (one "chain" of ``n_draws``), ``sample_stats`` their
+    log-likelihoods and the run's logz, logz_err and weights' ESS. model:
+    optional ``build()`` object or ``constrain`` callable for named
+    parameters (see :func:`to_inference_dict`)."""
+    from mcmcpp_tpu_torch.nested import NestedResult, NestedSampler
+
+    if isinstance(sampler_or_result, NestedSampler):
+        res = sampler_or_result.result
+        if res is None:
+            raise RuntimeError("call run() first")
+    elif isinstance(sampler_or_result, NestedResult):
+        res = sampler_or_result
+    else:
+        raise TypeError("expected a NestedSampler or NestedResult")
+    rng = np.random.default_rng(seed)
+    w = np.exp(res.logw - res.logw.max())
+    w /= w.sum()
+    idx = rng.choice(w.size, size=int(n_draws), p=w)
+    draws = res.samples[idx]  # (n_draws, P)
+    n = draws.shape[0]
+    if model is not None:
+        constrain = model if not hasattr(model, "build") else model.build()[2]
+        named = constrain(draws)
+        posterior = {k: np.asarray(v)[None, ...] for k, v in named.items()}
+    else:
+        posterior = {"theta": draws[None, :, :]}
+    stats = {
+        "log_likelihood": res.logl[idx][None, :],
+        "logz": np.full((1, n), res.logz),
+        "logz_err": np.full((1, n), res.logz_err),
+        "weights_ess": np.full((1, n), res.ess),
+    }
+    return {"posterior": posterior, "sample_stats": stats}

@@ -1,15 +1,22 @@
-"""Checkpoint / resume for the ensemble sampler, the gradient engines and
-the population engines.
+"""Checkpoint / resume for the ensemble sampler, the gradient engines, the
+population engines and the evidence and variational engines.
 
 Counterpart of ``mcmcpp_tpu/io/checkpoint.py`` (the reference has no
 checkpointing, SURVEY.md §5) for its kinds ``ensemble``, ``gradient`` (HMC,
 NUTS, MALA, Barker, ChEES, MEADS), ``sgmcmc`` (SGLD, SGHMC), ``mclmc``,
 ``mams``, ``pt`` (parallel tempering, with the evidence accumulators of
-power mode), ``pcn``, ``elliptical`` and ``gibbs``. A checkpoint is one ``.npz`` archive holding the device state
-(positions, log-probs, gradients, momenta, counters, step sizes, the mass
-matrix, ChEES's trajectory adaptation, the sample stats), the state of the
-sampler's random generators and the host chain: enough to resume sampling
-bitwise-identically to an uninterrupted run on the same kind of device.
+power mode), ``pcn``, ``elliptical``, ``gibbs``, and the evidence and
+variational engines' ``smc`` (with the flow mutation's parameters and Adam
+state), ``nested`` (the live set and the host ledger), ``neutra`` (the flow's
+parameters, Adam state and fit traces) and ``advi``. A checkpoint is one
+``.npz`` archive holding the device state (positions, log-probs, gradients,
+momenta, counters, step sizes, the mass matrix, ChEES's trajectory
+adaptation, the sample stats, the variational parameters), the state of the
+sampler's random generators and the host chain, where the engine keeps one:
+enough to resume bitwise-identically to an uninterrupted run on the same
+kind of device. A parameter list and an Adam state are stored as the JAX
+package stores their pytrees, leaf by leaf (``flow_leaf_i``, ``opt_leaf_i``,
+``vi_leaf_i``; Adam's leaves ``[count, *mu, *nu]``).
 
 Format: flat name → array dict plus a JSON meta blob; no pickling, so
 checkpoints are portable and safe to load from untrusted storage. Array
@@ -40,10 +47,7 @@ _PORT = "torch"
 
 # checkpoint kinds of the JAX package whose engines are not ported, with the
 # ROADMAP item each waits for
-_UNPORTED_KINDS = {
-    "smc": "A9b", "nested": "A9b", "neutra": "A9b", "advi": "A9b",
-    "pmmh": "A11", "ibis": "A11", "smc2": "A11",
-}
+_UNPORTED_KINDS = {"pmmh": "A11", "ibis": "A11", "smc2": "A11"}
 
 # what a refused load says the file is for, by kind
 FOR_SAMPLER = {
@@ -56,7 +60,14 @@ FOR_SAMPLER = {
     "pcn": "a PCNSampler",
     "elliptical": "an EllipticalSliceSampler",
     "gibbs": "a BlockedGibbsSampler",
+    "smc": "an SMCSampler",
+    "nested": "a NestedSampler",
+    "neutra": "a NeuTra transport",
+    "advi": "an ADVI fit",
 }
+
+# the nested sampler's configuration a file must match (≙ the JAX loader)
+NESTED_FIELDS = ("n_live", "batch", "kernel", "n_mcmc", "a")
 
 _GENERATORS = ("step", "aux", "host")
 
@@ -70,7 +81,11 @@ def checkpoint_kind(sampler):
     from mcmcpp_tpu_torch.gibbs import BlockedGibbsSampler
     from mcmcpp_tpu_torch.pcn import PCNSampler
     from mcmcpp_tpu_torch.sampler import EnsembleSampler
+    from mcmcpp_tpu_torch.nested import NestedSampler
+    from mcmcpp_tpu_torch.neutra import NeuTra
+    from mcmcpp_tpu_torch.smc import SMCSampler
     from mcmcpp_tpu_torch.tempering import ParallelTemperingSampler
+    from mcmcpp_tpu_torch.vi import ADVI
 
     for cls, kind in ((EnsembleSampler, "ensemble"),
                       (GradientSampler, "gradient"),
@@ -78,7 +93,9 @@ def checkpoint_kind(sampler):
                       (MAMSSampler, "mams"), (MCLMCSampler, "mclmc"),
                       (ParallelTemperingSampler, "pt"), (PCNSampler, "pcn"),
                       (EllipticalSliceSampler, "elliptical"),
-                      (BlockedGibbsSampler, "gibbs")):
+                      (BlockedGibbsSampler, "gibbs"), (SMCSampler, "smc"),
+                      (NestedSampler, "nested"), (NeuTra, "neutra"),
+                      (ADVI, "advi")):
         if isinstance(sampler, cls):
             return kind
     return None
@@ -206,10 +223,76 @@ def _save_gibbs(sampler, meta, arrays):
                    for name, _ in sampler._layout})
 
 
+def _pack(arrays, meta, prefix, leaves):
+    """A list of numpy leaves as ``{prefix}_leaf_i`` and their count."""
+    meta[f"n_{prefix}_leaves"] = len(leaves)
+    arrays.update({f"{prefix}_leaf_{i}": leaf for i, leaf in
+                   enumerate(leaves)})
+
+
+def _param_leaves(params):
+    return [_host(p.detach()) for p in params]
+
+
+def _save_smc(sampler, meta, arrays):
+    from mcmcpp_tpu_torch.optim import adam_leaves
+
+    s = sampler.state
+    meta.update(n_particles=sampler.n, n_stages=sampler.n_stages,
+                beta_ladder=[float(b) for b in sampler.beta_ladder])
+    arrays.update({name: _host(getattr(s, name)) for name in s._fields})
+    if sampler._flow is not None:
+        # the flow mutation's carry, as the JAX package's leaves of
+        # (params, optax state): the parameters, then [count, *mu, *nu]
+        params, opt = sampler._flow_carry
+        _pack(arrays, meta, "flow", _param_leaves(params) + adam_leaves(opt))
+
+
+def _save_nested(sampler, meta, arrays):
+    d = sampler.n_params
+    meta.update({f: getattr(sampler, f) for f in NESTED_FIELDS})
+    meta.update(iters_done=sampler._iters_done,
+                n_calls=int(sampler._n_calls), logz=float(sampler._logz),
+                logx=float(sampler._logx),
+                low_acc_warned=bool(sampler._low_acc_warned))
+
+    def stacked(parts, shape):
+        return np.concatenate(parts, 0) if parts else np.zeros(shape)
+
+    arrays.update(live=_host(sampler._live), ll=_host(sampler._ll),
+                  lpp=_host(sampler._lpp),
+                  dead_pos=stacked(sampler._dead_pos, (0, d)),
+                  dead_ll=stacked(sampler._dead_ll, (0,)),
+                  dead_logw=stacked(sampler._dead_logw, (0,)))
+
+
+def _save_neutra(sampler, meta, arrays):
+    from mcmcpp_tpu_torch.optim import adam_leaves
+
+    meta["flow"] = type(sampler.flow).__name__
+    _pack(arrays, meta, "flow", _param_leaves(sampler.params))
+    if sampler._opt_state is not None:
+        _pack(arrays, meta, "opt", adam_leaves(sampler._opt_state))
+    for attr in ("fit_result", "refit_result"):
+        fr = getattr(sampler, attr)
+        if fr is not None:
+            arrays[f"{attr}_hist"] = np.asarray(fr.elbo_history)
+
+
+def _save_advi(sampler, meta, arrays):
+    from mcmcpp_tpu_torch.optim import adam_leaves
+
+    meta["full_rank"] = bool(sampler.full_rank)
+    arrays["elbo_trace"] = np.asarray(sampler.elbo_trace, np.float64)
+    _pack(arrays, meta, "vi", _param_leaves(sampler.params))
+    _pack(arrays, meta, "opt", adam_leaves(sampler.opt_state))
+
+
 _SAVERS = {"ensemble": _save_ensemble, "gradient": _save_gradient,
            "sgmcmc": _save_sgmcmc, "mclmc": _save_mclmc, "mams": _save_mclmc,
            "pt": _save_pt, "pcn": _save_pcn, "elliptical": _save_elliptical,
-           "gibbs": _save_gibbs}
+           "gibbs": _save_gibbs, "smc": _save_smc, "nested": _save_nested,
+           "neutra": _save_neutra, "advi": _save_advi}
 
 
 def save_checkpoint(sampler, path):
@@ -217,11 +300,13 @@ def save_checkpoint(sampler, path):
     kind = checkpoint_kind(sampler)
     if kind is None:
         raise TypeError(f"unsupported sampler type {type(sampler).__name__}")
-    if sampler.state is None:
+    if kind == "nested" and sampler._live is None:
+        raise RuntimeError("cannot checkpoint a NestedSampler before run() "
+                           "has initialized the live set")
+    if getattr(sampler, "state", ()) is None:
         raise RuntimeError("cannot checkpoint an uninitialized sampler")
     path = _npz_path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    chain = sampler.chain
     meta = {
         "format": _FORMAT_VERSION,
         "port": _PORT,
@@ -229,11 +314,15 @@ def save_checkpoint(sampler, path):
         "kind": kind,
         "n_params": sampler.n_params,
         "device": sampler.device.type,
-        "chain_dtype": chain.dtype.name,
-        "chain_logp_dtype": getattr(chain, "logp_dtype", chain.dtype).name,
     }
-    arrays = dict(chain_samples=chain.get(held=True),
-                  chain_logp=chain.get_logp(held=True))
+    arrays = {}
+    chain = getattr(sampler, "chain", None)
+    if chain is not None:
+        meta.update(chain_dtype=chain.dtype.name,
+                    chain_logp_dtype=getattr(chain, "logp_dtype",
+                                             chain.dtype).name)
+        arrays.update(chain_samples=chain.get(held=True),
+                      chain_logp=chain.get_logp(held=True))
     _SAVERS[kind](sampler, meta, arrays)
     for name in _GENERATORS:
         gen = getattr(sampler, f"_{name}_gen", None)
@@ -366,19 +455,141 @@ def _load_gibbs(sampler, meta, arrays, dev):
                      sampler._layout}
 
 
+def _unpack(arrays, meta, prefix, like):
+    """The leaves ``{prefix}_leaf_i`` as numpy, after checking their count
+    and shapes against the tensors ``like`` (the sampler's configuration),
+    or their count alone where ``like`` is an int."""
+    n = int(meta.get(f"n_{prefix}_leaves", 0))
+    want = like if isinstance(like, int) else len(like)
+    if n != want:
+        raise ValueError(
+            f"checkpoint stores {n} {prefix} leaves but the sampler's "
+            f"configuration implies {want} — flow/optimizer architecture "
+            "mismatch")
+    leaves = [np.asarray(arrays[f"{prefix}_leaf_{i}"]) for i in range(n)]
+    if not isinstance(like, int):
+        for i, (a, t) in enumerate(zip(leaves, like)):
+            if tuple(a.shape) != tuple(t.shape):
+                raise ValueError(
+                    f"{prefix} leaf {i} shape {a.shape} != the sampler "
+                    f"configuration's {tuple(t.shape)} — same-depth but "
+                    "different-width architecture mismatch")
+    return leaves
+
+
+@torch.no_grad()
+def _set_params(params, leaves):
+    for p, a in zip(params, leaves):
+        p.copy_(torch.from_numpy(np.array(a)).to(p.device, p.dtype))
+
+
+def _load_smc(sampler, meta, arrays, dev):
+    from mcmcpp_tpu_torch.optim import adam_from_leaves
+    from mcmcpp_tpu_torch.smc import SMCState
+
+    sampler.state = SMCState(*(dev(name).to(sampler.dtype)
+                               for name in SMCState._fields))
+    sampler.n_stages = int(meta["n_stages"])
+    sampler.beta_ladder = [float(b) for b in meta["beta_ladder"]]
+    if sampler._flow is not None:
+        params = sampler._flow.param_list()
+        leaves = _unpack(arrays, meta, "flow", 3 * len(params) + 1)
+        _set_params(params, leaves[:len(params)])
+        sampler._flow_opt_state = adam_from_leaves(leaves[len(params):],
+                                                   params)
+
+
+def _load_nested(sampler, meta, arrays, dev):
+    sampler._live = dev("live").to(sampler.dtype)
+    sampler._ll, sampler._lpp = dev("ll"), dev("lpp")
+
+    def parts(name):
+        a = np.asarray(arrays[name])
+        return [a] if a.shape[0] else []
+
+    sampler._dead_pos = parts("dead_pos")
+    sampler._dead_ll = parts("dead_ll")
+    sampler._dead_logw = parts("dead_logw")
+    sampler._logz, sampler._logx = float(meta["logz"]), float(meta["logx"])
+    sampler._n_calls = int(meta["n_calls"])
+    sampler._iters_done = int(meta["iters_done"])
+    sampler._low_acc_warned = bool(meta["low_acc_warned"])
+    sampler.result = None  # stale; run() finalizes again
+
+
+def _load_neutra(sampler, meta, arrays, dev):
+    from mcmcpp_tpu_torch.neutra import FitResult
+    from mcmcpp_tpu_torch.optim import adam_from_leaves
+
+    params = sampler.params
+    _set_params(params, _unpack(arrays, meta, "flow", params))
+    sampler._opt_state = (
+        adam_from_leaves(_unpack(arrays, meta, "opt", 2 * len(params) + 1),
+                         params)
+        if "n_opt_leaves" in meta else None)
+    for attr in ("fit_result", "refit_result"):
+        hist = arrays.get(f"{attr}_hist")
+        setattr(sampler, attr, None if hist is None else FitResult(
+            np.asarray(hist), float(np.asarray(hist)[-100:].mean())))
+
+
+def _load_advi(sampler, meta, arrays, dev):
+    from mcmcpp_tpu_torch.optim import adam_from_leaves
+
+    like = list(sampler.params)
+    leaves = _unpack(arrays, meta, "vi", like)
+    sampler.params = type(sampler.params)(*(
+        torch.from_numpy(np.array(a)).to(t.device, t.dtype)
+        for a, t in zip(leaves, like)))
+    sampler.opt_state = adam_from_leaves(
+        _unpack(arrays, meta, "opt", 2 * len(like) + 1), like)
+    sampler.elbo_trace = [float(v) for v in arrays["elbo_trace"]]
+
+
+#: the kinds whose file layout is the JAX package's, array for array, so
+#: ``convert.sampler_from_jax_checkpoint`` loads its files with these
+SHARED_LOADERS = ("smc", "nested", "neutra", "advi")
+
 _LOADERS = {"ensemble": _load_ensemble, "gradient": _load_gradient,
             "sgmcmc": _load_sgmcmc, "mclmc": _load_mclmc, "mams": _load_mclmc,
             "pt": _load_pt, "pcn": _load_pcn, "elliptical": _load_elliptical,
-            "gibbs": _load_gibbs}
+            "gibbs": _load_gibbs, "smc": _load_smc, "nested": _load_nested,
+            "neutra": _load_neutra, "advi": _load_advi}
 
 
 def refuse_geometry(kind, meta, sampler):
-    """Raise if the file's geometry (walkers, chains, ladder, power mode,
-    block layout) differs from ``sampler``'s; shared with
+    """Raise if the file's geometry (walkers, chains, particles, ladder,
+    power mode, block layout, the nested sampler's configuration, the flow
+    family, full rank) differs from ``sampler``'s; shared with
     ``convert.sampler_from_jax_checkpoint``."""
     if kind in ("ensemble", "pt"):
         if meta["n_walkers"] != sampler.n_walkers:
             raise ValueError("walker count mismatch")
+    elif kind == "smc":
+        if meta["n_particles"] != sampler.n:
+            raise ValueError("particle count mismatch")
+        n_flow = int(meta.get("n_flow_leaves", 0))
+        if (n_flow > 0) != (sampler._flow is not None):
+            raise ValueError(
+                f"flow-mutation mismatch: checkpoint "
+                f"{'has' if n_flow else 'lacks'} flow state but the sampler "
+                f"was built with mutation={sampler.mutation!r}")
+    elif kind == "nested":
+        for field in NESTED_FIELDS:
+            # n_mcmc and a are absent from early JAX files: the remaining
+            # fields still guard the load
+            if field in meta and meta[field] != getattr(sampler, field):
+                raise ValueError(
+                    f"{field} mismatch: checkpoint {meta[field]!r}, "
+                    f"sampler {getattr(sampler, field)!r}")
+    elif kind == "neutra":
+        if meta["flow"] != type(sampler.flow).__name__:
+            raise ValueError(f"flow family mismatch: checkpoint "
+                             f"{meta['flow']}, sampler "
+                             f"{type(sampler.flow).__name__}")
+    elif kind == "advi":
+        if bool(meta["full_rank"]) != bool(sampler.full_rank):
+            raise ValueError("checkpoint/sampler disagree on full_rank mode")
     elif meta["n_chains"] != sampler.n_chains:
         raise ValueError("chain count mismatch")
     if kind == "pt":
@@ -494,10 +705,11 @@ def load_checkpoint(sampler, path, allow_device_change=False):
                 _reseeded(gen, saved)
             else:
                 gen.set_state(torch.from_numpy(saved))
-    sampler.chain.clear()
-    if arrays["chain_samples"].shape[0]:
-        sampler.chain.append(
-            from_held(arrays["chain_samples"], meta["chain_dtype"]),
-            from_held(arrays["chain_logp"], meta["chain_logp_dtype"]),
-        )
+    if getattr(sampler, "chain", None) is not None:
+        sampler.chain.clear()
+        if arrays["chain_samples"].shape[0]:
+            sampler.chain.append(
+                from_held(arrays["chain_samples"], meta["chain_dtype"]),
+                from_held(arrays["chain_logp"], meta["chain_logp_dtype"]),
+            )
     return sampler

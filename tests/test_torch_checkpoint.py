@@ -334,6 +334,8 @@ def test_neither_package_takes_the_others_file(tmp_path):
     with pytest.raises(ValueError, match="load_checkpoint"):
         sampler_from_jax_checkpoint(arrays, port_meta, p)
     with pytest.raises(ValueError, match="only the ensemble"):
+        sampler_from_jax_checkpoint(arrays, dict(meta, kind="pmmh"), p)
+    with pytest.raises(TypeError, match="SMCSampler"):
         sampler_from_jax_checkpoint(arrays, dict(meta, kind="smc"), p)
     with pytest.raises(TypeError, match="ParallelTemperingSampler"):
         sampler_from_jax_checkpoint(arrays, dict(meta, kind="pt"), p)

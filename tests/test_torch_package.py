@@ -31,7 +31,7 @@ def test_import_pulls_in_no_jax_or_triton():
 
 
 def test_sources_import_no_jax():
-    banned = ("jax", "jaxlib", "mcmcpp_tpu", "triton", "ml_dtypes")
+    banned = ("jax", "jaxlib", "mcmcpp_tpu", "triton", "ml_dtypes", "optax")
     files = sorted(PKG.rglob("*.py"))
     assert len(files) >= 40
     for new in ("chain_disk.py", "convergence.py", "export.py",
@@ -46,7 +46,9 @@ def test_sources_import_no_jax():
                 "gradient/barker.py", "gradient/nuts.py", "gradient/chees.py",
                 "gradient/meads.py", "gradient/mclmc.py",
                 "gradient/sgmcmc.py", "tempering.py", "pcn.py",
-                "elliptical.py", "gibbs.py"):
+                "elliptical.py", "gibbs.py", "optim.py", "neutra.py",
+                "vi.py", "smc.py", "nested.py", "svgd.py", "pathfinder.py",
+                "map_laplace.py"):
         assert PKG / new in files, new
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
@@ -176,3 +178,60 @@ def test_population_engines_on_cuda_without_gpu_raise(name):
                                                      np.ones(2)}
     with pytest.raises(RuntimeError, match="is_available"):
         getattr(mt, name)(*args, **kw)
+
+
+EVIDENCE_MODULES = ("optim", "neutra", "vi", "smc", "nested", "svgd",
+                    "pathfinder", "map_laplace")
+
+
+def test_evidence_import_pulls_in_no_jax_optax_or_triton():
+    code = ("import sys\n"
+            + "".join(f"import mcmcpp_tpu_torch.{m}\n"
+                      for m in EVIDENCE_MODULES)
+            + "bad = [m for m in ('jax', 'optax', 'triton', 'mcmcpp_tpu') "
+            "if m in sys.modules]; print(bad); sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+# the JAX package's exports of the evidence and variational engines
+# (mcmcpp_tpu/__init__.py)
+EVIDENCE_NAMES = ("SMCSampler", "NestedSampler", "ADVI", "SVGD", "find_map",
+                  "laplace", "laplace_sample", "multi_pathfinder",
+                  "pathfinder", "NeuTra", "RealNVP", "IAF", "SplineCoupling",
+                  "nested_to_inference_dict")
+
+
+@pytest.mark.parametrize("name", EVIDENCE_NAMES)
+def test_exports_the_jax_packages_evidence_names(name):
+    import mcmcpp_tpu_torch as mt
+
+    assert name in mt.__all__ and getattr(mt, name) is not None
+
+
+@pytest.mark.parametrize("name", [
+    "SMCSampler", "NestedSampler", "NeuTra", "ADVI", "SVGD", "pathfinder",
+    "multi_pathfinder", "find_map"])
+def test_evidence_engines_on_cuda_without_gpu_raise(name):
+    """The evidence and variational engines run on "cuda" unless asked for
+    the CPU, and never fall back to it."""
+    if torch.cuda.is_available():
+        pytest.skip("this box has a GPU")
+    import mcmcpp_tpu_torch as mt
+
+    def logp(t):
+        return -0.5 * torch.sum(t * t)
+
+    args = {
+        "SMCSampler": (logp, logp, None, 8, 2),
+        "NestedSampler": (logp, logp, None, 2),
+        "NeuTra": (logp, 2),
+        "ADVI": (logp, 2),
+        "SVGD": (logp, 8, 2),
+        "pathfinder": (logp, np.zeros(2)),
+        "multi_pathfinder": (logp, 4, np.zeros(2)),
+        "find_map": (logp, np.zeros(2)),
+    }[name]
+    with pytest.raises(RuntimeError, match="is_available"):
+        getattr(mt, name)(*args)
