@@ -118,6 +118,24 @@ Builds the port's CUDA kernels from ``mcmcpp_tpu_torch/csrc/`` (into
    SMC (stage by stage), nested sampling and NeuTra's fit, with each
    checkpoint's bytes and seconds. Every engine prints its rate, host
    syncs per stage or iteration and peak memory;
+12. (before 7) the DSL, the GP models and the rest of the analysis layer:
+   (a) a hierarchical Bayesian logistic regression at the German-credit
+   shape (phase 9 (b)'s data, a HalfNormal scale over 25 coefficients)
+   written in the DSL: its logp and gradient against the same posterior
+   written by hand on 2^14 random points, ChEES on both at 2^14 chains
+   (R-hat < 1.01, means within 5 MC standard errors of each other), and
+   ``EnsembleSampler`` + ``FusedStretchMove`` at W = 2^20 on the DSL's
+   vmapped logp, whose split kernels are counted (``launches_dsl_path``)
+   and held bit for bit against their plain versions on one half-step's
+   inputs; (b) eight schools through the ported example at 4096 chains
+   against the JAX package's long run; (c) the exact GP's log marginal and
+   lengthscale gradient at N = 4096 against float64 numpy/scipy,
+   ``gram_cholesky``'s jitter level against JAX's on grams that escalate on
+   the CPU, the HSGP's marginal and gradient at N = 2^17, m = 64; (d)
+   ``global_stats`` on a (2000, 2^14, 10) chain on the card against the local
+   functions, ``ksd``, bridge sampling on the 10-D conjugate Gaussian, the
+   scoring rules against float64 numpy, and ``sbc_model`` with ChEES fits;
+   after phase 7, the DSL's launches per logp evaluation under the profiler;
 7. times 50 steps of the flagship and of Neal's funnel (wall time and the
    host's enqueue time per step) and takes a ``torch.profiler`` window over
    50 more of each: device time and launches per step by kernel; a flagship
@@ -131,8 +149,8 @@ Builds the port's CUDA kernels from ``mcmcpp_tpu_torch/csrc/`` (into
 
 Any failure raises (non-zero exit); every phase prints its seconds. The
 second-to-last lines are the kernel table (each kernel's launches on the
-main path, the store path and the SMC path, its time beside its plain
-version's and its bound: its bytes, each input read once and each
+main path, the store path, the SMC path and the DSL path, its time beside
+its plain version's and its bound: its bytes, each input read once and each
 output written once, over the card's 3.35 TB/s, or its operations over
 67 TFLOP/s, whichever is larger) and the card's name and power limit; the
 last line is ``{"ok": true, "device": {...}}``. With ``--phases`` the kernel
@@ -769,7 +787,8 @@ def phases_from_argv(argv):
     if len(argv) != 2 or argv[0] != "--phases":
         raise SystemExit("usage: python3 chip_smoke.py [--phases 2,2b,...]")
     chosen = {p.strip() for p in argv[1].split(",") if p.strip()}
-    known = {"1", "2", "2b", "3", "4", "5", "6", "7", "8", "9", "10", "11"}
+    known = {"1", "2", "2b", "3", "4", "5", "6", "7", "8", "9", "10", "11",
+             "12"}
     if not chosen <= known:
         raise SystemExit(f"unknown phases {sorted(chosen - known)}; known: "
                          f"{sorted(known)}")
@@ -1736,6 +1755,626 @@ def evidence_engines(mt, fs, rnd, card, out_dir):
     return smc_launches
 
 
+# phase 12: the DSL, the GP models and the rest of the analysis layer. (a)
+# a hierarchical Bayesian logistic regression at the German-credit shape
+# (phase 9 (b)'s data) in the DSL; (b) eight schools through the ported
+# example; (c) the GPs at their users' widths; (d) the analysis layer at full
+# width. The JAX package's numbers of (b): 512 chains of its ChEES on the
+# CPU, 1000 warmup + 4000 steps at thin 2 (R-hat 1.00014), means and MC
+# standard errors from its own effective_sample_size; the quadrature of the
+# marginal posterior p(mu, tau | y) (theta integrated out) gives 6.4722 and
+# 4.7467 (tests/test_torch_examples.py::jax_eight_schools_reference prints
+# them all)
+DSL_N, DSL_P = 1000, 25
+DSL_CHAINS, DSL_WARM, DSL_STEPS = 1 << 14, 300, 200
+DSL_WALKERS, DSL_ENSEMBLE_STEPS = 1 << 20, 20
+SCHOOLS_CHAINS = 4096
+SCHOOLS_JAX = {"mu": (6.477221, 0.004168), "tau": (4.758599, 0.004111)}
+GP_N, HSGP_N, HSGP_M = 4096, 1 << 17, 64
+# RBF grams whose float32 Cholesky escalates the jitter on the CPU, and the
+# level JAX's gram_cholesky picks there (tests/test_torch_gp.py measures the
+# same levels with both packages): (points, lengthscale, base jitter, level)
+GP_ESCALATING = {
+    "48-point grid, l=0.8, jitter 1e-8": (np.linspace(0, 1, 48), 0.8, 1e-8,
+                                          2),
+    "24 points twice, l=0.8, jitter 1e-8": (
+        np.repeat(np.linspace(0, 1, 48)[:24], 2), 0.8, 1e-8, 2),
+    "256-point grid, l=0.3, jitter 1e-6": (np.linspace(0, 1, 256), 0.3,
+                                           1e-6, 1),
+}
+AN_STEPS, AN_WALKERS, AN_P = 2000, 1 << 14, 10
+SBC_SIMS, SBC_CHAINS, SBC_WARM, SBC_STEPS = 64, 1024, 60, 10
+# eight schools: ChEES takes ~30 leapfrogs a transition there, each a
+# vmapped DSL logp and its autograd backward, host-bound at ~2.7 ms (83 ms a
+# transition on the H100); one check of run_until_converged after 500 steps
+# (R-hat and the means are the gates, not its tau-stability rule)
+SCHOOLS_WARM, SCHOOLS_MAX, SCHOOLS_CHECK = 200, 500, 500
+# the eight-schools example's posterior predictive thins to this many draws
+SCHOOLS_PREDICTIVE = 1000
+# a Truncated Gamma observe site with a sampled concentration: its
+# normalizer's gradient runs through gammainc's a-derivative
+TRUNC_N, TRUNC_LOW = 1000, 0.5
+
+
+def dsl_logistic(mt, dev):
+    """(DSL model, the same posterior written by hand in torch (batched),
+    the data target): scale ~ HalfNormal(1), w | scale ~ N(0, scale² I),
+    y ~ Bernoulli(logits = X w) on phase 9 (b)'s synthetic data."""
+    import torch.nn.functional as F
+
+    from mcmcpp_tpu_torch import dsl
+
+    logit = mt.logistic_regression(n_data=DSL_N, dim=DSL_P, seed=0,
+                                   device=dev)
+    x_t = logit.x_t
+    y = np.asarray(logit.extras["y"], np.float64)
+    model = (dsl.Model()
+             .param("scale", dsl.HalfNormal(1.0))
+             .param("w", lambda p: dsl.Normal(0.0, p["scale"]),
+                    shape=(DSL_P,), transform=dsl.Identity())
+             .observe("y", lambda p: dsl.Bernoulli(logits=x_t @ p["w"]), y))
+    half_log_2pi = 0.5 * np.log(2.0 * np.pi)
+
+    def hand(t):
+        u = t[:, 0]
+        scale = torch.exp(u)
+        w = t[:, 1:]
+        lp = (np.log(2.0) - 0.5 * scale * scale - half_log_2pi + u
+              - 0.5 * torch.sum(w * w, dim=-1) / (scale * scale)
+              - DSL_P * (u + half_log_2pi))
+        return lp + torch.sum(F.logsigmoid(logit.sign_t * (t[:, 1:]
+                                                           @ x_t.T)), dim=-1)
+
+    return model, hand, logit
+
+
+def dsl_truncated_gamma():
+    """A DSL model whose observe site is a Gamma truncated below with a
+    sampled concentration: alpha ~ LogNormal(1, 0.5), rate ~ HalfNormal(2),
+    y ~ Gamma(alpha, rate) on [TRUNC_LOW, inf), on TRUNC_N draws of
+    Gamma(3, 1.5) above the bound (seed 4)."""
+    from mcmcpp_tpu_torch import dsl
+
+    y = np.random.default_rng(4).gamma(3.0, 1.0 / 1.5, 4 * TRUNC_N)
+    y = y[y > TRUNC_LOW][:TRUNC_N]
+    return (dsl.Model()
+            .param("alpha", dsl.LogNormal(1.0, 0.5))
+            .param("rate", dsl.HalfNormal(2.0))
+            .observe("y", lambda p: dsl.Truncated(
+                dsl.Gamma(p["alpha"], p["rate"]), low=TRUNC_LOW), y))
+
+
+def chees_fit(mt, logp, dim, chains, n_warm, n_steps, seed, card, label):
+    """ChEES on a batched logp: warmup, then ``n_steps`` stored; prints
+    transitions/s and host syncs per step; returns (samples (S, C, P),
+    seconds of the stored steps, syncs per step)."""
+    s = mt.CheesHMCSampler(logp, chains, dim, seed=seed, device="cuda")
+    s.init_ball(torch.zeros(dim, device="cuda"), 0.1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s.warmup(n_warm)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    with counting_syncs() as syncs:
+        t0 = time.perf_counter()
+        if not s.run(n_steps):
+            raise AssertionError(f"{label}: chain capacity hit")
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    x = s.get_samples()
+    if x.shape != (n_steps, chains, dim) or not np.isfinite(x).all():
+        raise AssertionError(f"{label}: stored samples {x.shape}")
+    print(f"  {label}: C={chains} P={dim}, warmup {n_warm} in {warm_s:.2f} "
+          f"s, {n_steps} steps in {run_s:.3f} s: "
+          f"{chains * n_steps / run_s:.6e} transitions/s, "
+          f"{len(syncs) / n_steps:.3f} host syncs per step, step "
+          f"{float(torch.as_tensor(s.step_size).mean()):.4f}, trajectory "
+          f"{s.traj_length:.3f} [{card}]", flush=True)
+    return x, run_s, len(syncs) / n_steps
+
+
+def dsl_gp_analysis(mt, fs, rnd, card, out_dir):
+    """Phase 12: the DSL, the GP models and the rest of the analysis layer on
+    the card. (a) the DSL's logp and gradient against the same posterior
+    written by hand, ChEES on both, and the ensemble sampler with
+    FusedStretchMove on the DSL's vmapped logp, whose split kernels are
+    counted and held bit for bit against their plain versions; (b) eight
+    schools through the ported example against the JAX package's long run;
+    (c) the exact GP's log marginal and gradient against float64
+    numpy/scipy, gram_cholesky's jitter level against JAX's, the HSGP's
+    marginal and gradient at 2^17 points; (d) global_stats on a 1.3 GB
+    chain against the local functions, ksd, bridge sampling, the scores and
+    sbc_model. Returns {kernel: launches on the DSL path}."""
+    import scipy.linalg as sla
+
+    from mcmcpp_tpu_torch.analysis import global_stats as gs
+    from mcmcpp_tpu_torch.examples import hierarchical
+    from mcmcpp_tpu_torch.gradient.hmc import logp_and_grad
+    from mcmcpp_tpu_torch.models import gp, hsgp
+
+    dev = torch.device("cuda")
+    an = mt.analysis
+
+    def fenced(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # -- (a) the DSL on the logistic regression -----------------------------
+    model, hand, logit = dsl_logistic(mt, dev)
+    logp, dim, constrain = model.build()
+    vlogp = torch.func.vmap(logp)
+    q = 0.3 * torch.randn((DSL_CHAINS, dim), device=dev,
+                          generator=torch.Generator(dev).manual_seed(3))
+    (lp_d, g_d), t_d = fenced(lambda: logp_and_grad(vlogp, q))
+    (lp_h, g_h), t_h = fenced(lambda: logp_and_grad(hand, q))
+    for _ in range(3):  # warm, then time 20 calls of each
+        logp_and_grad(vlogp, q)
+        logp_and_grad(hand, q)
+    _, t_d = fenced(lambda: [logp_and_grad(vlogp, q) for _ in range(20)])
+    _, t_h = fenced(lambda: [logp_and_grad(hand, q) for _ in range(20)])
+    err_lp = float(((lp_d - lp_h).abs() / lp_h.abs()).max())
+    err_g = float(((g_d - g_h).abs().max(dim=1).values
+                   / g_h.abs().max(dim=1).values).max())
+    print(f"  DSL logistic regression (N={DSL_N}, {DSL_P} coefficients and a "
+          f"HalfNormal scale, dim {dim}) at {DSL_CHAINS} random theta: logp "
+          f"within {err_lp:.3e} and its gradient within {err_g:.3e} relative "
+          f"of the hand-written torch posterior (bound 1e-5); logp_and_grad "
+          f"{t_d / 20 * 1e3:.3f} ms (DSL, vmapped) against {t_h / 20 * 1e3:.3f}"
+          f" ms (hand-written) [{card}]", flush=True)
+    if not (err_lp <= 1e-5 and err_g <= 1e-5):
+        raise AssertionError("the DSL's logp or gradient differs from the "
+                             "hand-written posterior")
+
+    # the Truncated Gamma site: its gradient in the concentration runs the
+    # incomplete gamma's a-derivative, whose series stops once the whole
+    # vmapped batch has converged; timed against every term run
+    from mcmcpp_tpu_torch.ops import special
+
+    tlogp, tdim, _ = dsl_truncated_gamma().build()
+    vtlogp = torch.func.vmap(tlogp)
+    qt = (torch.tensor([np.log(3.0), np.log(1.5)], dtype=torch.float32,
+                       device=dev)
+          + 0.3 * torch.randn((DSL_CHAINS, tdim), device=dev,
+                              generator=torch.Generator(dev).manual_seed(5)))
+    (lp_t, g_t), _ = fenced(lambda: logp_and_grad(vtlogp, qt))
+    lp_ref, g_ref = logp_and_grad(torch.func.vmap(tlogp), qt[:64].cpu().double())
+    e_tv = float(((lp_t[:64].cpu().double() - lp_ref).abs()
+                  / lp_ref.abs()).max())
+    e_tg = float(((g_t[:64].cpu().double() - g_ref).abs().max(dim=1).values
+                  / g_ref.abs().max(dim=1).values).max())
+    _, t_stop = fenced(lambda: [logp_and_grad(vtlogp, qt) for _ in range(5)])
+    all_done = special._all_done
+    special._all_done = lambda live, term: False
+    try:
+        logp_and_grad(vtlogp, qt)
+        _, t_full = fenced(lambda: [logp_and_grad(vtlogp, qt)
+                                    for _ in range(2)])
+    finally:
+        special._all_done = all_done
+    print(f"  DSL Truncated Gamma site (N={TRUNC_N}, sampled concentration "
+          f"and rate) at {DSL_CHAINS} random theta: logp within {e_tv:.2e} "
+          f"and gradient within {e_tg:.2e} relative of the same logp in "
+          f"float64 on the host (64 rows; bounds 1e-4, 1e-3); "
+          f"logp_and_grad {t_stop / 5 * 1e3:.3f} ms, with every series and "
+          f"fraction term run {t_full / 2 * 1e3:.3f} ms [{card}]",
+          flush=True)
+    if not (torch.isfinite(g_t).all() and e_tv <= 1e-4 and e_tg <= 1e-3):
+        raise AssertionError("the Truncated Gamma DSL logp or its gradient "
+                             "differs from its float64 value")
+    del qt, lp_t, g_t
+    fits = {}
+    for label, fn, seed in [("DSL", vlogp, 11), ("hand-written", hand, 12)]:
+        x, run_s, _ = chees_fit(mt, fn, dim, DSL_CHAINS, DSL_WARM,
+                                DSL_STEPS, seed, card, f"ChEES on the "
+                                f"{label} logistic posterior")
+        rhat = an.potential_scale_reduction(x, rank_normalized=False)
+        xt = torch.from_numpy(x).to(dev)
+        ess = np.asarray(an.effective_sample_size(xt))
+        flat = xt.reshape(-1, dim).double()
+        fits[label] = (flat.mean(0).cpu().numpy(), flat.var(0).cpu().numpy(),
+                       ess, rhat)
+        print(f"    R-hat max {rhat.max():.5f} (bound 1.01), worst ESS "
+              f"{np.nanmin(ess):.0f}", flush=True)
+        if not rhat.max() < 1.01:
+            raise AssertionError(f"ChEES on the {label} posterior: R-hat "
+                                 f"{rhat.max()}")
+        del x, xt, flat
+    (m_d, v_d, e_d, _), (m_h, v_h, e_h, _) = fits["DSL"], fits["hand-written"]
+    z = np.abs(m_d - m_h) / np.sqrt(v_d / e_d + v_h / e_h)
+    print(f"    DSL and hand-written posterior means within {z.max():.2f} MC "
+          "standard errors (bound 5)", flush=True)
+    within_5se("DSL against hand-written means", float(z.max()))
+
+    class Capturing(mt.FusedStretchMove):
+        """FusedStretchMove that keeps the inputs of its first half-step."""
+
+        captured = None
+
+        def apply(self, active, active_logp, other, logp_fn, state, noise,
+                  beta=1.0):
+            if self.captured is None:
+                self.captured = (active, active_logp, other, noise, logp_fn)
+            return super().apply(active, active_logp, other, logp_fn, state,
+                                 noise, beta)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mover = Capturing()
+    s = mt.EnsembleSampler(logp, DSL_WALKERS, dim, mover=mover, seed=0,
+                           device="cuda")
+    s.init_ball(np.zeros(dim), 0.1)
+    reset_launches(fs)
+    (_, secs) = fenced(lambda: s.run_mcmc(DSL_ENSEMBLE_STEPS, store=False))
+    launches = dict(fs.LAUNCHES)
+    want = 2 * DSL_ENSEMBLE_STEPS
+    if launches != {"fused_stretch_half": 0, "stretch_propose": want,
+                    "stretch_accept": want}:
+        raise AssertionError(f"the DSL ensemble launched {launches}, expected "
+                             f"{want} of each split kernel")
+    act, lp_old, other, (shift, key), logp_fn = mover.captured
+    u, ue = rnd.philox_unit_uniforms(key, act.shape[0], dev)
+    k_prop, k_fac = fs.stretch_propose(act, other, shift, key)
+    r_prop, r_fac = fs.stretch_propose_reference(act, other, shift, u)
+    lp_new = logp_fn(r_prop)
+    k_acc = fs.stretch_accept(act, r_prop, lp_old, lp_new, r_fac, key)
+    r_acc = fs.stretch_accept_reference(act, r_prop, lp_old, lp_new, r_fac,
+                                        ue)
+    torch.cuda.synchronize()
+    same = (torch.equal(k_prop, r_prop) and torch.equal(k_fac, r_fac)
+            and all(torch.equal(a, b) for a, b in zip(k_acc, r_acc)))
+    n_acc = int(r_acc[2].sum())
+    if not same or not 0 < n_acc < act.shape[0]:
+        raise AssertionError("DSL half-step inputs: a split kernel differs "
+                             f"from its plain version ({n_acc} accepts)")
+    acc = float(np.mean(s.acceptance_fraction))
+    print(f"  EnsembleSampler + FusedStretchMove on the DSL's vmapped logp, "
+          f"W={DSL_WALKERS} P={dim}: {DSL_ENSEMBLE_STEPS} steps in "
+          f"{secs:.3f} s = {DSL_WALKERS * DSL_ENSEMBLE_STEPS / secs:.6e} "
+          f"walker-updates/s, acceptance {acc:.3f}, peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB; split "
+          f"kernels {launches}; on one half-step's inputs (n={act.shape[0]}"
+          f") stretch_propose and stretch_accept equal their plain versions "
+          f"bit for bit, {n_acc} accepts [{card}]", flush=True)
+    dsl_launches = {k: v for k, v in launches.items() if v}
+    del mover, s, act, lp_old, other, logp_fn, u, ue, k_prop, k_fac, r_prop
+    del r_fac, lp_new, k_acc, r_acc, q, lp_d, g_d, lp_h, g_h
+    torch.cuda.empty_cache()
+
+    # -- (b) eight schools through the ported example ------------------------
+    (out, secs) = fenced(lambda: hierarchical.run(
+        chains=SCHOOLS_CHAINS, warmup=SCHOOLS_WARM, max_steps=SCHOOLS_MAX,
+        check_every=SCHOOLS_CHECK, device="cuda"))
+    rep, draws, sch = out["report"], out["draws"], out["sampler"]
+    steps = draws["mu"].shape[0] // SCHOOLS_CHAINS
+    notes = []
+    zs = []
+    for name, (jmean, jse) in SCHOOLS_JAX.items():
+        v = draws[name].reshape(steps, SCHOOLS_CHAINS)
+        ess = float(an.effective_sample_size(torch.from_numpy(v[:, :, None])
+                                             .to(dev))[0])
+        se = v.std() / np.sqrt(ess)
+        z = abs(v.mean() - jmean) / np.sqrt(se ** 2 + jse ** 2)
+        zs.append(z)
+        notes.append(f"{name} {v.mean():.5f} (JAX {jmean}; {z:.2f} SE, ESS "
+                     f"{ess:.0f})")
+    print(f"  eight schools (the ported example), {SCHOOLS_CHAINS} chains: "
+          f"{rep.reason}, {rep.steps_run} steps, R-hat max "
+          f"{np.max(rep.rhat):.5f} (bound 1.01), {secs:.1f} s; "
+          + "; ".join(notes) + f" [{card}]", flush=True)
+    if not np.max(rep.rhat) < 1.01:
+        raise AssertionError(f"eight schools: R-hat {np.max(rep.rhat)} "
+                             f"({rep.reason})")
+    within_5se("eight schools against the JAX package's run", *zs)
+    # the posterior predictive, as the example's main takes it (thinned to
+    # SCHOOLS_PREDICTIVE draws) and on every stored draw: y_rep - theta is
+    # N(0, sigma^2) noise, whose mean and variance are held to 5 standard
+    # errors
+    flat, model = out["flat"], out["model"]
+    constrain = model.build()[2]
+    gen = torch.Generator(dev).manual_seed(1)
+    pp, zs = [], []
+    for take in (flat[::max(1, len(flat) // SCHOOLS_PREDICTIVE)], flat):
+        (y_rep, secs) = fenced(
+            lambda: model.posterior_predictive(gen, take)["y"])
+        resid = (y_rep - constrain(take)["theta"]) / hierarchical.SIGMA
+        n = len(take)
+        zs += [float(np.max(np.abs(resid.mean(0)) * np.sqrt(n))),
+               float(np.max(np.abs(resid.var(0) - 1.0) / np.sqrt(2.0 / n)))]
+        pp.append(f"{n} draws in {secs * 1e3:.1f} ms (y_rep - theta: mean "
+                  f"{zs[-2]:.2f} SE from 0, variance {zs[-1]:.2f} SE from "
+                  "sigma^2)")
+    print("  eight schools posterior predictive: " + "; ".join(pp)
+          + f" [{card}]", flush=True)
+    within_5se("eight schools posterior predictive", *zs)
+    del out, draws, sch, flat, model, y_rep, resid
+    torch.cuda.empty_cache()
+
+    # -- (c) the Gaussian processes ------------------------------------------
+    rng = np.random.default_rng(12)
+    xs = np.sort(rng.uniform(0.0, 10.0, GP_N))
+    ys = np.sin(xs) + 0.1 * rng.standard_normal(GP_N)
+    ell0, noise = 0.7, 0.1
+    ell = torch.tensor(ell0, dtype=torch.float64, device=dev,
+                       requires_grad=True)
+    xs_t = torch.from_numpy(xs).to(dev)
+    ys_t = torch.from_numpy(ys).to(dev)
+
+    def marginal():
+        lm = gp.gp_log_marginal(gp.RBF(ell, 1.0) + gp.WhiteNoise(1e-6), xs_t,
+                                ys_t, noise)
+        (g,) = torch.autograd.grad(lm, ell)
+        return lm.detach(), g
+
+    marginal()
+    (lm, g), t_gp = fenced(marginal)
+    d2 = (xs[:, None] - xs[None, :]) ** 2
+    k_rbf = np.exp(-0.5 * d2 / ell0 ** 2)
+    k = k_rbf + (1e-6 + noise ** 2 + 1e-6) * np.eye(GP_N)
+    t0 = time.perf_counter()
+    cf = sla.cho_factor(k, lower=True)
+    alpha = sla.cho_solve(cf, ys)
+    want = (-0.5 * ys @ alpha - np.sum(np.log(np.diag(cf[0])))
+            - GP_N / 2 * np.log(2 * np.pi))
+    dk = k_rbf * d2 / ell0 ** 3
+    kinv = sla.cho_solve(cf, np.eye(GP_N))
+    dwant = 0.5 * alpha @ dk @ alpha - 0.5 * np.sum(kinv * dk)
+    ref_s = time.perf_counter() - t0
+    e_v = abs(float(lm) - want) / abs(want)
+    e_g = abs(float(g) - dwant) / abs(dwant)
+    print(f"  gp_log_marginal, RBF + white noise, N={GP_N} float64: "
+          f"{float(lm):.6f} and d/d(lengthscale) {float(g):.6f}, {e_v:.2e} "
+          f"and {e_g:.2e} relative from numpy/scipy float64 (bounds 1e-9, "
+          f"1e-6); {t_gp * 1e3:.2f} ms on the card (value and gradient), "
+          f"{ref_s:.2f} s for the host reference [{card}]", flush=True)
+    if not (e_v <= 1e-9 and e_g <= 1e-6):
+        raise AssertionError("gp_log_marginal differs from numpy/scipy")
+    for label, (pts, lscale, jitter, level) in GP_ESCALATING.items():
+        kk = gp.RBF(lscale, 1.0).gram(torch.tensor(pts[:, None],
+                                                   dtype=torch.float32,
+                                                   device=dev))
+        (got, secs) = fenced(lambda: int(gp.jitter_level(kk, jitter)))
+        chol = gp.gram_cholesky(gp.RBF(lscale, 1.0),
+                                torch.tensor(pts[:, None],
+                                             dtype=torch.float32,
+                                             device=dev), jitter=jitter)
+        recon = float((chol @ chol.T - kk - jitter * 10.0 ** got
+                       * torch.eye(len(pts), device=dev)).abs().max())
+        print(f"  gram_cholesky, {label}: jitter level {got} (JAX on the CPU: "
+              f"{level}), factor reproduces the Gram to {recon:.2e}, level "
+              f"picked in {secs * 1e3:.2f} ms [{card}]", flush=True)
+        if got != level or not recon <= 1e-4:
+            raise AssertionError(f"gram_cholesky {label}: level {got}, JAX "
+                                 f"picks {level}")
+    xh = rng.uniform(-5.0, 5.0, HSGP_N)
+    yh = (np.sin(xh) + 0.1 * rng.standard_normal(HSGP_N)).astype(np.float32)
+    (basis, secs_basis) = fenced(lambda: hsgp.HSGP(xh, m=HSGP_M, c=1.5,
+                                                   kernel="matern52",
+                                                   device="cuda"))
+    yh_t = torch.from_numpy(yh).to(dev)
+    hyper = torch.tensor([np.log(0.8), 0.0, np.log(0.1)], device=dev,
+                         requires_grad=True)
+
+    def hmarg():
+        lm = hsgp.hsgp_log_marginal(basis, torch.exp(hyper[0]),
+                                    torch.exp(hyper[1]), yh_t,
+                                    torch.exp(hyper[2]))
+        (g,) = torch.autograd.grad(lm, hyper)
+        return lm.detach(), g
+
+    hmarg()
+    (hl, hg), t_h = fenced(hmarg)
+    phi = basis.phi.double().cpu().numpy()
+
+    def np_hmarg(h):
+        s = (hsgp.spectral_density("matern52",
+                                   basis.sqrt_lam.double().cpu(),
+                                   float(np.exp(h[0])),
+                                   float(np.exp(h[1]))).numpy() + 1e-6)
+        sn2 = float(np.exp(h[2])) ** 2 + 1e-6
+        a = sn2 * np.diag(1.0 / s) + phi.T @ phi
+        c = np.linalg.cholesky(a)
+        py = phi.T @ yh.astype(np.float64)
+        w = sla.cho_solve((c, True), py)
+        quad = (yh.astype(np.float64) @ yh - py @ w) / sn2
+        logdet = (2 * np.sum(np.log(np.diag(c))) + np.sum(np.log(s))
+                  + (HSGP_N - HSGP_M) * np.log(sn2))
+        return -0.5 * (quad + logdet + HSGP_N * np.log(2 * np.pi))
+
+    h0 = hyper.detach().double().cpu().numpy()
+    hwant = np_hmarg(h0)
+    hdwant = np.array([(np_hmarg(h0 + 1e-5 * e) - np_hmarg(h0 - 1e-5 * e))
+                       / 2e-5 for e in np.eye(3)])
+    e_v = abs(float(hl) - hwant) / abs(hwant)
+    e_g = float(np.max(np.abs(hg.double().cpu().numpy() - hdwant))
+                / np.max(np.abs(hdwant)))
+    print(f"  HSGP (Matern 5/2, m={HSGP_M}) at N={HSGP_N}, float32: basis in "
+          f"{secs_basis * 1e3:.1f} ms; hsgp_log_marginal {float(hl):.3f} "
+          f"{e_v:.2e} relative from float64 numpy (bound 1e-4), its gradient "
+          f"in (log l, log var, log noise) {e_g:.2e} relative from float64 "
+          f"central differences (bound 1e-2); {t_h * 1e3:.2f} ms for value "
+          f"and gradient [{card}]", flush=True)
+    if not (e_v <= 1e-4 and e_g <= 1e-2):
+        raise AssertionError("hsgp_log_marginal differs from float64 numpy")
+    del basis, phi
+    torch.cuda.empty_cache()
+
+    # -- (d) the analysis layer at full width ---------------------------------
+    gen = torch.Generator(dev).manual_seed(21)
+    phis = torch.linspace(0.2, 0.9, AN_P, device=dev)
+    chain = torch.empty((AN_STEPS, AN_WALKERS, AN_P), device=dev)
+    chain[0] = torch.randn((AN_WALKERS, AN_P), device=dev, generator=gen)
+    innov = torch.sqrt(1 - phis ** 2)
+    for t in range(1, AN_STEPS):
+        chain[t] = phis * chain[t - 1] + innov * torch.randn(
+            (AN_WALKERS, AN_P), device=dev, generator=gen)
+    n_all = AN_STEPS * AN_WALKERS
+    rows = []
+    for label, glob, loc, rtol in [
+            ("autocorr_time", lambda: gs.global_autocorr_time(chain),
+             lambda: an.autocorr_time(chain), 0.0),
+            ("covariance_matrix", lambda: gs.global_covariance_matrix(chain),
+             lambda: an.covariance_matrix(chain), 1e-4),
+            ("split R-hat", lambda: gs.global_split_rhat(chain),
+             lambda: an.potential_scale_reduction(chain,
+                                                  rank_normalized=False),
+             1e-10),
+            ("bulk ESS", lambda: gs.global_ess_bulk(chain, max_knots=n_all),
+             lambda: an.ess_bulk(chain), 1e-9),
+            ("tail ESS", lambda: gs.global_ess_tail(chain, max_knots=n_all),
+             lambda: an.ess_tail(chain), 1e-9)]:
+        g_v, g_s = fenced(glob)
+        l_v, l_s = fenced(loc)
+        g_v, l_v = np.asarray(g_v, np.float64), np.asarray(l_v, np.float64)
+        # an unclosed ACT window gives NaN on both sides, or it fails
+        nan = np.isnan(l_v)
+        err = (float(np.max(np.abs(g_v - l_v)[~nan]
+                            / np.maximum(np.abs(l_v[~nan]), 1e-300)))
+               if (np.isnan(g_v) == nan).all() and not nan.all()
+               else float("inf"))
+        rows.append(f"{label} {err:.1e} ({g_s:.2f} s global, {l_s:.2f} s "
+                    "local)")
+        if not err <= rtol:
+            raise AssertionError(f"global {label} differs from the local "
+                                 f"function by {err} (bound {rtol})")
+    print(f"  global_stats on a ({AN_STEPS}, {AN_WALKERS}, {AN_P}) float32 "
+          f"chain on the card ({chain.numel() * 4 / 1e9:.2f} GB) against the "
+          f"local functions, largest relative difference: " + "; ".join(rows)
+          + f" [{card}]", flush=True)
+    del chain
+    torch.cuda.empty_cache()
+
+    xk = torch.randn((1 << 14, AN_P), device=dev, generator=gen)
+
+    def score_fn(t):
+        return -0.5 * torch.sum(t * t, dim=-1)
+
+    (k_exact, secs) = fenced(lambda: an.ksd(xk, score_fn=score_fn))
+    k_wide = an.ksd(1.3 * xk, score_fn=score_fn)
+    k_shift = an.ksd(xk + 0.3, score_fn=score_fn)
+    print(f"  ksd on {xk.shape[0]} x {AN_P} draws: exact {k_exact:.5f}, "
+          f"over-dispersed (1.3x) {k_wide:.5f}, shifted (+0.3) "
+          f"{k_shift:.5f} (each must be > 5x exact); {secs * 1e3:.1f} ms "
+          f"[{card}]", flush=True)
+    if not (k_wide > 5 * k_exact and k_shift > 5 * k_exact):
+        raise AssertionError("ksd does not rank exact draws first")
+    del xk
+
+    # bridge sampling on the 10-D conjugate Gaussian: theta ~ N(0, 4 I),
+    # y_i ~ N(theta, I), i = 1..4
+    yb = rng.normal(1.0, 1.0, size=(4, AN_P))
+    ybt = torch.tensor(yb, dtype=torch.float32, device=dev)
+
+    def logpost(t):
+        return (-0.5 * (t * t).sum(-1) / 4.0
+                - AN_P / 2 * np.log(2 * np.pi * 4.0)
+                - 0.5 * ((ybt[None] - t[:, None, :]) ** 2).sum((1, 2))
+                - 4 * AN_P / 2 * np.log(2 * np.pi))
+
+    cov = 4.0 * np.ones((4, 4)) + np.eye(4)
+    logz = sum(-0.5 * yb[:, d] @ np.linalg.solve(cov, yb[:, d])
+               - 0.5 * np.linalg.slogdet(cov)[1] - 2 * np.log(2 * np.pi)
+               for d in range(AN_P))
+    prec = 0.25 + 4
+    exact = (yb.sum(0) / prec + prec ** -0.5
+             * rng.standard_normal((1 << 14, AN_P)))
+    (br, secs) = fenced(lambda: an.bridge_log_evidence(
+        logpost, torch.from_numpy(exact).to(dev), seed=1))
+    print(f"  bridge_log_evidence, 10-D conjugate Gaussian, {1 << 14} exact "
+          f"draws: {br.logz:.4f} against {logz:.4f} (bound 0.05), "
+          f"{br.n_iter} iterations, relative ESS {br.rel_ess:.3f}, "
+          f"{secs:.2f} s [{card}]", flush=True)
+    if not (br.converged and abs(br.logz - logz) <= 0.05):
+        raise AssertionError("bridge sampling misses the closed form")
+
+    xs_c = rng.standard_normal((1000, 1024)).astype(np.float32)
+    ob = rng.standard_normal(1000).astype(np.float32)
+    (crps, secs_c) = fenced(lambda: an.crps_ensemble(
+        torch.from_numpy(xs_c).to(dev), torch.from_numpy(ob).to(dev)))
+    # float64 numpy from the definition (all pairwise differences) on the
+    # first 100 locations
+    x64 = xs_c[:100].astype(np.float64)
+    pair = np.abs(x64[:, :, None] - x64[:, None, :]).sum((1, 2)) / (
+        1024 * 1023)
+    want_c = np.abs(x64 - ob[:100, None]).mean(1) - 0.5 * pair
+    e_c = float(np.max(np.abs(crps[:100].cpu().numpy() - want_c)
+                       / np.abs(want_c)))
+    xe = rng.standard_normal((4096, AN_P)).astype(np.float32)
+    oe = rng.standard_normal(AN_P).astype(np.float32)
+    (es, secs_e) = fenced(lambda: an.energy_score(
+        torch.from_numpy(xe).to(dev), torch.from_numpy(oe).to(dev)))
+    xe64 = xe.astype(np.float64)
+    pair = sum(np.linalg.norm(xe64[j] - xe64, axis=1).sum()
+               for j in range(4096)) / (4096 * 4095)
+    want_e = np.linalg.norm(xe64 - oe, axis=1).mean() - 0.5 * pair
+    e_e = abs(float(es) - want_e) / abs(want_e)
+    print(f"  crps_ensemble (1000 locations x 1024 draws) {e_c:.2e} and "
+          f"energy_score (4096 x {AN_P}) {e_e:.2e} relative from float64 "
+          f"numpy (bounds 1e-5, 1e-4); {secs_c * 1e3:.2f} and "
+          f"{secs_e * 1e3:.2f} ms [{card}]", flush=True)
+    if not (e_c <= 1e-5 and e_e <= 1e-4):
+        raise AssertionError("a scoring rule differs from float64 numpy")
+
+    from mcmcpp_tpu_torch.dsl import Model, Normal
+
+    def build_model(sim):
+        y = np.zeros(8) if sim is None else sim["y"]
+        return (Model().param("theta", Normal(0.0, 1.5))
+                .observe("y", lambda p: Normal(p["theta"], 1.0), y))
+
+    def fit(g, lp, d):
+        seed = int(torch.randint(1 << 30, (), generator=g, device=g.device))
+        s = mt.CheesHMCSampler(torch.func.vmap(lp), SBC_CHAINS, d, seed=seed,
+                               device="cuda")
+        s.init_ball(torch.zeros(d, device=dev), 0.5)
+        s.warmup(SBC_WARM)
+        s.run(SBC_STEPS)
+        return s.state.position  # the chains' last states: L = 1024
+
+    (res, secs) = fenced(lambda: an.sbc_model(build_model, fit, SBC_SIMS,
+                                              seed=5, device="cuda"))
+    ranks, n_draws = res
+    stat, pval = an.sbc_uniformity(ranks, n_draws)
+    print(f"  sbc_model, conjugate normal model, {SBC_SIMS} simulations each "
+          f"fit by ChEES at {SBC_CHAINS} chains ({SBC_WARM} + {SBC_STEPS} "
+          f"steps, L = {n_draws}): chi2 {stat[0]:.2f}, p {pval[0]:.4f} (must "
+          f"not reject at 0.01); {secs:.1f} s [{card}]", flush=True)
+    if not pval[0] > 0.01:
+        raise AssertionError(f"sbc_model rejects uniformity: p={pval[0]}")
+    return dsl_launches
+
+
+def dsl_launch_count(mt, card):
+    """Phase 12 (a)'s launches per logp-and-gradient evaluation, DSL against
+    hand-written, and the Truncated Gamma model's, under the profiler: after
+    phase 7, as no timing may follow a profiler window in this process."""
+    from mcmcpp_tpu_torch.gradient.hmc import logp_and_grad
+
+    dev = torch.device("cuda")
+    model, hand, _ = dsl_logistic(mt, dev)
+    logp, dim, _ = model.build()
+    vlogp = torch.func.vmap(logp)
+    q = 0.3 * torch.randn((DSL_CHAINS, dim), device=dev)
+    tlogp, tdim, _ = dsl_truncated_gamma().build()
+    qt = (torch.tensor([np.log(3.0), np.log(1.5)], dtype=torch.float32,
+                       device=dev)
+          + 0.3 * torch.randn((DSL_CHAINS, tdim), device=dev))
+    out = []
+    for label, fn, q in [("DSL", vlogp, q), ("hand-written", hand, q),
+                         ("DSL Truncated Gamma", torch.func.vmap(tlogp), qt)]:
+        logp_and_grad(fn, q)
+        rows = device_rows_per_step(lambda: logp_and_grad(fn, q), 1)
+        n = sum(c for c, _ in rows.values())
+        us = sum(u for _, u in rows.values())
+        out.append(f"{label} {n:g} launches, {us:.1f} us of device time")
+    print(f"  launches per logp-and-gradient evaluation at {DSL_CHAINS} "
+          f"chains (the logistic posterior of phase 12 (a), and its "
+          f"Truncated Gamma model): "
+          + "; ".join(out) + f" [{card}]", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; "
@@ -2659,6 +3298,15 @@ def main():
                 os.path.dirname(os.path.abspath(__file__)), "build", "smoke"))
             torch.cuda.empty_cache()
 
+    # -- phase 12: the DSL, the GP models and the rest of the analysis layer;
+    # the ensemble sampler on the DSL's logp runs the split kernels ---------
+    dsl_launches = {}
+    if run_phase("12"):
+        with phase("12 DSL, GP models and analysis"):
+            dsl_launches = dsl_gp_analysis(mt, fs, rnd, card, os.path.join(
+                os.path.dirname(os.path.abspath(__file__)), "build", "smoke"))
+            torch.cuda.empty_cache()
+
     # -- phase 7: what a flagship step puts on the device --------------------
     # Last, because the profiler's tracing stays attached to the process
     # and slows every later launch: no timing may follow it.
@@ -2764,6 +3412,12 @@ def main():
             del pt
             torch.cuda.empty_cache()
 
+    # phase 12 (a)'s launches per logp evaluation: under the profiler, so
+    # after phase 7
+    if run_phase("12"):
+        with phase("12 (a) launches per logp evaluation, profiled"):
+            dsl_launch_count(mt, card)
+
     if chosen is not None:
         # a chosen subset: the kernel line needs every phase's launches
         print(f"phases {sorted(chosen)} only: no kernel line")
@@ -2778,6 +3432,8 @@ def main():
     for name in ("stretch_propose", "stretch_accept"):
         if not smc_launches.get(name):
             raise AssertionError(f"{name} was not launched on the SMC path")
+        if not dsl_launches.get(name):
+            raise AssertionError(f"{name} was not launched on the DSL path")
     # ms, plain_ms and bound_ms at n = 2^20, P = 10, the half-step of the
     # main path. library_ms is null: no one PyTorch call computes any of the
     # three functions (the plain versions are four to ten ops each).
@@ -2789,6 +3445,7 @@ def main():
          "launches_per_step": k["launches_per_step"],
          "launches_store_path": store_launches.get(name, 0),
          "launches_smc_path": smc_launches.get(name, 0),
+         "launches_dsl_path": dsl_launches.get(name, 0),
          "max_abs_err": k["max_abs_err"],
          "ms": k["ms"], "plain_ms": k["plain_ms"],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],

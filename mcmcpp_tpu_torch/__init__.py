@@ -35,9 +35,17 @@ the NeuTra flows (``neutra``: RealNVP, IAF, spline coupling, as
 ``nn.Module``s), ADVI (``vi``), SVGD (``svgd``), Pathfinder (``pathfinder``)
 and MAP/Laplace (``map_laplace``, with a batched BFGS), trained with optax's
 Adam (``optim``).
+
+The log-probability DSL (``dsl``: transforms, distributions, :class:`Model`)
+compiles declarative models to a per-θ logp for every engine, with the
+special functions torch lacks in ``ops.special``; ``models.gp`` and
+``models.hsgp`` hold the exact and reduced-rank Gaussian processes.
 """
 
 from mcmcpp_tpu_torch import analysis
+from mcmcpp_tpu_torch import dsl
+from mcmcpp_tpu_torch import models
+from mcmcpp_tpu_torch.dsl import Model
 from mcmcpp_tpu_torch.chain import Chain
 from mcmcpp_tpu_torch.chain_disk import DiskChain
 from mcmcpp_tpu_torch.convergence import ConvergenceReport, run_until_converged
@@ -149,6 +157,7 @@ __all__ = [
     "MALASampler",
     "MAMSSampler",
     "MCLMCSampler",
+    "Model",
     "MEADSSampler",
     "MetropolisHastingsMove",
     "MixtureMover",
@@ -174,6 +183,7 @@ __all__ = [
     "analysis",
     "bayesian_linear_regression",
     "correlated_gaussian",
+    "dsl",
     "equicorrelated_gaussian",
     "find_map",
     "gaussian_mixture",
@@ -181,6 +191,7 @@ __all__ = [
     "laplace",
     "laplace_sample",
     "logistic_regression",
+    "models",
     "multi_pathfinder",
     "neal_funnel",
     "nested_to_inference_dict",

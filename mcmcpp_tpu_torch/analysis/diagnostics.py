@@ -7,9 +7,13 @@ the "chains" axis.
 """
 
 import numpy as np
+import torch
 from scipy import stats as _stats
 
-from mcmcpp_tpu_torch.analysis.ess import effective_sample_size
+from mcmcpp_tpu_torch.analysis.ess import (
+    effective_sample_size,
+    rank_normalize_tensor,
+)
 
 
 def _split_chains(samples):
@@ -28,9 +32,17 @@ def _rank_normalize(x):
 def potential_scale_reduction(samples, rank_normalized=True):
     """Split-R̂ per parameter.
 
-    samples: (S, C, P) — S steps, C chains/walkers, P parameters.
+    samples: (S, C, P) — S steps, C chains/walkers, P parameters; numpy or
+    a tensor (reduced on its device in float64).
     Values near 1 (≲1.01) indicate convergence.
+
+    numpy input runs the JAX package's numpy arithmetic, so that
+    ``run_until_converged``'s decisions match its bit for bit (torch's
+    reductions and ``ndtri`` differ from numpy's and scipy's by an ulp); a
+    tensor never leaves its device.
     """
+    if isinstance(samples, torch.Tensor):
+        return _rhat_tensor(samples, rank_normalized)
     arr = np.asarray(samples, np.float64)
     if arr.ndim != 3:
         raise ValueError("expected (steps, chains, params)")
@@ -46,6 +58,24 @@ def potential_scale_reduction(samples, rank_normalized=True):
         var_plus = (s - 1) / s * w + b / s
         out[p] = np.sqrt(var_plus / w) if w > 0 else np.inf
     return out
+
+
+def _rhat_tensor(x, rank_normalized):
+    """:func:`potential_scale_reduction` on a tensor's device."""
+    if x.ndim != 3:
+        raise ValueError("expected (steps, chains, params)")
+    x = x.to(torch.float64)
+    s_even = x.shape[0] - x.shape[0] % 2
+    half = s_even // 2
+    x = torch.cat([x[:half], x[half:s_even]], dim=1)  # split chains
+    if rank_normalized:
+        x = rank_normalize_tensor(x)
+    s = x.shape[0]
+    b = s * x.mean(dim=0).var(dim=0, correction=1)
+    w = x.var(dim=0, correction=1).mean(dim=0)
+    var_plus = (s - 1) / s * w + b / s
+    return torch.where(w > 0, torch.sqrt(var_plus / w),
+                       torch.inf).cpu().numpy()
 
 
 def mcse_mean(samples, ess=None, **ess_kw):

@@ -122,29 +122,60 @@ def min_ess_required(p, alpha=0.05, eps=0.05):
     return float(np.exp(log_c) * chi2 / eps**2)
 
 
-def _rank_normalize_3d(arr):
-    """(S, W, P) -> normal scores per parameter (Vehtari et al. 2021 §3)."""
-    from scipy import stats as _stats
-
-    out = np.empty_like(arr, np.float64)
-    s, w, p = arr.shape
+def rank_normalize_tensor(x):
+    """(S, W, P) tensor -> normal scores per parameter by average ranks (ties
+    share their mean rank, as ``scipy.stats.rankdata``), on x's device in
+    float64: a sort and two binary searches per parameter."""
+    s, w, p = x.shape
+    flat = x.reshape(-1, p).to(torch.float64)
+    n = flat.shape[0]
+    cols = []
     for i in range(p):
-        r = _stats.rankdata(arr[:, :, i], axis=None).reshape(s, w)
-        out[:, :, i] = _stats.norm.ppf((r - 0.375) / (s * w + 0.25))
-    return out
+        v = flat[:, i].contiguous()
+        sv = torch.sort(v).values
+        less = torch.searchsorted(sv, v, side="left").to(torch.float64)
+        leq = torch.searchsorted(sv, v, side="right").to(torch.float64)
+        rank = less + (leq - less + 1.0) / 2.0
+        cols.append(torch.special.ndtri((rank - 0.375) / (n + 0.25)))
+    return torch.stack(cols, dim=1).reshape(s, w, p)
+
+
+def quantile_tensor(flat, q):
+    """``np.quantile(flat, q, axis=0)`` (linear method) of an (N, P) tensor
+    on its device: (P,) float64 (torch.quantile refuses more than 2^24
+    values)."""
+    sv = torch.sort(flat.to(torch.float64), dim=0).values
+    n = sv.shape[0]
+    pos = q * (n - 1)
+    lo = int(np.floor(pos))
+    hi = min(lo + 1, n - 1)
+    return sv[lo] + (pos - lo) * (sv[hi] - sv[lo])
+
+
+def as_chain_tensor(samples):
+    """A tensor stays on its device (which then does the work); numpy
+    becomes a float64 CPU tensor."""
+    if isinstance(samples, torch.Tensor):
+        return samples
+    return torch.as_tensor(np.asarray(samples, np.float64))
+
+
+def _as_chain(samples):
+    """(S, W, P) tensor and whether 2-D input gained its parameter axis."""
+    arr = as_chain_tensor(samples)
+    squeeze = arr.ndim == 2
+    return (arr[:, :, None] if squeeze else arr), squeeze
 
 
 def ess_bulk(samples, **kw):
     """Rank-normalized bulk ESS (Vehtari et al. 2021): ESS of the normal
     scores — robust to heavy tails and measures mixing in the bulk.
 
-    samples: (S, W, P) or (S, W). Returns (P,) or float.
+    samples: (S, W, P) or (S, W), numpy or a tensor (a tensor is ranked and
+    transformed on its device). Returns (P,) or float.
     """
-    arr = np.asarray(samples, np.float64)
-    squeeze = arr.ndim == 2
-    if squeeze:
-        arr = arr[:, :, None]
-    ess = effective_sample_size(_rank_normalize_3d(arr), **kw)
+    arr, squeeze = _as_chain(samples)
+    ess = effective_sample_size(rank_normalize_tensor(arr), **kw)
     return float(ess[0]) if squeeze else ess
 
 
@@ -153,16 +184,14 @@ def ess_tail(samples, prob=0.05, **kw):
     ESS (Vehtari et al. 2021 §4.3) — mixing quality where credible-interval
     endpoints are estimated.
 
-    samples: (S, W, P) or (S, W). Returns (P,) or float.
+    samples: (S, W, P) or (S, W), numpy or a tensor (whose quantiles and
+    indicators are taken on its device). Returns (P,) or float.
     """
-    arr = np.asarray(samples, np.float64)
-    squeeze = arr.ndim == 2
-    if squeeze:
-        arr = arr[:, :, None]
+    arr, squeeze = _as_chain(samples)
     out = []
     for q in (prob, 1.0 - prob):
-        cut = np.quantile(arr.reshape(-1, arr.shape[2]), q, axis=0)
-        ind = (arr <= cut[None, None, :]).astype(np.float64)
+        cut = quantile_tensor(arr.reshape(-1, arr.shape[2]), q)
+        ind = (arr.to(torch.float64) <= cut).to(torch.float64)
         out.append(np.atleast_1d(effective_sample_size(ind, **kw)))
     ess = np.minimum(*out)
     return float(ess[0]) if squeeze else ess

@@ -78,9 +78,15 @@ def halton2(i):
 
 
 def n_leapfrog(eps, traj_len, u, cap):
-    """``clip(ceil(2·u·T/ε), 1, cap)`` in float32 arithmetic, a host int."""
+    """``clip(int32(ceil(2·u·T/ε)), 1, cap)`` in float32 arithmetic, a host
+    int. The conversion saturates as XLA's does (NaN → 0, ±inf → the int32
+    limits), so a NaN trajectory early in warmup takes one leapfrog step, as
+    in JAX, instead of raising."""
     t = np.float32(2.0) * np.float32(u) * np.float32(traj_len)
-    return int(np.clip(np.ceil(t / np.float32(eps)), 1, cap))
+    with np.errstate(invalid="ignore", over="ignore"):
+        r = np.ceil(t / np.float32(eps))
+    r = 0.0 if np.isnan(r) else float(np.clip(r, -2.0 ** 31, 2.0 ** 31 - 1))
+    return int(np.clip(r, 1, cap))
 
 
 class CheesKernel(GradientKernel):

@@ -1,5 +1,8 @@
-"""Target distributions as ``nn.Module``s."""
+"""Target distributions as ``nn.Module``s, and the Gaussian-process layer
+(``gp``: exact GPs; ``hsgp``: reduced-rank GPs)."""
 
+from mcmcpp_tpu_torch.models import gp
+from mcmcpp_tpu_torch.models import hsgp
 from mcmcpp_tpu_torch.models.targets import (
     BayesianLinearRegression,
     GaussianMixture,
@@ -19,6 +22,8 @@ from mcmcpp_tpu_torch.models.targets import (
 )
 
 __all__ = [
+    "gp",
+    "hsgp",
     "BayesianLinearRegression",
     "GaussianMixture",
     "GaussianTarget",

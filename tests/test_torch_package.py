@@ -48,7 +48,7 @@ def test_sources_import_no_jax():
                 "gradient/sgmcmc.py", "tempering.py", "pcn.py",
                 "elliptical.py", "gibbs.py", "optim.py", "neutra.py",
                 "vi.py", "smc.py", "nested.py", "svgd.py", "pathfinder.py",
-                "map_laplace.py"):
+                "map_laplace.py", *SLICE8_MODULES):
         assert PKG / new in files, new
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
@@ -61,6 +61,63 @@ def test_sources_import_no_jax():
             for name in names:
                 root = name.split(".")[0]
                 assert root not in banned, f"{path}: imports {name}"
+
+
+# the DSL, the GP models and the rest of the analysis layer
+SLICE8_MODULES = ("ops/special.py", "dsl.py", "models/gp.py",
+                  "models/hsgp.py", "analysis/importance.py",
+                  "analysis/power_scaling.py", "analysis/model_compare.py",
+                  "analysis/rstar.py", "analysis/scores.py",
+                  "analysis/ksd.py", "analysis/bridge.py",
+                  "analysis/global_stats.py", "analysis/sbc.py",
+                  "examples/hierarchical.py")
+
+
+def test_dsl_gp_and_analysis_import_no_jax_sklearn_or_triton():
+    """The slice's modules import no JAX, no sklearn (rstar imports it when
+    it runs) and no triton."""
+    mods = [m[:-3].replace("/", ".") for m in SLICE8_MODULES]
+    code = ("import sys\n"
+            + "".join(f"import mcmcpp_tpu_torch.{m}\n" for m in mods)
+            + "bad = [m for m in ('jax', 'sklearn', 'triton', 'mcmcpp_tpu') "
+            "if m in sys.modules]; print(bad); sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+# the JAX package's exports of these modules (mcmcpp_tpu/__init__.py,
+# mcmcpp_tpu/analysis/__init__.py, mcmcpp_tpu/models/__init__.py)
+SLICE8_NAMES = ("Model", "dsl", "models")
+SLICE8_ANALYSIS = ("ksd", "ksd_curve", "crps_ensemble", "energy_score",
+                   "ElpdResult", "compare", "loo", "pseudo_bma_weights",
+                   "stacked_predictive_resample", "stacking_weights", "waic",
+                   "BridgeResult", "bridge_log_evidence", "rstar",
+                   "PowerScaleResult", "SensitivityResult", "powerscale",
+                   "powerscale_sensitivity", "global_autocorr_time",
+                   "global_batch_means_ess", "global_correlation_matrix",
+                   "global_covariance_matrix", "global_effective_sample_size",
+                   "global_ess_bulk", "global_ess_tail", "global_mcse_mean",
+                   "global_multivariate_ess", "global_rank_normalized_rhat",
+                   "global_split_rhat", "global_summary", "sbc_ecdf_band",
+                   "sbc_model", "sbc_ranks", "sbc_summary", "sbc_uniformity")
+
+
+def test_exports_the_jax_packages_dsl_gp_and_analysis_names():
+    import mcmcpp_tpu_torch as mt
+    from mcmcpp_tpu_torch import analysis, models
+
+    for name in SLICE8_NAMES:
+        assert name in mt.__all__ and getattr(mt, name) is not None
+    # JAX's analysis/__init__.py imports rstar and the power-scaling names
+    # without listing them in __all__; the port does the same
+    unlisted = {"rstar", "PowerScaleResult", "SensitivityResult",
+                "powerscale", "powerscale_sensitivity"}
+    assert set(SLICE8_ANALYSIS) - unlisted <= set(analysis.__all__)
+    assert not unlisted & set(analysis.__all__)
+    for name in SLICE8_ANALYSIS:
+        assert getattr(analysis, name) is not None
+    assert {"gp", "hsgp"} <= set(models.__all__)
 
 
 def test_gradient_import_pulls_in_no_jax_or_triton():
