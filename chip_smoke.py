@@ -136,6 +136,22 @@ Builds the port's CUDA kernels from ``mcmcpp_tpu_torch/csrc/`` (into
    functions, ``ksd``, bridge sampling on the 10-D conjugate Gaussian, the
    scoring rules against float64 numpy, and ``sbc_model`` with ChEES fits;
    after phase 7, the DSL's launches per logp evaluation under the profiler;
+13. (before 7) the time-series layer at its users' widths, every check at the
+   JAX tests' or examples' bounds: (a) the Kalman filter on a trend + weekly
+   seasonal model (D = 8) over 2^16 steps with 5% missing, parallel against
+   sequential and both against float64, the log-likelihood's gradient
+   against central differences, 256 FFBS draws against the RTS smoother,
+   the forecast, and the LGSSKernel Gibbs loop at 1024 chains; (b) an 8-state
+   HMM over 2^14 steps (both forward passes, smoother, Viterbi, 1024
+   posterior paths) and its Gibbs loop at 1024 chains; (c) on the
+   stochastic-volatility model, the bootstrap filter at 2^18 particles over
+   16 seeds, the fully adapted filter against Kalman, PMMH at 256 chains ×
+   1024 particles, the smoother, forecast and PGAS; (d) the RBPF, (e) IF2
+   against the Kalman MLE, (f) IBIS (grouped stages bitwise equal to
+   per-stage ones) and SMC² against the exact evidence, (g) the EnKF and ETKF
+   on Lorenz-96, (h) the UKF/URTS and EKI/EKS, (i) bitwise resumes of PMMH,
+   IBIS and SMC²; the stretch kernels' launches on this path (0); after
+   phase 7, the launches a time step costs under the profiler;
 7. times 50 steps of the flagship and of Neal's funnel (wall time and the
    host's enqueue time per step) and takes a ``torch.profiler`` window over
    50 more of each: device time and launches per step by kernel; a flagship
@@ -149,7 +165,8 @@ Builds the port's CUDA kernels from ``mcmcpp_tpu_torch/csrc/`` (into
 
 Any failure raises (non-zero exit); every phase prints its seconds. The
 second-to-last lines are the kernel table (each kernel's launches on the
-main path, the store path, the SMC path and the DSL path, its time beside
+main path, the store path, the SMC path, the DSL path and the time-series
+path, its time beside
 its plain version's and its bound: its bytes, each input read once and each
 output written once, over the card's 3.35 TB/s, or its operations over
 67 TFLOP/s, whichever is larger) and the card's name and power limit; the
@@ -788,7 +805,7 @@ def phases_from_argv(argv):
         raise SystemExit("usage: python3 chip_smoke.py [--phases 2,2b,...]")
     chosen = {p.strip() for p in argv[1].split(",") if p.strip()}
     known = {"1", "2", "2b", "3", "4", "5", "6", "7", "8", "9", "10", "11",
-             "12"}
+             "12", "13"}
     if not chosen <= known:
         raise SystemExit(f"unknown phases {sorted(chosen - known)}; known: "
                          f"{sorted(known)}")
@@ -2375,6 +2392,878 @@ def dsl_launch_count(mt, card):
           + "; ".join(out) + f" [{card}]", flush=True)
 
 
+# phase 13: the time-series layer at its users' widths, on synthetic data
+# made from fixed seeds. (a) Kalman: a local-linear-trend + weekly-seasonal
+# model (D = 8, E = 1) over T = 2^16 steps (180 years of a daily series,
+# 7.5 of an hourly one), 5% of them missing: the parallel filter, the
+# gradient, the smoother and FFBS over all of it, the sequential filter (a
+# loop of ~40 launches a step) over the first TS_SEQ_T steps; the
+# LGSSKernel Gibbs loop at 1024 chains on the state-space example's local
+# level. (b) an HMM with K = 8 Gaussian regimes over HMM_T = 2^14 steps
+# (every pass but the parallel forward is a loop over T: the length is cut,
+# the widths are not), its Gibbs loop at 1024 chains over TS_HMM_GIBBS_T.
+# (c) the particle filters on the state-space example's stochastic-
+# volatility model over T = 1000 daily returns: single filters at 2^18
+# particles, the smoother and the forecast; PMMH at 256 chains × 1024
+# particles over the first PMMH_T returns (a PMMH step is T filter steps);
+# PGAS at 256 × 64. (d) the RBPF on the regime-switching example (2^14
+# particles, T = 1000), (e) IF2 on the ssm_mle example (2^16 particles,
+# T = 150, 30 passes), (f) IBIS on the streaming example (2^16 particles,
+# 2000 rows in batches of 5) and SMC² (1024 θ × 1024 x-particles, T = 200),
+# (g) the EnKF and ETKF on Lorenz-96 (D = 40, 1024 members, T = 1000; the
+# ETKF, an (N, N) eigh a step, over the example's T = 400), (h)
+# the UKF/URTS and EKI/EKS cases of tests/test_ukf.py and tests/test_eks.py
+# (the EKS ensemble 2^14), (i) the bitwise resumes of PMMH, IBIS and SMC² at
+# those widths.
+TS_T, TS_SEQ_T = 1 << 16, 1 << 13
+TS_DRAWS = 256
+TS_GIBBS_CHAINS, TS_GIBBS_SWEEPS = 1024, 50
+HMM_K, HMM_T, HMM_PATHS = 8, 1 << 14, 1024
+TS_HMM_GIBBS_T, HMM_GIBBS_SWEEPS = 4096, 10
+SV_T = 1000
+PF_N, PF_SEEDS = 1 << 18, 16
+GUIDED_N, GUIDED_SEEDS = 1 << 14, 8
+PMMH_CHAINS, PMMH_N, PMMH_T = 256, 1024, 200
+PMMH_TUNE, PMMH_WINDOW, PMMH_STEPS = 50, 25, 100
+SMOOTH_N, SMOOTH_J, FORECAST_H = 1 << 14, 1024, 30
+PGAS_CHAINS, PGAS_N, PGAS_SWEEPS = 256, 64, 10
+RBPF_N, RBPF_T = 1 << 14, 1000
+IF2_N, IF2_T, IF2_ITERS = 1 << 16, 150, 30
+IBIS_N, IBIS_ROWS, IBIS_BATCH = 1 << 16, 2000, 5
+SMC2_M, SMC2_NX, SMC2_T = 1024, 1024, 200
+ENKF_N, ENKF_T, ETKF_T = 1024, 1000, 400
+EKS_J = 1 << 14
+RESUME_STEPS = 3
+
+
+def ts_fenced(fn):
+    """(result, wall seconds, host seconds to enqueue) of ``fn()`` between
+    two device fences."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    enqueue = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, enqueue
+
+
+def ts_peak():
+    return f"peak device memory {torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB"
+
+
+def ts_check(label, ok, detail):
+    if not ok:
+        raise AssertionError(f"{label}: {detail}")
+
+
+def block_syncs(gb):
+    """Host syncs of one sweep, and of each block's kernel alone (a dict)."""
+    from mcmcpp_tpu_torch import gibbs as tg
+
+    with counting_syncs() as syncs:
+        gb.state = gb.sweep(gb.state)
+    per = {}
+    for name, _, kernel in gb.blocks:
+        others = {n: v for n, v in gb.state.items() if n != name}
+        with counting_syncs() as s:
+            tg._kernel_step(kernel, gb._step_gen, gb.state[name], others)
+        per[name] = len(s)
+    return len(syncs), per
+
+
+def simulate_lgss(p, t_n, rng, missing):
+    """Draws (x (T, D), y (T,)) from a time-invariant LGSS on the host in
+    float64, from x_1 = 0, NaN where a step is missing."""
+    a, q, h, r = (p.A.double().cpu().numpy(), p.Q.double().cpu().numpy(),
+                  p.H.double().cpu().numpy(), p.R.double().cpu().numpy())
+    d = a.shape[0]
+    lq = np.linalg.cholesky(q + 1e-12 * np.eye(d))
+    x = np.zeros((t_n, d))
+    noise = rng.standard_normal((t_n, d)) @ lq.T
+    for t in range(1, t_n):
+        x[t] = a @ x[t - 1] + noise[t]
+    y = (x @ h.T)[:, 0] + np.sqrt(r[0, 0]) * rng.standard_normal(t_n)
+    y[rng.random(t_n) < missing] = np.nan
+    return x, y
+
+
+def ts_kalman(mt, card):
+    """(a): both filters at T = 2^16, the gradient, FFBS, the smoother,
+    the forecast and the LGSSKernel Gibbs loop."""
+    from mcmcpp_tpu_torch.examples import state_space as ss
+    from mcmcpp_tpu_torch.models import lgss as tl
+
+    dev = torch.device("cuda")
+
+    def model(dtype, scales):
+        sl, ssl, sg, so = scales
+        comp = [tl.local_linear_trend(sl, ssl, dtype=dtype, device=dev),
+                tl.seasonal(7, sg, dtype=dtype, device=dev)]
+        return tl.structural(comp, so, p0_scale=100.0, dtype=dtype)
+
+    # a slowly drifting slope keeps the level within ~100 over 2^16 steps,
+    # so float32 keeps the innovations' digits
+    scales = (0.05, 1e-5, 0.02, 0.5)
+    p = model(torch.float32, scales)
+    rng = np.random.default_rng(1301)
+    x_true, y = simulate_lgss(p, TS_T, rng, 0.05)
+    ys = torch.tensor(y, dtype=torch.float32, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    tl.kalman_filter(p, ys[:64])  # first-use library set-up
+    with counting_syncs() as syncs:
+        par, par_s, _ = ts_fenced(lambda: tl.kalman_filter(p, ys))
+    n_sync = len(syncs)
+    # the sequential filter (a loop of ~40 launches a step) over the first
+    # TS_SEQ_T steps, against the parallel one over the same
+    short = ys[:TS_SEQ_T]
+    seq, seq_s, seq_enq = ts_fenced(
+        lambda: tl.kalman_filter(p, short, method="sequential"))
+    par_short = tl.kalman_filter(p, short)
+    p64 = model(torch.float64, scales)
+    ref = tl.kalman_filter(p64, ys.double())
+    ref_short = tl.kalman_filter(p64, short.double())
+    scale = float(ref.means.abs().max())
+    err_par = float((par.means.double() - ref.means).abs().max()) / scale
+    err_seq = float((seq.means.double() - ref_short.means).abs().max()) / scale
+    ll_ref = float(ref.loglik)
+    rel_par = abs(float(par.loglik) - ll_ref) / abs(ll_ref)
+    rel_seq = abs(float(seq.loglik) - float(ref_short.loglik)) / abs(
+        float(ref_short.loglik))
+    ps_err = float((par_short.means - seq.means).abs().max()) / scale
+    print(f"  (a) Kalman D=8 T={TS_T} (5% missing): parallel {par_s:.3f} s "
+          f"({n_sync} host syncs), sequential over the first {TS_SEQ_T} "
+          f"steps {seq_s:.3f} s ({seq_s / TS_SEQ_T * 1e6:.1f} us a step, "
+          f"{seq_enq / TS_SEQ_T * 1e6:.1f} us of host enqueue); float32 "
+          f"against float64: means "
+          f"{err_par:.3e} (parallel), {err_seq:.3e} (sequential) of the "
+          f"state scale {scale:.1f}, parallel vs sequential {ps_err:.3e} "
+          f"(bound 1e-3); loglik {float(par.loglik):.3f} / "
+          f"{float(seq.loglik):.3f} against {ll_ref:.3f} (relative "
+          f"{rel_par:.2e} / {rel_seq:.2e}, bound 1e-4); {ts_peak()} [{card}]",
+          flush=True)
+    ts_check("Kalman parallel vs sequential", ps_err < 1e-3 and
+             rel_par < 1e-4 and rel_seq < 1e-4, (ps_err, rel_par, rel_seq))
+    ts_check("Kalman parallel: host syncs", n_sync == 0, n_sync)
+
+    # the gradient in the four noise scales: autograd against a central
+    # difference, both in float64 on the card
+    th = torch.tensor(scales, dtype=torch.float64, device=dev,
+                      requires_grad=True)
+    (grad,), grad_s, _ = ts_fenced(lambda: torch.autograd.grad(
+        tl.lgss_loglik(model(torch.float64, th), ys.double()), th))
+    fd = []
+    for i in range(4):  # a step of 1e-4 of each scale (they span 1e-5..0.5)
+        e = torch.zeros(4, dtype=torch.float64, device=dev)
+        e[i] = 1e-4 * scales[i]
+        fd.append(float(tl.lgss_loglik(model(torch.float64, th.detach() + e),
+                                       ys.double())
+                        - tl.lgss_loglik(model(torch.float64,
+                                               th.detach() - e),
+                                         ys.double())) / (2e-4 * scales[i]))
+    g = grad.cpu().numpy()
+    rel_g = float(np.max(np.abs(g - fd) / np.maximum(np.abs(fd), 1.0)))
+    print(f"  (a) lgss_loglik gradient in the 4 noise scales (float64): "
+          f"{np.round(g, 2).tolist()} in {grad_s:.3f} s, against a central "
+          f"difference {rel_g:.2e} relative (bound 1e-4)", flush=True)
+    ts_check("lgss_loglik gradient", rel_g < 1e-4, (g, fd))
+
+    # FFBS: 256 parallel draws from one filter against the RTS smoother
+    (m_s, p_s), rts_s, _ = ts_fenced(lambda: tl.rts_smoother(p, filtered=par))
+    z = torch.randn((TS_DRAWS, TS_T, 8), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(7))
+    # the dummy seasonal's noise-free rows make the backward conditionals
+    # exactly singular: the nugget the reference provides for them
+    draws, ffbs_s, _ = ts_fenced(
+        lambda: tl.ffbs_sample(None, p, filtered=par, z=z, jitter=1e-5))
+    # the MC standard error from the draws' own spread (the nugget widens it
+    # in the near-deterministic seasonal rows, around the same mean)
+    tol = 5.0 * draws.std(0) / np.sqrt(TS_DRAWS) + 1e-4 * scale
+    dev_ = (draws.mean(0) - m_s).abs()
+    grid = dev_[::64] / tol[::64]
+    worst = float(grid.max())
+    print(f"  (a) rts_smoother {rts_s:.3f} s ({rts_s / TS_T * 1e6:.1f} us a "
+          f"step); ffbs_sample parallel (jitter 1e-5), {TS_DRAWS} draws, "
+          f"{ffbs_s:.3f} s: "
+          f"draw means within {worst:.3f} of the 5 MC SE band around the "
+          f"smoother (every 64th step, {grid.numel()} entries; bound 1); "
+          f"{ts_peak()}", flush=True)
+    ts_check("FFBS against the smoother", worst < 1.0, worst)
+    del z, draws
+    # the 30-step forecast against float64's from the float64 filter
+    _, _, om, o_cov = tl.forecast(p, filtered=par, horizon=30)
+    _, _, om64, o_cov64 = tl.forecast(p64, filtered=ref, horizon=30)
+    o_sd, o_sd64 = torch.sqrt(o_cov[:, 0, 0]), torch.sqrt(o_cov64[:, 0, 0])
+    e_f = max(float((om.double() - om64).abs().max()) / float(o_sd64[0]),
+              float(((o_sd.double() - o_sd64) / o_sd64).abs().max()))
+    print(f"  (a) forecast 30 steps: predictive sd {float(o_sd[0]):.4f} → "
+          f"{float(o_sd[-1]):.4f}, float32 against float64 {e_f:.2e} (of the "
+          f"first step's sd; bound 1e-3)", flush=True)
+    ts_check("forecast", e_f < 1e-3 and float(o_sd[-1]) > float(o_sd[0]),
+             (e_f, o_sd))
+
+    # LGSSKernel + the inverse-gamma variance at 1024 chains
+    x_ll, y_ll = ss.local_level_data()
+    torch.cuda.reset_peak_memory_stats()
+    gb = ss.local_level_sampler(y_ll, TS_GIBBS_CHAINS, dev)
+    n_sync, per = block_syncs(gb)
+    ok, run_s, _ = ts_fenced(lambda: gb.run(TS_GIBBS_SWEEPS))
+    ts_check("LGSSKernel Gibbs storage", ok, ok)
+    xs = gb.get_block("x")[TS_GIBBS_SWEEPS // 4:]
+    rmse = float(np.sqrt(((xs.mean((0, 1)) - x_ll) ** 2).mean()))
+    print(f"  (a) LGSSKernel + inverse-gamma Gibbs, {TS_GIBBS_CHAINS} chains "
+          f"(local level, T=80): {TS_GIBBS_SWEEPS / run_s:.2f} sweeps/s, "
+          f"{n_sync} host syncs a sweep (by block: {per}), trajectory RMSE "
+          f"{rmse:.3f} (bound "
+          f"0.7), {ts_peak()}", flush=True)
+    ts_check("LGSSKernel Gibbs", rmse < 0.7, rmse)
+
+
+def ts_hmm(mt, card):
+    """(b): K = 8 Gaussian regimes over T = 2^16; the Gibbs loop."""
+    from mcmcpp_tpu_torch.models import hmm as th
+
+    dev = torch.device("cuda")
+    k = HMM_K
+    rng = np.random.default_rng(1302)
+    gamma = np.full((k, k), 0.02 / (k - 1))
+    np.fill_diagonal(gamma, 0.98)
+    means = 1.5 * (np.arange(k) - (k - 1) / 2)
+    z = np.zeros(HMM_T, int)
+    z[0] = rng.integers(k)
+    u = rng.random(HMM_T)
+    cum = np.cumsum(gamma, 1)
+    for t in range(1, HMM_T):
+        z[t] = min(int(np.searchsorted(cum[z[t - 1]], u[t])), k - 1)
+    ys = means[z] + 0.5 * rng.standard_normal(HMM_T)
+    log_obs = th.gaussian_emission_logpdf(
+        torch.tensor(ys, dtype=torch.float32, device=dev), means,
+        np.full(k, 0.5))
+    log_pi = torch.full((k,), -np.log(k), device=dev)
+    log_gamma = torch.log(torch.tensor(gamma, dtype=torch.float32,
+                                       device=dev))
+    torch.cuda.reset_peak_memory_stats()
+    seq, seq_s, seq_enq = ts_fenced(lambda: th.hmm_forward(
+        log_pi, log_gamma, log_obs, method="sequential"))
+    par, par_s, _ = ts_fenced(lambda: th.hmm_forward(
+        log_pi, log_gamma, log_obs, method="parallel"))
+    rel = abs(float(par.loglik) - float(seq.loglik)) / abs(float(seq.loglik))
+    (post, _), sm_s, _ = ts_fenced(lambda: th.hmm_smoother(
+        log_pi, log_gamma, log_obs))
+    acc_sm = float((post.argmax(1).cpu().numpy() == z).mean())
+    (path, _), vit_s, _ = ts_fenced(lambda: th.viterbi(log_pi, log_gamma,
+                                                       log_obs))
+    acc_v = float((path.cpu().numpy() == z).mean())
+    gen = torch.Generator(device=dev).manual_seed(3)
+    paths, samp_s, _ = ts_fenced(lambda: th.hmm_sample_posterior(
+        gen, log_pi, log_gamma, log_obs, n_paths=HMM_PATHS))
+    freq = torch.stack([(paths[:, ::64] == j).float().mean(0)
+                        for j in range(k)], 1)
+    marg = torch.exp(post[::64])
+    band = 5 * torch.sqrt(marg * (1 - marg) / HMM_PATHS) + 2e-3
+    worst = float(((freq - marg).abs() / band).max())
+    print(f"  (b) HMM K={k} T={HMM_T}: forward sequential {seq_s:.3f} s "
+          f"({seq_s / HMM_T * 1e6:.1f} us a step, "
+          f"{seq_enq / HMM_T * 1e6:.1f} us of host enqueue), parallel "
+          f"{par_s:.3f} s; loglik {float(seq.loglik):.2f} / "
+          f"{float(par.loglik):.2f} (relative {rel:.2e}, bound 1e-5); "
+          f"smoother {sm_s:.3f} s (state accuracy {acc_sm:.4f}), Viterbi "
+          f"{vit_s:.3f} s ({acc_v:.4f}; bounds 0.9); {HMM_PATHS} posterior "
+          f"paths {samp_s:.3f} s, their state frequencies within "
+          f"{worst:.3f} of the 5 SE band around the smoother (every 64th "
+          f"step; bound 1); {ts_peak()} [{card}]", flush=True)
+    ts_check("HMM forward agreement", rel < 1e-5, rel)
+    ts_check("HMM decoding", acc_sm > 0.9 and acc_v > 0.9, (acc_sm, acc_v))
+    ts_check("HMM posterior paths", worst < 1.0, worst)
+
+    # HMMKernel + Dirichlet rows, 1024 chains over the first
+    # TS_HMM_GIBBS_T steps
+    t_g = TS_HMM_GIBBS_T
+
+    def rows(gen, others):
+        zz = others["z"].long()
+        idx = zz[:, :-1] * k + zz[:, 1:]
+        counts = torch.zeros((zz.shape[0], k * k), device=dev)
+        counts.scatter_add_(1, idx, torch.ones_like(idx, dtype=counts.dtype))
+        g = torch._standard_gamma(counts.reshape(-1, k, k) + 1.0,
+                                  generator=gen)
+        return torch.log(g / torch.sum(g, -1, keepdim=True)).reshape(
+            -1, k * k)
+
+    torch.cuda.reset_peak_memory_stats()
+    gb = mt.BlockedGibbsSampler(
+        [("z", t_g, th.HMMKernel(log_obs[:t_g], log_pi.cpu().numpy(),
+                                 lambda o: o["lgam"].reshape(k, k),
+                                 method="parallel")),
+         ("lgam", k * k, mt.ExactGibbsKernel(rows, batched=True))],
+        n_chains=TS_GIBBS_CHAINS, seed=0, device="cuda")
+    gb.init({"z": rng.integers(0, k, t_g).astype(np.float32),
+             "lgam": np.full(k * k, -np.log(k), np.float32)})
+    n_sync, per = block_syncs(gb)
+    ok, run_s, _ = ts_fenced(lambda: gb.run(HMM_GIBBS_SWEEPS))
+    ts_check("HMMKernel Gibbs storage", ok, ok)
+    zs = gb.get_block("z")[HMM_GIBBS_SWEEPS // 2:]
+    acc = float((np.rint(zs).astype(int) == z[:t_g]).mean())
+    diag = float(np.exp(gb.get_block("lgam")[HMM_GIBBS_SWEEPS // 2:]
+                        .reshape(-1, k, k)[:, np.arange(k), np.arange(k)])
+                 .mean())
+    print(f"  (b) HMMKernel (parallel forward) + Dirichlet rows Gibbs, "
+          f"{TS_GIBBS_CHAINS} chains × T={t_g}: "
+          f"{HMM_GIBBS_SWEEPS / run_s:.3f} sweeps/s, {n_sync} "
+          f"host syncs a sweep (by block: {per}); state accuracy {acc:.4f} "
+          f"(bound 0.9), mean "
+          f"sticky diagonal {diag:.4f} (truth 0.98, bound 0.05); "
+          f"{ts_peak()}", flush=True)
+    ts_check("HMMKernel Gibbs", acc > 0.9 and abs(diag - 0.98) < 0.05,
+             (acc, diag))
+
+
+def sv_with_density(ss):
+    """The state-space example's SV model with its transition density (the
+    smoother and PGAS need it)."""
+    phi, sig = 0.95, 0.3
+    base = ss.sv_model(phi, sig)
+
+    def trans_logpdf(x_next, x, t, th):
+        mu = th[..., None, :1]
+        zz = (x_next - mu - phi * (x - mu))[..., 0] / sig
+        return -0.5 * zz * zz - np.log(sig) - 0.5 * np.log(2 * np.pi)
+
+    return base._replace(trans_logpdf=trans_logpdf)
+
+
+def ts_particles(mt, card):
+    """(c): the filters, PMMH, the smoother, the forecast and PGAS on the
+    stochastic-volatility model; the fully adapted filter against
+    Kalman."""
+    from mcmcpp_tpu_torch import particle as tp
+    from mcmcpp_tpu_torch.examples import state_space as ss
+    from mcmcpp_tpu_torch.models import lgss as tl
+
+    dev = torch.device("cuda")
+    x_true, ys = ss.sv_data(SV_T)
+    ssm = sv_with_density(ss)
+    mu = torch.tensor([-1.0], device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    mt.particle_filter(0, ssm, mu, ys[:8], PF_N, device="cuda")
+    ys_dev = torch.tensor(ys, device=dev)  # the syncs counted are the loop's
+    with counting_syncs() as syncs:
+        res, pf_s, pf_enq = ts_fenced(lambda: mt.particle_filter(
+            100, ssm, mu, ys_dev, PF_N, device="cuda"))
+    n_sync = len(syncs)
+    # the spread over PF_SEEDS independent filters, run as one batch (the
+    # hooks broadcast over it: θ (PF_SEEDS, 1))
+    lls = tp.run_filter(
+        torch.Generator(device=dev).manual_seed(101),
+        tp.Hooks(ssm, mu.expand(PF_SEEDS, 1), (PF_SEEDS,), batched=True),
+        tp.as_series(ys_dev), PF_N, stats=False).loglik.cpu().numpy()
+    corr = float(np.corrcoef(res.filter_means.cpu().numpy()[:, 0],
+                             x_true)[0, 1])
+    print(f"  (c) bootstrap particle_filter, SV T={SV_T}, N={PF_N}: "
+          f"{pf_s:.3f} s ({pf_s / SV_T * 1e6:.1f} us a step, "
+          f"{pf_enq / SV_T * 1e6:.1f} us of host enqueue, {n_sync} host "
+          f"syncs); loglik over {PF_SEEDS} seeds {lls.mean():.3f} ± "
+          f"{lls.std(ddof=1):.3f}; filtered log-variance corr with the truth "
+          f"{corr:.3f} (bound 0.5); {ts_peak()} [{card}]", flush=True)
+    ts_check("bootstrap filter", np.isfinite(lls).all() and corr > 0.5
+             and n_sync == 0, (lls, corr, n_sync))
+
+    # the fully adapted filter on the local level against Kalman
+    sq, sr, m0, p0 = 0.35, 0.3, 1.0, 2.0
+    q, r = sq ** 2, sr ** 2
+    prec = 1.0 / q + 1.0 / r
+    post_sd, pred_sd = np.sqrt(1.0 / prec), np.sqrt(q + r)
+    rng = np.random.default_rng(1303)
+    xl = m0 + np.sqrt(p0) * rng.standard_normal() + np.cumsum(
+        np.r_[0.0, sq * rng.standard_normal(SV_T - 1)])
+    yl = (xl + sr * rng.standard_normal(SV_T)).astype(np.float32)
+    exact = float(tl.lgss_loglik(tl.lgss_params(
+        A=1.0, b=0.0, Q=q, H=1.0, c=0.0, R=r, m0=m0, P0=p0,
+        dtype=torch.float64, device=dev), yl))
+
+    def norm_lp(zz, s):
+        return -0.5 * zz * zz - np.log(s) - 0.5 * np.log(2 * np.pi)
+
+    # GUIDED_SEEDS independent filters as one batch (hooks on any leading
+    # axes; the first draw's batch given)
+    fa = mt.StateSpaceModel(
+        init_sample=lambda g, n, th: m0 + np.sqrt(p0) * torch.randn(
+            (GUIDED_SEEDS, n, 1), generator=g, device=g.device),
+        trans_sample=lambda g, x, t, th: x + sq * torch.randn(
+            x.shape, generator=g, device=g.device),
+        obs_logpdf=lambda y, x, t, th: norm_lp((y[0] - x[..., 0]) / sr, sr),
+        trans_logpdf=lambda xn, x, t, th: norm_lp((xn - x)[..., 0] / sq, sq),
+        lookahead_logpdf=lambda y, x, t, th: norm_lp(
+            (y[0] - x[..., 0]) / pred_sd, pred_sd),
+        prop_sample=lambda g, x, y, t, th: (x / q + y[0] / r) / prec
+        + post_sd * torch.randn(x.shape, generator=g, device=g.device),
+        prop_logpdf=lambda xn, x, y, t, th: norm_lp(
+            (xn[..., 0] - (x[..., 0] / q + y[0] / r) / prec) / post_sd,
+            post_sd))
+    fa_ll = tp.run_filter(
+        torch.Generator(device=dev).manual_seed(7),
+        tp.Hooks(fa, None, (GUIDED_SEEDS,), batched=True),
+        tp.as_series(yl), GUIDED_N, auxiliary=True,
+        stats=False).loglik.double().cpu().numpy()
+    ratio = np.exp(fa_ll - exact)
+    se = max(ratio.std(ddof=1) / np.sqrt(GUIDED_SEEDS), 1e-6)
+    print(f"  (c) fully adapted (guided + exact lookahead) filter, local "
+          f"level T={SV_T}, N={GUIDED_N}, {GUIDED_SEEDS} seeds: loglik "
+          f"{fa_ll.mean():.4f} ± {fa_ll.std(ddof=1):.4f} against Kalman "
+          f"{exact:.4f}; mean likelihood ratio {ratio.mean():.4f} (within "
+          f"max(4 SE, 0.02) = {max(4 * se, 0.02):.4f} of 1)", flush=True)
+    ts_check("fully adapted filter", abs(ratio.mean() - 1) < max(4 * se,
+                                                                 0.02),
+             (ratio.mean(), se))
+
+    # PMMH on the SV mean at 256 chains × 1024 particles
+    torch.cuda.reset_peak_memory_stats()
+    pm = mt.PMMHSampler(ssm, ys[:PMMH_T],
+                        log_prior=lambda th: -0.5 * th[..., 0] ** 2,
+                        n_params=1, n_particles=PMMH_N, proposal_scale=0.3,
+                        n_chains=PMMH_CHAINS, seed=0, batched=True,
+                        device="cuda")
+    pm.init(np.zeros((PMMH_CHAINS, 1), np.float32))
+    with counting_syncs() as syncs:
+        pm.state = pm.step(pm.state, pm._prop_chol)
+    n_sync = len(syncs)
+    _, tune_s, _ = ts_fenced(lambda: pm.tune(PMMH_TUNE, window=PMMH_WINDOW))
+    ok, run_s, run_enq = ts_fenced(lambda: pm.run(PMMH_STEPS))
+    ts_check("PMMH storage", ok, ok)
+    draws = pm.get_samples(burn_in=PMMH_STEPS // 4, flat=True)[:, 0]
+    acc = float(pm.acceptance_fraction.mean())
+    print(f"  (c) PMMH {PMMH_CHAINS} chains × {PMMH_N} particles, T="
+          f"{PMMH_T}: tune {PMMH_TUNE} steps {tune_s:.2f} s, "
+          f"{PMMH_STEPS} stored steps {run_s:.2f} s "
+          f"({PMMH_STEPS / run_s:.3f} steps/s, "
+          f"{run_s / PMMH_STEPS / PMMH_T * 1e6:.1f} us a filter step, host "
+          f"enqueue {run_enq / PMMH_STEPS / PMMH_T * 1e6:.1f} us), {n_sync} "
+          f"host syncs a step; mu posterior {draws.mean():.3f} ± "
+          f"{draws.std():.3f} (truth -1, bound 0.8), acceptance {acc:.3f}; "
+          f"{ts_peak()}", flush=True)
+    ts_check("PMMH", abs(draws.mean() + 1.0) < 0.8 and 0.02 < acc < 0.95
+             and n_sync == 0, (draws.mean(), acc, n_sync))
+    del pm
+
+    # the smoother against the filter, and the forecast
+    torch.cuda.reset_peak_memory_stats()
+    sm, sm_s, _ = ts_fenced(lambda: mt.particle_smoother(
+        5, ssm, mu, ys, SMOOTH_N, SMOOTH_J, device="cuda"))
+    filt = mt.particle_filter(5, ssm, mu, ys, SMOOTH_N,
+                              return_particles=True, device="cuda")
+    rmse_s = float(np.sqrt(((sm.smoothed_means.cpu().numpy()[:, 0]
+                             - x_true) ** 2).mean()))
+    rmse_f = float(np.sqrt(((filt.filter_means.cpu().numpy()[:, 0]
+                             - x_true) ** 2).mean()))
+    xs_f, _ = mt.particle_forecast(6, ssm, mu, filt.particles[-1],
+                                   filt.log_weights[-1], SV_T, FORECAST_H,
+                                   device="cuda")
+    m_last = float(torch.exp(filt.log_weights[-1]) @ filt.particles[-1][:, 0])
+    want = -1.0 + 0.95 ** FORECAST_H * (m_last + 1.0)
+    got = float(xs_f[-1, :, 0].mean())
+    f_se = float(xs_f[-1, :, 0].std()) / np.sqrt(SMOOTH_N)
+    print(f"  (c) particle_smoother J={SMOOTH_J} N={SMOOTH_N}: {sm_s:.2f} s, "
+          f"RMSE to the latent {rmse_s:.4f} against the filter's {rmse_f:.4f}"
+          f"; particle_forecast {FORECAST_H} steps: mean {got:.4f} against "
+          f"{want:.4f} ({abs(got - want) / f_se:.2f} MC SE, bound 5); "
+          f"{ts_peak()}", flush=True)
+    ts_check("particle smoother", rmse_s < rmse_f, (rmse_s, rmse_f))
+    ts_check("particle forecast", abs(got - want) < 5 * f_se + 1e-3,
+             (got, want))
+    del sm, filt, xs_f
+
+    # PGAS at 256 chains × 64 particles
+    torch.cuda.reset_peak_memory_stats()
+    gb = mt.BlockedGibbsSampler(
+        [("x", SV_T, mt.ParticleGibbsKernel(ssm, ys, n_particles=PGAS_N,
+                                            theta_fn=mu))],
+        n_chains=PGAS_CHAINS, seed=0, device="cuda")
+    gb.init({"x": np.full(SV_T, -1.0, np.float32)})
+    ok, pg_s, _ = ts_fenced(lambda: gb.run(PGAS_SWEEPS))
+    ts_check("PGAS storage", ok, ok)
+    xs = gb.get_block("x")[PGAS_SWEEPS // 2:]
+    corr = float(np.corrcoef(xs.mean((0, 1)), x_true)[0, 1])
+    print(f"  (c) ParticleGibbsKernel {PGAS_CHAINS} chains × {PGAS_N} "
+          f"particles, T={SV_T}: {PGAS_SWEEPS / pg_s:.3f} sweeps/s "
+          f"({pg_s / PGAS_SWEEPS / SV_T * 1e6:.1f} us a step); posterior "
+          f"mean path corr with the truth {corr:.3f} (bound 0.5); "
+          f"{ts_peak()}", flush=True)
+    ts_check("PGAS", corr > 0.5, corr)
+
+
+def ts_rbpf_if2(mt, card):
+    """(d) the RBPF on the regime-switching example; (e) IF2 on ssm_mle."""
+    from mcmcpp_tpu_torch.examples import regime_switching as rs
+    from mcmcpp_tpu_torch.examples import ssm_mle
+
+    dev = torch.device("cuda")
+    zs, ys = rs.simulate(RBPF_T, seed=7)
+    torch.cuda.reset_peak_memory_stats()
+    rs.track(ys[:8], zs[:8], RBPF_N, dev)
+    (acc, res), rb_s, _ = ts_fenced(lambda: rs.track(ys, zs, RBPF_N, dev))
+    print(f"  (d) rao_blackwell_filter N={RBPF_N} T={RBPF_T}: {rb_s:.3f} s "
+          f"({rb_s / RBPF_T * 1e6:.1f} us a step); regime-classification "
+          f"accuracy {acc:.4f} (bound 0.7), loglik {float(res.loglik):.2f}, "
+          f"min ESS {float(res.ess.min()):.0f}; {ts_peak()} [{card}]",
+          flush=True)
+    ts_check("RBPF", acc > 0.7, acc)
+
+    ys = ssm_mle.simulate(IF2_T)
+    mle = ssm_mle.kalman_mle(ys)
+    torch.cuda.reset_peak_memory_stats()
+    r, if2_s, _ = ts_fenced(lambda: mt.if2(
+        0, ssm_mle.if2_model(), ys, n_particles=IF2_N,
+        theta0=np.array([0.5, 0.0], np.float32), sigma0=0.05,
+        n_iters=IF2_ITERS, cooling=0.9, device="cuda"))
+    est = r.theta.cpu().numpy()
+    err = np.abs(est - mle)
+    print(f"  (e) IF2 N={IF2_N} T={IF2_T} {IF2_ITERS} passes: {if2_s:.2f} s "
+          f"({IF2_ITERS * IF2_T / if2_s:.1f} steps/s); estimate "
+          f"{np.round(est, 4).tolist()} against the Kalman MLE "
+          f"{np.round(mle, 4).tolist()}: |da| {err[0]:.4f} (bound 0.05), "
+          f"|dlog_sr| {err[1]:.4f} (bound 0.10); {ts_peak()}", flush=True)
+    ts_check("IF2", err[0] < 0.05 and err[1] < 0.10, err)
+
+
+def smc2_local_level(mt, dev, m, nx, seed=0, max_chunk_steps=32):
+    """tests/test_smc2.py's local level with θ = log σ_r, its hooks
+    taking the M filters as one batch."""
+    sq, m0, p0 = 0.35, 1.0, 2.0
+
+    def obs(y, x, t, th):
+        log_s = th[..., None, :1][..., 0]
+        zz = (y[0] - x[..., 0]) / torch.exp(log_s)
+        return -0.5 * zz * zz - log_s - 0.5 * np.log(2 * np.pi)
+
+    ssm = mt.StateSpaceModel(
+        lambda g, n, th: m0 + np.sqrt(p0) * torch.randn(
+            (th.shape[0], n, 1), generator=g, device=g.device),
+        lambda g, x, t, th: x + sq * torch.randn(x.shape, generator=g,
+                                                 device=g.device), obs)
+    return mt.SMC2Sampler(
+        ssm, lambda th: -0.5 * th[:, 0] ** 2 - 0.5 * np.log(2 * np.pi),
+        lambda g, n: torch.randn((n, 1), generator=g, device=g.device),
+        n_theta=m, n_params=1, n_particles=nx, seed=seed, batched=True,
+        max_chunk_steps=max_chunk_steps, device=dev)
+
+
+def smc2_data(t_n, seed=11):
+    rng = np.random.default_rng(seed)
+    x = 1.0 + np.sqrt(2.0) * rng.standard_normal() + np.cumsum(
+        np.r_[0.0, 0.35 * rng.standard_normal(t_n - 1)])
+    return (x + 0.6 * rng.standard_normal(t_n)).astype(np.float32)
+
+
+def ts_online(mt, card):
+    """(f): IBIS (chunked against per-stage, bitwise) and SMC²."""
+    from mcmcpp_tpu_torch.examples import streaming
+    from mcmcpp_tpu_torch.models import lgss as tl
+
+    dev = torch.device("cuda")
+    ys = streaming.make_stream(IBIS_ROWS // 2)
+    runs = {}
+    for chunk in (32, None):
+        torch.cuda.reset_peak_memory_stats()
+        s = streaming.m1_sampler(IBIS_N, IBIS_BATCH, dev,
+                                 max_chunk_steps=chunk)
+        half = IBIS_ROWS // 2
+        _, s1, _ = ts_fenced(lambda: s.update(ys[:half]))
+        bf_mid = s.log_evidence - streaming.m0_logz(ys[:half])
+        _, s2, _ = ts_fenced(lambda: s.update(ys[half:]))
+        bf_end = s.log_evidence - streaming.m0_logz(ys)
+        runs[chunk] = (s, s1 + s2, bf_mid, bf_end, ts_peak())
+    a, b = runs[32][0], runs[None][0]
+    same = all(torch.equal(x, y) for x, y in zip(a.state, b.state)) and \
+        a.log_evidence_trace == b.log_evidence_trace
+    stages = IBIS_ROWS // IBIS_BATCH
+    s, secs, bf_mid, bf_end, peak = runs[32]
+    print(f"  (f) IBIS N={IBIS_N}, {IBIS_ROWS} rows in batches of "
+          f"{IBIS_BATCH}: {stages / secs:.1f} stages/s grouped by 32 "
+          f"({stages / runs[None][1]:.1f} per stage), host syncs "
+          f"{a.host_syncs / stages:.3f} a stage ({b.host_syncs / stages:.3f} "
+          f"per stage), {a.n_resamples} resample-move events; grouped == "
+          f"per-stage bitwise: {same}; log Bayes factor at the switch "
+          f"{bf_mid:.2f} (bound < 1), at the end {bf_end:.2f} (bound > 3); "
+          f"{peak} [{card}]", flush=True)
+    ts_check("IBIS grouped == per-stage", same, same)
+    ts_check("IBIS Bayes factor", bf_mid < 1.0 and bf_end > 3.0,
+             (bf_mid, bf_end))
+    del runs, a, b, s
+
+    yl = smc2_data(SMC2_T)
+    grid = torch.linspace(-2.5, 1.5, 401, dtype=torch.float64, device=dev)
+
+    def exact_ll(th):
+        return tl.lgss_loglik(tl.lgss_params(
+            A=1.0, b=0.0, Q=0.35 ** 2, H=1.0, c=0.0, R=torch.exp(th) ** 2,
+            m0=1.0, P0=2.0, dtype=torch.float64, device=dev),
+            torch.tensor(yl, dtype=torch.float64, device=dev))
+
+    ll = torch.stack([exact_ll(g) for g in grid]).cpu().numpy()
+    g = grid.cpu().numpy()
+    logpost = ll - 0.5 * g ** 2 - 0.5 * np.log(2 * np.pi)
+    mx = logpost.max()
+    logz_true = float(mx + np.log(np.sum(np.exp(logpost - mx)))
+                      + np.log(g[1] - g[0]))
+    torch.cuda.reset_peak_memory_stats()
+    s = smc2_local_level(mt, dev, SMC2_M, SMC2_NX, seed=3)
+    _, secs, _ = ts_fenced(lambda: s.update(yl))
+    mean, cov = s.moments()
+    print(f"  (f) SMC² {SMC2_M} θ × {SMC2_NX} x-particles, T={SMC2_T}: "
+          f"{SMC2_T / secs:.2f} stages/s, host syncs "
+          f"{s.host_syncs / SMC2_T:.3f} a stage, {s.n_resamples} "
+          f"rejuvenations (last acceptance "
+          f"{s.last_rejuvenation_accept:.3f}); log evidence "
+          f"{s.log_evidence:.3f} against the exact {logz_true:.3f} (bound "
+          f"1.0); θ posterior {mean[0]:.3f} ± {np.sqrt(cov[0, 0]):.3f}; "
+          f"{ts_peak()}", flush=True)
+    ts_check("SMC² evidence", abs(s.log_evidence - logz_true) < 1.0,
+             (s.log_evidence, logz_true))
+
+
+def ts_gaussian_filters(mt, card):
+    """(g) EnKF and ETKF on Lorenz-96; (h) UKF/URTS and EKI/EKS."""
+    from mcmcpp_tpu_torch.examples import data_assimilation as da
+    from mcmcpp_tpu_torch.models import lgss as tl
+
+    dev = torch.device("cuda")
+    truth, ys, h_idx = da.simulate_truth(ENKF_T, seed=1)
+    model = da.build_model(truth[0], h_idx, dev)
+    clim = float(truth.std())
+    for variant, t_n in (("stochastic", ENKF_T), ("etkf", ETKF_T)):
+        torch.cuda.reset_peak_memory_stats()
+        mt.ensemble_kalman_filter(0, model, ys[:8], ENKF_N, variant=variant,
+                                  device="cuda")
+        with counting_syncs() as syncs:
+            res, secs, enq = ts_fenced(lambda: mt.ensemble_kalman_filter(
+                0, model, ys[:t_n], ENKF_N, inflation=1.05, variant=variant,
+                device="cuda"))
+        warm = t_n // 4
+        rmse = float(np.sqrt(np.mean((res.means.cpu().numpy()[warm:]
+                                      - truth[warm:t_n]) ** 2)))
+        print(f"  (g) EnKF {variant} Lorenz-96 D={da.D} N={ENKF_N} "
+              f"T={t_n}: {t_n / secs:.1f} steps/s "
+              f"({secs / t_n * 1e3:.3f} ms a step, host enqueue "
+              f"{enq / t_n * 1e3:.3f} ms), {len(syncs)} host syncs; "
+              f"analysis RMSE {rmse:.4f} (bounds < 1.2 and < 0.6 × "
+              f"climatology {clim:.3f}); {ts_peak()} [{card}]", flush=True)
+        ts_check(f"EnKF {variant}", rmse < 1.2 and rmse < 0.6 * clim,
+                 (rmse, clim))
+
+    # UKF and URTS on tests/test_ukf.py's linear case against Kalman
+    a2 = np.array([[0.9, 0.1], [0.0, 0.8]], np.float32)
+    h2 = np.array([[1.0, 0.0]], np.float32)
+    q2 = 0.3 * np.eye(2, dtype=np.float32)
+    r2 = np.array([[0.25]], np.float32)
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal(2)
+    ys = np.empty((60, 1), np.float32)
+    for t in range(60):
+        if t > 0:
+            x = a2 @ x + rng.multivariate_normal(np.zeros(2), q2)
+        ys[t] = h2 @ x + np.sqrt(r2[0, 0]) * rng.standard_normal()
+    t_ = lambda v: torch.tensor(v, device=dev)  # noqa: E731
+    model = mt.UKFModel(f=lambda xx, t: xx @ t_(a2).T,
+                        h=lambda xx, t: xx @ t_(h2).T, Q=t_(q2), R=t_(r2),
+                        m0=torch.zeros(2, device=dev),
+                        P0=torch.eye(2, device=dev))
+    r, ukf_s, _ = ts_fenced(lambda: mt.unscented_kalman_filter(model, ys))
+    exact = tl.kalman_filter(tl.lgss_params(a2, np.zeros(2), q2, h2,
+                                            np.zeros(1), r2, np.zeros(2),
+                                            np.eye(2), device=dev), ys,
+                             method="sequential")
+    (ms, _), urts_s, _ = ts_fenced(lambda: mt.unscented_rts_smoother(
+        model, filtered=r))
+    ems, _ = tl.rts_smoother(tl.lgss_params(a2, np.zeros(2), q2, h2,
+                                            np.zeros(1), r2, np.zeros(2),
+                                            np.eye(2), device=dev),
+                             filtered=exact)
+    e_m = float((r.means - exact.means).abs().max())
+    e_s = float((ms - ems).abs().max())
+    e_ll = abs(float(r.loglik) - float(exact.loglik)) / abs(float(
+        exact.loglik))
+    print(f"  (h) UKF T=60 {ukf_s * 1e3:.1f} ms, URTS {urts_s * 1e3:.1f} ms: "
+          f"against Kalman/RTS means {e_m:.2e} (bound 2e-4), smoothed "
+          f"{e_s:.2e} (bound 5e-4), loglik {e_ll:.2e} relative (bound 1e-4)",
+          flush=True)
+    ts_check("UKF/URTS", e_m < 2e-4 and e_s < 5e-4 and e_ll < 1e-4,
+             (e_m, e_s, e_ll))
+
+    # EKI and EKS on tests/test_eks.py's linear problem, J = 2^14
+    rng = np.random.default_rng(0)
+    a = rng.standard_normal((5, 3)).astype(np.float32)
+    gamma = 0.25 * np.eye(5, dtype=np.float32)
+    y = (a @ np.array([0.5, -1.0, 2.0], np.float32)
+         + 0.5 * rng.standard_normal(5)).astype(np.float32)
+    c0 = 4.0 * np.eye(3, dtype=np.float32)
+    gi = np.linalg.inv(gamma)
+    post_cov = np.linalg.inv(a.T @ gi @ a + np.linalg.inv(c0))
+    post_mean = post_cov @ (a.T @ gi @ y)
+    at = torch.tensor(a, device=dev)
+    fwd = lambda th: th @ at.T  # noqa: E731
+    torch.cuda.reset_peak_memory_stats()
+    eki, eki_s, _ = ts_fenced(lambda: mt.ensemble_kalman_inversion(
+        2, fwd, y, gamma, np.zeros(3), c0, n_ensemble=EKS_J, n_iters=40,
+        device="cuda"))
+    eks, eks_s, _ = ts_fenced(lambda: mt.ensemble_kalman_sampler(
+        3, fwd, y, gamma, np.zeros(3), c0, n_ensemble=EKS_J, device="cuda"))
+    e_eki = float(np.abs(eki.theta.cpu().numpy() - post_mean).max())
+    e_eks = float(np.abs(eks.mean.cpu().numpy() - post_mean).max())
+    ratio = np.diag(eks.cov.cpu().numpy()) / np.diag(post_cov)
+    print(f"  (h) EKI J={EKS_J} 40 iterations {eki_s:.2f} s: mean off the "
+          f"posterior mean by {e_eki:.4f} (bound 0.15); EKS J={EKS_J} 800 "
+          f"iterations {eks_s:.2f} s ({800 / eks_s:.1f} it/s): mean "
+          f"{e_eks:.4f} (bound 0.15), variance ratios "
+          f"{np.round(ratio, 3).tolist()} (bounds 0.6–1.6); {ts_peak()}",
+          flush=True)
+    ts_check("EKI", e_eki < 0.15, e_eki)
+    ts_check("EKS", e_eks < 0.15 and ((ratio > 0.6) & (ratio < 1.6)).all(),
+             (e_eks, ratio))
+
+
+def ts_resumes(mt, card, out_dir):
+    """(i): PMMH, IBIS and SMC² saved, loaded into fresh samplers and
+    continued, bit for bit against the uninterrupted run."""
+    from mcmcpp_tpu_torch.examples import state_space as ss
+    from mcmcpp_tpu_torch.examples import streaming
+    from mcmcpp_tpu_torch.io import load_checkpoint, save_checkpoint
+
+    dev = torch.device("cuda")
+    os.makedirs(out_dir, exist_ok=True)
+
+    def timed_save(s, name):
+        path = os.path.join(out_dir, name)
+        _, save_s, _ = ts_fenced(lambda: save_checkpoint(s, path))
+        return path, save_s
+
+    def report(label, path, save_s, load_s, same):
+        print(f"  (i) {label} resume: {os.path.getsize(path)} bytes, save "
+              f"{save_s:.3f} s, load {load_s:.3f} s; continuation bitwise: "
+              f"{same} [{card}]", flush=True)
+        ts_check(f"{label} resume", same, same)
+
+    _, ys = ss.sv_data(SV_T)
+
+    def pmmh(seed):
+        return mt.PMMHSampler(sv_with_density(ss), ys[:PMMH_T],
+                              log_prior=lambda th: -0.5 * th[..., 0] ** 2,
+                              n_params=1, n_particles=PMMH_N,
+                              proposal_scale=0.3, n_chains=PMMH_CHAINS,
+                              seed=seed, batched=True, device="cuda")
+
+    a = pmmh(0)
+    a.init(np.zeros((PMMH_CHAINS, 1), np.float32))
+    a.run(RESUME_STEPS)
+    path, save_s = timed_save(a, "ts_pmmh.npz")
+    b = pmmh(9)
+    _, load_s, _ = ts_fenced(lambda: load_checkpoint(b, path))
+    a.run(RESUME_STEPS)
+    b.run(RESUME_STEPS)
+    same = all(torch.equal(x, y) for x, y in zip(a.state, b.state)) and \
+        np.array_equal(a.get_samples(), b.get_samples())
+    report(f"PMMH {PMMH_CHAINS}×{PMMH_N}", path, save_s, load_s, same)
+    del a, b
+
+    stream = streaming.make_stream(IBIS_ROWS // 2)
+    a = streaming.m1_sampler(IBIS_N, IBIS_BATCH, dev)
+    a.update(stream[:1000])
+    path, save_s = timed_save(a, "ts_ibis.npz")
+    b = streaming.m1_sampler(IBIS_N, IBIS_BATCH, dev, seed=9)
+    _, load_s, _ = ts_fenced(lambda: load_checkpoint(b, path))
+    a.update(stream[1000:1200])
+    b.update(stream[1000:1200])
+    same = all(torch.equal(x, y) for x, y in zip(a.state, b.state)) and \
+        a.log_evidence_trace == b.log_evidence_trace
+    report(f"IBIS N={IBIS_N}", path, save_s, load_s, same)
+    del a, b
+
+    yl = smc2_data(SMC2_T)
+    a = smc2_local_level(mt, dev, SMC2_M, SMC2_NX)
+    a.update(yl[:100])
+    path, save_s = timed_save(a, "ts_smc2.npz")
+    b = smc2_local_level(mt, dev, SMC2_M, SMC2_NX, seed=9)
+    _, load_s, _ = ts_fenced(lambda: load_checkpoint(b, path))
+    a.update(yl[100:120])
+    b.update(yl[100:120])
+    same = all(torch.equal(x, y) for x, y in zip(a.state, b.state)) and \
+        a.log_evidence_trace == b.log_evidence_trace
+    report(f"SMC² {SMC2_M}×{SMC2_NX}", path, save_s, load_s, same)
+
+
+def time_series(mt, card, out_dir):
+    """Phase 13: the time-series layer at its users' widths; every check
+    fails the run."""
+    for part in (ts_kalman, ts_hmm, ts_particles, ts_rbpf_if2, ts_online,
+                 ts_gaussian_filters):
+        t0 = time.perf_counter()
+        part(mt, card)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        print(f"  [{part.__name__}: {time.perf_counter() - t0:.1f} s]",
+              flush=True)
+    t0 = time.perf_counter()
+    ts_resumes(mt, card, out_dir)
+    print(f"  [ts_resumes: {time.perf_counter() - t0:.1f} s]", flush=True)
+
+
+def time_series_launch_count(mt, card):
+    """Phase 13's launches per time step under the profiler (after phase 7,
+    as no timing may follow a profiler window in this process): a
+    bootstrap filter step at 2^18 particles, a PMMH filter step (256 chains
+    × 1024 particles, batched hooks), a sequential Kalman step (D = 8), an
+    SMC² stage's x-system advance (1024 × 1024) and a sequential HMM step
+    (K = 8)."""
+    from mcmcpp_tpu_torch.examples import state_space as ss
+    from mcmcpp_tpu_torch.models import hmm as th
+    from mcmcpp_tpu_torch.models import lgss as tl
+
+    dev = torch.device("cuda")
+    steps = 50
+    _, ys = ss.sv_data(steps + 1)
+    ssm = sv_with_density(ss)
+    mu = torch.tensor([-1.0], device=dev)
+    pm = mt.PMMHSampler(ssm, ys, log_prior=lambda th: -0.5 * th[..., 0] ** 2,
+                        n_params=1, n_particles=PMMH_N, n_chains=PMMH_CHAINS,
+                        batched=True, device="cuda")
+    pm.init(np.zeros((PMMH_CHAINS, 1), np.float32))
+    comp = [tl.local_linear_trend(0.05, 1e-5, device=dev),
+            tl.seasonal(7, 0.02, device=dev)]
+    p = tl.structural(comp, 0.5, p0_scale=100.0)
+    yk = torch.randn(steps + 1, device=dev)
+    s2 = smc2_local_level(mt, dev, SMC2_M, SMC2_NX)
+    s2.update(smc2_data(2))
+    s2.target_ess = 0.0  # the advance alone
+    yl = torch.tensor(smc2_data(steps + 2)[:, None], device=dev)
+    lo = torch.randn((steps + 1, HMM_K), device=dev)
+    lg = torch.log(torch.full((HMM_K, HMM_K), 1.0 / HMM_K, device=dev))
+    lp = torch.full((HMM_K,), -np.log(HMM_K), device=dev)
+
+    def smc2_stages():
+        st = s2.state
+        for t in range(2, steps + 2):
+            st, _, _, _ = s2.stage(st, yl, t)
+
+    cases = [
+        ("bootstrap filter step (N=2^18)",
+         lambda: mt.particle_filter(0, ssm, mu, ys, PF_N, device="cuda")),
+        (f"PMMH filter step ({PMMH_CHAINS}×{PMMH_N})",
+         lambda: pm.step(pm.state, pm._prop_chol)),
+        ("sequential Kalman step (D=8)",
+         lambda: tl.kalman_filter(p, yk, method="sequential")),
+        (f"SMC² stage advance ({SMC2_M}×{SMC2_NX})", smc2_stages),
+        ("sequential HMM forward step (K=8)",
+         lambda: th.hmm_forward(lp, lg, lo, method="sequential")),
+    ]
+    out = []
+    for label, fn in cases:
+        fn()
+        rows = device_rows_per_step(fn, steps)
+        n = sum(c for c, _ in rows.values())
+        us = sum(u for _, u in rows.values())
+        out.append(f"{label} {n:.1f} launches, {us:.1f} us of device time")
+    print("  launches per time step (50 steps profiled): " + "; ".join(out)
+          + f" [{card}]", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; "
@@ -3307,6 +4196,22 @@ def main():
                 os.path.dirname(os.path.abspath(__file__)), "build", "smoke"))
             torch.cuda.empty_cache()
 
+    # -- phase 13: the time-series layer (no hand kernel on its path: the
+    # stretch kernels' launches there are counted and must stay 0) ----------
+    ts_launches = {}
+    if run_phase("13"):
+        with phase("13 time-series layer"):
+            reset_launches(fs)
+            time_series(mt, card, os.path.join(
+                os.path.dirname(os.path.abspath(__file__)), "build", "smoke"))
+            ts_launches = dict(fs.LAUNCHES)
+            if any(ts_launches.values()):
+                raise AssertionError(f"the time-series path launched a "
+                                     f"stretch kernel: {ts_launches}")
+            print(f"  stretch-kernel launches on the time-series path: "
+                  f"{ts_launches}", flush=True)
+            torch.cuda.empty_cache()
+
     # -- phase 7: what a flagship step puts on the device --------------------
     # Last, because the profiler's tracing stays attached to the process
     # and slows every later launch: no timing may follow it.
@@ -3418,6 +4323,11 @@ def main():
         with phase("12 (a) launches per logp evaluation, profiled"):
             dsl_launch_count(mt, card)
 
+    # phase 13's launches per time step: under the profiler, so after phase 7
+    if run_phase("13"):
+        with phase("13 launches per time step, profiled"):
+            time_series_launch_count(mt, card)
+
     if chosen is not None:
         # a chosen subset: the kernel line needs every phase's launches
         print(f"phases {sorted(chosen)} only: no kernel line")
@@ -3446,6 +4356,7 @@ def main():
          "launches_store_path": store_launches.get(name, 0),
          "launches_smc_path": smc_launches.get(name, 0),
          "launches_dsl_path": dsl_launches.get(name, 0),
+         "launches_timeseries_path": ts_launches.get(name, 0),
          "max_abs_err": k["max_abs_err"],
          "ms": k["ms"], "plain_ms": k["plain_ms"],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],

@@ -49,9 +49,18 @@ from mcmcpp_tpu_torch.dsl import Model
 from mcmcpp_tpu_torch.chain import Chain
 from mcmcpp_tpu_torch.chain_disk import DiskChain
 from mcmcpp_tpu_torch.convergence import ConvergenceReport, run_until_converged
+from mcmcpp_tpu_torch.eks import (
+    EKIResult,
+    EKSResult,
+    ensemble_kalman_inversion,
+    ensemble_kalman_sampler,
+)
 from mcmcpp_tpu_torch.elliptical import EllipticalSliceSampler
+from mcmcpp_tpu_torch.enkf import EnKFModel, ensemble_kalman_filter
 from mcmcpp_tpu_torch.export import (
+    ibis_to_inference_dict,
     nested_to_inference_dict,
+    smc2_to_inference_dict,
     to_arviz,
     to_inference_dict,
 )
@@ -109,18 +118,41 @@ from mcmcpp_tpu_torch.movers import (
     StretchMove,
     WalkMove,
 )
+from mcmcpp_tpu_torch.ibis import IBISSampler
+from mcmcpp_tpu_torch.if2 import IF2Result, if2
 from mcmcpp_tpu_torch.map_laplace import find_map, laplace, laplace_sample
 from mcmcpp_tpu_torch.nested import NestedSampler
 from mcmcpp_tpu_torch.neutra import IAF, NeuTra, RealNVP, SplineCoupling
 from mcmcpp_tpu_torch.pathfinder import multi_pathfinder, pathfinder
+from mcmcpp_tpu_torch.particle import (
+    ParticleGibbsKernel,
+    PMMHSampler,
+    StateSpaceModel,
+    particle_filter,
+    particle_forecast,
+    particle_smoother,
+)
 from mcmcpp_tpu_torch.pcn import PCNSampler
+from mcmcpp_tpu_torch.rbpf import (
+    RaoBlackwellSSM,
+    rao_blackwell_filter,
+    rbpf_forecast,
+    switching_model,
+)
 from mcmcpp_tpu_torch.sampler import EnsembleSampler, EnsembleState, sample_ball
 from mcmcpp_tpu_torch.smc import SMCSampler
+from mcmcpp_tpu_torch.smc2 import SMC2Sampler
 from mcmcpp_tpu_torch.svgd import SVGD
 from mcmcpp_tpu_torch.tempering import (
     ParallelTemperingSampler,
     geometric_ladder,
     power_ladder,
+)
+from mcmcpp_tpu_torch.ukf import (
+    UKFModel,
+    UKFResult,
+    unscented_kalman_filter,
+    unscented_rts_smoother,
 )
 from mcmcpp_tpu_torch.vi import ADVI
 
@@ -138,56 +170,73 @@ __all__ = [
     "DRAMMove",
     "DifferentialEvolutionMove",
     "DiskChain",
+    "EKIResult",
+    "EKSResult",
+    "EllipticalSliceKernel",
+    "EllipticalSliceSampler",
+    "EnKFModel",
     "EnsembleSampler",
     "EnsembleSliceMove",
     "EnsembleState",
-    "EllipticalSliceKernel",
-    "EllipticalSliceSampler",
     "ExactGibbsKernel",
-    "GaussianInterweaveKernel",
     "FusedStretchMove",
+    "GaussianInterweaveKernel",
     "GaussianMixture",
     "GaussianTarget",
     "HMCKernel",
     "HMCSampler",
     "IAF",
+    "IBISSampler",
+    "IF2Result",
     "InterweaveKernel",
     "LogisticRegression",
     "MALAKernel",
     "MALASampler",
     "MAMSSampler",
     "MCLMCSampler",
-    "Model",
     "MEADSSampler",
     "MetropolisHastingsMove",
     "MixtureMover",
+    "Model",
     "Mover",
     "NUTSSampler",
     "NealFunnel",
     "NestedSampler",
     "NeuTra",
     "PCNSampler",
+    "PMMHSampler",
     "ParallelTemperingSampler",
+    "ParticleGibbsKernel",
     "RWMKernel",
+    "RaoBlackwellSSM",
     "RealNVP",
     "Rosenbrock",
     "SGHMCSampler",
     "SGLDSampler",
+    "SMC2Sampler",
     "SMCSampler",
     "SVGD",
     "SequenceMove",
     "SplineCoupling",
+    "StateSpaceModel",
     "StretchMove",
     "Target",
+    "UKFModel",
+    "UKFResult",
     "WalkMove",
     "analysis",
     "bayesian_linear_regression",
     "correlated_gaussian",
     "dsl",
+    "ensemble_kalman_filter",
+    "ensemble_kalman_inversion",
+    "ensemble_kalman_sampler",
     "equicorrelated_gaussian",
     "find_map",
     "gaussian_mixture",
     "geometric_ladder",
+    "ibis_to_inference_dict",
+    "if2",
     "laplace",
     "laplace_sample",
     "logistic_regression",
@@ -195,12 +244,21 @@ __all__ = [
     "multi_pathfinder",
     "neal_funnel",
     "nested_to_inference_dict",
+    "particle_filter",
+    "particle_forecast",
+    "particle_smoother",
     "pathfinder",
     "power_ladder",
+    "rao_blackwell_filter",
+    "rbpf_forecast",
     "rosenbrock",
     "run_until_converged",
     "sample_ball",
     "skewed_gaussian",
+    "smc2_to_inference_dict",
+    "switching_model",
     "to_arviz",
     "to_inference_dict",
+    "unscented_kalman_filter",
+    "unscented_rts_smoother",
 ]

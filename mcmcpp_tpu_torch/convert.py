@@ -43,9 +43,9 @@ from mcmcpp_tpu_torch.vi import FullRankParams, MeanFieldParams
 
 __all__ = ["GaussianTarget", "adam_state_from_numpy", "advi_params_from_numpy",
            "dense_mass_from_numpy", "flow_params_from_numpy",
-           "gradient_state_from_numpy", "mover_state_from_numpy",
-           "sampler_from_jax_checkpoint", "state_from_numpy",
-           "target_from_numpy"]
+           "gradient_state_from_numpy", "lgss_params_from_numpy",
+           "mover_state_from_numpy", "sampler_from_jax_checkpoint",
+           "state_from_numpy", "target_from_numpy"]
 
 
 def _tensor(x, device, dtype=np.float32):
@@ -127,6 +127,17 @@ def advi_params_from_numpy(mu, second, full_rank, device="cuda",
     cls = FullRankParams if full_rank else MeanFieldParams
     return cls(*(torch.from_numpy(np.array(a)).to(device, dtype)
                  for a in (mu, second)))
+
+
+def lgss_params_from_numpy(params, dtype=torch.float32, device="cuda"):
+    """The port's :class:`~mcmcpp_tpu_torch.models.lgss.LGSSParams` from a
+    JAX ``LGSSParams``'s fields as numpy (the namedtuple itself, or its
+    eight arrays A, b, Q, H, c, R, m0, P0 in order), time-varying axes
+    kept."""
+    from mcmcpp_tpu_torch.models.lgss import LGSSParams
+
+    return LGSSParams(*(torch.from_numpy(np.array(a)).to(device, dtype)
+                        for a in params))
 
 
 def _refuse_mclmc(kind, meta, sampler):
@@ -239,10 +250,21 @@ def _jax_gibbs(arrays, meta, sampler):
                      for name, _ in sampler._layout}
 
 
+def _jax_pmmh(arrays, meta, sampler):
+    # the arrays' own dtypes (the accept counters int32), then the
+    # sampler's float dtype
+    _LOADERS["pmmh"](sampler, meta, arrays, lambda name: torch.from_numpy(
+        np.array(arrays[name])).to(sampler.device))
+    sampler.state = sampler.state._replace(**{
+        k: getattr(sampler.state, k).to(sampler.dtype)
+        for k in ("position", "loglik", "logprior")})
+
+
 _JAX_LOADERS = {"ensemble": _jax_ensemble, "gradient": _jax_gradient,
                 "sgmcmc": _jax_sgmcmc, "mclmc": _jax_mclmc,
                 "mams": _jax_mclmc, "pt": _jax_pt, "pcn": _jax_pcn,
-                "elliptical": _jax_elliptical, "gibbs": _jax_gibbs}
+                "elliptical": _jax_elliptical, "gibbs": _jax_gibbs,
+                "pmmh": _jax_pmmh}
 
 
 def sampler_from_jax_checkpoint(arrays, meta, sampler):
@@ -286,8 +308,9 @@ def sampler_from_jax_checkpoint(arrays, meta, sampler):
         raise ValueError(
             f"checkpoint kind {kind!r}: only the ensemble sampler's, the "
             "gradient engines', the population engines' (pt, pcn, "
-            "elliptical, gibbs) and the evidence and variational engines' "
-            "(smc, nested, neutra, advi) states can be carried across")
+            "elliptical, gibbs), the evidence and variational engines' "
+            "(smc, nested, neutra, advi) and the time-series engines' "
+            "(pmmh, ibis, smc2) states can be carried across")
     if kind in ("mclmc", "mams"):
         _refuse_mclmc(kind, meta, sampler)
     elif checkpoint_kind(sampler) != kind:

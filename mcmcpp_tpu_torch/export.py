@@ -7,8 +7,8 @@ chain into the exact dict convention ``arviz.from_dict`` consumes —
 parameters through a ``constrain`` callable. ArviZ itself is NOT required
 (not installed in minimal environments): ``to_inference_dict`` returns plain
 numpy; ``to_arviz`` performs the gated import. Counterpart of
-``mcmcpp_tpu/export.py``, with the nested-sampling exporter; the IBIS and
-SMC² exporters come with their engines.
+``mcmcpp_tpu/export.py``, with the nested-sampling, IBIS and SMC²
+exporters.
 
     idata_kw = to_inference_dict(sampler, model=model)
     # elsewhere, with arviz installed:
@@ -121,3 +121,68 @@ def nested_to_inference_dict(sampler_or_result, model=None, n_draws=2000,
         "weights_ess": np.full((1, n), res.ess),
     }
     return {"posterior": posterior, "sample_stats": stats}
+
+
+def _weighted_cloud_export(sampler, model, n_draws, seed, counter_name):
+    """The IBIS/SMC² export: an equal-weight resampled posterior (one
+    "chain" of ``n_draws``) and the evidence, prequential and resample-count
+    rows of sample_stats. A prequential trace longer than ``n_draws`` is
+    truncated with a warning (``sampler.log_evidence_trace`` holds it
+    whole)."""
+    draws = sampler.posterior(n_draws=n_draws, seed=seed)  # (n, P)
+    n = draws.shape[0]
+    if model is not None:
+        constrain = model if not hasattr(model, "build") else model.build()[2]
+        named = constrain(draws)
+        posterior = {k: np.asarray(v)[None, ...] for k, v in named.items()}
+    else:
+        posterior = {"theta": draws[None, :, :]}
+    trace = np.asarray(sampler.log_evidence_trace, np.float64)
+    if trace.size > n:
+        import warnings
+
+        warnings.warn(
+            f"prequential trace ({trace.size} stages) is longer than "
+            f"n_draws={n}; the sample_stats row keeps only the first "
+            f"{n} increments — use sampler.log_evidence_trace for the "
+            "full trace", UserWarning)
+    padded = np.full(n, np.nan)
+    padded[: min(trace.size, n)] = trace[:n]
+    stats = {
+        "log_evidence": np.full((1, n), sampler.log_evidence),
+        "prequential_logp": padded[None, :],
+        counter_name: np.full((1, n), float(sampler.n_resamples)),
+    }
+    return {"posterior": posterior, "sample_stats": stats}
+
+
+def ibis_to_inference_dict(sampler, model=None, n_draws=2000, seed=0):
+    """``arviz.from_dict`` kwargs from an IBIS run's current state: an
+    equal-weight categorical resample of the weighted particles (one
+    "chain" of ``n_draws``); sample_stats the running evidence, the
+    prequential per-stage increments (a padded row) and the resample
+    count."""
+    from mcmcpp_tpu_torch.ibis import IBISSampler
+
+    if not isinstance(sampler, IBISSampler):
+        raise TypeError("expected an IBISSampler")
+    return _weighted_cloud_export(sampler, model, n_draws, seed,
+                                  "n_resamples")
+
+
+def smc2_to_inference_dict(sampler, model=None, n_draws=2000, seed=0):
+    """``arviz.from_dict`` kwargs from an SMC² run's current state: as
+    :func:`ibis_to_inference_dict` for the θ-cloud, with the rejuvenation
+    count and the marginal filtered-state estimate (one row per state
+    dimension)."""
+    from mcmcpp_tpu_torch.smc2 import SMC2Sampler
+
+    if not isinstance(sampler, SMC2Sampler):
+        raise TypeError("expected an SMC2Sampler")
+    out = _weighted_cloud_export(sampler, model, n_draws, seed,
+                                 "n_rejuvenations")
+    est = sampler.state_estimate()
+    n = next(iter(out["sample_stats"].values())).shape[1]
+    for d in range(est.shape[0]):
+        out["sample_stats"][f"filtered_state_{d}"] = np.full((1, n), est[d])
+    return out

@@ -1,5 +1,6 @@
 """Checkpoint / resume for the ensemble sampler, the gradient engines, the
-population engines and the evidence and variational engines.
+population engines, the evidence and variational engines and the
+time-series engines.
 
 Counterpart of ``mcmcpp_tpu/io/checkpoint.py`` (the reference has no
 checkpointing, SURVEY.md §5) for its kinds ``ensemble``, ``gradient`` (HMC,
@@ -8,7 +9,9 @@ NUTS, MALA, Barker, ChEES, MEADS), ``sgmcmc`` (SGLD, SGHMC), ``mclmc``,
 power mode), ``pcn``, ``elliptical``, ``gibbs``, and the evidence and
 variational engines' ``smc`` (with the flow mutation's parameters and Adam
 state), ``nested`` (the live set and the host ledger), ``neutra`` (the flow's
-parameters, Adam state and fit traces) and ``advi``. A checkpoint is one
+parameters, Adam state and fit traces) and ``advi``, and the time-series
+engines' ``pmmh`` (with the tuned proposal), ``ibis`` and ``smc2`` (each with
+its absorbed observations, which a move re-scores). A checkpoint is one
 ``.npz`` archive holding the device state (positions, log-probs, gradients,
 momenta, counters, step sizes, the mass matrix, ChEES's trajectory
 adaptation, the sample stats, the variational parameters), the state of the
@@ -45,10 +48,6 @@ from mcmcpp_tpu_torch.chain import from_held
 _FORMAT_VERSION = "torch-1"
 _PORT = "torch"
 
-# checkpoint kinds of the JAX package whose engines are not ported, with the
-# ROADMAP item each waits for
-_UNPORTED_KINDS = {"pmmh": "A11", "ibis": "A11", "smc2": "A11"}
-
 # what a refused load says the file is for, by kind
 FOR_SAMPLER = {
     "ensemble": "an EnsembleSampler",
@@ -64,6 +63,9 @@ FOR_SAMPLER = {
     "nested": "a NestedSampler",
     "neutra": "a NeuTra transport",
     "advi": "an ADVI fit",
+    "pmmh": "a PMMHSampler",
+    "ibis": "an IBISSampler",
+    "smc2": "an SMC2Sampler",
 }
 
 # the nested sampler's configuration a file must match (≙ the JAX loader)
@@ -79,6 +81,9 @@ def checkpoint_kind(sampler):
     from mcmcpp_tpu_torch.gradient.sgmcmc import StochasticGradientSampler
     from mcmcpp_tpu_torch.elliptical import EllipticalSliceSampler
     from mcmcpp_tpu_torch.gibbs import BlockedGibbsSampler
+    from mcmcpp_tpu_torch.ibis import IBISSampler
+    from mcmcpp_tpu_torch.particle import PMMHSampler
+    from mcmcpp_tpu_torch.smc2 import SMC2Sampler
     from mcmcpp_tpu_torch.pcn import PCNSampler
     from mcmcpp_tpu_torch.sampler import EnsembleSampler
     from mcmcpp_tpu_torch.nested import NestedSampler
@@ -95,7 +100,8 @@ def checkpoint_kind(sampler):
                       (EllipticalSliceSampler, "elliptical"),
                       (BlockedGibbsSampler, "gibbs"), (SMCSampler, "smc"),
                       (NestedSampler, "nested"), (NeuTra, "neutra"),
-                      (ADVI, "advi")):
+                      (ADVI, "advi"), (PMMHSampler, "pmmh"),
+                      (IBISSampler, "ibis"), (SMC2Sampler, "smc2")):
         if isinstance(sampler, cls):
             return kind
     return None
@@ -288,11 +294,58 @@ def _save_advi(sampler, meta, arrays):
     _pack(arrays, meta, "opt", adam_leaves(sampler.opt_state))
 
 
+def _save_pmmh(sampler, meta, arrays):
+    s = sampler.state
+    meta.update(n_chains=sampler.n_chains,
+                n_steps_done=sampler._n_steps_done)
+    arrays.update({name: _host(getattr(s, name)) for name in s._fields})
+    # a tuned proposal travels with the state
+    arrays["prop_chol"] = _host(sampler._prop_chol)
+
+
+def _save_stream(sampler, meta, arrays):
+    """What IBIS and SMC² share: the state's fields, the prequential trace
+    and the resample count."""
+    s = sampler.state
+    meta["n_resamples"] = sampler.n_resamples
+    arrays.update({name: _host(getattr(s, name)) for name in s._fields})
+    arrays["evidence_trace"] = np.asarray(sampler.log_evidence_trace,
+                                          np.float64)
+
+
+def _save_ibis(sampler, meta, arrays):
+    if sampler._data is None:
+        raise RuntimeError("cannot checkpoint an IBISSampler before update()")
+    meta.update(n_particles=sampler.n, batch_size=sampler.batch_size)
+    _save_stream(sampler, meta, arrays)
+    # the absorbed stream travels with the state: a move re-scores its
+    # proposals against it. An array, or a flat dict of arrays.
+    if isinstance(sampler._data, dict):
+        keys = sorted(sampler._data)
+        meta.update(data_format="dict", data_keys=keys)
+        arrays.update({f"data_{i}": _host(sampler._data[k])
+                       for i, k in enumerate(keys)})
+    else:
+        meta["data_format"] = "array"
+        arrays["data_0"] = _host(sampler._data)
+
+
+def _save_smc2(sampler, meta, arrays):
+    if sampler._ys is None:
+        raise RuntimeError("cannot checkpoint an SMC2Sampler before update()")
+    meta.update(n_theta=sampler.m, n_x=sampler.n_x,
+                n_growths=sampler.n_growths)
+    _save_stream(sampler, meta, arrays)
+    # a rejuvenation re-filters the absorbed prefix
+    arrays["ys"] = _host(sampler._ys)
+
+
 _SAVERS = {"ensemble": _save_ensemble, "gradient": _save_gradient,
            "sgmcmc": _save_sgmcmc, "mclmc": _save_mclmc, "mams": _save_mclmc,
            "pt": _save_pt, "pcn": _save_pcn, "elliptical": _save_elliptical,
            "gibbs": _save_gibbs, "smc": _save_smc, "nested": _save_nested,
-           "neutra": _save_neutra, "advi": _save_advi}
+           "neutra": _save_neutra, "advi": _save_advi, "pmmh": _save_pmmh,
+           "ibis": _save_ibis, "smc2": _save_smc2}
 
 
 def save_checkpoint(sampler, path):
@@ -547,14 +600,55 @@ def _load_advi(sampler, meta, arrays, dev):
 
 
 #: the kinds whose file layout is the JAX package's, array for array, so
+def _load_pmmh(sampler, meta, arrays, dev):
+    from mcmcpp_tpu_torch.particle import PMMHState
+
+    s = PMMHState(*(dev(name) for name in PMMHState._fields))
+    sampler.state = s._replace(accepted=s.accepted.to(torch.int32))
+    sampler._n_steps_done = int(meta["n_steps_done"])
+    if "prop_chol" in arrays:
+        sampler._prop_chol = dev("prop_chol").to(sampler.dtype)
+
+
+def _load_stream(sampler, meta, arrays, dev, state_cls):
+    state = state_cls(*(dev(name) for name in state_cls._fields))
+    sampler.state = state._replace(n_included=state.n_included.to(
+        torch.int32))
+    sampler.n_resamples = int(meta["n_resamples"])
+    sampler.log_evidence_trace = [float(v) for v in arrays["evidence_trace"]]
+
+
+def _load_ibis(sampler, meta, arrays, dev):
+    from mcmcpp_tpu_torch.ibis import IBISState
+
+    _load_stream(sampler, meta, arrays, dev, IBISState)
+    if meta["data_format"] == "dict":
+        sampler._data = {k: dev(f"data_{i}")
+                         for i, k in enumerate(meta["data_keys"])}
+    else:
+        sampler._data = dev("data_0")
+
+
+def _load_smc2(sampler, meta, arrays, dev):
+    from mcmcpp_tpu_torch.smc2 import SMC2State
+
+    _load_stream(sampler, meta, arrays, dev, SMC2State)
+    # n_x is run-time state (the exchange step doubles it): adopted, not
+    # checked
+    sampler.n_x = int(meta["n_x"])
+    sampler.n_growths = int(meta.get("n_growths", 0))
+    sampler._ys = dev("ys").to(sampler.dtype)
+
+
 #: ``convert.sampler_from_jax_checkpoint`` loads its files with these
-SHARED_LOADERS = ("smc", "nested", "neutra", "advi")
+SHARED_LOADERS = ("smc", "nested", "neutra", "advi", "ibis", "smc2")
 
 _LOADERS = {"ensemble": _load_ensemble, "gradient": _load_gradient,
             "sgmcmc": _load_sgmcmc, "mclmc": _load_mclmc, "mams": _load_mclmc,
             "pt": _load_pt, "pcn": _load_pcn, "elliptical": _load_elliptical,
             "gibbs": _load_gibbs, "smc": _load_smc, "nested": _load_nested,
-            "neutra": _load_neutra, "advi": _load_advi}
+            "neutra": _load_neutra, "advi": _load_advi, "pmmh": _load_pmmh,
+            "ibis": _load_ibis, "smc2": _load_smc2}
 
 
 def refuse_geometry(kind, meta, sampler):
@@ -590,6 +684,14 @@ def refuse_geometry(kind, meta, sampler):
     elif kind == "advi":
         if bool(meta["full_rank"]) != bool(sampler.full_rank):
             raise ValueError("checkpoint/sampler disagree on full_rank mode")
+    elif kind == "ibis":
+        if meta["n_particles"] != sampler.n:
+            raise ValueError("particle count mismatch")
+        if meta["batch_size"] != sampler.batch_size:
+            raise ValueError("batch_size mismatch")
+    elif kind == "smc2":
+        if meta["n_theta"] != sampler.m:
+            raise ValueError("theta-particle count mismatch")
     elif meta["n_chains"] != sampler.n_chains:
         raise ValueError("chain count mismatch")
     if kind == "pt":
@@ -683,11 +785,6 @@ def load_checkpoint(sampler, path, allow_device_change=False):
             "that wrote it, or resume from raw samples"
         )
     kind = meta["kind"]
-    if kind in _UNPORTED_KINDS:
-        raise NotImplementedError(
-            f"checkpoint kind {kind!r}: its engine is not ported yet "
-            f"(ROADMAP {_UNPORTED_KINDS[kind]})"
-        )
     if kind not in _LOADERS:
         raise ValueError(f"unknown checkpoint kind {kind!r}")
     _refuse_mismatch(sampler, meta, arrays, allow_device_change)

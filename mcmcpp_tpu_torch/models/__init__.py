@@ -1,8 +1,11 @@
-"""Target distributions as ``nn.Module``s, and the Gaussian-process layer
-(``gp``: exact GPs; ``hsgp``: reduced-rank GPs)."""
+"""Target distributions as ``nn.Module``s, the Gaussian-process layer
+(``gp``: exact GPs; ``hsgp``: reduced-rank GPs) and the exact state-space
+models (``lgss``: linear-Gaussian; ``hmm``: finite-state)."""
 
 from mcmcpp_tpu_torch.models import gp
+from mcmcpp_tpu_torch.models import hmm
 from mcmcpp_tpu_torch.models import hsgp
+from mcmcpp_tpu_torch.models import lgss
 from mcmcpp_tpu_torch.models.targets import (
     BayesianLinearRegression,
     GaussianMixture,
@@ -23,7 +26,9 @@ from mcmcpp_tpu_torch.models.targets import (
 
 __all__ = [
     "gp",
+    "hmm",
     "hsgp",
+    "lgss",
     "BayesianLinearRegression",
     "GaussianMixture",
     "GaussianTarget",

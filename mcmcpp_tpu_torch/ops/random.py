@@ -66,6 +66,15 @@ def neg_exponential(gen, n, dtype, device):
     return exponential(gen, n, dtype, device).neg_()
 
 
+def gumbel(gen, shape, dtype, device):
+    """Standard Gumbel draws of ``shape``, −log(−log u): out of place, so a
+    hook under ``torch.func.vmap(randomness="different")`` may call it
+    (the in-place ``exponential_`` may not draw into an unbatched tensor
+    there)."""
+    u = torch.rand(tuple(shape), generator=gen, dtype=dtype, device=device)
+    return -torch.log(-torch.log(u))
+
+
 def bernoulli(gen, shape, device, p=0.5):
     """Booleans of ``shape``, True with probability ``p``."""
     return torch.rand(shape, generator=gen, device=device) < p

@@ -70,40 +70,55 @@ class StageNoise(NamedTuple):
 
 
 def ess_from_log_weights(log_w):
-    """Effective sample size of normalized weights, in particles."""
-    log_w = log_w - torch.logsumexp(log_w, 0)
-    return torch.exp(-torch.logsumexp(2.0 * log_w, 0))
+    """Effective sample size of normalized weights, in particles, over the
+    last axis (leading axes are a batch: one ESS per row)."""
+    log_w = log_w - torch.logsumexp(log_w, -1, keepdim=True)
+    return torch.exp(-torch.logsumexp(2.0 * log_w, -1))
 
 
 def _cumsum(x):
-    """Inclusive prefix sum of the (n,) ``x`` whose bits do not vary from run
-    to run. On CUDA, torch's cumsum of a 1-D float tensor is CUB's scan, whose
-    float result can differ between runs (and a resumed SMC run would then
-    resample other particles); the rows of a 2-D tensor are scanned by a
-    fixed pattern. So: rows of SCAN_BLOCK, then the rows' totals, each as a
-    2-D scan (a zero row keeps even one row off the 1-D path)."""
+    """Inclusive prefix sum over the last axis of ``x`` (…, n) whose bits do
+    not vary from run to run. On CUDA, torch's cumsum of a 1-D float tensor
+    is CUB's scan, whose float result can differ between runs (and a resumed
+    SMC run would then resample other particles); the rows of a 2-D tensor
+    are scanned by a fixed pattern. So: rows of SCAN_BLOCK (one row of n
+    when n is smaller), then the rows' totals, each as a 2-D scan (a zero
+    row keeps even one row off the 1-D path). A batch (leading axes) scans
+    each row exactly as the 1-D call on that row: every scan is of rows of
+    the same lengths."""
 
     def rows_cumsum(a):
         return torch.cat([a, torch.zeros_like(a[:1])]).cumsum(1)[:-1]
 
-    n = x.shape[0]
-    nb = -(-n // SCAN_BLOCK)
-    padded = torch.cat([x, x.new_zeros(nb * SCAN_BLOCK - n)])
-    inner = rows_cumsum(padded.view(nb, SCAN_BLOCK))
-    totals = rows_cumsum(inner[None, :, -1])[0]
-    offsets = torch.cat([totals.new_zeros(1), totals[:-1]])
-    return (inner + offsets[:, None]).reshape(-1)[:n]
+    lead, n = tuple(x.shape[:-1]), x.shape[-1]
+    block = min(SCAN_BLOCK, n)
+    nb = -(-n // block)
+    padded = x if nb * block == n else torch.cat(
+        [x, x.new_zeros(lead + (nb * block - n,))], -1)
+    inner = rows_cumsum(padded.reshape(-1, block)).view(lead + (nb, block))
+    if nb > 1:  # one row has no offsets to add
+        totals = rows_cumsum(inner[..., -1].reshape(-1, nb)).view(
+            lead + (nb,))
+        inner = inner + torch.cat([totals.new_zeros(lead + (1,)),
+                                   totals[..., :-1]], -1)[..., None]
+    return inner.reshape(lead + (nb * block,))[..., :n]
 
 
 def systematic_resample(u0, log_w, n):
-    """Systematic resampling: (n,) int64 indices drawn ∝ weights, from the
-    one uniform ``u0`` (≙ the JAX function's ``uniform(key, ())``)."""
-    w = torch.exp(log_w - torch.logsumexp(log_w, 0))
+    """Systematic resampling: (…, n) int64 indices drawn ∝ the weights of
+    the last axis, from one uniform ``u0`` a row (shape ``log_w.shape[:-1]``;
+    ≙ the JAX function's ``uniform(key, ())``). Each row of a batch gets the
+    bits of the 1-D call on that row."""
+    w = torch.exp(log_w - torch.logsumexp(log_w, -1, keepdim=True))
     cum = _cumsum(w)
-    cum = cum / cum[-1]
-    pts = (u0 + torch.arange(n, dtype=cum.dtype, device=cum.device)) / n
+    cum = cum / cum[..., -1:]
+    lead = tuple(log_w.shape[:-1])
+    pts = (torch.as_tensor(u0, dtype=cum.dtype, device=cum.device)[..., None]
+           + torch.arange(n, dtype=cum.dtype, device=cum.device)) / n
+    if tuple(pts.shape[:-1]) != lead:
+        pts = torch.broadcast_to(pts, lead + (n,)).contiguous()
     idx = torch.searchsorted(cum, pts, side="left")
-    return torch.clamp(idx, max=cum.shape[0] - 1)
+    return torch.clamp(idx, max=cum.shape[-1] - 1)
 
 
 def _find_next_beta(log_like, beta, target_ess_frac, n):

@@ -200,7 +200,7 @@ def _edit_meta(path, **changes):
     ({"device": "cuda"}, ValueError, "different streams"),
     ({"kind": "gradient"}, TypeError, "gradient sampler"),
     ({"kind": "pt"}, TypeError, "ParallelTemperingSampler"),
-    ({"kind": "smc2"}, NotImplementedError, "A11"),
+    ({"kind": "smc2"}, TypeError, "SMC2Sampler"),
     ({"kind": "mystery"}, ValueError, "unknown checkpoint kind"),
     ({"port": None}, ValueError, "sampler_from_jax_checkpoint"),
 ], ids=["n_walkers", "n_params", "format", "device", "kind-gradient",
@@ -333,8 +333,10 @@ def test_neither_package_takes_the_others_file(tmp_path):
         port_meta = json.loads(bytes(z["__meta__"]).decode())
     with pytest.raises(ValueError, match="load_checkpoint"):
         sampler_from_jax_checkpoint(arrays, port_meta, p)
-    with pytest.raises(ValueError, match="only the ensemble"):
+    with pytest.raises(TypeError, match="PMMHSampler"):
         sampler_from_jax_checkpoint(arrays, dict(meta, kind="pmmh"), p)
+    with pytest.raises(ValueError, match="only the ensemble"):
+        sampler_from_jax_checkpoint(arrays, dict(meta, kind="mystery"), p)
     with pytest.raises(TypeError, match="SMCSampler"):
         sampler_from_jax_checkpoint(arrays, dict(meta, kind="smc"), p)
     with pytest.raises(TypeError, match="ParallelTemperingSampler"):

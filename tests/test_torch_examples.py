@@ -8,9 +8,14 @@ import torch
 
 from mcmcpp_tpu_torch.examples import (
     actime,
+    data_assimilation,
     hierarchical,
     inner_benchmark,
+    regime_switching,
     skewed_gaussian,
+    ssm_mle,
+    state_space,
+    streaming,
 )
 
 torch.set_num_threads(1)
@@ -120,3 +125,33 @@ def jax_eight_schools_reference(chains=512, warmup=1000, steps=4000, thin=2,
 
 if __name__ == "__main__":
     print(jax_eight_schools_reference())
+
+
+def test_state_space_example_quick(capsys):
+    """The time-series slice end to end at ``--quick`` size: the exact FFBS
+    + conjugate variance Gibbs loop, PMMH on stochastic volatility, the
+    discrete FFBS + Dirichlet Gibbs loop and the structural forecast, each
+    inside the JAX program's own bounds (trajectory RMSE under the
+    observation noise, |μ − truth| < 0.8, state accuracy > 0.85, seasonal
+    correlation > 0.85 with 3σ coverage ≥ 0.75)."""
+    assert state_space.main(["--quick", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    for section in ("local level", "stochastic volatility", "sticky 2-state",
+                    "structural decomposition"):
+        assert section in out
+
+
+@pytest.mark.parametrize("program,argv,marker", [
+    (regime_switching, ["--quick"], "regime-classification"),
+    (streaming, ["--quick"], "log BF"),
+    (data_assimilation, ["--quick"], "analysis RMSE"),
+    (ssm_mle, ["--quick"], "IF2 MLE"),
+], ids=["regime_switching", "streaming", "data_assimilation", "ssm_mle"])
+def test_time_series_examples_quick(program, argv, marker, capsys):
+    """The other four time-series programs at their ``--quick`` size, each
+    inside the JAX program's bounds (RBPF regime accuracy > 0.7; the
+    prequential Bayes factor below 1 at the switch and above 3 at the end;
+    the EnKF's RMSE below 0.6 of the climatology; IF2 within (0.05, 0.10) of
+    the exact Kalman MLE, tests/test_if2.py's bounds)."""
+    assert program.main(argv + ["--device", "cpu"]) == 0
+    assert marker in capsys.readouterr().out

@@ -292,3 +292,69 @@ def test_evidence_engines_on_cuda_without_gpu_raise(name):
     }[name]
     with pytest.raises(RuntimeError, match="is_available"):
         getattr(mt, name)(*args)
+
+
+# the time-series layer
+SLICE9_MODULES = ("ops/scan.py", "utils/buffers.py", "models/lgss.py",
+                  "models/hmm.py", "particle.py", "rbpf.py", "if2.py",
+                  "ibis.py", "smc2.py", "enkf.py", "ukf.py", "eks.py",
+                  "examples/state_space.py", "examples/ssm_mle.py",
+                  "examples/regime_switching.py", "examples/streaming.py",
+                  "examples/data_assimilation.py")
+# the JAX package's exports of these modules (mcmcpp_tpu/__init__.py:46-65,
+# :92-105)
+SLICE9_NAMES = ("IBISSampler", "IF2Result", "if2", "EKIResult", "EKSResult",
+                "ensemble_kalman_inversion", "ensemble_kalman_sampler",
+                "UKFModel", "UKFResult", "unscented_kalman_filter",
+                "unscented_rts_smoother", "SMC2Sampler", "RaoBlackwellSSM",
+                "rao_blackwell_filter", "rbpf_forecast", "switching_model",
+                "EnKFModel", "ensemble_kalman_filter", "ParticleGibbsKernel",
+                "PMMHSampler", "StateSpaceModel", "particle_filter",
+                "particle_forecast", "particle_smoother",
+                "ibis_to_inference_dict", "smc2_to_inference_dict")
+
+
+def test_time_series_modules_import_no_jax_or_triton():
+    files = {str(p.relative_to(PKG)) for p in PKG.rglob("*.py")}
+    assert set(SLICE9_MODULES) <= files
+    mods = [m[:-3].replace("/", ".") for m in SLICE9_MODULES]
+    code = ("import sys\n"
+            + "".join(f"import mcmcpp_tpu_torch.{m}\n" for m in mods)
+            + "bad = [m for m in ('jax', 'triton', 'mcmcpp_tpu') "
+            "if m in sys.modules]; print(bad); sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_exports_the_jax_packages_time_series_names():
+    import mcmcpp_tpu_torch as mt
+    from mcmcpp_tpu_torch import models
+
+    for name in SLICE9_NAMES:
+        assert name in mt.__all__ and getattr(mt, name) is not None
+    assert {"lgss", "hmm"} <= set(models.__all__)
+    from mcmcpp_tpu_torch.io.checkpoint import FOR_SAMPLER
+
+    assert {"pmmh", "ibis", "smc2"} <= set(FOR_SAMPLER)
+
+
+@pytest.mark.parametrize("build", [
+    lambda mt: mt.PMMHSampler(None, None, lambda t: t[0], 1,
+                              loglik_fn=lambda g, t: t[0]),
+    lambda mt: mt.IBISSampler(lambda t: t[0], lambda t, y: t[0], None, 8, 1),
+    lambda mt: mt.SMC2Sampler(None, lambda t: t[0], None, 8, 1),
+    lambda mt: mt.particle_filter(0, None, None, [0.0], 8),
+    lambda mt: mt.rao_blackwell_filter(0, None, [0.0], 8),
+    lambda mt: mt.ensemble_kalman_filter(0, None, [0.0], 8),
+    lambda mt: mt.if2(0, None, [0.0], 8, [0.0], 0.1),
+    lambda mt: mt.models.lgss.lgss_params(1, 0, 1, 1, 0, 1, 0, 1),
+], ids=["pmmh", "ibis", "smc2", "particle_filter", "rbpf", "enkf", "if2",
+        "lgss_params"])
+def test_time_series_entry_points_on_cuda_without_gpu_raise(build):
+    if torch.cuda.is_available():
+        pytest.skip("this box has a GPU")
+    import mcmcpp_tpu_torch as mt
+
+    with pytest.raises(RuntimeError, match="is_available"):
+        build(mt)
