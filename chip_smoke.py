@@ -152,6 +152,20 @@ Builds the port's CUDA kernels from ``mcmcpp_tpu_torch/csrc/`` (into
    on Lorenz-96, (h) the UKF/URTS and EKI/EKS, (i) bitwise resumes of PMMH,
    IBIS and SMC²; the stretch kernels' launches on this path (0); after
    phase 7, the launches a time step costs under the profiler;
+14. (before 7) (a) the eight later example programs (``dp_mixture``,
+   ``tempering_and_dsl``, ``bayesian_workflow``, ``evidence``,
+   ``function_space``, ``gp_hyperparams``, ``gp_latent``,
+   ``gradient_inference``) in process at their default widths, their steps
+   cut (``EX_*``), each with its wall time and gate values, the gates held
+   where the cut keeps the program's own; (b) the native C++ chain arena
+   (built with ``g++`` from the checkout) against
+   the numpy backend on the flagship's rows (W = 2^21, P = 10, float32 and
+   bfloat16): bit for bit on ``get``, ``get_logp``, ``iter_steps`` and
+   ``compact``, and the seconds inside ``Chain.append`` for each; (c) a numpy
+   flagship chain's ``autocorr_time`` on the card (timed beside
+   ``device="cpu"``) and ``run_until_converged`` taking its ACT on the
+   sampler's device; (d) the stretch kernels' launches on the examples'
+   path (0);
 7. times 50 steps of the flagship and of Neal's funnel (wall time and the
    host's enqueue time per step) and takes a ``torch.profiler`` window over
    50 more of each: device time and launches per step by kernel; a flagship
@@ -165,8 +179,8 @@ Builds the port's CUDA kernels from ``mcmcpp_tpu_torch/csrc/`` (into
 
 Any failure raises (non-zero exit); every phase prints its seconds. The
 second-to-last lines are the kernel table (each kernel's launches on the
-main path, the store path, the SMC path, the DSL path and the time-series
-path, its time beside
+main path, the store path, the SMC path, the DSL path, the time-series path
+and the examples' path, its time beside
 its plain version's and its bound: its bytes, each input read once and each
 output written once, over the card's 3.35 TB/s, or its operations over
 67 TFLOP/s, whichever is larger) and the card's name and power limit; the
@@ -805,7 +819,7 @@ def phases_from_argv(argv):
         raise SystemExit("usage: python3 chip_smoke.py [--phases 2,2b,...]")
     chosen = {p.strip() for p in argv[1].split(",") if p.strip()}
     known = {"1", "2", "2b", "3", "4", "5", "6", "7", "8", "9", "10", "11",
-             "12", "13"}
+             "12", "13", "14"}
     if not chosen <= known:
         raise SystemExit(f"unknown phases {sorted(chosen - known)}; known: "
                          f"{sorted(known)}")
@@ -3264,6 +3278,233 @@ def time_series_launch_count(mt, card):
           + f" [{card}]", flush=True)
 
 
+# phase 14: the eight later example programs at their default widths (the
+# chains, walkers, particles, live points, dims and data of the JAX
+# programs), the native chain arena against numpy at the flagship's row, and
+# numpy inputs on the card (F1). The programs are host-bound on the card (a
+# NUTS leaf of the DP mixture's 16 chains ~8 ms, a Gibbs sweep of
+# gp_hyperparams' 32 chains ~0.14 s), so their steps are cut, never their
+# widths: gp_latent, tempering_and_dsl and gradient_inference at their
+# --quick steps (gp_latent 4000 -> 400 steps; NUTS 400 + 1000 -> 100 + 250
+# and PT 4000 -> 1000; warmup 400, 1000 -> 500 steps, ADVI 2000 -> 1000);
+# function_space 2000 -> 500 steps; bayesian_workflow 500 + 1000 -> 10 + 15
+# a NUTS or MEADS run and NeuTra's fit 1500 -> 40; gp_hyperparams 800 + 2400
+# -> 30 + 60 sweeps and dp_mixture 600 + 1500 -> 4 + 4 transitions. Their
+# gates are held where the cut run keeps the program's own (every program
+# but the last two); gp_hyperparams and dp_mixture print theirs (a DP
+# mixture of 8 transitions is a --quick run, which skips the gates in both
+# packages; the Gibbs chain's 90 sweeps are not the 3200 its bounds are set
+# for)
+EX_BW = (10, 15, 40)
+EX_GPH = (30, 60)
+EX_DP = (4, 4)
+EX_RUNS = [
+    ("evidence", ["--device", "cuda"], True),
+    ("gp_latent", ["--quick", "--device", "cuda"], True),
+    ("tempering_and_dsl", ["--quick", "--device", "cuda"], True),
+    ("gradient_inference", ["--quick", "--device", "cuda"], True),
+    ("function_space", ["--steps", "500", "--device", "cuda"], True),
+]
+# (b) rows of the flagship stored by both backends: burn-in, then steps at
+# thin 10 (4 rows of 92.3 MB float32 or 46.1 MB bf16)
+NATIVE_BURN, NATIVE_STEPS = 20, 40
+
+
+def captured(fn):
+    """(fn's result, what it printed)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    return out, buf.getvalue()
+
+
+def example_programs(mt, card):
+    """Phase 14 (a): run the eight programs in process; each prints its
+    wall time and the lines that carry its gate values."""
+    from mcmcpp_tpu_torch.examples import (
+        bayesian_workflow,
+        dp_mixture,
+        gp_hyperparams,
+    )
+    import importlib
+
+    def show(label, secs, text, keep):
+        lines = [ln for ln in text.splitlines() if ln.strip()]
+        print(f"  {label}: {secs:.1f} s [{card}]", flush=True)
+        for ln in lines[-keep:]:
+            print(f"    {ln}")
+
+    for name, args, gated in EX_RUNS:
+        mod = importlib.import_module(f"mcmcpp_tpu_torch.examples.{name}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc, text = captured(lambda: mod.main(args))
+        torch.cuda.synchronize()
+        show(f"{name} {' '.join(args)}", time.perf_counter() - t0, text, 8)
+        if gated and rc != 0:
+            raise AssertionError(f"example {name} failed its gates:\n{text}")
+
+    t0 = time.perf_counter()
+    failed, text = captured(lambda: bayesian_workflow.run(
+        10, *EX_BW, device="cuda"))
+    show(f"bayesian_workflow (warmup, steps, fit) = {EX_BW}",
+         time.perf_counter() - t0, text, 14)
+    if failed:
+        raise AssertionError(f"bayesian_workflow failed: {failed}\n{text}")
+
+    t0 = time.perf_counter()
+    out, text = captured(lambda: gp_hyperparams.run(
+        False, "cuda", burn=EX_GPH[0], keep=EX_GPH[1]))
+    show(f"gp_hyperparams 32 chains, {EX_GPH[0]} + {EX_GPH[1]} sweeps",
+         time.perf_counter() - t0, text, 3)
+    print(f"    gates not held at this cut (3200 sweeps): failed "
+          f"{out['failed']}")
+    if not (np.isfinite(out["h"]).all() and out["rmse"] < 1.0):
+        raise AssertionError(f"gp_hyperparams: rmse {out['rmse']}")
+
+    t0 = time.perf_counter()
+    out, text = captured(lambda: dp_mixture.run(
+        400, quick=True, device="cuda", warmup=EX_DP[0], steps=EX_DP[1]))
+    show(f"dp_mixture n=400, 16 chains, {EX_DP[0]} + {EX_DP[1]} transitions",
+         time.perf_counter() - t0, text, 4)
+    print(f"    gates (outside --quick: L1 < 0.15 and 3 active): L1 "
+          f"{out['l1']:.3f}, {out['active']} active")
+    if not (np.isfinite(out["l1"]) and abs(out["w_mean"].sum() - 1) < 1e-4):
+        raise AssertionError(f"dp_mixture: {out['l1']}, {out['w_mean']}")
+
+
+def native_arena(mt, card):
+    """Phase 14 (b): the flagship's rows stored by the native arena and by
+    numpy, float32 and bf16, bit for bit; the seconds inside
+    ``Chain.append``. Returns the float32 rows (numpy, before compaction)
+    for (c)."""
+    from mcmcpp_tpu_torch import native
+
+    # the sanitized C++ test runs in the CPU tests: the g++ beside a card may
+    # have no ASAN runtime to link
+    t0 = time.perf_counter()
+    lib = native.build()
+    print(f"  native arena {lib.name} built with g++ in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    flagship = mt.equicorrelated_gaussian(P_FULL, 0.5, device="cuda")
+    rows = None
+    for label, dtype, store in [("float32", np.float32, None),
+                                ("bfloat16", "bfloat16", torch.bfloat16)]:
+        got = {}
+        for backend in ("numpy", "native"):
+            chain = mt.Chain(W_FULL, P_FULL, dtype=dtype, backend=backend,
+                             max_bytes=8 << 30)
+            if chain.backend != backend:
+                raise AssertionError(f"asked {backend}, runs {chain.backend}")
+            s = mt.EnsembleSampler(flagship, W_FULL, P_FULL,
+                                   mover=mt.FusedStretchMove(), seed=0,
+                                   batched=True, device="cuda",
+                                   store_dtype=store, chain=chain)
+            s.init_ball(np.zeros(P_FULL), 0.5)
+            s.run_mcmc(NATIVE_BURN, store=False)
+            secs = []
+            append = chain.append
+
+            def timed(pos, logp, _append=append, _into=secs):
+                t0 = time.perf_counter()
+                ok = _append(pos, logp)
+                _into.append(time.perf_counter() - t0)
+                return ok
+
+            chain.append = timed
+            if not s.run_mcmc(NATIVE_STEPS, thin=10):
+                raise AssertionError("chain capacity hit")
+            chain.append = append
+            got[backend] = chain
+            print(f"  {label} rows ({chain.nbytes // chain.n_steps / 1e6:.1f}"
+                  f" MB a "
+                  f"row), {backend}: {len(secs)} appends, "
+                  f"{np.mean(secs) * 1e3:.1f} ms a row inside Chain.append "
+                  f"({', '.join(f'{x * 1e3:.1f}' for x in secs)}) [{card}]",
+                  flush=True)
+            del s
+        a, b = got["native"], got["numpy"]
+        if rows is None:
+            rows = b.get()
+        same = (np.array_equal(a.get(held=True), b.get(held=True))
+                and np.array_equal(a.get_logp(held=True),
+                                   b.get_logp(held=True))
+                and all(np.array_equal(x, y) for x, y in zip(
+                    a.iter_steps(burn_in=1), b.iter_steps(burn_in=1))))
+        a.compact(burn_in=1, thin=2)
+        b.compact(burn_in=1, thin=2)
+        same = same and a.n_steps == b.n_steps == 2 and np.array_equal(
+            a.get(held=True), b.get(held=True)) and np.array_equal(
+                a.get_logp(held=True), b.get_logp(held=True))
+        if not same:
+            raise AssertionError(f"{label}: the native arena's rows differ "
+                                 "from numpy's")
+        print(f"  {label}: native == numpy bit for bit on get, get_logp, "
+              "iter_steps and compact", flush=True)
+    return rows
+
+
+def numpy_on_the_card(mt, x, card):
+    """Phase 14 (c): ``autocorr_time`` on a numpy flagship chain lands on
+    the card (timed beside ``device="cpu"``); ``run_until_converged`` takes
+    the ACT on the sampler's device and passes phase 8's gate."""
+    from mcmcpp_tpu_torch.analysis import autocorr
+
+    if not (isinstance(x, np.ndarray) and x.shape[0] >= 4):
+        raise AssertionError(f"(c) needs 4 numpy rows or more, got {x.shape}")
+    seen = []
+    real = autocorr._norm_autocov_fft
+
+    def recording(series):
+        seen.append(series.device.type)
+        return real(series)
+
+    autocorr._norm_autocov_fft = recording
+    try:
+        secs = {}
+        for label, kw in [("card", {}), ("cpu", {"device": "cpu"}),
+                          ("card again", {})]:
+            seen.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tau = mt.analysis.autocorr_time(x, **kw)
+            torch.cuda.synchronize()
+            secs[label] = (time.perf_counter() - t0, tau, set(seen))
+        if secs["card"][2] != {"cuda"} or secs["cpu"][2] != {"cpu"}:
+            raise AssertionError(f"autocorr_time ran on {secs}")
+        np.testing.assert_allclose(secs["card"][1], secs["cpu"][1], rtol=1e-4)
+        nan = "; NaN: a walker that holds still over the rows has a 0/0 " \
+            "autocorrelation, as in the JAX package" if np.isnan(
+                secs["card"][1]).any() else ""
+        print(f"  autocorr_time of a numpy {x.shape} float32 chain: on the "
+              f"card {secs['card'][0]:.3f} s (again {secs['card again'][0]:.3f}"
+              f" s), device='cpu' {secs['cpu'][0]:.3f} s, tau "
+              f"{secs['card'][1][:3].tolist()}...{nan} [{card}]", flush=True)
+        sc = mt.EnsembleSampler(mt.skewed_gaussian(0.13, device="cuda"), 320,
+                                2, mover=mt.FusedStretchMove(), seed=42,
+                                batched=True, device="cuda")
+        sc.init_ball(np.zeros(2), scale=0.3)
+        sc.run_mcmc(1000, store=False)
+        seen.clear()
+        t0 = time.perf_counter()
+        rep = mt.run_until_converged(sc, max_steps=16000, check_every=2000,
+                                     thin=4, rhat_threshold=1.01,
+                                     mess_rule=True)
+        print(f"  run_until_converged: {rep.reason} after {rep.steps_run} "
+              f"steps, {rep.checks} checks, tau {rep.tau.tolist()}, ACT on "
+              f"{sorted(set(seen))} ({time.perf_counter() - t0:.1f} s)",
+              flush=True)
+        if not (rep.converged and set(seen) == {"cuda"}
+                and np.all(rep.tau > 0) and np.all(rep.tau < 20)
+                and np.all(rep.rhat < 1.01)):
+            raise AssertionError(f"run_until_converged: {rep}, {seen}")
+    finally:
+        autocorr._norm_autocov_fft = real
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; "
@@ -4212,6 +4453,27 @@ def main():
                   f"{ts_launches}", flush=True)
             torch.cuda.empty_cache()
 
+    # -- phase 14: the eight later example programs (no hand kernel on their
+    # path: the stretch kernels' launches there are counted and must stay 0),
+    # the native chain arena against numpy, numpy inputs on the card ---------
+    ex_launches = {}
+    if run_phase("14"):
+        with phase("14 example programs, native arena, numpy on the card"):
+            reset_launches(fs)
+            example_programs(mt, card)
+            ex_launches = dict(fs.LAUNCHES)
+            if any(ex_launches.values()):
+                raise AssertionError(f"the examples' path launched a stretch "
+                                     f"kernel: {ex_launches}")
+            print(f"  stretch-kernel launches on the examples' path: "
+                  f"{ex_launches}", flush=True)
+            torch.cuda.empty_cache()
+            rows = native_arena(mt, card)
+            torch.cuda.empty_cache()
+            numpy_on_the_card(mt, rows, card)
+            del rows
+            torch.cuda.empty_cache()
+
     # -- phase 7: what a flagship step puts on the device --------------------
     # Last, because the profiler's tracing stays attached to the process
     # and slows every later launch: no timing may follow it.
@@ -4357,6 +4619,7 @@ def main():
          "launches_smc_path": smc_launches.get(name, 0),
          "launches_dsl_path": dsl_launches.get(name, 0),
          "launches_timeseries_path": ts_launches.get(name, 0),
+         "launches_examples_path": ex_launches.get(name, 0),
          "max_abs_err": k["max_abs_err"],
          "ms": k["ms"], "plain_ms": k["plain_ms"],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],

@@ -13,7 +13,8 @@ The one TPU kernel of the JAX package, the fused stretch half-step
 logp (``csrc/stretch_split.cu``).
 
 Around the sampler: reduced-precision store tiers (``store_dtype=``), an
-injected or disk-backed chain (``chain=``, :class:`DiskChain`), checkpoint and
+injected or disk-backed chain (``chain=``, :class:`DiskChain`; the C++ chain
+arena of ``native``, built with ``g++`` at first use), checkpoint and
 resume (``io``), convergence-driven runs (:func:`run_until_converged`), the
 Analysis layer (``analysis``), the writers (``io``), the emcee surface
 (``compat.emcee``), the ArviZ export and the reference's three test programs
@@ -44,7 +45,10 @@ special functions torch lacks in ``ops.special``; ``models.gp`` and
 
 from mcmcpp_tpu_torch import analysis
 from mcmcpp_tpu_torch import dsl
+from mcmcpp_tpu_torch import gradient
+from mcmcpp_tpu_torch import io
 from mcmcpp_tpu_torch import models
+from mcmcpp_tpu_torch import ops
 from mcmcpp_tpu_torch.dsl import Model
 from mcmcpp_tpu_torch.chain import Chain
 from mcmcpp_tpu_torch.chain_disk import DiskChain
@@ -235,8 +239,10 @@ __all__ = [
     "find_map",
     "gaussian_mixture",
     "geometric_ladder",
+    "gradient",
     "ibis_to_inference_dict",
     "if2",
+    "io",
     "laplace",
     "laplace_sample",
     "logistic_regression",
@@ -244,6 +250,7 @@ __all__ = [
     "multi_pathfinder",
     "neal_funnel",
     "nested_to_inference_dict",
+    "ops",
     "particle_filter",
     "particle_forecast",
     "particle_smoother",

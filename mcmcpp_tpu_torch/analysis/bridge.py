@@ -11,7 +11,8 @@ Forster 2010). ``rel_ess`` in the result is the overlap diagnostic.
 The split and the proposal's draws come from a CPU ``torch.Generator``
 seeded by ``seed`` (JAX's module draws them from numpy's generator, so the
 two packages' estimates differ by their Monte-Carlo error); the log
-posterior runs on ``device`` in ``dtype``, the rest in float64 numpy.
+posterior runs on ``device`` in ``dtype`` (the draws' device; "cuda" for
+numpy draws unless ``device`` says otherwise), the rest in float64 numpy.
 """
 
 import math
@@ -19,6 +20,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from mcmcpp_tpu_torch.sampler import resolve_device
 
 
 class BridgeResult(NamedTuple):
@@ -39,15 +42,16 @@ def bridge_log_evidence(logpost_fn, draws, n_proposal=None, seed=0,
     draws: (N, P) approximately independent posterior draws, numpy or a
         tensor (thin past the autocorrelation time first).
     n_proposal: Gaussian proposal draws (default: half of N).
-    dtype, device: where ``logpost_fn`` runs (device: the draws' own, the
-        CPU for numpy).
+    dtype, device: where ``logpost_fn`` runs (device: the draws' own for
+        a tensor; for numpy, "cuda" unless given).
 
     Returns :class:`BridgeResult`. ``converged=False`` or a tiny
     ``rel_ess`` (≪ 1/√N) means the proposal overlaps the posterior poorly.
     """
     if device is None:
         device = (draws.device if isinstance(draws, torch.Tensor)
-                  else torch.device("cpu"))
+                  else "cuda")
+    device = resolve_device(device)
     draws = (draws.detach().cpu().double().numpy()
              if isinstance(draws, torch.Tensor)
              else np.asarray(draws, np.float64))

@@ -13,12 +13,15 @@ from mcmcpp_tpu_torch.analysis.autocorr import autocorr_time
 
 def effective_sample_size(samples, window_scaling=4.0, **kw):
     """ESS per parameter for (S, W, P) (or scalar for (S, W)) samples, numpy
-    or a tensor (whose autocovariance FFT then runs on its device).
+    or a tensor (whose autocovariance FFT then runs on its device). numpy
+    runs on the CPU unless ``device=`` names another: the diagnostics built
+    on this function (``summary``, the MCSEs) are host numpy.
 
     Unconverged τ estimates (returned negative by ``autocorr_time``) yield
     NaN so they can't silently inflate ESS.
     """
     arr = samples if isinstance(samples, torch.Tensor) else np.asarray(samples)
+    kw.setdefault("device", "cpu")
     tau = autocorr_time(arr, window_scaling=window_scaling, **kw)
     n_total = arr.shape[0] * arr.shape[1]
     tau = np.asarray(tau, np.float64)

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from mcmcpp_tpu_torch.models.gp import matmul
+from mcmcpp_tpu_torch.sampler import resolve_device
 
 __all__ = ["ksd", "ksd_curve"]
 
@@ -68,21 +69,23 @@ def _scores_of(score_fn, x, batched):
 
 
 def ksd(samples, score_fn=None, scores=None, c=1.0, beta=-0.5,
-        u_statistic=True, batched=True, block=BLOCK):
+        u_statistic=True, batched=True, block=BLOCK, device=None):
     """KSD between the empirical measure of ``samples`` and the target whose
     log-density is ``score_fn``: a batched logp (n, P) -> (n,) as the
     engines take (``batched=False``: a per-θ logp, vmapped here); its
     gradient, the score, is taken by autograd. Or pass the (n, P) scores
     ``scores`` themselves.
 
-    samples: (n, P) draws, numpy or a tensor (the sum runs on its device;
-    numpy on the CPU). Thin first: the cost is O(n²P). Returns the scalar
-    KSD, the square root of the V- or U-statistic (the U-statistic is
-    unbiased and may dip below 0 under the root: clipped at 0). Compare runs
+    samples: (n, P) draws, numpy or a tensor (the sum runs on a tensor's
+    device; numpy goes to ``device``, default "cuda"). Thin first: the cost
+    is O(n²P). Returns the scalar KSD, the square root of the V- or
+    U-statistic (the U-statistic is unbiased and may dip below 0 under the
+    root: clipped at 0). Compare runs
     at matched n: smaller is closer to the target.
     """
     x = (samples if isinstance(samples, torch.Tensor)
-         else torch.as_tensor(np.asarray(samples)))
+         else torch.as_tensor(np.asarray(samples)).to(
+             resolve_device("cuda" if device is None else device)))
     x = torch.atleast_2d(x)
     if scores is None:
         if score_fn is None:

@@ -3,7 +3,8 @@ score, from ensemble (sample-based) forecasts.
 
 PyTorch counterpart of ``mcmcpp_tpu/analysis/scores.py`` (Gneiting &
 Raftery 2007), computed on the draws' device: a tensor gives a tensor on its
-device, numpy gives numpy (computed on the CPU in its dtype).
+device, numpy gives numpy (computed in its dtype on ``device``, default
+"cuda", as the JAX package puts it on its accelerator).
 
     CRPS(F, y) = E_F|X − y| − ½ E_F|X − X'|        (univariate)
     ES(F, y)   = E_F‖X − y‖ − ½ E_F‖X − X'‖        (multivariate)
@@ -18,18 +19,23 @@ import numpy as np
 import torch
 
 from mcmcpp_tpu_torch.models.gp import matmul
+from mcmcpp_tpu_torch.sampler import resolve_device
 
 __all__ = ["crps_ensemble", "energy_score"]
 
 
-def _tensors(*xs):
-    """Tensors on the first tensor's device (numpy -> CPU), one dtype;
-    and whether to hand back numpy."""
+def _tensors(*xs, device=None):
+    """Tensors on one device, one dtype; and whether to hand back numpy. The
+    device: the first tensor's off the CPU, else the CPU; with no tensor
+    among ``xs``, ``device`` (default "cuda")."""
     as_numpy = not any(isinstance(x, torch.Tensor) for x in xs)
     ts = [x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
           for x in xs]
-    dev = next((t.device for t in ts if t.device.type != "cpu"),
-               ts[0].device)
+    if as_numpy:
+        dev = resolve_device("cuda" if device is None else device)
+    else:
+        dev = next((t.device for t in ts if t.device.type != "cpu"),
+                   torch.device("cpu"))
     dtype = torch.promote_types(ts[0].dtype, ts[1].dtype)
     if not dtype.is_floating_point:
         dtype = torch.float32
@@ -40,7 +46,7 @@ def _out(t, as_numpy):
     return t.cpu().numpy() if as_numpy else t
 
 
-def crps_ensemble(samples, observations):
+def crps_ensemble(samples, observations, device=None):
     """CRPS per location from ensemble draws.
 
     samples : (..., N) predictive draws (trailing axis = ensemble).
@@ -50,8 +56,11 @@ def crps_ensemble(samples, observations):
     Returns the (...,) per-location CRPS (lower is better) in the FAIR form
     (Ferro 2014): the pairwise term is the without-replacement mean
     Σ_{i≠j}|x_i − x_j| / (n(n−1)).
+
+    device: where numpy inputs are computed (default "cuda"); a tensor
+    input keeps its own.
     """
-    (x, y), as_numpy = _tensors(samples, observations)
+    (x, y), as_numpy = _tensors(samples, observations, device=device)
     n = x.shape[-1]
     if n < 2:
         raise ValueError("crps_ensemble needs at least 2 draws")
@@ -63,7 +72,7 @@ def crps_ensemble(samples, observations):
     return _out(term1 - 0.5 * pair, as_numpy)
 
 
-def energy_score(samples, observation):
+def energy_score(samples, observation, device=None):
     """Energy score (multivariate CRPS) from ensemble draws.
 
     samples : (N, D) joint predictive draws.
@@ -71,9 +80,9 @@ def energy_score(samples, observation):
 
     Returns a scalar (lower is better), in the fair form (the pairwise term
     averages over the n(n−1) distinct pairs); equal to the fair CRPS at
-    D = 1.
+    D = 1. ``device`` as in :func:`crps_ensemble`.
     """
-    (x, y), as_numpy = _tensors(samples, observation)
+    (x, y), as_numpy = _tensors(samples, observation, device=device)
     n = x.shape[0]
     if n < 2:
         raise ValueError("energy_score needs at least 2 draws")

@@ -1,7 +1,8 @@
 """Host-side chain store for sampled ensembles.
 
-Counterpart of ``mcmcpp_tpu/chain.py`` with its NumPy backend only (the
-native C++ arena is not ported yet). The chain is write-once history, so it
+Counterpart of ``mcmcpp_tpu/chain.py``, with both of its backends: numpy
+blocks and the native C++ arena (``native/``, built with ``g++`` at first
+use). The chain is write-once history, so it
 lives in host memory, not on the card: stored steps stream host-ward in
 chunks and land in a block list here. Byte-capped like the reference
 (default 2 GiB, ``EnsembleSampler.h:67``); appends past capacity return False
@@ -202,8 +203,16 @@ class Chain:
     where the JAX package reports an ``ml_dtypes`` ``np.dtype``; both have
     ``name`` and ``itemsize``. A :class:`BitsDtype` chain with no
     ``read_dtype`` reads as float32, where the JAX package hands out the
-    reduced array itself. ``backend`` is "numpy"; "native" (the C++ arena)
-    is not ported and raises.
+    reduced array itself.
+
+    ``backend``: "numpy" (a list of numpy blocks), "native" (the C++ arena
+    of ``native/``, built at first use; a missing ``g++`` or a failed build
+    raises) or "auto" (the arena when its library is already built and
+    loads, numpy otherwise: the JAX package's rule). The arena holds both
+    planes at one item size, so a wider logp plane stays on numpy (and
+    "native" refuses it). The arena stores bytes: the reduced tiers' raw
+    bits are held there bit for bit as on numpy. The ``backend`` property
+    reports what runs.
     """
 
     def __init__(self, n_walkers, n_params, max_bytes=2 << 30,
@@ -223,15 +232,20 @@ class Chain:
                 "the native store holds both planes at one dtype; "
                 "mixed sample/logp dtypes need backend='numpy'"
             )
-        if backend == "native":
-            raise RuntimeError(
-                "native chain store not built: the C++ arena is not ported"
-            )
+        if backend == "auto" and self.logp_dtype != self.dtype:
+            backend = "numpy"  # mixed-plane layout: numpy blocks only
+        self._native = None
+        if backend in ("auto", "native"):
+            from mcmcpp_tpu_torch import native
+
+            if backend == "native" or native.available():
+                self._native = native.NativeChainStore(
+                    self.n_walkers, self.n_params, self.max_bytes, self.dtype)
         self.clear()
 
     @property
     def backend(self):
-        return "numpy"
+        return "native" if self._native is not None else "numpy"
 
     def _row_bytes(self):
         return self.n_walkers * (
@@ -258,6 +272,10 @@ class Chain:
                 self.logp_dtype, "bits", self.logp_dtype))
         else:
             logps = to_held(logps, self.logp_dtype)
+        if self._native is not None:
+            self._cache = None
+            self._logp_cache = None
+            return self._native.append(positions, logps)
         room = (self.max_bytes - self._bytes) // self._row_bytes()
         take = min(positions.shape[0], max(room, 0))
         if take > 0:
@@ -270,6 +288,8 @@ class Chain:
 
     def clear(self):
         """Drop all stored steps (≙ Chain reset via sampler.reset)."""
+        if self._native is not None:
+            self._native.clear()
         self._blocks = []  # list of (S_i, W, P)
         self._logp_blocks = []  # list of (S_i, W)
         self._bytes = 0
@@ -278,13 +298,19 @@ class Chain:
 
     @property
     def n_steps(self):
+        if self._native is not None:
+            return self._native.n_steps
         return sum(b.shape[0] for b in self._blocks)
 
     @property
     def nbytes(self):
+        if self._native is not None:
+            return self._native.nbytes
         return self._bytes
 
     def _materialize(self):
+        if self._cache is None and self._native is not None:
+            self._cache, self._logp_cache = self._native.read()
         if self._cache is None:
             self._cache = (
                 np.concatenate(self._blocks, axis=0) if self._blocks
@@ -294,6 +320,8 @@ class Chain:
         return self._cache
 
     def _materialize_logp(self):
+        if self._logp_cache is None and self._native is not None:
+            self._cache, self._logp_cache = self._native.read()
         if self._logp_cache is None:
             self._logp_cache = (
                 np.concatenate(self._logp_blocks, axis=0) if self._logp_blocks
@@ -339,6 +367,11 @@ class Chain:
         burn_in = int(burn_in)
         if burn_in < 0:
             burn_in = max(0, self.n_steps + burn_in)
+        if self._native is not None:
+            self._native.compact(burn_in, thin)
+            self._cache = None
+            self._logp_cache = None
+            return
         kept = self._materialize()[burn_in::thin].copy()
         kept_logp = self._materialize_logp()[burn_in::thin].copy()
         self.clear()

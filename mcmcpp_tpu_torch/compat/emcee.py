@@ -152,6 +152,7 @@ class EnsembleSampler:
         from mcmcpp_tpu_torch import analysis
 
         chain = self.get_chain(discard=discard, thin=thin)
+        kw.setdefault("device", self._s.device)  # the FFT where the run is
         tau = np.atleast_1d(analysis.autocorr_time(chain, **kw))
         unreliable = bool(
             np.any(tau < 0) or chain.shape[0] < tol * np.abs(tau).max()

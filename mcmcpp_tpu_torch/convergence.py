@@ -67,6 +67,10 @@ def run_until_converged(
     (common init within a superchain, overdispersed across) for the
     diagnostic to be meaningful.
 
+    The ACT is computed on the sampler's ``device`` (a sampler without one:
+    "cuda"); R-hat, the multivariate ESS and nested R-hat are host numpy, as
+    in the JAX package.
+
     ``multihost=True`` (every statistic gated on the whole ensemble of a
     multi-process run) is not ported: it raises ``NotImplementedError``. The
     default is False, where the JAX package asks ``jax.process_count()``.
@@ -78,8 +82,13 @@ def run_until_converged(
             "multihost=True needs the collective analysis.global_* "
             "statistics, which are not ported yet (ROADMAP A13)")
 
+    # the ACT's FFT runs where the sampler runs (its chain comes back as
+    # numpy)
+    device = getattr(sampler, "device", None)
+
     def _tau(samples):
-        return analysis.autocorr_time(samples, window_scaling=window_scaling)
+        return analysis.autocorr_time(samples, window_scaling=window_scaling,
+                                      device=device)
 
     def _rhat(samples):
         return analysis.potential_scale_reduction(samples)

@@ -75,7 +75,7 @@ def main(argv=None):
     samples = s.get_samples()
     flat = s.get_samples(flat=True)
     cov = analysis.covariance_matrix(samples, device=args.device)
-    act = np.atleast_1d(analysis.autocorr_time(samples))
+    act = np.atleast_1d(analysis.autocorr_time(samples, device=args.device))
     acc = s.acceptance_fraction
     print(f"mover              : {args.mover} on {s.device}")
     print(f"convergence        : {report.reason} after {report.steps_run} "

@@ -14,7 +14,10 @@ Products run in the inputs' precision: float32 stays float32 (never TF32,
 whose 10-bit mantissa the Cholesky of a near-singular Gram cannot take),
 float64 stays float64. Coordinates given as numpy become tensors of the
 hyperparameters' dtype (float32 unless a hyperparameter is a float64 tensor)
-on their device (the CPU unless a hyperparameter lives elsewhere).
+on the device of the first tensor among the hyperparameters and the
+coordinates; with no tensor there, on the kernel's ``device`` (default
+"cuda", as the JAX package puts numpy on its accelerator; CUDA without a GPU
+raises). A sum or product takes the first ``device`` its terms name.
 """
 
 import math
@@ -34,11 +37,11 @@ def matmul(a, b):
 
 def _hyper_ref(*vals):
     """(dtype, device) from the tensors among ``vals``: float64 if any is,
-    else float32; the first tensor's device, else the CPU."""
+    else float32; the first tensor's device, else None."""
     ts = [v for v in vals if isinstance(v, torch.Tensor)]
     dtype = (torch.float64 if any(t.dtype == torch.float64 for t in ts)
              else torch.float32)
-    return dtype, (ts[0].device if ts else torch.device("cpu"))
+    return dtype, (ts[0].device if ts else None)
 
 
 def _coords(x, dtype=None, device=None):
@@ -57,7 +60,10 @@ class Kernel:
     """Base: ``__call__(x1, x2) -> (N1, N2)`` (CROSS covariance; white
     noise is zero there), ``gram(x)`` (the training Gram, where white noise
     lives on the diagonal) and ``diag(x)`` (prior variances without an (M,
-    M) matrix). Composes with ``+`` and ``*``."""
+    M) matrix). Composes with ``+`` and ``*``. ``device``: where numpy
+    coordinates go when no tensor is among the inputs (None: "cuda")."""
+
+    device = None
 
     def __call__(self, x1, x2):
         raise NotImplementedError
@@ -69,6 +75,11 @@ class Kernel:
     def _xs(self, *xs):
         ref = [x for x in xs if isinstance(x, torch.Tensor)]
         dtype, device = _hyper_ref(*self._hyper(), *ref)
+        if device is None:
+            from mcmcpp_tpu_torch.sampler import resolve_device
+
+            device = resolve_device(
+                "cuda" if self.device is None else self.device)
         return [_coords(x, dtype, device) for x in xs]
 
     def gram(self, x):
@@ -97,6 +108,10 @@ class _Composite(Kernel):
 
     def __init__(self, a, b):
         self.a, self.b = a, b
+
+    @property
+    def device(self):
+        return self.a.device if self.a.device is not None else self.b.device
 
     def _hyper(self):
         return self.a._hyper() + self.b._hyper()
@@ -129,8 +144,9 @@ class _Product(_Composite):
 class RBF(Kernel):
     """Squared-exponential: variance · exp(−r²/(2ℓ²))."""
 
-    def __init__(self, lengthscale=1.0, variance=1.0):
+    def __init__(self, lengthscale=1.0, variance=1.0, device=None):
         self.lengthscale, self.variance = lengthscale, variance
+        self.device = device
 
     def __call__(self, x1, x2):
         x1, x2 = self._xs(x1, x2)
@@ -141,8 +157,9 @@ class RBF(Kernel):
 class Matern12(Kernel):
     """Exponential (Ornstein-Uhlenbeck): variance · exp(−r/ℓ)."""
 
-    def __init__(self, lengthscale=1.0, variance=1.0):
+    def __init__(self, lengthscale=1.0, variance=1.0, device=None):
         self.lengthscale, self.variance = lengthscale, variance
+        self.device = device
 
     def __call__(self, x1, x2):
         x1, x2 = self._xs(x1, x2)
@@ -153,8 +170,9 @@ class Matern12(Kernel):
 class Matern32(Kernel):
     """Matérn ν=3/2 (once-differentiable sample paths)."""
 
-    def __init__(self, lengthscale=1.0, variance=1.0):
+    def __init__(self, lengthscale=1.0, variance=1.0, device=None):
         self.lengthscale, self.variance = lengthscale, variance
+        self.device = device
 
     def __call__(self, x1, x2):
         x1, x2 = self._xs(x1, x2)
@@ -166,8 +184,9 @@ class Matern32(Kernel):
 class Matern52(Kernel):
     """Matérn ν=5/2 (twice-differentiable sample paths)."""
 
-    def __init__(self, lengthscale=1.0, variance=1.0):
+    def __init__(self, lengthscale=1.0, variance=1.0, device=None):
         self.lengthscale, self.variance = lengthscale, variance
+        self.device = device
 
     def __call__(self, x1, x2):
         x1, x2 = self._xs(x1, x2)
@@ -179,9 +198,11 @@ class Matern52(Kernel):
 class Periodic(Kernel):
     """Exp-sine-squared: variance · exp(−2 sin²(π r / period) / ℓ²)."""
 
-    def __init__(self, period=1.0, lengthscale=1.0, variance=1.0):
+    def __init__(self, period=1.0, lengthscale=1.0, variance=1.0,
+                 device=None):
         self.period = period
         self.lengthscale, self.variance = lengthscale, variance
+        self.device = device
 
     def __call__(self, x1, x2):
         x1, x2 = self._xs(x1, x2)
@@ -193,8 +214,9 @@ class Periodic(Kernel):
 class Linear(Kernel):
     """Dot-product kernel: variance · ⟨x1, x2⟩ (Bayesian linear maps)."""
 
-    def __init__(self, variance=1.0):
+    def __init__(self, variance=1.0, device=None):
         self.variance = variance
+        self.device = device
 
     def __call__(self, x1, x2):
         x1, x2 = self._xs(x1, x2)
@@ -210,8 +232,9 @@ class WhiteNoise(Kernel):
     ZERO cross-covariance, also between distinct observations that share a
     coordinate and between training and prediction points."""
 
-    def __init__(self, variance=1e-6):
+    def __init__(self, variance=1e-6, device=None):
         self.variance = variance
+        self.device = device
 
     def __call__(self, x1, x2):
         x1, x2 = self._xs(x1, x2)

@@ -144,7 +144,7 @@ def test_scores_match_jax_and_numpy():
     with jax.enable_x64(True):
         jc = np.asarray(jan.crps_ensemble(x, y))
         je = float(jan.energy_score(x[:3].T, x[:3, 0] * 0.5))
-    pc = pan.crps_ensemble(x, y)
+    pc = pan.crps_ensemble(x, y, device="cpu")
     assert isinstance(pc, np.ndarray)
     np.testing.assert_allclose(pc, jc, rtol=1e-12)
     # float64 numpy: E|X − y| − ½ E|X − X'| over distinct pairs
@@ -156,7 +156,7 @@ def test_scores_match_jax_and_numpy():
     np.testing.assert_allclose(pt.numpy(), pc, rtol=1e-15)
     d = x[:3].T
     ob = x[:3, 0] * 0.5
-    pe = pan.energy_score(d, ob)
+    pe = pan.energy_score(d, ob, device="cpu")
     dist = np.linalg.norm(d[:, None] - d[None], axis=-1).sum() / (64 * 63)
     want = np.linalg.norm(d - ob, axis=1).mean() - 0.5 * dist
     # the pairwise distances come from the Gram identity in both packages,
@@ -164,14 +164,15 @@ def test_scores_match_jax_and_numpy():
     assert float(pe) == pytest.approx(want, rel=1e-9)
     assert float(pe) == pytest.approx(je, rel=1e-12)
     with pytest.raises(ValueError, match="at least 2"):
-        pan.crps_ensemble(np.zeros((3, 1)), np.zeros(3))
+        pan.crps_ensemble(np.zeros((3, 1)), np.zeros(3), device="cpu")
 
 
 def test_energy_score_reduces_to_crps_at_1d():
     x = _rng.normal(size=200)
     np.testing.assert_allclose(
-        float(pan.energy_score(x[:, None], np.array([0.3]))),
-        float(pan.crps_ensemble(x, np.asarray(0.3))), rtol=1e-12)
+        float(pan.energy_score(x[:, None], np.array([0.3]), device="cpu")),
+        float(pan.crps_ensemble(x, np.asarray(0.3), device="cpu")),
+        rtol=1e-12)
 
 
 # -- ksd ----------------------------------------------------------------------
@@ -214,19 +215,19 @@ def test_ksd_detects_bias_and_matches_jax():
     def logp(t):  # batched, as the engines take it
         return -0.5 * torch.sum(t * t, dim=-1)
 
-    k_exact = pan.ksd(exact, score_fn=logp)
-    k_shift = pan.ksd(exact + 0.3, score_fn=logp)
-    k_wide = pan.ksd(1.3 * exact, score_fn=logp)
+    k_exact = pan.ksd(exact, score_fn=logp, device="cpu")
+    k_shift = pan.ksd(exact + 0.3, score_fn=logp, device="cpu")
+    k_wide = pan.ksd(1.3 * exact, score_fn=logp, device="cpu")
     assert k_shift > 5 * k_exact and k_wide > 5 * k_exact
     want = jan.ksd(exact + 0.3, score_fn=lambda t: -0.5 * jnp.sum(t * t))
     assert k_shift == pytest.approx(want, rel=1e-5)
     per_theta = pan.ksd(exact + 0.3, score_fn=lambda t: -0.5 * (t * t).sum(),
-                        batched=False)
+                        batched=False, device="cpu")
     assert per_theta == pytest.approx(k_shift, rel=1e-6)
     with pytest.raises(ValueError, match="shape"):
-        pan.ksd(np.zeros((10, 2)), scores=np.zeros((10, 3)))
+        pan.ksd(np.zeros((10, 2)), scores=np.zeros((10, 3)), device="cpu")
     with pytest.raises(ValueError, match="score_fn or scores"):
-        pan.ksd(np.zeros((10, 2)))
+        pan.ksd(np.zeros((10, 2)), device="cpu")
 
 
 def test_ksd_curve_subsamples_as_jax():
@@ -234,7 +235,7 @@ def test_ksd_curve_subsamples_as_jax():
     runs = {"a": rng.standard_normal((900, 2)),
             "b": 1.2 * rng.standard_normal((3, 400, 2))}
     got = pan.ksd_curve(runs, lambda t: -0.5 * (t * t).sum(-1), n=500,
-                        seed=3)
+                        seed=3, device="cpu")
     with jax.enable_x64(True):
         want = jan.ksd_curve(runs, lambda t: -0.5 * jnp.sum(t * t), n=500,
                              seed=3)
@@ -269,7 +270,7 @@ def test_bridge_matches_analytic_on_exact_draws():
     prec = 0.25 + 4
     draws = (BY.sum(0) / prec + prec ** -0.5
              * np.random.default_rng(0).standard_normal((4000, 2)))
-    r = pan.bridge_log_evidence(logpost, draws, seed=1)
+    r = pan.bridge_log_evidence(logpost, draws, seed=1, device="cpu")
     assert isinstance(r, pan.BridgeResult)
     assert r.converged and r.rel_ess > 0.1
     assert r.logz == pytest.approx(_bridge_logz(), abs=0.05)
@@ -279,7 +280,7 @@ def test_bridge_matches_analytic_on_exact_draws():
                                  batched=False)
     assert r2.logz == pytest.approx(r.logz, abs=1e-6)
     with pytest.raises(ValueError, match="N >= 8"):
-        pan.bridge_log_evidence(logpost, draws[:4])
+        pan.bridge_log_evidence(logpost, draws[:4], device="cpu")
 
 
 # -- global_stats ----------------------------------------------------------
@@ -301,7 +302,7 @@ def chain():
 def test_global_equals_local_functions(chain):
     n_local = chain.shape[0] * chain.shape[1]
     np.testing.assert_array_equal(pan.global_autocorr_time(chain),
-                                  pan.autocorr_time(chain))
+                                  pan.autocorr_time(chain, device="cpu"))
     np.testing.assert_array_equal(pan.global_effective_sample_size(chain),
                                   pan.effective_sample_size(chain))
     np.testing.assert_allclose(pan.global_covariance_matrix(chain),

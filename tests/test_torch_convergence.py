@@ -41,6 +41,7 @@ class ReplaySampler:
     def __init__(self, rows, cap_rows=None):
         self.rows, self.n_params = rows, rows.shape[-1]
         self.stored, self.cap_rows = 0, cap_rows
+        self.device = "cpu"  # where run_until_converged takes the ACT
 
     def run_mcmc(self, n_steps, thin=1):
         self.stored += n_steps // thin

@@ -121,7 +121,7 @@ def test_act_no_cross_walker_contamination():
     """The pooled ACT of AR(1) walkers with φ = 0.9 is the analytic 19
     (AutoCorrCalc.h:234-240 leaked walker k's autocovariance into k−1)."""
     s, mover = _ar_run(0.9, 64, 32768, seed=0, init_seed=1)
-    tau = mt.analysis.autocorr_time(s.get_samples())
+    tau = mt.analysis.autocorr_time(s.get_samples(), device="cpu")
     assert tau[0] == pytest.approx(float(mover.true_act[0]), rel=0.1)
     assert s.accepted_steps == s.total_steps
 
@@ -130,7 +130,8 @@ def test_act_walker_subset_uses_uniform_selection():
     """A uniform walker subset gives an ACT consistent with the full
     ensemble's (AutoCorrCalc.h:290-303 drew the subset from a normal)."""
     s, _ = _ar_run(0.8, 100, 16384, seed=2, init_seed=3)
-    full = mt.analysis.autocorr_time(s.get_samples())
+    full = mt.analysis.autocorr_time(s.get_samples(), device="cpu")
     sub = mt.analysis.autocorr_time(s.get_samples(), walkers_to_use=30,
+                                     device="cpu",
                                     generator=torch.Generator().manual_seed(4))
     assert sub[0] == pytest.approx(full[0], rel=0.15)

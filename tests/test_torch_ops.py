@@ -101,7 +101,7 @@ def _ar1(phi, n_steps, n_walkers, n_params=1, seed=0):
 )
 def test_autocorr_time_matches_jax(phi, n_steps, method):
     x = _ar1(phi, n_steps, 16, n_params=2)
-    got = autocorr_time(x, method=method)
+    got = autocorr_time(x, method=method, device="cpu")
     want = np.asarray(j_autocorr_time(x, method=method))
     np.testing.assert_allclose(got, want, rtol=ACT_RTOL)
     assert np.all(got > 0)
@@ -127,21 +127,22 @@ def test_sokal_window_flag_matches_jax(case):
 
 def test_autocorr_time_walker_chunk_and_2d():
     x = _ar1(0.7, 2000, 12)[:, :, 0]
-    full = autocorr_time(x)
+    full = autocorr_time(x, device="cpu")
     assert isinstance(full, float)
-    np.testing.assert_allclose(autocorr_time(x, walker_chunk=5), full,
-                               rtol=1e-6)
+    np.testing.assert_allclose(
+        autocorr_time(x, walker_chunk=5, device="cpu"), full, rtol=1e-6)
     np.testing.assert_allclose(full, float(j_autocorr_time(x)),
                                rtol=ACT_RTOL)
-    sub = autocorr_time(x, walkers_to_use=6,
+    sub = autocorr_time(x, walkers_to_use=6, device="cpu",
                         generator=torch.Generator().manual_seed(1))
     assert 0 < sub < 3 * full
 
 
 def test_normalized_autocov_matches_jax():
     x = _ar1(0.8, 500, 3)[:, :, 0].T
-    got = normalized_autocov(x)
+    got = normalized_autocov(x, device="cpu")
     np.testing.assert_allclose(got, np.asarray(j_autocov(x)), rtol=ACT_RTOL,
                                atol=1e-5)
     assert got.shape == (3, 500) and np.allclose(got[:, 0], 1.0)
-    np.testing.assert_allclose(normalized_autocov(x[0]), got[0], rtol=1e-6)
+    np.testing.assert_allclose(normalized_autocov(x[0], device="cpu"),
+                               got[0], rtol=1e-6)

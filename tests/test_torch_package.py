@@ -358,3 +358,50 @@ def test_time_series_entry_points_on_cuda_without_gpu_raise(build):
 
     with pytest.raises(RuntimeError, match="is_available"):
         build(mt)
+
+
+# numpy inputs on the card, the native chain arena, the eight example
+# programs
+SLICE10_MODULES = ("native/__init__.py", "examples/dp_mixture.py",
+                   "examples/tempering_and_dsl.py",
+                   "examples/bayesian_workflow.py", "examples/evidence.py",
+                   "examples/function_space.py", "examples/gp_hyperparams.py",
+                   "examples/gp_latent.py", "examples/gradient_inference.py")
+
+
+def test_slice10_modules_import_no_jax_or_triton():
+    """The new modules exist (so the source scan above covers them) and
+    import neither JAX, the JAX package nor triton; the native arena's C++
+    source is the port's own copy."""
+    from mcmcpp_tpu_torch import native
+
+    files = {str(p.relative_to(PKG)) for p in PKG.rglob("*.py")}
+    assert set(SLICE10_MODULES) <= files
+    for src in (native.SOURCE, native.TEST_SOURCE):
+        assert src.parent == PKG / "native" and src.exists()
+    mods = [m[:-3].replace("/", ".").removesuffix(".__init__")
+            for m in SLICE10_MODULES]
+    code = ("import sys\n"
+            + "".join(f"import mcmcpp_tpu_torch.{m}\n" for m in mods)
+            + "bad = [m for m in ('jax', 'triton', 'mcmcpp_tpu') "
+            "if m in sys.modules]; print(bad); sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_exports_the_jax_packages_subpackages_but_parallel():
+    """The JAX package's ``__all__`` less the multi-device names (A13)."""
+    import mcmcpp_tpu_torch as mt
+
+    for name in ("gradient", "io", "ops", "analysis", "models", "dsl"):
+        assert name in mt.__all__ and getattr(mt, name) is not None
+    init = (REPO / "mcmcpp_tpu" / "__init__.py").read_text()
+    tree = ast.parse(init)
+    jax_all = next(
+        node.value for node in tree.body if isinstance(node, ast.Assign)
+        and any(getattr(t, "id", None) == "__all__" for t in node.targets))
+    names = {ast.literal_eval(e) for e in jax_all.elts}
+    assert names - set(mt.__all__) == {
+        "ShardedEnsembleSampler", "make_ladder_mesh", "make_walker_mesh",
+        "parallel"}

@@ -163,9 +163,17 @@ def test_row_dtype_names_and_bits():
         64, 3, np.float32)
 
 
-def test_native_backend_raises_and_unknown_backend():
-    with pytest.raises(RuntimeError, match="native chain store not built"):
+def test_native_backend_raises_and_unknown_backend(tmp_path, monkeypatch):
+    """The native arena builds at first use; where it cannot be built (no
+    compiler here) ``backend="native"`` raises, with no fallback."""
+    from mcmcpp_tpu_torch import native
+
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "native")
+    monkeypatch.setenv("CXX", "no-such-compiler")
+    native.load.cache_clear()
+    with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
         Chain(8, 2, backend="native")
+    native.load.cache_clear()
     with pytest.raises(ValueError, match="unknown chain backend"):
         Chain(8, 2, backend="arena")
     with pytest.raises(ValueError, match="mixed sample/logp"):
@@ -252,8 +260,8 @@ def test_analysis_tolerance_moments_and_act():
     ca = np.cov(a.get_samples(flat=True).T)
     cb = np.cov(b.get_samples(flat=True).T)
     np.testing.assert_allclose(cb, ca, rtol=5e-3, atol=5e-4)
-    ta = analysis.autocorr_time(a.get_samples())
-    tb = analysis.autocorr_time(b.get_samples())
+    ta = analysis.autocorr_time(a.get_samples(), device="cpu")
+    tb = analysis.autocorr_time(b.get_samples(), device="cpu")
     np.testing.assert_allclose(tb, ta, rtol=0.02)
 
 
@@ -293,8 +301,8 @@ def test_f8_analysis_tolerance():
     ca = np.cov(a.get_samples(flat=True).T)
     cb = np.cov(b.get_samples(flat=True).T)
     np.testing.assert_allclose(cb, ca, rtol=2e-2, atol=2e-3)
-    ta = analysis.autocorr_time(a.get_samples())
-    tb = analysis.autocorr_time(b.get_samples())
+    ta = analysis.autocorr_time(a.get_samples(), device="cpu")
+    tb = analysis.autocorr_time(b.get_samples(), device="cpu")
     np.testing.assert_allclose(tb, ta, rtol=0.05)
     assert a.accepted_steps == b.accepted_steps
 
@@ -457,5 +465,5 @@ def test_streaming_act_consume_disk_chain(tmp_path):
         d.append(x[i: i + 700])
         act.consume_chain(d)
     tau_online = act.autocorr_time()
-    tau_batch = analysis.autocorr_time(d.get())
+    tau_batch = analysis.autocorr_time(d.get(), device="cpu")
     np.testing.assert_allclose(tau_online[0], tau_batch, rtol=0.02)
