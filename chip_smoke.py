@@ -56,7 +56,7 @@ Builds the port's CUDA kernels from ``mcmcpp_tpu_torch/csrc/`` (into
    on the CPU, the refusal of an injected 8-bit-logp chain); bitwise resume
    from a checkpoint for the fused kernel, for the split kernels on Neal's
    funnel and with an injected ``DiskChain`` of bfloat16 rows (40 + 40 steps
-   against 40, load, 40; the checkpoint's bytes and seconds);
+   at thin 20 against 40, load, 40; the checkpoint's bytes and seconds);
    ``run_until_converged`` on the skewed Gaussian; the Analysis layer on a
    flagship chain (``covariance_matrix`` on the card against float64 numpy
    and against Σ, correlation, corner histograms, percentiles, summary,
@@ -163,9 +163,22 @@ Builds the port's CUDA kernels from ``mcmcpp_tpu_torch/csrc/`` (into
    bfloat16): bit for bit on ``get``, ``get_logp``, ``iter_steps`` and
    ``compact``, and the seconds inside ``Chain.append`` for each; (c) a numpy
    flagship chain's ``autocorr_time`` on the card (timed beside
-   ``device="cpu"``) and ``run_until_converged`` taking its ACT on the
-   sampler's device; (d) the stretch kernels' launches on the examples'
-   path (0);
+   ``device="cpu"``), its ``effective_sample_size`` on the card, and
+   ``run_until_converged`` taking its ACT on the sampler's device; (d) the
+   stretch kernels' launches on the examples' path (0);
+15. (before 7) the sharded ensemble, in an NCCL process group of one:
+   (a) the three kernels over 4 row shards of the flagship half (n = 2^20,
+   P = 10; each launch on 2^18 rows with its offset ``row0`` against the
+   whole other half), ``torch.equal`` to one launch, each shard held
+   against its plain version (the split kernels bit for bit), and each
+   kernel's time with the offset beside one launch and its bound; (b)
+   ``ShardedEnsembleSampler`` against ``EnsembleSampler`` on the same seed
+   bit for bit (20 + 40 steps at thin 10: the flagship with the fused
+   kernel and with ``StretchMove``, the funnel with the split kernels, the
+   slice move on the skewed Gaussian at W = 320), the kernels' launches on
+   this sharded path, and the flagship's rate both ways in turns; after
+   phase 7, the device time a sharded step spends in its all-gathers under
+   the profiler; (c) ``actime`` and ``inner_benchmark`` with ``--sharded``;
 7. times 50 steps of the flagship and of Neal's funnel (wall time and the
    host's enqueue time per step) and takes a ``torch.profiler`` window over
    50 more of each: device time and launches per step by kernel; a flagship
@@ -179,8 +192,8 @@ Builds the port's CUDA kernels from ``mcmcpp_tpu_torch/csrc/`` (into
 
 Any failure raises (non-zero exit); every phase prints its seconds. The
 second-to-last lines are the kernel table (each kernel's launches on the
-main path, the store path, the SMC path, the DSL path, the time-series path
-and the examples' path, its time beside
+main path, the store path, the SMC path, the DSL path, the time-series path,
+the examples' path and the sharded path, its time beside
 its plain version's and its bound: its bytes, each input read once and each
 output written once, over the card's 3.35 TB/s, or its operations over
 67 TFLOP/s, whichever is larger) and the card's name and power limit; the
@@ -819,7 +832,7 @@ def phases_from_argv(argv):
         raise SystemExit("usage: python3 chip_smoke.py [--phases 2,2b,...]")
     chosen = {p.strip() for p in argv[1].split(",") if p.strip()}
     known = {"1", "2", "2b", "3", "4", "5", "6", "7", "8", "9", "10", "11",
-             "12", "13", "14"}
+             "12", "13", "14", "15"}
     if not chosen <= known:
         raise SystemExit(f"unknown phases {sorted(chosen - known)}; known: "
                          f"{sorted(known)}")
@@ -3475,6 +3488,18 @@ def numpy_on_the_card(mt, x, card):
             secs[label] = (time.perf_counter() - t0, tau, set(seen))
         if secs["card"][2] != {"cuda"} or secs["cpu"][2] != {"cpu"}:
             raise AssertionError(f"autocorr_time ran on {secs}")
+        # the ESS family on the same numpy chain runs its FFT on the card too
+        seen.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ess = mt.analysis.effective_sample_size(x)
+        torch.cuda.synchronize()
+        ess_s = time.perf_counter() - t0
+        if set(seen) != {"cuda"}:
+            raise AssertionError(f"effective_sample_size ran on {seen}")
+        print(f"  effective_sample_size of the numpy chain: on the card "
+              f"{ess_s:.3f} s, ess {np.asarray(ess)[:3].tolist()}... "
+              f"[{card}]", flush=True)
         np.testing.assert_allclose(secs["card"][1], secs["cpu"][1], rtol=1e-4)
         nan = "; NaN: a walker that holds still over the rows has a 0/0 " \
             "autocorrelation, as in the JAX package" if np.isnan(
@@ -3503,6 +3528,290 @@ def numpy_on_the_card(mt, x, card):
             raise AssertionError(f"run_until_converged: {rep}, {seen}")
     finally:
         autocorr._norm_autocov_fft = real
+
+
+# phase 15: the sharded ensemble. (a) The three kernels over R = 4 row shards
+# of the flagship half (n = 2^20, P = 10): each shard's launch takes its rows'
+# offset row0 and the whole other half (m = 2^20). (b) ShardedEnsembleSampler
+# in an NCCL process group of one against EnsembleSampler on the same seed,
+# bit for bit: the flagship with the fused kernel and with StretchMove (roll),
+# the funnel with the split kernels, the slice move on the skewed Gaussian
+# (W = 320). (c) actime and inner_benchmark with --sharded in that group.
+SHARD_R = 4
+SHARD_BURN, SHARD_STEPS, SHARD_THIN = 20, 40, 10
+
+
+def sharded_kernels(fs, rnd, flagship, funnel, card, blocker):
+    """Phase 15 (a). Returns {kernel: (max_abs_err, ms without the offset,
+    ms with it)}: ms is one call on the whole half, one launch without the
+    offset and R launches of n/R rows with it."""
+    dev = torch.device("cuda")
+    n, p = 1 << 20, P_FULL
+    m = n // SHARD_R
+    starts = range(0, n, m)
+    out = {}
+
+    def over_shards(fn):
+        parts = [fn(r0, slice(r0, r0 + m)) for r0 in starts]
+        return tuple(torch.cat([q[k] for q in parts])
+                     for k in range(len(parts[0])))
+
+    # the fused kernel on the flagship
+    args, key, _ = half_inputs(rnd, p, n, 15, lp_fn=flagship)
+    act, lp, other, shift = args
+    whole = fs.fused_stretch_half(*args, key=key, logp_fn=flagship)
+    sharded = over_shards(lambda r0, rows: fs.fused_stretch_half(
+        act[rows], lp[rows], other, shift, key=key, logp_fn=flagship,
+        row0=r0))
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(whole, sharded)):
+        raise AssertionError("fused_stretch_half over 4 row shards differs "
+                             "from one launch")
+    errs = []
+    for r0 in starts:
+        rows = slice(r0, r0 + m)
+        u, ue = rnd.philox_unit_uniforms(key, m, dev, row0=r0)
+        shard_args = (act[rows], lp[rows], other, shift)
+        r_out = fs.fused_stretch_half_reference(*shard_args, u, ue,
+                                                logp_fn=flagship, row0=r0)
+        _, _, log_ratio = fs.stretch_proposal(*shard_args, u,
+                                              logp_fn=flagship, row0=r0)
+        errs.append(compare_half(
+            f"fused shard row0={r0} of m={n}",
+            tuple(t[rows] for t in sharded), r_out, log_ratio, ue))
+    last = n - m  # the last shard: its offset is the largest
+    out["fused_stretch_half"] = (max(errs), offset_times(
+        lambda: fs.fused_stretch_half(*args, key=key, logp_fn=flagship),
+        lambda: fs.fused_stretch_half(
+            act[last:], lp[last:], other[:m], shift, key=key,
+            logp_fn=flagship),
+        lambda r0: fs.fused_stretch_half(
+            act[r0:r0 + m], lp[r0:r0 + m], other, shift, key=key,
+            logp_fn=flagship, row0=r0),
+        starts, blocker))
+    del args, act, lp, other, shift, whole, sharded
+
+    # the split kernels around the funnel's torch logp
+    args, key, (u_all, ue_all) = half_inputs(rnd, p, n, 16, lp_fn=funnel)
+    act, lp, other, shift = args
+    whole = fs.fused_stretch_half(*args, key=key, logp_fn=funnel)
+    sharded = over_shards(lambda r0, rows: fs.fused_stretch_half(
+        act[rows], lp[rows], other, shift, key=key, logp_fn=funnel,
+        row0=r0))
+    prop = over_shards(lambda r0, rows: fs.stretch_propose(
+        act[rows], other, shift, key, row0=r0))
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(whole, sharded)):
+        raise AssertionError("the split half-step over 4 row shards differs "
+                             "from one")
+    whole_prop = fs.stretch_propose(act, other, shift, key)
+    plain_prop = fs.stretch_propose_reference(act, other, shift, u_all)
+    lp_new = funnel(whole_prop[0]).contiguous()
+    acc = over_shards(lambda r0, rows: fs.stretch_accept(
+        act[rows], whole_prop[0][rows], lp[rows], lp_new[rows],
+        whole_prop[1][rows], key, row0=r0))
+    plain_acc = fs.stretch_accept_reference(act, whole_prop[0], lp, lp_new,
+                                            whole_prop[1], ue_all)
+    torch.cuda.synchronize()
+    if not (all(torch.equal(a, b) for a, b in zip(prop, plain_prop))
+            and all(torch.equal(a, b) for a, b in zip(acc, plain_acc))
+            and all(torch.equal(a, b) for a, b in zip(prop, whole_prop))):
+        raise AssertionError("a split kernel over 4 row shards is not its "
+                             "plain version bit for bit")
+    n_acc = int(plain_acc[2].sum())
+    if not 0 < n_acc < n:
+        raise AssertionError(f"split shards: {n_acc} accepts, need a mix")
+    print(f"  split kernels over {SHARD_R} row shards: propose and accept "
+          f"equal their plain versions and one launch bit for bit, "
+          f"{n_acc} accepts", flush=True)
+    y, fac = whole_prop
+    out["stretch_propose"] = (0.0, offset_times(
+        lambda: fs.stretch_propose(act, other, shift, key),
+        lambda: fs.stretch_propose(act[last:], other[:m], shift, key),
+        lambda r0: fs.stretch_propose(act[r0:r0 + m], other, shift, key,
+                                      row0=r0),
+        starts, blocker))
+    out["stretch_accept"] = (0.0, offset_times(
+        lambda: fs.stretch_accept(act, y, lp, lp_new, fac, key),
+        lambda: fs.stretch_accept(act[last:], y[last:], lp[last:],
+                                  lp_new[last:], fac[last:], key),
+        lambda r0: fs.stretch_accept(
+            act[r0:r0 + m], y[r0:r0 + m], lp[r0:r0 + m], lp_new[r0:r0 + m],
+            fac[r0:r0 + m], key, row0=r0),
+        starts, blocker))
+    bounds, shard_bounds = kernel_bounds(n, p), kernel_bounds(m, p)
+    for name, (err, t) in out.items():
+        print(f"  {name} P=10: 2^18 rows in one launch {t['shard']:.4f} ms "
+              f"without the offset, {t['shard_offset']:.4f} ms with it "
+              f"(row0 = 3·2^18, m = 2^20; bound {shard_bounds[name][0]:.4f} "
+              f"ms); the 2^20-row half in {SHARD_R} such launches "
+              f"{t['half_4']:.4f} ms against {t['half']:.4f} ms in one "
+              f"(bound {bounds[name][0]:.4f} ms, {bounds[name][1]}); in "
+              f"turns, {t['iters']} calls each; max abs err {err:.3e} "
+              f"[{card}]", flush=True)
+    return out
+
+
+def offset_times(half, shard, shard_at, starts, blocker):
+    """ms of a kernel on the whole half in one launch (``half``), on one
+    shard of it without the offset (``shard``: its rows as a half of their
+    own) and with it (``shard_at(row0)``, the last shard), and of the half
+    as R offset launches: each pair in turns on the card. 20 calls a
+    reading keep the R-launch version's enqueue (~35 µs a launch) inside
+    the blocker's 6 ms, so that the device's time is read."""
+    iters = 20
+    (t_half, t_4), _, _ = in_turns(
+        [half, lambda: [shard_at(r0) for r0 in starts]], iters, blocker)
+    (t_shard, t_offset), _, _ = in_turns(
+        [shard, lambda: shard_at(starts[-1])], iters, blocker)
+    return {"half": t_half, "half_4": t_4, "shard": t_shard,
+            "shard_offset": t_offset, "iters": iters}
+
+
+def sharded_runs(mt, fs, flagship, funnel, skewed, card):
+    """Phase 15 (b): the sharded runs first (their kernel launches counted:
+    the sharded path's), then the unsharded ones on the same seeds, bit for
+    bit; then the flagship's rate both ways, in turns. Returns the sharded
+    path's launches."""
+    cases = [("flagship fused", flagship, mt.FusedStretchMove, W_FULL,
+              P_FULL),
+             ("funnel fused (split kernels)", funnel, mt.FusedStretchMove,
+              W_FULL, P_FULL),
+             ("flagship stretch roll", flagship, mt.StretchMove, W_FULL,
+              P_FULL),
+             ("skewed slice", skewed, mt.EnsembleSliceMove, 320, 2)]
+
+    def run(cls, target, mover, w, p):
+        s = cls(target, w, p, mover=mover(), seed=0, batched=True,
+                device="cuda")
+        s.init_ball(np.zeros(p), 0.5)
+        s.run_mcmc(SHARD_BURN, store=False)
+        if not s.run_mcmc(SHARD_STEPS, thin=SHARD_THIN):
+            raise AssertionError("chain capacity hit")
+        got = (s.current_positions.cpu(),
+               torch.cat([s.state.logp_red, s.state.logp_black]).cpu(),
+               s.get_samples(), s.get_log_probs(), s.accepted_steps,
+               s.acceptance_fraction, s.per_walker_accepted)
+        del s
+        torch.cuda.empty_cache()
+        return got
+
+    reset_launches(fs)
+    sharded = {label: run(mt.ShardedEnsembleSampler, *rest)
+               for label, *rest in cases}
+    torch.cuda.synchronize()
+    launches = dict(fs.LAUNCHES)
+    print(f"  kernel launches on the sharded path: {launches}", flush=True)
+    for label, *rest in cases:
+        want = run(mt.EnsembleSampler, *rest)
+        got = sharded.pop(label)
+        same = [torch.equal(g, w) if isinstance(g, torch.Tensor)
+                else np.array_equal(g, w) for g, w in zip(got, want)]
+        if not all(same):
+            raise AssertionError(f"{label}: sharded != unsharded "
+                                 f"(positions, logps, rows, row logps, "
+                                 f"accepts, fraction, per walker: {same})")
+        print(f"  {label} W={rest[2]}: ShardedEnsembleSampler == "
+              f"EnsembleSampler bit for bit ({SHARD_BURN} + {SHARD_STEPS} "
+              f"steps at thin {SHARD_THIN}: positions, logps, "
+              f"{got[2].shape[0]} stored rows, acceptance {got[5]:.4f})",
+              flush=True)
+    from mcmcpp_tpu_torch.parallel import distributed
+    from mcmcpp_tpu_torch.sampler import run_nostore
+
+    readings = {}
+    samplers = {cls: cls(flagship, W_FULL, P_FULL,
+                         mover=mt.FusedStretchMove(), seed=0, batched=True,
+                         device="cuda")
+                for cls in (mt.EnsembleSampler, mt.ShardedEnsembleSampler)}
+    for s in samplers.values():
+        s.init_ball(np.zeros(P_FULL), 0.5)
+        s.state = run_nostore(s.state, s._step_fn, 20)
+
+    def steps(n):
+        s.state = run_nostore(s.state, s._step_fn, n)
+
+    for cls in (mt.EnsembleSampler, mt.ShardedEnsembleSampler,
+                mt.ShardedEnsembleSampler, mt.EnsembleSampler):
+        s = samplers[cls]
+        (_, wall_s), enqueue_s = fenced_steps(steps, 100)
+        readings.setdefault(cls.__name__, []).append((wall_s, enqueue_s))
+    print("  flagship steps, 100 a reading, in turns (unsharded, sharded, "
+          "sharded, unsharded): " + "; ".join(
+              f"{k} " + ", ".join(
+                  f"{100 * W_FULL / w:.6e} walker-updates/s ({w * 1e4:.1f} "
+                  f"us a step, the host enqueues for {e * 1e4:.1f})"
+                  for w, e in v) for k, v in readings.items())
+          + f" [{card}]", flush=True)
+    del samplers, s
+    torch.cuda.empty_cache()
+    # one all-gather of the flagship half alone: its device time, and the
+    # host's time to enqueue it (a collective that waited for the device
+    # would show the blocker's 6 ms here)
+    half = torch.randn((W_FULL // 2, P_FULL), device="cuda")
+    buf = torch.empty_like(half)
+    blocker = torch.empty(1 << 28, dtype=torch.float32, device="cuda")
+    group = torch.distributed.distributed_c10d._get_default_group()
+    (ms, ms_base), _, (host_us, host_base_us) = in_turns(
+        [lambda: distributed.all_gather_rows(buf, half),
+         lambda: group._allgather_base(buf, half).wait()], 20, blocker)
+    if not torch.equal(buf, half):
+        raise AssertionError("the all-gather of a group of one is not a copy")
+    print(f"  one all-gather of {half.numel() * 4 / 1e6:.1f} MB in the group "
+          f"of one: {ms:.4f} ms of device time a call (20 calls, in turns), "
+          f"the host enqueues one in {host_us:.1f} us; the process group's "
+          f"own _allgather_base, without torch.distributed's Python layer: "
+          f"{ms_base:.4f} ms, {host_base_us:.1f} us [{card}]", flush=True)
+    del half, buf, blocker
+    torch.cuda.empty_cache()
+    return launches
+
+
+def sharded_gather_profile(mt, card):
+    """Phase 15 (b), after phase 7: a sharded flagship step's device rows
+    under the profiler, and the device time a step spends in the two
+    all-gathers (NCCL's kernels, or the copy it makes in a group of one)."""
+    from mcmcpp_tpu_torch.sampler import run_nostore
+
+    s = mt.ShardedEnsembleSampler(mt.equicorrelated_gaussian(
+        P_FULL, 0.5, device="cuda"), W_FULL, P_FULL,
+        mover=mt.FusedStretchMove(), seed=0, batched=True)
+    s.init_ball(np.zeros(P_FULL), 0.5)
+    s.state = run_nostore(s.state, s._step_fn, 20)
+    steps = 50
+    rows = device_rows_per_step(
+        lambda: run_nostore(s.state, s._step_fn, steps), steps)
+    gather = {k: v for k, v in rows.items()
+              if "nccl" in k.lower() or "allgather" in k.lower()
+              or "Memcpy DtoD" in k}
+    if not gather:
+        raise AssertionError(f"no all-gather among the device rows: "
+                             f"{sorted(rows)}")
+    print(f"sharded flagship W=2^21 step, {steps} steps profiled: device "
+          f"time {sum(us for _, us in rows.values()):.1f} us/step in "
+          f"{sum(n for n, _ in rows.values()):g} launches/step, of which "
+          f"the all-gathers {sum(us for _, us in gather.values()):.1f} "
+          f"us/step in {sum(n for n, _ in gather.values()):g} [{card}]:")
+    for k, (n, us) in sorted(rows.items(), key=lambda r: -r[1][1]):
+        print(f"  {n:g} x {us / n:.2f} us  {k[:120]}")
+    # where the host's time of one all-gather goes: the host-side rows of
+    # 20 calls by self time
+    from torch.profiler import ProfilerActivity, profile
+
+    from mcmcpp_tpu_torch.parallel import distributed
+
+    half = s.state.red
+    buf = torch.empty((W_FULL // 2, P_FULL), device="cuda")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(20):
+            distributed.all_gather_rows(buf, half)
+        torch.cuda.synchronize()
+    top = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    print("  host time of an all-gather call, by self time (20 calls): "
+          + "; ".join(f"{e.key[:60]} {e.self_cpu_time_total / 20:.1f} us"
+                      for e in top[:6]) + f" [{card}]", flush=True)
+    del s, half, buf
+    torch.cuda.empty_cache()
 
 
 def main():
@@ -4243,7 +4552,9 @@ def main():
                     a = full_width(target, 11, **kw("a"))
                     a.init_ball(np.zeros(P_FULL), 0.5)
                     reset_launches(fs)
-                    a.run_mcmc(40, thin=10, checkpoint_path=path,
+                    # thin 20 (2 + 2 rows, cut from 4 + 4 in PR 11): the
+                    # snapshot's compressed write sets this block's pace
+                    a.run_mcmc(40, thin=20, checkpoint_path=path,
                                checkpoint_every=8)
                     if fs.LAUNCHES != want(40):
                         raise AssertionError(f"{label}: launches {fs.LAUNCHES}")
@@ -4255,8 +4566,8 @@ def main():
                     t0 = time.perf_counter()
                     load_checkpoint(b, path)
                     load_s = time.perf_counter() - t0
-                    a.run_mcmc(40, thin=10)
-                    b.run_mcmc(40, thin=10)
+                    a.run_mcmc(40, thin=20)
+                    b.run_mcmc(40, thin=20)
                     same = all(torch.equal(x, y)
                                for x, y in zip(a.state[:6], b.state[:6]))
                     same = same and a.state.step == b.state.step == 80
@@ -4266,13 +4577,13 @@ def main():
                     for get in ("get", "get_logp"):
                         ra = torch.from_numpy(getattr(a.chain, get)(held=True))
                         rb = torch.from_numpy(getattr(b.chain, get)(held=True))
-                        same = same and ra.shape[0] == 8 and torch.equal(ra, rb)
+                        same = same and ra.shape[0] == 4 and torch.equal(ra, rb)
                     if not same:
                         raise AssertionError(
                             f"{label}: the resumed run differs from the "
                             "uninterrupted one")
                     print(f"  resume {label}: 40 + 40 steps == 40, load, 40 "
-                          f"bitwise (state, counters, 8 rows at "
+                          f"bitwise (state, counters, 4 rows at "
                           f"{a.chain.dtype.name}, backend {a.chain.backend}); "
                           f"checkpoint {save_bytes} B written in {save_s:.2f} s, "
                           f"loaded in {load_s:.2f} s [{card}]", flush=True)
@@ -4388,9 +4699,12 @@ def main():
             del s, x, xt, flat
 
             # (e) the reference's three test programs, as a user runs them
+            # actime and inner_benchmark at cut steps (§4 of PERF.md), to
+            # make room for phase 15
             for mod, extra in [("skewed_gaussian",
                                 ["--outdir", os.path.join(out_dir, "skewed")]),
-                               ("actime", []), ("inner_benchmark", [])]:
+                               ("actime", ["--steps", "32768"]),
+                               ("inner_benchmark", ["--steps", "5000"])]:
                 t0 = time.perf_counter()
                 done = subprocess.run(
                     [sys.executable, "-m", f"mcmcpp_tpu_torch.examples.{mod}",
@@ -4472,6 +4786,44 @@ def main():
             torch.cuda.empty_cache()
             numpy_on_the_card(mt, rows, card)
             del rows
+            torch.cuda.empty_cache()
+
+    # -- phase 15: the sharded ensemble in an NCCL process group of one: the
+    # kernels over row shards, ShardedEnsembleSampler against EnsembleSampler
+    # bit for bit, the two examples with --sharded -----------------------------
+    sharded_launches = {}
+    if run_phase("15"):
+        with phase("15 sharded ensemble"):
+            from mcmcpp_tpu_torch.examples import actime, inner_benchmark
+            from mcmcpp_tpu_torch.parallel import distributed
+
+            # stays up to the end: the profiled step after phase 7 needs it
+            rank, world = distributed.initialize(device=dev)
+            if (rank, world) != (0, 1) or (
+                    torch.distributed.get_backend() != "nccl"):
+                raise AssertionError(
+                    f"expected an NCCL group of one, got rank {rank} of "
+                    f"{world}, {torch.distributed.get_backend()}")
+            blocker = torch.empty(1 << 28, dtype=torch.float32, device=dev)
+            for name, (err, t) in sharded_kernels(
+                    fs, rnd, flagship, funnel, card, blocker).items():
+                k = kernels.setdefault(name, {})
+                k["max_abs_err"] = max(k.get("max_abs_err", 0.0), err)
+                k["row_offset_ms"] = t
+            del blocker
+            torch.cuda.empty_cache()
+            sharded_launches = sharded_runs(mt, fs, flagship, funnel, skewed,
+                                            card)
+            # their steps cut (§4 of PERF.md): each collective call costs the
+            # host ~160 us; at 32768 steps actime's estimates stay within 5%
+            for mod, steps in ((actime, "32768"), (inner_benchmark, "5000")):
+                t0 = time.perf_counter()
+                rc = mod.main(["--sharded", "--steps", steps])
+                if rc != 0:
+                    raise AssertionError(f"{mod.__name__} --sharded exited "
+                                         f"{rc}")
+                print(f"  {mod.__name__} --sharded: exit 0 "
+                      f"({time.perf_counter() - t0:.1f} s)", flush=True)
             torch.cuda.empty_cache()
 
     # -- phase 7: what a flagship step puts on the device --------------------
@@ -4590,6 +4942,12 @@ def main():
         with phase("13 launches per time step, profiled"):
             time_series_launch_count(mt, card)
 
+    # phase 15's all-gather under the profiler: after phase 7
+    if run_phase("15"):
+        with phase("15 (b) the sharded step's all-gathers, profiled"):
+            sharded_gather_profile(mt, card)
+            torch.distributed.destroy_process_group()
+
     if chosen is not None:
         # a chosen subset: the kernel line needs every phase's launches
         print(f"phases {sorted(chosen)} only: no kernel line")
@@ -4601,6 +4959,10 @@ def main():
     for name, k in kernels.items():
         if not (k.get("launches") and store_launches.get(name)):
             raise AssertionError(f"{name} was not launched on its main path")
+    for name in kernels:
+        if not sharded_launches.get(name):
+            raise AssertionError(f"{name} was not launched on the sharded "
+                                 "path")
     for name in ("stretch_propose", "stretch_accept"):
         if not smc_launches.get(name):
             raise AssertionError(f"{name} was not launched on the SMC path")
@@ -4620,6 +4982,10 @@ def main():
          "launches_dsl_path": dsl_launches.get(name, 0),
          "launches_timeseries_path": ts_launches.get(name, 0),
          "launches_examples_path": ex_launches.get(name, 0),
+         "launches_sharded_path": sharded_launches.get(name, 0),
+         "ms_shard_2p18": k["row_offset_ms"]["shard"],
+         "ms_shard_2p18_row_offset": k["row_offset_ms"]["shard_offset"],
+         "ms_half_as_4_shards": k["row_offset_ms"]["half_4"],
          "max_abs_err": k["max_abs_err"],
          "ms": k["ms"], "plain_ms": k["plain_ms"],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],

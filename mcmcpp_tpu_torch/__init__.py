@@ -41,6 +41,12 @@ The log-probability DSL (``dsl``: transforms, distributions, :class:`Model`)
 compiles declarative models to a per-θ logp for every engine, with the
 special functions torch lacks in ``ops.special``; ``models.gp`` and
 ``models.hsgp`` hold the exact and reduced-rank Gaussian processes.
+
+The multi-process layer (``parallel``): :class:`ShardedEnsembleSampler`
+splits the walkers over the ranks of a ``torch.distributed`` process group
+(NCCL on the card, gloo on the CPU) and equals the unsharded sampler bit for
+bit; ``analysis.global_*`` and ``run_until_converged(multihost=True)`` take
+the whole ensemble's statistics from the ranks' shards.
 """
 
 from mcmcpp_tpu_torch import analysis
@@ -49,6 +55,7 @@ from mcmcpp_tpu_torch import gradient
 from mcmcpp_tpu_torch import io
 from mcmcpp_tpu_torch import models
 from mcmcpp_tpu_torch import ops
+from mcmcpp_tpu_torch import parallel
 from mcmcpp_tpu_torch.dsl import Model
 from mcmcpp_tpu_torch.chain import Chain
 from mcmcpp_tpu_torch.chain_disk import DiskChain
@@ -136,6 +143,11 @@ from mcmcpp_tpu_torch.particle import (
     particle_forecast,
     particle_smoother,
 )
+from mcmcpp_tpu_torch.parallel import (
+    ShardedEnsembleSampler,
+    make_ladder_mesh,
+    make_walker_mesh,
+)
 from mcmcpp_tpu_torch.pcn import PCNSampler
 from mcmcpp_tpu_torch.rbpf import (
     RaoBlackwellSSM,
@@ -221,6 +233,7 @@ __all__ = [
     "SMCSampler",
     "SVGD",
     "SequenceMove",
+    "ShardedEnsembleSampler",
     "SplineCoupling",
     "StateSpaceModel",
     "StretchMove",
@@ -246,11 +259,14 @@ __all__ = [
     "laplace",
     "laplace_sample",
     "logistic_regression",
+    "make_ladder_mesh",
+    "make_walker_mesh",
     "models",
     "multi_pathfinder",
     "neal_funnel",
     "nested_to_inference_dict",
     "ops",
+    "parallel",
     "particle_filter",
     "particle_forecast",
     "particle_smoother",

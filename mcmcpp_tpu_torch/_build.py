@@ -124,11 +124,11 @@ def load_library():
     # cut the address or the key
     signatures = {
         "mcmcpp_fused_stretch_half_f32":
-            [ptr] * 4 + [u64] + [ptr] * 4 + [i32, i32, f32, ptr],
+            [ptr] * 4 + [u64] + [ptr] * 4 + [i32, i64, i64, i32, f32, ptr],
         "mcmcpp_stretch_propose_f32":
-            [ptr] * 3 + [u64] + [ptr] * 2 + [i64, i32, f32, ptr],
+            [ptr] * 3 + [u64] + [ptr] * 2 + [i64, i64, i64, i32, f32, ptr],
         "mcmcpp_stretch_accept_f32":
-            [ptr] * 5 + [u64] + [ptr] * 3 + [i64, i32, ptr],
+            [ptr] * 5 + [u64] + [ptr] * 3 + [i64, i64, i32, ptr],
         "mcmcpp_unit_uniforms_f32": [u64, ptr, ptr, i64, ptr],
     }
     for name, argtypes in signatures.items():

@@ -82,7 +82,9 @@ def mcse_mean(samples, ess=None, **ess_kw):
     """Monte-Carlo standard error of the posterior mean per parameter.
 
     samples: (S, C, P). MCSE = posterior sd / sqrt(ESS). Pass a
-    precomputed ``ess`` to skip re-running the ACT analysis.
+    precomputed ``ess`` to skip re-running the ACT analysis; ``ess_kw``
+    goes to :func:`effective_sample_size` (whose ``device``, default
+    "cuda", takes the ACT's FFT).
     """
     arr = np.asarray(samples, np.float64)
     flat = arr.reshape(-1, arr.shape[-1])
@@ -93,7 +95,7 @@ def mcse_mean(samples, ess=None, **ess_kw):
     return sd / np.sqrt(np.maximum(ess, 1.0))
 
 
-def mcse_quantile(samples, prob):
+def mcse_quantile(samples, prob, device=None):
     """Monte-Carlo standard error of a posterior quantile per parameter
     (Vehtari et al. 2021 §4.3 / the `posterior` package's estimator).
 
@@ -105,7 +107,9 @@ def mcse_quantile(samples, prob):
     mapped through the empirical quantile function gives
     mcse = (Q_upper - Q_lower) / 2.
 
-    samples: (S, C, P) (or (S, C)). Returns (P,) (or a float).
+    samples: (S, C, P) (or (S, C)). Returns (P,) (or a float). The
+    indicator ESS's FFT runs on ``device`` (default "cuda"); the rest is
+    numpy, as in the JAX package.
     """
     arr = np.asarray(samples, np.float64)
     squeeze = arr.ndim == 2
@@ -128,7 +132,8 @@ def mcse_quantile(samples, prob):
         if ind.std() == 0:
             out[j] = 0.0
             continue
-        s_eff = float(np.asarray(effective_sample_size(ind[:, :, None]))[0])
+        s_eff = float(np.asarray(effective_sample_size(ind[:, :, None],
+                                                      device=device))[0])
         if not np.isfinite(s_eff):
             # per-chain-constant indicator (chains stuck in separate
             # modes) or an unclosed ACT window: the error is not
@@ -143,20 +148,21 @@ def mcse_quantile(samples, prob):
     return float(out[0]) if squeeze else out
 
 
-def summary(samples, prob=0.9):
+def summary(samples, prob=0.9, device=None):
     """Per-parameter posterior summary dict.
 
     samples: (S, C, P). Returns dict of arrays: mean, sd, median, central
     credible interval bounds, HDI bounds (shortest interval at the same
     prob), ess (+ rank-normalized ess_bulk and ess_tail, Vehtari et al.
-    2021), rhat, mcse.
+    2021), rhat, mcse. The ESS columns run on ``device`` (default "cuda");
+    the rest is numpy, as in the JAX package.
     """
     from mcmcpp_tpu_torch.analysis.ess import ess_bulk, ess_tail
 
     arr = np.asarray(samples, np.float64)
     flat = arr.reshape(-1, arr.shape[-1])
     lo_q, hi_q = (1 - prob) / 2, 1 - (1 - prob) / 2
-    ess = np.asarray(effective_sample_size(arr))
+    ess = np.asarray(effective_sample_size(arr, device=device))
     return {
         "mean": flat.mean(axis=0),
         "sd": flat.std(axis=0, ddof=1),
@@ -166,8 +172,8 @@ def summary(samples, prob=0.9):
         "hdi_lo": hdi(flat, prob=prob)[0],
         "hdi_hi": hdi(flat, prob=prob)[1],
         "ess": ess,
-        "ess_bulk": np.atleast_1d(ess_bulk(arr)),
-        "ess_tail": np.atleast_1d(ess_tail(arr)),
+        "ess_bulk": np.atleast_1d(ess_bulk(arr, device=device)),
+        "ess_tail": np.atleast_1d(ess_tail(arr, device=device)),
         "rhat": potential_scale_reduction(arr),
         "mcse": mcse_mean(arr, ess=ess),
     }

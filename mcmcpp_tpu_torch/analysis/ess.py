@@ -9,20 +9,21 @@ import numpy as np
 import torch
 
 from mcmcpp_tpu_torch.analysis.autocorr import autocorr_time
+from mcmcpp_tpu_torch.sampler import resolve_device
 
 
-def effective_sample_size(samples, window_scaling=4.0, **kw):
+def effective_sample_size(samples, window_scaling=4.0, device=None, **kw):
     """ESS per parameter for (S, W, P) (or scalar for (S, W)) samples, numpy
-    or a tensor (whose autocovariance FFT then runs on its device). numpy
-    runs on the CPU unless ``device=`` names another: the diagnostics built
-    on this function (``summary``, the MCSEs) are host numpy.
+    or a tensor. The autocovariance FFT runs on a tensor's own device; numpy
+    goes to ``device`` (default "cuda"; CUDA without a GPU raises), as the
+    JAX package puts it on its accelerator.
 
     Unconverged τ estimates (returned negative by ``autocorr_time``) yield
     NaN so they can't silently inflate ESS.
     """
     arr = samples if isinstance(samples, torch.Tensor) else np.asarray(samples)
-    kw.setdefault("device", "cpu")
-    tau = autocorr_time(arr, window_scaling=window_scaling, **kw)
+    tau = autocorr_time(arr, window_scaling=window_scaling, device=device,
+                        **kw)
     n_total = arr.shape[0] * arr.shape[1]
     tau = np.asarray(tau, np.float64)
     ess = np.where(tau > 0, n_total / np.maximum(tau, 1e-12), np.nan)
@@ -155,42 +156,45 @@ def quantile_tensor(flat, q):
     return sv[lo] + (pos - lo) * (sv[hi] - sv[lo])
 
 
-def as_chain_tensor(samples):
+def as_chain_tensor(samples, device=None):
     """A tensor stays on its device (which then does the work); numpy
-    becomes a float64 CPU tensor."""
+    becomes a float64 tensor on ``device`` (default "cuda")."""
     if isinstance(samples, torch.Tensor):
         return samples
-    return torch.as_tensor(np.asarray(samples, np.float64))
+    return torch.as_tensor(np.asarray(samples, np.float64)).to(
+        resolve_device("cuda" if device is None else device))
 
 
-def _as_chain(samples):
+def _as_chain(samples, device=None):
     """(S, W, P) tensor and whether 2-D input gained its parameter axis."""
-    arr = as_chain_tensor(samples)
+    arr = as_chain_tensor(samples, device)
     squeeze = arr.ndim == 2
     return (arr[:, :, None] if squeeze else arr), squeeze
 
 
-def ess_bulk(samples, **kw):
+def ess_bulk(samples, device=None, **kw):
     """Rank-normalized bulk ESS (Vehtari et al. 2021): ESS of the normal
     scores — robust to heavy tails and measures mixing in the bulk.
 
-    samples: (S, W, P) or (S, W), numpy or a tensor (a tensor is ranked and
-    transformed on its device). Returns (P,) or float.
+    samples: (S, W, P) or (S, W), numpy (ranked on ``device``, default
+    "cuda") or a tensor (ranked and transformed on its device). Returns
+    (P,) or float.
     """
-    arr, squeeze = _as_chain(samples)
+    arr, squeeze = _as_chain(samples, device)
     ess = effective_sample_size(rank_normalize_tensor(arr), **kw)
     return float(ess[0]) if squeeze else ess
 
 
-def ess_tail(samples, prob=0.05, **kw):
+def ess_tail(samples, prob=0.05, device=None, **kw):
     """Tail ESS: min over the ``prob`` and ``1-prob`` quantile indicator
     ESS (Vehtari et al. 2021 §4.3) — mixing quality where credible-interval
     endpoints are estimated.
 
-    samples: (S, W, P) or (S, W), numpy or a tensor (whose quantiles and
-    indicators are taken on its device). Returns (P,) or float.
+    samples: (S, W, P) or (S, W), numpy (on ``device``, default "cuda") or
+    a tensor (whose quantiles and indicators are taken on its device).
+    Returns (P,) or float.
     """
-    arr, squeeze = _as_chain(samples)
+    arr, squeeze = _as_chain(samples, device)
     out = []
     for q in (prob, 1.0 - prob):
         cut = quantile_tensor(arr.reshape(-1, arr.shape[2]), q)

@@ -138,6 +138,41 @@ def cast_up(held, dtype, read_dtype):
     return held
 
 
+def fetch_addressable(x, walker_axis=1):
+    """The host copy (numpy) of a sampler's chunk or state (≙ the JAX
+    package's ``chain.fetch_addressable``). A port tensor holds only its
+    rank's rows: under a group of more than one rank a sharded sampler's
+    chunk is already the rank's own walkers, in global order
+    (``[red_local, black_local]``, ``parallel/sharded.py``), and nothing is
+    gathered; alone it is the whole ensemble. ``walker_axis`` is kept for
+    the JAX signature: no shard is reassembled here."""
+    del walker_axis
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def append_device_chunk(chain, pos, logp):
+    """Append (S, W_local, P)/(S, W_local) device chunks to ``chain``;
+    returns ``(chain, ok)`` (ok False: the byte cap was hit, ≙
+    IncrementStatus::EndOfChain). An empty :class:`Chain` of another walker
+    width is rebuilt at the chunk's (local) width, as the JAX package
+    rebuilds its chain on a multi-host run's first append; a width change
+    after rows were stored raises."""
+    width = pos.shape[1]
+    if width != chain.n_walkers:
+        if chain.n_steps or type(chain) is not Chain:
+            raise RuntimeError(
+                f"chain walker width {chain.n_walkers} != the chunk's "
+                f"{width} (sharding changed mid-run, or an injected store "
+                "of the wrong width)")
+        chain = Chain(n_walkers=width, n_params=chain.n_params,
+                      max_bytes=chain.max_bytes, dtype=chain.dtype,
+                      backend=chain.backend, read_dtype=chain.read_dtype,
+                      logp_dtype=chain.logp_dtype)
+    return chain, chain.append(pos, logp)
+
+
 def default_chunk_steps(n_rows, n_params, dtype, budget_bytes=64 << 20):
     """Steps per device->host chunk bounding a chunk to ~budget_bytes.
 

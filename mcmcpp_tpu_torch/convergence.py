@@ -16,12 +16,13 @@ Vats-Flegal-Jones multivariate-ESS stopping rule (``mess_rule``: stop only
 once ``multivariate_ess >= min_ess_required(P, alpha, eps)`` — the
 fixed-volume confidence-region criterion). Works with any sampler that
 has ``run_mcmc`` (or ``run``) and ``get_samples``. Counterpart of
-``mcmcpp_tpu/convergence.py``, single-process branch.
+``mcmcpp_tpu/convergence.py``.
 """
 
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 
 class ConvergenceReport(NamedTuple):
@@ -49,7 +50,7 @@ def run_until_converged(
     thin=1,
     window_scaling=4.0,
     callback=None,
-    multihost=False,
+    multihost=None,
 ):
     """Drive ``sampler`` until its chain passes the ACT length criterion.
 
@@ -71,33 +72,68 @@ def run_until_converged(
     "cuda"); R-hat, the multivariate ESS and nested R-hat are host numpy, as
     in the JAX package.
 
-    ``multihost=True`` (every statistic gated on the whole ensemble of a
-    multi-process run) is not ported: it raises ``NotImplementedError``. The
-    default is False, where the JAX package asks ``jax.process_count()``.
+    Under a multi-process run (``multihost=None`` means a
+    ``torch.distributed`` world size above 1, as the JAX package asks
+    ``jax.process_count() > 1``) every statistic gates on the WHOLE
+    ensemble, not this rank's walker shard: τ, R̂ and the mESS come from the
+    collective ``analysis.global_*`` decompositions, nested R̂ from the
+    ranks' gathered per-walker moments in global walker order, and every
+    rank takes the same decision. Every rank must call this collectively
+    with the same arguments.
     """
     from mcmcpp_tpu_torch import analysis
+    from mcmcpp_tpu_torch.analysis.diagnostics import nested_rhat_from_stats
+    from mcmcpp_tpu_torch.parallel import distributed
 
-    if multihost:
-        raise NotImplementedError(
-            "multihost=True needs the collective analysis.global_* "
-            "statistics, which are not ported yet (ROADMAP A13)")
-
+    if multihost is None:
+        multihost = distributed.is_multihost()
     # the ACT's FFT runs where the sampler runs (its chain comes back as
     # numpy)
     device = getattr(sampler, "device", None)
 
-    def _tau(samples):
-        return analysis.autocorr_time(samples, window_scaling=window_scaling,
-                                      device=device)
+    if multihost:
+        def _tau(samples):
+            return analysis.global_autocorr_time(
+                samples, window_scaling=window_scaling, device=device)
 
-    def _rhat(samples):
-        return analysis.potential_scale_reduction(samples)
+        def _rhat(samples):
+            return analysis.global_rank_normalized_rhat(samples,
+                                                        device=device)
 
-    def _mess(samples):
-        return analysis.multivariate_ess(samples)
+        def _mess(samples):
+            return analysis.global_multivariate_ess(samples, device=device)
 
-    def _nested(samples):
-        return np.atleast_1d(analysis.nested_rhat(samples, nested_superchains))
+        def _nested(samples):
+            # each rank's chain columns are [red_local, black_local]: put
+            # the gathered per-walker moments back in the global walker
+            # order [red…, black…] before grouping them in superchains
+            arr = np.asarray(samples, np.float64)
+            if arr.ndim == 2:
+                arr = arr[:, :, None]
+
+            def global_order(x):
+                g = distributed.process_allgather(torch.from_numpy(x))
+                r, w, p = g.shape
+                return g.reshape(r, 2, w // 2, p).transpose(
+                    1, 0, 2, 3).reshape(r * w, p)
+
+            return nested_rhat_from_stats(
+                global_order(arr.mean(axis=0)), global_order(arr.var(axis=0)),
+                nested_superchains)
+    else:
+        def _tau(samples):
+            return analysis.autocorr_time(
+                samples, window_scaling=window_scaling, device=device)
+
+        def _rhat(samples):
+            return analysis.potential_scale_reduction(samples)
+
+        def _mess(samples):
+            return analysis.multivariate_ess(samples)
+
+        def _nested(samples):
+            return np.atleast_1d(
+                analysis.nested_rhat(samples, nested_superchains))
 
     run = getattr(sampler, "run_mcmc", None) or sampler.run
     max_steps = int(max_steps)

@@ -1,8 +1,10 @@
 // Fused Goodman–Weare stretch half-step for a dense Gaussian target.
 //
 // Replaces the TPU kernel mcmcpp_tpu/ops/pallas_stretch.py::fused_stretch_half
-// (its body `_kernel`): for every active walker i it reads the partner
-// other[(i + shift) % n], draws u and ue from the half-step's key, forms
+// (its body `_kernel`): for every active walker i (global row row0 + i of
+// a half of m walkers, stretch_common.cuh) it reads the partner
+// other[(row0 + i + shift) % m], draws u and ue from the half-step's key and
+// row0 + i, forms
 // z = ((sqrt(a) - 1/sqrt(a))·u + 1/sqrt(a))^2 and the proposal
 // Y = partner + z·(X − partner), evaluates lp_new = −0.5·‖Y @ L‖² with the
 // precision Cholesky L (P×P, row-major), and accepts iff
@@ -85,7 +87,8 @@ fused_stretch_half_kernel(
     const float* __restrict__ other, const int* __restrict__ shift,
     unsigned long long key, const float* __restrict__ prec_chol,
     float* __restrict__ out_act, float* __restrict__ out_lp,
-    int* __restrict__ out_acc, int n, int P, float a) {
+    int* __restrict__ out_acc, int n, long long row0, long long m, int P,
+    float a) {
   extern __shared__ float smem[];
   const int stride = P | 1;
   float* sL = smem;
@@ -94,13 +97,13 @@ fused_stretch_half_kernel(
 
   const long long i0 = (long long)blockIdx.x * R;
   const int rows = (int)min((long long)R, (long long)n - i0);
-  const long long j0 = mcmcpp::partner_row(i0, *shift, n);
+  const long long j0 = mcmcpp::partner_row(row0 + i0, *shift, m);
 
   for (int t = threadIdx.x; t < P * P; t += R) {
     sL[(t / P) * PMAX + (t % P)] = prec_chol[t];
   }
   mcmcpp::load_tile<VEC>(act, i0, rows, n, P, stride, sX);
-  mcmcpp::load_tile<VEC>(other, j0, rows, n, P, stride, sP);
+  mcmcpp::load_tile<VEC>(other, j0, rows, m, P, stride, sP);
   __syncthreads();
 
   // ragged last tile: the threads past its rows skip the row's work and
@@ -109,7 +112,8 @@ fused_stretch_half_kernel(
     const long long i = i0 + threadIdx.x;
     const float* x = sX + threadIdx.x * stride;
     const float* xp = sP + threadIdx.x * stride;
-    const float2 uu = mcmcpp::unit_uniforms(key, (unsigned long long)i);
+    const float2 uu =
+        mcmcpp::unit_uniforms(key, (unsigned long long)(row0 + i));
     const float z = mcmcpp::stretch_z(uu.x, a);
 
     float y[PMAX];
@@ -163,7 +167,8 @@ cudaError_t launch_vec(const float* act, const float* lp_old,
                        const float* other, const int* shift,
                        unsigned long long key, const float* prec_chol,
                        float* out_act, float* out_lp, int* out_acc, int n,
-                       int P, float a, cudaStream_t stream) {
+                       long long row0, long long m, int P, float a,
+                       cudaStream_t stream) {
   auto kernel = fused_stretch_half_kernel<PMAX, R, VEC>;
   const size_t bytes = smem_bytes<PMAX, R>(P);
   if (bytes > 48 * 1024) {
@@ -185,7 +190,7 @@ cudaError_t launch_vec(const float* act, const float* lp_old,
   const int blocks = (n + R - 1) / R;
   kernel<<<blocks, R, bytes, stream>>>(act, lp_old, other, shift, key,
                                        prec_chol, out_act, out_lp, out_acc, n,
-                                       P, a);
+                                       row0, m, P, a);
   return cudaGetLastError();
 }
 
@@ -193,13 +198,16 @@ template <int PMAX, int R>
 cudaError_t launch(const float* act, const float* lp_old, const float* other,
                    const int* shift, unsigned long long key,
                    const float* prec_chol, float* out_act, float* out_lp,
-                   int* out_acc, int n, int P, float a, cudaStream_t stream) {
+                   int* out_acc, int n, long long row0, long long m, int P,
+                   float a, cudaStream_t stream) {
   if (mcmcpp::rows_aligned8(P, act, other, out_act)) {
     return launch_vec<PMAX, R, 2>(act, lp_old, other, shift, key, prec_chol,
-                                  out_act, out_lp, out_acc, n, P, a, stream);
+                                  out_act, out_lp, out_acc, n, row0, m, P, a,
+                                  stream);
   }
   return launch_vec<PMAX, R, 1>(act, lp_old, other, shift, key, prec_chol,
-                                out_act, out_lp, out_acc, n, P, a, stream);
+                                out_act, out_lp, out_acc, n, row0, m, P, a,
+                                stream);
 }
 
 }  // namespace
@@ -214,28 +222,32 @@ extern "C" long long mcmcpp_fused_stretch_half_smem_bytes(int P) {
   return (long long)smem_bytes<64, 128>(P);
 }
 
-// One fused stretch half-step over n active walkers of dimension P (n == m).
-// All pointers are device pointers; `shift` points at one int32 (any value:
-// the partner index is taken modulo n); `key` is the half-step's Philox key,
-// walker i drawing its u and ue from (key, i). Returns the launch's
-// cudaError_t (0 on success).
+// One fused stretch half-step over n active walkers of dimension P: rows
+// row0…row0+n−1 of a half of m walkers, against `other`, the whole opposite
+// half of m rows (unsharded: row0 = 0, m = n). All pointers are device
+// pointers; `act`, `lp_old` and the outputs have n rows; `shift` points at
+// one int32 (any value: the partner index is taken modulo m); `key` is the
+// half-step's Philox key, local walker i drawing its u and ue from
+// (key, row0 + i). Returns the launch's cudaError_t (0 on success).
 extern "C" int mcmcpp_fused_stretch_half_f32(
     const float* act, const float* lp_old, const float* other,
     const int* shift, unsigned long long key, const float* prec_chol,
-    float* out_act, float* out_lp, int* out_acc, int n, int P, float a,
-    void* stream) {
-  if (n <= 0 || P <= 0 || P > 64) return (int)cudaErrorInvalidValue;
+    float* out_act, float* out_lp, int* out_acc, int n, long long row0,
+    long long m, int P, float a, void* stream) {
+  if (!mcmcpp::valid_rows(n, row0, m) || P <= 0 || P > 64) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (P <= 8) {
     return (int)launch<8, 256>(act, lp_old, other, shift, key, prec_chol,
-                               out_act, out_lp, out_acc, n, P, a, s);
+                               out_act, out_lp, out_acc, n, row0, m, P, a, s);
   } else if (P <= 16) {
     return (int)launch<16, 256>(act, lp_old, other, shift, key, prec_chol,
-                                out_act, out_lp, out_acc, n, P, a, s);
+                                out_act, out_lp, out_acc, n, row0, m, P, a, s);
   } else if (P <= 32) {
     return (int)launch<32, 128>(act, lp_old, other, shift, key, prec_chol,
-                                out_act, out_lp, out_acc, n, P, a, s);
+                                out_act, out_lp, out_acc, n, row0, m, P, a, s);
   }
   return (int)launch<64, 128>(act, lp_old, other, shift, key, prec_chol,
-                              out_act, out_lp, out_acc, n, P, a, s);
+                              out_act, out_lp, out_acc, n, row0, m, P, a, s);
 }

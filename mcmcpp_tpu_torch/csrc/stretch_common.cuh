@@ -2,16 +2,24 @@
 // (fused_stretch.cu) and the split propose/accept pair (stretch_split.cu).
 //
 // Both replace parts of mcmcpp_tpu/ops/pallas_stretch.py::_kernel: the
-// partner of active walker i is other[(i + shift) % n] (the roll of
+// partner of active walker i is other[(i + shift) % m] (the roll of
 // mcmcpp_tpu/ops/partner.py), z ~ g(z) comes from a uniform u by the
 // inverse CDF of mcmcpp_tpu/ops/gw.py, and the accept rule is
 // log(ue) < (P−1)·log z + lp_new − lp_old.
+//
+// Row offset. A launch covers n active rows that are rows row0…row0+n−1 of
+// a half of m walkers (a rank's shard of a sharded ensemble); `other` is
+// the whole opposite half, m rows. Local row i is global row row0 + i: its
+// partner is other[(row0 + i + shift) % m] and its Philox counter row0 + i,
+// and its outputs go to local row i. So R launches over consecutive row
+// shards give the one unsharded launch's outputs, bit for bit. Unsharded,
+// row0 = 0 and m = n.
 //
 // The uniforms u (for z) and ue (for the accept test) are drawn inside the
 // kernels, as the Pallas kernel draws them from the TPU's generator
 // (pallas_stretch.py:62, :72-73): here by Philox4x32-10, a counter-based
 // generator, as a pure function of the half-step's 64-bit key and the
-// walker's index in its half. Its plain twin, bit for bit, is
+// walker's global index in its half. Its plain twin, bit for bit, is
 // mcmcpp_tpu_torch/ops/random.py::philox_unit_uniforms.
 //
 // Built without --use_fast_math: IEEE logf/sqrtf keep the −inf and NaN
@@ -73,11 +81,17 @@ __device__ __forceinline__ float2 unit_uniforms(unsigned long long key,
   return make_float2(bits_to_unit(w.x), bits_to_unit(w.y));
 }
 
-// Row of `other` that active walker i pairs with, for a shift in any range.
-__device__ __forceinline__ long long partner_row(long long i, int shift,
-                                                 long long n) {
-  long long j = (i + (long long)shift) % n;
-  return j < 0 ? j + n : j;
+// Row of `other` (m rows) that the active walker of global row g pairs
+// with, for a shift in any range.
+__device__ __forceinline__ long long partner_row(long long g, int shift,
+                                                 long long m) {
+  long long j = (g + (long long)shift) % m;
+  return j < 0 ? j + m : j;
+}
+
+// True when rows row0…row0+n−1 of a half of m rows are a valid launch.
+inline bool valid_rows(long long n, long long row0, long long m) {
+  return n > 0 && row0 >= 0 && m >= n && row0 <= m - n;
 }
 
 // True when the float2 copies may be used: for even P every row of a
@@ -116,12 +130,12 @@ struct TileWalk {
   }
 };
 
-// Cooperative copy of `rows` consecutive rows of the (n, P) array `src`,
-// from row `row0` on and wrapping at n, into shared memory with `stride`
-// floats a row. Neighbouring threads read neighbouring addresses; a thread
-// starts up to kLoadBatch loads before it stores the first, so that
-// enough bytes are in flight: at P = 10 a 256-row tile is five float2 loads
-// a thread, all outstanding at once.
+// Cooperative copy of `rows` (at most n) consecutive rows of the (n, P)
+// array `src`, from row `row0` on and wrapping at n, into shared memory
+// with `stride` floats a row. Neighbouring threads read neighbouring
+// addresses; a thread starts up to kLoadBatch loads before it stores the
+// first, so that enough bytes are in flight: at P = 10 a 256-row tile is
+// five float2 loads a thread, all outstanding at once.
 template <int VEC>
 __device__ __forceinline__ void load_tile(const float* __restrict__ src,
                                           long long row0, int rows,

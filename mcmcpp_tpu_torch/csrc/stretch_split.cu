@@ -11,9 +11,10 @@
 //   stretch_accept:  log(ue) < (P−1)·log z + lp_new − lp_old, then select.
 //
 // The partner index, z, the uniforms (Philox words of the half-step's key and
-// the walker's index: u is word 0, ue word 1) and the accept rule are the
-// device functions of stretch_common.cuh, the same code the fused kernel
-// runs.
+// the walker's global index: u is word 0, ue word 1), the row offset (a
+// launch covers rows row0…row0+n−1 of a half of m walkers) and the accept
+// rule are the device functions of stretch_common.cuh, the same code the
+// fused kernel runs.
 //
 // What bounds them: both are elementwise over the (n, P) rows and
 // memory-bound. At P = 10 the propose kernel moves 124 B per walker (X, the
@@ -71,26 +72,27 @@ __global__ void __launch_bounds__(kThreads) stretch_propose_kernel(
     const float* __restrict__ act, const float* __restrict__ other,
     const int* __restrict__ shift, unsigned long long key,
     float* __restrict__ out_y, float* __restrict__ out_factor, long long n,
-    int P, float a, int tile_rows) {
+    long long row0, long long m, int P, float a, int tile_rows) {
   __shared__ float sZ[kThreads];
   const long long i0 = (long long)blockIdx.x * tile_rows;
   const int rows = (int)min((long long)tile_rows, n - i0);
   if ((int)threadIdx.x < rows) {
     const long long i = i0 + threadIdx.x;
-    const float u = mcmcpp::unit_uniforms(key, (unsigned long long)i).x;
+    const float u =
+        mcmcpp::unit_uniforms(key, (unsigned long long)(row0 + i)).x;
     const float z = mcmcpp::stretch_z(u, a);
     sZ[threadIdx.x] = z;
     out_factor[i] = (float)(P - 1) * logf(z);
   }
   __syncthreads();
 
-  const long long j0 = mcmcpp::partner_row(i0, *shift, n);
+  const long long j0 = mcmcpp::partner_row(row0 + i0, *shift, m);
   const float* x = act + i0 * P;
   float* y = out_y + i0 * P;
   const int count = rows * P;
   for (mcmcpp::TileWalk<VEC> w(P); w.e < count; w.next(P)) {
     long long g = j0 + w.row;
-    if (g >= n) g -= n;
+    if (g >= m) g -= m;
     const float* xp = other + g * P + w.k;
     const float z = sZ[w.row];
     if (VEC == 2) {
@@ -110,7 +112,7 @@ __global__ void __launch_bounds__(kThreads) stretch_accept_kernel(
     const float* __restrict__ lp_old, const float* __restrict__ lp_new,
     const float* __restrict__ factor, unsigned long long key,
     float* __restrict__ out_act, float* __restrict__ out_lp,
-    int* __restrict__ out_acc, long long n, int P) {
+    int* __restrict__ out_acc, long long n, long long row0, int P) {
   const long long total = n * P;
   for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        e < total; e += (long long)gridDim.x * blockDim.x) {
@@ -118,7 +120,8 @@ __global__ void __launch_bounds__(kThreads) stretch_accept_kernel(
     const int k = (int)(e - i * P);
     const float lo = lp_old[i];
     const float ln = lp_new[i];
-    const float ue = mcmcpp::unit_uniforms(key, (unsigned long long)i).y;
+    const float ue =
+        mcmcpp::unit_uniforms(key, (unsigned long long)(row0 + i)).y;
     const bool accept = mcmcpp::stretch_accepts(ue, factor[i], ln, lo);
     out_act[e] = accept ? y[e] : act[e];
     if (k == 0) {
@@ -149,45 +152,52 @@ unsigned int blocks_for(long long total) {
 }  // namespace
 
 // Proposal Y (n, P) and log factor (P−1)·log z (n,) of a stretch half-step
-// with partner other[(i + *shift) % n] and u of walker i drawn from
-// (key, i). Device pointers; returns cudaGetLastError() after the launch
-// (0 on success).
+// over rows row0…row0+n−1 of a half of m walkers (unsharded: row0 = 0,
+// m = n): local walker i pairs with other[(row0 + i + *shift) % m] (`other`
+// has m rows) and draws u from (key, row0 + i). Device pointers; returns
+// cudaGetLastError() after the launch (0 on success).
 extern "C" int mcmcpp_stretch_propose_f32(const float* act, const float* other,
                                           const int* shift,
                                           unsigned long long key, float* out_y,
                                           float* out_factor, long long n,
-                                          int P, float a, void* stream) {
-  if (n <= 0 || P <= 0) return (int)cudaErrorInvalidValue;
+                                          long long row0, long long m, int P,
+                                          float a, void* stream) {
+  if (!mcmcpp::valid_rows(n, row0, m) || P <= 0) {
+    return (int)cudaErrorInvalidValue;
+  }
   const int rows = propose_rows(P);
   const long long blocks = (n + rows - 1) / rows;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mcmcpp::rows_aligned8(P, act, other, out_y)) {
     stretch_propose_kernel<2><<<(unsigned int)blocks, kThreads, 0, s>>>(
-        act, other, shift, key, out_y, out_factor, n, P, a, rows);
+        act, other, shift, key, out_y, out_factor, n, row0, m, P, a, rows);
   } else {
     stretch_propose_kernel<1><<<(unsigned int)blocks, kThreads, 0, s>>>(
-        act, other, shift, key, out_y, out_factor, n, P, a, rows);
+        act, other, shift, key, out_y, out_factor, n, row0, m, P, a, rows);
   }
   return (int)cudaGetLastError();
 }
 
 // Accept and select of a stretch half-step: the row, its logp and an int32
-// flag, from X, Y, lp_old, lp_new, the log factor and ue of walker i drawn
-// from (key, i). Device pointers; returns cudaGetLastError() after the
-// launch (0 on success).
+// flag, from X, Y, lp_old, lp_new, the log factor and ue of local walker i
+// drawn from (key, row0 + i), for rows row0… of a half (unsharded:
+// row0 = 0). Device pointers; returns cudaGetLastError() after the launch
+// (0 on success).
 extern "C" int mcmcpp_stretch_accept_f32(const float* act, const float* y,
                                          const float* lp_old,
                                          const float* lp_new,
                                          const float* factor,
                                          unsigned long long key,
                                          float* out_act, float* out_lp,
-                                         int* out_acc, long long n, int P,
+                                         int* out_acc, long long n,
+                                         long long row0, int P,
                                          void* stream) {
-  if (n <= 0 || P <= 0) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || row0 < 0 || P <= 0) return (int)cudaErrorInvalidValue;
   stretch_accept_kernel<<<blocks_for(n * P), kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-      act, y, lp_old, lp_new, factor, key, out_act, out_lp, out_acc, n, P);
+      act, y, lp_old, lp_new, factor, key, out_act, out_lp, out_acc, n, row0,
+      P);
   return (int)cudaGetLastError();
 }
 

@@ -83,7 +83,7 @@ def main(argv=None):
         s.init_ball(np.zeros(dim), scale=1.0, seed=1)
         s.warmup(warm)
         s.run(steps)
-        st = summary(s.get_samples(burn_in=100))
+        st = summary(s.get_samples(burn_in=100), device=dev)
         mean, rhat, ess = (np.abs(st["mean"]).max(), st["rhat"].max(),
                            st["ess"].min())
         step = float(torch.as_tensor(s.step_size).mean())

@@ -9,18 +9,28 @@ CPU likelihood; pass ``--flops`` to add synthetic device FLOPs through a
 dummy matmul logp. Exits non-zero when the positions after N steps are not
 exactly N·step (steps of 2^-10, so every sum is exact in float32).
 
+``--sharded`` (≙ ``test/parallel/InnerBenchmark``) splits the walkers over
+the ranks of a process group (``torchrun``, or a group of one), padded so
+that each half divides by the rank count; each rank checks its own walkers.
+
 Usage:
     python -m mcmcpp_tpu_torch.examples.inner_benchmark [--device cuda|cpu] \
-        [--walkers 2400] [--steps 20000] [--flops]
+        [--walkers 2400] [--steps 20000] [--flops] [--sharded]
 """
 
 import argparse
+import contextlib
 import sys
 
 import numpy as np
 import torch
 
-from mcmcpp_tpu_torch import EnsembleSampler, SequenceMove
+from mcmcpp_tpu_torch import (
+    EnsembleSampler,
+    SequenceMove,
+    ShardedEnsembleSampler,
+)
+from mcmcpp_tpu_torch.parallel import distributed
 from mcmcpp_tpu_torch.utils import ThroughputMonitor
 
 STEP = 2.0 ** -10
@@ -34,7 +44,15 @@ def main(argv=None):
     ap.add_argument("--params", type=int, default=4)
     ap.add_argument("--flops", action="store_true",
                     help="add synthetic likelihood FLOPs (64x64 matmul)")
+    ap.add_argument("--sharded", action="store_true",
+                    help="split the walkers over the process group's ranks")
     args = ap.parse_args(argv)
+    with (distributed.process_group(args.device) if args.sharded
+          else contextlib.nullcontext()):
+        return run(args)
+
+
+def run(args):
 
     p = args.params
     mover = SequenceMove(step_sizes=np.full(p, STEP))
@@ -47,18 +65,22 @@ def main(argv=None):
         def logp(x):
             return torch.zeros_like(x[:, 0])
 
-    s = EnsembleSampler(logp, n_walkers=args.walkers, n_params=p, seed=0,
-                        mover=mover, batched=True, device=args.device)
+    cls, n_walkers = EnsembleSampler, args.walkers
+    if args.sharded:  # pad so that each half divides by the rank count
+        cls, step = ShardedEnsembleSampler, 2 * distributed.world_size()
+        n_walkers = -(-n_walkers // step) * step
+    s = cls(logp, n_walkers=n_walkers, n_params=p, seed=0, mover=mover,
+            batched=True, device=args.device)
     s.set_initial_walker_pos(
-        mover.initial_positions(None, args.walkers, device=s.device))
+        mover.initial_positions(None, n_walkers, device=s.device))
     warm = min(100, args.steps)
     s.run_mcmc(warm, store=False)
-    mon = ThroughputMonitor(n_walkers=args.walkers)
+    mon = ThroughputMonitor(n_walkers=n_walkers)
     with mon.measure(steps=args.steps):
         s.run_mcmc(args.steps, store=False)
         pos = s.current_positions.cpu()  # waits for the device
-    print(f"walkers={args.walkers} params={p} steps={args.steps} "
-          f"device={s.device}")
+    print(f"walkers={n_walkers} params={p} steps={args.steps} "
+          f"device={s.device} ranks={distributed.world_size()}")
     print(f"{mon.updates_per_s / 1e6:.1f}M walker-updates/s "
           f"({mon.seconds / args.steps * 1e6:.1f} us/step)")
     # deterministic check ≙ parallel/InnerBenchmark main.cpp:65-69

@@ -120,7 +120,20 @@ def _host(t):
     return t.cpu().numpy()
 
 
+def _one_rank(sampler):
+    """An ensemble checkpoint holds the whole ensemble: a sharded sampler
+    of more than one rank holds only its rows (there is no sharded
+    checkpoint kind, as in the JAX package)."""
+    layout = getattr(sampler, "mesh", None)
+    if layout is not None and layout.world_size > 1:
+        raise NotImplementedError(
+            f"a ShardedEnsembleSampler over {layout.world_size} ranks holds "
+            "only its own walkers; no checkpoint kind saves or loads a "
+            "sharded ensemble")
+
+
 def _save_ensemble(sampler, meta, arrays):
+    _one_rank(sampler)
     s = sampler.state
     meta.update(n_walkers=sampler.n_walkers,
                 reset_step_base=sampler._reset_step_base)
@@ -393,6 +406,7 @@ def save_checkpoint(sampler, path):
 def _load_ensemble(sampler, meta, arrays, dev):
     from mcmcpp_tpu_torch.sampler import EnsembleState
 
+    _one_rank(sampler)
     sampler.state = EnsembleState(
         red=dev("red"), black=dev("black"),
         logp_red=dev("logp_red"), logp_black=dev("logp_black"),

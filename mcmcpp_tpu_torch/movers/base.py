@@ -21,6 +21,18 @@ diagnostic oracles) draw no log u, as in JAX, so their noise is
 decide host-side control flow (the mixture's branch); movers that make none
 ignore it.
 
+Sharded half-steps (``parallel/sharded.py``): each rank updates only its
+rows of the active half, global rows row0…row0+n_local−1, against the whole
+gathered other half. The noise is always drawn for the whole half, in the
+unsharded order, from generators seeded alike on every rank, and
+:meth:`Mover.noise_rows` cuts it to the rank's rows; ``apply(...,
+row0=row0, layout=layout)`` then updates those rows. A row gets the draws it
+gets unsharded, whatever the rank count, so a sharded run equals the
+unsharded one bit for bit (where the logp's bits do not depend on the
+batch). ``layout`` (a :class:`~mcmcpp_tpu_torch.parallel.mesh.WalkerLayout`)
+is for movers whose number of draws depends on the data (the slice move's
+loops): their loop tests are taken across the ranks.
+
 ``draw_rung_noise`` draws the noise of k independent half-steps at once,
 stacked on a leading axis: what parallel tempering's ``torch.func.vmap`` of
 ``apply`` over the ladder takes (one partner draw, one z and one log u per
@@ -29,6 +41,7 @@ rung, as the JAX package's vmap over one key per rung has them).
 
 import torch
 
+from mcmcpp_tpu_torch.ops.partner import partner_rows
 from mcmcpp_tpu_torch.ops.random import neg_exponential
 
 
@@ -38,6 +51,8 @@ class Mover:
 
     #: movers that ignore the Metropolis test (diagnostic oracles) set this
     always_accept = False
+    #: movers whose noise starts with partner draws set their partner mode
+    partner_mode = None
 
     def init_state(self, n_params, dtype, device):
         """Optional per-mover static state (e.g. an MH Cholesky factor)."""
@@ -48,11 +63,12 @@ class Mover:
         walkers of dimension p against m others."""
         raise NotImplementedError
 
-    def propose(self, active, other, state, *proposal_noise):
+    def propose(self, active, other, state, *proposal_noise, row0=0):
         """Return ``(proposal, extra_log_factor)`` for the active half.
 
-        active: (n, P); other: (m, P); extra_log_factor: (n,) added to the
-        log accept ratio (the stretch move's (P−1)·log z).
+        active: (n, P), global rows row0… of its half; other: (m, P);
+        extra_log_factor: (n,) added to the log accept ratio (the stretch
+        move's (P−1)·log z).
         """
         raise NotImplementedError
 
@@ -64,6 +80,18 @@ class Mover:
             return tuple(prop)
         return (*prop, neg_exponential(gen, n, dtype, device))
 
+    def noise_rows(self, noise, row0, n):
+        """The noise of rows row0…row0+n−1 of a half-step from ``noise``,
+        drawn for the whole half: each per-walker plane cut to the rows
+        (a plane drawn per loop iteration, as a callable, too); the partner
+        draws as :func:`~mcmcpp_tpu_torch.ops.partner.partner_rows` cuts
+        them."""
+        if self.partner_mode is None:
+            return rows_of(noise, row0, n)
+        partners, *rest = noise
+        return (partner_rows(partners, self.partner_mode, row0, n),
+                *rows_of(tuple(rest), row0, n))
+
     def draw_rung_noise(self, gen, k, n, m, p, device, dtype=torch.float32,
                         host_gen=None):
         """``draw_noise`` for k independent half-steps, each tensor stacked
@@ -74,25 +102,43 @@ class Mover:
         return stack_noise(draws)
 
     def apply(self, active, active_logp, other, logp_fn, state, noise,
-              beta=1.0):
+              beta=1.0, row0=0, layout=None):
         """One Metropolis update of the active half against the other half.
 
         ``beta`` tempers the target to π^β: log-probs stay raw and only the
-        Δlogp term of the acceptance ratio is scaled.
+        Δlogp term of the acceptance ratio is scaled. ``row0``: the active
+        rows are global rows row0… of their half (a rank's shard; ``noise``
+        cut to them by :meth:`noise_rows`); ``layout``: the ranks' layout of
+        a sharded half-step (see the module docstring).
         """
         if self.always_accept:
-            proposal, _ = self.propose(active, other, state, *noise)
+            proposal, _ = self.propose(active, other, state, *noise,
+                                       row0=row0)
             ones = torch.ones(active.shape[:1], dtype=torch.bool,
                               device=active.device)
             return proposal, logp_fn(proposal), ones
         *prop_noise, log_u = noise
-        proposal, log_factor = self.propose(active, other, state, *prop_noise)
+        proposal, log_factor = self.propose(active, other, state, *prop_noise,
+                                            row0=row0)
         prop_logp = logp_fn(proposal)
         log_ratio = log_factor + beta * (prop_logp - active_logp)
         accept = log_u < log_ratio
         new_active = torch.where(accept[:, None], proposal, active)
         new_logp = torch.where(accept, prop_logp, active_logp)
         return new_active, new_logp, accept
+
+
+def rows_of(noise, row0, n):
+    """Every tensor of a noise tree cut to rows row0…row0+n−1 of its
+    leading axis; a callable ``f(j)`` giving a plane per loop iteration is
+    wrapped to cut its plane; anything else (a Python int) as it is."""
+    if isinstance(noise, (tuple, list)):
+        return type(noise)(rows_of(x, row0, n) for x in noise)
+    if isinstance(noise, torch.Tensor):
+        return noise[row0:row0 + n]
+    if callable(noise):
+        return lambda j: noise(j)[row0:row0 + n]
+    return noise
 
 
 def stack_noise(draws):

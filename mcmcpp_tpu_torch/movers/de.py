@@ -44,10 +44,10 @@ class DifferentialEvolutionMove(Mover):
         return (draw_partner_noise(gen, n, m, 2, self.partner_mode, device),
                 uniform(gen, (n, p), dtype, device))
 
-    def propose(self, active, other, state, partners, u):
+    def propose(self, active, other, state, partners, u, row0=0):
         n, p = active.shape
         gamma = self.gamma if self.gamma is not None else _default_gamma(p)
-        x1, x2 = select_partners(other, n, partners, self.partner_mode)
+        x1, x2 = select_partners(other, n, partners, self.partner_mode, row0)
         lo = -self.jitter
         noise = torch.clamp(u * self._span + lo, min=lo)
         proposal = active + gamma * (x1 - x2) + noise

@@ -71,7 +71,7 @@ class AutoRegressiveMove(Mover):
     def draw_proposal_noise(self, gen, n, m, p, dtype, device):
         return (normal(gen, (n, p), dtype, device),)
 
-    def propose(self, active, other, state, z):
+    def propose(self, active, other, state, z, row0=0):
         nxt = state["off"][None, :] + state["phi"][None, :] * active
         nxt = nxt + state["sig"][None, :] * z
         return nxt, torch.zeros_like(active[:, 0])
@@ -103,6 +103,6 @@ class SequenceMove(Mover):
     def draw_proposal_noise(self, gen, n, m, p, dtype, device):
         return ()
 
-    def propose(self, active, other, state):
+    def propose(self, active, other, state, row0=0):
         return (active + state["steps"][None, :],
                 torch.zeros_like(active[:, 0]))

@@ -9,10 +9,12 @@ branches on the device's data.
 With ``adapt="ensemble"`` (the default) the proposal covariance comes from
 the complementary half each half-step, 2.38²/P·cov(other) + eps·I; the
 active half's proposal depends only on the fixed other half, so π^W
-invariance holds exactly. The (P, P) factor is ``torch.linalg.cholesky_ex``,
-which leaves its ``info`` on the device (``torch.linalg.cholesky`` would read
-it back on the host every half-step); a failed factorisation proposes NaN
-and so rejects, as JAX's NaN factor does.
+invariance holds exactly. Sharded (``parallel/sharded.py``), the other half
+is the whole gathered half on every rank, so the ensemble mean and
+covariance need no collective of their own. The (P, P) factor is
+``torch.linalg.cholesky_ex``, which leaves its ``info`` on the device
+(``torch.linalg.cholesky`` would read it back on the host every half-step); a
+failed factorisation proposes NaN and so rejects, as JAX's NaN factor does.
 """
 
 import numpy as np
@@ -83,7 +85,7 @@ class DRAMMove(Mover):
                 neg_exponential(gen, n, dtype, device))
 
     def apply(self, active, active_logp, other, logp_fn, state, noise,
-              beta=1.0):
+              beta=1.0, row0=0, layout=None):
         xi1, xi2, log_u1, log_u2 = noise
         chol = self._chol(other, state, active.shape[1])
 

@@ -50,7 +50,11 @@ from mcmcpp_tpu_torch.ops.random import draw_key, philox_unit_uniforms
 class FusedStretchMove(Mover):
     """Stretch move through the fused kernel; ``noise`` is ``(shift, key)``
     on a CUDA device and ``(shift, u, ue)`` on the CPU, with u, ue uniform
-    in [2^-25, 1) so that log(ue) is finite."""
+    in [2^-25, 1) so that log(ue) is finite. A rank's rows of a sharded
+    half-step keep the shift and the key (the kernels take the row offset)
+    or their rows of the planes."""
+
+    partner_mode = "roll"
 
     def __init__(self, a=2.0):
         self.a = float(a)
@@ -72,7 +76,7 @@ class FusedStretchMove(Mover):
         return shift, u.to(dtype), ue.to(dtype)
 
     def apply(self, active, active_logp, other, logp_fn, state, noise,
-              beta=1.0):
+              beta=1.0, row0=0, layout=None):
         if not (isinstance(beta, (int, float)) and float(beta) == 1.0):
             raise NotImplementedError(
                 "FusedStretchMove does not support tempered acceptance "
@@ -81,7 +85,8 @@ class FusedStretchMove(Mover):
         if active.device.type == "cuda":
             shift, key = noise
             return fused_stretch_half(active, active_logp, other, shift,
-                                      key=key, logp_fn=logp_fn, a=self.a)
+                                      key=key, logp_fn=logp_fn, a=self.a,
+                                      row0=row0)
         shift, u, ue = noise
         return fused_stretch_half(active, active_logp, other, shift, u, ue,
-                                  logp_fn=logp_fn, a=self.a)
+                                  logp_fn=logp_fn, a=self.a, row0=row0)

@@ -86,7 +86,7 @@ class MetropolisHastingsMove(Mover):
     def draw_proposal_noise(self, gen, n, m, p, dtype, device):
         return (normal(gen, (n, p), dtype, device),)
 
-    def propose(self, active, other, state, normals):
+    def propose(self, active, other, state, normals, row0=0):
         if "chol" in state:
             step = normals @ state["chol"].T
         else:

@@ -50,8 +50,13 @@ class MixtureMover(Mover):
         return idx, self.movers[idx].draw_noise(gen, n, m, p, device, dtype,
                                                 host_gen=host_gen)
 
+    def noise_rows(self, noise, row0, n):
+        idx, sub_noise = noise
+        return idx, self.movers[idx].noise_rows(sub_noise, row0, n)
+
     def apply(self, active, active_logp, other, logp_fn, state, noise,
-              beta=1.0):
+              beta=1.0, row0=0, layout=None):
         idx, sub_noise = noise
         return self.movers[idx].apply(active, active_logp, other, logp_fn,
-                                      state[idx], sub_noise, beta)
+                                      state[idx], sub_noise, beta, row0=row0,
+                                      layout=layout)

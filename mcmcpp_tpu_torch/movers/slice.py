@@ -15,6 +15,12 @@ device. The shrink uniforms come one plane per iteration from the noise's
 (all ``max_shrink`` planes up front would be 256 MB at n = 2^20); a walker
 that is done ignores its later draws. ``loop_iterations`` counts the
 iterations run, for a per-half-step average.
+
+Sharded (``parallel/sharded.py``), a rank updates its rows only, and each
+loop test is a MAX all-reduce of the rank's flag across the ranks
+(``layout.any``): every rank runs the iterations the unsharded loop runs and
+draws the same shrink planes, so the generators stay in step. A rank whose
+rows are all done runs its extra iterations masked, which keeps their bits.
 """
 
 import torch
@@ -60,10 +66,12 @@ class EnsembleSliceMove(Mover):
                 shrink_uniforms)
 
     def apply(self, active, active_logp, other, logp_fn, state, noise,
-              beta=1.0):
+              beta=1.0, row0=0, layout=None):
         partners, height_exp, u, shrink_uniforms = noise
         n = active.shape[0]
-        x1, x2 = select_partners(other, n, partners, self.partner_mode)
+        x1, x2 = select_partners(other, n, partners, self.partner_mode, row0)
+        any_row = ((lambda flag: bool(torch.any(flag))) if layout is None
+                   else layout.any)
         eta = self.mu * (x1 - x2)
 
         def offset_logp(t):
@@ -77,7 +85,7 @@ class EnsembleSliceMove(Mover):
         grow_lo = torch.ones((n,), dtype=torch.bool, device=active.device)
         grow_hi = grow_lo.clone()
         i = 0
-        while i < self.max_steps and bool(torch.any(grow_lo | grow_hi)):
+        while i < self.max_steps and any_row(grow_lo | grow_hi):
             grow_lo = grow_lo & (beta * offset_logp(lo) > y)
             grow_hi = grow_hi & (beta * offset_logp(hi) > y)
             lo = torch.where(grow_lo, lo - 1.0, lo)
@@ -89,7 +97,7 @@ class EnsembleSliceMove(Mover):
         z_logp = active_logp
         done = torch.zeros((n,), dtype=torch.bool, device=active.device)
         j = 0
-        while j < self.max_shrink and bool(torch.any(~done)):
+        while j < self.max_shrink and any_row(~done):
             xi = lo + (hi - lo) * shrink_uniforms(j)
             cand_logp = offset_logp(xi)
             ok = beta * cand_logp > y

@@ -35,9 +35,10 @@ class DESnookerMove(Mover):
     def draw_proposal_noise(self, gen, n, m, p, dtype, device):
         return (draw_partner_noise(gen, n, m, 3, self.partner_mode, device),)
 
-    def propose(self, active, other, state, partners):
+    def propose(self, active, other, state, partners, row0=0):
         n, p = active.shape
-        z, z1, z2 = select_partners(other, n, partners, self.partner_mode)
+        z, z1, z2 = select_partners(other, n, partners, self.partner_mode,
+                                    row0)
         d = active - z
         norm2 = torch.sum(d * d, dim=1)
         safe = norm2 > 0

@@ -50,9 +50,10 @@ class StretchMove(Mover):
                 uniform(gen, (k, n), dtype, device),
                 neg_exponential(gen, (k, n), dtype, device))
 
-    def propose(self, active, other, state, partners, u):
+    def propose(self, active, other, state, partners, u, row0=0):
         n, p = active.shape
-        partner = select_partners(other, n, partners, self.partner_mode)[0]
+        partner = select_partners(other, n, partners, self.partner_mode,
+                                  row0)[0]
         z = gw_sample(u, self.a)
         proposal = partner + z[:, None] * (active - partner)
         # (P-1)·log z term ≙ StretchMove.h:110

@@ -6,10 +6,12 @@ without replacement, then propose Y = X + Σⱼ Nⱼ·(Xⱼ − X̄_S) with one 
 normal Nⱼ per selected walker. The proposal is symmetric, so the Metropolis
 factor is 0.
 
-The S partners come from ``ops/partner.py`` in any mode. Nothing of size
-(n, m) is ever built: in gather mode the subsets are S sorted-insertion
-draws per walker, O(n·S) memory (an (n, m) score matrix would be 68 GB at
-W = 2^18, ``tests/test_movers.py:59-73``).
+The S partners come from ``ops/partner.py`` in any mode. Their center X̄_S
+is taken over partners from the other half, which a sharded half-step
+gathers whole (``parallel/sharded.py``), so it needs no collective. Nothing
+of size (n, m) is ever built: in gather mode the subsets are S
+sorted-insertion draws per walker, O(n·S) memory (an (n, m) score matrix
+would be 68 GB at W = 2^18, ``tests/test_movers.py:59-73``).
 """
 
 import torch
@@ -44,10 +46,10 @@ class WalkMove(Mover):
         return (draw_partner_noise(gen, n, m, s, self.partner_mode, device),
                 normal(gen, (n, s), dtype, device))
 
-    def propose(self, active, other, state, partners, normals):
+    def propose(self, active, other, state, partners, normals, row0=0):
         n = active.shape[0]
-        xs = select_partners(other, n, partners,
-                             self.partner_mode).transpose(0, 1)  # (n, S, P)
+        xs = select_partners(other, n, partners, self.partner_mode,
+                             row0).transpose(0, 1)  # (n, S, P)
         center = torch.mean(xs, dim=1, keepdim=True)
         # one scalar normal per selected walker ≙ WalkMove.h:155-186
         step = torch.einsum("ns,nsp->np", normals, xs - center)

@@ -5,6 +5,14 @@ call updates the active half against the other half: partner
 ``other[(i + shift) % n]``, z from u, proposal, logp, and the accept select
 log(ue) < (P−1)·log z + lp_new − lp_old.
 
+Row offset: every function takes ``row0`` (default 0). The n active rows are
+then rows row0…row0+n−1 of a half of m walkers, and ``other`` is the whole
+opposite half (m rows): local row i pairs with ``other[(row0 + i + shift) %
+m]``, draws its uniforms from counter row0 + i, and its outputs are local
+row i. That is a rank's shard of a sharded ensemble
+(``parallel/sharded.py``); R calls over consecutive row shards give the one
+unsharded call's outputs, bit for bit. Unsharded, row0 = 0 and m = n.
+
 The random inputs: a (1,) int32 device ``shift`` and the uniforms ``u`` and
 ``ue`` in [2^-25, 1), one pair per active walker. The Pallas kernel seeded the
 TPU's hardware generator and drew them inside its body. The CUDA kernels do
@@ -54,17 +62,28 @@ LAUNCHES = {"fused_stretch_half": 0, "stretch_propose": 0,
 MAX_P = 64
 
 
-def _partner_index(n, shift, device):
-    return (torch.arange(n, device=device) + shift.to(torch.int64)) % n
+def _check_rows(active, other, row0):
+    """Rows row0…row0+n−1 of the active half must lie in the other half's
+    m rows, of the same width (unsharded: equal halves)."""
+    (n, p), m = active.shape, other.shape[0]
+    if other.ndim != 2 or other.shape[1] != p or not 0 <= row0 <= m - n:
+        raise ValueError(
+            f"fused stretch requires equal halves: active rows {row0}…"
+            f"{row0 + n - 1} of width {p} against other {tuple(other.shape)}")
 
 
-def stretch_propose_reference(active, other, shift, u, a=2.0):
+def _partner_index(n, shift, m, row0, device):
+    i = torch.arange(row0, row0 + n, device=device)
+    return (i + shift.to(torch.int64)) % m
+
+
+def stretch_propose_reference(active, other, shift, u, a=2.0, row0=0):
     """Plain twin of the propose kernel: (proposal (n, P), (P−1)·log z
-    (n,)) with partner ``other[(i + shift) % n]``."""
+    (n,)) with partner ``other[(row0 + i + shift) % m]``."""
     n, p = active.shape
-    if other.shape != (n, p):
-        raise ValueError("fused stretch requires equal halves")
-    partner = other[_partner_index(n, shift, active.device)]
+    _check_rows(active, other, row0)
+    partner = other[_partner_index(n, shift, other.shape[0], row0,
+                                   active.device)]
     z = gw_sample(u, a)
     return partner + z[:, None] * (active - partner), (p - 1) * torch.log(z)
 
@@ -83,23 +102,23 @@ def stretch_accept_reference(active, proposal, active_logp, lp_new,
 
 
 def stretch_proposal(active, active_logp, other, shift, u, *, logp_fn,
-                     a=2.0):
+                     a=2.0, row0=0):
     """Proposal, its logp and the log acceptance ratio of one half-step,
     in plain PyTorch: (proposal (n, P), lp_new (n,), log_ratio (n,))."""
     proposal, log_factor = stretch_propose_reference(active, other, shift, u,
-                                                     a)
+                                                     a, row0)
     lp_new = logp_fn(proposal)
     return proposal, lp_new, log_factor + lp_new - active_logp
 
 
 def fused_stretch_half_reference(active, active_logp, other, shift, u, ue, *,
-                                 logp_fn, a=2.0):
+                                 logp_fn, a=2.0, row0=0):
     """Plain PyTorch half-step; ``logp_fn`` is any (n, P) -> (n,) callable.
 
     Returns (new_active, new_logp, accepted int32).
     """
     proposal, log_factor = stretch_propose_reference(active, other, shift, u,
-                                                     a)
+                                                     a, row0)
     return stretch_accept_reference(active, proposal, active_logp,
                                     logp_fn(proposal), log_factor, ue)
 
@@ -131,16 +150,15 @@ def _check_key(key):
     return key
 
 
-def _half_args(active, active_logp, other, shift):
+def _half_args(active, active_logp, other, shift, row0):
     n, p = active.shape
-    if other.shape != (n, p):
-        raise ValueError("fused stretch requires equal halves")
+    _check_rows(active, other, row0)
     if n == 0:
         raise ValueError("fused stretch needs at least one walker")
     tensors = {"active": active, "active_logp": active_logp, "other": other,
                "shift": shift}
-    shapes = {"active": (n, p), "active_logp": (n,), "other": (n, p),
-              "shift": (1,)}
+    shapes = {"active": (n, p), "active_logp": (n,),
+              "other": tuple(other.shape), "shift": (1,)}
     _check_args(tensors, shapes, active.device)
 
 
@@ -154,7 +172,8 @@ def _checked(err, name):
     LAUNCHES[name] += 1
 
 
-def _launch_fused(active, active_logp, other, shift, key, prec_chol, a):
+def _launch_fused(active, active_logp, other, shift, key, prec_chol, a,
+                  row0):
     from mcmcpp_tpu_torch._build import load_library
 
     lib = load_library()
@@ -167,22 +186,25 @@ def _launch_fused(active, active_logp, other, shift, key, prec_chol, a):
             active.data_ptr(), active_logp.data_ptr(), other.data_ptr(),
             shift.data_ptr(), key, prec_chol.data_ptr(),
             out_act.data_ptr(), out_lp.data_ptr(),
-            out_acc.data_ptr(), n, p, float(a), _stream(active.device),
+            out_acc.data_ptr(), n, row0, other.shape[0], p, float(a),
+            _stream(active.device),
         )
     _checked(err, "fused_stretch_half")
     return out_act, out_lp, out_acc
 
 
-def stretch_propose(active, other, shift, key, a=2.0):
+def stretch_propose(active, other, shift, key, a=2.0, row0=0):
     """The propose kernel on CUDA tensors: (proposal (n, P), (P−1)·log z
     (n,)), as :func:`stretch_propose_reference` computes them on the plane
-    ``philox_unit_uniforms(key, n)[0]``."""
+    ``philox_unit_uniforms(key, n, row0=row0)[0]``."""
     from mcmcpp_tpu_torch._build import load_library
 
     n, p = active.shape
     key = _check_key(key)
+    _check_rows(active, other, row0)
     _check_args({"active": active, "other": other, "shift": shift},
-                {"active": (n, p), "other": (n, p), "shift": (1,)},
+                {"active": (n, p), "other": tuple(other.shape),
+                 "shift": (1,)},
                 active.device)
     lib = load_library()
     proposal = torch.empty_like(active)
@@ -190,21 +212,24 @@ def stretch_propose(active, other, shift, key, a=2.0):
     with torch.cuda.device(active.device):
         err = lib.mcmcpp_stretch_propose_f32(
             active.data_ptr(), other.data_ptr(), shift.data_ptr(), key,
-            proposal.data_ptr(), log_factor.data_ptr(), n, p, float(a),
-            _stream(active.device),
+            proposal.data_ptr(), log_factor.data_ptr(), n, row0,
+            other.shape[0], p, float(a), _stream(active.device),
         )
     _checked(err, "stretch_propose")
     return proposal, log_factor
 
 
-def stretch_accept(active, proposal, active_logp, lp_new, log_factor, key):
+def stretch_accept(active, proposal, active_logp, lp_new, log_factor, key,
+                   row0=0):
     """The accept kernel on CUDA tensors: (new_active, new_logp, accepted
     int32), as :func:`stretch_accept_reference` computes them on the plane
-    ``philox_unit_uniforms(key, n)[1]``."""
+    ``philox_unit_uniforms(key, n, row0=row0)[1]``."""
     from mcmcpp_tpu_torch._build import load_library
 
     n, p = active.shape
     key = _check_key(key)
+    if row0 < 0:
+        raise ValueError(f"row0 must be >= 0, got {row0}")
     tensors = {"active": active, "proposal": proposal,
                "active_logp": active_logp, "lp_new": lp_new,
                "log_factor": log_factor}
@@ -219,8 +244,8 @@ def stretch_accept(active, proposal, active_logp, lp_new, log_factor, key):
         err = lib.mcmcpp_stretch_accept_f32(
             active.data_ptr(), proposal.data_ptr(), active_logp.data_ptr(),
             lp_new.data_ptr(), log_factor.data_ptr(), key,
-            out_act.data_ptr(), out_lp.data_ptr(), out_acc.data_ptr(), n, p,
-            _stream(active.device),
+            out_act.data_ptr(), out_lp.data_ptr(), out_acc.data_ptr(), n,
+            row0, p, _stream(active.device),
         )
     _checked(err, "stretch_accept")
     return out_act, out_lp, out_acc
@@ -251,33 +276,36 @@ def kernel_unit_uniforms(key, n, device):
 
 
 def fused_stretch_half(active, active_logp, other, shift, u=None, ue=None, *,
-                       key=None, logp_fn, a=2.0):
-    """One stretch half-step. Returns (new_active, new_logp, accepted
-    int32). CPU tensors take the plain version on the planes ``u``, ``ue``;
-    CUDA tensors take ``key`` and launch the fused kernel (a GaussianTarget
-    of P <= MAX_P) or the split kernels (any other logp, any P)."""
+                       key=None, logp_fn, a=2.0, row0=0):
+    """One stretch half-step over rows row0…row0+n−1 of a half against the
+    whole other half. Returns (new_active, new_logp, accepted int32). CPU
+    tensors take the plain version on the planes ``u``, ``ue`` (the rows'
+    own); CUDA tensors take ``key`` and launch the fused kernel (a
+    GaussianTarget of P <= MAX_P) or the split kernels (any other logp, any
+    P)."""
+    row0 = int(row0)
     if active.device.type == "cpu":
         if key is not None or u is None or ue is None:
             raise TypeError("on a CPU tensor pass the planes u and ue, not "
                             "key (philox_unit_uniforms makes a key's planes)")
         return fused_stretch_half_reference(
-            active, active_logp, other, shift, u, ue, logp_fn=logp_fn, a=a
-        )
+            active, active_logp, other, shift, u, ue, logp_fn=logp_fn, a=a,
+            row0=row0)
     if active.device.type != "cuda":
         raise RuntimeError(f"no fused stretch path for {active.device}")
     if u is not None or ue is not None:
         raise TypeError("on a CUDA tensor the stretch kernels draw u and ue "
                         "themselves: pass key, not planes")
     key = _check_key(key)
-    _half_args(active, active_logp, other, shift)
+    _half_args(active, active_logp, other, shift, row0)
     p = active.shape[1]
     if isinstance(logp_fn, GaussianTarget) and p <= MAX_P:
         prec_chol = logp_fn.prec_chol
         _check_args({"prec_chol": prec_chol}, {"prec_chol": (p, p)},
                     active.device)
         return _launch_fused(active, active_logp, other, shift, key,
-                             prec_chol, a)
-    proposal, log_factor = stretch_propose(active, other, shift, key, a)
+                             prec_chol, a, row0)
+    proposal, log_factor = stretch_propose(active, other, shift, key, a, row0)
     lp_new = logp_fn(proposal).contiguous()
     return stretch_accept(active, proposal, active_logp, lp_new, log_factor,
-                          key)
+                          key, row0)

@@ -22,6 +22,15 @@ The draws per mode:
 Distinct draws use sorted insertion, as the JAX module does. Every draw is a
 device tensor and every selection an index gather in int64, so no half-step
 waits on the host.
+
+Row offset (a rank's shard of a sharded ensemble, ``parallel/sharded.py``):
+the draws are always those of the whole half (n walkers against m), and
+``select_partners(other, n_local, noise, mode, row0)`` selects for the n_local
+active rows that are global rows row0…row0+n_local−1, against the whole
+gathered ``other``: walker i above is global row row0 + i, so roll and block
+index ``other`` at that row, and :func:`partner_rows` cuts gather mode's
+per-walker draws to the shard's rows. No shard boundary changes which draw a
+row gets.
 """
 
 import torch
@@ -94,22 +103,39 @@ def draw_partner_noise(gen, n, m, k, mode, device, block=BLOCK):
     return distinct_batch(gen, n, m, k, device)
 
 
-def rolled_partners(other, shifts):
-    """(k, m, P) stack: row j pairs walker i with ``other[(i + shifts[j]) % m]``."""
+def partner_rows(noise, mode, row0, n):
+    """The partner draws of rows row0…row0+n−1 from the draws of a whole
+    half: gather mode's (n_half, k) rows; roll's shifts and block's per-group
+    draws, which the selection indexes by global row, as they are."""
+    return noise[row0:row0 + n] if mode == "gather" else noise
+
+
+def _global_rows(other, n, row0):
     m = other.shape[0]
-    base = torch.arange(m, device=other.device, dtype=torch.int64)
-    idx = (base[None, :] + shifts.to(torch.int64)[:, None]) % m
+    if not 0 <= row0 <= m - n:
+        raise ValueError(f"active rows {row0}…{row0 + n - 1} do not lie in "
+                         f"the other half's {m} rows")
+    return torch.arange(row0, row0 + n, device=other.device,
+                        dtype=torch.int64)
+
+
+def rolled_partners(other, shifts, n=None, row0=0):
+    """(k, n, P) stack: row j pairs walker i (global row row0 + i) with
+    ``other[(row0 + i + shifts[j]) % m]``; n defaults to m."""
+    m = other.shape[0]
+    i = _global_rows(other, m if n is None else n, row0)
+    idx = (i[None, :] + shifts.to(torch.int64)[:, None]) % m
     return other[idx]
 
 
-def block_partners(other, n, noise, block=BLOCK):
+def block_partners(other, n, noise, block=BLOCK, row0=0):
     """(k, n, P) partners with one shift per ``block``-walker group (see
-    the module docstring for the two paths)."""
+    the module docstring for the two paths), for global rows row0…"""
     m = other.shape[0]
-    i = torch.arange(n, device=other.device, dtype=torch.int64)
+    i = _global_rows(other, n, row0)
     if len(noise) == 2:  # fast path: (r, q)
         r, q = noise
-        if not block_fast_path(n, m, q.shape[1], block):
+        if not block_fast_path(m, m, q.shape[1], block):
             raise ValueError("block fast-path draws need n == m, "
                              f"m % {block} == 0 and m // {block} >= k")
         offset = block * q.to(torch.int64)[i // block].T       # (k, n)
@@ -119,20 +145,18 @@ def block_partners(other, n, noise, block=BLOCK):
         # an int repeat count: a tensor of counts would sync to size the
         # output
         per_walker = s.to(torch.int64).T.repeat_interleave(block, dim=1)
-        idx = (i[None, :] + per_walker[:, :n]) % m
+        idx = (i[None, :] + per_walker[:, row0:row0 + n]) % m
     return other[idx]
 
 
-def select_partners(other, n, noise, mode="roll"):
-    """(k, n, P) partners for n active walkers from the draws of
-    :func:`draw_partner_noise`."""
+def select_partners(other, n, noise, mode="roll", row0=0):
+    """(k, n, P) partners for n active walkers, global rows row0…, from the
+    draws of :func:`draw_partner_noise` (gather mode's cut to these rows by
+    :func:`partner_rows`)."""
     check_mode(mode)
     if mode == "roll":
-        if other.shape[0] != n:
-            raise ValueError(
-                f"roll mode requires equal halves (n={n}, m={other.shape[0]})"
-            )
-        return rolled_partners(other, noise)
+        # the draw refused unequal halves; here the rows must lie in other
+        return rolled_partners(other, noise, n, row0)
     if mode == "block":
-        return block_partners(other, n, noise)
+        return block_partners(other, n, noise, row0=row0)
     return other[noise.to(torch.int64).T]

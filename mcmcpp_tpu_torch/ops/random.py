@@ -118,14 +118,15 @@ def bits_to_unit(bits):
     return unit.clamp_(min=UNIT_FLOOR)
 
 
-def philox_unit_uniforms(key, n, device):
+def philox_unit_uniforms(key, n, device, row0=0):
     """(u, ue), two (n,) float32 planes: the uniforms that the stretch
-    kernels draw for walkers 0…n−1 of a half-step with the 64-bit ``key``
-    (a Python int), bit for bit."""
+    kernels draw for walkers row0…row0+n−1 of a half-step with the 64-bit
+    ``key`` (a Python int), bit for bit (the counters of a launch over a
+    row shard, ``csrc/stretch_common.cuh``)."""
     key = int(key)
     if not 0 <= key < 1 << 64:
         raise ValueError(f"a Philox key is a 64-bit unsigned int, got {key}")
-    i = torch.arange(n, dtype=torch.int64, device=device)
+    i = torch.arange(row0, row0 + n, dtype=torch.int64, device=device)
     zero = torch.zeros_like(i)
     w0, w1, _, _ = philox4x32((i & _MASK32, i >> 32, zero, zero),
                               (key & _MASK32, key >> 32))

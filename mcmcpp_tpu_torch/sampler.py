@@ -28,6 +28,7 @@ import torch
 
 from mcmcpp_tpu_torch.chain import (
     Chain,
+    append_device_chunk,
     default_chunk_steps,
     e4m3_ready,
     row_dtype,
@@ -294,13 +295,17 @@ class EnsembleSampler:
         self._host_gen = make_generator(seed, HOST_STREAM, "cpu")
         self._store_dtype = (None if store_dtype is None
                              else torch_dtype(store_dtype))
+        # the walkers this process stores: all of them here, a rank's own
+        # under ShardedEnsembleSampler
+        stored_walkers = self._local_walkers()
         if chain is not None:
             if (chain.n_walkers, chain.n_params) != (
-                self.n_walkers, self.n_params,
+                stored_walkers, self.n_params,
             ):
                 raise ValueError(
                     f"chain store geometry ({chain.n_walkers}, "
-                    f"{chain.n_params}) != ({self.n_walkers}, {self.n_params})"
+                    f"{chain.n_params}) != ({stored_walkers}, "
+                    f"{self.n_params})"
                 )
             chain_logp_dtype = getattr(chain, "logp_dtype", chain.dtype)
             if (
@@ -321,7 +326,7 @@ class EnsembleSampler:
         else:
             held = row_dtype(dtype if store_dtype is None else store_dtype)
             self.chain = Chain(
-                n_walkers=self.n_walkers,
+                n_walkers=stored_walkers,
                 n_params=self.n_params,
                 max_bytes=max_chain_bytes,
                 dtype=held,
@@ -349,11 +354,15 @@ class EnsembleSampler:
         if store_chunk_steps is None:
             # sized at the STORED row dtype: a reduced store fits more steps
             store_chunk_steps = default_chunk_steps(
-                self.n_walkers, self.n_params, self.chain.dtype
+                stored_walkers, self.n_params, self.chain.dtype
             )
         self._chunk = int(store_chunk_steps)
 
     # -- setup -----------------------------------------------------------
+
+    def _local_walkers(self):
+        """Walkers this process holds and stores (all of them)."""
+        return self.n_walkers
 
     def _validate_logp(self):
         """Shape-check the user's logp on a zero batch (replaces SFINAE)."""
@@ -430,7 +439,8 @@ class EnsembleSampler:
         current ensemble into the chain as one stored step."""
         self._require_state()
         pos, logp = self._current_ensemble()
-        return self.chain.append(pos[None], logp[None])
+        self.chain, ok = append_device_chunk(self.chain, pos[None], logp[None])
+        return ok
 
     def set_sampling_mode(self, thin):
         """Default thinning interval of later ``run_mcmc`` calls that pass
@@ -488,7 +498,7 @@ class EnsembleSampler:
         metric_chunks = []
 
         def land(pos, logp, metrics):
-            ok = self.chain.append(pos, logp)
+            self.chain, ok = append_device_chunk(self.chain, pos, logp)
             if metrics is not None:
                 metric_chunks.append(
                     _tree_map(lambda t: t.cpu().numpy(), metrics))

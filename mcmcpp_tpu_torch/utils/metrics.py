@@ -46,7 +46,9 @@ class ThroughputMonitor:
 
     def ess_per_s(self, samples, **kw):
         """ESS/s per parameter over the measured window (NaN if τ never
-        converged — see analysis.ess)."""
+        converged — see analysis.ess); ``kw`` goes to
+        ``effective_sample_size`` (numpy runs on its ``device``, default
+        "cuda")."""
         from mcmcpp_tpu_torch.analysis import effective_sample_size
 
         ess = np.asarray(effective_sample_size(samples, **kw), np.float64)

@@ -73,7 +73,9 @@ def test_numpy_copies_equal_exactly(chain, name, kw):
 @pytest.mark.parametrize("name,kw", VIA_FFT,
                          ids=[f"{n}-{i}" for i, (n, _) in enumerate(VIA_FFT)])
 def test_fft_based_functions_agree(chain, name, kw):
-    got = np.asarray(getattr(pan, name)(chain, **kw))
+    # numpy goes to the card unless a device is named; R-hat stays numpy
+    on_cpu = {} if name == "potential_scale_reduction" else {"device": "cpu"}
+    got = np.asarray(getattr(pan, name)(chain, **kw, **on_cpu))
     want = np.asarray(getattr(jan, name)(chain, **kw))
     assert got.shape == want.shape == (P,)
     np.testing.assert_allclose(got, want, rtol=FFT_RTOL)
@@ -90,7 +92,8 @@ def test_min_ess_required_and_ppc_pvalue(chain):
 
 
 def test_summary_field_by_field(chain):
-    got, want = pan.summary(chain, prob=0.9), jan.summary(chain, prob=0.9)
+    got = pan.summary(chain, prob=0.9, device="cpu")
+    want = jan.summary(chain, prob=0.9)
     assert list(got) == list(want)
     for key in want:
         if key in ("ess", "ess_bulk", "ess_tail", "mcse"):
@@ -226,7 +229,7 @@ def test_throughput_monitor_and_trace_profile(chain, tmp_path):
     rate = ThroughputMonitor(n_walkers=W)
     with rate.measure(steps=S):
         pass
-    ess_rate = rate.ess_per_s(chain)
+    ess_rate = rate.ess_per_s(chain, device="cpu")
     assert ess_rate.shape == (P,) and np.all(ess_rate > 0)
     with trace_profile(tmp_path / "trace") as prof:
         (torch.ones(64, 64) @ torch.ones(64, 64)).sum().item()

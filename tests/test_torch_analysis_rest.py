@@ -301,33 +301,35 @@ def chain():
 
 def test_global_equals_local_functions(chain):
     n_local = chain.shape[0] * chain.shape[1]
-    np.testing.assert_array_equal(pan.global_autocorr_time(chain),
+    np.testing.assert_array_equal(pan.global_autocorr_time(chain, device="cpu"),
                                   pan.autocorr_time(chain, device="cpu"))
-    np.testing.assert_array_equal(pan.global_effective_sample_size(chain),
-                                  pan.effective_sample_size(chain))
-    np.testing.assert_allclose(pan.global_covariance_matrix(chain),
+    np.testing.assert_array_equal(pan.global_effective_sample_size(chain, device="cpu"),
+                                  pan.effective_sample_size(chain, device="cpu"))
+    np.testing.assert_allclose(pan.global_covariance_matrix(chain, device="cpu"),
                                pan.covariance_matrix(chain, device="cpu"),
                                rtol=1e-4)
     np.testing.assert_allclose(
-        pan.global_split_rhat(chain),
+        pan.global_split_rhat(chain, device="cpu"),
         pan.potential_scale_reduction(chain, rank_normalized=False),
         rtol=1e-12)
-    np.testing.assert_allclose(pan.global_batch_means_ess(chain),
+    np.testing.assert_allclose(pan.global_batch_means_ess(chain, device="cpu"),
                                pan.batch_means_ess(chain), rtol=1e-8)
-    assert pan.global_multivariate_ess(chain) == pytest.approx(
+    assert pan.global_multivariate_ess(chain, device="cpu") == pytest.approx(
         pan.multivariate_ess(chain), rel=1e-10)
-    np.testing.assert_allclose(pan.global_ess_bulk(chain, max_knots=n_local),
-                               pan.ess_bulk(chain), rtol=1e-9)
-    np.testing.assert_allclose(pan.global_ess_tail(chain, max_knots=n_local),
-                               pan.ess_tail(chain), rtol=1e-9)
+    np.testing.assert_allclose(pan.global_ess_bulk(chain, max_knots=n_local, device="cpu"),
+                               pan.ess_bulk(chain, device="cpu"), rtol=1e-9)
+    np.testing.assert_allclose(pan.global_ess_tail(chain, max_knots=n_local, device="cpu"),
+                               pan.ess_tail(chain, device="cpu"), rtol=1e-9)
     np.testing.assert_allclose(
-        pan.global_rank_normalized_rhat(chain, max_knots=n_local),
+        pan.global_rank_normalized_rhat(chain, max_knots=n_local,
+                                        device="cpu"),
         pan.potential_scale_reduction(chain, rank_normalized=True),
         rtol=1e-12)
-    np.testing.assert_allclose(pan.global_mcse_mean(chain),
-                               pan.mcse_mean(chain), rtol=1e-9)
-    loc = pan.summary(chain, prob=0.9)
-    glob = pan.global_summary(chain, prob=0.9, max_knots=n_local)
+    np.testing.assert_allclose(pan.global_mcse_mean(chain, device="cpu"),
+                               pan.mcse_mean(chain, device="cpu"), rtol=1e-9)
+    loc = pan.summary(chain, prob=0.9, device="cpu")
+    glob = pan.global_summary(chain, prob=0.9, max_knots=n_local,
+                              device="cpu")
     assert set(glob) == set(loc)
     for key in ("mean", "sd", "median", "q5", "q95", "hdi_lo", "hdi_hi"):
         np.testing.assert_allclose(glob[key], loc[key], rtol=1e-9,
@@ -339,7 +341,7 @@ def test_global_equals_local_functions(chain):
 
 def test_local_rank_diagnostics_on_a_tensor_equal_numpy(chain):
     """The local ess_bulk and ess_tail take a tensor or numpy (as a float64
-    CPU tensor) alike; R-hat on a tensor equals its numpy arithmetic (1e-12
+    tensor on the named device) alike; R-hat on a tensor equals its numpy arithmetic (1e-12
     relative); the normal scores, ties included, are scipy's average ranks
     through the normal quantile (1e-12 relative)."""
     from scipy import stats as sps
@@ -347,9 +349,9 @@ def test_local_rank_diagnostics_on_a_tensor_equal_numpy(chain):
     from mcmcpp_tpu_torch.analysis.ess import rank_normalize_tensor
 
     t = torch.as_tensor(chain)
-    np.testing.assert_allclose(pan.ess_bulk(t), pan.ess_bulk(chain),
+    np.testing.assert_allclose(pan.ess_bulk(t), pan.ess_bulk(chain, device="cpu"),
                                rtol=1e-9)
-    np.testing.assert_allclose(pan.ess_tail(t), pan.ess_tail(chain),
+    np.testing.assert_allclose(pan.ess_tail(t), pan.ess_tail(chain, device="cpu"),
                                rtol=1e-9)
     for rn in (False, True):
         np.testing.assert_allclose(
@@ -396,7 +398,8 @@ def _two_shard(fn, full, **kw):
     ("global_batch_means_ess", 1e-8), ("global_multivariate_ess", 1e-9)])
 def test_two_shards_reproduce_the_whole_ensemble(chain, name, rtol):
     fn = getattr(pan, name)
-    np.testing.assert_allclose(_two_shard(fn, chain), fn(chain), rtol=rtol)
+    np.testing.assert_allclose(_two_shard(fn, chain, device="cpu"),
+                               fn(chain, device="cpu"), rtol=rtol)
 
 
 def test_global_equals_jax_global(chain):
@@ -407,29 +410,45 @@ def test_global_equals_jax_global(chain):
             "global_batch_means_ess", "global_covariance_matrix")}
         want_sum = jan.global_summary(chain, max_knots=n_local)
     for k, v in want.items():
-        np.testing.assert_allclose(getattr(pan, k)(chain), v, rtol=1e-5)
-    got_sum = pan.global_summary(chain, max_knots=n_local)
+        np.testing.assert_allclose(getattr(pan, k)(chain, device="cpu"), v,
+                                   rtol=1e-5)
+    got_sum = pan.global_summary(chain, max_knots=n_local, device="cpu")
     for k in want_sum:
         np.testing.assert_allclose(got_sum[k], want_sum[k], rtol=1e-5,
                                    err_msg=k)
 
 
 def test_multi_process_run_raises(chain, monkeypatch):
-    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="A13"):
-        pan.global_autocorr_time(chain)
-    with pytest.raises(NotImplementedError, match="A13"):
-        pan.global_ess_bulk(chain)
+    """Ported: under a process group of more than one rank the global
+    functions no longer raise but call the collectives (an all-reduce and a
+    flattened all-gather on the group's device). Emulated here with two
+    ranks that hold the same shard: the results are the local functions'
+    on the whole ensemble of the two, the shard twice."""
+    dist = torch.distributed
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(dist, "get_world_size", lambda: 2)
+    monkeypatch.setattr(dist, "get_backend", lambda: "gloo")
+    monkeypatch.setattr(dist, "all_reduce", lambda t: t.mul_(2.0))
+    monkeypatch.setattr(dist, "all_gather_single",
+                        lambda out, t: out.copy_(torch.cat([t, t])))
+    shard = chain[:, :16]
+    both = np.concatenate([shard, shard], axis=1)
+    np.testing.assert_allclose(
+        pan.global_autocorr_time(shard, device="cpu"),
+        pan.autocorr_time(both, device="cpu"), rtol=1e-12)
+    n = chain.shape[0] * 16
+    np.testing.assert_allclose(
+        pan.global_ess_bulk(shard, max_knots=n, device="cpu"),
+        pan.ess_bulk(both, device="cpu"), rtol=1e-9)
 
 
 def test_global_validation():
     with pytest.raises(ValueError, match="local_samples"):
-        pan.global_autocorr_time(np.zeros((4,)))
+        pan.global_autocorr_time(np.zeros((4,)), device="cpu")
     with pytest.raises(ValueError, match="local_samples"):
-        pan.global_split_rhat(np.zeros((4, 2)))
+        pan.global_split_rhat(np.zeros((4, 2)), device="cpu")
     with pytest.raises(ValueError, match="local_samples"):
-        pan.global_covariance_matrix(np.zeros((4,)))
+        pan.global_covariance_matrix(np.zeros((4,)), device="cpu")
 
 
 # -- sbc -----------------------------------------------------------------------

@@ -114,12 +114,19 @@ def test_replayed_chain_gives_the_jax_report(case):
 
 
 def test_multihost_is_not_ported_and_defaults_off():
+    """multihost=True is ported now: in one process it gates on the
+    collective global statistics, which equal the local ones there, so it
+    takes the local decision; the default (None) is off outside a process
+    group of more than one rank (the two-rank gate is in
+    tests/test_torch_sharded.py)."""
     rows = _ar1_rows(100, 8, [0.5], seed=2)
-    with pytest.raises(NotImplementedError, match="A13"):
-        run_until_converged(ReplaySampler(rows), max_steps=50, multihost=True)
+    glob = run_until_converged(ReplaySampler(rows), max_steps=50,
+                               check_every=25, multihost=True)
     rep = run_until_converged(ReplaySampler(rows), max_steps=50,
                               check_every=25)
-    assert rep.checks == 2
+    assert rep.checks == glob.checks == 2
+    assert (glob.converged, glob.reason) == (rep.converged, rep.reason)
+    np.testing.assert_array_equal(glob.tau, rep.tau)
 
 
 def _ar_sampler(phi, n_walkers, seed, **kw):

@@ -431,3 +431,52 @@ def test_split_kernels_match_reference_on_card(cuda_device, name, n, shift):
     for k_t, r_t in zip(k_out, r_out):
         assert torch.equal(torch.nan_to_num(k_t.float(), nan=7.0),
                            torch.nan_to_num(r_t.float(), nan=7.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,n,p,shift", [
+    ("gaussian", 1 << 16, 10, "third"), ("gaussian", 1000, 7, "mid"),
+    ("gaussian", 4096, 64, "last"), ("gaussian", 1 << 12, 10, "negative"),
+    ("funnel", 1 << 16, 10, "third"), ("funnel", 1000, 3, "mid"),
+    ("funnel", 4096, 33, "beyond"),
+])
+def test_kernels_over_row_shards_equal_one_launch_on_card(cuda_device, name,
+                                                          n, p, shift):
+    """The three kernels launched over R = 4 row shards of a half (each on
+    rows row0… against the whole other half, ``row0``) give one unsharded
+    launch's outputs under ``torch.equal``; each sharded launch of the split
+    kernels equals its plain version on its rows' planes bit for bit."""
+    from mcmcpp_tpu_torch.models import targets as tm
+
+    act, oth = (torch.from_numpy(a).to(cuda_device)
+                for a in _inputs(n, p, seed=p + 1))
+    target = (GaussianTarget(_prec_chol(p, seed=p), device=cuda_device)
+              if name == "gaussian" else tm.neal_funnel(p))
+    lp = target(act)
+    shift_t = torch.tensor([_card_shift(n, shift)], dtype=torch.int32,
+                           device=cuda_device)
+    key = 0xA0761D6478BD642F ^ (n * 1000003 + p)
+    whole = fs.fused_stretch_half(act, lp, oth, shift_t, key=key,
+                                  logp_fn=target)
+    m = n // 4
+    parts = [fs.fused_stretch_half(act[r0:r0 + m], lp[r0:r0 + m], oth,
+                                   shift_t, key=key, logp_fn=target, row0=r0)
+             for r0 in range(0, n, m)]
+    torch.cuda.synchronize()
+    for k in range(3):
+        assert torch.equal(torch.cat([q[k] for q in parts]), whole[k])
+    if name == "funnel":
+        for r0 in range(0, n, m):
+            rows = slice(r0, r0 + m)
+            u, ue = philox_unit_uniforms(key, m, cuda_device, row0=r0)
+            prop, fac = fs.stretch_propose(act[rows], oth, shift_t, key,
+                                           row0=r0)
+            r_prop, r_fac = fs.stretch_propose_reference(act[rows], oth,
+                                                         shift_t, u, row0=r0)
+            assert torch.equal(prop, r_prop) and torch.equal(fac, r_fac)
+            lp_new = target(prop)
+            got = fs.stretch_accept(act[rows], prop, lp[rows], lp_new, fac,
+                                    key, row0=r0)
+            want = fs.stretch_accept_reference(act[rows], prop, lp[rows],
+                                               lp_new, fac, ue)
+            assert all(torch.equal(a, b) for a, b in zip(got, want))

@@ -390,11 +390,35 @@ def test_slice10_modules_import_no_jax_or_triton():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+PARALLEL_MODULES = ("parallel/__init__.py", "parallel/distributed.py",
+                    "parallel/mesh.py", "parallel/sharded.py")
+
+
+def test_parallel_modules_import_no_jax_or_triton():
+    """The multi-device layer exists (so the source scan above covers it)
+    and importing it pulls in neither JAX, the JAX package nor triton, and
+    starts no process group."""
+    files = {str(p.relative_to(PKG)) for p in PKG.rglob("*.py")}
+    assert set(PARALLEL_MODULES) <= files
+    code = ("import sys, torch\n"
+            "import mcmcpp_tpu_torch.parallel.sharded\n"
+            "import mcmcpp_tpu_torch.parallel.distributed as d\n"
+            "assert not torch.distributed.is_initialized()\n"
+            "assert d.world_size() == 1 and not d.is_multihost()\n"
+            "bad = [m for m in ('jax', 'triton', 'mcmcpp_tpu') "
+            "if m in sys.modules]; print(bad); sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_exports_the_jax_packages_subpackages_but_parallel():
-    """The JAX package's ``__all__`` less the multi-device names (A13)."""
+    """The JAX package's whole ``__all__``: since the multi-device slice it
+    lacks nothing, ``parallel`` and its three names included."""
     import mcmcpp_tpu_torch as mt
 
-    for name in ("gradient", "io", "ops", "analysis", "models", "dsl"):
+    for name in ("gradient", "io", "ops", "analysis", "models", "dsl",
+                 "parallel"):
         assert name in mt.__all__ and getattr(mt, name) is not None
     init = (REPO / "mcmcpp_tpu" / "__init__.py").read_text()
     tree = ast.parse(init)
@@ -402,6 +426,4 @@ def test_exports_the_jax_packages_subpackages_but_parallel():
         node.value for node in tree.body if isinstance(node, ast.Assign)
         and any(getattr(t, "id", None) == "__all__" for t in node.targets))
     names = {ast.literal_eval(e) for e in jax_all.elts}
-    assert names - set(mt.__all__) == {
-        "ShardedEnsembleSampler", "make_ladder_mesh", "make_walker_mesh",
-        "parallel"}
+    assert names - set(mt.__all__) == set()

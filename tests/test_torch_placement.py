@@ -18,9 +18,11 @@ import torch
 
 from mcmcpp_tpu import analysis as jan
 from mcmcpp_tpu.models import gp as jgp
+from mcmcpp_tpu.utils.metrics import ThroughputMonitor as JaxMonitor
 from mcmcpp_tpu_torch import analysis as pan
 from mcmcpp_tpu_torch.convergence import run_until_converged
 from mcmcpp_tpu_torch.models import gp as tgp
+from mcmcpp_tpu_torch.utils.metrics import ThroughputMonitor as PortMonitor
 
 torch.set_num_threads(1)
 
@@ -52,6 +54,18 @@ def _jlogp(t):
     return -0.5 * jnp.sum(t * t)
 
 
+def _columns(summary):
+    """A summary dict's columns, stacked in key order."""
+    return np.stack([np.asarray(v, np.float64) for v in summary.values()])
+
+
+def _monitor(cls):
+    """A throughput monitor that measured 2 s."""
+    mon = cls(n_walkers=CHAIN.shape[1])
+    mon.seconds = 2.0
+    return mon
+
+
 # name: (the port's call with keyword arguments kw, the JAX package's value)
 CASES = {
     "autocorr_time": (lambda kw: pan.autocorr_time(CHAIN, **kw),
@@ -81,6 +95,31 @@ CASES = {
     "gram_cholesky": (
         lambda kw: tgp.gram_cholesky(tgp.RBF(0.3, 1.0, **kw), XS[::3]),
         lambda: jgp.gram_cholesky(jgp.RBF(0.3, 1.0), XS[::3])),
+    # the ESS family: the ACT's FFT runs where the numpy goes
+    "effective_sample_size": (
+        lambda kw: pan.effective_sample_size(CHAIN, **kw),
+        lambda: jan.effective_sample_size(CHAIN)),
+    "summary": (lambda kw: _columns(pan.summary(CHAIN, **kw)),
+                lambda: _columns(jan.summary(CHAIN))),
+    "mcse_mean": (lambda kw: pan.mcse_mean(CHAIN, **kw),
+                  lambda: jan.mcse_mean(CHAIN)),
+    "mcse_quantile": (lambda kw: pan.mcse_quantile(CHAIN, 0.3, **kw),
+                      lambda: jan.mcse_quantile(CHAIN, 0.3)),
+    "ess_bulk": (lambda kw: pan.ess_bulk(CHAIN, **kw),
+                 lambda: jan.ess_bulk(CHAIN)),
+    "ess_tail": (lambda kw: pan.ess_tail(CHAIN, **kw),
+                 lambda: jan.ess_tail(CHAIN)),
+    "ess_per_s": (lambda kw: _monitor(PortMonitor).ess_per_s(CHAIN, **kw),
+                  lambda: _monitor(JaxMonitor).ess_per_s(CHAIN)),
+    "global_autocorr_time": (
+        lambda kw: pan.global_autocorr_time(CHAIN, **kw),
+        lambda: jan.global_autocorr_time(CHAIN)),
+    "global_effective_sample_size": (
+        lambda kw: pan.global_effective_sample_size(CHAIN, **kw),
+        lambda: jan.global_effective_sample_size(CHAIN)),
+    "global_summary": (
+        lambda kw: _columns(pan.global_summary(CHAIN, **kw)),
+        lambda: _columns(jan.global_summary(CHAIN))),
 }
 
 
