@@ -64,14 +64,14 @@ Builds the port's CUDA kernels from ``mcmcpp_tpu_torch/csrc/`` (into
    as subprocesses;
 9. (before 7) the gradient engines, which run no hand kernel: (a) the repo's
    own configuration (``benchmarks/grad_bench.py``: the flagship's 10-D
-   Gaussian, 1024 chains, 300 warmup steps or ``tune(300)``, 400 stored;
-   NUTS 100 + 50 with the diagonal metric and 150 + 100 with the dense one)
+   Gaussian, 1024 chains, 300 warmup steps or ``tune(300)``, 200 stored;
+   NUTS 100 + 50 with either metric)
    for NUTS, ChEES, MEADS, MCLMC, MAMS, HMC, MALA and Barker, each with its
    transitions/s, gradient evaluations/s, worst-parameter ESS/s, host syncs
    per step and peak device memory, and its mean and covariance within 5
    Monte-Carlo standard errors of Σ (from the run's own ESS); (b) Bayesian
    logistic regression at the German-credit shape (N = 1000, P = 25,
-   synthetic from a seed) with NUTS and ChEES (300 + 200 steps each)
+   synthetic from a seed) with NUTS (150 + 200 steps) and ChEES (300 + 200)
    at 2^14 chains (R-hat < 1.01, their means within 5 MC standard errors of
    each other) and SGLD and SGHMC at 1024 chains on minibatches of 100
    rows, against the NUTS posterior; (c) bitwise resume of HMC at 2^14
@@ -179,6 +179,17 @@ Builds the port's CUDA kernels from ``mcmcpp_tpu_torch/csrc/`` (into
    this sharded path, and the flagship's rate both ways in turns; after
    phase 7, the device time a sharded step spends in its all-gathers under
    the profiler; (c) ``actime`` and ``inner_benchmark`` with ``--sharded``;
+16. (before 7) the engines with ``mesh=``, in the same NCCL group of one,
+   at phases 9-11's widths with few steps: HMC, NUTS, ChEES, MEADS, SGLD and
+   MCLMC at C = 1024, P = 10; PT at K = 16 × 2^17 on a walker layout and on
+   a ladder layout of one shard; power PT; blocked Gibbs at 2^14 chains;
+   pCN and the elliptical slice on the P = 1024 GP latent; SMC at 2^20
+   particles with the ``FusedStretchMove`` mutation (the split kernels on
+   the rank's rows); nested sampling at 4096 / 1024. Each sharded run
+   first (the split kernels' launches on this path counted), then the
+   unsharded one, equal by ``torch.equal`` (samples, logps, replicated
+   statistics); then, in turns, host and device microseconds a step both
+   ways and the collectives a sharded step makes;
 7. times 50 steps of the flagship and of Neal's funnel (wall time and the
    host's enqueue time per step) and takes a ``torch.profiler`` window over
    50 more of each: device time and launches per step by kernel; a flagship
@@ -683,7 +694,7 @@ def gradient_engines(mt, card, out_dir):
           f"{per_call['logp']:.1f} us a call, logp_and_grad "
           f"{per_call['logp_and_grad']:.1f} us a call [{card}]", flush=True)
     # (label, sampler, tune instead of warmup, warmup steps, stored steps):
-    # 300 + 400 as grad_bench.py runs them, but for NUTS, whose lockstep
+    # 300 + 200 (grad_bench.py runs 300 + 400), but for NUTS, whose lockstep
     # trees reach depth 8 in nearly every transition of the diagonal metric
     # (~190 leaves of 2-3 ms of host time each at 1024 chains), cut so that
     # the phase stays inside the script's time
@@ -692,23 +703,23 @@ def gradient_engines(mt, card, out_dir):
                                           device="cuda"), False, 100, 50),
         ("nuts dense", lambda f: mt.NUTSSampler(
             f, n_chains, dim, max_depth=8, metric="dense", device="cuda"),
-         False, 150, 100),
+         False, 100, 50),
         ("chees", lambda f: mt.CheesHMCSampler(f, n_chains, dim,
                                                device="cuda"), False, 300,
-         400),
+         200),
         ("meads", lambda f: mt.MEADSSampler(f, n_chains, dim, device="cuda"),
-         False, 300, 400),
+         False, 300, 200),
         ("mclmc", lambda f: mt.MCLMCSampler(f, n_chains, dim, device="cuda"),
-         True, 300, 400),
+         True, 300, 200),
         ("mams", lambda f: mt.MAMSSampler(f, n_chains, dim, device="cuda"),
-         True, 300, 400),
+         True, 300, 200),
         ("hmc", lambda f: mt.HMCSampler(f, n_chains, dim, n_leapfrog=16,
-                                        device="cuda"), False, 300, 400),
+                                        device="cuda"), False, 300, 200),
         ("mala", lambda f: mt.MALASampler(f, n_chains, dim, device="cuda"),
-         False, 300, 400),
+         False, 300, 200),
         ("barker", lambda f: mt.BarkerSampler(f, n_chains, dim,
                                               device="cuda"), False, 300,
-         400),
+         200),
     ]
     for label, make, tune, n_warm, n_steps in engines:
         s, x, ess = drive(f"gaussian {label}", make, gauss, n_warm, n_steps,
@@ -738,7 +749,7 @@ def gradient_engines(mt, card, out_dir):
     fits = {}
     for label, make, n_warm, n_steps in [
             ("nuts", lambda f: mt.NUTSSampler(f, wide, 25, max_depth=8,
-                                              device="cuda"), 300, 200),
+                                              device="cuda"), 150, 200),
             ("chees", lambda f: mt.CheesHMCSampler(f, wide, 25,
                                                    device="cuda"), 300, 200)]:
         s, x, ess = drive(f"logistic {label}", make, logit, n_warm, n_steps,
@@ -832,7 +843,7 @@ def phases_from_argv(argv):
         raise SystemExit("usage: python3 chip_smoke.py [--phases 2,2b,...]")
     chosen = {p.strip() for p in argv[1].split(",") if p.strip()}
     known = {"1", "2", "2b", "3", "4", "5", "6", "7", "8", "9", "10", "11",
-             "12", "13", "14", "15"}
+             "12", "13", "14", "15", "16"}
     if not chosen <= known:
         raise SystemExit(f"unknown phases {sorted(chosen - known)}; known: "
                          f"{sorted(known)}")
@@ -856,14 +867,14 @@ def fenced_steps(fn, n):
 # JAX tests' Gibbs oracles at 2^14 and 2^12 chains
 PT_RUNGS, PT_WALKERS = 16, 1 << 17
 PT_BURN, PT_STEPS, PT_THIN = 1000, 600, 5
-MODES_WALKERS, MODES_BURN, MODES_STEPS = 1 << 14, 2000, 3000
+MODES_WALKERS, MODES_BURN, MODES_STEPS = 1 << 14, 2000, 1500
 POWER_RUNGS, POWER_BURN, POWER_STEPS = 12, 400, 1000
 GP_P, GP_CHAINS = 1024, 4096
 # burn-in: the GP posterior's data-informed directions relax over a few
 # hundred steps under pCN (β ≈ 0.1, acceptance ≈ 0.3) and over ~1000 under
 # the elliptical slice (its bias at 500 steps reads 2 SE at 512 chains on
 # the CPU, so more at 4096); ten and two of those
-PCN_BURN, PCN_STEPS, ESS_BURN, ESS_STEPS = 4000, 4000, 2000, 1000
+PCN_BURN, PCN_STEPS, ESS_BURN, ESS_STEPS = 4000, 4000, 2000, 500
 GIBBS_CHAINS, MIX_CHAINS = 1 << 14, 1 << 12
 GIBBS_SYNC_SWEEPS = 20
 # the conjugate model of tests/test_evidence.py: prior N(0, S0^2),
@@ -1148,7 +1159,7 @@ def population_engines(mt, card, out_dir):
     gb.init({"mu": np.zeros(1), "e": np.zeros(n)})
     gb.run(500, thin=500)  # burn-in: the mu-latent ridge relaxes in ~200
     gb.chain.clear()
-    n_sweeps = 1000
+    n_sweeps = 500
     ok, gibbs_s = fenced(lambda: gb.run(n_sweeps, thin=10))
     stored(ok, "Gibbs hierarchical")
     prec = 1.0 / tau ** 2 + n / (1.0 + sig ** 2)
@@ -1827,12 +1838,12 @@ GP_ESCALATING = {
                                            1e-6, 1),
 }
 AN_STEPS, AN_WALKERS, AN_P = 2000, 1 << 14, 10
-SBC_SIMS, SBC_CHAINS, SBC_WARM, SBC_STEPS = 64, 1024, 60, 10
+SBC_SIMS, SBC_CHAINS, SBC_WARM, SBC_STEPS = 32, 1024, 60, 10
 # eight schools: ChEES takes ~30 leapfrogs a transition there, each a
 # vmapped DSL logp and its autograd backward, host-bound at ~2.7 ms (83 ms a
-# transition on the H100); one check of run_until_converged after 500 steps
+# transition on the H100); one check of run_until_converged after 250 steps
 # (R-hat and the means are the gates, not its tau-stability rule)
-SCHOOLS_WARM, SCHOOLS_MAX, SCHOOLS_CHECK = 200, 500, 500
+SCHOOLS_WARM, SCHOOLS_MAX, SCHOOLS_CHECK = 200, 250, 250
 # the eight-schools example's posterior predictive thins to this many draws
 SCHOOLS_PREDICTIVE = 1000
 # a Truncated Gamma observe site with a sampled concentration: its
@@ -2451,7 +2462,7 @@ SV_T = 1000
 PF_N, PF_SEEDS = 1 << 18, 16
 GUIDED_N, GUIDED_SEEDS = 1 << 14, 8
 PMMH_CHAINS, PMMH_N, PMMH_T = 256, 1024, 200
-PMMH_TUNE, PMMH_WINDOW, PMMH_STEPS = 50, 25, 100
+PMMH_TUNE, PMMH_WINDOW, PMMH_STEPS = 50, 25, 50
 SMOOTH_N, SMOOTH_J, FORECAST_H = 1 << 14, 1024, 30
 PGAS_CHAINS, PGAS_N, PGAS_SWEEPS = 256, 64, 10
 RBPF_N, RBPF_T = 1 << 14, 1000
@@ -3767,6 +3778,281 @@ def sharded_runs(mt, fs, flagship, funnel, skewed, card):
     return launches
 
 
+# phase 16: the engines with mesh= at phases 9-11's widths, few steps
+SE_CHAINS, SE_P = 1024, 10
+SE_PT_RUNGS, SE_PT_WALKERS = 16, 1 << 17
+SE_POWER_WALKERS = 1 << 14
+SE_GIBBS_CHAINS = 1 << 14
+SE_GP_P, SE_GP_CHAINS = 1024, 4096
+SE_SMC_PARTICLES = 1 << 20
+SE_NESTED_LIVE, SE_NESTED_BATCH = 4096, 1024
+
+
+def sharded_engines(mt, fs, card):
+    """Phase 16: every engine with ``mesh=`` sharded over the NCCL group
+    of one (``make_walker_mesh()``; PT also on ``make_ladder_mesh(1)``)
+    against the same engine unsharded on the same seeds, by ``torch.equal``.
+    The sharded runs go first, the split kernels' launches counted over
+    them (SMC's ensemble mutation: the sharded engines' path); then the
+    unsharded runs; then each engine's steps timed both ways, in turns,
+    from a fence: the host's microseconds until the steps' calls return (a
+    step that waits for the device waits inside them), the device
+    timeline's microseconds between CUDA events around them (idle time
+    included), and the collectives a sharded step calls. Returns the path's
+    launches."""
+    import torch.distributed as dist
+
+    dev = torch.device("cuda")
+    walkers = mt.make_walker_mesh()
+    gauss = mt.equicorrelated_gaussian(SE_P, 0.5, device=dev)
+    data = torch.randn((1000, SE_P), generator=torch.Generator(
+        device=dev).manual_seed(3), device=dev)
+    chol, gp_like, _ = gp_problem(SE_GP_P, dev)
+
+    def prior(t):
+        return -0.125 * torch.sum(t * t, dim=-1)
+
+    def kw(mesh):
+        return {"device": "cuda"} if mesh is None else {"mesh": mesh}
+
+    def gradient(cls, warm, steps, **extra):
+        def build(mesh):
+            s = cls(gauss, SE_CHAINS, SE_P, seed=0, **extra, **kw(mesh))
+            s.init_ball(np.zeros(SE_P), 0.5)
+            s.warmup(warm)
+            stored(s.run(steps), cls.__name__)
+            return s, lambda n: s.run(n, thin=n)
+
+        def result(s):
+            return (s.get_samples(), s.get_log_probs(), s.state.position,
+                    torch.as_tensor(s.step_size),
+                    s.inv_mass if isinstance(s.inv_mass, torch.Tensor)
+                    else torch.zeros(()), s.last_mean_accept)
+
+        return build, result
+
+    def sgld(mesh):
+        s = mt.SGLDSampler(prior, lambda t, b: -0.5 * torch.sum(
+            (b[None] - t[:, None]) ** 2, (-1, -2)), data, SE_CHAINS, SE_P,
+            batch_size=100, step_size=2e-5, seed=0, **kw(mesh))
+        s.init_ball(np.zeros(SE_P), 0.1)
+        stored(s.run(50), "sgld")
+        return s, lambda n: s.run(n, thin=n)
+
+    def mclmc(mesh):
+        s = mt.MCLMCSampler(gauss, SE_CHAINS, SE_P, seed=0, **kw(mesh))
+        s.init_ball(np.zeros(SE_P), 0.5)
+        s.tune(100, rounds=2)
+        stored(s.run(20), "mclmc")
+        return s, lambda n: s.run(n, thin=n)
+
+    def pt(ladder=False, power=False):
+        def build(mesh):
+            if mesh is not None and ladder:
+                mesh = mt.make_ladder_mesh(1)
+            if power:
+                s = mt.ParallelTemperingSampler(
+                    loglike_fn=gauss, logprior_fn=prior,
+                    n_walkers=SE_POWER_WALKERS, n_params=SE_P,
+                    betas=mt.power_ladder(12), seed=0, batched=True,
+                    **kw(mesh))
+            else:
+                s = mt.ParallelTemperingSampler(
+                    gauss, SE_PT_WALKERS, SE_P, n_temps=SE_PT_RUNGS, seed=0,
+                    batched=True, **kw(mesh))
+            s.init_ball(np.zeros(SE_P), 1.0)
+            stored(s.run_mcmc(10, thin=5), "pt")
+            return s, lambda n: s.run_mcmc(n, thin=n)
+
+        def result(s):
+            out = (s.get_samples(), s.get_log_probs(), s.state.red,
+                   s.swap_acceptance)
+            return out + ((s.log_evidence("stepping_stone"),) if power
+                          else ())
+
+        return build, result
+
+    def gibbs(mesh):
+        s = mt.BlockedGibbsSampler(
+            [("x", 2, mt.MALAKernel(
+                lambda x, o: -0.5 * torch.sum(x * x, -1), 0.5, batched=True)),
+             ("z", 3, mt.EllipticalSliceKernel(
+                 lambda z, o: -0.5 * torch.sum(
+                     (z - torch.sum(o["x"], -1, keepdim=True)) ** 2, -1),
+                 prior_scale=np.ones(3), batched=True))],
+            SE_GIBBS_CHAINS, seed=0, batched=True,
+            logp_fn=lambda v: -0.5 * torch.sum(v["z"] ** 2, -1), **kw(mesh))
+        s.init({"x": np.zeros(2), "z": np.zeros(3)})
+        stored(s.run(10), "gibbs")
+        return s, lambda n: s.run(n, thin=n)
+
+    def gp(cls):
+        def build(mesh):
+            s = cls(gp_like, np.zeros(SE_GP_P), prior_chol=chol,
+                    n_chains=SE_GP_CHAINS, seed=0, batched=True, **kw(mesh))
+            s.init_prior()
+            stored(s.run(10), cls.__name__)
+            return s, lambda n: s.run(n, thin=n)
+
+        return build
+
+    def smc(mesh):
+        s = mt.SMCSampler(prior, gauss, lambda g, n: 2.0 * torch.randn(
+            (n, SE_P), generator=g, device=dev), SE_SMC_PARTICLES, SE_P,
+            n_mcmc=2, mover=mt.FusedStretchMove(), seed=0, batched=True,
+            **kw(mesh))
+        s.run(max_stages=30)
+
+        def stages(n):
+            for _ in range(n):
+                s.state = s.apply_stage(s.state, s.draw_stage_noise())
+
+        return s, stages
+
+    def nested(mesh):
+        s = mt.NestedSampler(prior, gauss, lambda g, n: 2.0 * torch.randn(
+            (n, SE_P), generator=g, device=dev), SE_P,
+            n_live=SE_NESTED_LIVE, batch=SE_NESTED_BATCH, n_mcmc=10, seed=0,
+            batched=True, **kw(mesh))
+        s.run(max_iters=10)
+        return s, lambda n: s.run(dlogz=1e-12, max_iters=n)
+
+    def sampled(s):
+        return (s.get_samples(), s.chain.get_logp(), s.state["z"]
+                if isinstance(s.state, dict) else s.state.position)
+
+    cases = [
+        ("hmc", *gradient(mt.HMCSampler, 20, 20, n_leapfrog=8)),
+        ("nuts", *gradient(mt.NUTSSampler, 10, 5, max_depth=5)),
+        ("chees", *gradient(mt.CheesHMCSampler, 20, 20)),
+        ("meads", *gradient(mt.MEADSSampler, 20, 20)),
+        ("sgld", sgld, sampled),
+        ("mclmc", mclmc, lambda s: sampled(s) + (s.step_size,
+                                                s.decoherence_length)),
+        ("pt walker layout", *pt()),
+        ("pt ladder layout", *pt(ladder=True)),
+        ("power pt", *pt(power=True)),
+        ("gibbs", gibbs, sampled),
+        ("pcn", gp(mt.PCNSampler), lambda s: (
+            s.get_samples(), s.get_log_likes(), s.acceptance_fraction)),
+        ("elliptical", gp(mt.EllipticalSliceSampler), lambda s: (
+            s.get_samples(), s.get_log_likes(), s.state.loglike)),
+        ("smc fused", smc, lambda s: (s.state.particles, s.state.log_like,
+                                      s.log_evidence, s.beta_ladder)),
+        ("nested", nested, lambda s: (s.result.logz, s.result.samples,
+                                      s.result.logl, s.result.n_calls)),
+    ]
+
+    def equal(a, b):
+        if isinstance(a, torch.Tensor):
+            return torch.equal(a.cpu(), b.cpu())
+        if isinstance(a, np.ndarray):
+            return np.array_equal(a, b)
+        return a == b
+
+    reset_launches(fs)
+    sharded = {}
+    for label, build, result in cases:
+        t0 = time.perf_counter()
+        s, steps = build(walkers)
+        sharded[label] = (s, steps, result(s), time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    launches = dict(fs.LAUNCHES)
+    print(f"  kernel launches on the sharded engines' path: {launches}",
+          flush=True)
+    if launches.get("fused_stretch_half"):
+        raise AssertionError("the sharded engines' path launched the fused "
+                             "kernel")
+    for name in ("stretch_propose", "stretch_accept"):
+        if not launches.get(name):
+            raise AssertionError(f"SMC's sharded mutation did not launch "
+                                 f"{name}")
+
+    # counts the collectives a sharded step calls
+    calls = [0]
+    originals = {}
+    for fn in ("all_gather_into_tensor", "all_gather_single", "all_reduce"):
+        if hasattr(dist, fn):
+            originals[fn] = getattr(dist, fn)
+
+            def counted(*a, _f=originals[fn], **k):
+                calls[0] += 1
+                return _f(*a, **k)
+
+            setattr(dist, fn, counted)
+
+    def per_step(fn, n):
+        """(device-timeline us, host us, collectives) a step of ``fn(n)``
+        between two fences."""
+        fn(n)  # warm: allocations, a first call's lazy set-up
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        calls[0] = 0
+        start.record()
+        t0 = time.perf_counter()
+        fn(n)
+        host_s = time.perf_counter() - t0
+        end.record()
+        torch.cuda.synchronize()
+        return (start.elapsed_time(end) * 1e3 / n, host_s * 1e6 / n,
+                calls[0] / n)
+
+    try:
+        for label, build, result in cases:
+            s_sh, steps_sh, got, build_sh = sharded.pop(label)
+            t0 = time.perf_counter()
+            s_un, steps_un = build(None)
+            want = result(s_un)
+            build_un = time.perf_counter() - t0
+            same = [equal(g, w) for g, w in zip(got, want)]
+            if not all(same):
+                raise AssertionError(f"{label}: sharded != unsharded "
+                                     f"({same})")
+            n = 4 if label in ("nuts", "smc fused", "nested") else 10
+            readings = {}
+            for name, fn in (("unsharded", steps_un), ("sharded", steps_sh),
+                             ("sharded", steps_sh), ("unsharded", steps_un)):
+                readings.setdefault(name, []).append(per_step(fn, n))
+            un, sh = readings["unsharded"], readings["sharded"]
+            print(f"  {label}: sharded == unsharded by torch.equal "
+                  f"({len(same)} results; built and run in {build_sh:.1f} s "
+                  f"sharded, {build_un:.1f} s unsharded); a step, in turns "
+                  f"(device-timeline us, host us to enqueue): unsharded "
+                  + ", ".join(f"{d:.1f} / {h:.1f}" for d, h, _ in un)
+                  + "; sharded "
+                  + ", ".join(f"{d:.1f} / {h:.1f}" for d, h, _ in sh)
+                  + f"; collectives a step: sharded {sh[0][2]:g}, unsharded "
+                  f"{un[0][2]:g} [{card}]", flush=True)
+            del s_sh, s_un, steps_sh, steps_un
+            torch.cuda.empty_cache()
+        # what one gather costs the host, alone: the layout's row gather of
+        # HMC's (C,) accept probabilities and of PT's (K, H, P) half
+        for what, x, fn in [
+                ("gather_rows of a (1024,) vector",
+                 torch.rand(SE_CHAINS, device=dev), walkers.gather_rows),
+                (f"gather of a ({SE_PT_RUNGS}, {SE_PT_WALKERS // 2}, {SE_P}) "
+                 "half on dim 1", torch.rand((SE_PT_RUNGS, SE_PT_WALKERS // 2,
+                                              SE_P), device=dev),
+                 lambda v: walkers.gather(v, dim=1))]:
+            for _ in range(5):
+                fn(x)
+            torch.cuda.synchronize()
+            calls[0] = 0
+            t0 = time.perf_counter()
+            for _ in range(100):
+                fn(x)
+            host_us = (time.perf_counter() - t0) * 1e4
+            torch.cuda.synchronize()
+            print(f"  one {what}: {host_us:.1f} us of host time a call "
+                  f"(100 calls, {calls[0] / 100:g} collective each) [{card}]",
+                  flush=True)
+    finally:
+        for fn, f in originals.items():
+            setattr(dist, fn, f)
+    return launches
+
+
 def sharded_gather_profile(mt, card):
     """Phase 15 (b), after phase 7: a sharded flagship step's device rows
     under the profiler, and the device time a step spends in the two
@@ -4826,6 +5112,24 @@ def main():
                       f"({time.perf_counter() - t0:.1f} s)", flush=True)
             torch.cuda.empty_cache()
 
+    # -- phase 16: the engines with mesh= in the NCCL group of one (the one
+    # of phase 15, else its own), sharded == unsharded bit for bit; SMC's
+    # sharded mutation runs the split kernels -------------------------------
+    sharded_engines_launches = {}
+    if run_phase("16"):
+        with phase("16 sharded engines"):
+            from mcmcpp_tpu_torch.parallel import distributed
+
+            made = not torch.distributed.is_initialized()
+            distributed.initialize(device=dev)
+            if torch.distributed.get_backend() != "nccl" or (
+                    distributed.world_size() != 1):
+                raise AssertionError("phase 16 needs an NCCL group of one")
+            sharded_engines_launches = sharded_engines(mt, fs, card)
+            if made:
+                torch.distributed.destroy_process_group()
+            torch.cuda.empty_cache()
+
     # -- phase 7: what a flagship step puts on the device --------------------
     # Last, because the profiler's tracing stays attached to the process
     # and slows every later launch: no timing may follow it.
@@ -4966,6 +5270,9 @@ def main():
     for name in ("stretch_propose", "stretch_accept"):
         if not smc_launches.get(name):
             raise AssertionError(f"{name} was not launched on the SMC path")
+        if not sharded_engines_launches.get(name):
+            raise AssertionError(f"{name} was not launched on the sharded "
+                                 "engines' path")
         if not dsl_launches.get(name):
             raise AssertionError(f"{name} was not launched on the DSL path")
     # ms, plain_ms and bound_ms at n = 2^20, P = 10, the half-step of the
@@ -4983,6 +5290,8 @@ def main():
          "launches_timeseries_path": ts_launches.get(name, 0),
          "launches_examples_path": ex_launches.get(name, 0),
          "launches_sharded_path": sharded_launches.get(name, 0),
+         "launches_sharded_engines_path": sharded_engines_launches.get(
+             name, 0),
          "ms_shard_2p18": k["row_offset_ms"]["shard"],
          "ms_shard_2p18_row_offset": k["row_offset_ms"]["shard_offset"],
          "ms_half_as_4_shards": k["row_offset_ms"]["half_4"],

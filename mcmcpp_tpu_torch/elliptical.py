@@ -19,8 +19,15 @@ Every transition is ``draw_noise`` (the prior draw, the slice height's
 uniform, the initial angle and a function that draws the j-th shrink
 iteration's uniforms on demand) and a deterministic ``apply``, so a test can
 hand the port the JAX package's draws.
+
+Sharded (``mesh=``), every rank draws every chain's noise and keeps its
+rows, and the loop's "every chain done" test covers every rank's chains
+(``layout.all``, a MAX all-reduce every ``CHECK_EVERY`` iterations), so all
+ranks run the iterations, and draw the shrink uniforms, that the unsharded
+loop does. A blocked Gibbs sampler's slice blocks test the same way.
 """
 
+import contextvars
 import math
 from typing import NamedTuple
 
@@ -40,7 +47,8 @@ from mcmcpp_tpu_torch.ops.random import (
     normal,
     uniform,
 )
-from mcmcpp_tpu_torch.sampler import resolve_device
+from mcmcpp_tpu_torch.movers.base import rows_of
+from mcmcpp_tpu_torch.parallel.mesh import _engine_rows
 
 TWO_PI = 2.0 * math.pi
 # smallest slice-height uniform (≙ the JAX package's minval=1e-37): log u
@@ -49,6 +57,9 @@ U_FLOOR = 1e-37
 # shrink iterations between two host tests of "every chain done": the
 # masked extra iterations of a group cost less than a sync each
 CHECK_EVERY = 4
+# the layout whose ranks a shrink loop called without one tests "every chain
+# done" over (set by a sharded blocked Gibbs sweep around its kernels)
+_LOOP_LAYOUT = contextvars.ContextVar("loop_layout", default=None)
 
 
 class EllipticalState(NamedTuple):
@@ -87,7 +98,8 @@ def gaussian_prior(prior_mean, prior_chol, prior_scale, dtype, device):
 
 def check_chain(chain, n_chains, n_params, max_bytes, dtype):
     """The injected ``chain`` after a geometry check, or a new host
-    :class:`Chain` of (n_chains, n_params) rows."""
+    :class:`Chain` of (n_chains, n_params) rows (a sharded sampler's: its
+    own chains)."""
     if chain is not None:
         if (chain.n_walkers, chain.n_params) != (n_chains, n_params):
             raise ValueError("injected chain store geometry mismatch")
@@ -97,7 +109,7 @@ def check_chain(chain, n_chains, n_params, max_bytes, dtype):
 
 
 def shrink_loop(propose, loglike, log_y, theta, noise_planes, max_shrink,
-                keep, counters=None):
+                keep, counters=None, layout=None):
     """The bracket-shrinking loop of one elliptical slice step on a batch.
 
     ``propose(th)`` maps (C,) angles to (C, ...) positions, ``loglike`` a
@@ -106,9 +118,12 @@ def shrink_loop(propose, loglike, log_y, theta, noise_planes, max_shrink,
     positions (and log-likelihoods, if a tuple) a chain keeps at the cap.
     Iterations run in groups of ``CHECK_EVERY`` between host tests of
     "every chain done"; finished chains are masked. ``counters`` (a dict)
-    gains ``iterations`` and ``syncs``. Returns what ``keep`` holds, each
-    replaced where a chain met its threshold.
+    gains ``iterations`` and ``syncs``. ``layout`` (default
+    :data:`_LOOP_LAYOUT`'s): the batch is a rank's rows, and the test covers
+    every rank's. Returns what ``keep`` holds, each replaced where a chain
+    met its threshold.
     """
+    layout = _LOOP_LAYOUT.get() if layout is None else layout
     lo, hi = theta - TWO_PI, theta
     th = theta
     done = torch.zeros_like(log_y, dtype=torch.bool)
@@ -131,7 +146,7 @@ def shrink_loop(propose, loglike, log_y, theta, noise_planes, max_shrink,
             th = torch.where(done, th, lo + noise_planes(i) * (hi - lo))
             i += 1
         syncs += 1
-        if bool(done.all()):
+        if (bool(done.all()) if layout is None else layout.all(done)):
             break
     if counters is not None:
         counters["iterations"] = counters.get("iterations", 0) + i
@@ -146,13 +161,16 @@ class EllipticalSliceSampler:
     ``prior_scale`` (P,) for a diagonal prior. ``max_shrink`` bounds the
     bracket-shrinking loop (on the cap the chain keeps its state); the loop
     tests "every chain done" on the host every ``CHECK_EVERY`` iterations.
-    ``device`` defaults to "cuda"."""
+    ``device`` defaults to "cuda"; ``mesh`` (a ``WalkerLayout``) splits the
+    chains over the ranks of a process group, on the layout's device."""
 
     def __init__(self, log_like_fn, prior_mean, prior_chol=None,
                  prior_scale=None, n_chains=32, seed=0, dtype=torch.float32,
-                 max_shrink=64, max_chain_bytes=2 << 30, chain=None,
-                 batched=False, device="cuda"):
-        self.device = resolve_device(device)
+                 max_shrink=64, max_chain_bytes=2 << 30, mesh=None,
+                 chain=None, batched=False, device=None):
+        self.mesh = mesh
+        self.device, self._row0, self._n_local = _engine_rows(
+            mesh, device, int(n_chains), "n_chains")
         self.dtype = dtype
         self.prior_mean, self.prior_chol = gaussian_prior(
             prior_mean, prior_chol, prior_scale, dtype, self.device)
@@ -164,16 +182,19 @@ class EllipticalSliceSampler:
         self._step_gen = make_generator(seed, STEP_STREAM, self.device)
         self._aux_gen = make_generator(seed, AUX_STREAM, self.device)
         self.state = None
-        self.chain = check_chain(chain, self.n_chains, self.n_params,
+        self.chain = check_chain(chain, self._n_local, self.n_params,
                                  max_chain_bytes, dtype)
         #: steps taken, shrink-loop iterations and host syncs of the loop
         self.counters = {"steps": 0, "iterations": 0, "syncs": 0}
 
     def init(self, positions):
+        """Every chain's (C, P) positions (a sharded sampler keeps its
+        rows)."""
         positions = as_tensor(positions, self.dtype, self.device)
         if tuple(positions.shape) != (self.n_chains, self.n_params):
             raise ValueError(
                 f"positions must be ({self.n_chains}, {self.n_params})")
+        positions = positions[self._row0:self._row0 + self._n_local]
         self.state = EllipticalState(positions,
                                      self._batched_loglike(positions))
         return self
@@ -192,7 +213,8 @@ class EllipticalSliceSampler:
     def draw_noise(self):
         """(z (C, P), u (C,) in [1e-37, 1), theta (C,) in [0, 2π),
         shrink_uniforms): ``shrink_uniforms(j)`` draws iteration j's (C,)
-        uniforms when the loop reaches it."""
+        uniforms when the loop reaches it. Every chain's draws, cut to the
+        rank's rows when sharded."""
         c, dev, dt = self.n_chains, self.device, self.dtype
 
         def shrink_uniforms(j):
@@ -201,7 +223,10 @@ class EllipticalSliceSampler:
         z = normal(self._step_gen, (c, self.n_params), dt, dev)
         u = torch.clamp(uniform(self._step_gen, c, dt, dev), min=U_FLOOR)
         theta = uniform(self._step_gen, c, dt, dev) * TWO_PI
-        return z, u, theta, shrink_uniforms
+        noise = z, u, theta, shrink_uniforms
+        if self.mesh is None:
+            return noise
+        return rows_of(noise, self._row0, self._n_local)
 
     def apply(self, noise, state):
         """One elliptical slice step of every chain on the draws ``noise``."""
@@ -218,16 +243,16 @@ class EllipticalSliceSampler:
         pos, ll = shrink_loop(propose, self._batched_loglike, log_y, theta,
                               shrink_uniforms, self.max_shrink,
                               (state.position, state.loglike),
-                              self.counters)
+                              self.counters, self.mesh)
         self.counters["steps"] += 1
         return EllipticalState(pos, ll)
 
     # -- driver --------------------------------------------------------------
 
     def _run_chunk(self, take, thin):
-        pos = torch.empty((take, self.n_chains, self.n_params),
+        pos = torch.empty((take, self._n_local, self.n_params),
                           dtype=self.dtype, device=self.device)
-        lls = torch.empty((take, self.n_chains), dtype=self.dtype,
+        lls = torch.empty((take, self._n_local), dtype=self.dtype,
                           device=self.device)
         state = self.state
         for s in range(take):
@@ -247,7 +272,7 @@ class EllipticalSliceSampler:
         thin = int(thin)
         n_store = int(n_steps) // thin
         leftover = int(n_steps) - n_store * thin
-        chunk = default_chunk_steps(self.n_chains, self.n_params,
+        chunk = default_chunk_steps(self._n_local, self.n_params,
                                     row_dtype(self.dtype))
         ok = run_pipelined(n_store, chunk,
                            lambda take: self._run_chunk(take, thin),

@@ -29,6 +29,13 @@ draws block by block from one generator where JAX folds the block index
 into a per-chain key; the categorical draw is argmax(logits + Gumbel), as
 ``jax.random.categorical`` is, so a test can hand the port JAX's Gumbel
 noise.
+
+Sharded (``mesh=``), each rank holds its rows of every block and of the
+stored logp column. A kernel's noise is drawn for every chain and cut to the
+rank's rows (the on-demand draws too, at every chain's size), the slice
+blocks' loop tests cover every rank's chains, and an exact (conjugate)
+block, whose draws are the generator itself, runs on every chain's values,
+gathered, and keeps its rows.
 """
 
 import numpy as np
@@ -36,8 +43,8 @@ import torch
 
 from mcmcpp_tpu_torch.chain import default_chunk_steps, row_dtype, \
     run_pipelined
-from mcmcpp_tpu_torch.elliptical import TWO_PI, U_FLOOR, as_tensor, \
-    check_chain, shrink_loop
+from mcmcpp_tpu_torch.elliptical import TWO_PI, U_FLOOR, _LOOP_LAYOUT, \
+    as_tensor, check_chain, shrink_loop
 from mcmcpp_tpu_torch.gradient.hmc import logp_and_grad
 from mcmcpp_tpu_torch.ops.random import (
     STEP_STREAM,
@@ -48,7 +55,7 @@ from mcmcpp_tpu_torch.ops.random import (
     randint,
     uniform,
 )
-from mcmcpp_tpu_torch.sampler import resolve_device
+from mcmcpp_tpu_torch.parallel.mesh import _engine_rows
 
 
 def per_chain(fn, batched):
@@ -433,6 +440,33 @@ def _kernel_step(kernel, gen, x, others, noise=None):
     return kernel.apply(noise, x, others)
 
 
+def _draw_rows(noise, row0, n, c):
+    """The draws of chains row0…row0+n−1 from draws made for c chains: each
+    tensor's rows; an on-demand draw (``f(j)`` for a loop iteration, or
+    ``f(shape)`` whose leading axis is the chains) made at every chain's
+    size and cut."""
+    if isinstance(noise, (tuple, list)):
+        return type(noise)(_draw_rows(x, row0, n, c) for x in noise)
+    if isinstance(noise, torch.Tensor):
+        return noise[row0:row0 + n]
+    if callable(noise):
+        def cut(arg):
+            if isinstance(arg, (tuple, list, torch.Size)):
+                arg = (c,) + tuple(arg[1:])
+            return noise(arg)[row0:row0 + n]
+
+        return cut
+    return noise
+
+
+def _whole_step(kernel):
+    """True for a kernel that draws in its own update (a ``step`` without
+    ``apply``, or the exact kernel, whose noise is the generator): sharded,
+    it runs on every chain's values."""
+    return not hasattr(kernel, "apply") or isinstance(kernel,
+                                                      ExactGibbsKernel)
+
+
 class BlockedGibbsSampler:
     """Sequential per-block kernel sweep, C chains in lockstep.
 
@@ -445,15 +479,18 @@ class BlockedGibbsSampler:
         column (zeros if omitted).
     Storage is flat ``(C, Σ size)`` rows in block declaration order;
     ``get_block(name)`` slices a block back out. ``device`` defaults to
-    "cuda".
+    "cuda"; ``mesh`` (a ``WalkerLayout``) splits the chains over the ranks
+    of a process group, on the layout's device.
     """
 
     def __init__(self, blocks, n_chains, logp_fn=None, seed=0,
-                 dtype=torch.float32, max_chain_bytes=2 << 30, chain=None,
-                 batched=False, device="cuda"):
+                 dtype=torch.float32, max_chain_bytes=2 << 30, mesh=None,
+                 chain=None, batched=False, device=None):
         if not blocks:
             raise ValueError("need at least one block")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device, self._row0, self._n_local = _engine_rows(
+            mesh, device, int(n_chains), "n_chains")
         self.blocks = []
         for n, s, k in blocks:
             if isinstance(n, tuple):
@@ -483,13 +520,14 @@ class BlockedGibbsSampler:
                     lambda row: logp_fn(self._unflatten(row))))
         self._step_gen = make_generator(seed, STEP_STREAM, self.device)
         self.state = None  # dict name -> (C, size)
-        self.chain = check_chain(chain, self.n_chains, self.n_params,
+        self.chain = check_chain(chain, self._n_local, self.n_params,
                                  max_chain_bytes, dtype)
 
     # -- state plumbing ------------------------------------------------------
 
     def init(self, values):
-        """``values``: {name: (size,) or (C, size)} initial positions."""
+        """``values``: {name: (size,) or (C, size)} initial positions (a
+        sharded sampler keeps its rows)."""
         state = {}
         for name, size in self._layout:
             if name not in values:
@@ -501,28 +539,60 @@ class BlockedGibbsSampler:
                 raise ValueError(f"block {name!r}: init shape "
                                  f"{tuple(v.shape)} != ({self.n_chains}, "
                                  f"{size})")
-            state[name] = v.contiguous()
+            state[name] = v[self._row0:self._row0 + self._n_local].contiguous()
         self.state = state
         return self
 
     def sweep(self, state, noises=None):
         """One sweep over the blocks in order; ``noises`` (one per block,
-        each as its kernel's ``draw_noise`` gives it) replays given draws.
-        Returns the new state dict."""
+        each as its kernel's ``draw_noise`` gives it, for every chain)
+        replays given draws. Returns the new state dict."""
         values = dict(state)
-        for i, (name, _, kernel) in enumerate(self.blocks):
-            noise = None if noises is None else noises[i]
-            if isinstance(name, tuple):
-                others = {n: v for n, v in values.items() if n not in name}
-                new = _kernel_step(kernel, self._step_gen,
-                                   tuple(values[n] for n in name), others,
-                                   noise)
-                values.update(zip(name, new))
-            else:
-                others = {n: v for n, v in values.items() if n != name}
-                values[name] = _kernel_step(kernel, self._step_gen,
-                                            values[name], others, noise)
+        token = _LOOP_LAYOUT.set(self.mesh)
+        try:
+            for i, (name, _, kernel) in enumerate(self.blocks):
+                noise = None if noises is None else noises[i]
+                if isinstance(name, tuple):
+                    others = {n: v for n, v in values.items()
+                              if n not in name}
+                    new = self._block_step(
+                        kernel, tuple(values[n] for n in name), others,
+                        noise)
+                    values.update(zip(name, new))
+                else:
+                    others = {n: v for n, v in values.items() if n != name}
+                    values[name] = self._block_step(kernel, values[name],
+                                                    others, noise)
+        finally:
+            _LOOP_LAYOUT.reset(token)
         return values
+
+    def _block_step(self, kernel, x, others, noise):
+        """One block's update on the rank's rows ``x`` (a tuple for a joint
+        block)."""
+        if self.mesh is None:
+            return _kernel_step(kernel, self._step_gen, x, others, noise)
+        rows = slice(self._row0, self._row0 + self._n_local)
+        joint = isinstance(x, tuple)
+        xs = x if joint else (x,)
+        if _whole_step(kernel):
+            names = list(others)
+            whole = self.mesh.gather_rows(*xs, *(others[n] for n in names))
+            wx = whole[:len(xs)]
+            new = _kernel_step(kernel, self._step_gen,
+                               wx if joint else wx[0],
+                               dict(zip(names, whole[len(xs):])), noise)
+            return tuple(v[rows] for v in new) if joint else new[rows]
+        if noise is None:
+            def every(v):
+                return v.new_empty((self.n_chains,) + tuple(v.shape[1:]))
+
+            wx = tuple(every(v) for v in xs)
+            noise = kernel.draw_noise(
+                self._step_gen, wx if joint else wx[0],
+                {n: every(v) for n, v in others.items()})
+        noise = _draw_rows(noise, self._row0, self._n_local, self.n_chains)
+        return kernel.apply(noise, x, others)
 
     def _flat(self, state):
         return torch.cat([state[n] for n, _ in self._layout], dim=1)
@@ -537,9 +607,9 @@ class BlockedGibbsSampler:
     # -- driver --------------------------------------------------------------
 
     def _run_chunk(self, take, thin):
-        pos = torch.empty((take, self.n_chains, self.n_params),
+        pos = torch.empty((take, self._n_local, self.n_params),
                           dtype=self.dtype, device=self.device)
-        lps = torch.zeros((take, self.n_chains), dtype=self.dtype,
+        lps = torch.zeros((take, self._n_local), dtype=self.dtype,
                           device=self.device)
         state = self.state
         for s in range(take):
@@ -559,7 +629,7 @@ class BlockedGibbsSampler:
         thin = int(thin)
         n_store = int(n_steps) // thin
         leftover = int(n_steps) - n_store * thin
-        chunk = default_chunk_steps(self.n_chains, self.n_params,
+        chunk = default_chunk_steps(self._n_local, self.n_params,
                                     row_dtype(self.dtype))
         ok = run_pipelined(n_store, chunk,
                            lambda take: self._run_chunk(take, thin),

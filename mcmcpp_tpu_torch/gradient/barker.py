@@ -9,7 +9,9 @@ robustness to a too-large step is what makes unattended step-size
 adaptation converge from almost any start.
 
 Softplus is ``logaddexp(x, 0)`` as in JAX: ``torch.nn.functional.softplus``
-turns linear above its threshold of 20 and would differ.
+turns linear above its threshold of 20 and would differ (and, like
+``torch.logaddexp``, its CPU bits depend on the tensor's length, which a
+sharded run must not see: ``hmc._logaddexp``).
 """
 
 import torch
@@ -18,6 +20,7 @@ from mcmcpp_tpu_torch.gradient.hmc import (
     GradientKernel,
     GradientSampler,
     HMCState,
+    _logaddexp,
     column,
     logp_and_grad,
     metropolis,
@@ -28,7 +31,7 @@ from mcmcpp_tpu_torch.ops.random import neg_exponential, normal, uniform
 
 
 def _softplus(x):
-    return torch.logaddexp(x, torch.zeros_like(x))
+    return _logaddexp(x, torch.zeros_like(x))
 
 
 class BarkerKernel(GradientKernel):

@@ -14,6 +14,11 @@ gradient, which are device values: warmup takes one host sync per step (both
 fetched together), and the scalar adaptation (dual averaging on ε, Adam on
 log T, both in float32 as in JAX) runs on the host. Sampling with a fixed T
 takes none; ``continuous_adapt`` takes one per transition for the same reason.
+
+Sharded (``mesh=``), a transition gathers every chain's start, end and end
+momentum and accept probability once for the ChEES gradient, and a warmup
+step every chain's positions and accept probabilities once for the metric
+and the harmonic mean, so ε, T and the metric are the same on every rank.
 """
 
 from typing import NamedTuple
@@ -119,13 +124,18 @@ class CheesKernel(GradientKernel):
         accept_prob, accept, diverging = metropolis(log_ratio, log_u)
         energy = kin0 - lp0  # post-refresh Hamiltonian (E-BFMI statistic)
         # ChEES dT gradient estimate (paper eq. 6, acceptance-weighted):
-        # centered squared-radius change x end-point velocity projection
-        d0 = q0 - torch.mean(q0, dim=0)[None, :]
-        d1 = q1 - torch.mean(q1, dim=0)[None, :]
+        # centered squared-radius change x end-point velocity projection,
+        # over every chain (a rank's rows gathered first when sharded)
+        whole = (q0, q1, p1, accept_prob)
+        if self.shard is not None:
+            whole = self.shard[0].gather_rows(*whole)
+        w_q0, w_q1, w_p1, w_ap = whole
+        d0 = w_q0 - torch.mean(w_q0, dim=0)[None, :]
+        d1 = w_q1 - torch.mean(w_q1, dim=0)[None, :]
         delta = torch.sum(d1 ** 2, dim=1) - torch.sum(d0 ** 2, dim=1)
-        vel_proj = torch.sum(d1 * mass_velocity(inv_mass, p1), dim=1)
-        wsum = torch.sum(accept_prob)
-        per_chain = accept_prob * float(np.float32(u)) * delta * vel_proj
+        vel_proj = torch.sum(d1 * mass_velocity(inv_mass, w_p1), dim=1)
+        wsum = torch.sum(w_ap)
+        per_chain = w_ap * float(np.float32(u)) * delta * vel_proj
         traj_grad = torch.where(wsum > 0,
                                 torch.sum(per_chain) / (wsum + 1e-20), 0.0)
         return (select_state(accept, HMCState(q1, lp1, g1), state),
@@ -201,12 +211,12 @@ class CheesHMCSampler(GradientSampler):
         for i in range(int(n_steps)):
             inv_mass = (self._mass_from_welford(wf) if adapt_mass
                         else self.inv_mass)
-            noise = self._kernel.draw_noise(self._step_gen, state)
             state, (ap, _, traj_grad, _, _, _) = self._kernel.apply(
-                noise, state, float(torch.exp(da.log_step)), inv_mass,
-                float(torch.exp(log_traj)), float(halton2(i)))
+                self._draw(state), state, float(torch.exp(da.log_step)),
+                inv_mass, float(torch.exp(log_traj)), float(halton2(i)))
+            position, ap = self._whole_rows(state.position, ap)
             if adapt_mass:
-                wf = welford_update_batch(wf, state.position)
+                wf = welford_update_batch(wf, position)
             # harmonic-mean acceptance (dominated by the worst chains) and
             # the ChEES gradient: the step's one host sync
             hm_accept, traj_grad = torch.stack([
@@ -246,7 +256,7 @@ class CheesHMCSampler(GradientSampler):
     def _run_step(self, state, step_size, inv_mass):
         eps = self._eps()
         u = self._jitter()
-        noise = self._kernel.draw_noise(self._step_gen, state)
+        noise = self._draw(state)
         if not self.continuous_adapt:
             state, (ap, acc, _, _, div, en) = self._kernel.apply(
                 noise, state, eps, inv_mass, self._traj_or_default(), u)

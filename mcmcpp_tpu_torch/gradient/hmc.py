@@ -22,6 +22,14 @@ steps on the device; ``run`` writes every ``thin``-th state into a device chunk
 that lands in the host :class:`~mcmcpp_tpu_torch.chain.Chain` through
 ``run_pipelined``, with the sample stats (``diverging``, ``energy``) aligned
 to the chain.
+
+``mesh=`` (a :class:`~mcmcpp_tpu_torch.parallel.mesh.WalkerLayout`) splits
+the chain axis over the ranks of a process group: each rank draws every
+chain's noise and keeps its rows, and gathers the whole batch where the
+unsharded sampler reduces over it (the positions for the Welford metric
+once a warmup step, the accept probabilities for the mean accept once a
+transition, ChEES's and MEADS's statistics where they take them), so a
+sharded run equals the unsharded one bit for bit at any rank count.
 """
 
 from typing import NamedTuple
@@ -31,6 +39,7 @@ import torch
 
 from mcmcpp_tpu_torch.chain import (
     Chain,
+    append_device_chunk,
     default_chunk_steps,
     row_dtype,
     run_pipelined,
@@ -50,7 +59,8 @@ from mcmcpp_tpu_torch.ops.random import (
     neg_exponential,
     normal,
 )
-from mcmcpp_tpu_torch.sampler import resolve_device
+from mcmcpp_tpu_torch.movers.base import rows_of
+from mcmcpp_tpu_torch.parallel.mesh import _engine_rows
 
 # energy error marking a transition divergent (Stan's default), surfaced as
 # ``sample_stats.diverging``
@@ -99,8 +109,9 @@ def as_positions(positions, n_chains, n_params, dtype, device):
 
 
 def ball(sampler, center, scale, seed):
-    """``center + scale·z`` for every chain of ``sampler``, z from its
-    auxiliary generator, or from one seeded by ``seed``."""
+    """``center + scale·z`` for every chain of ``sampler`` (all of them, a
+    sharded sampler's too), z from its auxiliary generator, or from one
+    seeded by ``seed``."""
     gen = (sampler._aux_gen if seed is None
            else make_generator(seed, AUX_STREAM, sampler.device))
     center = torch.as_tensor(center, dtype=sampler.dtype,
@@ -118,6 +129,17 @@ def logp_and_grad(logp_fn, q):
         lp = logp_fn(x)
         (g,) = torch.autograd.grad(lp.sum(), x)
     return lp.detach(), g
+
+
+def _logaddexp(a, b):
+    """``log(e^a + e^b)`` elementwise, each element's bits the same at any
+    tensor length: ``max + log1p(e^−|a−b|)`` (equal infinities as
+    themselves). torch's CPU ``logaddexp`` takes a vectorized path and a
+    scalar one whose last bits differ, so a rank's rows would not equal the
+    same rows of the whole batch."""
+    m = torch.maximum(a, b)
+    return torch.where(torch.isinf(m) & (a == b), m,
+                       m + torch.log1p(torch.exp(-torch.abs(a - b))))
 
 
 def column(step_size):
@@ -167,13 +189,24 @@ def leapfrog(logp_fn, q, p, g, inv_mass, eps, n_steps):
 
 class GradientKernel:
     """A batched transition: ``draw_noise`` then a deterministic ``apply``
-    (≙ the per-chain kernels of the JAX package, vmapped)."""
+    (≙ the per-chain kernels of the JAX package, vmapped).
+
+    ``shard``: None, or ``(layout, row0, n_local)`` when the batch is a
+    rank's rows of the chain axis (set by a sharded sampler); ``apply``
+    then takes the noise of those rows (:meth:`noise_rows`) and takes its
+    cross-chain statistics and loop tests through the layout."""
+
+    shard = None
 
     def __init__(self, logp_fn):
         self.logp_fn = logp_fn
 
     def draw_noise(self, gen, state, host_gen=None):
         raise NotImplementedError
+
+    def noise_rows(self, noise, row0, n):
+        """The noise of chains row0…row0+n−1 from that of every chain."""
+        return rows_of(noise, row0, n)
 
     def apply(self, noise, state, step_size, inv_mass):
         """-> (state, (accept_prob, accepted, diverging, energy)), each (C,)."""
@@ -303,19 +336,24 @@ class GradientSampler:
     the host :class:`Chain`. Randomness: the kernels draw from a generator
     on ``device`` (``seed``'s step stream), ``init_ball`` from the auxiliary
     stream, and host-side choices (ChEES's jitter) from a CPU generator.
-    ``device`` defaults to "cuda"; CUDA without a GPU raises.
+    ``device`` defaults to "cuda"; CUDA without a GPU raises. ``mesh``: a
+    :class:`~mcmcpp_tpu_torch.parallel.mesh.WalkerLayout` splitting the
+    chains over the ranks (the sampler then runs on its device, and every
+    rank constructs, initializes and runs it with the same arguments).
     """
 
     needs_mass = True
 
     def __init__(self, logp_fn, n_chains, n_params, seed=0,
                  dtype=torch.float32, step_size=0.1, target_accept=0.8,
-                 max_chain_bytes=2 << 30, chain=None, metric="diag",
-                 device="cuda"):
-        self.device = resolve_device(device)
+                 max_chain_bytes=2 << 30, mesh=None, chain=None,
+                 metric="diag", device=None):
         self.logp_fn = logp_fn
         self.n_chains = int(n_chains)
         self.n_params = int(n_params)
+        self.mesh = mesh
+        self.device, self._row0, self._n_local = _engine_rows(
+            mesh, device, self.n_chains, "n_chains")
         self.dtype = dtype
         self.step_size = float(step_size)
         self.target_accept = float(target_accept)
@@ -336,11 +374,17 @@ class GradientSampler:
                 raise ValueError("injected chain store geometry mismatch")
             self.chain = chain
         else:
-            self.chain = Chain(n_walkers=self.n_chains,
+            self.chain = Chain(n_walkers=self._n_local,
                                n_params=self.n_params,
                                max_bytes=max_chain_bytes,
                                dtype=row_dtype(dtype))
         self._kernel = self._make_kernel()
+        if mesh is not None:
+            self._kernel.shard = (mesh, self._row0, self._n_local)
+            # what draw_noise reads of a state: every chain's shape
+            self._whole = HMCState(torch.empty(
+                (self.n_chains, self.n_params), dtype=dtype,
+                device=self.device), None, None)
         self.last_mean_accept = None
         # per-stored-step sample stats, one numpy block per landed chunk
         self._divergences = []  # (S_chunk, C) bool
@@ -350,10 +394,26 @@ class GradientSampler:
         """Subclass hook: the :class:`GradientKernel`."""
         raise NotImplementedError
 
-    def _step(self, state, step_size, inv_mass):
-        noise = self._kernel.draw_noise(self._step_gen, state,
+    def _draw(self, state):
+        """A transition's noise for this sampler's chains: drawn for every
+        chain and cut to the rank's rows when sharded."""
+        if self.mesh is None:
+            return self._kernel.draw_noise(self._step_gen, state,
+                                           host_gen=self._host_gen)
+        noise = self._kernel.draw_noise(self._step_gen, self._whole,
                                         host_gen=self._host_gen)
-        return self._kernel.apply(noise, state, step_size, inv_mass)
+        return self._kernel.noise_rows(noise, self._row0, self._n_local)
+
+    def _whole_rows(self, *xs):
+        """Every chain's rows of the rank's ``xs`` (the tensors themselves
+        when unsharded)."""
+        if self.mesh is None:
+            return xs
+        return self.mesh.gather_rows(*xs)
+
+    def _step(self, state, step_size, inv_mass):
+        return self._kernel.apply(self._draw(state), state, step_size,
+                                  inv_mass)
 
     def _require_state(self):
         if self.state is None:
@@ -362,8 +422,11 @@ class GradientSampler:
     # -- init ----------------------------------------------------------------
 
     def _positions(self, positions):
-        return as_positions(positions, self.n_chains, self.n_params,
-                            self.dtype, self.device)
+        """Every chain's (C, P) positions; a sharded sampler keeps its
+        rows."""
+        positions = as_positions(positions, self.n_chains, self.n_params,
+                                 self.dtype, self.device)
+        return positions[self._row0:self._row0 + self._n_local]
 
     def init(self, positions):
         positions = self._positions(positions)
@@ -379,10 +442,11 @@ class GradientSampler:
     # -- warmup --------------------------------------------------------------
 
     def _step_vector(self):
-        """The step size as a (C,) tensor on the device."""
+        """The step size as a (C,) tensor on the device (the rank's rows
+        when sharded)."""
         return torch.as_tensor(self.step_size, dtype=self.dtype,
                                device=self.device).expand(
-                                   self.n_chains).clone()
+                                   self._n_local).clone()
 
     def _welford_init(self):
         p = self.n_params
@@ -412,7 +476,8 @@ class GradientSampler:
                                          inv_mass)
             da = da_update(da, ap, target=self.target_accept)
             if adapt_mass:
-                wf = welford_update_batch(wf, state.position)
+                wf = welford_update_batch(wf,
+                                          *self._whole_rows(state.position))
         self.state = state
         # per-chain adapted step sizes
         self.step_size = torch.exp(da.log_step_avg)
@@ -432,7 +497,7 @@ class GradientSampler:
         scalar), diverging (take, C), energy (take, C), take). Any divergence
         inside a thin window flags the stored step; the energy is the last
         transition's."""
-        c, p, dev = self.n_chains, self.n_params, self.device
+        c, p, dev = self._n_local, self.n_params, self.device
         pos = torch.empty((take, c, p), dtype=self.dtype, device=dev)
         lps = torch.empty((take, c), dtype=self.dtype, device=dev)
         divs = torch.zeros((take, c), dtype=torch.bool, device=dev)
@@ -443,7 +508,7 @@ class GradientSampler:
             for _ in range(thin):
                 state, (ap, _, div, en) = self._run_step(state, step_size,
                                                          self.inv_mass)
-                acc = acc + torch.mean(ap)
+                acc = acc + torch.mean(*self._whole_rows(ap))
                 divs[s] |= div
             pos[s] = state.position
             lps[s] = state.logp
@@ -482,7 +547,7 @@ class GradientSampler:
             nonlocal acc_sum, acc_n
             pos, lps, acc, divs, ens, take = chunk
             before = self.chain.n_steps
-            appended = self.chain.append(pos, lps)
+            self.chain, appended = append_device_chunk(self.chain, pos, lps)
             # stats stay chain-aligned through a cap-truncated append: keep
             # only the rows the chain took
             took = self.chain.n_steps - before
@@ -533,8 +598,8 @@ class GradientSampler:
             div = np.concatenate(self._divergences, axis=0)
             en = np.concatenate(self._energies, axis=0)
         else:
-            div = np.zeros((0, self.n_chains), bool)
-            en = np.zeros((0, self.n_chains), np.float32)
+            div = np.zeros((0, self._n_local), bool)
+            en = np.zeros((0, self._n_local), np.float32)
         n = self.chain.n_steps  # cap-truncated chunks store fewer rows
         return {"diverging": div[:n][burn_in::thin],
                 "energy": en[:n][burn_in::thin]}

@@ -20,6 +20,11 @@ trajectory with ``log(uniform) < −ΔE``.
 The jittered length of a MAMS trajectory comes from the sampler's CPU
 generator, so the loop runs ``n_live`` steps, a host int; JAX runs ``n_max``
 steps and masks the ones past ``n_live`` (the results are the same).
+
+Sharded (``mesh=``), every rank draws every chain's noise and keeps its
+rows; a tuning round gathers its energy errors (MCLMC) or accepts (MAMS) and
+its positions once, so ε, L and the metric are the same on every rank, and
+sampling has no collective.
 """
 
 from typing import NamedTuple
@@ -47,7 +52,7 @@ from mcmcpp_tpu_torch.ops.random import (
     normal,
     uniform,
 )
-from mcmcpp_tpu_torch.sampler import resolve_device
+from mcmcpp_tpu_torch.parallel.mesh import _engine_rows
 
 
 class MCLMCState(NamedTuple):
@@ -95,17 +100,22 @@ class MCLMCSampler:
     ``decoherence_length`` (L) are the two hyperparameters; leave them and
     call :meth:`tune`, or set them. ``inv_mass`` is an optional diagonal
     preconditioner (the dynamics run in whitened coordinates). ``d >= 2``
-    (the isokinetic map divides by d−1). ``device`` defaults to "cuda".
+    (the isokinetic map divides by d−1). ``device`` defaults to "cuda";
+    ``mesh`` (a ``WalkerLayout``) splits the chains over the ranks of a
+    process group, on the layout's device.
     """
 
     def __init__(self, logp_fn, n_chains, n_params, seed=0,
                  dtype=torch.float32, step_size=None,
                  decoherence_length=None, inv_mass=None,
-                 max_chain_bytes=2 << 30, chain=None, device="cuda"):
+                 max_chain_bytes=2 << 30, mesh=None, chain=None,
+                 device=None):
         if int(n_params) < 2:
             raise ValueError("MCLMC needs n_params >= 2 (isokinetic map "
                              "divides by d-1)")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device, self._row0, self._n_local = _engine_rows(
+            mesh, device, int(n_chains), "n_chains")
         self.n_chains = int(n_chains)
         self.n_params = int(n_params)
         self.dtype = dtype
@@ -124,11 +134,11 @@ class MCLMCSampler:
         self.inv_mass = inv_mass
         if chain is not None:
             if (chain.n_walkers, chain.n_params) != (
-                    self.n_chains, self.n_params):
+                    self._n_local, self.n_params):
                 raise ValueError("injected chain store geometry mismatch")
             self.chain = chain
         else:
-            self.chain = Chain(n_walkers=self.n_chains,
+            self.chain = Chain(n_walkers=self._n_local,
                                n_params=self.n_params,
                                max_bytes=max_chain_bytes,
                                dtype=row_dtype(dtype))
@@ -152,6 +162,11 @@ class MCLMCSampler:
         if self.state is None:
             raise RuntimeError("call init/init_ball first")
 
+    def _whole_steps(self, xs):
+        """A tuning round's (steps, C_local, …) tensor over every chain
+        (itself when unsharded)."""
+        return xs if self.mesh is None else self.mesh.gather(xs, dim=1)
+
     # -- kernel --------------------------------------------------------------
 
     def _scale(self):
@@ -170,9 +185,11 @@ class MCLMCSampler:
         return x, u, logp, grad, dk1, dk2
 
     def draw_noise(self, gen, state, host_gen=None):
-        """One MCLMC step's noise: the refresh normals (C, P)."""
+        """One MCLMC step's noise: the refresh normals (C, P), of every
+        chain (cut to the rank's rows when sharded)."""
         q = state.position
-        return normal(gen, q.shape, q.dtype, q.device)
+        z = normal(gen, (self.n_chains, self.n_params), q.dtype, q.device)
+        return z[self._row0:self._row0 + self._n_local]
 
     def apply(self, z, state, eps, length):
         """One MCLMC transition (≙ ``mclmc.py:202-219``) at host floats eps
@@ -195,8 +212,10 @@ class MCLMCSampler:
     def init(self, positions):
         positions = as_positions(positions, self.n_chains, self.n_params,
                                  self.dtype, self.device)
+        rows = slice(self._row0, self._row0 + self._n_local)
         u = _normalize(normal(self._aux_gen, positions.shape, self.dtype,
-                              self.device))
+                              self.device))[rows]
+        positions = positions[rows]
         self.state = MCLMCState(positions, u,
                                 *logp_and_grad(self.logp_fn, positions))
         return self
@@ -218,13 +237,13 @@ class MCLMCSampler:
                                             self.decoherence_length)
                 des.append(de)
                 xs.append(self.state.position)
-            var_e = float(torch.var(torch.stack(des), correction=0)
-                          ) / self.n_params
+            var_e = float(torch.var(self._whole_steps(torch.stack(des)),
+                                    correction=0)) / self.n_params
             self.energy_var = var_e
             ratio = (target_energy_var / max(var_e, 1e-12)) ** 0.25
             eps *= float(np.clip(ratio, 0.5, 2.0))
         self.step_size = float(eps)
-        return torch.stack(xs)
+        return self._whole_steps(torch.stack(xs))
 
     def _whitened_spread(self, xs):
         """1.6·sqrt(Σ Var[z_i]) of the whitened draws: the new L."""
@@ -267,9 +286,9 @@ class MCLMCSampler:
         return self._step(state, self.step_size, self.decoherence_length)[0]
 
     def _run_chunk(self, take, thin):
-        pos = torch.empty((take, self.n_chains, self.n_params),
+        pos = torch.empty((take, self._n_local, self.n_params),
                           dtype=self.dtype, device=self.device)
-        lps = torch.empty((take, self.n_chains), dtype=self.dtype,
+        lps = torch.empty((take, self._n_local), dtype=self.dtype,
                           device=self.device)
         for s in range(take):
             for _ in range(thin):
@@ -320,8 +339,11 @@ class MAMSSampler(MCLMCSampler):
         accept uniforms (C,)."""
         q = state.position
         n_live = int(torch.randint(1, n_max + 1, (), generator=host_gen))
-        return (n_live, normal(gen, q.shape, q.dtype, q.device),
-                uniform(gen, q.shape[0], q.dtype, q.device))
+        rows = slice(self._row0, self._row0 + self._n_local)
+        return (n_live,
+                normal(gen, (self.n_chains, self.n_params), q.dtype,
+                       q.device)[rows],
+                uniform(gen, self.n_chains, q.dtype, q.device)[rows])
 
     def apply(self, noise, state, eps):
         """A jittered-length isokinetic trajectory + MH accept (≙
@@ -366,8 +388,8 @@ class MAMSSampler(MCLMCSampler):
                 self.state, acc = self._trajectory(self.state, eps)
                 accs.append(acc)
                 positions.append(self.state.position)
-            xs = torch.stack(positions)
-            acc = float(torch.stack(accs).float().mean())
+            xs = self._whole_steps(torch.stack(positions))
+            acc = float(self._whole_steps(torch.stack(accs)).float().mean())
             self.last_mean_accept = acc
             eps *= float(np.clip(np.exp(acc - self.target_accept), 0.5, 2.0))
         self.step_size = float(eps)

@@ -14,6 +14,10 @@ fold's kernel leaves the target invariant and there is no warmup phase:
 Largest eigenvalues come from a fixed-iteration power method on the centered
 data matrix (two (C, P) products an iteration). Momentum is stored in
 whitened units.
+
+Sharded (``mesh=``), a rank updates its rows of each fold and takes the
+fold statistics from every chain's positions and gradients, gathered once
+a sweep and again after each fold's update, as the next fold reads them.
 """
 
 from typing import NamedTuple
@@ -118,8 +122,14 @@ class MEADSKernel(GradientKernel):
         folds = state.position.chunk(self.n_folds)
         return tuple(self.fold_step.draw_noise(gen, q) for q in folds)
 
+    def noise_rows(self, noise, row0, n):
+        # every fold's noise stays whole: apply cuts each to the rank's rows
+        return noise
+
     def apply(self, noise, state, step_size=None, inv_mass=None):
         # (step_size, inv_mass) come from the shared sampler: MEADS tunes itself
+        if self.shard is not None:
+            return self._apply_rows(noise, state)
         k_folds = self.n_folds
         q, p, lp, g = (list(x.chunk(k_folds)) for x in state)
         infos = []
@@ -132,6 +142,36 @@ class MEADSKernel(GradientKernel):
             infos.append(info)
         new = MEADSState(*(torch.cat(x) for x in (q, p, lp, g)))
         return new, tuple(torch.cat(x) for x in zip(*infos))
+
+    def _apply_rows(self, noise, state):
+        """The sweep on a rank's rows row0…row0+n−1 of the chain axis: fold
+        k's rows of the rank take the unsharded update, tuned by fold k−1
+        of every chain's (q, g), gathered before the sweep and after each
+        fold but the last."""
+        layout, row0, n = self.shard
+        k_folds = self.n_folds
+        f = n * layout.world_size // k_folds  # chains a fold
+        whole_q, whole_g = layout.gather_rows(state.position, state.grad)
+        fields = tuple(state)
+        infos = []
+        for k in range(k_folds):
+            prev = (k - 1) % k_folds
+            sd, eps, delta = fold_parameters(
+                whole_q[prev * f:(prev + 1) * f],
+                whole_g[prev * f:(prev + 1) * f], self.step_factor)
+            a, b = max(k * f, row0), min((k + 1) * f, row0 + n)
+            if a < b:
+                own = slice(a - row0, b - row0)
+                q, p, lp, g, *info = self.fold_step.apply(
+                    tuple(x[a - k * f:b - k * f] for x in noise[k]),
+                    *(x[own] for x in fields), sd, eps, delta)
+                fields = tuple(torch.cat([x[:own.start], y, x[own.stop:]])
+                               for x, y in zip(fields, (q, p, lp, g)))
+                infos.append(info)
+            if k < k_folds - 1:
+                whole_q, whole_g = layout.gather_rows(fields[0], fields[3])
+        return (MEADSState(*fields),
+                tuple(torch.cat(x) for x in zip(*infos)))
 
 
 class MEADSSampler(GradientSampler):
@@ -161,8 +201,9 @@ class MEADSSampler(GradientSampler):
         """Positions, their logp and gradient, and a N(0, I) momentum from
         the auxiliary generator."""
         positions = self._positions(positions)
-        momentum = normal(self._aux_gen, positions.shape, self.dtype,
-                          self.device)
+        momentum = normal(self._aux_gen, (self.n_chains, self.n_params),
+                          self.dtype, self.device)
+        momentum = momentum[self._row0:self._row0 + self._n_local]
         lp, g = logp_and_grad(self.logp_fn, positions)
         self.state = MEADSState(positions, momentum, lp, g)
         return self

@@ -27,6 +27,11 @@ Noise of one transition: the momentum's normals ``z (C, P)``, the direction
 bits ``(C, D)``, the merge uniforms ``(C, D)`` and the leaf uniforms
 ``(C, D, 2^(D-1))``: doubling d, leaf j of chain c uses ``[c, d, j]``, which
 is where JAX's key chain of that chain puts them (``nuts.py:103``, ``:162``).
+
+Sharded (``mesh=``), each rank's loops test "any chain running" over every
+rank's chains (a MAX all-reduce, ``layout.any``), so all ranks run the
+doublings and leaves the unsharded batch runs, a rank whose chains have all
+stopped running them masked.
 """
 
 import torch
@@ -35,6 +40,7 @@ from mcmcpp_tpu_torch.gradient.hmc import (
     GradientKernel,
     GradientSampler,
     HMCState,
+    _logaddexp,
     logp_and_grad,
 )
 from mcmcpp_tpu_torch.gradient.metric import (
@@ -86,7 +92,11 @@ class NUTSKernel(GradientKernel):
                 uniform(gen, (c, d, 1 << (d - 1)), q.dtype, dev))
 
     def _any(self, mask):
+        """"Is any chain still running", of every rank's chains when
+        sharded (so that all ranks take the same iterations)."""
         self.host_syncs += 1
+        if self.shard is not None:
+            return self.shard[0].any(mask)
         return bool(mask.any())
 
     def apply(self, noise, state, step_size, inv_mass):
@@ -127,7 +137,7 @@ class NUTSKernel(GradientKernel):
                 torch.where(active, n_leaf + sub_n, n_leaf),
                 _where(active & take, sub_prop, prop),
                 torch.where(active & valid,
-                            torch.logaddexp(logw, sub_logw), logw),
+                            _logaddexp(logw, sub_logw), logw),
                 _where(active, new_left, left),
                 _where(active, new_right, right),
                 torch.where(active, sub_turn | (valid & tree_turn), turning),
@@ -178,7 +188,7 @@ class NUTSKernel(GradientKernel):
                 posinf=torch.inf, neginf=-torch.inf)
             div_leaf = logw_leaf < -self.max_delta_energy
             # progressive multinomial sampling within the subtree
-            logw_new = torch.logaddexp(logw, logw_leaf)
+            logw_new = _logaddexp(logw, logw_leaf)
             take = live & (log_leaf_u[:, leaf] < logw_leaf - logw_new)
             prop = _where(take, (q, lp, g), prop)
             # checkpoint store (even leaf) / U-turn test (odd leaf) against

@@ -15,6 +15,10 @@ tuple, list or dict of tensors sharing the leading axis N) at the drawn
 rows. The data live on the sampler's device, floating leaves at its
 dtype. The step counter of the decay
 schedule is a host int, so each step's eps is a host float.
+
+Sharded (``mesh=``), every rank draws the shared minibatch and every
+chain's normals and keeps its chains' rows; no step reduces over the
+chains, so a step has no collective.
 """
 
 from typing import NamedTuple
@@ -40,7 +44,8 @@ from mcmcpp_tpu_torch.ops.random import (
     normal,
     randint,
 )
-from mcmcpp_tpu_torch.sampler import _tree_map, resolve_device
+from mcmcpp_tpu_torch.parallel.mesh import _engine_rows
+from mcmcpp_tpu_torch.sampler import _tree_map
 
 
 class SGState(NamedTuple):
@@ -62,14 +67,17 @@ class StochasticGradientSampler:
 
     ``step_size_decay=(t0, gamma)`` applies ``eps_t = step_size·(1 +
     t/t0)^(−gamma)``; ``None`` keeps a constant step. ``device`` defaults
-    to "cuda".
+    to "cuda"; ``mesh`` (a ``WalkerLayout``) splits the chains over the
+    ranks of a process group, on the layout's device.
     """
 
     def __init__(self, logprior_fn, loglike_fn, data, n_chains, n_params,
                  batch_size, seed=0, dtype=torch.float32, step_size=1e-3,
-                 step_size_decay=None, max_chain_bytes=2 << 30, chain=None,
-                 device="cuda"):
-        self.device = resolve_device(device)
+                 step_size_decay=None, max_chain_bytes=2 << 30, mesh=None,
+                 chain=None, device=None):
+        self.mesh = mesh
+        self.device, self._row0, self._n_local = _engine_rows(
+            mesh, device, int(n_chains), "n_chains")
         self.logprior_fn = logprior_fn
         self.loglike_fn = loglike_fn
 
@@ -105,7 +113,7 @@ class StochasticGradientSampler:
                 raise ValueError("injected chain store geometry mismatch")
             self.chain = chain
         else:
-            self.chain = Chain(n_walkers=self.n_chains,
+            self.chain = Chain(n_walkers=self._n_local,
                                n_params=self.n_params,
                                max_bytes=max_chain_bytes,
                                dtype=row_dtype(dtype))
@@ -131,10 +139,11 @@ class StochasticGradientSampler:
 
     def draw_noise(self, gen, state):
         """One step's noise: the minibatch rows (B,) int64 and the normals
-        (C, P)."""
+        (C, P), of every chain (cut to the rank's rows when sharded)."""
         q = state.position
-        return (randint(gen, 0, self.n_data, (self.batch_size,), q.device),
-                normal(gen, q.shape, q.dtype, q.device))
+        idx = randint(gen, 0, self.n_data, (self.batch_size,), q.device)
+        z = normal(gen, (self.n_chains, self.n_params), q.dtype, q.device)
+        return idx, z[self._row0:self._row0 + self._n_local]
 
     def apply(self, noise, state):
         """Subclass hook: -> (state, (position evaluated, logp estimate
@@ -153,6 +162,7 @@ class StochasticGradientSampler:
     def init(self, positions):
         positions = as_positions(positions, self.n_chains, self.n_params,
                                  self.dtype, self.device)
+        positions = positions[self._row0:self._row0 + self._n_local]
         self.state = SGState(positions, torch.zeros_like(positions), 0)
         return self
 
@@ -160,9 +170,9 @@ class StochasticGradientSampler:
         return self.init(ball(self, center, scale, seed))
 
     def _run_chunk(self, take, thin):
-        pos = torch.empty((take, self.n_chains, self.n_params),
+        pos = torch.empty((take, self._n_local, self.n_params),
                           dtype=self.dtype, device=self.device)
-        lps = torch.empty((take, self.n_chains), dtype=self.dtype,
+        lps = torch.empty((take, self._n_local), dtype=self.dtype,
                           device=self.device)
         for s in range(take):
             for _ in range(thin):

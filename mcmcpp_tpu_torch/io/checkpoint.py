@@ -121,19 +121,19 @@ def _host(t):
 
 
 def _one_rank(sampler):
-    """An ensemble checkpoint holds the whole ensemble: a sharded sampler
-    of more than one rank holds only its rows (there is no sharded
-    checkpoint kind, as in the JAX package)."""
+    """A checkpoint holds the whole run: a sampler sharded over more than
+    one rank (``mesh=``) holds only its rows (there is no sharded
+    checkpoint kind, as in the JAX package). In a group of one a sharded
+    sampler saves and loads as an unsharded one."""
     layout = getattr(sampler, "mesh", None)
     if layout is not None and layout.world_size > 1:
         raise NotImplementedError(
-            f"a ShardedEnsembleSampler over {layout.world_size} ranks holds "
-            "only its own walkers; no checkpoint kind saves or loads a "
-            "sharded ensemble")
+            f"a {type(sampler).__name__} over {layout.world_size} ranks "
+            "holds only its own rows; no checkpoint kind saves or loads a "
+            "sharded run")
 
 
 def _save_ensemble(sampler, meta, arrays):
-    _one_rank(sampler)
     s = sampler.state
     meta.update(n_walkers=sampler.n_walkers,
                 reset_step_base=sampler._reset_step_base)
@@ -366,6 +366,7 @@ def save_checkpoint(sampler, path):
     kind = checkpoint_kind(sampler)
     if kind is None:
         raise TypeError(f"unsupported sampler type {type(sampler).__name__}")
+    _one_rank(sampler)
     if kind == "nested" and sampler._live is None:
         raise RuntimeError("cannot checkpoint a NestedSampler before run() "
                            "has initialized the live set")
@@ -406,7 +407,6 @@ def save_checkpoint(sampler, path):
 def _load_ensemble(sampler, meta, arrays, dev):
     from mcmcpp_tpu_torch.sampler import EnsembleState
 
-    _one_rank(sampler)
     sampler.state = EnsembleState(
         red=dev("red"), black=dev("black"),
         logp_red=dev("logp_red"), logp_black=dev("logp_black"),
@@ -779,6 +779,7 @@ def load_checkpoint(sampler, path, allow_device_change=False):
     run of the same chain, deterministic for a given file, but NOT the one
     the writing device would have drawn: it is not bitwise.
     """
+    _one_rank(sampler)
     path = Path(path)
     if path.suffix != ".npz" and not path.exists():
         path = path.with_name(path.name + ".npz")

@@ -27,7 +27,15 @@ plus the slice kernel's loop tests.
 An iteration is ``draw_noise()`` (every random draw, the slice kernel's for
 every possible loop iteration too) and ``iterate(live, ll, lpp, noise)``,
 so a test can hand the port the JAX package's draws. ``run()`` again
-continues a run; ``reset()`` starts over. ``mesh=`` is not ported.
+continues a run; ``reset()`` starts over.
+
+Sharded (``mesh=``), the B regrowth walkers split over the ranks, and the
+live set, which every iteration sorts whole, is the same on every rank: a
+rank regrows its walkers from every walker's draws (the slice kernel's
+loop tests cover every rank's walkers) and one all-gather an iteration
+brings every rank the regrown walkers with their accept or evaluation
+counts, so the sort, the dead points and the float64 ledger are the
+unsharded run's on every rank.
 """
 
 import math
@@ -42,7 +50,7 @@ from mcmcpp_tpu_torch.ops.random import (
     STEP_STREAM,
     make_generator,
 )
-from mcmcpp_tpu_torch.sampler import resolve_device
+from mcmcpp_tpu_torch.parallel.mesh import _engine_rows
 
 __all__ = ["NestedResult", "NestedSampler"]
 
@@ -116,15 +124,17 @@ class NestedSampler:
     prior_sample : (gen, n) -> (n, P) exact prior draws, ``gen`` a
         generator on the sampler's device.
     device : default "cuda" (CUDA without a GPU raises).
+    mesh : a ``WalkerLayout`` splitting the regrowth walkers over the ranks
+        of a process group, on the layout's device.
     """
 
     def __init__(self, logprior_fn, loglike_fn, prior_sample, n_params,
                  n_live=500, batch=None, n_mcmc=30, a=2.0, seed=0,
                  dtype=torch.float32, kernel="stretch", max_slice_expand=8,
-                 max_slice_shrink=32, batched=False, device="cuda"):
+                 max_slice_shrink=32, batched=False, mesh=None,
+                 device=None):
         if kernel not in ("stretch", "slice"):
             raise ValueError(f"unknown kernel {kernel!r}")
-        self.device = resolve_device(device)
         self.kernel = kernel
         self.max_slice_expand = int(max_slice_expand)
         self.max_slice_shrink = int(max_slice_shrink)
@@ -135,6 +145,9 @@ class NestedSampler:
         if not 0 < self.batch < self.n_live:
             raise ValueError(
                 f"batch={self.batch} must be in (0, n_live={self.n_live})")
+        self.mesh = mesh
+        self.device, self._b0, self._bn = _engine_rows(
+            mesh, device, self.batch, "batch")
         self.n_mcmc = int(n_mcmc)
         self.a = float(a)
         self.dtype = dtype
@@ -186,7 +199,11 @@ class NestedSampler:
                        device=dev))
 
     def _any(self, mask):
+        """"Is any walker still going", of every rank's walkers when
+        sharded."""
         self.host_syncs += 1
+        if self.mesh is not None:
+            return self.mesh.any(mask)
         return bool(mask.any())
 
     def _slice_direction(self, x, x_ll, x_lpp, chol, lstar, noise, j):
@@ -251,17 +268,31 @@ class NestedSampler:
         new_lpp = torch.where(ok, self._logprior(new_x), x_lpp)
         return new_x, new_ll, new_lpp, evals + n_sh + 1
 
+    def _noise_rows(self, noise):
+        """The rank's walkers' draws of an iteration: the walker axis is
+        the first of ``seed_idx``, the last of the slice kernel's shrink
+        uniforms, the second of every other plane."""
+        rows = slice(self._b0, self._b0 + self._bn)
+        return type(noise)(*(
+            x[rows] if name == "seed_idx" else
+            x[..., rows] if name == "shrink_u" else x[:, rows]
+            for name, x in zip(noise._fields, noise)))
+
     @torch.no_grad()
     def iterate(self, live, ll, lpp, noise):
         """One batch: sort, kill the B worst, regrow B chains above L*.
         Returns (live, ll, lpp, dead, dead_ll, acc): ``acc`` the accepted
-        stretch moves, or the slice kernel's likelihood evaluations."""
+        stretch moves, or the slice kernel's likelihood evaluations.
+        Sharded, ``live`` is the whole live set and ``noise`` every
+        walker's draws; a rank regrows its walkers and gathers all."""
         n, b = self.n_live, self.batch
         order = torch.argsort(ll, stable=True)
         live, ll, lpp = live[order], ll[order], lpp[order]
         dead, dead_ll = live[:b], ll[:b]
         surv, surv_ll, surv_lpp = live[b:], ll[b:], lpp[b:]
         lstar = ll[b - 1]
+        if self.mesh is not None:
+            noise = self._noise_rows(noise)
         pos, pos_ll = surv[noise.seed_idx], surv_ll[noise.seed_idx]
         pos_lpp = surv_lpp[noise.seed_idx]
         if self.kernel == "slice":
@@ -269,14 +300,15 @@ class NestedSampler:
                 _cov(surv) + 1e-8 * torch.eye(self.n_params,
                                               dtype=surv.dtype,
                                               device=surv.device))
-            acc = torch.zeros((b,), dtype=torch.int64, device=live.device)
+            acc = torch.zeros(pos_ll.shape, dtype=torch.int64,
+                              device=live.device)
             for j in range(self.n_mcmc):
                 pos, pos_ll, pos_lpp, evals = self._slice_direction(
                     pos, pos_ll, pos_lpp, chol, lstar, noise, j)
                 acc = acc + evals
-            acc = acc.sum()
         else:
-            acc = torch.zeros((), dtype=torch.int64, device=live.device)
+            acc = torch.zeros(pos_ll.shape, dtype=torch.int64,
+                              device=live.device)
             for i in range(self.n_mcmc):
                 z = (noise.u[i] * (self.a - 1.0) + 1.0) ** 2 / self.a
                 c = surv[noise.c_idx[i]]
@@ -289,9 +321,17 @@ class NestedSampler:
                 pos = torch.where(ok[:, None], prop, pos)
                 pos_ll = torch.where(ok, prop_ll, pos_ll)
                 pos_lpp = torch.where(ok, prop_lpp, pos_lpp)
-                acc = acc + ok.sum()
+                acc = acc + ok
+        if self.mesh is not None:
+            # every rank's walkers; float64 holds the counts exactly
+            pos, pos_ll, pos_lpp, acc = self.mesh.gather_rows(
+                pos.double(), pos_ll.double(), pos_lpp.double(),
+                acc.double())
+            pos, pos_ll, pos_lpp = (x.to(live.dtype)
+                                    for x in (pos, pos_ll, pos_lpp))
+            acc = acc.to(torch.int64)
         return (torch.cat([surv, pos]), torch.cat([surv_ll, pos_ll]),
-                torch.cat([surv_lpp, pos_lpp]), dead, dead_ll, acc)
+                torch.cat([surv_lpp, pos_lpp]), dead, dead_ll, acc.sum())
 
     # -- host ledger ---------------------------------------------------------
 

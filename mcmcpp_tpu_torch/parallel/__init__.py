@@ -6,7 +6,9 @@ reference's pthread parallel runtime (``MCMCpp/ParallelEnsembleSampler.h``,
 ``torch.distributed`` process group, one device each, and the steps'
 collectives are written out: an all-gather of the opposite half before each
 half-step, and all-reduces for the acceptance counts and the slice move's
-loop tests (``sharded.py``).
+loop tests (``sharded.py``). The MCMC and evidence engines take the same
+layouts as ``mesh=`` and write their collectives through them
+(``mesh.py``).
 """
 
 from mcmcpp_tpu_torch.parallel import distributed

@@ -45,7 +45,6 @@ from mcmcpp_tpu_torch.sampler import (
     EnsembleSampler,
     EnsembleState,
     init_state,
-    resolve_device,
 )
 
 
@@ -96,18 +95,7 @@ class ShardedEnsembleSampler(EnsembleSampler):
 
     def __init__(self, *args, mesh=None, device=None, **kwargs):
         self.mesh = mesh if mesh is not None else make_walker_mesh()
-        if self.mesh.world_size != distributed.world_size():
-            raise ValueError(
-                f"the layout has {self.mesh.world_size} ranks, the process "
-                f"group {distributed.world_size()}")
-        dev = self.mesh.device if device is None else resolve_device(device)
-        if dev.type != self.mesh.device.type or (
-                dev.index is not None and dev != self.mesh.device):
-            raise ValueError(
-                f"a sampler on {dev} cannot run under a process group whose "
-                f"collectives run on {self.mesh.device} (NCCL takes the "
-                "card, gloo the CPU)")
-        super().__init__(*args, device=self.mesh.device, **kwargs)
+        super().__init__(*args, device=self.mesh.bind(device), **kwargs)
         self._row0, self._n_local = self.mesh.rows(self.n_walkers // 2)
         self._gathered = torch.empty((self.n_walkers // 2, self.n_params),
                                      dtype=self.dtype, device=self.device)

@@ -15,6 +15,13 @@ host sync. β is a plain float read at each step, so ``tune()`` changes it
 without rebuilding anything (the JAX package compiles one program per β).
 Every transition is ``draw_noise`` (z (C, P), log u (C,)) and a
 deterministic ``apply``.
+
+Sharded (``mesh=``), every rank draws every chain's noise and keeps its
+rows; a step has no collective, and the accept counts are summed over the
+ranks when read (one all-gather), so ``acceptance_fraction`` and ``tune``'s
+β are the same on every rank. A rank's prior product has fewer rows than
+the unsharded one; where the matmul's blocking depends on the row count its
+rows can differ from the unsharded product's in the last bits.
 """
 
 from typing import NamedTuple
@@ -33,7 +40,7 @@ from mcmcpp_tpu_torch.ops.random import (
     neg_exponential,
     normal,
 )
-from mcmcpp_tpu_torch.sampler import resolve_device
+from mcmcpp_tpu_torch.parallel.mesh import _engine_rows
 
 
 class PCNState(NamedTuple):
@@ -48,15 +55,19 @@ class PCNSampler:
     ``prior_mean`` (P,) and either ``prior_chol`` (P, P) lower Cholesky or
     ``prior_scale`` (P,). ``beta`` in (0, 1] is the pCN step size (β = 1 is
     an independence sampler from the prior; tune for ~20–40% acceptance,
-    which stays flat in P). ``device`` defaults to "cuda"."""
+    which stays flat in P). ``device`` defaults to "cuda"; ``mesh`` (a
+    ``WalkerLayout``) splits the chains over the ranks of a process group,
+    on the layout's device."""
 
     def __init__(self, log_like_fn, prior_mean, prior_chol=None,
                  prior_scale=None, beta=0.2, n_chains=32, seed=0,
-                 dtype=torch.float32, max_chain_bytes=2 << 30, chain=None,
-                 batched=False, device="cuda"):
+                 dtype=torch.float32, max_chain_bytes=2 << 30, mesh=None,
+                 chain=None, batched=False, device=None):
         if not 0.0 < float(beta) <= 1.0:
             raise ValueError("beta must be in (0, 1]")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device, self._row0, self._n_local = _engine_rows(
+            mesh, device, int(n_chains), "n_chains")
         self.beta = float(beta)
         self.dtype = dtype
         self.prior_mean, self.prior_chol = gaussian_prior(
@@ -69,17 +80,20 @@ class PCNSampler:
         self._aux_gen = make_generator(seed, AUX_STREAM, self.device)
         self.state = None
         self.total_steps = 0
-        self.chain = check_chain(chain, self.n_chains, self.n_params,
+        self.chain = check_chain(chain, self._n_local, self.n_params,
                                  max_chain_bytes, dtype)
 
     def init(self, positions):
+        """Every chain's (C, P) positions (a sharded sampler keeps its
+        rows)."""
         positions = as_tensor(positions, self.dtype, self.device)
         if tuple(positions.shape) != (self.n_chains, self.n_params):
             raise ValueError(
                 f"positions must be ({self.n_chains}, {self.n_params})")
+        positions = positions[self._row0:self._row0 + self._n_local]
         self.state = PCNState(
             positions, self._batched_loglike(positions),
-            torch.zeros((self.n_chains,), dtype=torch.int32,
+            torch.zeros((self._n_local,), dtype=torch.int32,
                         device=self.device))
         self.total_steps = 0
         return self
@@ -93,22 +107,31 @@ class PCNSampler:
                    self.device)
         return self.init(self.prior_mean[None, :] + z @ self.prior_chol.T)
 
+    def _accepted_total(self):
+        """Accepted moves of every chain (of every rank's, when sharded)."""
+        acc = self.state.accepted
+        if self.mesh is not None:
+            acc = self.mesh.gather(acc)
+        return int(acc.sum())
+
     @property
     def acceptance_fraction(self):
         """Mean accept rate since init (or since ``tune`` ended)."""
         if self.state is None or self.total_steps == 0:
             return 0.0
-        return float(int(self.state.accepted.sum())
+        return float(self._accepted_total()
                      / (self.total_steps * self.n_chains))
 
     # -- one transition for the whole (C, P) batch ---------------------------
 
     def draw_noise(self):
-        """(z (C, P) standard normals, log u (C,) = −Exp(1))."""
+        """(z (C, P) standard normals, log u (C,) = −Exp(1)), of every
+        chain (cut to the rank's rows when sharded)."""
+        rows = slice(self._row0, self._row0 + self._n_local)
         return (normal(self._step_gen, (self.n_chains, self.n_params),
-                       self.dtype, self.device),
+                       self.dtype, self.device)[rows],
                 neg_exponential(self._step_gen, self.n_chains, self.dtype,
-                                self.device))
+                                self.device)[rows])
 
     def apply(self, noise, state, beta=None):
         """One pCN step of every chain on the draws ``noise``, at step size
@@ -148,10 +171,10 @@ class PCNSampler:
         if not 0.0 < float(target) < 1.0:
             raise ValueError("target must be in (0, 1)")
         window = int(window)
-        prev = int(self.state.accepted.sum())
+        prev = self._accepted_total()
         for k in range(max(1, int(n_steps) // window)):
             self._advance(window)
-            total = int(self.state.accepted.sum())
+            total = self._accepted_total()
             acc = (total - prev) / (window * self.n_chains)
             prev = total
             log_beta = np.log(self.beta) + rate / (k + 1.0) ** 0.6 * (
@@ -166,9 +189,9 @@ class PCNSampler:
     # -- driver --------------------------------------------------------------
 
     def _run_chunk(self, take, thin):
-        pos = torch.empty((take, self.n_chains, self.n_params),
+        pos = torch.empty((take, self._n_local, self.n_params),
                           dtype=self.dtype, device=self.device)
-        lls = torch.empty((take, self.n_chains), dtype=self.dtype,
+        lls = torch.empty((take, self._n_local), dtype=self.dtype,
                           device=self.device)
         for s in range(take):
             self._advance(thin)
@@ -185,7 +208,7 @@ class PCNSampler:
         thin = int(thin)
         n_store = int(n_steps) // thin
         leftover = int(n_steps) - n_store * thin
-        chunk = default_chunk_steps(self.n_chains, self.n_params,
+        chunk = default_chunk_steps(self._n_local, self.n_params,
                                     row_dtype(self.dtype))
         ok = run_pipelined(n_store, chunk,
                            lambda take: self._run_chunk(take, thin),

@@ -21,7 +21,18 @@ N/(K+1) seeds and keeps every ensemble their K mutation steps visit.
 A stage is ``draw_stage_noise()`` (every random draw, in a fixed order)
 and ``apply_stage(state, noise)`` (deterministic), so a test can hand the
 port the JAX package's draws. The only host read a stage makes is β, for
-``run()``'s stopping test. ``mesh=`` is not ported.
+``run()``'s stopping test.
+
+Sharded (``mesh=``), the mutation's halves split over the ranks: rank r
+holds rows r·h…(r+1)·h − 1 of each half (of each of the waste-free blocks),
+as ``[red, black]`` (block by block), and draws every particle's noise. A
+stage gathers the particles with their log prior and likelihood once, runs
+the β bisection, the evidence increment and the resampling on that copy
+exactly as the unsharded stage does (so β, log Z and the ancestors are the
+same on every rank), and keeps its rows of the resampled halves; the
+ensemble mutation gathers the other half before each half-step, and its
+movers (the split kernels of ``FusedStretchMove`` too) update the rank's
+rows at their offset.
 """
 
 import math
@@ -32,6 +43,7 @@ import numpy as np
 import torch
 
 from mcmcpp_tpu_torch.gradient.hmc import logp_and_grad
+from mcmcpp_tpu_torch.movers.base import rows_of
 from mcmcpp_tpu_torch.movers.stretch import StretchMove
 from mcmcpp_tpu_torch.neutra import RealNVP, gaussian_logq
 from mcmcpp_tpu_torch.optim import adam_init, adam_step
@@ -42,7 +54,7 @@ from mcmcpp_tpu_torch.ops.random import (
     make_generator,
     neg_exponential,
 )
-from mcmcpp_tpu_torch.sampler import resolve_device
+from mcmcpp_tpu_torch.parallel.mesh import _engine_rows
 
 __all__ = ["SMCSampler", "SMCState", "StageNoise", "ess_from_log_weights",
            "systematic_resample"]
@@ -157,6 +169,9 @@ class SMCSampler:
     mover : the ensemble mutation's mover (default StretchMove).
     flow : the flow mutation's flow (default ``RealNVP(n_params)``).
     device : default "cuda" (CUDA without a GPU raises).
+    mesh : a ``WalkerLayout`` splitting the particles over the ranks of a
+        process group, on the layout's device (the seed count must be even
+        and its halves divide by the ranks).
     """
 
     def __init__(self, log_prior_fn, log_like_fn, prior_sample_fn, n_particles,
@@ -164,10 +179,10 @@ class SMCSampler:
                  dtype=torch.float32, mover=None, waste_free_k=None,
                  mutation="ensemble", mala_scale=1.0, flow=None,
                  flow_fit_steps=150, flow_batch=256, flow_lr=1e-3,
-                 hmc_steps=8, hmc_scale=0.5, batched=False, device="cuda"):
+                 hmc_steps=8, hmc_scale=0.5, batched=False, mesh=None,
+                 device=None):
         if mutation not in ("ensemble", "mala", "flow", "hmc"):
             raise ValueError(f"unknown mutation {mutation!r}")
-        self.device = resolve_device(device)
         self.mutation = mutation
         self.mala_scale = float(mala_scale)
         self.hmc_steps = int(hmc_steps)
@@ -197,6 +212,16 @@ class SMCSampler:
                 raise ValueError(
                     f"waste-free seed count {self.n // (k + 1)} must be even "
                     "(stretch mutation uses halves)")
+        self.mesh = mesh
+        m = self._seed_count()
+        if mesh is not None and m % 2:
+            raise ValueError(f"seed count {m} must be even to split its "
+                             "halves over a mesh")
+        self.device, self._h0, self._hn = _engine_rows(
+            mesh, device, m // 2, "n_particles/2")
+        # the particle axis as (blocks, half, rows): waste-free keeps K+1
+        # blocks of seeds
+        self._blocks = self.n // m
         self.dtype = dtype
         self.mover = mover if mover is not None else StretchMove()
         self._mover_state = self.mover.init_state(self.n_params, dtype,
@@ -224,6 +249,38 @@ class SMCSampler:
             return None
         return self._flow.param_list(), self._flow_opt_state
 
+    def _whole(self, x):
+        """Every particle's rows of the rank's ``x`` (n_local, …), in the
+        unsharded order (one all-gather)."""
+        b, hn = self._blocks, self._hn
+        rest = tuple(x.shape[1:])
+        stacked = self.mesh.stack(x.reshape((b, 2, hn) + rest))
+        return stacked.movedim(0, 2).reshape((self.n,) + rest).contiguous()
+
+    def _own(self, x):
+        """The rank's rows of every particle's ``x`` (N, …)."""
+        b, rest = self._blocks, tuple(x.shape[1:])
+        x = x.reshape((b, 2, -1) + rest)[:, :, self._h0:self._h0 + self._hn]
+        return x.reshape((-1,) + rest).contiguous()
+
+    def _gathered(self, state):
+        """Every particle, log prior and log likelihood of a sharded state:
+        one all-gather."""
+        p = self.n_params
+        whole = self._whole(torch.cat([state.particles,
+                                       state.log_prior[:, None],
+                                       state.log_like[:, None]], 1))
+        return (whole[:, :p].contiguous(), whole[:, p].contiguous(),
+                whole[:, p + 1].contiguous())
+
+    def _other(self, x):
+        """The other half a half-step proposes against: every particle's
+        rows of it for the sharded ensemble mutation (one all-gather); the
+        other mutations read none."""
+        if self.mesh is None or self.mutation != "ensemble":
+            return x
+        return self.mesh.gather(x)
+
     def init(self):
         if self._flow is not None:
             params = self._flow.init(self._aux_gen)
@@ -231,6 +288,8 @@ class SMCSampler:
         particles = torch.as_tensor(
             self.prior_sample_fn(self._aux_gen, self.n)).to(self.device,
                                                             self.dtype)
+        if self.mesh is not None:
+            particles = self._own(particles)
         zero = torch.zeros((), dtype=self.dtype, device=self.device)
         self.state = SMCState(particles, self._log_prior(particles),
                               self._log_like(particles), zero, zero.clone())
@@ -293,9 +352,14 @@ class SMCSampler:
             return self._log_prior(x) + beta_new * self._log_like(x)
 
         if self.mutation == "ensemble":
+            # a sharded half-step's rows sit at their offset (a mover
+            # subclass without these arguments still runs unsharded)
+            rows = ({} if self.mesh is None
+                    else {"row0": self._h0, "layout": self.mesh})
+
             def ensemble_half(x, carry, noise, other):
                 x, lp, _ = self.mover.apply(x, carry[0], other, tempered,
-                                            self._mover_state, noise)
+                                            self._mover_state, noise, **rows)
                 return x, (lp,)
 
             return ensemble_half, lambda x, lp: (lp,)
@@ -363,24 +427,39 @@ class SMCSampler:
         """One adaptive stage from ``noise`` (:meth:`draw_stage_noise`):
         the next β, the evidence increment, resampling, mutation, and the
         log prior and likelihood of the new particles."""
-        beta_new = _find_next_beta(state.log_like, state.beta,
-                                   self.target_ess, self.n)
-        log_w = (beta_new - state.beta) * state.log_like
+        particles, log_prior, log_like = (state.particles, state.log_prior,
+                                          state.log_like)
+        if self.mesh is not None:
+            particles, log_prior, log_like = self._gathered(state)
+        beta_new = _find_next_beta(log_like, state.beta, self.target_ess,
+                                   self.n)
+        log_w = (beta_new - state.beta) * log_like
         log_evidence = state.log_evidence + (
             torch.logsumexp(log_w, 0) - math.log(float(self.n)))
         m = self._seed_count()
         idx = systematic_resample(noise.u0, log_w, m)
-        seeds = state.particles[idx]
-        logp_t = state.log_prior[idx] + beta_new * state.log_like[idx]
+        seeds = particles[idx]
+        logp_t = log_prior[idx] + beta_new * log_like[idx]
         half_update, init_carry = self._mutation(seeds, beta_new, noise.fit)
         half = m // 2
         red, black = seeds[:half], seeds[half:]
-        cr, cb = init_carry(red, logp_t[:half]), init_carry(black,
-                                                            logp_t[half:])
-        visited = [seeds]
-        for nr, nb in noise.steps:
-            red, cr = half_update(red, cr, nr, black)
-            black, cb = half_update(black, cb, nb, red)
+        lp_red, lp_black = logp_t[:half], logp_t[half:]
+        steps = noise.steps
+        if self.mesh is not None:
+            rows = slice(self._h0, self._h0 + self._hn)
+            red, black = red[rows], black[rows]
+            lp_red, lp_black = lp_red[rows], lp_black[rows]
+            cut = (self.mover.noise_rows if self.mutation == "ensemble"
+                   else rows_of)
+            steps = [(cut(nr, self._h0, self._hn), cut(nb, self._h0,
+                                                        self._hn))
+                     for nr, nb in steps]
+        cr, cb = init_carry(red, lp_red), init_carry(black, lp_black)
+        visited = ([torch.cat([red, black], 0)]
+                   if self.waste_free_k is not None else None)
+        for nr, nb in steps:
+            red, cr = half_update(red, cr, nr, self._other(black))
+            black, cb = half_update(black, cb, nb, self._other(red))
             if self.waste_free_k is not None:
                 visited.append(torch.cat([red, black], 0))
         particles = (torch.cat([red, black], 0) if self.waste_free_k is None

@@ -35,8 +35,18 @@ the device every step, for ``log_evidence``.
 
 Randomness: the steps draw from a generator on ``device`` (``seed``'s step
 stream), ``init_ball`` from the auxiliary stream, host-side choices (the
-mixture's branch) from a CPU generator. ``mesh=`` is not ported (multi-device
-comes with ``torch.distributed``).
+mixture's branch) from a CPU generator.
+
+Sharded (``mesh=``), each rank holds a block of the (K, H, P) grids and
+draws every rung's and walker's noise, keeping its block's. A
+``WalkerLayout`` splits the walkers (every rung whole on every rank): a
+half-step gathers the other half of every rung, the exchange phase is local
+(per walker), and the swap counts are summed over the ranks when read. A
+``LadderLayout`` splits the rungs over its ladder shards and the walkers
+within each: a half-step gathers the whole other half and keeps its rungs',
+and an exchange phase, whose pairs cross the shards' edges, runs on the
+gathered grids. Power mode gathers the log-likelihood grids once a step for
+the evidence accumulators, which are the same on every rank.
 """
 
 import warnings
@@ -51,7 +61,7 @@ from mcmcpp_tpu_torch.chain import (
     row_dtype,
     run_pipelined,
 )
-from mcmcpp_tpu_torch.movers.base import Mover
+from mcmcpp_tpu_torch.movers.base import Mover, rows_of
 from mcmcpp_tpu_torch.movers.fused import FusedStretchMove
 from mcmcpp_tpu_torch.movers.mixture import MixtureMover
 from mcmcpp_tpu_torch.movers.slice import EnsembleSliceMove
@@ -63,7 +73,7 @@ from mcmcpp_tpu_torch.ops.random import (
     make_generator,
     neg_exponential,
 )
-from mcmcpp_tpu_torch.sampler import resolve_device
+from mcmcpp_tpu_torch.parallel.mesh import LadderLayout, _engine_rows
 
 # movers whose half-step decides control flow on the host: their rungs run
 # one after another instead of under one vmap
@@ -170,12 +180,14 @@ def _swap_phase(pos_r, pos_b, lp_r, lp_b, betas, parity, log_u_r, log_u_b,
 
 
 def _power_update(mover, mover_state, loglike, logprior, active, prior, ll,
-                  other, noise, beta):
+                  other, noise, beta, row0=0):
     """One power-posterior half-step of one rung: Metropolis against
-    prior·L^β with both −inf guards, so no NaN is ever made."""
+    prior·L^β with both −inf guards, so no NaN is ever made. ``row0``: the
+    active rows' offset in their half (a rank's shard)."""
     *prop_noise, log_u = noise
-    proposal, log_factor = mover.propose(active, other, mover_state,
-                                         *prop_noise)
+    proposal, log_factor = mover.propose(
+        active, other, mover_state, *prop_noise,
+        **({"row0": row0} if row0 else {}))
     prop_ll = loglike(proposal)
     prop_prior = logprior(proposal)
     # β·Δll with both lls at −inf would be NaN; such a move holds the
@@ -241,19 +253,28 @@ class ParallelTemperingSampler:
     thermodynamic-integration (Friel & Pettitt 2008) estimate of log Z.
 
     device: where the grids live (default "cuda"; CUDA without a GPU
-    raises). chain: an injected cold-chain store of geometry (W, P).
+    raises). chain: an injected cold-chain store of geometry (W, P) (a
+    sharded sampler's: its walkers of the cold rung). mesh: a
+    ``WalkerLayout`` or a ``LadderLayout`` splitting the grids over the
+    ranks of a process group, on the layout's device.
     """
 
     def __init__(self, logp_fn=None, n_walkers=None, n_params=None,
                  n_temps=8, betas=None, mover=None, seed=0,
                  dtype=torch.float32, swap_every=1, max_chain_bytes=2 << 30,
-                 batched=False, chain=None, loglike_fn=None,
-                 logprior_fn=None, device="cuda"):
+                 batched=False, mesh=None, chain=None, loglike_fn=None,
+                 logprior_fn=None, device=None):
         if n_walkers is None or n_params is None:
             raise TypeError("n_walkers and n_params are required")
         if n_walkers % 2:
             raise ValueError("n_walkers must be even")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self._ladder = isinstance(mesh, LadderLayout)
+        if self._ladder:  # its rows once the ladder's size is known
+            self.device = mesh.bind(device)
+        else:
+            self.device, self._h0, self._hn = _engine_rows(
+                mesh, device, int(n_walkers) // 2, "n_walkers/2")
         self.n_walkers = int(n_walkers)
         self.n_params = int(n_params)
         self.dtype = dtype
@@ -279,6 +300,10 @@ class ParallelTemperingSampler:
                 "β=0 tempers the whole posterior to an improper flat target; "
                 "β=0 rungs need power-posterior mode (loglike_fn+logprior_fn)")
         self.n_temps = len(self._betas_host)
+        self._k0, self._kn = 0, self.n_temps
+        if self._ladder:
+            (self._k0, self._kn), (self._h0, self._hn) = mesh.grid_rows(
+                self.n_temps, self.n_walkers // 2)
         self.mover = mover if mover is not None else StretchMove()
         if self._power and (type(self.mover).propose is Mover.propose
                             or self.mover.always_accept):
@@ -301,6 +326,11 @@ class ParallelTemperingSampler:
         else:
             self._batched_logp = batch(logp_fn)
         self._rung_loop = isinstance(self.mover, _HOST_BRANCHING)
+        if self._rung_loop and self._ladder and mesh.n_ladder_shards > 1:
+            raise NotImplementedError(
+                f"{type(self.mover).__name__} runs its rungs one after "
+                "another with host tests that a ladder layout's shards "
+                "would take on different rungs; use a WalkerLayout")
         self._vhalf = torch.func.vmap(self._power_rung if self._power
                                       else self._rung)
         self._step_gen = make_generator(seed, STEP_STREAM, self.device)
@@ -308,12 +338,12 @@ class ParallelTemperingSampler:
         self._host_gen = make_generator(seed, HOST_STREAM, "cpu")
         self.state = None
         if chain is not None:
-            if (chain.n_walkers, chain.n_params) != (self.n_walkers,
+            if (chain.n_walkers, chain.n_params) != (2 * self._hn,
                                                      self.n_params):
                 raise ValueError("injected chain store geometry mismatch")
             self.chain = chain
         else:
-            self.chain = Chain(n_walkers=self.n_walkers,
+            self.chain = Chain(n_walkers=2 * self._hn,
                                n_params=self.n_params,
                                max_bytes=max_chain_bytes,
                                dtype=row_dtype(dtype))
@@ -328,20 +358,42 @@ class ParallelTemperingSampler:
 
     # -- one rung's half-step (vmapped over the ladder) ----------------------
 
+    def _rows(self):
+        """A sharded half-step's keyword arguments to the mover: its rows'
+        offset, and the layout for a host-branching mover's loop tests
+        (none unsharded, so a mover subclass without them still runs)."""
+        if self.mesh is None:
+            return {}
+        return {"row0": self._h0,
+                "layout": self.mesh if self._rung_loop else None}
+
     def _rung(self, active, logp, other, noise, beta):
         return self.mover.apply(active, logp, other, self._batched_logp,
-                                self._mover_state, noise, beta)[:2]
+                                self._mover_state, noise, beta,
+                                **self._rows())[:2]
 
     def _power_rung(self, active, prior, ll, other, noise, beta):
         return _power_update(self.mover, self._mover_state, self._batched_ll,
                              self._batched_prior, active, prior, ll, other,
-                             noise, beta)
+                             noise, beta, row0=self._h0)
 
     def _grid(self, fn, x):
         """A batched (n, P) -> (n,) function on a (K, H, P) grid."""
         return fn(x.reshape(-1, self.n_params)).reshape(x.shape[:2])
 
     # -- setup ---------------------------------------------------------------
+
+    def _whole_grid(self, x):
+        """Every rank's block of a (k, h, …) grid as the whole (K, H, …)
+        grid (one all-gather)."""
+        if self._ladder:
+            return self.mesh.gather_grid(x)
+        return self.mesh.gather(x, dim=1)
+
+    def _own(self, x):
+        """This rank's block of a whole (K, H, …) grid."""
+        return x[self._k0:self._k0 + self._kn,
+                 self._h0:self._h0 + self._hn].contiguous()
 
     def _zero_evidence_acc(self):
         k, kw = self.n_temps, dict(dtype=self.dtype, device=self.device)
@@ -381,8 +433,10 @@ class ParallelTemperingSampler:
                         generator=gen, dtype=self.dtype, device=self.device)
         pos = center[None, None, :] + scale * z
         h = self.n_walkers // 2
-        self.state = self._init_state(pos[:, :h].contiguous(),
-                                      pos[:, h:].contiguous())
+        red, black = pos[:, :h].contiguous(), pos[:, h:].contiguous()
+        if self.mesh is not None:
+            red, black = self._own(red), self._own(black)
+        self.state = self._init_state(red, black)
         return self
 
     # -- one step ------------------------------------------------------------
@@ -392,8 +446,9 @@ class ParallelTemperingSampler:
         the black half's, and the exchange phase's (None on steps that do
         not swap). A rung's noise is the mover's; under the vmap each plane
         has a leading K axis, in the host-branching case it is a list of K
-        per-rung noises."""
-        k, h, p = state.red.shape
+        per-rung noises. Every rung's and walker's (a sharded sampler's
+        step keeps its block's)."""
+        k, h, p = self.n_temps, self.n_walkers // 2, self.n_params
         gen, kw = self._step_gen, dict(dtype=self.dtype,
                                        host_gen=self._host_gen)
 
@@ -411,15 +466,69 @@ class ParallelTemperingSampler:
                                    self.device)
         return red, black, swap
 
+    def _block_noise(self, noise):
+        """The rank's rungs' and walkers' part of a half-step's noise: each
+        rung's cut to the rank's walkers (one vmap over the stacked rungs),
+        then the rank's rungs."""
+        rungs = slice(self._k0, self._k0 + self._kn)
+        if self._rung_loop:
+            return [self.mover.noise_rows(n, self._h0, self._hn)
+                    for n in noise[rungs]]
+        per_rung = torch.func.vmap(
+            lambda n: self.mover.noise_rows(n, self._h0, self._hn))(noise)
+        return rows_of(per_rung, self._k0, self._kn)
+
     def _half(self, grids, other, noise):
         """Every rung's half-step: ``grids`` are the active half's grids
-        (positions, logp, and in power mode ll)."""
+        (positions, logp, and in power mode ll); ``other`` the rank's block
+        of the other half. Sharded, the other half is gathered first."""
+        betas, betas_host = self.betas, self._betas_host
+        if self.mesh is not None:
+            other = self._whole_grid(other)[self._k0:self._k0 + self._kn]
+            noise = self._block_noise(noise)
+            betas = betas[self._k0:self._k0 + self._kn]
+            betas_host = betas_host[self._k0:self._k0 + self._kn]
         if not self._rung_loop:
-            return self._vhalf(*grids, other, noise, self.betas)
+            return self._vhalf(*grids, other, noise, betas)
         fn = self._power_rung if self._power else self._rung
-        outs = [fn(*(g[i] for g in grids), other[i], noise[i],
-                   self._betas_host[i]) for i in range(self.n_temps)]
+        outs = [fn(*(g[i] for g in grids), other[i], noise[i], betas_host[i])
+                for i in range(len(betas_host))]
         return tuple(torch.stack(parts) for parts in zip(*outs))
+
+    def _sharded_swap(self, red, black, lp_red, lp_black, parity, swap,
+                      ll_red, ll_black):
+        """The exchange phase on the rank's block: per walker on its own
+        rows under a walker layout; on the gathered grids, keeping the
+        block, under a ladder layout (its pairs cross the shards)."""
+        extra = {}
+        if not self._ladder:
+            h = slice(self._h0, self._h0 + self._hn)
+            if self._power:
+                extra = dict(score_r=ll_red, score_b=ll_black,
+                             extra_r=(ll_red,), extra_b=(ll_black,))
+            return _swap_phase(red, black, lp_red, lp_black, self.betas,
+                               parity, swap[0][:, h], swap[1][:, h], **extra)
+        grids = [red, black, lp_red, lp_black]
+        if self._power:
+            grids += [ll_red, ll_black]
+        p = self.n_params
+        flat = torch.cat([g.reshape(self._kn, self._hn, -1) for g in grids],
+                         -1)
+        whole = self._whole_grid(flat)
+        widths = [p, p, 1, 1, 1, 1][:len(grids)]
+        parts, i = [], 0
+        for g, w in zip(grids, widths):
+            parts.append(whole[..., i:i + w].reshape(
+                whole.shape[:2] + g.shape[2:]).contiguous())
+            i += w
+        if self._power:
+            extra = dict(score_r=parts[4], score_b=parts[5],
+                         extra_r=(parts[4],), extra_b=(parts[5],))
+        out = _swap_phase(*parts[:4], self.betas, parity, *swap, **extra)
+        *own, n_acc, n_prop, ex_r, ex_b = out
+        own = [self._own(x) for x in own]
+        return (*own, n_acc, n_prop, tuple(self._own(x) for x in ex_r),
+                tuple(self._own(x) for x in ex_b))
 
     def step(self, state, noise=None):
         """One step of every replica: red against black, black against the
@@ -444,31 +553,51 @@ class ParallelTemperingSampler:
         sa, sp = state.swaps_accepted, state.swaps_proposed
         if swap is not None:
             parity = (state.step // self.swap_every) % 2
-            extra = (dict(score_r=ll_red, score_b=ll_black, extra_r=(ll_red,),
-                          extra_b=(ll_black,)) if self._power else {})
-            red, black, lp_red, lp_black, n_acc, n_prop, ex_r, ex_b = (
-                _swap_phase(red, black, lp_red, lp_black, self.betas, parity,
-                            *swap, **extra))
+            if self.mesh is not None:
+                red, black, lp_red, lp_black, n_acc, n_prop, ex_r, ex_b = (
+                    self._sharded_swap(
+                        red, black, lp_red, lp_black, parity, swap,
+                        ll_red if self._power else None,
+                        ll_black if self._power else None))
+            else:
+                extra = (dict(score_r=ll_red, score_b=ll_black,
+                              extra_r=(ll_red,), extra_b=(ll_black,))
+                         if self._power else {})
+                red, black, lp_red, lp_black, n_acc, n_prop, ex_r, ex_b = (
+                    _swap_phase(red, black, lp_red, lp_black, self.betas,
+                                parity, *swap, **extra))
             sa, sp = sa + n_acc, sp + n_prop
             if self._power:
                 ll_red, ll_black = ex_r[0], ex_b[0]
         if not self._power:
             return PTState(red, black, lp_red, lp_black, state.step + 1, sa,
                            sp)
+        whole_r, whole_b = ll_red, ll_black
+        if self.mesh is not None:
+            whole_r, whole_b = self._whole_grid(
+                torch.stack([ll_red, ll_black], -1)).unbind(-1)
+            whole_r, whole_b = whole_r.contiguous(), whole_b.contiguous()
         return PTState(red, black, lp_red, lp_black, state.step + 1, sa, sp,
                        ll_red=ll_red, ll_black=ll_black,
-                       **_accumulate_evidence(state, ll_red, ll_black,
+                       **_accumulate_evidence(state, whole_r, whole_b,
                                               self.betas))
 
     def _cold_rows(self, state):
         """The cold replica as a stored row: positions (W, P) and the RAW
-        log-posterior (W,) (power mode: prior + log-likelihood)."""
+        log-posterior (W,) (power mode: prior + log-likelihood); a rank's
+        walkers of it, ``[red, black]``, when sharded (under a ladder layout
+        the first ladder shard's, gathered)."""
         pos = torch.cat([state.red[0], state.black[0]])
         if self._power:
             lp = torch.cat([state.logp_red[0] + state.ll_red[0],
                             state.logp_black[0] + state.ll_black[0]])
         else:
             lp = torch.cat([state.logp_red[0], state.logp_black[0]])
+        if self._ladder:
+            # rank (0, w) holds the cold rung's walker shard w
+            row = self.mesh.stack(torch.cat([pos, lp[:, None]], 1))
+            row = row[self.mesh.walker_index]
+            pos, lp = row[:, :-1].contiguous(), row[:, -1].contiguous()
         return pos, lp
 
     # -- driver --------------------------------------------------------------
@@ -476,9 +605,9 @@ class ParallelTemperingSampler:
     def _run_chunk(self, take, thin):
         """``take·thin`` steps, the cold replica of every ``thin``-th stored
         into device tensors (take, W, P) and (take, W)."""
-        pos = torch.empty((take, self.n_walkers, self.n_params),
+        pos = torch.empty((take, 2 * self._hn, self.n_params),
                           dtype=self.dtype, device=self.device)
-        lps = torch.empty((take, self.n_walkers), dtype=self.dtype,
+        lps = torch.empty((take, 2 * self._hn), dtype=self.dtype,
                           device=self.device)
         state = self.state
         for s in range(take):
@@ -615,9 +744,12 @@ class ParallelTemperingSampler:
     # -- statistics & access -------------------------------------------------
 
     def _swap_counts(self):
-        """(accepted, proposed) exchanges per ladder pair, int64 numpy."""
-        return (self.state.swaps_accepted.cpu().numpy(),
-                self.state.swaps_proposed.cpu().numpy())
+        """(accepted, proposed) exchanges per ladder pair, int64 numpy (a
+        walker layout's ranks' counts summed: one all-gather)."""
+        acc, prop = self.state.swaps_accepted, self.state.swaps_proposed
+        if self.mesh is not None and not self._ladder:
+            acc, prop = self.mesh.stack(torch.stack([acc, prop])).sum(0)
+        return acc.cpu().numpy(), prop.cpu().numpy()
 
     @property
     def swap_acceptance(self):

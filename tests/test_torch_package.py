@@ -392,16 +392,27 @@ def test_slice10_modules_import_no_jax_or_triton():
 
 PARALLEL_MODULES = ("parallel/__init__.py", "parallel/distributed.py",
                     "parallel/mesh.py", "parallel/sharded.py")
+# the engines that take ``mesh=`` since the sharded-engines slice
+MESH_ENGINE_MODULES = ("gradient/hmc.py", "gradient/nuts.py",
+                       "gradient/chees.py", "gradient/meads.py",
+                       "gradient/barker.py", "gradient/sgmcmc.py",
+                       "gradient/mclmc.py", "tempering.py", "gibbs.py",
+                       "smc.py", "pcn.py", "elliptical.py", "nested.py",
+                       "io/checkpoint.py")
 
 
 def test_parallel_modules_import_no_jax_or_triton():
-    """The multi-device layer exists (so the source scan above covers it)
-    and importing it pulls in neither JAX, the JAX package nor triton, and
-    starts no process group."""
+    """The multi-device layer and the engines that take ``mesh=`` exist (so
+    the source scan above covers them) and importing them pulls in neither
+    JAX, the JAX package nor triton, and starts no process group."""
     files = {str(p.relative_to(PKG)) for p in PKG.rglob("*.py")}
-    assert set(PARALLEL_MODULES) <= files
+    assert set(PARALLEL_MODULES + MESH_ENGINE_MODULES) <= files
+    engines = "".join(
+        f"import mcmcpp_tpu_torch.{m[:-3].replace('/', '.')}\n"
+        for m in MESH_ENGINE_MODULES)
     code = ("import sys, torch\n"
             "import mcmcpp_tpu_torch.parallel.sharded\n"
+            + engines +
             "import mcmcpp_tpu_torch.parallel.distributed as d\n"
             "assert not torch.distributed.is_initialized()\n"
             "assert d.world_size() == 1 and not d.is_multihost()\n"
@@ -427,3 +438,56 @@ def test_exports_the_jax_packages_subpackages_but_parallel():
         and any(getattr(t, "id", None) == "__all__" for t in node.targets))
     names = {ast.literal_eval(e) for e in jax_all.elts}
     assert names - set(mt.__all__) == set()
+
+
+# (JAX class, port class) of each engine that defines ``mesh=``; the
+# gradient samplers' subclasses take it through their base
+MESH_ENGINES = [
+    ("gradient.hmc", "GradientSampler"),
+    ("gradient.sgmcmc", "StochasticGradientSampler"),
+    ("gradient.mclmc", "MCLMCSampler"),
+    ("tempering", "ParallelTemperingSampler"),
+    ("gibbs", "BlockedGibbsSampler"),
+    ("smc", "SMCSampler"),
+    ("pcn", "PCNSampler"),
+    ("elliptical", "EllipticalSliceSampler"),
+    ("nested", "NestedSampler"),
+]
+
+
+@pytest.mark.parametrize("module,cls", MESH_ENGINES)
+def test_engines_take_mesh_with_the_jax_signature(module, cls):
+    """Each engine's constructor takes ``mesh=`` (default None) as the JAX
+    package's does, after the JAX constructor's parameters before it, in
+    their order."""
+    import importlib
+    import inspect
+
+    j = inspect.signature(getattr(importlib.import_module(
+        f"mcmcpp_tpu.{module}"), cls).__init__).parameters
+    t = inspect.signature(getattr(importlib.import_module(
+        f"mcmcpp_tpu_torch.{module}"), cls).__init__).parameters
+    assert j["mesh"].default is None and t["mesh"].default is None
+    before = list(j)[:list(j).index("mesh")]
+    assert [p for p in t if p in before] == before
+
+
+@pytest.mark.parametrize("name", [
+    "HMCSampler", "MALASampler", "BarkerSampler", "NUTSSampler",
+    "CheesHMCSampler", "MEADSSampler", "SGHMCSampler", "MAMSSampler"])
+def test_engine_subclasses_pass_mesh_on(name):
+    """The subclasses' constructors pass ``mesh=`` to their base: built on a
+    layout of one rank they hold every chain, on its device."""
+    from tests.torch_sharded_engine_cases import run_in_threads
+
+    cls = getattr(mcmcpp_tpu_torch, name)
+
+    def build(layout):
+        if name == "SGHMCSampler":
+            return cls(lambda t: t[:, 0], lambda t, b: t[:, 0], np.zeros(
+                (8, 2)), 16, 2, batch_size=4, mesh=layout)
+        return cls(lambda t: -torch.sum(t * t, -1), 16, 2, mesh=layout)
+
+    s, = run_in_threads(1, build)
+    assert s.mesh is not None and s.device == torch.device("cpu")
+    assert s._n_local == 16
