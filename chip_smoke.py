@@ -190,6 +190,18 @@ Builds the port's CUDA kernels from ``mcmcpp_tpu_torch/csrc/`` (into
    unsharded one, equal by ``torch.equal`` (samples, logps, replicated
    statistics); then, in turns, host and device microseconds a step both
    ways and the collectives a sharded step makes;
+17. (before 7) the variational and time-series engines with ``mesh=``, in
+   the same NCCL group of one, at phases 11 and 13's widths with their T,
+   steps or passes cut: full-rank ADVI (8192 draws) and SVGD (8192
+   particles) on the flagship Gaussian, ``multi_pathfinder`` (256 paths) on
+   the logistic regression, NeuTra on the funnel (batch 1024, HMC on 4096
+   warped chains), the bootstrap filter (2^18 particles) and PMMH (256 ×
+   1024) on the SV model, the RBPF (2^14), IF2 (2^16), IBIS (2^16), SMC²
+   (1024 × 1024), the EnKF and ETKF on Lorenz-96 (1024 members), EKI and
+   EKS (2^14). Each sharded run first (the stretch kernels' launches on
+   this path counted: none), then the unsharded one, equal by
+   ``torch.equal``; then, in turns, host and device microseconds a unit of
+   work both ways and the collectives a sharded unit makes;
 7. times 50 steps of the flagship and of Neal's funnel (wall time and the
    host's enqueue time per step) and takes a ``torch.profiler`` window over
    50 more of each: device time and launches per step by kernel; a flagship
@@ -204,7 +216,8 @@ Builds the port's CUDA kernels from ``mcmcpp_tpu_torch/csrc/`` (into
 Any failure raises (non-zero exit); every phase prints its seconds. The
 second-to-last lines are the kernel table (each kernel's launches on the
 main path, the store path, the SMC path, the DSL path, the time-series path,
-the examples' path and the sharded path, its time beside
+the examples' path, the sharded paths of phases 15, 16 and 17, its time
+beside
 its plain version's and its bound: its bytes, each input read once and each
 output written once, over the card's 3.35 TB/s, or its operations over
 67 TFLOP/s, whichever is larger) and the card's name and power limit; the
@@ -266,6 +279,10 @@ ACCEPT_WINDOWS = {
     "fused_funnel": (0.44, 0.50),
 }
 SKEWED_COV = np.array([[1.13, 0.435], [0.435, 0.2825]])
+# phase 6's burn-in on the skewed Gaussian (it and the steps halved to keep
+# the script inside its time limit: the covariances stayed within 0.005 of
+# the truth against gates of 0.12-0.15)
+SKEWED_BURN = 500
 # phase 9's stochastic-gradient runs on the logistic target (N = 1000,
 # B = 100): steps small beside the posterior's curvature (~250), so that the
 # minibatch noise inflates the variance well inside tests/test_sgmcmc.py's
@@ -843,7 +860,7 @@ def phases_from_argv(argv):
         raise SystemExit("usage: python3 chip_smoke.py [--phases 2,2b,...]")
     chosen = {p.strip() for p in argv[1].split(",") if p.strip()}
     known = {"1", "2", "2b", "3", "4", "5", "6", "7", "8", "9", "10", "11",
-             "12", "13", "14", "15", "16"}
+             "12", "13", "14", "15", "16", "17"}
     if not chosen <= known:
         raise SystemExit(f"unknown phases {sorted(chosen - known)}; known: "
                          f"{sorted(known)}")
@@ -2459,10 +2476,10 @@ TS_GIBBS_CHAINS, TS_GIBBS_SWEEPS = 1024, 50
 HMM_K, HMM_T, HMM_PATHS = 8, 1 << 14, 1024
 TS_HMM_GIBBS_T, HMM_GIBBS_SWEEPS = 4096, 10
 SV_T = 1000
-PF_N, PF_SEEDS = 1 << 18, 16
+PF_N, PF_SEEDS = 1 << 18, 8
 GUIDED_N, GUIDED_SEEDS = 1 << 14, 8
 PMMH_CHAINS, PMMH_N, PMMH_T = 256, 1024, 200
-PMMH_TUNE, PMMH_WINDOW, PMMH_STEPS = 50, 25, 50
+PMMH_TUNE, PMMH_WINDOW, PMMH_STEPS = 25, 25, 25
 SMOOTH_N, SMOOTH_J, FORECAST_H = 1 << 14, 1024, 30
 PGAS_CHAINS, PGAS_N, PGAS_SWEEPS = 256, 64, 10
 RBPF_N, RBPF_T = 1 << 14, 1000
@@ -3968,35 +3985,10 @@ def sharded_engines(mt, fs, card):
             raise AssertionError(f"SMC's sharded mutation did not launch "
                                  f"{name}")
 
-    # counts the collectives a sharded step calls
-    calls = [0]
-    originals = {}
-    for fn in ("all_gather_into_tensor", "all_gather_single", "all_reduce"):
-        if hasattr(dist, fn):
-            originals[fn] = getattr(dist, fn)
-
-            def counted(*a, _f=originals[fn], **k):
-                calls[0] += 1
-                return _f(*a, **k)
-
-            setattr(dist, fn, counted)
+    calls, originals = count_collectives()
 
     def per_step(fn, n):
-        """(device-timeline us, host us, collectives) a step of ``fn(n)``
-        between two fences."""
-        fn(n)  # warm: allocations, a first call's lazy set-up
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        calls[0] = 0
-        start.record()
-        t0 = time.perf_counter()
-        fn(n)
-        host_s = time.perf_counter() - t0
-        end.record()
-        torch.cuda.synchronize()
-        return (start.elapsed_time(end) * 1e3 / n, host_s * 1e6 / n,
-                calls[0] / n)
+        return per_step_timing(fn, n, calls)
 
     try:
         for label, build, result in cases:
@@ -4051,6 +4043,325 @@ def sharded_engines(mt, fs, card):
         for fn, f in originals.items():
             setattr(dist, fn, f)
     return launches
+
+
+# phase 17: the variational and time-series engines with mesh= at phases 11
+# and 13's widths (the engines' own N, chains, members and paths), their T,
+# steps and passes cut
+VT_ADVI_STEPS, VT_SVGD_STEPS, VT_PATH_ITERS = 20, 5, 15
+VT_NEUTRA_FIT, VT_NEUTRA_STEPS = 20, 3
+VT_PF_T, VT_PMMH_T, VT_PMMH_STEPS = 100, 50, 3
+VT_RBPF_T, VT_IF2_PASSES, VT_IBIS_ROWS = 200, 2, 200
+VT_SMC2_T, VT_ENKF_T, VT_EKS_ITERS = 20, 50, 10
+
+
+def sharded_vi_ts(mt, fs, card):
+    """Phase 17: the variational and time-series engines with ``mesh=``
+    sharded over the NCCL group of one (``make_walker_mesh()``) against the
+    same engines unsharded on the same seeds, by ``torch.equal``: in a
+    group of one the hooks draw from the caller's generator and the
+    gradient sums do no arithmetic, so every result is the unsharded
+    one's. The sharded runs go first, the stretch kernels' launches
+    counted over them (none expected: no engine here runs the stretch
+    move); then the unsharded runs; then each engine's unit of work (a fit
+    or filter step, a stage, an iteration, a call) timed both ways in
+    turns, from a fence: the host's and the device timeline's microseconds
+    a unit and the collectives a sharded unit calls. Returns the path's
+    launches."""
+    import torch.distributed as dist
+
+    from mcmcpp_tpu_torch.examples import data_assimilation as da
+    from mcmcpp_tpu_torch.examples import regime_switching as rs
+    from mcmcpp_tpu_torch.examples import ssm_mle
+    from mcmcpp_tpu_torch.examples import state_space as ss
+    from mcmcpp_tpu_torch.examples import streaming
+
+    dev = torch.device("cuda")
+    walkers = mt.make_walker_mesh()
+    p = EV_P
+    gauss = mt.equicorrelated_gaussian(p, 0.5, device=dev)
+
+    def kw(mesh):
+        return {"device": "cuda"} if mesh is None else {"mesh": mesh}
+
+    def advi(mesh):
+        a = mt.ADVI(gauss, p, full_rank=True, n_mc=SVGD_PARTICLES, seed=0,
+                    batched=True, **kw(mesh)).fit(VT_ADVI_STEPS)
+        return a, lambda n: a.fit(n)
+
+    def svgd(mesh):
+        s = mt.SVGD(gauss, SVGD_PARTICLES, p, batched=True, **kw(mesh))
+        s.init(seed=1)
+        s.fit(VT_SVGD_STEPS)
+        return s, lambda n: s.fit(n)
+
+    logit = mt.logistic_regression(n_data=1000, dim=25, seed=0, device=dev)
+
+    def pathfinder(mesh):
+        def call(n=1):
+            for _ in range(n):
+                r = mt.multi_pathfinder(logit, PATHS, np.zeros(25),
+                                        maxiter=VT_PATH_ITERS, batched=True,
+                                        **kw(mesh))
+            return r
+
+        return call(), call
+
+    funnel = mt.neal_funnel(p)
+
+    def neutra(mesh):
+        nt = mt.NeuTra(funnel, p, flow=mt.RealNVP(p, n_layers=6, hidden=64),
+                       seed=0, batched=True, **kw(mesh))
+        nt.fit(VT_NEUTRA_FIT, batch=NEUTRA_BATCH, learning_rate=2e-3)
+        s = nt.make_sampler(mt.HMCSampler, NEUTRA_CHAINS, n_leapfrog=4)
+        stored(s.run(VT_NEUTRA_STEPS), "neutra hmc")
+        return (nt, s), lambda n: nt.fit(n, batch=NEUTRA_BATCH,
+                                         learning_rate=2e-3, resume=True)
+
+    _, sv_ys = ss.sv_data(SV_T)
+    sv = sv_with_density(ss)
+    mu = torch.tensor([-1.0], device=dev)
+
+    def bootstrap(mesh):
+        def call(n=VT_PF_T):
+            return mt.particle_filter(100, sv, mu, sv_ys[:n], PF_N,
+                                      **kw(mesh))
+
+        return call(), call
+
+    def pmmh(mesh):
+        pm = mt.PMMHSampler(sv, sv_ys[:VT_PMMH_T],
+                            log_prior=lambda th: -0.5 * th[..., 0] ** 2,
+                            n_params=1, n_particles=PMMH_N,
+                            proposal_scale=0.3, n_chains=PMMH_CHAINS, seed=0,
+                            batched=True, **kw(mesh))
+        pm.init(np.zeros((PMMH_CHAINS, 1), np.float32))
+        stored(pm.run(VT_PMMH_STEPS), "pmmh")
+        return pm, lambda n: pm.run(n, thin=n)
+
+    _, rs_ys = rs.simulate(VT_RBPF_T, seed=7)
+
+    def rbpf(mesh):
+        def call(n=VT_RBPF_T):
+            return mt.rao_blackwell_filter(0, rs.build_model(rs.SIG_R, dev),
+                                           rs_ys[:n], RBPF_N, **kw(mesh))
+
+        return call(), call
+
+    mle_ys = ssm_mle.simulate(IF2_T)
+
+    def if2(mesh):
+        def call(n=VT_IF2_PASSES):
+            return mt.if2(0, ssm_mle.if2_model(), mle_ys, n_particles=IF2_N,
+                          theta0=np.array([0.5, 0.0], np.float32),
+                          sigma0=0.05, n_iters=n, cooling=0.9, **kw(mesh))
+
+        return call(), call
+
+    stream = streaming.make_stream(VT_IBIS_ROWS * 4)
+
+    def ibis(mesh):
+        s = mt.IBISSampler(
+            log_prior_fn=lambda t: -0.5 * t[0] ** 2 / streaming.TAU ** 2,
+            loglike_point_fn=lambda t, y: -0.5 * (y - t[0]) ** 2
+            - 0.5 * np.log(2 * np.pi),
+            prior_sample_fn=lambda g, n: streaming.TAU * torch.randn(
+                (n, 1), generator=g, device=g.device),
+            n_particles=IBIS_N, n_params=1, batch_size=IBIS_BATCH, seed=0,
+            **kw(mesh))
+        s.update(stream[:VT_IBIS_ROWS])
+        rows = [VT_IBIS_ROWS]
+
+        def stages(n):
+            s.update(stream[rows[0]:rows[0] + n * IBIS_BATCH])
+            rows[0] += n * IBIS_BATCH
+
+        return s, stages
+
+    smc2_ys = smc2_data(VT_SMC2_T * 4)
+
+    def smc2(mesh):
+        base = smc2_local_level(mt, dev, SMC2_M, SMC2_NX, seed=3)
+        s = mt.SMC2Sampler(base.ssm, base.log_prior_fn, base.prior_sample_fn,
+                           SMC2_M, 1, n_particles=SMC2_NX, seed=3,
+                           batched=True, **kw(mesh))
+        s.update(smc2_ys[:VT_SMC2_T])
+        rows = [VT_SMC2_T]
+
+        def stages(n):
+            s.update(smc2_ys[rows[0]:rows[0] + n])
+            rows[0] += n
+
+        return s, stages
+
+    truth, da_ys, h_idx = da.simulate_truth(VT_ENKF_T, seed=1)
+    da_model = da.build_model(truth[0], h_idx, dev)
+
+    def enkf(variant):
+        def build(mesh):
+            def call(n=VT_ENKF_T):
+                return mt.ensemble_kalman_filter(
+                    0, da_model, da_ys[:n], ENKF_N, inflation=1.05,
+                    variant=variant, **kw(mesh))
+
+            return call(), call
+
+        return build
+
+    rng = np.random.default_rng(0)
+    a_mat = rng.standard_normal((5, 3)).astype(np.float32)
+    y_obs = (a_mat @ np.array([0.5, -1.0, 2.0], np.float32)
+             + 0.5 * rng.standard_normal(5)).astype(np.float32)
+    at = torch.tensor(a_mat, device=dev)
+
+    def eki_eks(fn):
+        def build(mesh):
+            def call(n=VT_EKS_ITERS):
+                return fn(2, lambda th: th @ at.T, y_obs,
+                          0.25 * np.eye(5, dtype=np.float32), np.zeros(3),
+                          4.0 * np.eye(3, dtype=np.float32),
+                          n_ensemble=EKS_J, n_iters=n, **kw(mesh))
+
+            return call(), call
+
+        return build
+
+    flat = lambda ps: torch.cat([q.detach().reshape(-1)  # noqa: E731
+                                 for q in ps])
+    cases = [
+        ("advi full rank", advi, lambda a: (
+            torch.tensor(a.elbo_trace), *a.params)),
+        ("svgd", svgd, lambda s: (s.particles,)),
+        ("multi_pathfinder", pathfinder, lambda r: (
+            r.draws, r.pareto_k, r.paths.draws, r.paths.logw)),
+        ("neutra", neutra, lambda ns: (
+            torch.from_numpy(ns[0].fit_result.elbo_history),
+            flat(ns[0].params), ns[1].get_samples())),
+        ("bootstrap filter", bootstrap, lambda r: (
+            r.loglik, r.filter_means, r.ess)),
+        ("pmmh", pmmh, lambda pm: (pm.get_samples(), pm.get_log_probs(),
+                                   pm.acceptance_fraction)),
+        ("rbpf", rbpf, lambda r: (r.loglik, r.x_means, r.z_stats, r.ess,
+                                  r.final_means)),
+        ("if2", if2, lambda r: (r.theta, r.swarm, r.loglik_trace)),
+        ("ibis", ibis, lambda s: (s.state.particles, s.state.log_w,
+                                  s.log_evidence_trace, s.n_resamples)),
+        ("smc2", smc2, lambda s: (s.state.theta, s.state.xs,
+                                  s.log_evidence_trace, s.n_resamples)),
+        ("enkf stochastic", enkf("stochastic"), lambda r: (
+            r.loglik, r.means, r.spread, r.ensemble)),
+        ("etkf", enkf("etkf"), lambda r: (r.loglik, r.means, r.ensemble)),
+        ("eki", eki_eks(mt.ensemble_kalman_inversion), lambda r: (
+            r.theta, r.ensemble, r.misfit_trace)),
+        ("eks", eki_eks(mt.ensemble_kalman_sampler), lambda r: (
+            r.ensemble, r.cov, r.misfit_trace)),
+    ]
+    # the unit a timed call counts (its n), and what it is
+    units = {"advi full rank": (5, "fit step"), "svgd": (2, "fit step"),
+             "multi_pathfinder": (1, "call"), "neutra": (5, "fit step"),
+             "bootstrap filter": (VT_PF_T, "time step"),
+             "pmmh": (2, "transition"), "rbpf": (VT_RBPF_T, "time step"),
+             "if2": (1, "pass"), "ibis": (5, "stage"),
+             "smc2": (5, "stage"), "enkf stochastic": (VT_ENKF_T,
+                                                       "time step"),
+             "etkf": (VT_ENKF_T, "time step"),
+             "eki": (VT_EKS_ITERS, "iteration"),
+             "eks": (VT_EKS_ITERS, "iteration")}
+
+    def equal(a, b):
+        if isinstance(a, torch.Tensor):
+            return torch.equal(a.cpu(), torch.as_tensor(b).cpu())
+        if isinstance(a, np.ndarray):
+            return np.array_equal(a, b)
+        return a == b
+
+    reset_launches(fs)
+    sharded = {}
+    for label, build, result in cases:
+        t0 = time.perf_counter()
+        obj, steps = build(walkers)
+        sharded[label] = (obj, steps, result(obj), time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    launches = dict(fs.LAUNCHES)
+    print(f"  stretch-kernel launches on the sharded variational and "
+          f"time-series path: {launches}", flush=True)
+    if any(launches.values()):
+        raise AssertionError(f"the sharded variational and time-series "
+                             f"path launched a stretch kernel: {launches}")
+
+    calls, originals = count_collectives()
+    try:
+        for label, build, result in cases:
+            obj_sh, steps_sh, got, build_sh = sharded.pop(label)
+            t0 = time.perf_counter()
+            obj_un, steps_un = build(None)
+            want = result(obj_un)
+            build_un = time.perf_counter() - t0
+            same = [equal(g, w) for g, w in zip(got, want)]
+            if not all(same):
+                raise AssertionError(f"{label}: sharded != unsharded "
+                                     f"({same})")
+            n, unit = units[label]
+            readings = {}
+            for name, fn in (("unsharded", steps_un), ("sharded", steps_sh),
+                             ("sharded", steps_sh), ("unsharded", steps_un)):
+                readings.setdefault(name, []).append(
+                    per_step_timing(fn, n, calls))
+            un, sh = readings["unsharded"], readings["sharded"]
+            print(f"  {label}: sharded == unsharded by torch.equal "
+                  f"({len(same)} results; built and run in {build_sh:.1f} s "
+                  f"sharded, {build_un:.1f} s unsharded); per {unit}, in "
+                  f"turns (device-timeline us, host us to enqueue): "
+                  f"unsharded " + ", ".join(f"{d:.1f} / {h:.1f}"
+                                            for d, h, _ in un)
+                  + "; sharded " + ", ".join(f"{d:.1f} / {h:.1f}"
+                                             for d, h, _ in sh)
+                  + f"; collectives per {unit}: sharded {sh[0][2]:g}, "
+                  f"unsharded {un[0][2]:g} [{card}]", flush=True)
+            del obj_sh, obj_un, steps_sh, steps_un
+            torch.cuda.empty_cache()
+    finally:
+        for fn, f in originals.items():
+            setattr(dist, fn, f)
+    return launches
+
+
+def count_collectives():
+    """``(calls, originals)``: the collectives of ``torch.distributed``
+    wrapped to count their calls in ``calls[0]``; put ``originals`` back
+    when done."""
+    import torch.distributed as dist
+
+    calls = [0]
+    originals = {}
+    for fn in ("all_gather_into_tensor", "all_gather_single", "all_reduce"):
+        if hasattr(dist, fn):
+            originals[fn] = getattr(dist, fn)
+
+            def counted(*a, _f=originals[fn], **k):
+                calls[0] += 1
+                return _f(*a, **k)
+
+            setattr(dist, fn, counted)
+    return calls, originals
+
+
+def per_step_timing(fn, n, calls):
+    """(device-timeline us, host us, collectives) a step of ``fn(n)``
+    (``n`` steps) between two fences, after one warm call."""
+    fn(n)  # warm: allocations, a first call's lazy set-up
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    calls[0] = 0
+    start.record()
+    t0 = time.perf_counter()
+    fn(n)
+    host_s = time.perf_counter() - t0
+    end.record()
+    torch.cuda.synchronize()
+    return (start.elapsed_time(end) * 1e3 / n, host_s * 1e6 / n,
+            calls[0] / n)
 
 
 def sharded_gather_profile(mt, card):
@@ -4558,23 +4869,23 @@ def main():
     if run_phase("6"):
         with phase("6 oracles"):
             for name, make, n_steps, atol in [
-                ("walk", lambda: mt.WalkMove(6), 2000, 0.12),
-                ("de", lambda: mt.DifferentialEvolutionMove(), 8000, 0.15),
+                ("walk", lambda: mt.WalkMove(6), 1000, 0.12),
+                ("de", lambda: mt.DifferentialEvolutionMove(), 4000, 0.15),
                 ("mh", lambda: mt.MetropolisHastingsMove(
-                    covariance=SKEWED_COV, scale=1.2), 8000, 0.15),
-                ("snooker", lambda: mt.DESnookerMove(), 2000, 0.15),
-                ("dram", lambda: mt.DRAMMove(), 2000, 0.15),
+                    covariance=SKEWED_COV, scale=1.2), 4000, 0.15),
+                ("snooker", lambda: mt.DESnookerMove(), 1000, 0.15),
+                ("dram", lambda: mt.DRAMMove(), 1000, 0.15),
                 ("mixture", lambda: mt.MixtureMover([
                     (mt.FusedStretchMove(), 2.0),
                     (mt.DifferentialEvolutionMove(), 1.0),
-                    (mt.DESnookerMove(), 1.0)]), 8000, 0.15),
-                ("slice", lambda: mt.EnsembleSliceMove(), 200, 0.12),
+                    (mt.DESnookerMove(), 1.0)]), 4000, 0.15),
+                ("slice", lambda: mt.EnsembleSliceMove(), 100, 0.12),
             ]:
                 t0 = time.perf_counter()
                 so = mt.EnsembleSampler(skewed, 320, 2, mover=make(), seed=42,
                                         batched=True, device="cuda")
                 so.init_ball(np.zeros(2), scale=0.3)
-                so.run_mcmc(1000, store=False)
+                so.run_mcmc(SKEWED_BURN, store=False)
                 if not so.run_mcmc(n_steps, thin=4):
                     raise AssertionError(f"skewed {name}: chain capacity hit")
                 flat = so.get_samples(flat=True)
@@ -5130,6 +5441,24 @@ def main():
                 torch.distributed.destroy_process_group()
             torch.cuda.empty_cache()
 
+    # -- phase 17: the variational and time-series engines with mesh= in the
+    # NCCL group of one (the one of phase 15, else its own), sharded ==
+    # unsharded bit for bit; no stretch kernel on their path -----------------
+    vi_ts_launches = {}
+    if run_phase("17"):
+        with phase("17 sharded variational and time-series engines"):
+            from mcmcpp_tpu_torch.parallel import distributed
+
+            made = not torch.distributed.is_initialized()
+            distributed.initialize(device=dev)
+            if torch.distributed.get_backend() != "nccl" or (
+                    distributed.world_size() != 1):
+                raise AssertionError("phase 17 needs an NCCL group of one")
+            vi_ts_launches = sharded_vi_ts(mt, fs, card)
+            if made:
+                torch.distributed.destroy_process_group()
+            torch.cuda.empty_cache()
+
     # -- phase 7: what a flagship step puts on the device --------------------
     # Last, because the profiler's tracing stays attached to the process
     # and slows every later launch: no timing may follow it.
@@ -5292,6 +5621,7 @@ def main():
          "launches_sharded_path": sharded_launches.get(name, 0),
          "launches_sharded_engines_path": sharded_engines_launches.get(
              name, 0),
+         "launches_sharded_vi_ts_path": vi_ts_launches.get(name, 0),
          "ms_shard_2p18": k["row_offset_ms"]["shard"],
          "ms_shard_2p18_row_offset": k["row_offset_ms"]["shard_offset"],
          "ms_half_as_4_shards": k["row_offset_ms"]["half_4"],

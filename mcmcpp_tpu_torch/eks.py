@@ -18,6 +18,16 @@ draw; a Python loop, no host sync. Hooks: ``forward`` maps (J, P) to
 
 A quirk of the reference, mirrored: ``_validate`` takes the ``forward`` map
 and does not use it (``mcmcpp_tpu/eks.py:51``).
+
+``mesh=`` (a ``WalkerLayout``) splits the ensemble's forward evaluations,
+the expensive part, over the ranks: every rank holds the whole ensemble,
+evaluates ``forward`` on its members, and one all-gather an iteration
+brings every rank all of G(θ); the (J, J) interaction, the step and the
+update (and the EKS's implicit prior step and noise, every draw made
+whole) run on the whole ensemble on every rank as unsharded. No hook draws
+noise, so a sharded run equals the unsharded one bit for bit on any number
+of ranks (where ``forward``'s rows do not depend on how many it is
+handed).
 """
 
 from typing import NamedTuple
@@ -26,6 +36,7 @@ import numpy as np
 import torch
 
 from mcmcpp_tpu_torch.models.lgss import nan_cholesky, solve
+from mcmcpp_tpu_torch.parallel.mesh import gathered, own_rows
 from mcmcpp_tpu_torch.particle import as_generator
 
 __all__ = ["EKIResult", "EKSResult", "ensemble_kalman_inversion",
@@ -74,14 +85,17 @@ def _whiten(gamma_chol, r):
 
 
 def ensemble_kalman_inversion(gen, forward, y, gamma, prior_mean, prior_cov,
-                              n_ensemble=128, n_iters=30, dt0=1.0, noise=None,
-                              device="cuda"):
+                              n_ensemble=128, n_iters=30, dt0=1.0, mesh=None,
+                              noise=None, device=None):
     """EKI: derivative-free MAP-style point estimation. ``forward`` (J, P)
     -> (J, E); ``y`` (E,), ``gamma`` (E, E) or (E,) diagonal; the initial
     ensemble is drawn from N(m0, C0); the step is ``dt0 / (‖D‖_F + 1e-8)``.
-    ``noise`` (J, P): the initial ensemble's normals, for a replay. Returns
-    :class:`EKIResult`; ``misfit_trace`` should decrease."""
-    gen = as_generator(gen, device)
+    ``noise`` (J, P): the initial ensemble's normals, for a replay.
+    ``mesh``: a ``WalkerLayout`` splitting the forward evaluations over the
+    ranks (the module docstring). Returns :class:`EKIResult`;
+    ``misfit_trace`` should decrease."""
+    rows = own_rows(mesh, int(n_ensemble), "n_ensemble")
+    gen = as_generator(gen, device, mesh)
     y, gamma = _validate(forward, y, gamma, n_ensemble, gen.device)
     j_n = int(n_ensemble)
     m0, c0 = _prior(prior_mean, prior_cov, y)
@@ -91,7 +105,7 @@ def ensemble_kalman_inversion(gen, forward, y, gamma, prior_mean, prior_cov,
     theta = m0 + z @ nan_cholesky(c0).mT
     misfits = []
     for _ in range(int(n_iters)):
-        g = forward(theta)                          # (J, E)
+        g, = gathered(mesh, forward(theta[rows]))   # (J, E), every member
         dg_w = _whiten(gamma_chol, g - torch.mean(g, 0))
         resid_w = _whiten(gamma_chol, g - y)
         # D[j, k] = <g_k − ḡ, Γ^{-1}(g_j − y)> / J, the interaction
@@ -103,14 +117,16 @@ def ensemble_kalman_inversion(gen, forward, y, gamma, prior_mean, prior_cov,
 
 
 def ensemble_kalman_sampler(gen, forward, y, gamma, prior_mean, prior_cov,
-                            n_ensemble=256, n_iters=800, dt0=0.3, noise=None,
-                            device="cuda"):
+                            n_ensemble=256, n_iters=800, dt0=0.3, mesh=None,
+                            noise=None, device=None):
     """EKS: derivative-free POSTERIOR sampling (Garbuno-Iñigo et al. 2020,
     eqs. 4.3–4.6, with the Nüsken–Reich correction ``+Δt (P+1)/J (θ_j −
     θ̄)``). ``noise``: ``(z0 (J, P), xi(i) -> (J, J))``, the initial
-    ensemble's and iteration i's normals, for a replay. Returns
-    :class:`EKSResult`."""
-    gen = as_generator(gen, device)
+    ensemble's and iteration i's normals, for a replay. ``mesh``: a
+    ``WalkerLayout`` splitting the forward evaluations over the ranks (the
+    module docstring). Returns :class:`EKSResult`."""
+    rows = own_rows(mesh, int(n_ensemble), "n_ensemble")
+    gen = as_generator(gen, device, mesh)
     y, gamma = _validate(forward, y, gamma, n_ensemble, gen.device)
     j_n = int(n_ensemble)
     m0, c0 = _prior(prior_mean, prior_cov, y)
@@ -128,7 +144,7 @@ def ensemble_kalman_sampler(gen, forward, y, gamma, prior_mean, prior_cov,
     c0_inv_m0 = c0_inv @ m0
     misfits = []
     for i in range(int(n_iters)):
-        g = forward(theta)
+        g, = gathered(mesh, forward(theta[rows]))
         t_bar = torch.mean(theta, 0)
         centered = theta - t_bar
         c_theta = centered.mT @ centered / j_n     # (P, P)

@@ -12,7 +12,20 @@ the ETKF, one (N, N) ``eigh``; a Python loop over T, no host sync.
 The ETKF's ``eigh`` returns eigenvectors whose signs are arbitrary (they
 differ between packages and devices); the transform built from them is
 not. Hooks take a ``torch.Generator`` where JAX's take a key; ``obs_noise``
-hands a replay the stochastic analysis's normals. ``mesh=`` is not ported.
+hands a replay the stochastic analysis's normals.
+
+``mesh=`` (a ``WalkerLayout``) splits the members over the ranks. The
+forecast, the expensive part, is local: ``init_sample`` and
+``trans_sample`` draw the rank's members from :func:`~mcmcpp_tpu_torch.
+parallel.mesh.hook_generator`'s generator (the caller's in a group of one,
+so the run equals the unsharded one bit for bit; a rank's fork over more
+ranks, another equally valid draw). One all-gather a step brings every rank
+the whole forecast ensemble, and the analysis (the observation operator,
+the anomaly products, the Cholesky, the ETKF's ``eigh``, the perturbation
+normals drawn whole) runs on the whole ensemble on every rank as
+unsharded: a few small matmuls a step, next to which a second collective
+would cost more. Each rank forecasts its rows of the analysis ensemble; the
+result is the whole ensemble's on every rank.
 """
 
 import math
@@ -22,6 +35,7 @@ import numpy as np
 import torch
 
 from mcmcpp_tpu_torch.models.lgss import nan_cholesky
+from mcmcpp_tpu_torch.parallel.mesh import gathered, hook_generator, own_rows
 from mcmcpp_tpu_torch.particle import as_generator, as_series
 
 __all__ = ["EnKFModel", "EnKFResult", "ensemble_kalman_filter"]
@@ -54,22 +68,26 @@ def _tri_solve(fac, b):
 
 
 def ensemble_kalman_filter(gen, model, ys, n_ensemble, inflation=1.0,
-                           variant="stochastic", obs_noise=None,
-                           device="cuda"):
+                           mesh=None, variant="stochastic", obs_noise=None,
+                           device=None):
     """EnKF over ``ys`` ((T, E); (T,) promoted). ``inflation`` multiplies
     the forecast anomalies; ``variant="etkf"`` is the square-root analysis
     (its analysis covariance matched exactly, one (N, N) ``eigh`` a step).
     ``loglik`` accumulates log N(y_t; mean(H x), S_t), the exact marginal
     likelihood in the linear-Gaussian limit. ``gen``: a generator or an int
     seed for one on ``device``. ``obs_noise`` (T, N, E): the stochastic
-    analysis's standard normals, for a replay."""
-    gen = as_generator(gen, device)
+    analysis's standard normals, for a replay. ``mesh``: a ``WalkerLayout``
+    splitting the members over the ranks (the module docstring)."""
     n = int(n_ensemble)
     if n < 2:
         raise ValueError("EnKF needs n_ensemble >= 2")
     if variant not in ("stochastic", "etkf"):
         raise ValueError(f"unknown variant {variant!r}")
-    x = model.init_sample(gen, n)
+    rows = own_rows(mesh, n, "n_ensemble")
+    gen = as_generator(gen, device, mesh)
+    hgen = hook_generator(mesh, gen)
+    # the whole ensemble from the rank's members (one all-gather)
+    x, = gathered(mesh, model.init_sample(hgen, rows.stop - rows.start))
     dt, dev = x.dtype, x.device
     ys = as_series(ys).to(dev, dt)
     r_cov = torch.as_tensor(model.obs_cov, dtype=dt, device=dev)
@@ -121,7 +139,7 @@ def ensemble_kalman_filter(gen, model, ys, n_ensemble, inflation=1.0,
     lls = [ll]
     means, spreads = [torch.mean(x, 0)], [torch.std(x, 0, correction=0)]
     for t in range(1, ys.shape[0]):
-        x = model.trans_sample(gen, x, t)
+        x, = gathered(mesh, model.trans_sample(hgen, x[rows], t))
         x, ll = analysis(x, ys[t], t)
         lls.append(ll)
         means.append(torch.mean(x, 0))

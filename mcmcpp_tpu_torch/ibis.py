@@ -17,7 +17,20 @@ one host sync. ``max_chunk_steps`` keeps its name: full stages run in groups
 of that many (:func:`mcmcpp_tpu_torch.utils.buffers.chunked_stage_scan`)
 whose increments reach the host's ``log_evidence_trace`` in one read a
 group; a grouped run and a per-stage run draw the same numbers and are
-bitwise equal. ``mesh=`` is not ported.
+bitwise equal.
+
+Sharded (``mesh=``, a ``WalkerLayout``), the particles split over the
+ranks: a rank holds its rows of the cloud, its log prior, likelihood sums
+and log weights, and scores its rows. A stage gathers the log weights and
+the batch's increments once (the evidence increment and the ESS test are
+then the unsharded code's on every rank, so every rank takes the same
+branch); a resampling stage also gathers the cloud with its log prior and
+likelihood sums, resamples it whole, takes the proposal's factor from the
+whole resampled cloud and moves the rank's rows. Every draw (the prior
+sample, the resampling offset, the moves' normals and uniforms) is drawn
+whole and cut, so a sharded run equals the unsharded one bit for bit on
+any number of ranks. ``posterior()`` and ``moments()`` read the whole
+cloud (one all-gather); ``state`` holds the rank's rows.
 """
 
 from typing import NamedTuple
@@ -29,7 +42,8 @@ from mcmcpp_tpu_torch.gibbs import per_chain
 from mcmcpp_tpu_torch.models.lgss import nan_cholesky
 from mcmcpp_tpu_torch.ops.random import AUX_STREAM, STEP_STREAM, \
     make_generator
-from mcmcpp_tpu_torch.sampler import resolve_device
+from mcmcpp_tpu_torch.parallel.mesh import _engine_device, gathered, \
+    own_rows
 from mcmcpp_tpu_torch.smc import ess_from_log_weights, systematic_resample
 from mcmcpp_tpu_torch.utils.buffers import chunked_stage_scan
 
@@ -127,13 +141,17 @@ class IBISSampler:
     batch_size : rows absorbed per stage; n_mcmc : RWM steps per resample
         event; target_ess : resample when ESS/n drops below it.
     device : default "cuda" (CUDA without a GPU raises).
+    mesh : a ``WalkerLayout`` splitting the particles over the ranks of a
+        process group, on the layout's device.
     """
 
     def __init__(self, log_prior_fn, loglike_point_fn, prior_sample_fn,
                  n_particles, n_params, batch_size=1, n_mcmc=5,
                  target_ess=0.5, rw_scale=1.0, seed=0, dtype=torch.float32,
-                 max_chunk_steps=32, batched=False, device="cuda"):
-        self.device = resolve_device(device)
+                 mesh=None, max_chunk_steps=32, batched=False, device=None):
+        self.mesh = mesh
+        self._rows = own_rows(mesh, int(n_particles), "n_particles")
+        self.device = _engine_device(mesh, device)
         self.log_prior_fn = log_prior_fn
         self.loglike_point_fn = loglike_point_fn
         self.prior_sample_fn = prior_sample_fn
@@ -182,28 +200,39 @@ class IBISSampler:
     def stage(self, state, data, start, take, noise=None):
         """Absorb rows ``[start, start + take)``: reweight, then (on the host
         test of the ESS) resample and move. ``noise`` replaces a resampling
-        stage's draws. Returns (state, stage_logz (), resampled (bool))."""
+        stage's draws (every particle's, when sharded). Returns (state,
+        stage_logz (), resampled (bool))."""
         incr = self._masked_loglik(state.particles,
                                    _rows(data, start, start + take))
-        lw_old = state.log_w
-        stage_logz = (torch.logsumexp(lw_old + incr, 0)
+        rows = self._rows
+        # every particle's old weights and increments (one all-gather)
+        lw_old, incr_all = gathered(self.mesh, state.log_w, incr)
+        log_w_all = lw_old + incr_all
+        stage_logz = (torch.logsumexp(log_w_all, 0)
                       - torch.logsumexp(lw_old, 0))
-        log_w = lw_old + incr
+        log_w = log_w_all[rows]
         loglik_cum = state.loglik_cum + incr
-        ess = ess_from_log_weights(log_w)
+        ess = ess_from_log_weights(log_w_all)
         particles, log_prior = state.particles, state.log_prior
         self.host_syncs += 1
         resample = bool(ess < self.target_ess * self.n)
         if resample:
             if noise is None:
                 noise = self.draw_stage_noise()
-            idx = systematic_resample(noise.u0, log_w, self.n)
-            particles, log_prior = particles[idx], log_prior[idx]
+            whole, log_prior, loglik_cum = gathered(self.mesh, particles,
+                                                    log_prior, loglik_cum)
+            idx = systematic_resample(noise.u0, log_w_all, self.n)
+            whole = whole[idx]
+            chol = rw_chol(whole, self.rw_scale, 1e-8)
+            idx = idx[rows]
+            particles, log_prior = whole[rows], log_prior[idx]
             loglik_cum = loglik_cum[idx]
-            chol = rw_chol(particles, self.rw_scale, 1e-8)
             prefix = _rows(data, 0, start + take)
             for z, u in noise.moves:
-                prop = particles + z @ chol.mT
+                # the whole (n, P) product's rows (a small product's rows
+                # can depend on how many it has)
+                u = u[rows]
+                prop = particles + (z @ chol.mT)[rows]
                 lp_new = self._log_prior(prop).to(self.dtype)
                 ll_new = self._masked_loglik(prop, prefix)
                 accept = torch.log(u) < ((lp_new + ll_new)
@@ -228,7 +257,9 @@ class IBISSampler:
         if tuple(particles.shape) != (self.n, self.n_params):
             raise ValueError(f"prior_sample returned {tuple(particles.shape)}"
                              f", expected {(self.n, self.n_params)}")
-        zeros = torch.zeros(self.n, dtype=self.dtype, device=self.device)
+        particles = particles[self._rows]
+        zeros = torch.zeros(particles.shape[0], dtype=self.dtype,
+                            device=self.device)
         self.state = IBISState(
             particles, self._log_prior(particles).to(self.dtype), zeros,
             zeros.clone(), torch.zeros((), dtype=self.dtype,
@@ -281,11 +312,13 @@ class IBISSampler:
         """Weight-resampled posterior draws from the current particles."""
         if self.state is None:
             raise RuntimeError("call update() first")
-        return cloud_draws(self.state.particles, self.state.log_w, self.n,
+        return cloud_draws(*gathered(self.mesh, self.state.particles,
+                                     self.state.log_w), self.n,
                            n_draws, seed)
 
     def moments(self):
         """Weighted posterior mean and covariance of the current cloud."""
         if self.state is None:
             raise RuntimeError("call update() first")
-        return cloud_moments(self.state.particles, self.state.log_w)
+        return cloud_moments(*gathered(self.mesh, self.state.particles,
+                                       self.state.log_w))

@@ -23,7 +23,20 @@ the P coordinates.
 Training is the functional Adam of :mod:`mcmcpp_tpu_torch.optim` (optax's
 numbers and state). Each step's base draws come from the NeuTra's generator,
 or from ``noise=`` (a (n_steps, batch, P) tensor), which is how a test hands
-the port the JAX package's draws. ``mesh=`` is not ported.
+the port the JAX package's draws.
+
+Sharded (``mesh=``, a ``WalkerLayout``), the training batch splits over the
+ranks and the flow's parameters and Adam state stay replicated: every rank
+draws the whole batch's base draws (or ``refit_forward_kl``'s row indices)
+and keeps its rows, takes the gradient of its rows' share of the mean, and
+one all-reduce a step (:meth:`~mcmcpp_tpu_torch.parallel.mesh.WalkerLayout.
+sum`) sums the flat gradient with the objective's value beside it, so every
+rank takes the same Adam step. In a group of one the sum does no arithmetic
+and the fit equals the unsharded one bit for bit; over more ranks the
+partial sums round otherwise (within the JAX package's 2e-3,
+``tests/test_neutra.py:363``). :meth:`NeuTra.make_sampler` passes the layout
+on to the gradient sampler (unless ``mesh=`` is given) and draws every
+chain's start, of which each rank keeps its rows. No hook draws noise here.
 """
 
 import copy
@@ -36,7 +49,11 @@ from torch import nn
 
 from mcmcpp_tpu_torch.optim import adam_init, adam_step
 from mcmcpp_tpu_torch.ops.random import STEP_STREAM, make_generator
-from mcmcpp_tpu_torch.sampler import resolve_device
+from mcmcpp_tpu_torch.parallel.mesh import (
+    _engine_device,
+    own_rows,
+    summed_grad,
+)
 
 __all__ = ["FitResult", "IAF", "NeuTra", "RealNVP", "SplineCoupling"]
 
@@ -436,12 +453,15 @@ class NeuTra:
     ``flow``: a :class:`RealNVP` (default), :class:`IAF` or
     :class:`SplineCoupling`; it is moved to ``device`` and initialized from
     the NeuTra's generator. ``device`` defaults to "cuda" (CUDA without a
-    GPU raises).
+    GPU raises). ``mesh``: a ``WalkerLayout`` splitting the training batch
+    over the ranks of a process group, on the layout's device (the batch
+    must divide by the ranks).
     """
 
     def __init__(self, logp_fn, dim, flow=None, seed=0, dtype=torch.float32,
-                 batched=False, device="cuda"):
-        self.device = resolve_device(device)
+                 batched=False, mesh=None, device=None):
+        self.mesh = mesh
+        self.device = _engine_device(mesh, device)
         self.logp_fn = logp_fn
         self._logp = logp_fn if batched else torch.func.vmap(logp_fn)
         self.dim = int(dim)
@@ -478,25 +498,37 @@ class NeuTra:
         x, logdet = self.flow(z)
         return torch.mean(self._logp(x) + logdet)
 
+    def _summed(self, obj, params, rows, batch):
+        """(gradient of ``obj`` in ``params``, ``obj``) of the whole batch:
+        unsharded ``obj`` is the batch's mean; sharded, the mean over the
+        rank's ``rows`` of ``batch``, weighted by its share and summed over
+        the ranks with its gradient in one all-reduce."""
+        if self.mesh is None:
+            return torch.autograd.grad(obj, params), obj.detach()
+        if self.mesh.world_size > 1:
+            obj = obj * ((rows.stop - rows.start) / batch)
+        return summed_grad(self.mesh, obj, params)
+
     def fit(self, n_steps=2000, batch=128, learning_rate=1e-3, resume=False,
             noise=None):
         """Adam ascent on the ELBO. Returns self; the trace is in
         ``fit_result``. ``resume=True`` continues from the kept optimizer
         state, so ``fit(k); fit(k, resume=True)`` equals ``fit(2k)`` with a
         save and load between. ``noise``: optional (n_steps, batch, P)
-        base draws in place of the generator's. The ELBO trace stays on the
-        device until the end (one host read)."""
+        base draws in place of the generator's (every row's, when sharded).
+        The ELBO trace stays on the device until the end (one host read)."""
         params = self.params
         state = (self._opt_state if resume and self._opt_state is not None
                  else adam_init(params))
         elbos = torch.empty(int(n_steps), dtype=self.dtype,
                             device=self.device)
+        rows = own_rows(self.mesh, int(batch), "batch")
         for i in range(int(n_steps)):
-            z = self._draw(noise, i, (int(batch), self.dim))
-            loss = -self.elbo(z)
-            grads = torch.autograd.grad(loss, params)
+            z = self._draw(noise, i, (int(batch), self.dim))[rows]
+            grads, loss = self._summed(-self.elbo(z), params, rows,
+                                       int(batch))
             state = adam_step(params, grads, state, learning_rate)
-            elbos[i] = -loss.detach()
+            elbos[i] = -loss
         self._opt_state = state
         hist = elbos.cpu().numpy()
         self.fit_result = FitResult(hist, float(hist[-100:].mean()))
@@ -508,7 +540,8 @@ class NeuTra:
         KL), from a fresh Adam state. ``noise``: optional (n_steps, batch)
         row indices in place of the generator's. Returns self; the trace
         (mean log q) is in ``refit_result``. Samplers built before keep the
-        parameters they were built with."""
+        parameters they were built with. Sharded, every rank passes the
+        same ``samples`` and fits on its rows of each step's batch."""
         x = torch.as_tensor(np.asarray(samples) if not isinstance(
             samples, torch.Tensor) else samples).to(self.device, self.dtype)
         if x.ndim != 2 or x.shape[1] != self.dim:
@@ -520,16 +553,17 @@ class NeuTra:
         state = adam_init(params)
         hist = torch.empty(int(n_steps), dtype=self.dtype,
                            device=self.device)
+        rows = own_rows(self.mesh, batch, "batch")
         for i in range(int(n_steps)):
             idx = (noise[i].to(self.device) if noise is not None
                    else torch.randint(0, n, (batch,),
                                       generator=self._step_gen,
-                                      device=self.device))
-            obj = torch.mean(gaussian_logq(self.flow, x[idx], self.dim))
-            grads = torch.autograd.grad(obj, params)
+                                      device=self.device))[rows]
+            grads, obj = self._summed(torch.mean(gaussian_logq(
+                self.flow, x[idx], self.dim)), params, rows, batch)
             state = adam_step(params, [-g for g in grads], state,
                               learning_rate)
-            hist[i] = obj.detach()
+            hist[i] = obj
         self._opt_state = state
         hist = hist.cpu().numpy()
         self.refit_result = FitResult(hist, float(hist[-100:].mean()))
@@ -551,7 +585,11 @@ class NeuTra:
 
     def make_sampler(self, sampler_cls, n_chains, seed=1, **kw):
         """``sampler_cls`` (a gradient sampler of the port) on the warped
-        target, started from base noise."""
+        target, started from base noise; sharded over the NeuTra's layout
+        unless ``mesh=`` is given (every chain's start is drawn, and each
+        rank keeps its rows)."""
+        if self.mesh is not None:
+            kw.setdefault("mesh", self.mesh)
         kw.setdefault("device", self.device)
         kw.setdefault("dtype", self.dtype)
         s = sampler_cls(self.warped_logp(), n_chains=n_chains,

@@ -32,9 +32,11 @@ HOST_STREAM = 2
 UNIT_FLOOR = 2.0 ** -25
 
 
-def make_generator(seed, stream, device):
-    """A generator on ``device`` for stream ``stream`` of ``seed``."""
-    state = np.random.SeedSequence([int(seed), int(stream)]).generate_state(
+def make_generator(seed, stream, device, *more):
+    """A generator on ``device`` for stream ``stream`` of ``seed`` (and of
+    the further words ``more``, e.g. a rank)."""
+    state = np.random.SeedSequence(
+        [int(seed), int(stream), *(int(w) for w in more)]).generate_state(
         1, np.uint64
     )
     gen = torch.Generator(device=device)

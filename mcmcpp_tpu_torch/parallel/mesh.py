@@ -17,20 +17,56 @@ The engines' collectives sit on the layout: :meth:`WalkerLayout.gather`
 (the ranks' rows of any ``(n_local, …)`` tensor as the whole ``(n, …)`` in
 global order, one all-gather), :meth:`WalkerLayout.any`/:meth:`~WalkerLayout.
 all` (a data-dependent loop's test, one MAX all-reduce, so that every rank
-runs the same iterations) and :meth:`LadderLayout.gather_grid` (a
-tempering grid's blocks as the whole ``(K, H, …)`` grid).
+runs the same iterations), :meth:`LadderLayout.gather_grid` (a
+tempering grid's blocks as the whole ``(K, H, …)`` grid) and, since the
+variational and time-series engines, :meth:`WalkerLayout.sum` (JAX's
+``psum``: the ranks' partial gradients of ADVI's ELBO and NeuTra's loss as
+one all-reduce of the flat gradient; integer counts summed exactly).
+:meth:`~WalkerLayout.gather_rows` carries several tensors of any dtypes (a
+filter's particles beside its log weights, an RBPF's integer regimes beside
+their Kalman moments) as their bytes, in one all-gather.
+
+Who draws the noise. (a) Noise an engine draws itself (the proposals,
+accept uniforms, resampling offsets, perturbations, initial draws and
+prior draws of every engine) is drawn whole on every rank from the same
+generator, which therefore stays in step on every rank, and each rank
+keeps its rows: the sharded engine equals the unsharded one bit for bit
+on any number of ranks. (b) Noise a user hook draws inside itself (a state-
+space model's ``init_sample``, ``trans_sample`` and ``prop_sample``, an
+RBPF's ``z_trans_sample``, an EnKF's forecast, PMMH's ``loglik_fn``) is
+sized by the rows the hook is handed, so the unsharded rows cannot be
+reproduced: :func:`hook_generator` gives those hooks the caller's generator
+unchanged in a group of one (so a group of one still equals the unsharded
+run bit for bit) and, over R > 1 ranks, a generator forked for the rank, so
+that no two ranks propagate their rows on the same stream. Taking the fork
+does not move the caller's generator, so the engine's own draws stay the
+unsharded run's: with hooks that draw nothing, a sharded run equals the
+unsharded one on any number of ranks. With drawn hook noise, a run over
+R > 1 ranks is a different, equally valid Monte Carlo draw: unlike the JAX
+package, whose keys are global and whose results do not depend on the
+mesh, the port's results with drawn hook noise depend on R.
 """
 
+from collections import OrderedDict
 from dataclasses import dataclass
 
 import torch
 import torch.distributed as dist
 
+from mcmcpp_tpu_torch.ops.random import make_generator
 from mcmcpp_tpu_torch.parallel import distributed
 from mcmcpp_tpu_torch.sampler import resolve_device
 
 WALKER_AXES = ("hosts", "devices")
 LADDER_AXES = ("ladder", "walkers")
+# the stream of a rank's hook generator (make_generator's streams 0-2 are
+# the engines' own)
+HOOK_STREAM = 3
+# hook_generator's count of the forks taken from each generator, by id, for
+# the _MAX_FORKED generators forked last (held, so that no other generator
+# takes their ids; torch's generators take no weak references)
+_FORKS = OrderedDict()
+_MAX_FORKED = 64
 
 
 class _Layout:
@@ -80,18 +116,37 @@ class _Layout:
         return whole.movedim(0, dim).contiguous()
 
     def gather_rows(self, *xs):
-        """Several ``(n_local, …)`` tensors of one dtype, each as its whole
+        """Several ``(n_local, …)`` tensors of any dtypes, each as its whole
         ``(n, …)`` in global order (contiguous): one all-gather of their
-        rows side by side."""
-        n = xs[0].shape[0]
-        whole = self.gather(torch.cat([x.reshape(n, -1) for x in xs], 1))
+        rows' bytes side by side (a bool travels as uint8)."""
+        if len(xs) == 1:
+            return (self.gather(xs[0]),)
+
+        def as_bytes(x):
+            x = x.to(torch.uint8) if x.dtype == torch.bool else x
+            return x.contiguous().reshape(x.shape[0], -1).view(torch.uint8)
+
+        whole = self.gather(torch.cat([as_bytes(x) for x in xs], 1))
         out, i = [], 0
         for x in xs:
-            w = x[:1].numel()
-            out.append(whole[:, i:i + w].reshape(
-                (-1,) + tuple(x.shape[1:])).contiguous())
+            w = as_bytes(x[:1]).shape[1]
+            dt = torch.uint8 if x.dtype == torch.bool else x.dtype
+            part = whole[:, i:i + w].contiguous().view(dt).reshape(
+                (-1,) + tuple(x.shape[1:]))
+            out.append(part.to(torch.bool) if x.dtype == torch.bool
+                       else part)
             i += w
         return tuple(out)
+
+    def sum(self, x):
+        """``x`` summed over the ranks (JAX's ``psum``), the same bits on
+        every rank: one SUM all-reduce; in a group of one ``x`` itself (no
+        arithmetic)."""
+        if self.world_size == 1:
+            return x
+        x = x.contiguous().clone()
+        dist.all_reduce(x, op=dist.ReduceOp.SUM)
+        return x
 
     def any(self, flag):
         """True if ``flag`` (a bool tensor) has a True element on any rank:
@@ -198,15 +253,75 @@ class LadderLayout(_Layout):
             (kd * kn, wd * hn) + rest).contiguous()
 
 
-def _engine_rows(mesh, device, n, axis):
-    """``(device, row0, n_local)`` of an engine with an axis of ``n`` rows
-    (named ``axis`` in its errors): the whole axis on ``device`` ("cuda"
-    when None) without a layout, else the layout's device (``device``, if
-    given, must name it) and this rank's rows."""
+def own_rows(mesh, n, axis):
+    """This rank's rows of an axis of ``n`` rows (named ``axis`` in its
+    errors) as a slice: all of them without a layout; ValueError, in the
+    JAX package's words, on an uneven split."""
     if mesh is None:
-        return resolve_device("cuda" if device is None else device), 0, n
+        return slice(0, n)
     row0, n_local = mesh.rows(n, axis)
-    return mesh.bind(device), row0, n_local
+    return slice(row0, row0 + n_local)
+
+
+def _engine_device(mesh, device):
+    """The device of an engine: ``device`` ("cuda" when None) without a
+    layout, else the layout's (``device``, if given, must name it)."""
+    if mesh is None:
+        return resolve_device("cuda" if device is None else device)
+    return mesh.bind(device)
+
+
+def _engine_rows(mesh, device, n, axis):
+    """``(device, row0, n_local)`` of an engine with an axis of ``n`` rows:
+    :func:`_engine_device` and the start and length of :func:`own_rows`
+    (the rows are checked first, before any process group is asked)."""
+    rows = own_rows(mesh, n, axis)
+    return _engine_device(mesh, device), rows.start, rows.stop - rows.start
+
+
+def gathered(mesh, *xs):
+    """Every rank's rows of the rank's ``xs``, in global order (``xs``
+    themselves without a layout): one all-gather."""
+    return xs if mesh is None else mesh.gather_rows(*xs)
+
+
+def summed_grad(mesh, obj, params):
+    """(∂obj/∂params, obj) of a rank's share ``obj`` of an objective, summed
+    over the ranks: one all-reduce of the flat gradient with ``obj``'s
+    value beside it (no arithmetic in a group of one)."""
+    grads = torch.autograd.grad(obj, params)
+    flat = mesh.sum(torch.cat([g.reshape(-1) for g in grads]
+                              + [obj.detach().reshape(1)]))
+    out, i = [], 0
+    for p in params:
+        out.append(flat[i:i + p.numel()].view_as(p))
+        i += p.numel()
+    return out, flat[-1]
+
+
+def hook_generator(mesh, gen):
+    """The generator a user hook draws from under ``mesh`` (rule (b) of the
+    module docstring): ``gen`` itself without a layout or in a group of
+    one; over R > 1 ranks a generator on ``gen``'s device seeded from
+    ``SeedSequence([w, HOOK_STREAM, rank, k])``. ``w`` is the next 62-bit
+    word of ``gen``, read from a copy of its state, so ``gen`` does not
+    move and the engine's own draws from it stay the unsharded run's; ``k``
+    counts the forks taken from ``gen`` before (while it is among the 64
+    generators forked last), so two calls on a ``gen`` that did not move
+    between them still fork anew. Every rank makes the same calls, so
+    ``w`` and ``k`` agree across the ranks. Reading ``w`` waits for the
+    device of a CUDA generator."""
+    if mesh is None or mesh.world_size == 1:
+        return gen
+    peek = torch.Generator(device=gen.device)
+    peek.set_state(gen.get_state())
+    w = int(torch.randint(0, 1 << 62, (1,), generator=peek,
+                          device=gen.device))
+    k = _FORKS.pop(id(gen), (gen, 0))[1]
+    _FORKS[id(gen)] = (gen, k + 1)
+    if len(_FORKS) > _MAX_FORKED:
+        _FORKS.popitem(last=False)
+    return make_generator(w, HOOK_STREAM, gen.device, mesh.rank, k)
 
 
 def _group():

@@ -30,7 +30,31 @@ has it.
 Draws, for a replay: a filter step draws its resampling uniform (one a
 row; ``resample_u`` hands them over) and then the hooks draw. Categorical
 draws are argmax(logits + Gumbel), as ``jax.random.categorical`` is.
-``mesh=`` is not ported.
+
+``mesh=`` (a ``WalkerLayout``), by the rules of
+:mod:`mcmcpp_tpu_torch.parallel.mesh`. A single filter
+(:func:`particle_filter`, :func:`particle_smoother`,
+:func:`particle_forecast`) splits its particles over the ranks: a rank
+draws its rows and propagates and weights them through the hooks, and one
+all-gather a step brings every rank the whole cloud with its weight
+increments (the auxiliary filter's lookahead is taken on the whole cloud,
+with no collective). The normalizer, the ESS, the systematic resample
+(its uniform drawn whole, the same on every rank), the filtered means and
+the stored clouds are the unsharded code's on the whole cloud, so every
+rank holds the unsharded result; a rank's ancestors index the whole cloud.
+The smoother's backward pass runs on the gathered clouds on every rank
+(its Gumbel noise drawn whole); the forecast resamples the whole cloud
+once and propagates the rank's rows, which it returns. PMMH splits its
+chains: each rank's filters are local, the step's proposal normals,
+accept uniforms and the filters' resampling uniforms are drawn for every
+chain and cut, acceptance is gathered when read and the chain stores the
+rank's rows. The hooks (and PMMH's ``loglik_fn``) draw from
+:func:`~mcmcpp_tpu_torch.parallel.mesh.hook_generator`: the caller's
+generator in a group of one, so that the sharded run equals the unsharded
+one bit for bit, a generator forked for the rank over more ranks, so that
+the run is another, equally valid draw (the JAX package's, with global
+keys, does not depend on the mesh); with hooks that draw nothing, a
+sharded run equals the unsharded one on any number of ranks.
 """
 
 import math
@@ -45,7 +69,12 @@ from mcmcpp_tpu_torch.gibbs import per_chain
 from mcmcpp_tpu_torch.ops.random import AUX_STREAM, STEP_STREAM, \
     make_generator
 from mcmcpp_tpu_torch.ops.random import gumbel as draw_gumbel
-from mcmcpp_tpu_torch.sampler import resolve_device
+from mcmcpp_tpu_torch.parallel.mesh import (
+    _engine_device,
+    gathered,
+    hook_generator,
+    own_rows,
+)
 from mcmcpp_tpu_torch.smc import ess_from_log_weights, systematic_resample
 
 __all__ = ["PFResult", "PMMHSampler", "PMMHState", "ParticleGibbsKernel",
@@ -87,12 +116,14 @@ class PFResult(NamedTuple):
     log_weights: Optional[torch.Tensor] = None  # (…, T, N) normalized
 
 
-def as_generator(gen, device):
-    """``gen`` if it is a ``torch.Generator``, else a generator on
-    ``device`` seeded from the int ``gen``."""
+def as_generator(gen, device, mesh=None):
+    """``gen`` if it is a ``torch.Generator``, else a generator seeded from
+    the int ``gen`` on ``device`` ("cuda" when None), or on ``mesh``'s
+    device."""
     if isinstance(gen, torch.Generator):
         return gen
-    return make_generator(int(gen), STEP_STREAM, resolve_device(device))
+    return make_generator(int(gen), STEP_STREAM,
+                          _engine_device(mesh, device))
 
 
 class Hooks:
@@ -188,27 +219,56 @@ def as_series(ys):
     return ys[:, None] if ys.ndim == 1 else ys
 
 
+def filter_shard(mesh, gen, device, n):
+    """(generator, shard) of a filter function: ``gen`` (or a generator
+    seeded by the int ``gen``) on the engine's device, and None or
+    ``(layout, this rank's rows of the n particles)``."""
+    rows = own_rows(mesh, int(n), "n_particles")
+    gen = as_generator(gen, device, mesh)
+    return gen, None if mesh is None else (mesh, rows)
+
+
 def run_filter(gen, hooks, ys, n, ess_frac=0.5, auxiliary=False,
                return_particles=False, resample_u=None, stats=True,
-               final=False):
+               final=False, shard=None, hook_gen=None, chains=None):
     """The filter on ``hooks.lead`` leading axes (see the module
     docstring); ``resample_u`` (T−1, *lead) replaces the drawn resampling
     uniforms. ``stats=False`` skips the filtered means and ESS trace (the
-    likelihood-only path of PMMH and SMC²). Returns :class:`PFResult`, or
-    with ``final=True`` (result, the final particles, their log weights)."""
+    likelihood-only path of PMMH and SMC²). ``shard``: ``(layout, rows)``
+    of a single filter whose particles split over the ranks (the hooks see
+    the rank's rows; the result is the whole cloud's on every rank).
+    ``hook_gen``: the hooks' generator (default ``gen``, or under ``shard``
+    its rank's fork); ``chains``: ``(layout, rows, C)`` when ``hooks.lead``
+    is (n_local,), the rank's rows of C chains' filters split over the
+    ranks: their resampling uniforms are drawn for all C (from ``gen``)
+    and cut, and the log-likelihood sums every chain's increments over the
+    steps (one all-gather), so that each chain's sum has the unsharded
+    bits. Returns
+    :class:`PFResult`, or with ``final=True`` (result, the final
+    particles, their log weights)."""
     ssm = hooks.ssm
     guided = check_filter_hooks(ssm, auxiliary)
     logn = math.log(float(n))
     lead = hooks.lead
-    x = hooks.init_sample(gen, n)
+    hgen = hook_gen
+    if hgen is None:
+        hgen = gen if shard is None else hook_generator(shard[0], gen)
+    x = hooks.init_sample(hgen, n if shard is None
+                          else shard[1].stop - shard[1].start)
     dt, dev = x.dtype, x.device
     ys = ys.to(dev, dt)
 
+    layout = None if shard is None else shard[0]
+
+    def mine(idx):
+        """The rank's particles' entries of an index over the cloud."""
+        return idx if shard is None else idx[..., shard[1]]
+
     def propagate(x_r, y, t):
         if not guided:
-            xn = hooks.trans_sample(gen, x_r, t)
+            xn = hooks.trans_sample(hgen, x_r, t)
             return xn, hooks.obs_logpdf(y, xn, t)
-        xn = hooks.prop_sample(gen, x_r, y, t)
+        xn = hooks.prop_sample(hgen, x_r, y, t)
         return xn, (hooks.obs_logpdf(y, xn, t)
                     + hooks.trans_logpdf(xn, x_r, t)
                     - hooks.prop_logpdf(xn, x_r, y, t))
@@ -219,6 +279,7 @@ def run_filter(gen, hooks, ys, n, ess_frac=0.5, auxiliary=False,
         return hooks.obs_logpdf(y, hooks.trans_mean(x_, t), t)
 
     ll0 = hooks.obs_logpdf(ys[0], x, 0)
+    x, ll0 = gathered(layout, x, ll0)
     norm0 = _lse(ll0)
     incr0 = norm0 - logn
     lw = ll0 - norm0[..., None]
@@ -228,22 +289,28 @@ def run_filter(gen, hooks, ys, n, ess_frac=0.5, auxiliary=False,
         means.append(weighted_mean(lw, x))
     for t in range(1, ys.shape[0]):
         y = ys[t]
-        u0 = (resample_u[t - 1] if resample_u is not None
-              else torch.rand(lead, generator=gen, dtype=dt, device=dev))
+        if resample_u is not None:
+            u0 = resample_u[t - 1]
+        elif chains is None:
+            u0 = torch.rand(lead, generator=gen, dtype=dt, device=dev)
+        else:
+            u0 = torch.rand((chains[2],), generator=gen, dtype=dt,
+                            device=dev)[chains[1]]
         if auxiliary:
             lam = lookahead(y, x, t)
             first = lw + lam
             norm1 = _lse(first)
-            idx = systematic_resample(u0, first, n)
+            idx = mine(systematic_resample(u0, first, n))
             xn, ll = propagate(gather_rows(x, idx), y, t)
-            second = ll - torch.take_along_dim(lam, idx, -1)
+            xn, second = gathered(layout, xn,
+                                  ll - torch.take_along_dim(lam, idx, -1))
             norm2 = _lse(second)
             incrs.append(norm1 + norm2 - logn)
             x, lw = xn, second - norm2[..., None]
         else:
             # the ESS of the weights in hand: the previous step's
-            x, lw, incr = bootstrap_step(gen, hooks, x, lw, ess, y, t, n,
-                                         ess_frac, u0, propagate)
+            x, lw, incr = bootstrap_step(hgen, hooks, x, lw, ess, y, t, n,
+                                         ess_frac, u0, propagate, shard)
             incrs.append(incr)
         if stats or not auxiliary:
             ess = ess_from_log_weights(lw)
@@ -255,7 +322,13 @@ def run_filter(gen, hooks, ys, n, ess_frac=0.5, auxiliary=False,
             lws.append(lw)
     loglik = incr0
     if incrs:
-        loglik = incr0 + torch.sum(torch.stack(incrs), 0)
+        steps = torch.stack(incrs)
+        if chains is not None:
+            # every chain's increments: a column sum's bits depend on how
+            # many columns it has (on the CPU)
+            steps = chains[0].gather(steps, 1)
+        total = torch.sum(steps, 0)
+        loglik = incr0 + (total if chains is None else total[chains[1]])
     k = len(lead)
     result = PFResult(
         loglik.to(dt), torch.stack(means, k) if stats else None,
@@ -266,28 +339,33 @@ def run_filter(gen, hooks, ys, n, ess_frac=0.5, auxiliary=False,
 
 
 def bootstrap_step(gen, hooks, x, lw, ess, y, t, n, ess_frac, u0,
-                   propagate=None):
+                   propagate=None, shard=None):
     """One bootstrap step on ``hooks.lead`` rows: resample where the ESS of
     ``lw`` is below ``ess_frac * n`` (a device ``where``), propagate,
-    weight. Returns (x', normalized lw', log-increment)."""
+    weight. Returns (x', normalized lw', log-increment). ``shard``:
+    ``(layout, rows)`` of a particle-sharded filter, whose ``x`` and ``lw``
+    are the whole cloud's: the rank propagates its rows, and one all-gather
+    returns the whole cloud with its increments."""
     logn = math.log(float(n))
     do_rs = (ess < ess_frac * n)[..., None]
     idx = torch.where(do_rs, systematic_resample(u0, lw, n),
                       torch.arange(n, device=lw.device))
     lw = torch.where(do_rs, torch.full_like(lw, -logn), lw)
-    x_r = gather_rows(x, idx)
+    x_r = gather_rows(x, idx if shard is None else idx[..., shard[1]])
     if propagate is None:
         xn = hooks.trans_sample(gen, x_r, t)
         ll = hooks.obs_logpdf(y, xn, t)
     else:
         xn, ll = propagate(x_r, y, t)
+    if shard is not None:
+        xn, ll = gathered(shard[0], xn, ll)
     incr = _lse(lw + ll)
     return xn, lw + ll - incr[..., None], incr
 
 
 def particle_filter(gen, ssm, theta, ys, n_particles, ess_frac=0.5,
-                    auxiliary=False, return_particles=False,
-                    resample_u=None, device="cuda"):
+                    auxiliary=False, return_particles=False, mesh=None,
+                    resample_u=None, device=None):
     """Bootstrap particle filter with adaptive systematic resampling, or
     (``auxiliary=True``) the auxiliary particle filter, or (with
     ``ssm.prop_sample``) the guided filter.
@@ -298,11 +376,13 @@ def particle_filter(gen, ssm, theta, ys, n_particles, ess_frac=0.5,
     filter resamples every step from lookahead-tilted weights. Returns
     :class:`PFResult`; ``loglik`` is unbiased in exp (Del Moral 2004) and
     differentiable in ``theta`` except through the resampling indices.
-    ``resample_u``: the (T−1,) resampling uniforms, for a replay."""
-    gen = as_generator(gen, device)
+    ``resample_u``: the (T−1,) resampling uniforms, for a replay.
+    ``mesh``: a ``WalkerLayout`` splitting the particles over the ranks
+    (the module docstring); every rank returns the whole result."""
+    gen, shard = filter_shard(mesh, gen, device, n_particles)
     return run_filter(gen, Hooks(ssm, theta), as_series(ys),
                       int(n_particles), ess_frac, auxiliary,
-                      return_particles, resample_u)
+                      return_particles, resample_u, shard=shard)
 
 
 class SmootherResult(NamedTuple):
@@ -312,20 +392,23 @@ class SmootherResult(NamedTuple):
 
 
 def particle_smoother(gen, ssm, theta, ys, n_particles, n_draws,
-                      ess_frac=0.5, auxiliary=False, gumbel=None,
-                      device="cuda"):
+                      ess_frac=0.5, auxiliary=False, mesh=None, gumbel=None,
+                      device=None):
     """Forward-filter backward-simulation smoother (Godsill, Doucet & West
     2004): ``n_draws`` joint draws from p(x_{1:T} | y_{1:T}, θ). Needs
     ``ssm.trans_logpdf``; each backward step reweights the stored cloud by a
     (J, N) ``trans_logpdf`` block and draws all J paths at once.
     ``gumbel(i)``: the (J, N) Gumbel noise of step i's draw, asked for
-    i = T−1, then T−2 … 0 (drawn from ``gen`` when None)."""
+    i = T−1, then T−2 … 0 (drawn from ``gen`` when None). ``mesh``: the
+    forward filter's particles split over the ranks; the backward pass
+    runs on the gathered clouds, and every rank returns every draw."""
     if ssm.trans_logpdf is None:
         raise ValueError("particle_smoother needs ssm.trans_logpdf")
-    gen = as_generator(gen, device)
+    gen, shard = filter_shard(mesh, gen, device, n_particles)
     j_n = int(n_draws)
     res = run_filter(gen, Hooks(ssm, theta), as_series(ys), int(n_particles),
-                     ess_frac, auxiliary, return_particles=True)
+                     ess_frac, auxiliary, return_particles=True,
+                     shard=shard)
     xs, lws = res.particles, res.log_weights           # (T, N, D), (T, N)
     t_n, n = lws.shape
     if gumbel is None:
@@ -346,25 +429,31 @@ def particle_smoother(gen, ssm, theta, ys, n_particles, n_draws,
 
 
 def particle_forecast(gen, ssm, theta, particles, log_weights, t0, horizon,
-                      obs_sample=None, resample_u=None, device="cuda"):
+                      obs_sample=None, mesh=None, resample_u=None,
+                      device=None):
     """k-step-ahead predictive simulation from a filter's final cloud: one
     systematic resample to equal weights, then ``horizon`` steps of
     ``trans_sample``. ``obs_sample(gen, x, t, theta) -> (n, E)`` adds
     predictive observation draws. Returns ``(x_paths (H, N, D), y_draws
-    (H, N, E) | None)``."""
-    gen = as_generator(gen, device)
+    (H, N, E) | None)``. ``mesh``: every rank passes the whole cloud,
+    resamples it alike and propagates (and returns) its rows of it."""
     particles = torch.as_tensor(particles)
+    gen, shard = filter_shard(mesh, gen, device, particles.shape[0])
     log_weights = torch.as_tensor(log_weights, device=particles.device)
     n = particles.shape[0]
     u0 = (resample_u if resample_u is not None else torch.rand(
         (), generator=gen, dtype=log_weights.dtype, device=particles.device))
-    x = particles[systematic_resample(u0, log_weights, n)]
+    idx = systematic_resample(u0, log_weights, n)
+    if shard is not None:
+        idx = idx[shard[1]]
+    hgen = hook_generator(mesh, gen)
+    x = particles[idx]
     xs, ys = [], []
     for t in range(int(t0), int(t0) + int(horizon)):
-        x = ssm.trans_sample(gen, x, t, theta)
+        x = ssm.trans_sample(hgen, x, t, theta)
         xs.append(x)
         if obs_sample is not None:
-            ys.append(obs_sample(gen, x, t, theta))
+            ys.append(obs_sample(hgen, x, t, theta))
     return torch.stack(xs), (torch.stack(ys) if obs_sample is not None
                              else None)
 
@@ -390,16 +479,21 @@ class PMMHSampler:
     "different"`` unless batched), e.g. an RBPF or the exact
     ``lgss_loglik``. ``max_chunk_steps`` caps the stored steps a host fetch
     waits for. A step makes no host sync. ``device`` defaults to "cuda".
+    ``mesh``: a ``WalkerLayout`` splitting the chains over the ranks of a
+    process group (the module docstring), on the layout's device.
     """
 
     def __init__(self, ssm, ys, log_prior, n_params, n_particles=256,
                  proposal_scale=0.1, n_chains=16, seed=0, ess_frac=0.5,
-                 dtype=torch.float32, max_chain_bytes=2 << 30, chain=None,
-                 max_chunk_steps=128, loglik_fn=None, auxiliary=False,
-                 batched=False, device="cuda"):
+                 dtype=torch.float32, max_chain_bytes=2 << 30, mesh=None,
+                 chain=None, max_chunk_steps=128, loglik_fn=None,
+                 auxiliary=False, batched=False, device=None):
         if loglik_fn is None and ssm is None:
             raise ValueError("need either an ssm or a loglik_fn")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self._rows = own_rows(mesh, int(n_chains), "n_chains")
+        self._n_local = self._rows.stop - self._rows.start
+        self.device = _engine_device(mesh, device)
         self._loglik_fn = loglik_fn
         self.auxiliary = bool(auxiliary)
         self.batched = bool(batched)
@@ -420,35 +514,49 @@ class PMMHSampler:
                                 else max(1, int(max_chunk_steps)))
         self._step_gen = make_generator(seed, STEP_STREAM, self.device)
         self._aux_gen = make_generator(seed, AUX_STREAM, self.device)
+        # the filters' generators (rule (b) of parallel/mesh.py): the step
+        # and auxiliary generators themselves unsharded or in a group of one
+        self._filter_gen = hook_generator(mesh, self._step_gen)
+        self._init_filter_gen = hook_generator(mesh, self._aux_gen)
         self.state = None
         self._n_steps_done = 0
         if chain is not None:
-            if (chain.n_walkers, chain.n_params) != (self.n_chains,
+            if (chain.n_walkers, chain.n_params) != (self._n_local,
                                                      self.n_params):
                 raise ValueError("injected chain store geometry mismatch")
             self.chain = chain
         else:
-            self.chain = Chain(n_walkers=self.n_chains,
+            self.chain = Chain(n_walkers=self._n_local,
                                n_params=self.n_params,
                                max_bytes=max_chain_bytes,
                                dtype=row_dtype(dtype))
 
-    def _pf_loglik(self, gen, theta, resample_u=None):
-        """(C,) likelihood estimates at θ (C, P), one filter a chain."""
+    def _pf_loglik(self, gen, hook_gen, theta, resample_u=None):
+        """(C,) likelihood estimates at θ (C, P), one filter a chain (the
+        rank's chains when sharded): the filters' resampling uniforms from
+        ``gen`` (every chain's, cut to the rank's), the hooks' and
+        ``loglik_fn``'s draws from ``hook_gen``."""
         if self._loglik_fn is not None:
             if self.batched:
-                return self._loglik_fn(gen, theta)
-            return torch.func.vmap(lambda th: self._loglik_fn(gen, th),
+                return self._loglik_fn(hook_gen, theta)
+            return torch.func.vmap(lambda th: self._loglik_fn(hook_gen, th),
                                    randomness="different")(theta)
         hooks = Hooks(self.ssm, theta, (theta.shape[0],), self.batched)
-        return run_filter(gen, hooks, self.ys, self.n_particles,
-                          self.ess_frac, self.auxiliary,
-                          resample_u=resample_u, stats=False).loglik
+        return run_filter(
+            gen, hooks, self.ys, self.n_particles, self.ess_frac,
+            self.auxiliary, resample_u=resample_u, stats=False,
+            hook_gen=hook_gen, chains=None if self.mesh is None
+            else (self.mesh, self._rows, self.n_chains)).loglik
+
+    def _whole(self, x):
+        """Every chain's rows of the rank's ``x`` (``x`` unsharded)."""
+        return gathered(self.mesh, x)[0]
 
     @torch.no_grad()
     def init(self, positions, seed=None):
         """positions: (C, P) initial θ (or (P,) broadcast); the initial
-        estimates are drawn here (one filter a chain)."""
+        estimates are drawn here (one filter a chain). A sharded sampler
+        keeps its rows."""
         positions = torch.as_tensor(positions, dtype=self.dtype,
                                     device=self.device)
         if positions.ndim == 1:
@@ -457,33 +565,43 @@ class PMMHSampler:
         if tuple(positions.shape) != (self.n_chains, self.n_params):
             raise ValueError(
                 f"positions must be ({self.n_chains}, {self.n_params})")
-        positions = positions.contiguous()
-        gen = (self._aux_gen if seed is None
-               else make_generator(seed, AUX_STREAM, self.device))
-        lls = self._pf_loglik(gen, positions).to(self.dtype)
+        positions = positions[self._rows].contiguous()
+        if seed is None:
+            gen, hook_gen = self._aux_gen, self._init_filter_gen
+        else:
+            gen = make_generator(seed, AUX_STREAM, self.device)
+            hook_gen = hook_generator(self.mesh, gen)
+        lls = self._pf_loglik(gen, hook_gen, positions).to(self.dtype)
         self.state = PMMHState(
             positions, lls, self._log_prior(positions).to(self.dtype),
-            torch.zeros((self.n_chains,), dtype=torch.int32,
+            torch.zeros((self._n_local,), dtype=torch.int32,
                         device=self.device))
         self._n_steps_done = 0
         return self
 
     @torch.no_grad()
     def step(self, state, prop_chol, z=None, u=None, resample_u=None):
-        """One transition of the whole (C, P) batch. ``z`` (C, P) normals,
-        ``u`` (C,) uniforms and ``resample_u`` (T−1, C) replace the drawn
-        proposal, accept and resampling draws (a replay)."""
-        gen, c = self._step_gen, self.n_chains
+        """One transition of the whole (C, P) batch (of the rank's chains
+        when sharded). ``z`` (C, P) normals, ``u`` (C,) uniforms and
+        ``resample_u`` (T−1, C) replace the drawn proposal, accept and
+        resampling draws (a replay; every chain's, when sharded)."""
+        gen, c, rows = self._step_gen, self.n_chains, self._rows
         if z is None:
-            z = torch.randn(state.position.shape, generator=gen,
+            z = torch.randn((c, self.n_params), generator=gen,
                             dtype=self.dtype, device=self.device)
-        prop = state.position + z @ prop_chol.mT
+        # the whole (C, P) product, then the rank's rows: a small product's
+        # rows can depend on how many it has
+        prop = state.position + (z @ prop_chol.mT)[rows]
         lp_new = self._log_prior(prop).to(self.dtype)
-        ll_new = self._pf_loglik(gen, prop, resample_u).to(self.dtype)
+        ll_new = self._pf_loglik(
+            gen, self._filter_gen, prop,
+            None if resample_u is None else resample_u[:, rows]).to(
+            self.dtype)
         log_acc = (lp_new + ll_new) - (state.logprior + state.loglik)
         if u is None:
             u = torch.clamp(torch.rand((c,), generator=gen, dtype=self.dtype,
                                        device=self.device), min=1e-37)
+        u = u[rows]
         ok = (torch.log(u) < log_acc) & torch.isfinite(lp_new) \
             & torch.isfinite(ll_new)
         return PMMHState(
@@ -499,9 +617,9 @@ class PMMHSampler:
         self.state = state
 
     def _run_chunk(self, take, thin):
-        pos = torch.empty((take, self.n_chains, self.n_params),
+        pos = torch.empty((take, self._n_local, self.n_params),
                           dtype=self.dtype, device=self.device)
-        lps = torch.empty((take, self.n_chains), dtype=self.dtype,
+        lps = torch.empty((take, self._n_local), dtype=self.dtype,
                           device=self.device)
         for s in range(take):
             self._advance(thin, self._prop_chol)
@@ -518,7 +636,7 @@ class PMMHSampler:
         thin = int(thin)
         n_store = int(n_steps) // thin
         leftover = int(n_steps) - n_store * thin
-        chunk = default_chunk_steps(self.n_chains, self.n_params,
+        chunk = default_chunk_steps(self._n_local, self.n_params,
                                     row_dtype(self.dtype))
         if self.max_chunk_steps is not None:
             chunk = min(chunk, self.max_chunk_steps)
@@ -537,8 +655,9 @@ class PMMHSampler:
         spans, the global scale moved by Robbins–Monro toward
         ``target_accept``, and with ``adapt_cov`` the shape re-estimated from
         the cross-chain spread scaled by 2.38²/P once the chains have
-        spread. Two host reads a span. Acceptance counters reset
-        afterwards. Returns self."""
+        spread. Two host reads a span (sharded, each after a gather of every
+        chain's counts or positions, so every rank adapts alike).
+        Acceptance counters reset afterwards. Returns self."""
         if self.state is None:
             raise RuntimeError("call init first")
         window = max(1, int(window))
@@ -546,13 +665,14 @@ class PMMHSampler:
         log_s = 0.0
         base = self._prop_chol
         for i in range(n_spans):
-            acc0 = int(self.state.accepted.sum())
+            acc0 = int(self._whole(self.state.accepted).sum())
             self._advance(window, math.exp(log_s) * base)
-            acc = (int(self.state.accepted.sum()) - acc0) / (
+            acc = (int(self._whole(self.state.accepted).sum()) - acc0) / (
                 window * self.n_chains)
             log_s += (1.0 / np.sqrt(i + 1.0)) * (acc - target_accept)
             if adapt_cov and self.n_chains > self.n_params:
-                pos = self.state.position.cpu().numpy().astype(np.float64)
+                pos = self._whole(self.state.position).cpu().numpy().astype(
+                    np.float64)
                 cov = np.cov(pos.T).reshape(self.n_params, self.n_params)
                 # adopt the cross-chain shape only once the chains have
                 # spread (identical inits and a rejected first window give
@@ -572,12 +692,15 @@ class PMMHSampler:
 
     @property
     def acceptance_fraction(self):
-        """(C,) per-chain accept fraction since init (or tune)."""
+        """(C,) per-chain accept fraction since init (or tune); every
+        chain's on every rank when sharded (one all-gather)."""
         if self.state is None or self._n_steps_done == 0:
             return np.zeros((self.n_chains,))
-        return self.state.accepted.cpu().numpy() / self._n_steps_done
+        return (self._whole(self.state.accepted).cpu().numpy()
+                / self._n_steps_done)
 
     def get_samples(self, burn_in=0, thin=1, flat=False):
+        """The stored θ (the rank's chains when sharded)."""
         return self.chain.get(burn_in=burn_in, thin=thin, flat=flat)
 
     def get_log_probs(self, burn_in=0, thin=1, flat=False):

@@ -15,7 +15,19 @@ masked per path; the host tests "every path done" after each evaluation, so
 an L-BFGS iteration reads the device once plus once per halving any path
 still needs. The ELBO phase's draws come from the generator, or from
 ``noise=(z (M, K, P), z_draws (M, n_draws, P))``, which is how a test hands
-the port the JAX package's. ``mesh=`` is not ported.
+the port the JAX package's.
+
+Sharded (``mesh=`` of :func:`multi_pathfinder`, a ``WalkerLayout``), the M
+paths split over the ranks (``n_paths`` divisible by their count). Every
+rank draws every path's start and ELBO-phase draws and keeps its rows; the
+paths are independent, so the L-BFGS loop and its line search run on the
+rank's paths with no collective (the line search's "every path done" test
+reads only the rank's paths: a path that is done ignores further halvings,
+so the test's reach changes no path's result). One all-gather brings every
+rank all paths' draws and log weights for the Hill tail index and the
+importance resampling, which run as unsharded: the pooled draws are the
+same on every rank and equal the unsharded run's bit for bit;
+``result.paths`` holds the rank's paths. No hook draws noise here.
 """
 
 from typing import NamedTuple
@@ -29,6 +41,8 @@ from mcmcpp_tpu_torch.ops.random import (
     STEP_STREAM,
     make_generator,
 )
+from mcmcpp_tpu_torch.parallel.mesh import _engine_device, gathered, \
+    own_rows
 from mcmcpp_tpu_torch.sampler import resolve_device
 
 __all__ = ["MultiPathfinderResult", "PathfinderResult", "multi_pathfinder",
@@ -49,7 +63,8 @@ class PathfinderResult(NamedTuple):
 class MultiPathfinderResult(NamedTuple):
     draws: np.ndarray  # (n_draws, P) resampled across all paths
     pareto_k: float  # Hill tail-index diagnostic of the pooled weights
-    paths: PathfinderResult  # per-path results (leading axis M)
+    paths: PathfinderResult  # per-path results (leading axis M; sharded,
+    # the rank's paths)
 
 
 def _dot(a, b):
@@ -98,9 +113,11 @@ def _inv_hessian_dense(s_buf, y_buf, valid, gamma):
 
 
 def _paths(logp, starts, maxiter, history, n_elbo_draws, n_draws, init_step,
-           gen, noise):
+           gen, noise, rows=None, n_all=None):
     """M Pathfinder paths from the (M, P) ``starts`` as one batch: the
-    fields of :class:`PathfinderResult` with a leading M axis."""
+    fields of :class:`PathfinderResult` with a leading M axis. ``rows``:
+    when ``starts`` are some of ``n_all`` paths, their slice of every
+    path's draws (and of ``noise``)."""
     mp, p = starts.shape
     m, dt, dev = int(history), starts.dtype, starts.device
 
@@ -162,12 +179,15 @@ def _paths(logp, starts, maxiter, history, n_elbo_draws, n_draws, init_step,
 
     # -- ELBO phase: one Gaussian approximation per iterate ------------------
     if noise is None:
-        z = torch.randn((mp, int(n_elbo_draws), p), generator=gen, dtype=dt,
-                        device=dev)
-        zf = torch.randn((mp, int(n_draws), p), generator=gen, dtype=dt,
+        m_all = mp if rows is None else n_all
+        z = torch.randn((m_all, int(n_elbo_draws), p), generator=gen,
+                        dtype=dt, device=dev)
+        zf = torch.randn((m_all, int(n_draws), p), generator=gen, dtype=dt,
                          device=dev)
     else:
         z, zf = (t.to(dev, dt) for t in noise)
+    if rows is not None:
+        z, zf = z[rows], zf[rows]
     const = 0.5 * p * np.log(2.0 * np.pi)
     eye = torch.eye(p, dtype=dt, device=dev)
     with torch.no_grad():
@@ -230,14 +250,19 @@ def _hill_khat(logw, frac=0.2):
 def multi_pathfinder(logp_fn, n_paths, init, init_scale=2.0, n_draws=1000,
                      seed=0, maxiter=60, history=6, n_elbo_draws=30,
                      draws_per_path=400, dtype=torch.float32, batched=False,
-                     device="cuda", noise=None):
+                     mesh=None, device=None, noise=None):
     """M Pathfinder paths from dispersed starts, as one batch, pooled by
     truncated importance resampling (cap at mean·√n, Ionides 2008).
 
     ``init``: (P,) center (starts ``init + init_scale·N(0, I)``) or
     (M, P) starts. ``noise``: optional (z (M, K, P), z_draws (M, n_draws,
-    P)). Returns :class:`MultiPathfinderResult`; check ``pareto_k``."""
-    logp, device = _setup(logp_fn, batched, device)
+    P)). ``mesh``: a ``WalkerLayout`` splitting the paths over the ranks
+    (every path's ``init`` and ``noise`` given on every rank). Returns
+    :class:`MultiPathfinderResult`; check ``pareto_k``."""
+    logp = logp_fn if batched else torch.func.vmap(logp_fn)
+    rows = None if mesh is None else own_rows(mesh, int(n_paths),
+                                              "n_paths")
+    device = _engine_device(mesh, device)
     init = torch.as_tensor(np.asarray(init) if not isinstance(
         init, torch.Tensor) else init).to(device, dtype)
     gen = make_generator(seed, STEP_STREAM, device)
@@ -249,10 +274,13 @@ def multi_pathfinder(logp_fn, n_paths, init, init_scale=2.0, n_draws=1000,
         if init.shape[0] != n_paths:
             raise ValueError("explicit starts must be (n_paths, P)")
         starts = init
+    if rows is not None:
+        starts = starts[rows]
     paths = _paths(logp, starts, maxiter, history, n_elbo_draws,
-                   draws_per_path, 1.0, gen, noise)
-    pooled = paths.draws.reshape(-1, starts.shape[1]).cpu().numpy()
-    logw = paths.logw.reshape(-1).cpu().numpy().astype(np.float64)
+                   draws_per_path, 1.0, gen, noise, rows, int(n_paths))
+    draws, logw = gathered(mesh, paths.draws, paths.logw)
+    pooled = draws.reshape(-1, starts.shape[1]).cpu().numpy()
+    logw = logw.reshape(-1).cpu().numpy().astype(np.float64)
     khat = _hill_khat(logw)
     w = np.exp(logw - logw.max())
     w = np.minimum(w, w.mean() * np.sqrt(w.size))  # truncated IS

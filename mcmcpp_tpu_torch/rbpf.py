@@ -18,7 +18,21 @@ loop over T with no host sync. The covariance update is the Joseph form.
 Hooks take a ``torch.Generator`` where JAX's take a key; a z-particle set is
 a tensor, or a tuple, list or dict of tensors with the particle axis first.
 :func:`switching_model`'s regime draws are argmax(log p + Gumbel), as
-``jax.random.categorical`` is. ``mesh=`` is not ported.
+``jax.random.categorical`` is.
+
+``mesh=`` (a ``WalkerLayout``) splits the particles, z-paths with their
+Kalman moments, over the ranks, as :func:`~mcmcpp_tpu_torch.particle.
+particle_filter` does: the Kalman algebra of a rank's rows is local, and one
+all-gather a step brings every rank the whole cloud (every z leaf, the
+moments and the predictive log-likelihoods, mixed dtypes as bytes), on
+which the weights, the resampling (its uniform drawn whole) and the mixture
+moments are the unsharded code's; every rank returns the whole result. The
+forecast resamples the whole cloud once, propagates the rank's rows and
+gathers them once a step for the mixture moments. ``z_init_sample`` and
+``z_trans_sample`` draw from :func:`~mcmcpp_tpu_torch.parallel.mesh.
+hook_generator`'s generator: the caller's in a group of one (bit for bit
+the unsharded run), a rank's fork over more ranks (another, equally valid
+draw).
 """
 
 import math
@@ -29,7 +43,8 @@ import torch
 
 from mcmcpp_tpu_torch.models.lgss import nan_cholesky
 from mcmcpp_tpu_torch.ops.random import gumbel
-from mcmcpp_tpu_torch.particle import as_generator, as_series
+from mcmcpp_tpu_torch.parallel.mesh import gathered, hook_generator
+from mcmcpp_tpu_torch.particle import as_series, filter_shard
 from mcmcpp_tpu_torch.sampler import resolve_device
 from mcmcpp_tpu_torch.smc import ess_from_log_weights, systematic_resample
 
@@ -86,6 +101,23 @@ def _leaves(z):
     return [z]
 
 
+def _unflatten(z, leaves):
+    """``z``'s tree with ``leaves`` (in :func:`_leaves` order) in place of
+    its own."""
+    it = iter(leaves)
+    return _tree_map(lambda _: next(it), z)
+
+
+def _whole_cloud(shard, z, *xs):
+    """Every particle's z tree and ``xs`` from the rank's rows (one
+    all-gather; the arguments themselves unsharded)."""
+    if shard is None:
+        return (z,) + xs
+    leaves = _leaves(z)
+    got = gathered(shard[0], *leaves, *xs)
+    return (_unflatten(z, got[:len(leaves)]),) + got[len(leaves):]
+
+
 def _zstat(model, n):
     return model.z_stat_fn or (lambda z: torch.cat(
         [leaf.to(torch.float32).reshape(n, -1) for leaf in _leaves(z)], 1))
@@ -113,24 +145,29 @@ def _kalman_observe(m, P, H, c, R, y):
 
 
 def rao_blackwell_filter(gen, model, ys, n_particles, ess_frac=0.5,
-                         resample_u=None, device="cuda"):
+                         mesh=None, resample_u=None, device=None):
     """Mixture Kalman filter with adaptive systematic resampling (when the
     z-path ESS < ``ess_frac * n_particles``). ``gen``: a generator or an int
     seed for one on ``device``; ``resample_u`` (T−1,): the resampling
-    uniforms, for a replay. Returns :class:`RBPFResult`."""
-    gen = as_generator(gen, device)
+    uniforms, for a replay. ``mesh``: a ``WalkerLayout`` splitting the
+    particles over the ranks (the module docstring). Returns
+    :class:`RBPFResult`."""
     n = int(n_particles)
+    gen, shard = filter_shard(mesh, gen, device, n)
+    hgen = hook_generator(mesh, gen)
+    n_local = n if shard is None else shard[1].stop - shard[1].start
     logn = math.log(float(n))
     zstat = _zstat(model, n)
-    z = model.z_init_sample(gen, n)
+    z = model.z_init_sample(hgen, n_local)
     m0 = torch.as_tensor(model.m0)
     dt, dev = m0.dtype, m0.device
     ys = as_series(ys).to(dev, dt)
-    m = m0[None].expand((n,) + tuple(m0.shape))
+    m = m0[None].expand((n_local,) + tuple(m0.shape))
     p0 = torch.as_tensor(model.P0, dtype=dt, device=dev)
-    p = p0[None].expand((n,) + tuple(p0.shape))
+    p = p0[None].expand((n_local,) + tuple(p0.shape))
     _, _, _, h0, c0, r0 = model.cond_params(z, 0)
     m, p, ll = _kalman_observe(m, p, h0, c0, r0, ys[0])
+    z, m, p, ll = _whole_cloud(shard, z, m, p, ll)
     norm = torch.logsumexp(ll, 0)
     lw = ll - norm
     incr0 = norm - logn
@@ -144,14 +181,17 @@ def rao_blackwell_filter(gen, model, ys, n_particles, ess_frac=0.5,
               else torch.rand((), generator=gen, dtype=dt, device=dev))
         do_rs = ess < ess_frac * n
         idx = torch.where(do_rs, systematic_resample(u0, lw, n), arange)
+        if shard is not None:
+            idx = idx[shard[1]]  # the rank's particles' ancestors
         z = _tree_map(lambda a: a[idx], z)
         m, p = m[idx], p[idx]
         lw = torch.where(do_rs, full, lw)
-        z = model.z_trans_sample(gen, z, t)
+        z = model.z_trans_sample(hgen, z, t)
         a_t, b_t, q_t, h_t, c_t, r_t = model.cond_params(z, t)
         m_pred = (a_t @ m[..., None])[..., 0] + b_t
         p_pred = a_t @ p @ a_t.mT + q_t
         m, p, ll = _kalman_observe(m_pred, p_pred, h_t, c_t, r_t, ys[t])
+        z, m, p, ll = _whole_cloud(shard, z, m, p, ll)
         incr = torch.logsumexp(lw + ll, 0)
         lw = lw + ll - incr
         ess = ess_from_log_weights(lw)
@@ -166,33 +206,41 @@ def rao_blackwell_filter(gen, model, ys, n_particles, ess_frac=0.5,
 
 
 def rbpf_forecast(gen, model, z, means, covs, log_weights, t0, horizon,
-                  resample_u=None, device="cuda"):
+                  mesh=None, resample_u=None, device=None):
     """k-step-ahead predictive moments from an RBPF cloud: one resample of
     (z, m, P) to equal weights, then per step z' ~ p(z'|z) and each
     particle's exact Kalman prediction through its regime's (A, b, Q).
     Returns ``(state_means (H, D), state_covs (H, D, D), z_stats (H, S))``,
-    the covariance the full mixture covariance."""
-    gen = as_generator(gen, device)
+    the covariance the full mixture covariance. ``mesh``: every rank
+    passes the whole cloud and propagates its rows of it; the moments are
+    the whole cloud's (one all-gather a step)."""
     means = torch.as_tensor(means)
     n = means.shape[0]
+    gen, shard = filter_shard(mesh, gen, device, n)
+    hgen = hook_generator(mesh, gen)
     zstat = _zstat(model, n)
     lw = torch.as_tensor(log_weights, device=means.device)
     u0 = (resample_u if resample_u is not None else torch.rand(
         (), generator=gen, dtype=lw.dtype, device=means.device))
     idx = systematic_resample(u0, lw, n)
+    if shard is not None:
+        idx = idx[shard[1]]
     z = _tree_map(lambda a: a[idx], z)
     m, p = means[idx], torch.as_tensor(covs, device=means.device)[idx]
     ms, cs, zs = [], [], []
     for t in range(int(t0), int(t0) + int(horizon)):
-        z = model.z_trans_sample(gen, z, t)
+        z = model.z_trans_sample(hgen, z, t)
         a_t, b_t, q_t, _, _, _ = model.cond_params(z, t)
-        m = (a_t @ m[..., None])[..., 0] + b_t
-        p = a_t @ p @ a_t.mT + q_t
+        m_own = (a_t @ m[..., None])[..., 0] + b_t
+        p_own = a_t @ p @ a_t.mT + q_t
+        z_own = z
+        z, m, p = _whole_cloud(shard, z, m_own, p_own)
         mbar = torch.mean(m, 0)
         dev = m - mbar
         ms.append(mbar)
         cs.append(torch.mean(p, 0) + dev.mT @ dev / float(n))
         zs.append(torch.mean(zstat(z), 0))
+        z, m, p = z_own, m_own, p_own
     return torch.stack(ms), torch.stack(cs), torch.stack(zs)
 
 

@@ -25,7 +25,24 @@ grouped and a per-stage run are bitwise equal); under ``grow_particles``
 every stage is its own group, and a rejuvenating stage also reads its
 acceptance to decide the exchange step (Chopin et al. 2013, §3.5). The
 degenerate-cloud guard floors the proposal covariance by a device
-``where``. ``mesh=`` is not ported.
+``where``.
+
+Sharded (``mesh=``, a ``WalkerLayout``), the θ-particles split over the
+ranks together with their x-systems: a rank advances, weights and
+rejuvenates its θ rows' filters locally. A stage gathers the θ log weights
+and increments once (the evidence increment and the θ-ESS test are the
+unsharded code's on every rank); a moving stage also gathers the θ cloud
+with its x-systems, resamples whole (θ, x-system) pairs, takes the
+proposal's moments from the whole resampled cloud, and sums the accepted
+moves over the ranks (one all-reduce). The stage's own draws (the
+x-systems' and the rejuvenation filters' resampling offsets, the θ offset,
+the proposal normals and accept uniforms) and the prior sample are drawn
+whole and cut; the hooks draw from :func:`~mcmcpp_tpu_torch.parallel.mesh.
+hook_generator`'s generator: the step generator in a group of one (bit for
+bit the unsharded run), a rank's fork over more ranks (another, equally
+valid draw; with hooks that draw nothing, the unsharded run's on any
+number of ranks). ``posterior()``, ``moments()`` and ``state_estimate()`` read
+the whole cloud (one all-gather); ``state`` holds the rank's rows.
 """
 
 import math
@@ -41,7 +58,12 @@ from mcmcpp_tpu_torch.ops.random import AUX_STREAM, STEP_STREAM, \
     make_generator
 from mcmcpp_tpu_torch.particle import Hooks, as_series, bootstrap_step, \
     run_filter
-from mcmcpp_tpu_torch.sampler import resolve_device
+from mcmcpp_tpu_torch.parallel.mesh import (
+    _engine_device,
+    gathered,
+    hook_generator,
+    own_rows,
+)
 from mcmcpp_tpu_torch.smc import ess_from_log_weights, systematic_resample
 from mcmcpp_tpu_torch.utils.buffers import chunked_stage_scan
 
@@ -81,15 +103,19 @@ class SMC2Sampler:
     prior_sample_fn : (gen, n) -> (n, P) prior draws.
     n_theta / n_particles : M θ-particles / Nx x-particles per θ.
     device : default "cuda" (CUDA without a GPU raises).
+    mesh : a ``WalkerLayout`` splitting the θ-particles (with their
+        x-systems) over the ranks of a process group, on its device.
     """
 
     def __init__(self, ssm, log_prior_fn, prior_sample_fn, n_theta, n_params,
                  n_particles=128, n_mcmc=3, target_ess=0.5, ess_frac_x=0.5,
-                 rw_scale=1.0, seed=0, dtype=torch.float32,
+                 rw_scale=1.0, seed=0, dtype=torch.float32, mesh=None,
                  grow_particles=False, grow_threshold=0.15,
                  max_particles=None, max_chunk_steps=32, batched=False,
-                 device="cuda"):
-        self.device = resolve_device(device)
+                 device=None):
+        self.mesh = mesh
+        self._rows = own_rows(mesh, int(n_theta), "n_theta")
+        self.device = _engine_device(mesh, device)
         self.ssm = ssm
         self.batched = bool(batched)
         self.log_prior_fn = log_prior_fn
@@ -105,6 +131,9 @@ class SMC2Sampler:
         self.dtype = dtype
         self._step_gen = make_generator(seed, STEP_STREAM, self.device)
         self._aux_gen = make_generator(seed, AUX_STREAM, self.device)
+        # the hooks' and the filters' generator: the step generator itself
+        # unsharded or in a group of one (rule (b) of parallel/mesh.py)
+        self._hook_gen = hook_generator(mesh, self._step_gen)
         self.state = None
         self._ys = None            # the absorbed (T, E) observations
         self.n_resamples = 0
@@ -134,18 +163,24 @@ class SMC2Sampler:
 
     def _masked_pf(self, gen, theta, ys, n, filter_u=None):
         """A fresh bootstrap filter per θ-row over the rows ``ys``:
-        (loglik (M,), final particles, final log weights)."""
-        res, x, lw = run_filter(gen, self._hooks(theta), ys, n,
-                                self.ess_frac_x, resample_u=filter_u,
-                                stats=False, final=True)
+        (loglik (M,), final particles, final log weights). The resampling
+        uniforms come from ``gen`` (every θ's, cut to the rank's), the
+        hooks' draws from the hook generator."""
+        res, x, lw = run_filter(
+            gen, self._hooks(theta), ys, n, self.ess_frac_x,
+            resample_u=filter_u, stats=False, final=True,
+            hook_gen=self._hook_gen, chains=None if self.mesh is None
+            else (self.mesh, self._rows, self.m))
         return res.loglik.to(self.dtype), x.to(self.dtype), lw
 
     def _advance(self, gen, state, y, t, u=None):
         """One filter step of every x-system (t == 0: fresh systems from the
-        initial law). Returns (xs, x_logw, incr (M,))."""
-        hooks, n = self._hooks(state.theta), self.n_x
+        initial law). Returns (xs, x_logw, incr (M,)); ``u`` every θ's
+        resampling offset (drawn from ``gen`` when None), the hooks
+        drawing from the hook generator."""
+        hooks, n, hgen = self._hooks(state.theta), self.n_x, self._hook_gen
         if t == 0:
-            x0 = hooks.init_sample(gen, n).to(self.dtype)
+            x0 = hooks.init_sample(hgen, n).to(self.dtype)
             ll = hooks.obs_logpdf(y, x0, 0)
             norm = torch.logsumexp(ll, -1)
             return x0, ll - norm[:, None], norm - math.log(float(n))
@@ -153,37 +188,48 @@ class SMC2Sampler:
             u = torch.rand((self.m,), generator=gen, dtype=self.dtype,
                            device=self.device)
         xn, lw, incr = bootstrap_step(
-            gen, hooks, state.xs, state.x_logw,
-            ess_from_log_weights(state.x_logw), y, t, n, self.ess_frac_x, u)
+            hgen, hooks, state.xs, state.x_logw,
+            ess_from_log_weights(state.x_logw), y, t, n, self.ess_frac_x,
+            u[self._rows])
         return xn.to(self.dtype), lw, incr
 
     @torch.no_grad()
     def stage(self, state, ys, t, noise=None):
         """Absorb observation row ``t`` of ``ys``: advance, reweight, then
         (on the host test of the θ-ESS) resample and rejuvenate. Returns
-        (state, stage_logz (), moved (bool), acceptance () or NaN)."""
-        gen, m = self._step_gen, self.m
+        (state, stage_logz (), moved (bool), acceptance () or NaN).
+        ``noise`` holds every θ-particle's draws, also when sharded."""
+        gen, m, rows = self._step_gen, self.m, self._rows
         xs, x_logw, incr = self._advance(
             gen, state, ys[t], t, None if noise is None else noise.advance_u)
         incr = incr.to(self.dtype)
-        lw_old = state.log_w
-        stage_logz = (torch.logsumexp(lw_old + incr, 0)
+        # every θ's old weights and increments (one all-gather)
+        lw_old, incr_all = gathered(self.mesh, state.log_w, incr)
+        log_w_all = lw_old + incr_all
+        stage_logz = (torch.logsumexp(log_w_all, 0)
                       - torch.logsumexp(lw_old, 0))
-        log_w = lw_old + incr
+        log_w = log_w_all[rows]
         loglik_hat = state.loglik_hat + incr
         theta, log_prior = state.theta, state.log_prior
         acc_rate = torch.full((), float("nan"), device=self.device)
         self.host_syncs += 1
-        moved = bool(ess_from_log_weights(log_w) < self.target_ess * m)
+        moved = bool(ess_from_log_weights(log_w_all) < self.target_ess * m)
         if moved:
             u0 = (torch.rand((), generator=gen, dtype=self.dtype,
                              device=self.device)
                   if noise is None else noise.u0)
-            idx = systematic_resample(u0, log_w, m)
-            theta, log_prior, loglik_hat = (theta[idx], log_prior[idx],
-                                            loglik_hat[idx])
-            xs, x_logw = xs[idx], x_logw[idx]
-            centered = theta - torch.mean(theta, 0)
+            idx = systematic_resample(u0, log_w_all, m)
+            x_shape = xs.shape[1:]
+            theta_all, log_prior, loglik_hat, xs, x_logw = gathered(
+                self.mesh, theta, log_prior, loglik_hat,
+                xs.reshape(xs.shape[0], -1), x_logw)
+            xs = xs.reshape((-1,) + tuple(x_shape))
+            theta_all = theta_all[idx]
+            own = idx[rows]
+            theta, log_prior, loglik_hat = (theta_all[rows], log_prior[own],
+                                            loglik_hat[own])
+            xs, x_logw = xs[own], x_logw[own]
+            centered = theta_all - torch.mean(theta_all, 0)
             cov = centered.mT @ centered / (m - 1.0)
             # the degenerate-cloud guard (PMMH tune()'s spread check as a
             # device select): floor a collapsed cloud's proposal
@@ -197,19 +243,23 @@ class SMC2Sampler:
             prefix = ys[:t + 1]
             for i in range(self.n_mcmc):
                 if noise is None:
-                    z = torch.randn(theta.shape, generator=gen,
+                    z = torch.randn((m, self.n_params), generator=gen,
                                     dtype=self.dtype, device=self.device)
                     filter_u = None
                 else:
                     z, filter_u, u = noise.moves[i]
-                prop = theta + z @ chol.mT
+                    filter_u = filter_u[:, rows]
+                # the whole (M, P) product's rows (a small product's rows
+                # can depend on how many it has)
+                prop = theta + (z @ chol.mT)[rows]
                 lp_new = self._log_prior(prop).to(self.dtype)
-                ll_new, x_new, xw_new = self._masked_pf(gen, prop, prefix,
-                                                        self.n_x, filter_u)
+                ll_new, x_new, xw_new = self._masked_pf(
+                    gen, prop, prefix, self.n_x, filter_u)
                 if noise is None:
                     u = torch.clamp(torch.rand((m,), generator=gen,
                                                dtype=self.dtype,
                                                device=self.device), min=1e-37)
+                u = u[rows]
                 log_ratio = (lp_new + ll_new) - (log_prior + loglik_hat)
                 ok = (torch.log(u) < log_ratio) & torch.isfinite(lp_new) \
                     & torch.isfinite(ll_new)
@@ -219,6 +269,8 @@ class SMC2Sampler:
                 xs = torch.where(ok[:, None, None], x_new, xs)
                 x_logw = torch.where(ok[:, None], xw_new, x_logw)
                 n_acc = n_acc + torch.sum(ok.to(torch.int32))
+            if self.mesh is not None:
+                n_acc = self.mesh.sum(n_acc)
             acc_rate = n_acc / float(m * max(self.n_mcmc, 1))
             log_w = torch.zeros_like(log_w)
         new = SMC2State(theta, log_prior, loglik_hat, xs, x_logw, log_w,
@@ -250,12 +302,13 @@ class SMC2Sampler:
         if tuple(theta.shape) != (self.m, self.n_params):
             raise ValueError(f"prior_sample returned {tuple(theta.shape)}, "
                              f"expected {(self.m, self.n_params)}")
-        d, n = self._x_dim(), self.n_x
-        zeros = torch.zeros(self.m, dtype=self.dtype, device=self.device)
+        theta = theta[self._rows]
+        d, n, m = self._x_dim(), self.n_x, theta.shape[0]
+        zeros = torch.zeros(m, dtype=self.dtype, device=self.device)
         self.state = SMC2State(
             theta, self._log_prior(theta).to(self.dtype), zeros,
-            torch.zeros((self.m, n, d), dtype=self.dtype, device=self.device),
-            torch.full((self.m, n), -math.log(n), dtype=self.dtype,
+            torch.zeros((m, n, d), dtype=self.dtype, device=self.device),
+            torch.full((m, n), -math.log(n), dtype=self.dtype,
                        device=self.device),
             zeros.clone(),
             torch.zeros((), dtype=self.dtype, device=self.device),
@@ -313,24 +366,29 @@ class SMC2Sampler:
         """Weight-resampled θ draws from the current cloud."""
         if self.state is None:
             raise RuntimeError("call update() first")
-        return cloud_draws(self.state.theta, self.state.log_w, self.m,
-                           n_draws, seed)
+        return cloud_draws(*gathered(self.mesh, self.state.theta,
+                                     self.state.log_w), self.m, n_draws, seed)
 
     def moments(self):
         """Weighted posterior mean and covariance of θ."""
         if self.state is None:
             raise RuntimeError("call update() first")
-        return cloud_moments(self.state.theta, self.state.log_w)
+        return cloud_moments(*gathered(self.mesh, self.state.theta,
+                                       self.state.log_w))
 
     def state_estimate(self):
         """E[x_t | y_{1:t}] marginalized over θ: Σ_m w_m Σ_i w_mi x_mi."""
         if self.state is None:
             raise RuntimeError("call update() first")
-        lw = self.state.log_w.cpu().numpy().astype(np.float64)
+        s = self.state
+        lw, xw, xs = gathered(self.mesh, s.log_w, s.x_logw,
+                              s.xs.reshape(s.xs.shape[0], -1))
+        lw = lw.cpu().numpy().astype(np.float64)
         w = np.exp(lw - lw.max())
         w /= w.sum()
-        xw = self.state.x_logw.cpu().numpy().astype(np.float64)
+        xw = xw.cpu().numpy().astype(np.float64)
         xw = np.exp(xw - xw.max(axis=1, keepdims=True))
         xw /= xw.sum(axis=1, keepdims=True)
-        xs = self.state.xs.cpu().numpy().astype(np.float64)
+        xs = xs.reshape((-1,) + tuple(s.xs.shape[1:])).cpu().numpy().astype(
+            np.float64)
         return w @ np.einsum("mi,mid->md", xw, xs)

@@ -284,6 +284,11 @@ class _Threaded:
     def any(self, flag):
         return any(self.exchange(self.rank, bool(torch.any(flag))))
 
+    def sum(self, x):
+        if self.world_size == 1:
+            return x
+        return torch.stack(self.exchange(self.rank, x.clone())).sum(0)
+
 
 @dataclass(frozen=True)
 class ThreadWalkerLayout(_Threaded, WalkerLayout):
