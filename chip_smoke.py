@@ -14,18 +14,25 @@ Builds the port's CUDA kernels from ``mcmcpp_tpu_torch/csrc/`` (into
    (``philox_unit_uniforms``), and the kernels' own u and ue, written out by
    a debug entry point, must equal the twin's bit for bit. Shapes: the main
    path's (n = 2^20 walkers per half, P = 10) and the edges (P = 2, 3, 7,
-   33, 64; n = 50, 160, 1000; shifts 0, 1, n - 1, a wrap in the middle of a
+   13, 16; n = 50, 160, 1000; shifts 0, 1, n - 1, a wrap in the middle of a
    tile, a negative and an out-of-range shift; rows with lp_old = -inf);
-   times both at the main path's shape;
+   times both at the main path's shape. Then the wide kernel (a
+   GaussianTarget wider than ``fs.MAX_P``): one launch a half-step and no
+   other, against its plain version at n = 2^20 and P = 65, 100, 128, 257
+   (both of its blocks) and at edge shapes and shifts, also at P = 1000,
+   where Y is streamed, 4 row shards against one launch, the old split route
+   bit for bit against the plain version, and the kernel's time in turns
+   beside the plain version's and the split route's; and its main path, the
+   sampler on a P = 100 GaussianTarget at W = 2^21 in turns with the split
+   route (walker-updates/s, acceptance within 4 binomial SE, stored rows);
 2b. holds the split path's propose and accept kernels (any torch logp)
    against their plain versions, each alone bit for bit: Neal's funnel at
    n = 2^20, P = 10 and at the edge shapes and shifts above, the Rosenbrock
    banana (P = 2), a logistic regression at ragged n = 1000, rows with
-   lp_old = -inf (which accept) and a logp that is NaN on some rows (which
-   reject), and GaussianTargets with P = 65 and P = 100, wider than the fused
-   kernel takes, which run the split kernels around their torch logp (bit
-   for bit against the plain half-step at n = 2^20, and timed against it);
-   times each kernel and the split half-step against the plain versions;
+   lp_old = -inf (which accept), a logp that is NaN on some rows (which
+   reject) and GaussianTargets of P = 65 and 100 passed as plain callables;
+   times each kernel and the split half-step against the plain
+   versions;
 3. runs the flagship (10-D equicorrelated Gaussian, W = 2^21 walkers)
    through ``EnsembleSampler`` + ``FusedStretchMove``: 20 steps with no host
    sync allowed, three timed runs of 200 burn-in steps and 40 steps stored
@@ -155,10 +162,13 @@ Builds the port's CUDA kernels from ``mcmcpp_tpu_torch/csrc/`` (into
 14. (before 7) (a) the eight later example programs (``dp_mixture``,
    ``tempering_and_dsl``, ``bayesian_workflow``, ``evidence``,
    ``function_space``, ``gp_hyperparams``, ``gp_latent``,
-   ``gradient_inference``) in process at their default widths, their steps
-   cut (``EX_*``), each with its wall time and gate values, the gates held
-   where the cut keeps the program's own; (b) the native C++ chain arena
-   (built with ``g++`` from the checkout) against
+   ``gradient_inference``) at their default widths, their steps cut
+   (``EX_*``), each with its wall time and gate values, the gates held where
+   the cut keeps the program's own, in a process of their own started after
+   phase 5 and run beside phases 6-13 (``--examples-child``; each phase it
+   ran beside is marked so in its header, and its rates are not records:
+   ``--phases`` without 14 runs a phase alone); (b) the native C++ chain
+   arena (built with ``g++`` from the checkout) against
    the numpy backend on the flagship's rows (W = 2^21, P = 10, float32 and
    bfloat16): bit for bit on ``get``, ``get_logp``, ``iter_steps`` and
    ``compact``, and the seconds inside ``Chain.append`` for each; (c) a numpy
@@ -242,6 +252,8 @@ import torch
 # outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOP_PER_S = 67e12
+# the dense TF32 rate of its tensor cores
+PEAK_TF32_FLOP_PER_S = 495e12
 # kernel vs plain version: logf/sqrtf against torch's ops and another
 # summation order in the P×P product
 RTOL = ATOL = 1e-5
@@ -279,10 +291,13 @@ ACCEPT_WINDOWS = {
     "fused_funnel": (0.44, 0.50),
 }
 SKEWED_COV = np.array([[1.13, 0.435], [0.435, 0.2825]])
-# phase 6's burn-in on the skewed Gaussian (it and the steps halved to keep
-# the script inside its time limit: the covariances stayed within 0.005 of
-# the truth against gates of 0.12-0.15)
-SKEWED_BURN = 500
+# phase 6's burn-in on the skewed Gaussian (it and the steps cut twice to
+# keep the script inside its time limit: at 500 burn-in steps and half the
+# steps of the first cut the covariances stayed within 0.013 of the truth
+# against gates of 0.12-0.15), and on the banana (its moments within 0.031
+# of the gates' 0.12-0.5 at 2000 burn-in steps and twice the steps)
+SKEWED_BURN = 300
+BANANA_BURN = 1000
 # phase 9's stochastic-gradient runs on the logistic target (N = 1000,
 # B = 100): steps small beside the posterior's curvature (~250), so that the
 # minibatch noise inflates the variance well inside tests/test_sgmcmc.py's
@@ -292,14 +307,29 @@ SGHMC_STEP = 2e-6
 SG_STEPS = 2000
 
 
+# phase 14 (a)'s process while it runs beside the other phases
+_EXAMPLES_CHILD = []
+BESIDE_EXAMPLES = (" [beside phase 14 (a)'s programs, another process on this "
+                   "card and host: its rates and times are not records; "
+                   "--phases without 14 runs it alone]")
+
+
+def examples_running():
+    return any(c.poll() is None for c in _EXAMPLES_CHILD)
+
+
 @contextmanager
 def phase(name):
-    """Print the phase's seconds when it ends (failures propagate)."""
-    print(f"-- phase {name}", flush=True)
+    """Print the phase's seconds when it ends (failures propagate), marked
+    where phase 14 (a)'s programs ran beside it."""
+    beside = examples_running()
+    print(f"-- phase {name}{BESIDE_EXAMPLES if beside else ''}", flush=True)
     t0 = time.perf_counter()
     yield
     torch.cuda.synchronize()
-    print(f"-- phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    beside = beside or examples_running()
+    print(f"-- phase {name}: {time.perf_counter() - t0:.1f} s"
+          f"{BESIDE_EXAMPLES if beside else ''}", flush=True)
 
 
 @contextmanager
@@ -416,8 +446,21 @@ def kernel_bounds(n, p):
     Y and writes the row, plus lp_old, lp_new, the factor, out_lp, out_acc."""
     return {"fused_stretch_half": bound_ms(n, p, 3, 3,
                                            2 * p * p + 5 * p + 120),
+            "fused_stretch_wide": wide_bound_ms(n, p),
             "stretch_propose": bound_ms(n, p, 3, 1, 3 * p + 120),
             "stretch_accept": bound_ms(n, p, 3, 5, p + 120)}
+
+
+def wide_bound_ms(n, p):
+    """The wide half-step's least time: its bytes (X, the partner and the
+    output row, lp_old, out_lp, out_acc) over the memory rate, or its
+    product kept at float32's accuracy (3xTF32: three TF32 products of 2P²
+    FLOP a walker) at the tensor cores' TF32 rate, whichever is longer. The
+    same work whatever computes it, so no kernel reads above 100%."""
+    by_bytes = n * 4 * (3 * p + 3) / PEAK_BYTES_PER_S * 1e3
+    by_ops = n * 3 * 2 * p * p / PEAK_TF32_FLOP_PER_S * 1e3
+    return ((by_bytes, "bytes") if by_bytes >= by_ops
+            else (by_ops, "operations"))
 
 
 def card_shift(n, shift):
@@ -429,15 +472,15 @@ def card_shift(n, shift):
 
 
 def half_inputs(fs_random, p, n, seed, neg_inf_every=0, lp_fn=None,
-                shift=None):
-    """Active rows near the mode, partners with every fourth row ×10 (far
-    partners give rejections beside the accepts), lp_old (−inf on every
-    ``neg_inf_every``-th row) and a shift on the card: the kernel's tensor
-    arguments; then the Philox key and its planes (u, ue) from the plain
-    twin."""
+                shift=None, act_scale=0.5):
+    """Active rows near the mode (``act_scale`` times standard normals),
+    partners with every fourth row ×10 (far partners give rejections beside
+    the accepts), lp_old (−inf on every ``neg_inf_every``-th row) and a
+    shift on the card: the kernel's tensor arguments; then the Philox key
+    and its planes (u, ue) from the plain twin."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
-    act = 0.5 * torch.randn((n, p), generator=g, device=dev)
+    act = act_scale * torch.randn((n, p), generator=g, device=dev)
     other = torch.randn((n, p), generator=g, device=dev)
     other[::4] *= 10.0
     lp = lp_fn(act)
@@ -524,14 +567,12 @@ def split_case(fs, rnd, target, n, seed, neg_inf_every=0, nan_every=0,
     args, key, (u, ue) = half_inputs(rnd, target.dim, n, seed, neg_inf_every,
                                      target, shift)
     act, lp, other, shift = args
-    # the target itself where no row is made NaN: a GaussianTarget wider
-    # than fs.MAX_P must take the split path on its own
-    logp = target if nan_rows is None else logp
     before = dict(fs.LAUNCHES)
     k_out = fs.fused_stretch_half(*args, key=key, logp_fn=logp)
     torch.cuda.synchronize()
     counted = {k: fs.LAUNCHES[k] - before[k] for k in before}
-    if counted != {"fused_stretch_half": 0, "stretch_propose": 1,
+    if counted != {"fused_stretch_wide": 0, "fused_stretch_half": 0,
+                   "stretch_propose": 1,
                    "stretch_accept": 1}:
         raise AssertionError(f"split half-step launched {counted}")
     r_out = fs.fused_stretch_half_reference(*args, u, ue, logp_fn=logp)
@@ -556,6 +597,183 @@ def split_case(fs, rnd, target, n, seed, neg_inf_every=0, nan_every=0,
         raise AssertionError(f"{label}: a split kernel alone differs from "
                              f"its plain version (max abs err {alone})")
     return max(err, alone), args, key, (u, ue)
+
+
+# the wide kernel (csrc/fused_stretch_wide.cu, phase 2): the widths it is
+# checked and timed at (on an H100 P = 65 and 100 take its 128-walker block,
+# 128 and 257 its 64-walker block), the width past its Y tile (Y streamed),
+# and its main path, the sampler on a P = 100 GaussianTarget at the
+# flagship's W: burn-in steps a reading (two readings a route, in turns with
+# the split route's) and the stored steps after them
+WIDE_P = (65, 100, 128, 257)
+WIDE_STREAMED_P = 1000
+WIDE_SAMPLER_P, WIDE_BURN, WIDE_STORE, WIDE_THIN = 100, 20, 4, 2
+
+
+def launches_only(fs, **counts):
+    """``fs.LAUNCHES`` as it must read when only ``counts`` were launched."""
+    return {k: counts.get(k, 0) for k in fs.LAUNCHES}
+
+
+def wide_kernel(mt, fs, rnd, card, blocker):
+    """Phase 2's wide block: the wide kernel against its plain version at
+    n = 2^20 and the edge cases (one launch a half-step, no split launch),
+    also at a P whose Y tile does not fit a block (Y streamed), 4 row shards
+    against one launch, the old split route (propose, the torch logp,
+    accept) bit for bit against the plain version, and the kernel's time
+    beside the plain version's and the split route's, in turns; then its
+    main path, the sampler at P = 100 and W = 2^21 against the split route.
+    Returns the kernel line's entry."""
+    dev = torch.device("cuda")
+    n = 1 << 20
+    errs, by_p = [], {}
+
+    def gauss(q):
+        return mt.GaussianTarget(random_chol(q, np.random.default_rng(q)),
+                                 device=dev)
+
+    def split_route(target):
+        # the same logp as a plain callable takes the split kernels, the
+        # route a wide GaussianTarget took before the wide kernel
+        return lambda x: target(x)
+
+    def wide_case(target, n_case, seed, neg=0, shift=None):
+        reset_launches(fs)
+        err, args, key, planes = kernel_case(fs, rnd, target, n_case, seed,
+                                             neg_inf_every=neg, shift=shift)
+        if fs.LAUNCHES != launches_only(fs, fused_stretch_wide=1):
+            raise AssertionError(f"a P={target.dim} half-step launched "
+                                 f"{fs.LAUNCHES}")
+        errs.append(err)
+        return args, key, planes
+
+    # past the Y tile's shared memory the kernel streams Y
+    from mcmcpp_tpu_torch import _build
+
+    lib = _build.load_library()
+    optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    tile = lib.mcmcpp_fused_stretch_wide_smem_bytes(WIDE_STREAMED_P, 0, 1)
+    if tile <= optin:
+        raise AssertionError(f"P={WIDE_STREAMED_P}: the Y tile ({tile} B) "
+                             f"fits a block ({optin} B), so Y is not streamed")
+    target = gauss(WIDE_STREAMED_P)
+    for n_case, neg, shift in [(1000, 7, "mid"), (4096, 5, "last")]:
+        wide_case(target, n_case, seed=n_case, neg=neg, shift=shift)
+
+    for q in WIDE_P:
+        target = gauss(q)
+        for n_case, neg, shift in [(4096, 5, "last"), (1000, 7, "mid"),
+                                   (300, 0, "mid"), (n, 0, "last")]:
+            wide_case(target, n_case, seed=q + n_case, neg=neg, shift=shift)
+        args, key, (u, ue) = wide_case(target, n, seed=q, neg=11)
+        r_out = fs.fused_stretch_half_reference(*args, u, ue, logp_fn=target)
+        # the old split route, bit for bit (its kernels round as torch does)
+        reset_launches(fs)
+        s_out = fs.fused_stretch_half(*args, key=key,
+                                      logp_fn=split_route(target))
+        torch.cuda.synchronize()
+        if fs.LAUNCHES != launches_only(fs, stretch_propose=1,
+                                        stretch_accept=1):
+            raise AssertionError(f"P={q} split route launched {fs.LAUNCHES}")
+        if not all(torch.equal(a, b) for a, b in zip(s_out, r_out)):
+            raise AssertionError(f"P={q}: the split route is not its plain "
+                                 "version bit for bit")
+        whole = fs.fused_stretch_half(*args, key=key, logp_fn=target)
+        m = n // 4
+        act, lp, other, shift = args
+        parts = [fs.fused_stretch_half(act[r0:r0 + m], lp[r0:r0 + m], other,
+                                       shift, key=key, logp_fn=target,
+                                       row0=r0) for r0 in range(0, n, m)]
+        if not all(torch.equal(torch.cat([pt[k] for pt in parts]), whole[k])
+                   for k in range(3)):
+            raise AssertionError(f"P={q}: 4 row shards differ from one "
+                                 "launch")
+        (plain_ms, split_ms, wide_ms), readings, _ = in_turns([
+            lambda: fs.fused_stretch_half_reference(*args, u, ue,
+                                                    logp_fn=target),
+            lambda: fs.fused_stretch_half(*args, key=key,
+                                          logp_fn=split_route(target)),
+            lambda: fs.fused_stretch_half(*args, key=key, logp_fn=target)],
+            20, blocker)
+        bound, bound_by = wide_bound_ms(n, q)
+        by_p[q] = {"ms": wide_ms, "plain_ms": plain_ms,
+                   "split_route_ms": split_ms, "bound_ms": bound,
+                   "bound_by": bound_by}
+        print(f"  wide n=2^20 P={q}, ms per half-step (in turns): wide "
+              f"{wide_ms:.4f} ({readings[2][0]:.4f}, {readings[2][1]:.4f}), "
+              f"plain {plain_ms:.4f}, old split route {split_ms:.4f} (bit for "
+              f"bit the plain version); bound {bound:.4f} ({bound_by}), "
+              f"{bound / wide_ms:.0%} of it; 4 row shards == one launch "
+              f"[{card}]", flush=True)
+        del args, u, ue, r_out, s_out, whole, parts, act, lp, other
+        torch.cuda.empty_cache()
+
+    # the main path: the sampler on a P = 100 GaussianTarget, burn-in in
+    # turns with the split route (the same seeds), then stored steps
+    target = gauss(WIDE_SAMPLER_P)
+    runs = {}
+    for route, logp in (("wide", target), ("split", split_route(target))):
+        s = mt.EnsembleSampler(logp, n_walkers=W_FULL,
+                               n_params=WIDE_SAMPLER_P,
+                               mover=mt.FusedStretchMove(), seed=0,
+                               batched=True, device="cuda")
+        s.init_ball(np.zeros(WIDE_SAMPLER_P), 0.5)
+        runs[route] = (s, [], {k: 0 for k in fs.LAUNCHES})
+    for route in ("wide", "split", "split", "wide"):
+        s, secs, counted = runs[route]
+        reset_launches(fs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.run_mcmc(WIDE_BURN, store=False)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        for k, v in fs.LAUNCHES.items():
+            counted[k] += v
+    s, _, counted = runs["wide"]
+    acc = {r: runs[r][0].acceptance_fraction for r in runs}
+    walker_steps = W_FULL * 2 * WIDE_BURN
+    se = np.sqrt(sum(f * (1 - f) for f in acc.values()) / walker_steps)
+    if not 0 < acc["wide"] < 1 or abs(acc["wide"] - acc["split"]) > 4 * se:
+        raise AssertionError(f"acceptance of the wide route {acc['wide']} "
+                             f"against the split route's {acc['split']}: "
+                             f"more than 4 binomial SE ({se:.2e}) apart")
+    reset_launches(fs)
+    if not s.run_mcmc(WIDE_STORE, thin=WIDE_THIN):
+        raise AssertionError("chain capacity hit in the wide sampler run")
+    for k, v in fs.LAUNCHES.items():
+        counted[k] += v
+    samples = check_stored(s, target, "wide sampler")
+    if samples.shape != (WIDE_STORE // WIDE_THIN, W_FULL, WIDE_SAMPLER_P):
+        raise AssertionError(f"wide sampler stored {samples.shape}")
+    steps = 2 * WIDE_BURN + WIDE_STORE
+    if counted != launches_only(fs, fused_stretch_wide=2 * steps):
+        raise AssertionError(f"the wide sampler launched {counted}")
+    split_counted = runs["split"][2]
+    if split_counted != launches_only(fs, stretch_propose=4 * WIDE_BURN,
+                                      stretch_accept=4 * WIDE_BURN):
+        raise AssertionError(f"the split-route sampler launched "
+                             f"{split_counted}")
+    rates = {r: [W_FULL * WIDE_BURN / t for t in runs[r][1]] for r in runs}
+    print(f"  sampler W=2^21 P={WIDE_SAMPLER_P}, {WIDE_BURN} burn-in steps "
+          f"a reading, in turns: wide kernel "
+          f"{', '.join(f'{x:.6e}' for x in rates['wide'])} walker-updates/s, "
+          f"split route {', '.join(f'{x:.6e}' for x in rates['split'])} "
+          f"({np.mean(rates['wide']) / np.mean(rates['split']):.2f}x); "
+          f"acceptance {acc['wide']:.5f} vs {acc['split']:.5f} (4 SE "
+          f"{4 * se:.1e}); launches {counted}; {samples.shape[0]} stored "
+          f"rows [{card}]", flush=True)
+    del runs, s, samples
+    torch.cuda.empty_cache()
+    main = by_p[WIDE_SAMPLER_P]
+    return {"source": "mcmcpp_tpu_torch/csrc/fused_stretch_wide.cu",
+            "max_abs_err": max(errs), "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "launches":
+            counted["fused_stretch_wide"], "launches_per_step":
+            counted["fused_stretch_wide"] / steps, "p": WIDE_SAMPLER_P,
+            "split_route_ms": main["split_route_ms"],
+            "walker_updates_per_s": rates["wide"],
+            "split_route_walker_updates_per_s": rates["split"],
+            "by_p": by_p}
 
 
 def check_stored(s, target, label):
@@ -1449,7 +1667,8 @@ def evidence_engines(mt, fs, rnd, card, out_dir):
     first.run()
     launches = dict(fs.LAUNCHES)
     per_stage = 2 * SMC_MCMC * first.n_stages
-    if launches != {"fused_stretch_half": 0, "stretch_propose": per_stage,
+    if launches != {"fused_stretch_wide": 0, "fused_stretch_half": 0,
+                    "stretch_propose": per_stage,
                     "stretch_accept": per_stage}:
         raise AssertionError(f"SMC ensemble launched {launches}, expected "
                              f"{per_stage} of each split kernel")
@@ -1858,9 +2077,10 @@ AN_STEPS, AN_WALKERS, AN_P = 2000, 1 << 14, 10
 SBC_SIMS, SBC_CHAINS, SBC_WARM, SBC_STEPS = 32, 1024, 60, 10
 # eight schools: ChEES takes ~30 leapfrogs a transition there, each a
 # vmapped DSL logp and its autograd backward, host-bound at ~2.7 ms (83 ms a
-# transition on the H100); one check of run_until_converged after 250 steps
-# (R-hat and the means are the gates, not its tau-stability rule)
-SCHOOLS_WARM, SCHOOLS_MAX, SCHOOLS_CHECK = 200, 250, 250
+# transition on the H100); one check of run_until_converged after 150 steps
+# (R-hat and the means are the gates, not its tau-stability rule; at 200 +
+# 250 steps R-hat read 1.0042 against 1.01, the means 0.17-0.67 SE)
+SCHOOLS_WARM, SCHOOLS_MAX, SCHOOLS_CHECK = 150, 150, 150
 # the eight-schools example's posterior predictive thins to this many draws
 SCHOOLS_PREDICTIVE = 1000
 # a Truncated Gamma observe site with a sampled concentration: its
@@ -2082,7 +2302,8 @@ def dsl_gp_analysis(mt, fs, rnd, card, out_dir):
     (_, secs) = fenced(lambda: s.run_mcmc(DSL_ENSEMBLE_STEPS, store=False))
     launches = dict(fs.LAUNCHES)
     want = 2 * DSL_ENSEMBLE_STEPS
-    if launches != {"fused_stretch_half": 0, "stretch_propose": want,
+    if launches != {"fused_stretch_wide": 0, "fused_stretch_half": 0,
+                    "stretch_propose": want,
                     "stretch_accept": want}:
         raise AssertionError(f"the DSL ensemble launched {launches}, expected "
                              f"{want} of each split kernel")
@@ -2470,7 +2691,7 @@ def dsl_launch_count(mt, card):
 # the UKF/URTS and EKI/EKS cases of tests/test_ukf.py and tests/test_eks.py
 # (the EKS ensemble 2^14), (i) the bitwise resumes of PMMH, IBIS and SMC² at
 # those widths.
-TS_T, TS_SEQ_T = 1 << 16, 1 << 13
+TS_T, TS_SEQ_T = 1 << 16, 1 << 12
 TS_DRAWS = 256
 TS_GIBBS_CHAINS, TS_GIBBS_SWEEPS = 1024, 50
 HMM_K, HMM_T, HMM_PATHS = 8, 1 << 14, 1024
@@ -3344,7 +3565,7 @@ EX_RUNS = [
     ("gp_latent", ["--quick", "--device", "cuda"], True),
     ("tempering_and_dsl", ["--quick", "--device", "cuda"], True),
     ("gradient_inference", ["--quick", "--device", "cuda"], True),
-    ("function_space", ["--steps", "500", "--device", "cuda"], True),
+    ("function_space", ["--steps", "300", "--device", "cuda"], True),
 ]
 # (b) rows of the flagship stored by both backends: burn-in, then steps at
 # thin 10 (4 rows of 92.3 MB float32 or 46.1 MB bf16)
@@ -3363,7 +3584,7 @@ def captured(fn):
 
 
 def example_programs(mt, card):
-    """Phase 14 (a): run the eight programs in process; each prints its
+    """Phase 14 (a): run the eight programs in this process; each prints its
     wall time and the lines that carry its gate values."""
     from mcmcpp_tpu_torch.examples import (
         bayesian_workflow,
@@ -3415,6 +3636,78 @@ def example_programs(mt, card):
           f"{out['l1']:.3f}, {out['active']} active")
     if not (np.isfinite(out["l1"]) and abs(out["w_mean"].sum() - 1) < 1e-4):
         raise AssertionError(f"dp_mixture: {out['l1']}, {out['w_mean']}")
+
+
+# phase 14 (a) runs in a process of its own beside phases 6-13 (host-bound
+# program runs that would add ~270 s to the script's time on the card);
+# the parent prints what it printed and takes the launches it counted
+EXAMPLES_JSON = os.path.join("build", "examples_child.json")
+_CHILDREN = []
+
+
+def examples_child(out_path):
+    """``chip_smoke.py --examples-child PATH``: phase 14 (a), the eight
+    programs, with their output, the stretch-kernel launches they made and
+    any failure written to PATH as JSON. Exit code 0 if they passed."""
+    import contextlib
+    import io
+    import traceback
+
+    import mcmcpp_tpu_torch as mt
+    from mcmcpp_tpu_torch.ops import fused_stretch as fs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    reset_launches(fs)
+    result, buf = {"ok": False, "error": ""}, io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            example_programs(mt, card_line())
+        result["ok"] = True
+    except BaseException:  # noqa: BLE001 - reported to the parent
+        result["error"] = traceback.format_exc()[-6000:]
+    result.update(output=buf.getvalue(), launches=dict(fs.LAUNCHES))
+    with open(out_path, "w") as f:
+        json.dump(result, f)
+    return 0 if result["ok"] else 1
+
+
+def start_examples(root):
+    """Start phase 14 (a)'s process; its errors go to a log beside it."""
+    path = os.path.join(root, EXAMPLES_JSON)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if os.path.exists(path):
+        os.remove(path)
+    err = open(path + ".err", "w")
+    child = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--examples-child", path],
+        cwd=root, stdout=subprocess.DEVNULL, stderr=err)
+    err.close()
+    _CHILDREN.append(child)
+    _EXAMPLES_CHILD.append(child)
+    return child, path
+
+
+def finish_examples(child, path, timeout_s=900):
+    """Wait for phase 14 (a)'s process, print its output and return the
+    stretch-kernel launches it counted; fail if it failed."""
+    try:
+        rc = child.wait(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        child.kill()
+        child.wait()
+        raise AssertionError(f"the example programs ran past {timeout_s} s")
+    if not os.path.exists(path):
+        with open(path + ".err") as f:
+            raise AssertionError(f"the example programs' process exited {rc} "
+                                 f"with no result:\n{f.read()[-4000:]}")
+    with open(path) as f:
+        result = json.load(f)
+    print(result["output"], end="", flush=True)
+    if rc != 0 or not result["ok"]:
+        raise AssertionError(f"the example programs failed (exit {rc}):\n"
+                             f"{result['error']}")
+    return result["launches"]
 
 
 def native_arena(mt, card):
@@ -4416,6 +4709,8 @@ def main():
         raise SystemExit("chip_smoke.py needs a CUDA device; "
                          "torch.cuda.is_available() is False")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if sys.argv[1:2] == ["--examples-child"] and len(sys.argv) == 3:
+        raise SystemExit(examples_child(sys.argv[2]))
     import mcmcpp_tpu_torch as mt
     from mcmcpp_tpu_torch import _build
     from mcmcpp_tpu_torch.ops import fused_stretch as fs
@@ -4434,7 +4729,7 @@ def main():
 
     kernels = {}
     store_launches = {}
-    wide_split = {}
+    wide = None
 
     def wide_gauss(q):
         return mt.GaussianTarget(random_chol(q, np.random.default_rng(q)),
@@ -4464,7 +4759,14 @@ def main():
         print("  fused_stretch_half dynamic shared memory per block: "
               + ", ".join(
                   f"P={q}: {lib.mcmcpp_fused_stretch_half_smem_bytes(q)} B"
-                  for q in (2, 10, 33, 64)))
+                  for q in (2, 10, 16)))
+        print("  fused_stretch_wide dynamic shared memory per block (Y tile "
+              "of 128 walkers; of 64; streamed): " + ", ".join(
+                  f"P={q}: "
+                  f"{lib.mcmcpp_fused_stretch_wide_smem_bytes(q, 0, 2)}; "
+                  f"{lib.mcmcpp_fused_stretch_wide_smem_bytes(q, 0, 1)}; "
+                  f"{lib.mcmcpp_fused_stretch_wide_smem_bytes(q, 1, 1)} B"
+                  for q in (65, 100, 128, 257, 1000)))
 
     # -- phase 2: fused kernel vs plain version -----------------------------
     if run_phase("2"):
@@ -4493,7 +4795,7 @@ def main():
             for target, n, neg, shift in [
                 (skewed2, 160, 0, None),
                 (gauss(3), 1000, 0, None),
-                (gauss(64), 1 << 14, 0, None),
+                (gauss(16), 1 << 14, 0, None),
                 (flagship, 4096, 5, None),
                 (flagship, 1 << 16, 0, 0),
                 (flagship, 1 << 16, 0, 1),
@@ -4504,8 +4806,8 @@ def main():
                 (flagship, 50, 0, "mid"),
                 (skewed2, 160, 0, 1),
                 (gauss(7), 1000, 0, "mid"),
-                (gauss(33), 1000, 0, 1),
-                (gauss(64), 300, 0, "mid"),
+                (gauss(13), 1000, 0, 1),
+                (gauss(16), 300, 0, "mid"),
             ]:
                 errs.append(kernel_case(fs, rnd, target, n, seed=n,
                                         neg_inf_every=neg, shift=shift)[0])
@@ -4528,6 +4830,8 @@ def main():
             kernels.setdefault("fused_stretch_half", {}).update(
                 source="mcmcpp_tpu_torch/csrc/fused_stretch.cu",
                 max_abs_err=max(errs), ms=kernel_ms, plain_ms=plain_ms)
+            # a GaussianTarget wider than fs.MAX_P: the wide kernel
+            wide = wide_kernel(mt, fs, rnd, card, blocker)
 
     # -- phase 2b: the split kernels vs their plain versions ----------------
     if run_phase("2b"):
@@ -4553,8 +4857,9 @@ def main():
                 (mt.neal_funnel(7), 1000, 0, 0, 1),
                 (mt.neal_funnel(33), 1000, 0, 0, "mid"),
                 (mt.neal_funnel(64), 300, 0, 0, "last"),
-                # GaussianTargets wider than the fused kernel's 64: the split
-                # path around their torch logp
+                # GaussianTargets as plain callables (``split_case`` wraps
+                # the logp): the split path around their torch logp at the
+                # widths it took for them before the wide kernel
                 (wide_gauss(65), 1000, 0, 0, "mid"),
                 (wide_gauss(100), 4096, 5, 0, None),
                 (wide_gauss(100), 300, 0, 0, "last"),
@@ -4593,42 +4898,6 @@ def main():
                     max_abs_err=max(split_errs), ms=ms[name],
                     plain_ms=ms[f"{name}_plain"])
             del sargs, act, lp, other, shift, u, ue, prop, fac, lp_new, calls
-            # a GaussianTarget with P = 65 and P = 100 at the main path's n:
-            # the split half-step bit for bit against its plain version, and
-            # timed against it in turns
-            for q in (65, 100):
-                target = wide_gauss(q)
-                wargs, wkey, (wu, wue) = half_inputs(rnd, q, 1 << 20, q,
-                                                     0, target)
-                reset_launches(fs)
-                k_out = fs.fused_stretch_half(*wargs, key=wkey,
-                                              logp_fn=target)
-                torch.cuda.synchronize()
-                if fs.LAUNCHES != {"fused_stretch_half": 0,
-                                   "stretch_propose": 1,
-                                   "stretch_accept": 1}:
-                    raise AssertionError(f"P={q} Gaussian launched "
-                                         f"{fs.LAUNCHES}")
-                r_out = fs.fused_stretch_half_reference(
-                    *wargs, wu, wue, logp_fn=target)
-                n_acc = int(r_out[2].sum())
-                if not (0 < n_acc < (1 << 20) and all(
-                        torch.equal(a, b) for a, b in zip(k_out, r_out))):
-                    raise AssertionError(
-                        f"P={q} Gaussian: the split half-step is not its "
-                        f"plain version bit for bit ({n_acc} accepts)")
-                (p_ms, k_ms), _, _ = in_turns([
-                    lambda: fs.fused_stretch_half_reference(
-                        *wargs, wu, wue, logp_fn=target),
-                    lambda: fs.fused_stretch_half(*wargs, key=wkey,
-                                                  logp_fn=target)], 20,
-                    blocker)
-                wide_split[q] = (k_ms, p_ms)
-                print(f"  GaussianTarget n=2^20 P={q} (beyond the fused "
-                      f"kernel's 64): split half-step {k_ms:.4f} ms vs plain "
-                      f"{p_ms:.4f} ms (in turns), bit for bit equal, "
-                      f"{n_acc} accepts [{card}]", flush=True)
-                del wargs, k_out, r_out
             del blocker
 
     # -- phase 3: the flagship at full width --------------------------------
@@ -4658,7 +4927,8 @@ def main():
                 raise AssertionError("chain capacity hit in the flagship run")
             launches = dict(fs.LAUNCHES)
             n_steps = nosync_steps + 3 * burn + n_store
-            if launches != {"fused_stretch_half": 2 * n_steps,
+            if launches != {"fused_stretch_wide": 0,
+                            "fused_stretch_half": 2 * n_steps,
                             "stretch_propose": 0, "stretch_accept": 0}:
                 raise AssertionError(f"flagship launches {launches}, expected "
                                      f"{2 * n_steps} fused only")
@@ -4805,14 +5075,16 @@ def main():
                     extra = (f", {mover.loop_iterations / mover.half_steps:.2f} "
                              "loop iterations per half-step")
                 if name == "mixture":
-                    want = {"fused_stretch_half": mover.picks[0],
+                    want = {"fused_stretch_wide": 0,
+                            "fused_stretch_half": mover.picks[0],
                             "stretch_propose": 0, "stretch_accept": 0}
                     if launches != want:
                         raise AssertionError(f"mixture launches {launches}, "
                                              f"expected {want}")
                     extra = f", branch picks {mover.picks}, launches {launches}"
                 if name == "fused_funnel":
-                    want = {"fused_stretch_half": 0,
+                    want = {"fused_stretch_wide": 0,
+                            "fused_stretch_half": 0,
                             "stretch_propose": 2 * steps,
                             "stretch_accept": 2 * steps}
                     if launches != want:
@@ -4865,21 +5137,27 @@ def main():
                 del runs, s
                 torch.cuda.empty_cache()
 
+    # phase 14 (a)'s programs start now, after the phases that time kernels
+    # and the movers, and run beside phases 6-13
+    examples = None
+    if run_phase("14"):
+        examples = start_examples(os.path.dirname(os.path.abspath(__file__)))
+
     # -- phase 6: the reference's oracles on the card -----------------------
     if run_phase("6"):
         with phase("6 oracles"):
             for name, make, n_steps, atol in [
-                ("walk", lambda: mt.WalkMove(6), 1000, 0.12),
-                ("de", lambda: mt.DifferentialEvolutionMove(), 4000, 0.15),
+                ("walk", lambda: mt.WalkMove(6), 600, 0.12),
+                ("de", lambda: mt.DifferentialEvolutionMove(), 2000, 0.15),
                 ("mh", lambda: mt.MetropolisHastingsMove(
-                    covariance=SKEWED_COV, scale=1.2), 4000, 0.15),
-                ("snooker", lambda: mt.DESnookerMove(), 1000, 0.15),
-                ("dram", lambda: mt.DRAMMove(), 1000, 0.15),
+                    covariance=SKEWED_COV, scale=1.2), 2000, 0.15),
+                ("snooker", lambda: mt.DESnookerMove(), 600, 0.15),
+                ("dram", lambda: mt.DRAMMove(), 600, 0.15),
                 ("mixture", lambda: mt.MixtureMover([
                     (mt.FusedStretchMove(), 2.0),
                     (mt.DifferentialEvolutionMove(), 1.0),
-                    (mt.DESnookerMove(), 1.0)]), 4000, 0.15),
-                ("slice", lambda: mt.EnsembleSliceMove(), 100, 0.12),
+                    (mt.DESnookerMove(), 1.0)]), 2000, 0.15),
+                ("slice", lambda: mt.EnsembleSliceMove(), 60, 0.12),
             ]:
                 t0 = time.perf_counter()
                 so = mt.EnsembleSampler(skewed, 320, 2, mover=make(), seed=42,
@@ -4905,15 +5183,15 @@ def main():
             banana = mt.rosenbrock(1.0, 5.0, 4.0)
             for name, mover, n_steps in [
                     ("fused a=3 (split kernels)", mt.FusedStretchMove(a=3.0),
-                     12000),
-                    ("walk6", mt.WalkMove(6), 2000),
-                    ("de", mt.DifferentialEvolutionMove(), 6000)]:
+                     6000),
+                    ("walk6", mt.WalkMove(6), 1000),
+                    ("de", mt.DifferentialEvolutionMove(), 3000)]:
                 reset_launches(fs)
                 t0 = time.perf_counter()
                 sb = mt.EnsembleSampler(banana, 256, 2, mover=mover, seed=3,
                                         batched=True, device="cuda")
                 sb.init_ball(np.array([1.0, 1.0]), scale=0.5, seed=4)
-                sb.run_mcmc(2000, store=False)
+                sb.run_mcmc(BANANA_BURN, store=False)
                 if not sb.run_mcmc(n_steps, thin=4):
                     raise AssertionError(f"banana {name}: chain capacity hit")
                 flat = sb.get_samples(flat=True)
@@ -4927,8 +5205,9 @@ def main():
                         and abs(ry) < 0.15):
                     raise AssertionError(f"banana {name}: moments")
                 if isinstance(mover, mt.FusedStretchMove) and fs.LAUNCHES != {
-                        "fused_stretch_half": 0, "stretch_propose": 28000,
-                        "stretch_accept": 28000}:
+                        "fused_stretch_wide": 0, "fused_stretch_half": 0,
+                        "stretch_propose": 2 * (BANANA_BURN + 6000),
+                        "stretch_accept": 2 * (BANANA_BURN + 6000)}:
                     raise AssertionError(f"banana launches {fs.LAUNCHES}")
 
             t0 = time.perf_counter()
@@ -4987,9 +5266,11 @@ def main():
             out_dir = os.path.join(root, "build", "smoke")
             shutil.rmtree(out_dir, ignore_errors=True)
             os.makedirs(out_dir)
-            fused_only = lambda n: {"fused_stretch_half": 2 * n,  # noqa: E731
+            fused_only = lambda n: {"fused_stretch_wide": 0,  # noqa: E731
+                                    "fused_stretch_half": 2 * n,
                                     "stretch_propose": 0, "stretch_accept": 0}
-            split_only = lambda n: {"fused_stretch_half": 0,  # noqa: E731
+            split_only = lambda n: {"fused_stretch_wide": 0,  # noqa: E731
+                                    "fused_stretch_half": 0,
                                     "stretch_propose": 2 * n,
                                     "stretch_accept": 2 * n}
 
@@ -5295,25 +5576,30 @@ def main():
                   "engines, read back equal")
             del s, x, xt, flat
 
-            # (e) the reference's three test programs, as a user runs them
-            # actime and inner_benchmark at cut steps (§4 of PERF.md), to
-            # make room for phase 15
+            # (e) the reference's three test programs, as a user runs them,
+            # the three processes at once; actime and inner_benchmark at cut
+            # steps (§4 of PERF.md), to make room for phase 15
+            t0 = time.perf_counter()
+            runs = {}
             for mod, extra in [("skewed_gaussian",
                                 ["--outdir", os.path.join(out_dir, "skewed")]),
-                               ("actime", ["--steps", "32768"]),
+                               ("actime", ["--steps", "16384"]),
                                ("inner_benchmark", ["--steps", "5000"])]:
-                t0 = time.perf_counter()
-                done = subprocess.run(
+                runs[mod] = subprocess.Popen(
                     [sys.executable, "-m", f"mcmcpp_tpu_torch.examples.{mod}",
                      "--device", "cuda", *extra],
-                    cwd=root, capture_output=True, text=True, timeout=300)
-                print("    " + done.stdout.strip().replace("\n", "\n    "))
-                if done.returncode != 0:
+                    cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True)
+                _CHILDREN.append(runs[mod])
+            for mod, proc in runs.items():
+                out, err = proc.communicate(timeout=300)
+                print("    " + out.strip().replace("\n", "\n    "))
+                if proc.returncode != 0:
                     raise AssertionError(
-                        f"example {mod} exited {done.returncode}: "
-                        f"{done.stderr[-2000:]}")
-                print(f"  example {mod}: exit 0 "
-                      f"({time.perf_counter() - t0:.1f} s)", flush=True)
+                        f"example {mod} exited {proc.returncode}: "
+                        f"{err[-2000:]}")
+                print(f"  example {mod}: exit 0 (the three at once "
+                      f"{time.perf_counter() - t0:.1f} s)", flush=True)
             torch.cuda.empty_cache()
 
     # -- phase 9: the gradient engines (no hand kernel on their path) --------
@@ -5370,9 +5656,7 @@ def main():
     ex_launches = {}
     if run_phase("14"):
         with phase("14 example programs, native arena, numpy on the card"):
-            reset_launches(fs)
-            example_programs(mt, card)
-            ex_launches = dict(fs.LAUNCHES)
+            ex_launches = finish_examples(*examples)
             if any(ex_launches.values()):
                 raise AssertionError(f"the examples' path launched a stretch "
                                      f"kernel: {ex_launches}")
@@ -5412,8 +5696,9 @@ def main():
             sharded_launches = sharded_runs(mt, fs, flagship, funnel, skewed,
                                             card)
             # their steps cut (§4 of PERF.md): each collective call costs the
-            # host ~160 us; at 32768 steps actime's estimates stay within 5%
-            for mod, steps in ((actime, "32768"), (inner_benchmark, "5000")):
+            # host ~160 us; at 32768 steps actime's estimates stayed within
+            # 5% of the truth against its 12% gate, so 16384 steps
+            for mod, steps in ((actime, "16384"), (inner_benchmark, "5000")):
                 t0 = time.perf_counter()
                 rc = mod.main(["--sharded", "--steps", steps])
                 if rc != 0:
@@ -5604,10 +5889,36 @@ def main():
                                  "engines' path")
         if not dsl_launches.get(name):
             raise AssertionError(f"{name} was not launched on the DSL path")
+    if wide is None or not wide["launches"]:
+        raise AssertionError("fused_stretch_wide was not launched on its "
+                             "main path")
     # ms, plain_ms and bound_ms at n = 2^20, P = 10, the half-step of the
-    # main path. library_ms is null: no one PyTorch call computes any of the
-    # three functions (the plain versions are four to ten ops each).
+    # main path (the wide kernel's at P = 100, its sampler's). library_ms is
+    # null: no one PyTorch call computes any of the four functions (the
+    # plain versions are four to ten ops each).
     bounds = kernel_bounds(1 << 20, P_FULL)
+    wide_bound = kernel_bounds(1 << 20, wide["p"])["fused_stretch_wide"]
+    paths = {"store": store_launches, "smc": smc_launches,
+             "dsl": dsl_launches, "timeseries": ts_launches,
+             "examples": ex_launches, "sharded": sharded_launches,
+             "sharded_engines": sharded_engines_launches,
+             "sharded_vi_ts": vi_ts_launches}
+    wide_line = {
+        "name": "fused_stretch_wide", "route": "cuda",
+        "source": wide["source"],
+        "replaces": "mcmcpp_tpu/ops/pallas_stretch.py:164",
+        "launches": wide["launches"],
+        "launches_per_step": wide["launches_per_step"],
+        **{f"launches_{k}_path": d.get("fused_stretch_wide", 0)
+           for k, d in paths.items()},
+        "max_abs_err": wide["max_abs_err"], "ms": wide["ms"],
+        "plain_ms": wide["plain_ms"], "bound_ms": wide_bound[0],
+        "bound_by": wide_bound[1], "library_ms": None, "p": wide["p"],
+        "split_route_ms": wide["split_route_ms"],
+        "walker_updates_per_s": wide["walker_updates_per_s"],
+        "split_route_walker_updates_per_s":
+            wide["split_route_walker_updates_per_s"],
+        "by_p": wide["by_p"]}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": k["source"],
          "replaces": "mcmcpp_tpu/ops/pallas_stretch.py:164",
@@ -5629,7 +5940,7 @@ def main():
          "ms": k["ms"], "plain_ms": k["plain_ms"],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          "library_ms": None}
-        for name, k in kernels.items()]}))
+        for name, k in kernels.items()] + [wide_line]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
@@ -5637,4 +5948,10 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        for p in _CHILDREN:
+            if p.poll() is None:
+                p.kill()
+                p.wait()

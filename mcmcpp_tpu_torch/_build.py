@@ -125,6 +125,8 @@ def load_library():
     signatures = {
         "mcmcpp_fused_stretch_half_f32":
             [ptr] * 4 + [u64] + [ptr] * 4 + [i32, i64, i64, i32, f32, ptr],
+        "mcmcpp_fused_stretch_wide_f32":
+            [ptr] * 4 + [u64] + [ptr] * 4 + [i32, i64, i64, i32, f32, ptr],
         "mcmcpp_stretch_propose_f32":
             [ptr] * 3 + [u64] + [ptr] * 2 + [i64, i64, i64, i32, f32, ptr],
         "mcmcpp_stretch_accept_f32":
@@ -137,4 +139,6 @@ def load_library():
         fn.restype = i32
     lib.mcmcpp_fused_stretch_half_smem_bytes.argtypes = [i32]
     lib.mcmcpp_fused_stretch_half_smem_bytes.restype = i64
+    lib.mcmcpp_fused_stretch_wide_smem_bytes.argtypes = [i32, i32, i32]
+    lib.mcmcpp_fused_stretch_wide_smem_bytes.restype = i64
     return lib

@@ -37,7 +37,7 @@
 // - The loads are plain loads, and what decides their speed is how many
 //   bytes are in flight: a thread starts all the loads of a tile before its
 //   first store to shared memory (kLoadBatch), and the kernel is
-//   compiled for six blocks an SM (kMinBlocks256), so that other
+//   compiled for six blocks an SM (kMinBlocks), so that other
 //   blocks load while one computes. Measured at n = 2^20, P = 10 on an H100
 //   at 700 W, in turns in one run: the first design 0.1405 ms; this one
 //   0.0676 ms; with four loads a batch 0.0731 ms; at the compiler's own 53
@@ -58,9 +58,11 @@
 // - The one modulo is per tile: the tile's first partner row; the rows after
 //   it wrap with a compare and a subtract.
 //
-// P is capped at 64: L (PMAX×PMAX) and the two tiles live in dynamic shared
-// memory, 22.5 KB + 1 KB a block at P = 10 (R = 256) and 65 KB + 16 KB at
-// P = 64 (R = 128), the latter above the 48 KB that need the opt-in below.
+// P is capped at 16: L (PMAX×PMAX) and the two tiles live in dynamic shared
+// memory, 22.5 KB + 1 KB a block at P = 10 and 34 KB + 1 KB at P = 16, below
+// the 48 KB a block has without an opt-in. Wider Gaussians go to
+// fused_stretch_wide.cu, which measured faster from P = 17 on (PERF.md §6:
+// a thread a walker reads all of L from shared memory for its row).
 //
 // The partner index, z, the uniforms and the accept rule are the device
 // functions of stretch_common.cuh, shared with the split kernels
@@ -71,17 +73,17 @@
 
 namespace {
 
-// Blocks per SM that the 256-thread instantiations (P <= 16) are compiled
-// for: 6 caps them at 42 registers (40 used at P <= 16, no spill).
-constexpr int kMinBlocks256 = 6;
-// Devices of one host that the shared-memory opt-in below keeps a flag for.
-constexpr int kMaxDevices = 64;
+// The tile's rows and the block's threads, and the blocks per SM the kernel
+// is compiled for: 6 caps it at 42 registers (40 used at P <= 16, no spill).
+constexpr int kRows = 256;
+constexpr int kMinBlocks = 6;
+// The widest P the kernel takes.
+constexpr int kMaxP = 16;
 
 // PMAX is a compile-time bound on P: the per-row arrays are unrolled over PMAX
-// with `k < P` guards, so they stay in registers for any P <= PMAX. R is the
-// tile's rows and the block's threads.
-template <int PMAX, int R, int VEC>
-__global__ void __launch_bounds__(R, R == 256 ? kMinBlocks256 : 1)
+// with `k < P` guards, so they stay in registers for any P <= PMAX.
+template <int PMAX, int VEC>
+__global__ void __launch_bounds__(kRows, kMinBlocks)
 fused_stretch_half_kernel(
     const float* __restrict__ act, const float* __restrict__ lp_old,
     const float* __restrict__ other, const int* __restrict__ shift,
@@ -93,13 +95,13 @@ fused_stretch_half_kernel(
   const int stride = P | 1;
   float* sL = smem;
   float* sX = sL + PMAX * PMAX;
-  float* sP = sX + R * stride;
+  float* sP = sX + kRows * stride;
 
-  const long long i0 = (long long)blockIdx.x * R;
-  const int rows = (int)min((long long)R, (long long)n - i0);
+  const long long i0 = (long long)blockIdx.x * kRows;
+  const int rows = (int)min((long long)kRows, (long long)n - i0);
   const long long j0 = mcmcpp::partner_row(row0 + i0, *shift, m);
 
-  for (int t = threadIdx.x; t < P * P; t += R) {
+  for (int t = threadIdx.x; t < P * P; t += kRows) {
     sL[(t / P) * PMAX + (t % P)] = prec_chol[t];
   }
   mcmcpp::load_tile<VEC>(act, i0, rows, n, P, stride, sX);
@@ -157,55 +159,40 @@ fused_stretch_half_kernel(
   mcmcpp::store_tile<VEC>(sX, i0, rows, P, stride, out_act);
 }
 
-template <int PMAX, int R>
+template <int PMAX>
 size_t smem_bytes(int P) {
-  return sizeof(float) * ((size_t)PMAX * PMAX + 2 * (size_t)R * (P | 1));
+  return sizeof(float) *
+         ((size_t)PMAX * PMAX + 2 * (size_t)kRows * (P | 1));
 }
 
-template <int PMAX, int R, int VEC>
+template <int PMAX, int VEC>
 cudaError_t launch_vec(const float* act, const float* lp_old,
                        const float* other, const int* shift,
                        unsigned long long key, const float* prec_chol,
                        float* out_act, float* out_lp, int* out_acc, int n,
                        long long row0, long long m, int P, float a,
                        cudaStream_t stream) {
-  auto kernel = fused_stretch_half_kernel<PMAX, R, VEC>;
-  const size_t bytes = smem_bytes<PMAX, R>(P);
-  if (bytes > 48 * 1024) {
-    // above 48 KB a block's dynamic shared memory has to be asked for: once
-    // for this instantiation on each device, at the most it can need
-    static bool asked[kMaxDevices] = {};
-    int device = 0;
-    cudaError_t err = cudaGetDevice(&device);
-    if (err != cudaSuccess) return err;
-    if (device >= kMaxDevices) return cudaErrorInvalidDevice;
-    if (!asked[device]) {
-      err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)smem_bytes<PMAX, R>(PMAX));
-      if (err != cudaSuccess) return err;
-      asked[device] = true;
-    }
-  }
-  const int blocks = (n + R - 1) / R;
-  kernel<<<blocks, R, bytes, stream>>>(act, lp_old, other, shift, key,
-                                       prec_chol, out_act, out_lp, out_acc, n,
-                                       row0, m, P, a);
+  auto kernel = fused_stretch_half_kernel<PMAX, VEC>;
+  const size_t bytes = smem_bytes<PMAX>(P);
+  const int blocks = (n + kRows - 1) / kRows;
+  kernel<<<blocks, kRows, bytes, stream>>>(act, lp_old, other, shift, key,
+                                           prec_chol, out_act, out_lp,
+                                           out_acc, n, row0, m, P, a);
   return cudaGetLastError();
 }
 
-template <int PMAX, int R>
+template <int PMAX>
 cudaError_t launch(const float* act, const float* lp_old, const float* other,
                    const int* shift, unsigned long long key,
                    const float* prec_chol, float* out_act, float* out_lp,
                    int* out_acc, int n, long long row0, long long m, int P,
                    float a, cudaStream_t stream) {
   if (mcmcpp::rows_aligned8(P, act, other, out_act)) {
-    return launch_vec<PMAX, R, 2>(act, lp_old, other, shift, key, prec_chol,
+    return launch_vec<PMAX, 2>(act, lp_old, other, shift, key, prec_chol,
                                   out_act, out_lp, out_acc, n, row0, m, P, a,
                                   stream);
   }
-  return launch_vec<PMAX, R, 1>(act, lp_old, other, shift, key, prec_chol,
+  return launch_vec<PMAX, 1>(act, lp_old, other, shift, key, prec_chol,
                                 out_act, out_lp, out_acc, n, row0, m, P, a,
                                 stream);
 }
@@ -215,14 +202,12 @@ cudaError_t launch(const float* act, const float* lp_old, const float* other,
 // Dynamic shared memory of one block of the fused kernel at dimension P
 // (L and the two tiles), for the records; 0 for a P the kernel refuses.
 extern "C" long long mcmcpp_fused_stretch_half_smem_bytes(int P) {
-  if (P <= 0 || P > 64) return 0;
-  if (P <= 8) return (long long)smem_bytes<8, 256>(P);
-  if (P <= 16) return (long long)smem_bytes<16, 256>(P);
-  if (P <= 32) return (long long)smem_bytes<32, 128>(P);
-  return (long long)smem_bytes<64, 128>(P);
+  if (P <= 0 || P > kMaxP) return 0;
+  if (P <= 8) return (long long)smem_bytes<8>(P);
+  return (long long)smem_bytes<16>(P);
 }
 
-// One fused stretch half-step over n active walkers of dimension P: rows
+// One fused stretch half-step over n active walkers of dimension P <= 16: rows
 // row0…row0+n−1 of a half of m walkers, against `other`, the whole opposite
 // half of m rows (unsharded: row0 = 0, m = n). All pointers are device
 // pointers; `act`, `lp_old` and the outputs have n rows; `shift` points at
@@ -234,20 +219,14 @@ extern "C" int mcmcpp_fused_stretch_half_f32(
     const int* shift, unsigned long long key, const float* prec_chol,
     float* out_act, float* out_lp, int* out_acc, int n, long long row0,
     long long m, int P, float a, void* stream) {
-  if (!mcmcpp::valid_rows(n, row0, m) || P <= 0 || P > 64) {
+  if (!mcmcpp::valid_rows(n, row0, m) || P <= 0 || P > kMaxP) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (P <= 8) {
-    return (int)launch<8, 256>(act, lp_old, other, shift, key, prec_chol,
-                               out_act, out_lp, out_acc, n, row0, m, P, a, s);
-  } else if (P <= 16) {
-    return (int)launch<16, 256>(act, lp_old, other, shift, key, prec_chol,
-                                out_act, out_lp, out_acc, n, row0, m, P, a, s);
-  } else if (P <= 32) {
-    return (int)launch<32, 128>(act, lp_old, other, shift, key, prec_chol,
-                                out_act, out_lp, out_acc, n, row0, m, P, a, s);
+    return (int)launch<8>(act, lp_old, other, shift, key, prec_chol, out_act,
+                          out_lp, out_acc, n, row0, m, P, a, s);
   }
-  return (int)launch<64, 128>(act, lp_old, other, shift, key, prec_chol,
-                              out_act, out_lp, out_acc, n, row0, m, P, a, s);
+  return (int)launch<16>(act, lp_old, other, shift, key, prec_chol, out_act,
+                         out_lp, out_acc, n, row0, m, P, a, s);
 }

@@ -4,10 +4,16 @@ Counterpart of ``mcmcpp_tpu/movers/fused.py``: the same transition as
 :class:`~mcmcpp_tpu_torch.movers.stretch.StretchMove` in roll mode, run by
 ``ops/fused_stretch.py``. The Pallas version's ``tile`` and ``interpret``
 options are gone: the tensors' device picks the CUDA kernels or the plain
-version, and the logp picks the kernel: one fused launch per half-step for
-a :class:`~mcmcpp_tpu_torch.models.targets.GaussianTarget` (pass the module
-itself with ``batched=True``), the propose and accept kernels around the
-torch logp for any other.
+version, and the logp picks the kernel, one of three routes:
+
+- a :class:`~mcmcpp_tpu_torch.models.targets.GaussianTarget` (pass the
+  module itself with ``batched=True``) of P <= 16: one launch a half-step of
+  the fused kernel (``csrc/fused_stretch.cu``);
+- a wider GaussianTarget: one launch a half-step of the wide kernel
+  (``csrc/fused_stretch_wide.cu``: Y·L on the tensor cores, L streamed
+  through shared memory, any P);
+- any other logp: the propose and accept kernels around the torch logp
+  (``csrc/stretch_split.cu``).
 
 The noise of a half-step, one format per device. The Pallas kernel seeded
 the TPU's generator and drew its uniforms u and ue inside its body; the CUDA

@@ -29,22 +29,33 @@ against its plain version run on those planes.
 - CPU tensors run :func:`fused_stretch_half_reference`, for any logp, on the
   planes ``u`` and ``ue`` (a caller that holds a key makes them with
   ``philox_unit_uniforms``);
-- CUDA tensors take ``key`` (planes raise) and, with a
-  :class:`~mcmcpp_tpu_torch.models.targets.GaussianTarget` of P <= ``MAX_P``
-  (64), launch the fused kernel of ``csrc/fused_stretch.cu``, which
-  evaluates the Gaussian logp in its own body (one launch per half-step);
-- CUDA tensors with any other batched logp, or a GaussianTarget wider than
-  ``MAX_P`` (whose factor no longer fits the fused kernel's shared memory),
-  take the split path of ``csrc/stretch_split.cu``: the propose kernel, the
-  logp as torch ops on the current stream, then the accept kernel (the
-  Pallas kernel traced the logp into its body; a torch logp cannot run
-  inside a CUDA C++ kernel). The split kernels take any P, as the Pallas
-  kernel does;
+- CUDA tensors take ``key`` (planes raise) and go one of three routes, each
+  a hand-written kernel:
+
+  1. a :class:`~mcmcpp_tpu_torch.models.targets.GaussianTarget` of P <=
+     ``MAX_P`` (16) launches the fused kernel of ``csrc/fused_stretch.cu``
+     (a thread a walker, Y in registers, all of L in shared memory), which
+     evaluates the Gaussian logp in its own body: one launch a half-step;
+  2. a GaussianTarget wider than ``MAX_P`` launches the wide kernel of
+     ``csrc/fused_stretch_wide.cu``: a block of 64 or 128 walkers forms its
+     Y tile in shared memory (past P ≈ 825 on an H100 it streams Y through
+     the output rows) and takes Y·L on the tensor cores (3xTF32, about
+     float32's accuracy) with L streamed through shared memory, at any P:
+     one launch a half-step;
+  3. any other batched logp takes the split path of ``csrc/
+     stretch_split.cu``: the propose kernel, the logp as torch ops on the
+     current stream, then the accept kernel (the Pallas kernel traced the
+     logp into its body; a torch logp cannot run inside a CUDA C++ kernel).
+     The split kernels take any P, as the Pallas kernel does.
+
+  A kernel that fails to build or launch raises; no route falls back to
+  another;
 - any other device raises.
 
 Each kernel has its plain twin here: :func:`stretch_propose_reference`,
 :func:`stretch_accept_reference`, and :func:`fused_stretch_half_reference`,
-which is the two with the logp between them.
+which is the two with the logp between them and is the plain version of
+both fused kernels (with the target's torch ``forward`` as the logp).
 """
 
 import torch
@@ -54,12 +65,14 @@ from mcmcpp_tpu_torch.ops.gw import gw_sample
 
 #: launches of each CUDA kernel in this process, by kernel name (callers that
 #: count set them to 0)
-LAUNCHES = {"fused_stretch_half": 0, "stretch_propose": 0,
-            "stretch_accept": 0}
+LAUNCHES = {"fused_stretch_half": 0, "fused_stretch_wide": 0,
+            "stretch_propose": 0, "stretch_accept": 0}
 
-#: the widest GaussianTarget the fused kernel takes; a wider one runs the
-#: split kernels around its torch logp
-MAX_P = 64
+#: the widest GaussianTarget the fused kernel takes (``csrc/fused_stretch.cu``'s
+#: ``kMaxP``); a wider one runs the wide kernel, which measured 1.3–5.0x
+#: faster than the fused kernel's former 32- and 64-wide builds at P = 17–64
+#: and slower at P = 16 (n = 2^20, an H100, in turns; ``PERF.md`` §6)
+MAX_P = 16
 
 
 def _check_rows(active, other, row0):
@@ -193,6 +206,27 @@ def _launch_fused(active, active_logp, other, shift, key, prec_chol, a,
     return out_act, out_lp, out_acc
 
 
+def _launch_wide(active, active_logp, other, shift, key, prec_chol, a,
+                 row0):
+    from mcmcpp_tpu_torch._build import load_library
+
+    lib = load_library()
+    n, p = active.shape
+    out_act = torch.empty_like(active)
+    out_lp = torch.empty_like(active_logp)
+    out_acc = torch.empty((n,), dtype=torch.int32, device=active.device)
+    with torch.cuda.device(active.device):
+        err = lib.mcmcpp_fused_stretch_wide_f32(
+            active.data_ptr(), active_logp.data_ptr(), other.data_ptr(),
+            shift.data_ptr(), key, prec_chol.data_ptr(),
+            out_act.data_ptr(), out_lp.data_ptr(),
+            out_acc.data_ptr(), n, row0, other.shape[0], p, float(a),
+            _stream(active.device),
+        )
+    _checked(err, "fused_stretch_wide")
+    return out_act, out_lp, out_acc
+
+
 def stretch_propose(active, other, shift, key, a=2.0, row0=0):
     """The propose kernel on CUDA tensors: (proposal (n, P), (P−1)·log z
     (n,)), as :func:`stretch_propose_reference` computes them on the plane
@@ -281,8 +315,8 @@ def fused_stretch_half(active, active_logp, other, shift, u=None, ue=None, *,
     whole other half. Returns (new_active, new_logp, accepted int32). CPU
     tensors take the plain version on the planes ``u``, ``ue`` (the rows'
     own); CUDA tensors take ``key`` and launch the fused kernel (a
-    GaussianTarget of P <= MAX_P) or the split kernels (any other logp, any
-    P)."""
+    GaussianTarget of P <= MAX_P), the wide kernel (a wider GaussianTarget)
+    or the split kernels (any other logp, any P)."""
     row0 = int(row0)
     if active.device.type == "cpu":
         if key is not None or u is None or ue is None:
@@ -299,12 +333,13 @@ def fused_stretch_half(active, active_logp, other, shift, u=None, ue=None, *,
     key = _check_key(key)
     _half_args(active, active_logp, other, shift, row0)
     p = active.shape[1]
-    if isinstance(logp_fn, GaussianTarget) and p <= MAX_P:
+    if isinstance(logp_fn, GaussianTarget):
         prec_chol = logp_fn.prec_chol
         _check_args({"prec_chol": prec_chol}, {"prec_chol": (p, p)},
                     active.device)
-        return _launch_fused(active, active_logp, other, shift, key,
-                             prec_chol, a, row0)
+        launch = _launch_fused if p <= MAX_P else _launch_wide
+        return launch(active, active_logp, other, shift, key, prec_chol, a,
+                      row0)
     proposal, log_factor = stretch_propose(active, other, shift, key, a, row0)
     lp_new = logp_fn(proposal).contiguous()
     return stretch_accept(active, proposal, active_logp, lp_new, log_factor,

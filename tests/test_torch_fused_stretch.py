@@ -37,11 +37,14 @@ def _prec_chol(p, seed):
     return np.linalg.cholesky(np.linalg.inv(cov)).astype(np.float32)
 
 
-def _inputs(n, p, seed):
+def _inputs(n, p, seed, act_scale=0.3):
     """Active rows near the mode, partners with every fourth row scaled x10:
-    with z ≈ 1/2 the far partners give rejections, the near ones accepts."""
+    with z ≈ 1/2 the far partners give rejections, the near ones accepts.
+    Past P = 64 the factor (P−1)·log z ≈ −0.69·(P−1) of z ≈ 1/2 rejects
+    every move from near the mode, so the wide cases pass ``act_scale`` = 3:
+    active rows further out, which the near partners improve on."""
     rng = np.random.default_rng(seed)
-    act = (0.3 * rng.normal(size=(n, p))).astype(np.float32)
+    act = (act_scale * rng.normal(size=(n, p))).astype(np.float32)
     oth = rng.normal(size=(n, p)).astype(np.float32)
     oth[::4] *= 10.0
     return act, oth
@@ -85,11 +88,15 @@ def _logp_np(x, L):
     return (-0.5 * np.sum(y * y, axis=-1)).astype(np.float32)
 
 
-@pytest.mark.parametrize("p", [2, 10])
+@pytest.mark.parametrize("p", [2, 10, 65, 100])
 def test_reference_matches_pallas_interpret(p):
+    """The plain half-step, which the CUDA kernels are held to (the fused
+    kernel's for P <= 64, the wide kernel's beyond), against the Pallas
+    kernel on the same numbers."""
     n, tile = 64, 32
     L = _prec_chol(p, seed=p)
-    act, oth = _inputs(n, p, seed=100 + p)
+    act, oth = _inputs(n, p, seed=100 + p,
+                       act_scale=0.3 if p <= fs.MAX_P else 3.0)
     lp = _logp_np(act, L)
     shift, (j_act, j_lp, j_acc) = _jax_half(act, oth, lp, L, seed=7,
                                             tile=tile)
@@ -169,10 +176,10 @@ def _card_shift(n, shift):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,p,shift", [
     (1 << 16, 10, "third"), (1000, 3, "third"), (4096, 2, "third"),
-    (2048, 64, "third"), (1 << 16, 10, 0), (1 << 16, 10, 1),
+    (2048, 16, "third"), (1 << 16, 10, 0), (1 << 16, 10, 1),
     (1 << 16, 10, "last"), (1 << 16, 10, "mid"), (50, 10, "mid"),
-    (160, 2, 1), (128, 10, "last"), (1000, 7, "mid"), (1000, 33, 1),
-    (1000, 10, "negative"), (1000, 10, "beyond"), (300, 64, "mid"),
+    (160, 2, 1), (128, 10, "last"), (1000, 7, "mid"), (1000, 13, 1),
+    (1000, 10, "negative"), (1000, 10, "beyond"), (300, 16, "mid"),
 ])
 def test_kernel_matches_reference_on_card(cuda_device, n, p, shift):
     """Kernel vs plain version on one card: rtol = atol = 1e-5 (logf/sqrtf
@@ -216,8 +223,8 @@ def test_kernel_matches_reference_on_card(cuda_device, n, p, shift):
 @pytest.mark.cuda
 def test_kernels_refuse_planes_on_card(cuda_device):
     """On a CUDA tensor the wrapper takes a key; planes raise. (A
-    GaussianTarget wider than 64 no longer raises: it runs the split
-    kernels, ``test_wide_gaussian_runs_split_kernels_on_card``.)"""
+    GaussianTarget wider than ``fs.MAX_P`` does not raise: it runs the wide
+    kernel, ``test_wide_gaussian_runs_split_kernels_on_card``.)"""
     n, p = 64, 2
     x = torch.zeros((n, p), device=cuda_device)
     lp = torch.zeros(n, device=cuda_device)
@@ -231,37 +238,231 @@ def test_kernels_refuse_planes_on_card(cuda_device):
         fs.fused_stretch_half(x, lp, x, shift, key=-1, logp_fn=target)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("p", [65, 100])
-def test_wide_gaussian_runs_split_kernels_on_card(cuda_device, p):
-    """A GaussianTarget with P > 64 (the fused kernel's limit) runs the
-    propose kernel, its torch logp and the accept kernel: one launch of
-    each, and the half-step equals its plain version bit for bit (the split
-    kernels round as torch's ops do)."""
-    n = 3000
+def _wide_case(device, n, p, shift, seed):
+    """Inputs of a wide half-step on the card: act rows further out (see
+    ``_inputs``) and lp_old = −inf on every 61st row."""
     L = _prec_chol(p, seed=p)
-    act, oth = _inputs(n, p, seed=p)
+    act, oth = _inputs(n, p, seed=seed, act_scale=3.0)
     lp = _logp_np(act, L)
     lp[5::61] = -np.inf
     key = 0xC0FFEE ^ (n * 7919 + p)
-    u, ue = philox_unit_uniforms(key, n, cuda_device)
-    target = GaussianTarget(L, device=cuda_device)
-    args = (torch.from_numpy(act).to(cuda_device),
-            torch.from_numpy(lp).to(cuda_device),
-            torch.from_numpy(oth).to(cuda_device),
-            torch.tensor([n // 3], dtype=torch.int32, device=cuda_device))
+    target = GaussianTarget(L, device=device)
+    args = (torch.from_numpy(act).to(device), torch.from_numpy(lp).to(device),
+            torch.from_numpy(oth).to(device),
+            torch.tensor([_card_shift(n, shift)], dtype=torch.int32,
+                         device=device))
+    return target, args, key
+
+
+def _assert_near_reference(target, args, key, k_out):
+    """A kernel half-step against its plain version on the key's planes:
+    rtol = atol = 1e-5 (3xTF32 sums in the kernel's order against
+    cuBLAS's float32), accept masks equal except within
+    1e-4·max(1, |log_ratio|) of the threshold, lp_old = −inf rows accepted."""
+    n = args[0].shape[0]
+    u, ue = philox_unit_uniforms(key, n, args[0].device)
+    k_act, k_lp, k_acc = k_out
+    r_act, r_lp, r_acc = fs.fused_stretch_half_reference(*args, u, ue,
+                                                         logp_fn=target)
+    assert 0 < int(r_acc.sum()) < n
+    assert bool((k_acc[5::61] == 1).all())
+    _, _, log_ratio = fs.stretch_proposal(*args, u, logp_fn=target)
+    near = ((log_ratio - torch.log(ue)).abs()
+            < 1e-4 * torch.clamp(log_ratio.abs(), min=1.0))
+    assert bool(((k_acc == r_acc) | near).all())
+    same = k_acc == r_acc
+    torch.testing.assert_close(k_act[same], r_act[same], rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(k_lp[same], r_lp[same], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", ["mid", "last"])
+@pytest.mark.parametrize("p", [33, 64, 65, 100, 128, 257])
+def test_wide_gaussian_runs_split_kernels_on_card(cuda_device, p, shift):
+    """A GaussianTarget with P > ``fs.MAX_P`` (16, the fused kernel's own
+    limit) launches the wide kernel once a half-step, and no split kernel;
+    the half-step holds to its plain version (``_assert_near_reference``).
+    The widths take each of the kernel's blocks on an H100: 128 walkers
+    with the Y tile (P <= 100), 64 walkers (P = 128, 257)."""
+    target, args, key = _wide_case(cuda_device, 3000, p, shift, seed=p)
     before = dict(fs.LAUNCHES)
     k_out = fs.fused_stretch_half(*args, key=key, logp_fn=target)
     torch.cuda.synchronize()
-    assert fs.LAUNCHES == {
-        "fused_stretch_half": before["fused_stretch_half"],
-        "stretch_propose": before["stretch_propose"] + 1,
-        "stretch_accept": before["stretch_accept"] + 1}
-    r_out = fs.fused_stretch_half_reference(*args, u, ue, logp_fn=target)
-    assert 0 < int(r_out[2].sum()) < n
-    assert bool((k_out[2][5::61] == 1).all())
-    for k, r in zip(k_out, r_out):
-        assert torch.equal(k, r)
+    assert fs.LAUNCHES == {**before, "fused_stretch_wide":
+                           before["fused_stretch_wide"] + 1}
+    _assert_near_reference(target, args, key, k_out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", ["mid", "last"])
+def test_wide_kernel_streams_y_past_its_tile_on_card(cuda_device, shift):
+    """At P = 1000 the Y tile of 64 walkers needs more shared memory than a
+    block may have, so the wide kernel streams Y through the output rows:
+    one launch a half-step through the dispatch, held to the plain
+    version."""
+    from mcmcpp_tpu_torch._build import load_library
+
+    p = 1000
+    optin = torch.cuda.get_device_properties(
+        cuda_device).shared_memory_per_block_optin
+    assert load_library().mcmcpp_fused_stretch_wide_smem_bytes(p, 0, 1) > optin
+    target, args, key = _wide_case(cuda_device, 1000, p, shift, seed=p)
+    before = dict(fs.LAUNCHES)
+    k_out = fs.fused_stretch_half(*args, key=key, logp_fn=target)
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES == {**before, "fused_stretch_wide":
+                           before["fused_stretch_wide"] + 1}
+    _assert_near_reference(target, args, key, k_out)
+
+
+def _tf32(x):
+    """float32 -> TF32 on the int32 view as the wide kernel rounds its big
+    parts: the top 10 mantissa bits, to nearest with ties away from zero
+    (adding half a TF32 ULP to the magnitude's bits carries into the
+    exponent where it must), the low 13 bits cleared."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def _truncate_tf32(x):
+    """float32 -> TF32 as the tensor cores read a float32: the low 13 bits
+    ignored."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split(x):
+    """The kernel's x = big + small: big rounded, small the remainder as
+    the tensor cores truncate it."""
+    big = _tf32(x)
+    return big, _truncate_tf32(x - big)
+
+
+def _sum_truncated(acc, part):
+    """float32 acc + part (float64) as a tensor core writes its sum: exact,
+    then truncated toward zero to float32."""
+    exact = acc.astype(np.float64) + part
+    out = exact.astype(np.float32)
+    over = np.abs(out.astype(np.float64)) > np.abs(exact)
+    out[over] = np.nextafter(out[over], np.float32(0))
+    return out
+
+
+def _quad_3xtf32(y, L, partials=True):
+    """The wide kernel's lp = −½‖y·L‖² as its tensor cores compute it: per
+    k-step of 8, the three TF32 products small·big, big·small and big·big,
+    each summed exactly (float64 holds a TF32 product and a sum of eight)
+    and added by the mma with its sum truncated to float32, into a zeroed
+    partial that a float32 add (round to nearest) puts into S; with
+    ``partials`` False, into S itself. The squares of each column summed in
+    float32."""
+    yb, ys = _split(y)
+    lb, ls = _split(L)
+    p = L.shape[0]
+    acc = np.zeros((y.shape[0], p), np.float32)
+    for k0 in range(0, p, 8):
+        k = slice(k0, k0 + 8)
+        part = np.zeros_like(acc) if partials else acc
+        for a, b in ((ys, lb), (yb, ls), (yb, lb)):
+            part = _sum_truncated(
+                part, a[:, k].astype(np.float64) @ b[k].astype(np.float64))
+        acc = (acc + part).astype(np.float32) if partials else part
+    return -0.5 * np.sum(acc * acc, axis=-1, dtype=np.float32)
+
+
+@pytest.mark.parametrize("p", [65, 100, 128, 257])
+def test_3xtf32_quadratic_form_keeps_float32_accuracy(p):
+    """The wide kernel's product (3xTF32) against float64 and against the
+    plain float32 ``GaussianTarget.forward`` on the CPU, on proposals from
+    the near and the far partners (|lp| from ~10 to ~10^4): within
+    rtol = 1e-5, the card tests' tolerance. Plain TF32 (big·big alone)
+    misses it by orders of magnitude, which is why the kernel splits."""
+    L = _prec_chol(p, seed=p)
+    # an L with an upper triangle too: the kernel takes the whole matrix
+    L_full = L + np.triu(_prec_chol(p, seed=p + 1), 1) * 0.1
+    for mat in (L, L_full.astype(np.float32)):
+        _, y = _inputs(256, p, seed=p)
+        want = _logp_np(y, mat).astype(np.float64)
+        got = _quad_3xtf32(y, mat)
+        plain = GaussianTarget(mat, device="cpu")(torch.from_numpy(y))
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
+        np.testing.assert_allclose(got, plain.numpy(), rtol=1e-5, atol=0)
+        yb, lb = _tf32(y), _tf32(mat)
+        tf32_only = -0.5 * np.sum((yb.astype(np.float64) @ lb) ** 2, -1)
+        assert np.max(np.abs(tf32_only / want - 1)) > 1e-4
+
+
+def test_3xtf32_partials_keep_float32_accuracy_at_large_k():
+    """At P = 1000 (the width past the Y tile, where the kernel streams Y)
+    the kernel's product still holds rtol = 1e-5 against float64 and the
+    plain float32 forward, because each k-step's products go into a zeroed
+    partial; accumulated into S itself, each mma's truncated sum is a bias
+    toward zero that grows with K and misses it."""
+    p = 1000
+    L = _prec_chol(p, seed=p)
+    _, y = _inputs(256, p, seed=p)
+    want = _logp_np(y, L).astype(np.float64)
+    plain = GaussianTarget(L, device="cpu")(torch.from_numpy(y)).numpy()
+    got = _quad_3xtf32(y, L)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
+    np.testing.assert_allclose(got, plain, rtol=1e-5, atol=0)
+    in_s = _quad_3xtf32(y, L, partials=False)
+    assert np.max(np.abs(in_s / want - 1)) > 1e-5
+
+
+def _fake_cuda_half(monkeypatch, target, p):
+    """``fs.fused_stretch_half`` on CUDA tensors that hold no memory (a
+    FakeTensorMode): which launchers the dispatch reaches, in order, and
+    what it raises when the launch cannot happen."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    called = []
+
+    def spy(name, fn):
+        def wrapped(*args, **kwargs):
+            called.append(name)
+            return fn(*args, **kwargs)
+        monkeypatch.setattr(fs, name, wrapped)
+
+    for name in ("_launch_fused", "_launch_wide", "stretch_propose",
+                 "stretch_accept"):
+        spy(name, getattr(fs, name))
+    with FakeTensorMode():
+        if isinstance(target, GaussianTarget):
+            target.prec_chol = torch.empty((p, p), device="cuda")
+        x = torch.empty((256, p), device="cuda")
+        lp = torch.empty((256,), device="cuda")
+        shift = torch.zeros((1,), dtype=torch.int32, device="cuda")
+        with pytest.raises(RuntimeError) as err:
+            fs.fused_stretch_half(x, lp, x, shift, key=5, logp_fn=target)
+    return called, err
+
+
+@pytest.mark.parametrize("p,route", [(16, "_launch_fused"),
+                                     (17, "_launch_wide"),
+                                     (64, "_launch_wide"),
+                                     (65, "_launch_wide"),
+                                     (100, "_launch_wide"),
+                                     (257, "_launch_wide"),
+                                     (100, "stretch_propose")])
+def test_cuda_dispatch_routes_without_card(monkeypatch, p, route):
+    """On a CUDA tensor a GaussianTarget of P <= MAX_P (16) goes to the fused
+    kernel, a wider one to the wide kernel, any other logp to the split
+    pair; without a card the launch raises (here the kernels cannot be
+    built) and no other route is tried: a wide GaussianTarget never reaches
+    the split kernels, and nothing counts a launch."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the dispatch where no kernel can launch")
+    L = np.eye(p, dtype=np.float32)
+    target = (GaussianTarget(L, device="cpu") if route != "stretch_propose"
+              else (lambda x: -0.5 * torch.sum(x * x, -1)))
+    before = dict(fs.LAUNCHES)
+    called, err = _fake_cuda_half(monkeypatch, target, p)
+    assert called == [route]
+    assert "nvcc" in str(err.value) or "CUDA" in str(err.value)
+    assert fs.LAUNCHES == before
 
 
 def test_device_dispatch_without_card():
@@ -438,18 +639,20 @@ def test_split_kernels_match_reference_on_card(cuda_device, name, n, shift):
     ("gaussian", 1 << 16, 10, "third"), ("gaussian", 1000, 7, "mid"),
     ("gaussian", 4096, 64, "last"), ("gaussian", 1 << 12, 10, "negative"),
     ("funnel", 1 << 16, 10, "third"), ("funnel", 1000, 3, "mid"),
-    ("funnel", 4096, 33, "beyond"),
+    ("funnel", 4096, 33, "beyond"), ("gaussian", 4000, 100, "mid"),
+    ("gaussian", 4096, 257, "last"),
 ])
 def test_kernels_over_row_shards_equal_one_launch_on_card(cuda_device, name,
                                                           n, p, shift):
-    """The three kernels launched over R = 4 row shards of a half (each on
+    """The four kernels launched over R = 4 row shards of a half (each on
     rows row0… against the whole other half, ``row0``) give one unsharded
     launch's outputs under ``torch.equal``; each sharded launch of the split
     kernels equals its plain version on its rows' planes bit for bit."""
     from mcmcpp_tpu_torch.models import targets as tm
 
     act, oth = (torch.from_numpy(a).to(cuda_device)
-                for a in _inputs(n, p, seed=p + 1))
+                for a in _inputs(n, p, seed=p + 1,
+                                 act_scale=0.3 if p <= fs.MAX_P else 3.0))
     target = (GaussianTarget(_prec_chol(p, seed=p), device=cuda_device)
               if name == "gaussian" else tm.neal_funnel(p))
     lp = target(act)

@@ -256,19 +256,45 @@ TIMEOUT_S = 120
 
 class _Exchange:
     """What the threads of one layout pass each other: every rank's value,
-    in rank order, once all have arrived."""
+    in rank order, once all have arrived.
+
+    The ranks take turns: a rank holds ``turn`` while it computes and lets
+    it go only while it waits at a collective, so no two ranks of a layout
+    run torch ops at the same time. Ranks in separate processes share no
+    process state; thread ranks that ran at once did, and once, in a loaded
+    six-worker run of the suite, two thread ranks of HMC (the first test of
+    a fresh worker) gave other bits than the unsharded run
+    (``rows:samples``, every element, from the warmup on), which no rerun
+    reproduced."""
 
     def __init__(self, world):
         # a rank that never arrives (a loop another rank left) breaks the
         # barrier for all instead of hanging the test
         self.barrier = threading.Barrier(world, timeout=TIMEOUT_S)
         self.slots = [None] * world
+        self.turn = threading.Lock()
+        self.holder = None
+
+    def take_turn(self, rank):
+        if not self.turn.acquire(timeout=TIMEOUT_S):
+            raise TimeoutError(f"rank {rank} waited {TIMEOUT_S} s for its "
+                               "turn")
+        self.holder = rank
+
+    def give_turn(self, rank):
+        if self.holder == rank:
+            self.holder = None
+            self.turn.release()
 
     def __call__(self, rank, value):
         self.slots[rank] = value
-        self.barrier.wait()
-        out = list(self.slots)
-        self.barrier.wait()
+        self.give_turn(rank)
+        try:
+            self.barrier.wait()
+            out = list(self.slots)
+            self.barrier.wait()
+        finally:
+            self.take_turn(rank)
         return out
 
 
@@ -309,6 +335,7 @@ def run_in_threads(world, fn, n_ladder_shards=None):
     def rank_main(rank):
         cpu = torch.device("cpu")
         try:
+            exchange.take_turn(rank)
             layout = (ThreadWalkerLayout(world, rank, cpu, exchange=exchange)
                       if n_ladder_shards is None else
                       ThreadLadderLayout(n_ladder_shards, world, rank, cpu,
@@ -317,6 +344,8 @@ def run_in_threads(world, fn, n_ladder_shards=None):
         except BaseException as e:  # noqa: BLE001 - re-raised below
             errors.append(e)
             exchange.barrier.abort()
+        finally:
+            exchange.give_turn(rank)
 
     threads = [threading.Thread(target=rank_main, args=(r,))
                for r in range(world)]
