@@ -19,10 +19,13 @@ Builds the port's CUDA kernels from ``mcmcpp_tpu_torch/csrc/`` (into
    times both at the main path's shape. Then the wide kernel (a
    GaussianTarget wider than ``fs.MAX_P``): one launch a half-step and no
    other, against its plain version at n = 2^20 and P = 65, 100, 128, 257
-   (both of its blocks) and at edge shapes and shifts, also at P = 1000,
-   where Y is streamed, 4 row shards against one launch, the old split route
-   bit for bit against the plain version, and the kernel's time in turns
-   beside the plain version's and the split route's; and its main path, the
+   (its warp-specialised block, L resident and L streamed) and at edge
+   shapes and shifts, also at P = 1000, where Y is streamed, 4 row shards
+   against one launch (at rows that are multiples of 4 and at rows that are
+   not), the old split route bit for bit against the plain version, and the
+   kernel's time in turns beside its loads and stores alone (a debug entry
+   point without the product), the plain version's and the split route's,
+   with the bytes and the product bounds apart; and its main path, the
    sampler on a P = 100 GaussianTarget at W = 2^21 in turns with the split
    route (walker-updates/s, acceptance within 4 binomial SE, stored rows);
 2b. holds the split path's propose and accept kernels (any torch logp)
@@ -451,14 +454,20 @@ def kernel_bounds(n, p):
             "stretch_accept": bound_ms(n, p, 3, 5, p + 120)}
 
 
+def wide_bound_parts(n, p):
+    """The wide half-step's two least times, in ms: its bytes (X, the
+    partner and the output row, lp_old, out_lp, out_acc) over the memory
+    rate, and its product kept at float32's accuracy (3xTF32: three TF32
+    products of 2P² FLOP a walker) at the tensor cores' TF32 rate."""
+    return (n * 4 * (3 * p + 3) / PEAK_BYTES_PER_S * 1e3,
+            n * 3 * 2 * p * p / PEAK_TF32_FLOP_PER_S * 1e3)
+
+
 def wide_bound_ms(n, p):
-    """The wide half-step's least time: its bytes (X, the partner and the
-    output row, lp_old, out_lp, out_acc) over the memory rate, or its
-    product kept at float32's accuracy (3xTF32: three TF32 products of 2P²
-    FLOP a walker) at the tensor cores' TF32 rate, whichever is longer. The
-    same work whatever computes it, so no kernel reads above 100%."""
-    by_bytes = n * 4 * (3 * p + 3) / PEAK_BYTES_PER_S * 1e3
-    by_ops = n * 3 * 2 * p * p / PEAK_TF32_FLOP_PER_S * 1e3
+    """The wide half-step's least time, the longer of its two
+    (``wide_bound_parts``). The same work whatever computes it, so no
+    kernel reads above 100%."""
+    by_bytes, by_ops = wide_bound_parts(n, p)
     return ((by_bytes, "bytes") if by_bytes >= by_ops
             else (by_ops, "operations"))
 
@@ -600,12 +609,14 @@ def split_case(fs, rnd, target, n, seed, neg_inf_every=0, nan_every=0,
 
 
 # the wide kernel (csrc/fused_stretch_wide.cu, phase 2): the widths it is
-# checked and timed at (on an H100 P = 65 and 100 take its 128-walker block,
-# 128 and 257 its 64-walker block), the width past its Y tile (Y streamed),
-# and its main path, the sampler on a P = 100 GaussianTarget at the
+# checked and timed at (on an H100 P = 65 and 100 take its warp-specialised
+# wgmma block, 128 and 257 its mma.sync block with the Y tile), the width
+# past the Y tile (Y streamed), row offsets of shards that are not multiples
+# of 4, and its main path, the sampler on a P = 100 GaussianTarget at the
 # flagship's W: burn-in steps a reading (two readings a route, in turns with
 # the split route's) and the stored steps after them
 WIDE_P = (65, 100, 128, 257)
+WIDE_ODD_SHARDS = (0, 262145, 524290, 786435)
 WIDE_STREAMED_P = 1000
 WIDE_SAMPLER_P, WIDE_BURN, WIDE_STORE, WIDE_THIN = 100, 20, 4, 2
 
@@ -618,12 +629,15 @@ def launches_only(fs, **counts):
 def wide_kernel(mt, fs, rnd, card, blocker):
     """Phase 2's wide block: the wide kernel against its plain version at
     n = 2^20 and the edge cases (one launch a half-step, no split launch),
-    also at a P whose Y tile does not fit a block (Y streamed), 4 row shards
-    against one launch, the old split route (propose, the torch logp,
-    accept) bit for bit against the plain version, and the kernel's time
-    beside the plain version's and the split route's, in turns; then its
-    main path, the sampler at P = 100 and W = 2^21 against the split route.
-    Returns the kernel line's entry."""
+    also past the Y tile's shared memory (Y streamed), 4 row shards at
+    offsets that are multiples of 4 and at offsets that are not against one
+    launch, the old split route (propose, the torch logp, accept) bit for
+    bit against the plain version, and the kernel's time beside the plain
+    version's and the split route's and, on the warp-specialised route, its
+    loads alone (the debug entry without the product), in turns, with the
+    bytes and the product bounds apart; then its main path, the sampler at
+    P = 100 and W = 2^21 against the split route. Returns the kernel line's
+    entry."""
     dev = torch.device("cuda")
     n = 1 << 20
     errs, by_p = [], {}
@@ -647,15 +661,14 @@ def wide_kernel(mt, fs, rnd, card, blocker):
         errs.append(err)
         return args, key, planes
 
-    # past the Y tile's shared memory the kernel streams Y
-    from mcmcpp_tpu_torch import _build
-
-    lib = _build.load_library()
-    optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
-    tile = lib.mcmcpp_fused_stretch_wide_smem_bytes(WIDE_STREAMED_P, 0, 1)
-    if tile <= optin:
-        raise AssertionError(f"P={WIDE_STREAMED_P}: the Y tile ({tile} B) "
-                             f"fits a block ({optin} B), so Y is not streamed")
+    # the routes: wgmma at the sampler's width, Y streamed past the Y tile
+    routes = {q: fs.WIDE_ROUTES[fs.wide_layout(q, dev)["route"]]
+              for q in (*WIDE_P, WIDE_STREAMED_P)}
+    ws_route, streamed = fs.WIDE_ROUTES[0], fs.WIDE_ROUTES[2]
+    if (routes[WIDE_STREAMED_P] != streamed
+            or routes[WIDE_SAMPLER_P] != ws_route
+            or any(routes[q] == streamed for q in WIDE_P)):
+        raise AssertionError(f"wide kernel routes {routes}")
     target = gauss(WIDE_STREAMED_P)
     for n_case, neg, shift in [(1000, 7, "mid"), (4096, 5, "last")]:
         wide_case(target, n_case, seed=n_case, neg=neg, shift=shift)
@@ -688,23 +701,47 @@ def wide_kernel(mt, fs, rnd, card, blocker):
                    for k in range(3)):
             raise AssertionError(f"P={q}: 4 row shards differ from one "
                                  "launch")
-        (plain_ms, split_ms, wide_ms), readings, _ = in_turns([
+        # shards from rows that are not multiples of 4: runs off a 16-B
+        # boundary at odd P
+        bounds = (*WIDE_ODD_SHARDS, n)
+        parts = [fs.fused_stretch_half(act[r0:r1], lp[r0:r1], other, shift,
+                                       key=key, logp_fn=target, row0=r0)
+                 for r0, r1 in zip(bounds[:-1], bounds[1:])]
+        if not all(torch.equal(torch.cat([pt[k] for pt in parts]), whole[k])
+                   for k in range(3)):
+            raise AssertionError(f"P={q}: 4 row shards at rows "
+                                 f"{WIDE_ODD_SHARDS} differ from one launch")
+        calls = [
             lambda: fs.fused_stretch_half_reference(*args, u, ue,
                                                     logp_fn=target),
             lambda: fs.fused_stretch_half(*args, key=key,
                                           logp_fn=split_route(target)),
-            lambda: fs.fused_stretch_half(*args, key=key, logp_fn=target)],
-            20, blocker)
+            lambda: fs.fused_stretch_half(*args, key=key, logp_fn=target)]
+        if routes[q] == ws_route:
+            calls.append(lambda: fs.wide_loads_only(*args, key,
+                                                    target.prec_chol))
+        means, readings, _ = in_turns(calls, 20, blocker)
+        plain_ms, split_ms, wide_ms = means[:3]
+        loads_ms = means[3] if len(means) > 3 else None
+        loads_text = (f"its loads and stores alone {loads_ms:.4f} "
+                      f"({readings[3][0]:.4f}, {readings[3][1]:.4f}), "
+                      if loads_ms is not None else "")
         bound, bound_by = wide_bound_ms(n, q)
+        bytes_ms, product_ms = wide_bound_parts(n, q)
         by_p[q] = {"ms": wide_ms, "plain_ms": plain_ms,
-                   "split_route_ms": split_ms, "bound_ms": bound,
-                   "bound_by": bound_by}
+                   "split_route_ms": split_ms, "loads_only_ms": loads_ms,
+                   "bound_ms": bound, "bound_by": bound_by,
+                   "bytes_bound_ms": bytes_ms,
+                   "product_bound_ms": product_ms,
+                   "layout": fs.wide_layout(q, dev)}
         print(f"  wide n=2^20 P={q}, ms per half-step (in turns): wide "
               f"{wide_ms:.4f} ({readings[2][0]:.4f}, {readings[2][1]:.4f}), "
-              f"plain {plain_ms:.4f}, old split route {split_ms:.4f} (bit for "
-              f"bit the plain version); bound {bound:.4f} ({bound_by}), "
-              f"{bound / wide_ms:.0%} of it; 4 row shards == one launch "
-              f"[{card}]", flush=True)
+              f"{loads_text}plain {plain_ms:.4f}, old split "
+              f"route {split_ms:.4f} (bit for bit the plain version); bound "
+              f"{bound:.4f} ({bound_by}; bytes {bytes_ms:.4f}, 3xTF32 product "
+              f"{product_ms:.4f}), {bound / wide_ms:.0%} of it; 4 row shards "
+              f"== one launch, at rows {WIDE_ODD_SHARDS} too; "
+              f"{routes[q]}, {by_p[q]['layout']} [{card}]", flush=True)
         del args, u, ue, r_out, s_out, whole, parts, act, lp, other
         torch.cuda.empty_cache()
 
@@ -4760,13 +4797,10 @@ def main():
               + ", ".join(
                   f"P={q}: {lib.mcmcpp_fused_stretch_half_smem_bytes(q)} B"
                   for q in (2, 10, 16)))
-        print("  fused_stretch_wide dynamic shared memory per block (Y tile "
-              "of 128 walkers; of 64; streamed): " + ", ".join(
-                  f"P={q}: "
-                  f"{lib.mcmcpp_fused_stretch_wide_smem_bytes(q, 0, 2)}; "
-                  f"{lib.mcmcpp_fused_stretch_wide_smem_bytes(q, 0, 1)}; "
-                  f"{lib.mcmcpp_fused_stretch_wide_smem_bytes(q, 1, 1)} B"
-                  for q in (65, 100, 128, 257, 1000)))
+        for q in (65, 100, 128, 257, 1000):
+            print(f"  fused_stretch_wide at P={q}: "
+                  f"{fs.WIDE_ROUTES[fs.wide_layout(q, dev)['route']]}, "
+                  f"{fs.wide_layout(q, dev)}")
 
     # -- phase 2: fused kernel vs plain version -----------------------------
     if run_phase("2"):

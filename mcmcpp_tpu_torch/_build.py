@@ -127,6 +127,9 @@ def load_library():
             [ptr] * 4 + [u64] + [ptr] * 4 + [i32, i64, i64, i32, f32, ptr],
         "mcmcpp_fused_stretch_wide_f32":
             [ptr] * 4 + [u64] + [ptr] * 4 + [i32, i64, i64, i32, f32, ptr],
+        "mcmcpp_fused_stretch_wide_loads_only_f32":
+            [ptr] * 4 + [u64] + [ptr] * 4 + [i32, i64, i64, i32, f32, ptr],
+        "mcmcpp_fused_stretch_wide_layout": [i32, ptr],
         "mcmcpp_stretch_propose_f32":
             [ptr] * 3 + [u64] + [ptr] * 2 + [i64, i64, i64, i32, f32, ptr],
         "mcmcpp_stretch_accept_f32":
@@ -139,6 +142,4 @@ def load_library():
         fn.restype = i32
     lib.mcmcpp_fused_stretch_half_smem_bytes.argtypes = [i32]
     lib.mcmcpp_fused_stretch_half_smem_bytes.restype = i64
-    lib.mcmcpp_fused_stretch_wide_smem_bytes.argtypes = [i32, i32, i32]
-    lib.mcmcpp_fused_stretch_wide_smem_bytes.restype = i64
     return lib

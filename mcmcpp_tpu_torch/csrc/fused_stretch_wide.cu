@@ -17,10 +17,620 @@
 // row, lp_old, out_lp, out_acc) against the P×P product's 2P² FLOP. Done as
 // 3xTF32 on the tensor cores (below) the product is 3·2P² FLOP at 495
 // TFLOP/s, so the kernel is memory-bound up to P ≈ 290 (at n = 2^20 and
-// P = 100: 0.379 ms of bytes against 0.127 ms of tensor work). mma.sync,
-// which this kernel issues, has about two thirds of that TF32 rate.
+// P = 100: 0.379 ms of bytes against 0.127 ms of tensor work).
 //
-// Design:
+// Two kernels, chosen by P and the device's shared memory (plan_for):
+//
+// 1. Where L's split halves fit beside two Y tiles and two rings of at
+//    least three stages (P <= 112 on an H100, whose blocks may opt into
+//    227 KB): a persistent, warp-specialised block on each SM.
+// - The grid is one block an SM. A block walks walker tiles of 64 rows (one
+//   wgmma M), tile blockIdx.x, blockIdx.x + gridDim.x, …; its two consumer
+//   warpgroups take every other tile, each with its own Y tile and ring.
+// - A producer warp keeps the X run and the partner run of the next tiles in
+//   flight: stages of 8–32 rows, filled by cp.async.bulk (the 16-B aligned
+//   middle of each run) and 4-B cp.async (its unaligned head and tail, up to
+//   3 floats each: a row-shard view at any row0, any P), completing on the
+//   stage's mbarrier; the partner run wraps at m within a stage as two
+//   pieces. A consumer frees a stage on a second mbarrier as soon as it has
+//   formed the stage's proposal rows, so the loads of its next tile run
+//   under the product and epilogue of this one, and one consumer's product
+//   under the other's passes over its tile.
+// - A consumer forms its tile's Y = p + z·(X − p) from the stages into its
+//   Y tile (row stride ≡ 8 mod 16 floats: an A fragment's float2 loads fall
+//   into distinct banks) and writes X to the output rows as it goes, as if
+//   every row were rejected; after the decisions the accepted rows get Y
+//   from the tile (an accepted row is written twice, and nothing is read
+//   twice from device memory). lp_old is loaded when the tile starts.
+// - Product: wgmma.mma_async m64nNk8 .f32.tf32.tf32 with N = P rounded up
+//   to 16 (at least 32): every column of S at once, so Y is read and split
+//   once a tile. A (the Y tile's k-step, split in registers) comes from
+//   registers, B (L's big and small halves, split once a block) from shared
+//   memory in the K-major core-matrix layout without swizzle. Within each
+//   k-step the columns are taken in the order 2t, 2t + 1 of thread t (a
+//   float2 of the tile), and L's rows are laid out in that order.
+// - 3xTF32: a = a_big + a_small with a_big = a rounded to TF32 and a_small
+//   = a − a_big (truncated to TF32 by the tensor cores); each product is
+//   a_small·b_big + a_big·b_small + a_big·b_big, three wgmma into a partial
+//   that the first of them zeroes (scale-d = 0) and an fp32 add (round to
+//   nearest) puts into S: a partial for every four k-steps at N <= 80, two
+//   to N = 112 (as many as the A fragments of the group fit beside the
+//   accumulators in 168 registers a thread). That keeps about float32's
+//   accuracy (what is dropped is below 2^-21 relative); the tensor cores
+//   truncate the sum they write, so products accumulated into S itself
+//   would lose up to an ulp of the running sum each, a bias toward zero
+//   that grows with K (1.3e-5 relative at P = 1000; partials of four
+//   k-steps hold 8.1e-7 there in tests/test_torch_fused_stretch.py's
+//   emulation). A NaN or infinite Y gives a NaN small part, so the row's
+//   logp is NaN and the row rejects, as the plain version's NaN or −inf
+//   logp does.
+// - Bits: every row's S, squares and sums are taken in one order whatever
+//   block, consumer or persistent iteration takes its tile, so launches
+//   over row shards equal one launch bit for bit.
+// - Registers are not the limit at one block an SM (shared memory is), so
+//   the consumers keep the compiler's allocation (no setmaxnreg).
+// - Wider P: L's halves (2·4·Kp·N bytes, 131 KB at P = 128) leave too
+//   little room for two consumers' tiles and rings. Two designs for wider P
+//   measured slower than kernel 2 on an H100 (PERF.md §6): both consumers
+//   on one tile, one half of S's columns each, with L resident (P = 128:
+//   fewer bytes in flight and every phase of a tile synchronised across
+//   both), and the same with L streamed from L2 in chunks of one k-step,
+//   split by two more producer warps (P = 257: every tile re-reads L, and
+//   the few chunks the shared memory holds do not hide their L2 latency).
+//
+// 2. Elsewhere, the mma.sync kernel: a block of four warps owns 64 or 128
+//    walkers (the Y tile in shared memory, or past P ≈ 825 on an H100 Y
+//    streamed through the output rows), streams L in 32 × 64 panels by
+//    4-byte cp.async, and takes Y·L as 3xTF32 on mma.sync m16n8k8 with a
+//    zeroed partial a k-step; its notes are above its code below.
+//
+// The partner index, z, the uniforms and the accept rule are the device
+// functions of stretch_common.cuh, shared with the other stretch kernels.
+
+#include <algorithm>
+
+#include "sm90.cuh"
+#include "stretch_common.cuh"
+#include "wgmma_tf32.cuh"
+
+namespace {
+
+using namespace mcmcpp;
+
+// Devices of one host that the shared-memory opt-in keeps a value for.
+constexpr int kMaxDevices = 64;
+
+__host__ __device__ constexpr int round_up(int x, int to) {
+  return (x + to - 1) / to * to;
+}
+
+// x = big + small for the 3xTF32 product: big is x rounded to TF32 (to
+// nearest, ties away from zero: half a TF32 ULP added to the magnitude's
+// bits, the low 13 bits cleared), small the exact remainder x − big, whose
+// low 13 bits the tensor cores ignore. A NaN or infinite x leaves a NaN
+// small.
+__device__ __forceinline__ void split_tf32(float x, unsigned& big,
+                                           unsigned& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+// The largest dynamic shared memory a block of this device may opt into.
+cudaError_t smem_optin(int* bytes) {
+  static int known[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!known[device]) {
+    err = cudaDeviceGetAttribute(
+        &known[device], cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    if (err != cudaSuccess) return err;
+  }
+  *bytes = known[device];
+  return cudaSuccess;
+}
+
+// Above 48 KB a block's dynamic shared memory has to be asked for: once for
+// each kernel on each device, at the most the device gives.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes, bool* asked) {
+  int device = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = smem_optin(&optin);
+  if (err != cudaSuccess) return err;
+  if (bytes > (size_t)optin) return cudaErrorInvalidValue;
+  if (bytes > 48 * 1024 && !asked[device]) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    if (err != cudaSuccess) return err;
+    asked[device] = true;
+  }
+  return cudaSuccess;
+}
+
+// ===========================================================================
+// The persistent, warp-specialised kernel (L resident)
+// ===========================================================================
+
+constexpr int kTileRows = 64;
+constexpr int kWgThreads = 128;
+// consumer warpgroups, each with its own tiles, Y tile and stages
+constexpr int kConsumers = 2;
+constexpr int kThreadsWs = kConsumers * kWgThreads + 32;
+constexpr int kMaxSlots = 8;  // a consumer's stages at most
+
+// The block's plan, computed on the host from P and the shared memory a
+// block may have (plan_for); byte offsets into the dynamic shared memory.
+struct Plan {
+  int P, Kp, ystride;  // K padded to k-steps of 8; Y tile row stride
+  int nsub;            // wgmma N: every column of S
+  int sr, slots, area; // rows a stage; a consumer's stages; floats of an X
+                       // or partner area of a stage
+  int off_l, off_ring, off_y, off_rows, off_bar, smem;
+};
+
+// The head and tail (up to 3 floats each) of a run, or all of a run under
+// 32 B, by 4-B cp.async from lanes lane0…lane0+7; returns the bytes of the
+// 16-B aligned middle, which piece_bulk copies. dst ≡ src (mod 16 B).
+__device__ __forceinline__ unsigned piece_scalars(float* dst, const float* src,
+                                                  int count, int lane,
+                                                  int lane0) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
+  const uintptr_t b = a + 4ull * (unsigned)count;
+  const uintptr_t a16 = (a + 15) & ~(uintptr_t)15, b16 = b & ~(uintptr_t)15;
+  const bool bulk = b16 > a16;
+  const int head = bulk ? (int)((a16 - a) >> 2) : count;
+  const int tail = bulk ? (int)((b - b16) >> 2) : 0;
+  const int l = lane - lane0;
+  if (l >= 0 && l < head) {
+    cp_async4_to(dst + l, src + l);
+  } else if (l >= head && l < head + tail) {
+    const int e = count - tail + (l - head);
+    cp_async4_to(dst + e, src + e);
+  }
+  return bulk ? (unsigned)(b16 - a16) : 0u;
+}
+
+__device__ __forceinline__ void piece_bulk(float* dst, const float* src,
+                                           int count, uint64_t* bar) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
+  const uintptr_t b = a + 4ull * (unsigned)count;
+  const uintptr_t a16 = (a + 15) & ~(uintptr_t)15, b16 = b & ~(uintptr_t)15;
+  if (b16 > a16) {
+    bulk_load(dst + ((a16 - a) >> 2), reinterpret_cast<const void*>(a16),
+              (unsigned)(b16 - a16), bar);
+  }
+}
+
+// Floats from a 16-B boundary to p.
+__device__ __forceinline__ int align_off(const float* p) {
+  return (int)((reinterpret_cast<uintptr_t>(p) & 15) >> 2);
+}
+
+// Where the runs of a stage (rows r0…r0+rs−1 of the launch) lie: the X run
+// at xo of the X area; the partner rows from j (wrapping at m after r1
+// rows) at pao of the partner area, the wrapped rest at pbo. Each run starts
+// at its source's offset from a 16-B boundary.
+struct Stage {
+  const float* x;
+  const float* pa;
+  int xo, r1, pao, pbo;
+};
+
+__device__ __forceinline__ Stage stage_at(const float* act, const float* other,
+                                          long long r0, int rs, long long row0,
+                                          int shift, long long m, int P) {
+  Stage s;
+  s.x = act + r0 * P;
+  s.xo = align_off(s.x);
+  const long long j = partner_row(row0 + r0, shift, m);
+  s.r1 = (int)min((long long)rs, m - j);
+  s.pa = other + j * P;
+  s.pao = align_off(s.pa);
+  s.pbo = round_up(s.pao + s.r1 * P, 4) + align_off(other);
+  return s;
+}
+
+// Producer warp: fill one stage from up to three runs (count 0:
+// none). Every lane issues its scalars and arms the barrier for them; then
+// lane 0 adds the bulk bytes to the phase and issues the bulk copies.
+__device__ __forceinline__ void fill(uint64_t* bar, int lane, float* d0,
+                                     const float* s0, int c0, float* d1,
+                                     const float* s1, int c1, float* d2,
+                                     const float* s2, int c2) {
+  unsigned bytes = piece_scalars(d0, s0, c0, lane, 0);
+  if (c1 > 0) bytes += piece_scalars(d1, s1, c1, lane, 8);
+  if (c2 > 0) bytes += piece_scalars(d2, s2, c2, lane, 16);
+  cp_async_arrive(bar);
+  __syncwarp();
+  if (lane == 0) {
+    mbar_arrive_expect_tx(bar, bytes);
+    piece_bulk(d0, s0, c0, bar);
+    if (c1 > 0) piece_bulk(d1, s1, c1, bar);
+    if (c2 > 0) piece_bulk(d2, s2, c2, bar);
+  }
+}
+
+// Split L into the big and small halves of the wgmma layout, Kp rows and
+// ntot columns: element (k, n) at (n / 8)·8·Kp + (k / 4)·32 + (n % 8)·4 +
+// k % 4, k in the k-step's order (its 2t-th row at position t, its
+// (2t + 1)-th at t + 4), zeros past P in either direction. Thread `first`
+// of `step` takes every step-th position of an n-block of 8 columns and
+// that position in every n-block.
+__device__ __forceinline__ void split_l(const float* __restrict__ L, int P,
+                                        int Kp, int ntot, float* big,
+                                        float* small, int first, int step) {
+  const int block = Kp * 8;
+  for (int rem = first; rem < block; rem += step) {
+    const int kl = (rem >> 5) * 4 + (rem & 3), r = (rem >> 2) & 7;
+    const int j = kl & 7;
+    const int kp = (kl & ~7) + (j < 4 ? 2 * j : 2 * (j - 4) + 1);
+    const float* src = L + kp * P + r;
+    const int n_valid = kp < P ? P - r : 0;  // columns r + 8·nb < P
+    for (int nb = 0; nb < ntot / 8; ++nb) {
+      const float v = 8 * nb < n_valid ? src[8 * nb] : 0.0f;
+      unsigned b, sm;
+      split_tf32(v, b, sm);
+      big[rem + nb * block] = __uint_as_float(b);
+      small[rem + nb * block] = __uint_as_float(sm);
+    }
+  }
+}
+
+// The columns of S a consumer's product takes at once: every column, P
+// rounded up to 16 (at least 32).
+__host__ __device__ constexpr int nsub_for(int P) {
+  return P <= 32 ? 32 : round_up(P, 16);
+}
+
+// A consumer's S = Y·L for its tile's 64 rows in registers, as 3xTF32 on
+// wgmma: KG k-steps a group, each group's products into a partial that its
+// first wgmma zeroes and an fp32 add puts into S (KG as the A fragments of
+// KG k-steps fit beside the accumulators in 168 registers a thread).
+template <int NSUB>
+struct Product {
+  static constexpr int R = NSUB / 2;
+  static constexpr int KG = NSUB <= 80 ? 4 : (NSUB <= 112 ? 2 : 1);
+  float acc[R];
+  float part[R];
+
+  __device__ __forceinline__ Product() {
+#pragma unroll
+    for (int i = 0; i < R; ++i) acc[i] = part[i] = 0.0f;
+  }
+
+  // CNT k-steps from column kcol0: A from the Y tile (rows yr and yr + 8 at
+  // `yrow`, this thread's float2 of each k-step at column kcol0 + 8·i), B at
+  // byte `off` + 256·i of the halves `lb`, `ls` with `sbo` bytes between
+  // n-blocks. CNT is a compile-time count: no wgmma sits in a branch.
+  template <int CNT>
+  __device__ __forceinline__ void group(const float* yrow, int ystride,
+                                        int kcol0, unsigned lb, unsigned ls,
+                                        unsigned off, unsigned sbo) {
+    unsigned ab[CNT][4], as[CNT][4];
+#pragma unroll
+    for (int i = 0; i < CNT; ++i) {
+      const float2 y0 = *reinterpret_cast<const float2*>(yrow + kcol0 + 8 * i);
+      const float2 y1 = *reinterpret_cast<const float2*>(
+          yrow + 8 * ystride + kcol0 + 8 * i);
+      split_tf32(y0.x, ab[i][0], as[i][0]);
+      split_tf32(y1.x, ab[i][1], as[i][1]);
+      split_tf32(y0.y, ab[i][2], as[i][2]);
+      split_tf32(y1.y, ab[i][3], as[i][3]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < CNT; ++i) {
+      const uint64_t db = smem_desc(lb + off + 256 * i, 128, sbo);
+      const uint64_t ds = smem_desc(ls + off + 256 * i, 128, sbo);
+      // the small terms first, the big product last, into a partial the
+      // group's first wgmma zeroes
+      wgmma_tf32<NSUB>(part, as[i], db, i > 0);
+      wgmma_tf32<NSUB>(part, ab[i], ds, 1);
+      wgmma_tf32<NSUB>(part, ab[i], db, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < CNT; ++i) {
+      // the A registers stay live until the wgmma that read them are done
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        asm volatile("" : "+r"(ab[i][q]), "+r"(as[i][q])::"memory");
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      reg_fence(part[i]);
+      acc[i] += part[i];
+    }
+  }
+
+  // k-steps ks0 … ks0 + count − 1, in groups of KG from ks0.
+  __device__ __forceinline__ void steps(const float* yrow, int ystride,
+                                        int kcol0, int count, unsigned lb,
+                                        unsigned ls, unsigned off,
+                                        unsigned sbo) {
+    int i = 0;
+    for (; i + KG <= count; i += KG) {
+      group<KG>(yrow, ystride, kcol0 + 8 * i, lb, ls, off + 256 * i, sbo);
+    }
+    const int rest = count - i;
+    if (KG > 3 && rest == 3) {
+      group<(KG > 3 ? 3 : 1)>(yrow, ystride, kcol0 + 8 * i, lb, ls,
+                              off + 256 * i, sbo);
+    } else if (KG > 2 && rest == 2) {
+      group<(KG > 2 ? 2 : 1)>(yrow, ystride, kcol0 + 8 * i, lb, ls,
+                              off + 256 * i, sbo);
+    } else if (rest == 1) {
+      group<1>(yrow, ystride, kcol0 + 8 * i, lb, ls, off + 256 * i, sbo);
+    }
+  }
+
+  // Row sums of squares of rows g (q0) and g + 8 (q1) over this thread's
+  // columns, in column order.
+  __device__ __forceinline__ void squares(float& q0, float& q1) const {
+#pragma unroll
+    for (int j = 0; j < R / 4; ++j) {
+      q0 = fmaf(acc[4 * j], acc[4 * j], q0);
+      q0 = fmaf(acc[4 * j + 1], acc[4 * j + 1], q0);
+      q1 = fmaf(acc[4 * j + 2], acc[4 * j + 2], q1);
+      q1 = fmaf(acc[4 * j + 3], acc[4 * j + 3], q1);
+    }
+  }
+};
+
+// Warps 0–7: two consumer warpgroups, each with every other tile of the
+// block; warp 8: the producer of their stages.
+template <int NSUB>
+__global__ void __launch_bounds__(kThreadsWs, 1)
+wide_ws_kernel(const float* __restrict__ act, const float* __restrict__ lp_old,
+               const float* __restrict__ other, const int* __restrict__ shift,
+               unsigned long long key, const float* __restrict__ prec_chol,
+               float* __restrict__ out_act, float* __restrict__ out_lp,
+               int* __restrict__ out_acc, int n, long long row0, long long m,
+               float a, const Plan plan, int loads_only) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int P = plan.P, Kp = plan.Kp, ys = plan.ystride;
+  const int SR = plan.sr, S = plan.slots;
+  float* lsplit = reinterpret_cast<float*>(smem + plan.off_l);
+  float* ring = reinterpret_cast<float*>(smem + plan.off_ring);
+  float* ytiles = reinterpret_cast<float*>(smem + plan.off_y);
+  float* rows_smem = reinterpret_cast<float*>(smem + plan.off_rows);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + plan.off_bar);
+  uint64_t* empty = full + kConsumers * kMaxSlots;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n_tiles = (n + kTileRows - 1) / kTileRows;
+  const int stages_per_tile = kTileRows / SR;
+  const int sh = *shift;
+
+  if (tid == 0) {
+    for (int s = 0; s < kConsumers * kMaxSlots; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);  // the consumer's warps
+    }
+    mbar_init_fence();
+  }
+  // L split once a block, and the Y tiles zeroed once: their padding
+  // columns stay zero
+  split_l(prec_chol, P, Kp, NSUB, lsplit, lsplit + Kp * NSUB, tid,
+          blockDim.x);
+  for (int e = tid; e < kConsumers * kTileRows * ys; e += blockDim.x) {
+    ytiles[e] = 0.0f;
+  }
+  fence_proxy_async();
+  __syncthreads();
+
+  if (warp == 4 * kConsumers) {
+    // ---------------- producer ----------------
+    // the X and partner runs of every stage, into the ring of the tile's
+    // consumer (tile k of the block goes to consumer k % 2)
+    int k = 0;
+    for (long long tile = blockIdx.x; tile < n_tiles;
+         tile += gridDim.x, ++k) {
+      const int c = k % kConsumers;
+      const long long i0 = tile * kTileRows;
+      const int rows = (int)min((long long)kTileRows, (long long)n - i0);
+      for (int st = 0; st * SR < rows; ++st) {
+        const int stage = (k / kConsumers) * stages_per_tile + st;
+        const int slot = c * S + stage % S, round = stage / S;
+        if (round > 0) mbar_wait(&empty[slot], (round - 1) & 1);
+        const int rs = min(SR, rows - st * SR);
+        const Stage g = stage_at(act, other, i0 + st * SR, rs, row0, sh, m, P);
+        float* ax = ring + (size_t)slot * 2 * plan.area;
+        float* ap = ax + plan.area;
+        fill(&full[slot], lane, ax + g.xo, g.x, rs * P, ap + g.pao, g.pa,
+             g.r1 * P, ap + g.pbo, other, (rs - g.r1) * P);
+      }
+    }
+    cp_async_wait_all();
+    return;
+  }
+
+  // ---------------- consumer warpgroup c ----------------
+  const int c = warp >> 2, wtid = tid & (kWgThreads - 1), wq = wtid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  float* yt = ytiles + (size_t)c * kTileRows * ys;
+  float* sZ = rows_smem + c * 4 * kTileRows;
+  float* sUe = sZ + kTileRows;
+  float* sQ = sUe + kTileRows;
+  int* sAcc = reinterpret_cast<int*>(sQ + kTileRows);
+  const float* yrow = yt + (16 * wq + g) * ys + 2 * t;
+  const unsigned lb = smem_addr(lsplit), ls = lb + 4 * Kp * NSUB;
+  const unsigned sbo = Kp * 32;
+  int k = c;
+  for (long long tile = blockIdx.x + (long long)c * gridDim.x; tile < n_tiles;
+       tile += (long long)kConsumers * gridDim.x, k += kConsumers) {
+    const long long i0 = tile * kTileRows;
+    const int rows = (int)min((long long)kTileRows, (long long)n - i0);
+    // lp_old is loaded here and first read after the product
+    const float lo = wtid < rows ? lp_old[i0 + wtid] : 0.0f;
+    if (wtid < rows) {
+      const float2 uu =
+          unit_uniforms(key, (unsigned long long)(row0 + i0 + wtid));
+      sZ[wtid] = stretch_z(uu.x, a);
+      sUe[wtid] = uu.y;
+    }
+    named_bar(1 + c, kWgThreads);
+
+    // the proposal rows into the Y tile, X into the output rows
+    for (int st = 0; st * SR < rows; ++st) {
+      const int stage = (k / kConsumers) * stages_per_tile + st;
+      const int slot = c * S + stage % S;
+      mbar_wait(&full[slot], (stage / S) & 1);
+      const int rs = min(SR, rows - st * SR);
+      const Stage sg = stage_at(act, other, i0 + st * SR, rs, row0, sh, m, P);
+      const float* ax = ring + (size_t)slot * 2 * plan.area;
+      const float* xs = ax + sg.xo;
+      const float* pa = ax + plan.area + sg.pao;
+      const float* pb = ax + plan.area + sg.pbo;
+      const int split = sg.r1 * P;
+      float* out = out_act + (i0 + st * SR) * P;
+      float* ydst = yt + st * SR * ys;
+      const float* zr = sZ + st * SR;
+      for (TileWalk<1> w(P, wtid, kWgThreads); w.e < rs * P; w.next(P)) {
+        const float x = xs[w.e];
+        const float p = w.e < split ? pa[w.e] : pb[w.e - split];
+        ydst[w.row * ys + w.k] = fmaf(zr[w.row], x - p, p);
+        out[w.e] = x;
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[slot]);
+    }
+    named_bar(1 + c, kWgThreads);
+
+    // S = Y·L (3xTF32 on wgmma) and the rows' sums of squares
+    float q0 = 0.0f, q1 = 0.0f;
+    if (!loads_only) {
+      Product<NSUB> prod;
+      prod.steps(yrow, ys, 0, Kp / 8, lb, ls, 0, sbo);
+      prod.squares(q0, q1);
+    }
+    q0 += __shfl_xor_sync(0xffffffffu, q0, 1);
+    q0 += __shfl_xor_sync(0xffffffffu, q0, 2);
+    q1 += __shfl_xor_sync(0xffffffffu, q1, 1);
+    q1 += __shfl_xor_sync(0xffffffffu, q1, 2);
+    if (t == 0) {
+      sQ[16 * wq + g] = q0;
+      sQ[16 * wq + g + 8] = q1;
+    }
+    named_bar(1 + c, kWgThreads);
+
+    if (wtid < rows) {
+      const long long i = i0 + wtid;
+      // loads only: lp_new = lp_old, the decision by the factor alone
+      const float lp_new = loads_only ? lo : -0.5f * sQ[wtid];
+      const bool accept = stretch_accepts(
+          sUe[wtid], (float)(P - 1) * logf(sZ[wtid]), lp_new, lo);
+      out_lp[i] = accept ? lp_new : lo;
+      out_acc[i] = accept ? 1 : 0;
+      sAcc[wtid] = accept ? 1 : 0;
+    }
+    named_bar(1 + c, kWgThreads);
+    // the accepted rows get Y
+    float* out = out_act + i0 * P;
+    for (TileWalk<1> w(P, wtid, kWgThreads); w.e < rows * P; w.next(P)) {
+      if (sAcc[w.row]) out[w.e] = yt[w.row * ys + w.k];
+    }
+  }
+}
+
+// The plan of a block at P on a device whose blocks may have `optin` bytes
+// of shared memory: L's halves, two Y tiles and each consumer's ring of at
+// least three stages of 32, 16 or 8 rows (the largest that fits three, and
+// at most kMaxSlots); false where they do not fit (on an H100 past P = 112).
+bool plan_for(int P, int optin, Plan* out) {
+  if (P < 1 || P > 128) return false;
+  Plan p = {};
+  p.P = P;
+  p.Kp = round_up(P, 8);
+  // ≡ 8 (mod 16): the float2 loads of an A fragment's eight rows in
+  // distinct banks
+  p.ystride = p.Kp % 16 ? p.Kp : p.Kp + 8;
+  p.nsub = nsub_for(P);
+  int off = 0;
+  p.off_l = off;
+  off += round_up(4 * 2 * p.Kp * p.nsub, 128);
+  p.off_y = off;
+  off += kConsumers * 4 * kTileRows * p.ystride;
+  p.off_rows = off;
+  off += kConsumers * 4 * 4 * kTileRows;
+  p.off_bar = off;
+  off += 8 * 2 * kConsumers * kMaxSlots;
+  p.off_ring = round_up(off, 128);
+  for (int sr = 32; sr >= 8; sr /= 2) {
+    const int area = round_up(sr * P + 10, 4);
+    const int slot_bytes = 2 * 4 * area;
+    const int slots = std::min(
+        kMaxSlots, (optin - p.off_ring) / (kConsumers * slot_bytes));
+    if (slots >= 3) {
+      p.sr = sr;
+      p.area = area;
+      p.slots = slots;
+      p.smem = p.off_ring + kConsumers * slots * slot_bytes;
+      *out = p;
+      return true;
+    }
+  }
+  return false;
+}
+
+template <int NSUB>
+cudaError_t launch_ws(const float* act, const float* lp_old, const float* other,
+                      const int* shift, unsigned long long key,
+                      const float* prec_chol, float* out_act, float* out_lp,
+                      int* out_acc, int n, long long row0, long long m,
+                      float a, const Plan& plan, int loads_only,
+                      cudaStream_t stream) {
+  auto kernel = wide_ws_kernel<NSUB>;
+  static bool asked[kMaxDevices] = {};
+  cudaError_t err = allow_smem(kernel, plan.smem, asked);
+  if (err != cudaSuccess) return err;
+  int device = 0, sms = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (err != cudaSuccess) return err;
+  const int n_tiles = (n + kTileRows - 1) / kTileRows;
+  const int blocks =
+      std::max(1, std::min(sms, (n_tiles + kConsumers - 1) / kConsumers));
+  kernel<<<blocks, kThreadsWs, plan.smem, stream>>>(
+      act, lp_old, other, shift, key, prec_chol, out_act, out_lp, out_acc, n,
+      row0, m, a, plan, loads_only);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_planned(const float* act, const float* lp_old,
+                           const float* other, const int* shift,
+                           unsigned long long key, const float* prec_chol,
+                           float* out_act, float* out_lp, int* out_acc, int n,
+                           long long row0, long long m, float a,
+                           const Plan& plan, int loads_only,
+                           cudaStream_t stream) {
+#define MCMCPP_WS(NS)                                                        \
+  if (plan.nsub == NS) {                                                     \
+    return launch_ws<NS>(act, lp_old, other, shift, key, prec_chol, out_act, \
+                         out_lp, out_acc, n, row0, m, a, plan, loads_only,   \
+                         stream);                                            \
+  }
+  MCMCPP_WS(32)
+  MCMCPP_WS(48)
+  MCMCPP_WS(64)
+  MCMCPP_WS(80)
+  MCMCPP_WS(96)
+  MCMCPP_WS(112)
+  MCMCPP_WS(128)
+#undef MCMCPP_WS
+  return cudaErrorInvalidValue;
+}
+
+// ===========================================================================
+// The mma.sync kernel: every P the kernel above does not take
+// ===========================================================================
+//
 // - A block of four warps owns R = 64·MT consecutive walkers, one warp
 //   16·MT rows: MT m16 tiles of an mma.sync m16n8k8 (MT = 2 where three
 //   such blocks fit an SM, which halves the reads of L and the splits of its
@@ -33,56 +643,25 @@
 // - L streams through shared memory in 32 × 64 panels (rows k, columns n of
 //   S = Y·L), a ring of two stages filled by 4-byte cp.async with the zero
 //   fill past P (any P, any alignment, no padded copy of L), one panel in
-//   flight while the warps multiply the one before (a third stage was
-//   slower: the ring's shared memory costs blocks an SM). The panel's row
-//   stride ≡ 8 (mod 16) floats: a B fragment's loads fall into 32 banks.
+//   flight while the warps multiply the one before. The panel's row stride
+//   ≡ 8 (mod 16) floats: a B fragment's loads fall into 32 banks.
 // - Product: S column panel by column panel, over all of K, in fp32
 //   accumulators (32·MT a thread: 16·MT rows × 64 columns a warp); when a
 //   panel is complete its accumulators are squared into each row's running
-//   sum. The four threads of an mma quad hold a row between them and add
-//   their sums with two shuffles; a warp owns its rows, so no sum crosses
-//   warps. Every row's sum is taken in the same order whatever block or
-//   launch holds it, so launches over row shards equal one launch bit for
-//   bit.
-// - 3xTF32: a = a_big + a_small with a_big = a rounded to TF32 and a_small
-//   = a − a_big (truncated to TF32 by the tensor cores); each product is
-//   a_small·b_big + a_big·b_small + a_big·b_big, three m16n8k8 TF32 mma into
-//   a zeroed partial, which an fp32 add (round to nearest) puts into the
-//   accumulator. That keeps about float32's accuracy (what is dropped is
-//   below 2^-21 relative) at a third of the TF32 rate; plain TF32 keeps about
-//   three digits, which at |lp| ≈ 10² moves accept decisions. The tensor
-//   cores truncate the sum they write, so the three mma of every k-step
-//   accumulated into S itself lost up to an ulp of the running sum each: a
-//   bias toward zero that grows with K, 1.3e-5 relative against the float32
-//   plain version at P = 1000 on an H100 (within 1e-5 up to P = 257).
-// - fp32 FMA on the CUDA cores, register-tiled in the same fragment layout,
-//   was measured against this product and lost at every P (PERF.md §6: it
-//   issues a shared-memory load for every 3.2 FMA), so only 3xTF32 is built.
+//   sum, the four threads of an mma quad adding their sums with two
+//   shuffles. 3xTF32 as above, three m16n8k8 TF32 mma a k-step into a zeroed
+//   partial that an fp32 add puts into the accumulator.
 // - Epilogue: X goes to the output rows as it is read, as if every row were
-//   rejected; after the accept decisions of the R rows the accepted rows get
-//   Y from the tile (an accepted row is written twice, a rejected one is not
-//   read twice: reading X again at the end, one load at a time, measured
-//   0.96 ms at P = 65, n = 2^20, on an H100).
-// - What holds it back (PERF.md §6): the blocks of an SM overlap their
-//   product poorly with their loads, so the time is near the sum of the two
-//   phases. A block that kept the next tile's loads in flight during its
-//   product needs the shared memory of a second tile; a grid of resident
-//   blocks walking tiles, with L2 prefetches of the next one, was slower
-//   (more registers, spills). wgmma, which reads B from shared memory
-//   without register fragments, is the next step.
+//   rejected; after the accept decisions the accepted rows get Y from the
+//   tile.
+// - What holds it back (PERF.md §6): the blocks of an SM overlap
+//   their product poorly with their loads, so the time is near the sum of
+//   the two phases.
 // - Past the shared memory of the Y tile (19456 + 256·(K + 4) B a block at
-//   R = 64, K = P rounded up to 8: P >= 825 on an H100, whose blocks may opt
-//   into 227 KB), the streamed variant (STREAM_A) writes Y
-//   straight into the output rows, streams it back in 64 × 32 panels beside
-//   L's, and writes X over the rejected rows (read again, a batch of loads
-//   in flight): no cap on P.
-//
-// The partner index, z, the uniforms and the accept rule are the device
-// functions of stretch_common.cuh, shared with the other stretch kernels.
-
-#include "stretch_common.cuh"
-
-namespace {
+//   R = 64, K = P rounded up to 8: P >= 825 on an H100), the streamed
+//   variant (STREAM_A) writes Y straight into the output rows, streams it
+//   back in 64 × 32 panels beside L's, and writes X over the rejected rows
+//   (read again, a batch of loads in flight): no cap on P.
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
@@ -97,12 +676,6 @@ constexpr int kStages = 2;
 // (mod 8) for the streamed Y panels and the Y tile (A fragments)
 constexpr int kStrideL = kPanelN + 8;
 constexpr int kStrideA = kChunkK + 4;
-// Devices of one host that the shared-memory opt-in keeps a value for.
-constexpr int kMaxDevices = 64;
-
-__host__ __device__ constexpr int round_up(int x, int to) {
-  return (x + to - 1) / to * to;
-}
 
 // K padded to whole k-steps of the mma, and the Y tile's row stride
 __host__ __device__ inline int padded_k(int P) { return round_up(P, 8); }
@@ -136,18 +709,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// x = big + small for the 3xTF32 product: big is x rounded to TF32 (to
-// nearest, ties away from zero: half a TF32 ULP added to the magnitude's
-// bits, the low 13 bits cleared), small the exact remainder x − big, whose
-// low 13 bits the tensor cores ignore. A NaN or infinite x leaves a NaN
-// small, so the row's logp stays NaN (a rejection), as the plain version's
-// NaN or −inf logp does.
-__device__ __forceinline__ void split_tf32(float x, unsigned& big,
-                                           unsigned& small) {
-  big = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-  small = __float_as_uint(x - __uint_as_float(big));
 }
 
 __device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
@@ -354,11 +915,11 @@ fused_stretch_wide_kernel(
     int* __restrict__ out_acc, int n, long long row0, long long m, int P,
     float a) {
   constexpr int R = kRowsPerMT * MT;
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) float smem_f[];
   const int Kp = padded_k(P);
   const int stride = tile_stride(P);
   const int sf = stage_floats(STREAM_A);
-  float* ring = smem;
+  float* ring = smem_f;
   float* sY = ring + kStages * sf;
   float* sZ = sY + (STREAM_A ? 0 : R * stride);
   float* sUe = sZ + R;
@@ -548,22 +1109,6 @@ fused_stretch_wide_kernel(
   }
 }
 
-// The largest dynamic shared memory a block of this device may opt into.
-cudaError_t smem_optin(int* bytes) {
-  static int known[kMaxDevices] = {};
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  if (device >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (!known[device]) {
-    err = cudaDeviceGetAttribute(
-        &known[device], cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-    if (err != cudaSuccess) return err;
-  }
-  *bytes = known[device];
-  return cudaSuccess;
-}
-
 template <int MT, bool STREAM_A, int VEC>
 cudaError_t launch_vec(const float* act, const float* lp_old,
                        const float* other, const int* shift,
@@ -573,20 +1118,9 @@ cudaError_t launch_vec(const float* act, const float* lp_old,
                        cudaStream_t stream) {
   auto kernel = fused_stretch_wide_kernel<MT, STREAM_A, VEC>;
   const size_t bytes = wide_smem_bytes(P, STREAM_A, MT);
-  // above 48 KB a block's dynamic shared memory has to be asked for: once
-  // for this instantiation on each device, at the most the device gives
   static bool asked[kMaxDevices] = {};
-  int device = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) err = smem_optin(&optin);
+  const cudaError_t err = allow_smem(kernel, bytes, asked);
   if (err != cudaSuccess) return err;
-  if (bytes > (size_t)optin) return cudaErrorInvalidValue;
-  if (bytes > 48 * 1024 && !asked[device]) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
-    if (err != cudaSuccess) return err;
-    asked[device] = true;
-  }
   const long long blocks = ((long long)n + kRowsPerMT * MT - 1) /
                            (kRowsPerMT * MT);
   kernel<<<(unsigned)blocks, kThreads, bytes, stream>>>(
@@ -640,15 +1174,73 @@ cudaError_t launch_shape(const float* act, const float* lp_old,
                                stream);
 }
 
+// The route at P on this device: the warp-specialised kernel with `plan`
+// (true), else the mma.sync kernel.
+cudaError_t route(int P, Plan* plan, bool* ws) {
+  int optin = 0;
+  const cudaError_t err = smem_optin(&optin);
+  if (err != cudaSuccess) return err;
+  *ws = plan_for(P, optin, plan);
+  return cudaSuccess;
+}
+
+int launch(const float* act, const float* lp_old, const float* other,
+           const int* shift, unsigned long long key, const float* prec_chol,
+           float* out_act, float* out_lp, int* out_acc, int n, long long row0,
+           long long m, int P, float a, void* stream_ptr, int loads_only) {
+  if (!mcmcpp::valid_rows(n, row0, m) || P <= 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  Plan plan;
+  bool ws = false;
+  const cudaError_t err = route(P, &plan, &ws);
+  if (err != cudaSuccess) return (int)err;
+  if (ws) {
+    return (int)launch_planned(act, lp_old, other, shift, key, prec_chol,
+                               out_act, out_lp, out_acc, n, row0, m, a, plan,
+                               loads_only, stream);
+  }
+  if (loads_only) return (int)cudaErrorInvalidValue;
+  return (int)launch_shape(act, lp_old, other, shift, key, prec_chol, out_act,
+                           out_lp, out_acc, n, row0, m, P, a, stream);
+}
+
 }  // namespace
 
-// Dynamic shared memory of one block of the wide kernel at dimension P,
-// with the Y tile of 64·mt walkers in shared memory (stream_a = 0) or
-// streamed (1, mt = 1).
-extern "C" long long mcmcpp_fused_stretch_wide_smem_bytes(int P, int stream_a,
-                                                          int mt) {
-  if (P <= 0 || mt < 1 || mt > 2 || (stream_a && mt != 1)) return 0;
-  return (long long)wide_smem_bytes(P, stream_a != 0, mt);
+// The block the wide kernel launches at dimension P on the current device,
+// as eight ints: route (0: warp-specialised, wgmma; 1: mma.sync with the Y
+// tile; 2: mma.sync with Y streamed), dynamic shared memory (bytes),
+// walkers a block, rows a stage and a consumer's stages, wgmma N (0 where
+// these do not apply), and two zeros. Returns a cudaError_t.
+extern "C" int mcmcpp_fused_stretch_wide_layout(int P, int* out) {
+  if (P <= 0) return (int)cudaErrorInvalidValue;
+  Plan plan;
+  bool ws = false;
+  cudaError_t err = route(P, &plan, &ws);
+  if (err != cudaSuccess) return (int)err;
+  for (int i = 0; i < 8; ++i) out[i] = 0;
+  if (ws) {
+    const int v[6] = {0, plan.smem, kConsumers * kTileRows, plan.sr,
+                      plan.slots, plan.nsub};
+    for (int i = 0; i < 6; ++i) out[i] = v[i];
+    return 0;
+  }
+  int optin = 0;
+  err = smem_optin(&optin);
+  if (err != cudaSuccess) return (int)err;
+  // launch_shape's choice
+  if (wide_smem_bytes(P, false, 1) > (size_t)optin) {
+    out[0] = 2;
+    out[1] = (int)wide_smem_bytes(P, true, 1);
+    out[2] = kRowsPerMT;
+  } else {
+    const int mt = 3 * wide_smem_bytes(P, false, 2) <= (size_t)optin ? 2 : 1;
+    out[0] = 1;
+    out[1] = (int)wide_smem_bytes(P, false, mt);
+    out[2] = kRowsPerMT * mt;
+  }
+  return 0;
 }
 
 // The wide variant of mcmcpp_fused_stretch_half_f32, with the same arguments
@@ -663,10 +1255,20 @@ extern "C" int mcmcpp_fused_stretch_wide_f32(
     const int* shift, unsigned long long key, const float* prec_chol,
     float* out_act, float* out_lp, int* out_acc, int n, long long row0,
     long long m, int P, float a, void* stream) {
-  if (!mcmcpp::valid_rows(n, row0, m) || P <= 0) {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)launch_shape(act, lp_old, other, shift, key, prec_chol, out_act,
-                           out_lp, out_acc, n, row0, m, P, a,
-                           static_cast<cudaStream_t>(stream));
+  return launch(act, lp_old, other, shift, key, prec_chol, out_act, out_lp,
+                out_acc, n, row0, m, P, a, stream, 0);
+}
+
+// Debug entry for measurement, not called by the port: the warp-specialised
+// kernel's loads and stores without its product: every X and partner run
+// through the ring, the proposal rows, X and the accepted rows written,
+// lp_new taken as lp_old (so the decisions follow the factor alone).
+// Refuses (cudaErrorInvalidValue) a P the mma.sync kernel takes.
+extern "C" int mcmcpp_fused_stretch_wide_loads_only_f32(
+    const float* act, const float* lp_old, const float* other,
+    const int* shift, unsigned long long key, const float* prec_chol,
+    float* out_act, float* out_lp, int* out_acc, int n, long long row0,
+    long long m, int P, float a, void* stream) {
+  return launch(act, lp_old, other, shift, key, prec_chol, out_act, out_lp,
+                out_acc, n, row0, m, P, a, stream, 1);
 }

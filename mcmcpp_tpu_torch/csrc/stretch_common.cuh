@@ -103,19 +103,22 @@ inline bool rows_aligned8(int P, const void* a, const void* b, const void* c) {
   return P % 2 == 0 && bits % 8 == 0;
 }
 
-// Walk of a block's threads over the rows·P elements of a tile, VEC
-// consecutive elements a thread and blockDim.x·VEC a pass: element e is
-// (row, k) of the tile, kept by adding the pass's (rows, columns) and one
-// carry, so no element costs a division. For VEC = 2 P is even, so e and k
-// stay even and a pair never crosses a row.
+// Walk of a block's threads (or of `threads` of them, this one the
+// `first`-th) over the rows·P elements of a tile, VEC consecutive elements a
+// thread and threads·VEC a pass: element e is (row, k) of the tile, kept by
+// adding the pass's (rows, columns) and one carry, so no element costs a
+// division. For VEC = 2 P is even, so e and k stay even and a pair never
+// crosses a row.
 template <int VEC>
 struct TileWalk {
   int e, row, k, step, drow, dk;
-  __device__ __forceinline__ explicit TileWalk(int P) {
-    e = threadIdx.x * VEC;
+  __device__ __forceinline__ explicit TileWalk(int P)
+      : TileWalk(P, threadIdx.x, blockDim.x) {}
+  __device__ __forceinline__ TileWalk(int P, int first, int threads) {
+    e = first * VEC;
     row = e / P;
     k = e - row * P;
-    step = blockDim.x * VEC;
+    step = threads * VEC;
     drow = step / P;
     dk = step - drow * P;
   }

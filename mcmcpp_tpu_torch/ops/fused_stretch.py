@@ -37,11 +37,14 @@ against its plain version run on those planes.
      (a thread a walker, Y in registers, all of L in shared memory), which
      evaluates the Gaussian logp in its own body: one launch a half-step;
   2. a GaussianTarget wider than ``MAX_P`` launches the wide kernel of
-     ``csrc/fused_stretch_wide.cu``: a block of 64 or 128 walkers forms its
-     Y tile in shared memory (past P ≈ 825 on an H100 it streams Y through
-     the output rows) and takes Y·L on the tensor cores (3xTF32, about
-     float32's accuracy) with L streamed through shared memory, at any P:
-     one launch a half-step;
+     ``csrc/fused_stretch_wide.cu``: where L's split halves fit in shared
+     memory beside two Y tiles and their rings (P <= 112 on an H100) a
+     persistent, warp-specialised block on each SM (a producer warp
+     bulk-loads walker tiles into mbarrier rings, two consumer warpgroups
+     form Y and take Y·L with wgmma as 3xTF32, about float32's accuracy);
+     at wider P a block of 64 or 128 walkers with its Y tile, or past
+     P ≈ 825 on an H100 with Y streamed through the output rows, takes it
+     with mma.sync and L streamed, at any P: one launch a half-step;
   3. any other batched logp takes the split path of ``csrc/
      stretch_split.cu``: the propose kernel, the logp as torch ops on the
      current stream, then the accept kernel (the Pallas kernel traced the
@@ -179,10 +182,11 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _checked(err, name):
+def _checked(err, name, count=True):
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed (cudaError {err})")
-    LAUNCHES[name] += 1
+    if count:
+        LAUNCHES[name] += 1
 
 
 def _launch_fused(active, active_logp, other, shift, key, prec_chol, a,
@@ -207,24 +211,63 @@ def _launch_fused(active, active_logp, other, shift, key, prec_chol, a,
 
 
 def _launch_wide(active, active_logp, other, shift, key, prec_chol, a,
-                 row0):
+                 row0, loads_only=False):
     from mcmcpp_tpu_torch._build import load_library
 
     lib = load_library()
+    entry = (lib.mcmcpp_fused_stretch_wide_loads_only_f32 if loads_only
+             else lib.mcmcpp_fused_stretch_wide_f32)
     n, p = active.shape
     out_act = torch.empty_like(active)
     out_lp = torch.empty_like(active_logp)
     out_acc = torch.empty((n,), dtype=torch.int32, device=active.device)
     with torch.cuda.device(active.device):
-        err = lib.mcmcpp_fused_stretch_wide_f32(
+        err = entry(
             active.data_ptr(), active_logp.data_ptr(), other.data_ptr(),
             shift.data_ptr(), key, prec_chol.data_ptr(),
             out_act.data_ptr(), out_lp.data_ptr(),
             out_acc.data_ptr(), n, row0, other.shape[0], p, float(a),
             _stream(active.device),
         )
-    _checked(err, "fused_stretch_wide")
+    _checked(err, "fused_stretch_wide", count=not loads_only)
     return out_act, out_lp, out_acc
+
+
+#: the routes of the wide kernel, by the number ``wide_layout`` gives
+WIDE_ROUTES = ("wgmma, warp-specialised", "mma.sync, Y tile",
+               "mma.sync, Y streamed")
+
+
+def wide_layout(p, device="cuda"):
+    """The block the wide kernel launches at width ``p`` on ``device``, as
+    the library plans it: route (an index of ``WIDE_ROUTES``), dynamic
+    shared memory in bytes, walkers a block, and for the warp-specialised
+    kernel rows a stage, stages a consumer and wgmma N (0 elsewhere)."""
+    import ctypes
+
+    from mcmcpp_tpu_torch._build import load_library
+
+    out = (ctypes.c_int * 8)()
+    with torch.cuda.device(device):
+        err = load_library().mcmcpp_fused_stretch_wide_layout(int(p), out)
+    if err != 0:
+        raise RuntimeError(f"wide kernel layout at P={p} failed "
+                           f"(cudaError {err})")
+    keys = ("route", "smem_bytes", "block_walkers", "stage_rows", "stages",
+            "wgmma_n")
+    return dict(zip(keys, list(out)))
+
+
+def wide_loads_only(active, active_logp, other, shift, key, prec_chol, a=2.0,
+                    row0=0):
+    """The wide kernel's loads and stores without its product, through the
+    library's debug entry point, on CUDA tensors: for measuring what the
+    loads alone take. lp_new is taken as lp_old, so its outputs are not a
+    half-step's. Nothing in the port calls it; it counts no launch."""
+    key = _check_key(key)
+    _half_args(active, active_logp, other, shift, int(row0))
+    return _launch_wide(active, active_logp, other, shift, key, prec_chol, a,
+                        int(row0), loads_only=True)
 
 
 def stretch_propose(active, other, shift, key, a=2.0, row0=0):

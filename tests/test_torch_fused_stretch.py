@@ -254,11 +254,13 @@ def _wide_case(device, n, p, shift, seed):
     return target, args, key
 
 
-def _assert_near_reference(target, args, key, k_out):
+def _assert_near_reference(target, args, key, k_out, skip=None):
     """A kernel half-step against its plain version on the key's planes:
     rtol = atol = 1e-5 (3xTF32 sums in the kernel's order against
     cuBLAS's float32), accept masks equal except within
-    1e-4·max(1, |log_ratio|) of the threshold, lp_old = −inf rows accepted."""
+    1e-4·max(1, |log_ratio|) of the threshold, lp_old = −inf rows accepted.
+    Rows in the mask ``skip`` (NaN rows, checked by the caller) are left
+    out of the comparison."""
     n = args[0].shape[0]
     u, ue = philox_unit_uniforms(key, n, args[0].device)
     k_act, k_lp, k_acc = k_out
@@ -269,8 +271,10 @@ def _assert_near_reference(target, args, key, k_out):
     _, _, log_ratio = fs.stretch_proposal(*args, u, logp_fn=target)
     near = ((log_ratio - torch.log(ue)).abs()
             < 1e-4 * torch.clamp(log_ratio.abs(), min=1.0))
-    assert bool(((k_acc == r_acc) | near).all())
     same = k_acc == r_acc
+    if skip is not None:
+        near, same = near | skip, same & ~skip
+    assert bool((same | near).all())
     torch.testing.assert_close(k_act[same], r_act[same], rtol=1e-5,
                                atol=1e-5)
     torch.testing.assert_close(k_lp[same], r_lp[same], rtol=1e-5, atol=1e-5)
@@ -278,13 +282,16 @@ def _assert_near_reference(target, args, key, k_out):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shift", ["mid", "last"])
-@pytest.mark.parametrize("p", [33, 64, 65, 100, 128, 257])
+@pytest.mark.parametrize("p", [33, 64, 65, 66, 67, 100, 112, 113, 128, 200,
+                               257])
 def test_wide_gaussian_runs_split_kernels_on_card(cuda_device, p, shift):
     """A GaussianTarget with P > ``fs.MAX_P`` (16, the fused kernel's own
     limit) launches the wide kernel once a half-step, and no split kernel;
     the half-step holds to its plain version (``_assert_near_reference``).
-    The widths take each of the kernel's blocks on an H100: 128 walkers
-    with the Y tile (P <= 100), 64 walkers (P = 128, 257)."""
+    The widths take each of the kernel's routes on an H100 (warp-specialised
+    to P = 112, the mma.sync kernel's 128- and 64-walker blocks past that)
+    and every P mod 4, so that the runs start at every offset from a 16-B
+    boundary."""
     target, args, key = _wide_case(cuda_device, 3000, p, shift, seed=p)
     before = dict(fs.LAUNCHES)
     k_out = fs.fused_stretch_half(*args, key=key, logp_fn=target)
@@ -301,12 +308,9 @@ def test_wide_kernel_streams_y_past_its_tile_on_card(cuda_device, shift):
     block may have, so the wide kernel streams Y through the output rows:
     one launch a half-step through the dispatch, held to the plain
     version."""
-    from mcmcpp_tpu_torch._build import load_library
-
     p = 1000
-    optin = torch.cuda.get_device_properties(
-        cuda_device).shared_memory_per_block_optin
-    assert load_library().mcmcpp_fused_stretch_wide_smem_bytes(p, 0, 1) > optin
+    assert fs.WIDE_ROUTES[fs.wide_layout(p, cuda_device)["route"]] == (
+        "mma.sync, Y streamed")
     target, args, key = _wide_case(cuda_device, 1000, p, shift, seed=p)
     before = dict(fs.LAUNCHES)
     k_out = fs.fused_stretch_half(*args, key=key, logp_fn=target)
@@ -350,45 +354,95 @@ def _sum_truncated(acc, part):
     return out
 
 
-def _quad_3xtf32(y, L, partials=True):
+def _wide_width(p):
+    """Columns of S that one product of the wide kernel takes at width p:
+    the warp-specialised kernel's wgmma N (``nsub_for`` in
+    ``csrc/fused_stretch_wide.cu``: P rounded up to 16, at least 32) where
+    ``plan_for`` takes P (P <= 112 with an H100's 232,448 B a block), else
+    the mma.sync kernel's panels of 64."""
+    if p <= 112:
+        return 32 if p <= 32 else -(-p // 16) * 16
+    return 64
+
+
+def _wide_group(p):
+    """k-steps whose products share a partial in the wide kernel at width
+    p (``Product::KG``): four where the wgmma is at most 80 wide, two to
+    112 (the A fragments of the group fit beside the accumulators), one in
+    the mma.sync kernel."""
+    if p > 112:
+        return 1
+    return 4 if _wide_width(p) <= 80 else 2
+
+
+def _row_squares(acc, width):
+    """The rows' Σ S² as the wide kernel sums them: thread t of a row's
+    quad folds fmaf(c, c, q) over columns 8j + 2t and 8j + 2t + 1 of each
+    block of ``width`` columns in turn (a product's N, zeros past P), then
+    the quad adds (q0 + q1) + (q2 + q3)."""
+    n, p = acc.shape
+    tiles = -(-p // width)
+    cols = np.zeros((n, tiles * width), np.float32)
+    cols[:, :p] = acc
+    q = np.zeros((4, n), np.float32)
+    for j0 in range(0, tiles * width, 8):
+        for t in range(4):
+            for c in (j0 + 2 * t, j0 + 2 * t + 1):
+                v = cols[:, c].astype(np.float64)
+                q[t] = (v * v + q[t]).astype(np.float32)
+    return (q[0] + q[1]) + (q[2] + q[3])
+
+
+def _quad_3xtf32(y, L, partials=True, width=None, group=None):
     """The wide kernel's lp = −½‖y·L‖² as its tensor cores compute it: per
     k-step of 8, the three TF32 products small·big, big·small and big·big,
     each summed exactly (float64 holds a TF32 product and a sum of eight)
-    and added by the mma with its sum truncated to float32, into a zeroed
-    partial that a float32 add (round to nearest) puts into S; with
-    ``partials`` False, into S itself. The squares of each column summed in
-    float32."""
+    and added by the wgmma (or mma.sync) with its sum truncated to float32,
+    into a partial that the first product of a group of ``group`` k-steps
+    (``_wide_group(P)`` by default) zeroes and a float32 add (round to
+    nearest) puts into S; with ``partials`` False, into S itself. A
+    column's value does not depend on the N tile that takes it; the
+    squares are summed in the kernel's order over N tiles of ``width``
+    columns (``_wide_width(P)`` by default)."""
     yb, ys = _split(y)
     lb, ls = _split(L)
     p = L.shape[0]
+    group = group or _wide_group(p)
     acc = np.zeros((y.shape[0], p), np.float32)
-    for k0 in range(0, p, 8):
-        k = slice(k0, k0 + 8)
+    for g0 in range(0, p, 8 * group):
         part = np.zeros_like(acc) if partials else acc
-        for a, b in ((ys, lb), (yb, ls), (yb, lb)):
-            part = _sum_truncated(
-                part, a[:, k].astype(np.float64) @ b[k].astype(np.float64))
+        for k0 in range(g0, min(p, g0 + 8 * group), 8):
+            k = slice(k0, k0 + 8)
+            for a, b in ((ys, lb), (yb, ls), (yb, lb)):
+                part = _sum_truncated(
+                    part,
+                    a[:, k].astype(np.float64) @ b[k].astype(np.float64))
         acc = (acc + part).astype(np.float32) if partials else part
-    return -0.5 * np.sum(acc * acc, axis=-1, dtype=np.float32)
+    return np.float32(-0.5) * _row_squares(acc, width or _wide_width(p))
 
 
-@pytest.mark.parametrize("p", [65, 100, 128, 257])
+@pytest.mark.parametrize("p", [65, 100, 112, 128, 200, 257])
 def test_3xtf32_quadratic_form_keeps_float32_accuracy(p):
-    """The wide kernel's product (3xTF32) against float64 and against the
-    plain float32 ``GaussianTarget.forward`` on the CPU, on proposals from
-    the near and the far partners (|lp| from ~10 to ~10^4): within
-    rtol = 1e-5, the card tests' tolerance. Plain TF32 (big·big alone)
-    misses it by orders of magnitude, which is why the kernel splits."""
+    """The wide kernel's product (3xTF32, a zeroed partial for each group of
+    k-steps, the squares in its order over its wgmma's N tiles) against
+    float64 and against the plain float32 ``GaussianTarget.forward`` on the
+    CPU, on proposals from the near and the far partners (|lp| from ~10 to
+    ~10^4): within rtol = 1e-5, the card tests' tolerance, in the kernel's
+    grouping at P and in groups of four k-steps at every P. Plain TF32
+    (big·big alone) misses it by orders of magnitude, which is why the
+    kernel splits."""
     L = _prec_chol(p, seed=p)
     # an L with an upper triangle too: the kernel takes the whole matrix
     L_full = L + np.triu(_prec_chol(p, seed=p + 1), 1) * 0.1
     for mat in (L, L_full.astype(np.float32)):
         _, y = _inputs(256, p, seed=p)
         want = _logp_np(y, mat).astype(np.float64)
-        got = _quad_3xtf32(y, mat)
         plain = GaussianTarget(mat, device="cpu")(torch.from_numpy(y))
-        np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
-        np.testing.assert_allclose(got, plain.numpy(), rtol=1e-5, atol=0)
+        for group in sorted({_wide_group(p), 4}):
+            got = _quad_3xtf32(y, mat, group=group)
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
+            np.testing.assert_allclose(got, plain.numpy(), rtol=1e-5,
+                                       atol=0)
         yb, lb = _tf32(y), _tf32(mat)
         tf32_only = -0.5 * np.sum((yb.astype(np.float64) @ lb) ** 2, -1)
         assert np.max(np.abs(tf32_only / want - 1)) > 1e-4
@@ -405,11 +459,59 @@ def test_3xtf32_partials_keep_float32_accuracy_at_large_k():
     _, y = _inputs(256, p, seed=p)
     want = _logp_np(y, L).astype(np.float64)
     plain = GaussianTarget(L, device="cpu")(torch.from_numpy(y)).numpy()
-    got = _quad_3xtf32(y, L)
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
-    np.testing.assert_allclose(got, plain, rtol=1e-5, atol=0)
+    for group in (1, 4):
+        # the Y-streamed kernel's partial a k-step, and the grouping of four
+        # k-steps the warp-specialised kernel uses at P <= 128, held here at
+        # the largest K
+        got = _quad_3xtf32(y, L, group=group)
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
+        np.testing.assert_allclose(got, plain, rtol=1e-5, atol=0)
     in_s = _quad_3xtf32(y, L, partials=False)
     assert np.max(np.abs(in_s / want - 1)) > 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [65, 66, 67, 100, 128, 257])
+def test_wide_kernel_unaligned_row_shards_on_card(cuda_device, p):
+    """Row shards that start at rows which are not multiples of 4 (so at
+    P = 65–67 the runs of X start off a 16-B boundary, their heads and
+    tails taken by 4-B copies) and whose partner runs wrap within a tile
+    equal one launch under ``torch.equal``; the launch holds to its plain
+    version."""
+    n = 4003
+    target, args, key = _wide_case(cuda_device, n, p, "mid", seed=p + 3)
+    act, lp, oth, shift = args
+    whole = fs.fused_stretch_half(*args, key=key, logp_fn=target)
+    bounds = [0, 1001, 2002, 3005, n]
+    parts = [fs.fused_stretch_half(act[r0:r1], lp[r0:r1], oth, shift,
+                                   key=key, logp_fn=target, row0=r0)
+             for r0, r1 in zip(bounds[:-1], bounds[1:])]
+    torch.cuda.synchronize()
+    for k in range(3):
+        assert torch.equal(torch.cat([q[k] for q in parts]), whole[k])
+    _assert_near_reference(target, args, key, whole)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [65, 100, 128, 257])
+def test_wide_kernel_ragged_tiles_and_nan_rows_on_card(cuda_device, p):
+    """A launch whose blocks walk several tiles each and whose last tile is
+    ragged (n = 64·301 + 17 rows over one block an SM), with lp_old = −inf
+    rows (which accept) and NaN rows of X (whose proposals are NaN: they
+    reject and keep their row): held to the plain version."""
+    n = 64 * 301 + 17
+    target, args, key = _wide_case(cuda_device, n, p, "last", seed=p + 5)
+    act, lp, oth, shift = args
+    nan_rows = torch.zeros(n, dtype=torch.bool, device=cuda_device)
+    nan_rows[3::53] = True
+    nan_rows[5::61] = False
+    act[nan_rows, p // 2] = torch.nan
+    k_out = fs.fused_stretch_half(*args, key=key, logp_fn=target)
+    torch.cuda.synchronize()
+    assert bool((k_out[2][nan_rows] == 0).all())
+    assert torch.equal(k_out[0][nan_rows].isnan(), act[nan_rows].isnan())
+    assert torch.equal(k_out[1][nan_rows], lp[nan_rows])
+    _assert_near_reference(target, args, key, k_out, skip=nan_rows)
 
 
 def _fake_cuda_half(monkeypatch, target, p):
