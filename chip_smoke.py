@@ -66,7 +66,7 @@ Builds the port's CUDA kernels from ``mcmcpp_tpu_torch/csrc/`` (into
    on the CPU, the refusal of an injected 8-bit-logp chain); bitwise resume
    from a checkpoint for the fused kernel, for the split kernels on Neal's
    funnel and with an injected ``DiskChain`` of bfloat16 rows (40 + 40 steps
-   at thin 20 against 40, load, 40; the checkpoint's bytes and seconds);
+   at thin 40 against 40, load, 40; the checkpoint's bytes and seconds);
    ``run_until_converged`` on the skewed Gaussian; the Analysis layer on a
    flagship chain (``covariance_matrix`` on the card against float64 numpy
    and against Σ, correlation, corner histograms, percentiles, summary,
@@ -610,15 +610,21 @@ def split_case(fs, rnd, target, n, seed, neg_inf_every=0, nan_every=0,
 
 # the wide kernel (csrc/fused_stretch_wide.cu, phase 2): the widths it is
 # checked and timed at (on an H100 P = 65 and 100 take its warp-specialised
-# wgmma block, 128 and 257 its mma.sync block with the Y tile), the width
-# past the Y tile (Y streamed), row offsets of shards that are not multiples
-# of 4, and its main path, the sampler on a P = 100 GaussianTarget at the
-# flagship's W: burn-in steps a reading (two readings a route, in turns with
-# the split route's) and the stored steps after them
+# wgmma block, 128 and 257 its thread-block clusters of 2 and 8 blocks), the
+# routes from the sampler's width to WIDE_SCAN_TO (the mma.sync kernel with
+# the Y tile past the widest P the cluster route takes, found on the card)
+# and past the Y tile (Y streamed), row offsets of shards that are not
+# multiples of 4, and its main path, the sampler on GaussianTargets of
+# P = 100 and 257 at the flagship's W: burn-in steps a reading (two
+# readings a route, in turns with the split route's) and, at P = 100, the
+# stored steps after them (a P = 257 row of 2^21 walkers is 2.2 GB, past a
+# chain's 2 GiB cap)
 WIDE_P = (65, 100, 128, 257)
 WIDE_ODD_SHARDS = (0, 262145, 524290, 786435)
 WIDE_STREAMED_P = 1000
+WIDE_SCAN_TO = 400
 WIDE_SAMPLER_P, WIDE_BURN, WIDE_STORE, WIDE_THIN = 100, 20, 4, 2
+WIDE_CLUSTER_SAMPLER_P = 257
 
 
 def launches_only(fs, **counts):
@@ -633,11 +639,11 @@ def wide_kernel(mt, fs, rnd, card, blocker):
     offsets that are multiples of 4 and at offsets that are not against one
     launch, the old split route (propose, the torch logp, accept) bit for
     bit against the plain version, and the kernel's time beside the plain
-    version's and the split route's and, on the warp-specialised route, its
-    loads alone (the debug entry without the product), in turns, with the
-    bytes and the product bounds apart; then its main path, the sampler at
-    P = 100 and W = 2^21 against the split route. Returns the kernel line's
-    entry."""
+    version's and the split route's and, on the wgmma routes, its loads
+    alone (the debug entry without the product), in turns, with the bytes
+    and the product bounds apart; then its main path, the sampler at P = 100
+    and at P = 257 (the cluster route) and W = 2^21 against the split route.
+    Returns the kernel line's entry."""
     dev = torch.device("cuda")
     n = 1 << 20
     errs, by_p = [], {}
@@ -661,17 +667,35 @@ def wide_kernel(mt, fs, rnd, card, blocker):
         errs.append(err)
         return args, key, planes
 
-    # the routes: wgmma at the sampler's width, Y streamed past the Y tile
+    # the routes: the warp-specialised block to some P past the sampler's
+    # width, then clusters (at 128 and 257 among them) to the widest P they
+    # take, the mma.sync kernel's Y tile past that, Y streamed past the Y
+    # tile
+    ws_route, tile_route, streamed, cluster_route = fs.WIDE_ROUTES
+    scan = {q: fs.WIDE_ROUTES[fs.wide_layout(q, dev)["route"]]
+            for q in range(WIDE_SAMPLER_P, WIDE_SCAN_TO + 1)}
+    first = min(q for q, r in scan.items() if r == cluster_route)
+    widest = max(q for q, r in scan.items() if r == cluster_route)
+    expect = {q: ws_route if q < first else
+              cluster_route if q <= widest else tile_route for q in scan}
     routes = {q: fs.WIDE_ROUTES[fs.wide_layout(q, dev)["route"]]
-              for q in (*WIDE_P, WIDE_STREAMED_P)}
-    ws_route, streamed = fs.WIDE_ROUTES[0], fs.WIDE_ROUTES[2]
-    if (routes[WIDE_STREAMED_P] != streamed
-            or routes[WIDE_SAMPLER_P] != ws_route
-            or any(routes[q] == streamed for q in WIDE_P)):
-        raise AssertionError(f"wide kernel routes {routes}")
-    target = gauss(WIDE_STREAMED_P)
-    for n_case, neg, shift in [(1000, 7, "mid"), (4096, 5, "last")]:
-        wide_case(target, n_case, seed=n_case, neg=neg, shift=shift)
+              for q in (*WIDE_P, widest + 1, WIDE_STREAMED_P)}
+    if (routes[WIDE_STREAMED_P] != streamed or scan != expect
+            or routes[128] != cluster_route
+            or routes[WIDE_CLUSTER_SAMPLER_P] != cluster_route):
+        raise AssertionError(f"wide kernel routes {routes}, the cluster "
+                             f"route from P = {first} to {widest}: {scan}")
+    print(f"  the wide kernel on this card: warp-specialised to P = "
+          f"{first - 1}, the cluster route from P = {first} to {widest}, "
+          "mma.sync past it; "
+          + ", ".join(f"P={q}: {fs.wide_layout(q, dev)['cluster']} blocks a "
+                      f"cluster, {fs.wide_layout(q, dev)['active_clusters']} "
+                      "clusters at once" for q in (first, 128, 200, 257, widest))
+          + f" [{card}]", flush=True)
+    for q in (WIDE_STREAMED_P, widest + 1):
+        target = gauss(q)
+        for n_case, neg, shift in [(1000, 7, "mid"), (4096, 5, "last")]:
+            wide_case(target, n_case, seed=n_case + q, neg=neg, shift=shift)
 
     for q in WIDE_P:
         target = gauss(q)
@@ -717,7 +741,7 @@ def wide_kernel(mt, fs, rnd, card, blocker):
             lambda: fs.fused_stretch_half(*args, key=key,
                                           logp_fn=split_route(target)),
             lambda: fs.fused_stretch_half(*args, key=key, logp_fn=target)]
-        if routes[q] == ws_route:
+        if routes[q] in (ws_route, cluster_route):
             calls.append(lambda: fs.wide_loads_only(*args, key,
                                                     target.prec_chol))
         means, readings, _ = in_turns(calls, 20, blocker)
@@ -734,27 +758,54 @@ def wide_kernel(mt, fs, rnd, card, blocker):
                    "bytes_bound_ms": bytes_ms,
                    "product_bound_ms": product_ms,
                    "layout": fs.wide_layout(q, dev)}
+        loads_share = (f" (the loads alone {bytes_ms / loads_ms:.0%} of the "
+                       "bytes bound)" if loads_ms is not None else "")
         print(f"  wide n=2^20 P={q}, ms per half-step (in turns): wide "
               f"{wide_ms:.4f} ({readings[2][0]:.4f}, {readings[2][1]:.4f}), "
               f"{loads_text}plain {plain_ms:.4f}, old split "
               f"route {split_ms:.4f} (bit for bit the plain version); bound "
               f"{bound:.4f} ({bound_by}; bytes {bytes_ms:.4f}, 3xTF32 product "
-              f"{product_ms:.4f}), {bound / wide_ms:.0%} of it; 4 row shards "
-              f"== one launch, at rows {WIDE_ODD_SHARDS} too; "
+              f"{product_ms:.4f}), {bound / wide_ms:.0%} of it{loads_share}; "
+              f"4 row shards == one launch, at rows {WIDE_ODD_SHARDS} too; "
               f"{routes[q]}, {by_p[q]['layout']} [{card}]", flush=True)
         del args, u, ue, r_out, s_out, whole, parts, act, lp, other
         torch.cuda.empty_cache()
 
-    # the main path: the sampler on a P = 100 GaussianTarget, burn-in in
-    # turns with the split route (the same seeds), then stored steps
-    target = gauss(WIDE_SAMPLER_P)
+    # the main path: the sampler on a P = 100 GaussianTarget (the
+    # warp-specialised route) and on a P = 257 one (the cluster route)
+    runs = {q: wide_sampler(mt, fs, gauss(q), q, card, store=store)
+            for q, store in ((WIDE_SAMPLER_P, True),
+                             (WIDE_CLUSTER_SAMPLER_P, False))}
+    main = by_p[WIDE_SAMPLER_P]
+    launches = sum(r["launches"] for r in runs.values())
+    steps = sum(r["steps"] for r in runs.values())
+    return {"source": "mcmcpp_tpu_torch/csrc/fused_stretch_wide.cu",
+            "max_abs_err": max(errs), "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "launches": launches,
+            "launches_per_step": launches / steps,
+            "launches_by_p": {q: r["launches"] for q, r in runs.items()},
+            "p": WIDE_SAMPLER_P,
+            "split_route_ms": main["split_route_ms"],
+            "walker_updates_per_s": runs[WIDE_SAMPLER_P]["rates"]["wide"],
+            "split_route_walker_updates_per_s":
+                runs[WIDE_SAMPLER_P]["rates"]["split"],
+            "sampler_by_p": runs, "by_p": by_p}
+
+
+def wide_sampler(mt, fs, target, p, card, store):
+    """The sampler on a wide GaussianTarget at W = 2^21: WIDE_BURN burn-in
+    steps a reading in turns with the split route (the same seeds), the
+    acceptance within 4 binomial SE of the split route's, 2 wide launches a
+    step and none of another kernel; with ``store``, WIDE_STORE stored steps
+    after them (finite rows whose logp is the target's), else the final
+    state checked the same way. Returns the launches, steps, rates and
+    acceptances."""
     runs = {}
-    for route, logp in (("wide", target), ("split", split_route(target))):
-        s = mt.EnsembleSampler(logp, n_walkers=W_FULL,
-                               n_params=WIDE_SAMPLER_P,
+    for route, logp in (("wide", target), ("split", lambda x: target(x))):
+        s = mt.EnsembleSampler(logp, n_walkers=W_FULL, n_params=p,
                                mover=mt.FusedStretchMove(), seed=0,
                                batched=True, device="cuda")
-        s.init_ball(np.zeros(WIDE_SAMPLER_P), 0.5)
+        s.init_ball(np.zeros(p), 0.5)
         runs[route] = (s, [], {k: 0 for k in fs.LAUNCHES})
     for route in ("wide", "split", "split", "wide"):
         s, secs, counted = runs[route]
@@ -771,46 +822,53 @@ def wide_kernel(mt, fs, rnd, card, blocker):
     walker_steps = W_FULL * 2 * WIDE_BURN
     se = np.sqrt(sum(f * (1 - f) for f in acc.values()) / walker_steps)
     if not 0 < acc["wide"] < 1 or abs(acc["wide"] - acc["split"]) > 4 * se:
-        raise AssertionError(f"acceptance of the wide route {acc['wide']} "
-                             f"against the split route's {acc['split']}: "
-                             f"more than 4 binomial SE ({se:.2e}) apart")
-    reset_launches(fs)
-    if not s.run_mcmc(WIDE_STORE, thin=WIDE_THIN):
-        raise AssertionError("chain capacity hit in the wide sampler run")
-    for k, v in fs.LAUNCHES.items():
-        counted[k] += v
-    samples = check_stored(s, target, "wide sampler")
-    if samples.shape != (WIDE_STORE // WIDE_THIN, W_FULL, WIDE_SAMPLER_P):
-        raise AssertionError(f"wide sampler stored {samples.shape}")
-    steps = 2 * WIDE_BURN + WIDE_STORE
+        raise AssertionError(f"P={p}: acceptance of the wide route "
+                             f"{acc['wide']} against the split route's "
+                             f"{acc['split']}: more than 4 binomial SE "
+                             f"({se:.2e}) apart")
+    steps = 2 * WIDE_BURN
+    if store:
+        reset_launches(fs)
+        if not s.run_mcmc(WIDE_STORE, thin=WIDE_THIN):
+            raise AssertionError("chain capacity hit in the wide sampler run")
+        for k, v in fs.LAUNCHES.items():
+            counted[k] += v
+        samples = check_stored(s, target, f"wide sampler P={p}")
+        if samples.shape != (WIDE_STORE // WIDE_THIN, W_FULL, p):
+            raise AssertionError(f"wide sampler stored {samples.shape}")
+        steps += WIDE_STORE
+        stored = f"{samples.shape[0]} stored rows"
+        del samples
+    else:
+        x = torch.cat([s.state.red, s.state.black])
+        lp = torch.cat([s.state.logp_red, s.state.logp_black])
+        if x.shape != (W_FULL, p) or not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"wide sampler P={p}: state {x.shape} "
+                                 "not finite")
+        rows = slice(None, None, 997)
+        torch.testing.assert_close(lp[rows], target(x[rows]), rtol=RTOL,
+                                   atol=ATOL)
+        stored = "final state finite, its logp the target's"
     if counted != launches_only(fs, fused_stretch_wide=2 * steps):
-        raise AssertionError(f"the wide sampler launched {counted}")
+        raise AssertionError(f"the wide sampler at P={p} launched {counted}")
     split_counted = runs["split"][2]
     if split_counted != launches_only(fs, stretch_propose=4 * WIDE_BURN,
                                       stretch_accept=4 * WIDE_BURN):
-        raise AssertionError(f"the split-route sampler launched "
+        raise AssertionError(f"the split-route sampler at P={p} launched "
                              f"{split_counted}")
     rates = {r: [W_FULL * WIDE_BURN / t for t in runs[r][1]] for r in runs}
-    print(f"  sampler W=2^21 P={WIDE_SAMPLER_P}, {WIDE_BURN} burn-in steps "
-          f"a reading, in turns: wide kernel "
+    print(f"  sampler W=2^21 P={p}, {WIDE_BURN} burn-in steps a reading, in "
+          f"turns: wide kernel "
           f"{', '.join(f'{x:.6e}' for x in rates['wide'])} walker-updates/s, "
           f"split route {', '.join(f'{x:.6e}' for x in rates['split'])} "
           f"({np.mean(rates['wide']) / np.mean(rates['split']):.2f}x); "
           f"acceptance {acc['wide']:.5f} vs {acc['split']:.5f} (4 SE "
-          f"{4 * se:.1e}); launches {counted}; {samples.shape[0]} stored "
-          f"rows [{card}]", flush=True)
-    del runs, s, samples
+          f"{4 * se:.1e}); launches {counted}; {stored} [{card}]",
+          flush=True)
+    del runs, s
     torch.cuda.empty_cache()
-    main = by_p[WIDE_SAMPLER_P]
-    return {"source": "mcmcpp_tpu_torch/csrc/fused_stretch_wide.cu",
-            "max_abs_err": max(errs), "ms": main["ms"],
-            "plain_ms": main["plain_ms"], "launches":
-            counted["fused_stretch_wide"], "launches_per_step":
-            counted["fused_stretch_wide"] / steps, "p": WIDE_SAMPLER_P,
-            "split_route_ms": main["split_route_ms"],
-            "walker_updates_per_s": rates["wide"],
-            "split_route_walker_updates_per_s": rates["split"],
-            "by_p": by_p}
+    return {"launches": counted["fused_stretch_wide"], "steps": steps,
+            "rates": rates, "acceptance": acc}
 
 
 def check_stored(s, target, label):
@@ -5464,9 +5522,10 @@ def main():
                     a = full_width(target, 11, **kw("a"))
                     a.init_ball(np.zeros(P_FULL), 0.5)
                     reset_launches(fs)
-                    # thin 20 (2 + 2 rows, cut from 4 + 4 in PR 11): the
-                    # snapshot's compressed write sets this block's pace
-                    a.run_mcmc(40, thin=20, checkpoint_path=path,
+                    # thin 40 (1 + 1 rows, cut from 4 + 4 in PR 11 and
+                    # from 2 + 2 in PR 16): the snapshot's compressed write
+                    # sets this block's pace
+                    a.run_mcmc(40, thin=40, checkpoint_path=path,
                                checkpoint_every=8)
                     if fs.LAUNCHES != want(40):
                         raise AssertionError(f"{label}: launches {fs.LAUNCHES}")
@@ -5478,8 +5537,8 @@ def main():
                     t0 = time.perf_counter()
                     load_checkpoint(b, path)
                     load_s = time.perf_counter() - t0
-                    a.run_mcmc(40, thin=20)
-                    b.run_mcmc(40, thin=20)
+                    a.run_mcmc(40, thin=40)
+                    b.run_mcmc(40, thin=40)
                     same = all(torch.equal(x, y)
                                for x, y in zip(a.state[:6], b.state[:6]))
                     same = same and a.state.step == b.state.step == 80
@@ -5489,13 +5548,13 @@ def main():
                     for get in ("get", "get_logp"):
                         ra = torch.from_numpy(getattr(a.chain, get)(held=True))
                         rb = torch.from_numpy(getattr(b.chain, get)(held=True))
-                        same = same and ra.shape[0] == 4 and torch.equal(ra, rb)
+                        same = same and ra.shape[0] == 2 and torch.equal(ra, rb)
                     if not same:
                         raise AssertionError(
                             f"{label}: the resumed run differs from the "
                             "uninterrupted one")
                     print(f"  resume {label}: 40 + 40 steps == 40, load, 40 "
-                          f"bitwise (state, counters, 4 rows at "
+                          f"bitwise (state, counters, 2 rows at "
                           f"{a.chain.dtype.name}, backend {a.chain.backend}); "
                           f"checkpoint {save_bytes} B written in {save_s:.2f} s, "
                           f"loaded in {load_s:.2f} s [{card}]", flush=True)
@@ -5927,7 +5986,8 @@ def main():
         raise AssertionError("fused_stretch_wide was not launched on its "
                              "main path")
     # ms, plain_ms and bound_ms at n = 2^20, P = 10, the half-step of the
-    # main path (the wide kernel's at P = 100, its sampler's). library_ms is
+    # main path (the wide kernel's at P = 100, its first sampler's; its
+    # launches those of its samplers at P = 100 and 257). library_ms is
     # null: no one PyTorch call computes any of the four functions (the
     # plain versions are four to ten ops each).
     bounds = kernel_bounds(1 << 20, P_FULL)
@@ -5952,7 +6012,8 @@ def main():
         "walker_updates_per_s": wide["walker_updates_per_s"],
         "split_route_walker_updates_per_s":
             wide["split_route_walker_updates_per_s"],
-        "by_p": wide["by_p"]}
+        "launches_by_p": wide["launches_by_p"],
+        "sampler_by_p": wide["sampler_by_p"], "by_p": wide["by_p"]}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": k["source"],
          "replaces": "mcmcpp_tpu/ops/pallas_stretch.py:164",

@@ -19,10 +19,10 @@
 // TFLOP/s, so the kernel is memory-bound up to P ≈ 290 (at n = 2^20 and
 // P = 100: 0.379 ms of bytes against 0.127 ms of tensor work).
 //
-// Two kernels, chosen by P and the device's shared memory (plan_for):
+// Three kernels, chosen by P and the device's shared memory (route):
 //
 // 1. Where L's split halves fit beside two Y tiles and two rings of at
-//    least three stages (P <= 112 on an H100, whose blocks may opt into
+//    least three stages (P <= 117 on an H100, whose blocks may opt into
 //    227 KB): a persistent, warp-specialised block on each SM.
 // - The grid is one block an SM. A block walks walker tiles of 64 rows (one
 //   wgmma M), tile blockIdx.x, blockIdx.x + gridDim.x, …; its two consumer
@@ -70,15 +70,23 @@
 // - Registers are not the limit at one block an SM (shared memory is), so
 //   the consumers keep the compiler's allocation (no setmaxnreg).
 // - Wider P: L's halves (2·4·Kp·N bytes, 131 KB at P = 128) leave too
-//   little room for two consumers' tiles and rings. Two designs for wider P
-//   measured slower than kernel 2 on an H100 (PERF.md §6): both consumers
-//   on one tile, one half of S's columns each, with L resident (P = 128:
-//   fewer bytes in flight and every phase of a tile synchronised across
-//   both), and the same with L streamed from L2 in chunks of one k-step,
-//   split by two more producer warps (P = 257: every tile re-reads L, and
-//   the few chunks the shared memory holds do not hide their L2 latency).
+//   little room for two consumers' tiles and rings. Two single-block
+//   designs for wider P measured slower than the mma.sync kernel on an H100
+//   (PERF.md §6, PR 15): both consumers on one tile, one half of S's
+//   columns each, with L resident (P = 128: fewer bytes in flight and every
+//   phase of a tile synchronised across both), and the same with L streamed
+//   from L2 in chunks of one k-step, split by two more producer warps
+//   (P = 257: every tile re-reads L, and the few chunks the shared memory
+//   holds do not hide their L2 latency).
 //
-// 2. Elsewhere, the mma.sync kernel: a block of four warps owns 64 or 128
+// 2. Past those widths, where a cluster's plan fits (plan_cluster: on an
+//    H100 117 < P <= 296), the same product spread over a thread-block
+//    cluster of 2, 4 or 8 blocks: each holds a column slice of L's halves
+//    and forms its share of every tile's proposal rows, which it sends to
+//    the others' shared memory, and the row sums are reduced through
+//    distributed shared memory; its notes are above its code below.
+//
+// 3. Elsewhere, the mma.sync kernel: a block of four warps owns 64 or 128
 //    walkers (the Y tile in shared memory, or past P ≈ 825 on an H100 Y
 //    streamed through the output rows), streams L in 32 × 64 panels by
 //    4-byte cp.async, and takes Y·L as 3xTF32 on mma.sync m16n8k8 with a
@@ -164,10 +172,14 @@ constexpr int kMaxSlots = 8;  // a consumer's stages at most
 // block may have (plan_for); byte offsets into the dynamic shared memory.
 struct Plan {
   int P, Kp, ystride;  // K padded to k-steps of 8; Y tile row stride
-  int nsub;            // wgmma N: every column of S
+  int nsub;            // wgmma N: every column of S (the cluster route: a
+                       // block's slice of them)
   int sr, slots, area; // rows a stage; a consumer's stages; floats of an X
                        // or partner area of a stage
   int off_l, off_ring, off_y, off_rows, off_bar, smem;
+  // the cluster route only: blocks a cluster, k-steps in the first half of
+  // the Y tile and the second half's row stride, offsets
+  int cluster, ks0, ystride1, off_stg, off_xch;
 };
 
 // The head and tail (up to 3 floats each) of a run, or all of a run under
@@ -252,22 +264,24 @@ __device__ __forceinline__ void fill(uint64_t* bar, int lane, float* d0,
   }
 }
 
-// Split L into the big and small halves of the wgmma layout, Kp rows and
-// ntot columns: element (k, n) at (n / 8)·8·Kp + (k / 4)·32 + (n % 8)·4 +
-// k % 4, k in the k-step's order (its 2t-th row at position t, its
-// (2t + 1)-th at t + 4), zeros past P in either direction. Thread `first`
-// of `step` takes every step-th position of an n-block of 8 columns and
-// that position in every n-block.
+// Split L's columns col0…col0+ntot−1 into the big and small halves of the
+// wgmma layout, Kp rows and ntot columns: element (k, n) at (n / 8)·8·Kp +
+// (k / 4)·32 + (n % 8)·4 + k % 4, k in the k-step's order (its 2t-th row at
+// position t, its (2t + 1)-th at t + 4), zeros past P in either direction.
+// Thread `first` of `step` takes every step-th position of an n-block of 8
+// columns and that position in every n-block.
 __device__ __forceinline__ void split_l(const float* __restrict__ L, int P,
                                         int Kp, int ntot, float* big,
-                                        float* small, int first, int step) {
+                                        float* small, int first, int step,
+                                        int col0 = 0) {
   const int block = Kp * 8;
   for (int rem = first; rem < block; rem += step) {
     const int kl = (rem >> 5) * 4 + (rem & 3), r = (rem >> 2) & 7;
     const int j = kl & 7;
     const int kp = (kl & ~7) + (j < 4 ? 2 * j : 2 * (j - 4) + 1);
-    const float* src = L + kp * P + r;
-    const int n_valid = kp < P ? P - r : 0;  // columns r + 8·nb < P
+    const float* src = L + kp * P + col0 + r;
+    // columns col0 + r + 8·nb < P
+    const int n_valid = kp < P ? P - col0 - r : 0;
     for (int nb = 0; nb < ntot / 8; ++nb) {
       const float v = 8 * nb < n_valid ? src[8 * nb] : 0.0f;
       unsigned b, sm;
@@ -288,10 +302,16 @@ __host__ __device__ constexpr int nsub_for(int P) {
 // wgmma: KG k-steps a group, each group's products into a partial that its
 // first wgmma zeroes and an fp32 add puts into S (KG as the A fragments of
 // KG k-steps fit beside the accumulators in 168 registers a thread).
+// k-steps a group of Product<nsub> takes: as many as their A fragments fit
+// beside the accumulators in 168 registers a thread.
+__host__ __device__ constexpr int product_group(int nsub) {
+  return nsub <= 80 ? 4 : (nsub <= 112 ? 2 : 1);
+}
+
 template <int NSUB>
 struct Product {
   static constexpr int R = NSUB / 2;
-  static constexpr int KG = NSUB <= 80 ? 4 : (NSUB <= 112 ? 2 : 1);
+  static constexpr int KG = product_group(NSUB);
   float acc[R];
   float part[R];
 
@@ -540,7 +560,7 @@ wide_ws_kernel(const float* __restrict__ act, const float* __restrict__ lp_old,
 // The plan of a block at P on a device whose blocks may have `optin` bytes
 // of shared memory: L's halves, two Y tiles and each consumer's ring of at
 // least three stages of 32, 16 or 8 rows (the largest that fits three, and
-// at most kMaxSlots); false where they do not fit (on an H100 past P = 112).
+// at most kMaxSlots); false where they do not fit (on an H100 past P = 117).
 bool plan_for(int P, int optin, Plan* out) {
   if (P < 1 || P > 128) return false;
   Plan p = {};
@@ -628,7 +648,532 @@ cudaError_t launch_planned(const float* act, const float* lp_old,
 }
 
 // ===========================================================================
-// The mma.sync kernel: every P the kernel above does not take
+// The cluster route: L's columns split over the blocks of a cluster
+// ===========================================================================
+//
+// Past the widths plan_for takes, L's split halves no longer fit one block
+// beside its tiles and rings. A thread-block cluster of c blocks (one an SM)
+// shares them out:
+// - Block r of the cluster holds the big and small halves of L's column
+//   slice r: columns r·N … r·N + N − 1 with N = ⌈P / c⌉ rounded up to 8 (the
+//   wgmma N granule), zeros past P; split once a launch, resident. Its
+//   consumer warpgroup takes S[:, slice r] = Y·L[:, slice r] for the whole
+//   64-row Y tile as 3xTF32 wgmma (Product above) and squares and sums its
+//   columns into 64 partial row sums. A slice wholly past P (P = 257,
+//   c = 8: the last) adds zeros, so that block skips its product.
+// - The clusters are persistent: cluster q walks tiles q, q + Q, …, all its
+//   blocks the same tiles in the same order.
+// - Block r owns rows r·64/c … of each tile. Its producer warp loads only
+//   those rows' X and partner runs into a ring (cp.async.bulk and 4-B
+//   cp.async into mbarrier stages, as the warp-specialised kernel's
+//   producer loads a tile); its former warpgroup forms only those rows of
+//   the proposal, Y = p + z·(x − p), into a staging buffer (two, one a tile
+//   in turn), writes their X to the output rows (as if rejected), and sends
+//   the staged rows to the same rows of every block's Y tile, its own
+//   included, by cp.async.bulk shared::cta → shared::cluster, completing on
+//   that block's mbarrier. So each proposal row is read, formed and
+//   written once for the whole cluster, and the former forms tile t + 1
+//   while the consumer multiplies tile t. (A first build multicast every
+//   stage of X and partner rows to all c blocks, each forming the whole
+//   tile: every SM took in and formed c times the tile's bytes, and it was
+//   slower than the mma.sync kernel at P = 128 and 257 on an H100; PERF.md
+//   §6.)
+// - The Y tile (and each staging row) is kept as two halves of k-steps,
+//   each a whole number of the product's groups, so S's sums are those of
+//   one pass. A block's consumer frees each half in every block of the
+//   cluster (a remote mbarrier arrival) as soon as its product has read
+//   it; the formers send tile t + 1's first half while the consumers still
+//   multiply tile t's second.
+// - The row sums are reduced through distributed shared memory: every
+//   block stores its partials of block r's rows into block r's exchange
+//   buffer by st.async, each completing as 4 transaction bytes on block r's
+//   mbarrier, which block r's consumer arms for 4·64 bytes a tile; block r
+//   adds the c partials in rank order, so every row's sum is one order
+//   whatever cluster takes its tile, and row shards at any row0 equal one
+//   launch bit for bit. The buffers alternate between tiles (the partials
+//   of tile t + 2 follow the Y tile of t + 2, sent after this block's
+//   consumer read tile t + 1, after its exchange of tile t).
+// - Block r's consumer decides its own rows and writes their outputs: Y
+//   (from the staging buffer) over the accepted rows, their logp and flag.
+//   The former forms tile t + 2 into a staging buffer only after that
+//   epilogue of tile t has read it.
+// - No arrival is released at cluster scope: such a release first waits
+//   for the thread's stores to device memory. A cluster_sync before any
+//   block exits: no peer still writes to its shared memory.
+// - The grid is as many clusters as cudaOccupancyMaxActiveClusters says fit
+//   at one block an SM (a cluster of 8 needs 8 free SMs of one GPC).
+// - What holds it back (PERF.md §6): a cluster multiplies one tile at a
+//   time (a second Y tile does not fit beside L's slice), so the Y tile's
+//   transfer between the blocks and the exchange of the partials sit
+//   between one tile's product and the next; at c = 8 only 15 tiles are
+//   in flight on an H100.
+
+// The cluster sizes plan_cluster tries, smallest first: each divides a
+// tile's 64 rows, and 8 is the largest portable size.
+constexpr int kClusterSizes[] = {2, 4, 8};
+// Warps 0–3: the consumer warpgroup; 4–7: the former warpgroup; 8: the
+// producer.
+constexpr int kThreadsCluster = 2 * kWgThreads + 32;
+
+// The wgmma N (a block's columns of S) the cluster kernel is built for: the
+// widths plan_cluster picks on an H100 (117 < P <= 296).
+#define MCMCPP_CLUSTER_WIDTHS(X) \
+  X(32) X(40) X(48) X(56) X(64) X(72) X(80) X(88)
+
+bool cluster_width_built(int nsub) {
+#define MCMCPP_CL(NS) \
+  if (nsub == NS) return true;
+  MCMCPP_CLUSTER_WIDTHS(MCMCPP_CL)
+#undef MCMCPP_CL
+  return false;
+}
+
+// Columns of a row a lane forms or copies at once (loads in flight before
+// the first store).
+constexpr int kFormUnroll = 4;
+
+// The two halves of a row of the Y tile (and of the staging rows): columns
+// 0 … k0 − 1 at row stride ys0, the rest from `h1` at row stride ys1.
+struct HalfRows {
+  float* h0;
+  float* h1;
+  int k0, ys0, ys1;
+  __device__ __forceinline__ float* at(int r, int k) const {
+    return k < k0 ? h0 + r * ys0 + k : h1 + r * ys1 + (k - k0);
+  }
+};
+
+// Warp wq of the former warpgroup forms rows wq, wq + 4, … of a stage of rs
+// rows (X at xs, the partner rows at pa, from row r1 on at pb): Y = p +
+// z·(x − p) into the staging rows from row `row` on and X into the output
+// rows. The lanes of a row take its columns lane, lane + 32, …, kFormUnroll
+// loads of X and of the partner in flight a lane.
+__device__ __forceinline__ void form_rows(const float* xs, const float* pa,
+                                          const float* pb, int r1, int rs,
+                                          int P, const float* zr,
+                                          const HalfRows& y, int row,
+                                          float* out, int wq, int lane) {
+  for (int r = wq; r < rs; r += 4) {
+    const float* xr = xs + r * P;
+    const float* pr = r < r1 ? pa + r * P : pb + (r - r1) * P;
+    float* orow = out + (long long)r * P;
+    const float z = zr[r];
+    for (int k0 = lane; k0 < P; k0 += 32 * kFormUnroll) {
+      float xv[kFormUnroll], pv[kFormUnroll];
+#pragma unroll
+      for (int u = 0; u < kFormUnroll; ++u) {
+        const int kk = k0 + 32 * u;
+        xv[u] = kk < P ? xr[kk] : 0.0f;
+        pv[u] = kk < P ? pr[kk] : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < kFormUnroll; ++u) {
+        const int kk = k0 + 32 * u;
+        if (kk < P) {
+          *y.at(row + r, kk) = fmaf(z, xv[u] - pv[u], pv[u]);
+          orow[kk] = xv[u];
+        }
+      }
+    }
+  }
+}
+
+template <int NSUB>
+__global__ void __launch_bounds__(kThreadsCluster, 1)
+wide_cluster_kernel(const float* __restrict__ act,
+                    const float* __restrict__ lp_old,
+                    const float* __restrict__ other,
+                    const int* __restrict__ shift, unsigned long long key,
+                    const float* __restrict__ prec_chol,
+                    float* __restrict__ out_act, float* __restrict__ out_lp,
+                    int* __restrict__ out_acc, int n, long long row0,
+                    long long m, float a, const Plan plan, int loads_only) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int P = plan.P, Kp = plan.Kp;
+  const int SR = plan.sr, S = plan.slots, C = plan.cluster;
+  const int ks0 = plan.ks0, ys0 = plan.ystride, ys1 = plan.ystride1;
+  const int yrow_floats = ys0 + ys1;  // a row of the Y tile, both halves
+  const int own = kTileRows / C;      // rows of a tile that a block owns
+  const unsigned rank = cluster_rank();
+  const long long cid = cluster_index(), ncl = cluster_count();
+  float* lsplit = reinterpret_cast<float*>(smem + plan.off_l);
+  float* ring = reinterpret_cast<float*>(smem + plan.off_ring);
+  float* yt = reinterpret_cast<float*>(smem + plan.off_y);
+  // staging rows: [2 buffers][half][own][ys of the half]
+  float* stg = reinterpret_cast<float*>(smem + plan.off_stg);
+  float* sZ = reinterpret_cast<float*>(smem + plan.off_rows);  // [2][64]
+  float* sUe = sZ + 2 * kTileRows;                             // [2][64]
+  int* sAcc = reinterpret_cast<int*>(sUe + 2 * kTileRows);     // [64]
+  float* xb = reinterpret_cast<float*>(smem + plan.off_xch);   // [2][c][own]
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + plan.off_bar);
+  uint64_t* empty = full + kMaxSlots;
+  uint64_t* xf = empty + kMaxSlots;  // [2] partials landed
+  uint64_t* yf = xf + 2;             // [half] the Y tile's half landed
+  uint64_t* yfree = yf + 2;          // [half] every block done reading it
+  uint64_t* formed = yfree + 2;      // [2] staging rows, z and ue written
+  uint64_t* stg_free = formed + 2;   // [2] staging rows read
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n_tiles = (n + kTileRows - 1) / kTileRows;
+  const int stages_per_tile = own / SR;
+  const int first = (int)rank * own;  // this block's rows of a tile
+  // the Y tile's halves: 64 rows of ys0, then 64 rows of ys1
+  const HalfRows ytile = {yt, yt + kTileRows * ys0, 8 * ks0, ys0, ys1};
+  const unsigned half_bytes[2] = {4u * own * ys0, 4u * own * ys1};
+  const int col0 = (int)rank * NSUB;
+
+  if (tid == 0) {
+    for (int s = 0; s < kMaxSlots; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);  // the former's warps
+    }
+    for (int s = 0; s < 10; ++s) {
+      // yfree: one arrival from every block's consumer
+      mbar_init(&xf[s], s == 4 || s == 5 ? C : 1);
+    }
+    mbar_init_fence();
+  }
+  // this block's slice of L, split once; the Y tile and staging rows zeroed
+  // once (the padding columns stay zero)
+  split_l(prec_chol, P, Kp, NSUB, lsplit, lsplit + Kp * NSUB, tid, blockDim.x,
+          col0);
+  for (int e = tid; e < kTileRows * yrow_floats; e += blockDim.x) {
+    yt[e] = 0.0f;
+  }
+  for (int e = tid; e < 2 * own * yrow_floats; e += blockDim.x) stg[e] = 0.0f;
+  fence_proxy_async();
+  __syncthreads();
+  // every block's barriers exist before a peer's copy reaches them
+  cluster_sync();
+
+  if (warp == 8) {
+    // ---------------- producer: this block's rows of every tile ----------
+    const int sh = *shift;
+    int j = 0;
+    for (long long tile = cid; tile < n_tiles; tile += ncl, ++j) {
+      const long long i0 = tile * kTileRows + first;
+      const int mine = (int)min((long long)own, (long long)n - i0);
+      for (int st = 0; st * SR < mine; ++st) {
+        const int stage = j * stages_per_tile + st;
+        const int slot = stage % S, round = stage / S;
+        if (round > 0) mbar_wait(&empty[slot], (round - 1) & 1);
+        const int rs = min(SR, mine - st * SR);
+        const Stage g = stage_at(act, other, i0 + st * SR, rs, row0, sh, m, P);
+        float* ax = ring + (size_t)slot * 2 * plan.area;
+        float* ap = ax + plan.area;
+        fill(&full[slot], lane, ax + g.xo, g.x, rs * P, ap + g.pao, g.pa,
+             g.r1 * P, ap + g.pbo, other, (rs - g.r1) * P);
+      }
+    }
+    cp_async_wait_all();
+  } else if (warp >= 4) {
+    // ---------------- former: this block's rows of the proposal ----------
+    const int sh = *shift;
+    const int ft = tid - kWgThreads, fq = warp - 4;
+    int j = 0;
+    for (long long tile = cid; tile < n_tiles; tile += ncl, ++j) {
+      const int b = j & 1;
+      const long long i0 = tile * kTileRows + first;
+      const int mine = (int)max(0ll, min((long long)own, (long long)n - i0));
+      float* sg = stg + b * own * yrow_floats;
+      const HalfRows srows = {sg, sg + own * ys0, 8 * ks0, ys0, ys1};
+      // the consumer's epilogue of tile j − 2 has read this buffer
+      if (j >= 2) mbar_wait(&stg_free[b], ((j - 2) >> 1) & 1);
+      if (ft < mine) {
+        const float2 uu =
+            unit_uniforms(key, (unsigned long long)(row0 + i0 + ft));
+        sZ[b * kTileRows + ft] = stretch_z(uu.x, a);
+        sUe[b * kTileRows + ft] = uu.y;
+      }
+      named_bar(2, kWgThreads);
+      for (int st = 0; st * SR < mine; ++st) {
+        const int stage = j * stages_per_tile + st;
+        const int slot = stage % S;
+        mbar_wait(&full[slot], (stage / S) & 1);
+        const int rs = min(SR, mine - st * SR);
+        const Stage g = stage_at(act, other, i0 + st * SR, rs, row0, sh, m, P);
+        const float* ax = ring + (size_t)slot * 2 * plan.area;
+        form_rows(ax + g.xo, ax + plan.area + g.pao, ax + plan.area + g.pbo,
+                  g.r1, rs, P, sZ + b * kTileRows + st * SR, srows, st * SR,
+                  out_act + (i0 + st * SR) * P, fq, lane);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[slot]);
+      }
+      // the staged rows to the bulk copies' proxy
+      fence_proxy_async();
+      named_bar(2, kWgThreads);
+      if (ft == 0) mbar_arrive(&formed[b]);
+      if (ft < C) {
+        // each half of the rows once every block has read that half of its
+        // Y tile for tile j − 1
+        for (int h = 0; h < 2; ++h) {
+          if (j >= 1) mbar_wait(&yfree[h], (j - 1) & 1);
+          float* dst = h ? ytile.h1 + first * ys1 : ytile.h0 + first * ys0;
+          bulk_copy_to_peer(map_rank(smem_addr(dst), ft),
+                            h ? srows.h1 : srows.h0, half_bytes[h],
+                            map_rank(smem_addr(&yf[h]), ft));
+        }
+      }
+      __syncwarp();
+    }
+  } else {
+    // ---------------- consumer ----------------
+    const int wtid = tid, wq = warp;
+    const int g = lane >> 2, t = lane & 3;
+    const float* yrow0 = ytile.h0 + (16 * wq + g) * ys0 + 2 * t;
+    const float* yrow1 = ytile.h1 + (16 * wq + g) * ys1 + 2 * t;
+    const unsigned lb = smem_addr(lsplit), ls = lb + 4 * Kp * NSUB;
+    const unsigned sbo = Kp * 32;
+    const bool product = !loads_only && col0 < P;
+    int j = 0;
+    for (long long tile = cid; tile < n_tiles; tile += ncl, ++j) {
+      const int b = j & 1;
+      const long long i0 = tile * kTileRows + first;  // this block's rows
+      const int mine = (int)max(0ll, min((long long)own, (long long)n - i0));
+      // this tile's phases (the last ones completed: this consumer waited
+      // on them) expect every block's rows of the Y tile and partials of
+      // the own rows, which may land before they are armed
+      if (wtid == 0) {
+        mbar_arrive_expect_tx(&yf[0], C * half_bytes[0]);
+        mbar_arrive_expect_tx(&yf[1], C * half_bytes[1]);
+        mbar_arrive_expect_tx(&xf[b], 4 * kTileRows);
+      }
+      // lp_old of an own row, first read after the exchange
+      const float lo = wtid < mine ? lp_old[i0 + wtid] : 0.0f;
+
+      // S[:, slice] = Y·L[:, slice] (3xTF32 on wgmma), half the k-steps at
+      // a time, each half of the Y tile freed in every block as soon as it
+      // is read; then this slice's squares of each row, the sum in all four
+      // threads of its quad
+      Product<NSUB> prod;
+      for (int h = 0; h < 2; ++h) {
+        mbar_wait(&yf[h], j & 1);
+        if (product) {
+          if (h == 0) {
+            prod.steps(yrow0, ys0, 0, ks0, lb, ls, 0, sbo);
+          } else {
+            prod.steps(yrow1, ys1, 0, Kp / 8 - ks0, lb, ls, 256 * ks0, sbo);
+          }
+        }
+        named_bar(1, kWgThreads);
+        if (wtid < C) mbar_arrive_cluster(map_rank(smem_addr(&yfree[h]), wtid));
+      }
+      float q0 = 0.0f, q1 = 0.0f;
+      if (product) prod.squares(q0, q1);
+      q0 += __shfl_xor_sync(0xffffffffu, q0, 1);
+      q0 += __shfl_xor_sync(0xffffffffu, q0, 2);
+      q1 += __shfl_xor_sync(0xffffffffu, q1, 1);
+      q1 += __shfl_xor_sync(0xffffffffu, q1, 2);
+      // the partials to the blocks that own their rows
+      if (t < 2) {
+        const int row = 16 * wq + g + 8 * t, owner = row / own;
+        const float* at = xb + b * kTileRows + (int)rank * own + row % own;
+        st_async_cluster(map_rank(smem_addr(at), owner), t ? q1 : q0,
+                         map_rank(smem_addr(&xf[b]), owner));
+      }
+      float sum = 0.0f;
+      if (wtid < own) {
+        mbar_wait(&xf[b], (j >> 1) & 1);
+        // the c partials of the row, in rank order
+        const float* part = xb + b * kTileRows + wtid;
+        sum = part[0];
+        for (int r = 1; r < C; ++r) sum += part[r * own];
+      }
+      mbar_wait(&formed[b], (j >> 1) & 1);
+      if (wtid < mine) {
+        // loads only: lp_new = lp_old, the decision by the factor alone
+        const float lp_new = loads_only ? lo : -0.5f * sum;
+        const bool accept = stretch_accepts(
+            sUe[b * kTileRows + wtid],
+            (float)(P - 1) * logf(sZ[b * kTileRows + wtid]), lp_new, lo);
+        out_lp[i0 + wtid] = accept ? lp_new : lo;
+        out_acc[i0 + wtid] = accept ? 1 : 0;
+        sAcc[wtid] = accept ? 1 : 0;
+      }
+      named_bar(1, kWgThreads);
+      // this block's accepted rows get Y
+      float* sg = stg + b * own * yrow_floats;
+      const HalfRows srows = {sg, sg + own * ys0, 8 * ks0, ys0, ys1};
+      for (int r = wq; r < mine; r += 4) {
+        if (!sAcc[r]) continue;
+        float* dst = out_act + (i0 + r) * P;
+        for (int k0 = lane; k0 < P; k0 += 32 * kFormUnroll) {
+          float v[kFormUnroll];
+#pragma unroll
+          for (int u = 0; u < kFormUnroll; ++u) {
+            const int kk = k0 + 32 * u;
+            v[u] = kk < P ? *srows.at(r, kk) : 0.0f;
+          }
+#pragma unroll
+          for (int u = 0; u < kFormUnroll; ++u) {
+            if (k0 + 32 * u < P) dst[k0 + 32 * u] = v[u];
+          }
+        }
+      }
+      named_bar(1, kWgThreads);
+      if (wtid == 0) mbar_arrive(&stg_free[b]);
+    }
+  }
+  // no block exits while a peer may still write to its shared memory
+  cluster_sync();
+}
+
+// The plan of a cluster at P on a device whose blocks may have `optin`
+// bytes of shared memory: the smallest cluster size c (kClusterSizes) whose
+// block fits its slice of L's halves, the Y tile, two staging buffers of
+// its own rows and a ring of at least two stages of 16 or 8 of its own
+// rows; false where none fits (on an H100 past P = 296). The Y tile and
+// the staging rows are kept as two halves of k-steps, each a whole number
+// of the product's groups, the row stride of each ≡ 8 (mod 16) floats.
+bool plan_cluster(int P, int optin, Plan* out) {
+  if (P < 1) return false;
+  for (int c : kClusterSizes) {
+    const int nsub = round_up((P + c - 1) / c, 8);
+    if (!cluster_width_built(nsub)) continue;
+    const int own = kTileRows / c;
+    const int kg = product_group(nsub);
+    Plan p = {};
+    p.P = P;
+    p.Kp = round_up(P, 8);
+    const int ks = p.Kp / 8;
+    p.ks0 = std::max(1, (ks + kg) / (2 * kg)) * kg;
+    if (p.ks0 >= ks) p.ks0 = ks;  // one half only: the second is empty
+    const int k1 = 8 * (ks - p.ks0);
+    p.ystride = 8 * p.ks0 % 16 ? 8 * p.ks0 : 8 * p.ks0 + 8;
+    p.ystride1 = k1 % 16 ? k1 : k1 + 8;
+    const int row_floats = p.ystride + p.ystride1;
+    p.nsub = nsub;
+    p.cluster = c;
+    int off = 0;
+    p.off_l = off;
+    off += round_up(4 * 2 * p.Kp * nsub, 128);
+    p.off_y = off;
+    off += round_up(4 * kTileRows * row_floats, 128);
+    p.off_stg = off;
+    off += round_up(4 * 2 * own * row_floats, 128);
+    p.off_rows = off;
+    off += 5 * 4 * kTileRows;
+    p.off_xch = off;
+    off += 2 * 4 * kTileRows;
+    p.off_bar = off;
+    off += 8 * (2 * kMaxSlots + 10);
+    p.off_ring = round_up(off, 128);
+    for (int sr = 16; sr >= 8; sr /= 2) {
+      if (sr > own) continue;
+      const int area = round_up(sr * P + 10, 4);
+      const int slot_bytes = 2 * 4 * area;
+      const int slots =
+          std::min(kMaxSlots, (optin - p.off_ring) / slot_bytes);
+      if (slots >= 2) {
+        p.sr = sr;
+        p.area = area;
+        p.slots = slots;
+        p.smem = p.off_ring + slots * slot_bytes;
+        *out = p;
+        return true;
+      }
+    }
+  }
+  return false;
+}
+
+// The clusters of `plan` that the device holds at once, cached by device.
+template <int NSUB>
+cudaError_t active_clusters(const Plan& plan, int* clusters) {
+  auto kernel = wide_cluster_kernel<NSUB>;
+  static bool asked[kMaxDevices] = {};
+  static int known[kMaxDevices][2] = {};  // (cluster · 2^20 + smem, count)
+  cudaError_t err = allow_smem(kernel, plan.smem, asked);
+  int device = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const int tag = (plan.cluster << 20) + plan.smem;
+  if (known[device][0] != tag) {
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = plan.cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3(plan.cluster);
+    cfg.blockDim = dim3(kThreadsCluster);
+    cfg.dynamicSmemBytes = plan.smem;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int count = 0;
+    err = cudaOccupancyMaxActiveClusters(&count, (void*)kernel, &cfg);
+    if (err != cudaSuccess) return err;
+    known[device][0] = tag;
+    known[device][1] = count;
+  }
+  *clusters = known[device][1];
+  return cudaSuccess;
+}
+
+template <int NSUB>
+cudaError_t launch_cluster(const float* act, const float* lp_old,
+                           const float* other, const int* shift,
+                           unsigned long long key, const float* prec_chol,
+                           float* out_act, float* out_lp, int* out_acc, int n,
+                           long long row0, long long m, float a,
+                           const Plan& plan, int loads_only,
+                           cudaStream_t stream) {
+  int clusters = 0;
+  cudaError_t err = active_clusters<NSUB>(plan, &clusters);
+  if (err != cudaSuccess) return err;
+  // no cluster of this shape fits the device: refused, no other route
+  if (clusters < 1) return cudaErrorLaunchOutOfResources;
+  const int n_tiles = (n + kTileRows - 1) / kTileRows;
+  const int grid = std::min(clusters, n_tiles);
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = plan.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(grid * plan.cluster);
+  cfg.blockDim = dim3(kThreadsCluster);
+  cfg.dynamicSmemBytes = plan.smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, wide_cluster_kernel<NSUB>, act, lp_old,
+                           other, shift, key, prec_chol, out_act, out_lp,
+                           out_acc, n, row0, m, a, plan, loads_only);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+cudaError_t launch_cluster_planned(const float* act, const float* lp_old,
+                                   const float* other, const int* shift,
+                                   unsigned long long key,
+                                   const float* prec_chol, float* out_act,
+                                   float* out_lp, int* out_acc, int n,
+                                   long long row0, long long m, float a,
+                                   const Plan& plan, int loads_only,
+                                   cudaStream_t stream) {
+#define MCMCPP_CL(NS)                                                       \
+  if (plan.nsub == NS) {                                                    \
+    return launch_cluster<NS>(act, lp_old, other, shift, key, prec_chol,    \
+                              out_act, out_lp, out_acc, n, row0, m, a, plan, \
+                              loads_only, stream);                          \
+  }
+  MCMCPP_CLUSTER_WIDTHS(MCMCPP_CL)
+#undef MCMCPP_CL
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t cluster_occupancy(const Plan& plan, int* clusters) {
+#define MCMCPP_CL(NS) \
+  if (plan.nsub == NS) return active_clusters<NS>(plan, clusters);
+  MCMCPP_CLUSTER_WIDTHS(MCMCPP_CL)
+#undef MCMCPP_CL
+  return cudaErrorInvalidValue;
+}
+#undef MCMCPP_CLUSTER_WIDTHS
+
+// ===========================================================================
+// The mma.sync kernel: every P the kernels above do not take
 // ===========================================================================
 //
 // - A block of four warps owns R = 64·MT consecutive walkers, one warp
@@ -1174,13 +1719,25 @@ cudaError_t launch_shape(const float* act, const float* lp_old,
                                stream);
 }
 
-// The route at P on this device: the warp-specialised kernel with `plan`
-// (true), else the mma.sync kernel.
-cudaError_t route(int P, Plan* plan, bool* ws) {
+// The routes, as wide_layout numbers them.
+enum Route { kRouteWs = 0, kRouteTile = 1, kRouteStream = 2, kRouteCluster = 3 };
+
+// The route at P on this device: the warp-specialised kernel where plan_for
+// takes P, else the cluster kernel where plan_cluster does (`plan` for
+// either), else the mma.sync kernel with the Y tile or, past its shared
+// memory, with Y streamed.
+cudaError_t route(int P, Plan* plan, Route* which) {
   int optin = 0;
   const cudaError_t err = smem_optin(&optin);
   if (err != cudaSuccess) return err;
-  *ws = plan_for(P, optin, plan);
+  if (plan_for(P, optin, plan)) {
+    *which = kRouteWs;
+  } else if (plan_cluster(P, optin, plan)) {
+    *which = kRouteCluster;
+  } else {
+    *which = wide_smem_bytes(P, false, 1) > (size_t)optin ? kRouteStream
+                                                          : kRouteTile;
+  }
   return cudaSuccess;
 }
 
@@ -1193,13 +1750,18 @@ int launch(const float* act, const float* lp_old, const float* other,
   }
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   Plan plan;
-  bool ws = false;
-  const cudaError_t err = route(P, &plan, &ws);
+  Route which = kRouteTile;
+  const cudaError_t err = route(P, &plan, &which);
   if (err != cudaSuccess) return (int)err;
-  if (ws) {
+  if (which == kRouteWs) {
     return (int)launch_planned(act, lp_old, other, shift, key, prec_chol,
                                out_act, out_lp, out_acc, n, row0, m, a, plan,
                                loads_only, stream);
+  }
+  if (which == kRouteCluster) {
+    return (int)launch_cluster_planned(act, lp_old, other, shift, key,
+                                       prec_chol, out_act, out_lp, out_acc, n,
+                                       row0, m, a, plan, loads_only, stream);
   }
   if (loads_only) return (int)cudaErrorInvalidValue;
   return (int)launch_shape(act, lp_old, other, shift, key, prec_chol, out_act,
@@ -1210,33 +1772,45 @@ int launch(const float* act, const float* lp_old, const float* other,
 
 // The block the wide kernel launches at dimension P on the current device,
 // as eight ints: route (0: warp-specialised, wgmma; 1: mma.sync with the Y
-// tile; 2: mma.sync with Y streamed), dynamic shared memory (bytes),
-// walkers a block, rows a stage and a consumer's stages, wgmma N (0 where
-// these do not apply), and two zeros. Returns a cudaError_t.
+// tile; 2: mma.sync with Y streamed; 3: wgmma on a thread-block cluster),
+// dynamic shared memory (bytes), walkers a block holds at once, rows a stage
+// and a consumer's stages, wgmma N (a block's columns of S on route 3; 0
+// where these do not apply), blocks a cluster (1 but on route 3), and the
+// clusters the device holds at once (route 3; 0 elsewhere). Returns a
+// cudaError_t.
 extern "C" int mcmcpp_fused_stretch_wide_layout(int P, int* out) {
   if (P <= 0) return (int)cudaErrorInvalidValue;
   Plan plan;
-  bool ws = false;
-  cudaError_t err = route(P, &plan, &ws);
+  Route which = kRouteTile;
+  cudaError_t err = route(P, &plan, &which);
   if (err != cudaSuccess) return (int)err;
   for (int i = 0; i < 8; ++i) out[i] = 0;
-  if (ws) {
-    const int v[6] = {0, plan.smem, kConsumers * kTileRows, plan.sr,
+  out[6] = 1;
+  if (which == kRouteWs) {
+    const int v[6] = {kRouteWs, plan.smem, kConsumers * kTileRows, plan.sr,
                       plan.slots, plan.nsub};
     for (int i = 0; i < 6; ++i) out[i] = v[i];
     return 0;
   }
-  int optin = 0;
-  err = smem_optin(&optin);
-  if (err != cudaSuccess) return (int)err;
-  // launch_shape's choice
-  if (wide_smem_bytes(P, false, 1) > (size_t)optin) {
-    out[0] = 2;
+  if (which == kRouteCluster) {
+    int clusters = 0;
+    err = cluster_occupancy(plan, &clusters);
+    if (err != cudaSuccess) return (int)err;
+    const int v[8] = {kRouteCluster, plan.smem, kTileRows, plan.sr,
+                      plan.slots, plan.nsub, plan.cluster, clusters};
+    for (int i = 0; i < 8; ++i) out[i] = v[i];
+    return 0;
+  }
+  out[0] = which;
+  if (which == kRouteStream) {
     out[1] = (int)wide_smem_bytes(P, true, 1);
     out[2] = kRowsPerMT;
   } else {
+    int optin = 0;
+    err = smem_optin(&optin);
+    if (err != cudaSuccess) return (int)err;
+    // launch_shape's choice
     const int mt = 3 * wide_smem_bytes(P, false, 2) <= (size_t)optin ? 2 : 1;
-    out[0] = 1;
     out[1] = (int)wide_smem_bytes(P, false, mt);
     out[2] = kRowsPerMT * mt;
   }
@@ -1259,11 +1833,13 @@ extern "C" int mcmcpp_fused_stretch_wide_f32(
                 out_acc, n, row0, m, P, a, stream, 0);
 }
 
-// Debug entry for measurement, not called by the port: the warp-specialised
-// kernel's loads and stores without its product: every X and partner run
-// through the ring, the proposal rows, X and the accepted rows written,
-// lp_new taken as lp_old (so the decisions follow the factor alone).
-// Refuses (cudaErrorInvalidValue) a P the mma.sync kernel takes.
+// Debug entry for measurement, not called by the port: the wgmma kernels'
+// loads and stores without their product: every X and partner run through
+// the ring, the proposal rows (on route 3 also sent between the blocks of
+// the cluster, whose exchange of the row sums runs on zeros), X and the
+// accepted rows written, lp_new taken as lp_old (so the decisions follow
+// the factor alone). Refuses (cudaErrorInvalidValue) a P the mma.sync
+// kernel takes.
 extern "C" int mcmcpp_fused_stretch_wide_loads_only_f32(
     const float* act, const float* lp_old, const float* other,
     const int* shift, unsigned long long key, const float* prec_chol,

@@ -10,7 +10,7 @@ it.
 
 from pathlib import Path
 
-WIDTHS = (32, 48, 64, 80, 96, 112, 128)
+WIDTHS = (32, 40, 48, 56, 64, 72, 80, 88, 96, 112, 128)
 
 HEAD = """\
 // Generated by gen_wgmma_tf32.py: do not edit by hand.

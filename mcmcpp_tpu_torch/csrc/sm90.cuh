@@ -1,6 +1,8 @@
 // Hopper (sm_90a) primitives of the wide kernel, as inline PTX: mbarriers,
-// the bulk asynchronous copy, the wgmma fences and shared-memory matrix
-// descriptors, and the named barriers of a warpgroup.
+// the bulk asynchronous copy (also into a peer block's shared memory), the
+// cluster's ranks, barrier and distributed shared memory, the wgmma fences
+// and shared-memory matrix descriptors, and the named barriers of a
+// warpgroup.
 
 #pragma once
 
@@ -104,6 +106,83 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // async-proxy reads of them (wgmma's operands).
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// -- thread-block clusters -----------------------------------------------------
+
+// This block's rank in its cluster, the cluster's index in the grid and the
+// number of clusters (a 1-D grid of 1-D clusters).
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ unsigned cluster_index() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ unsigned cluster_count() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%nclusterid.x;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of the cluster: arrive (release) and wait (acquire), so that
+// each block's shared-memory writes before it are visible to the others,
+// and no block goes on (or exits) while a peer still reads or writes it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive;\nbarrier.cluster.wait;\n" ::
+                   : "memory");
+}
+
+// The shared::cluster address of the same offset as `local` (a shared::cta
+// address) in the shared memory of block `rank` of the cluster.
+__device__ __forceinline__ unsigned map_rank(unsigned local, unsigned rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(local), "r"(rank));
+  return r;
+}
+
+// A float stored into a peer's shared memory (a map_rank address) that
+// completes as 4 transaction bytes on the peer's mbarrier `bar` (a map_rank
+// address): the peer's wait on that barrier sees the float, and the store
+// needs no fence of this thread's other writes.
+__device__ __forceinline__ void st_async_cluster(unsigned addr, float v,
+                                                 unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, "
+      "[%2];\n" ::"r"(addr),
+      "f"(v), "r"(bar)
+      : "memory");
+}
+
+// Arrive on a peer's mbarrier (a map_rank address). Release at CTA scope,
+// the default: this thread's reads of its own shared memory are done before
+// the peer, once its wait completes, overwrites them (a bulk copy). (At
+// cluster scope the release would first wait for this thread's stores to
+// device memory.)
+__device__ __forceinline__ void mbar_arrive_cluster(unsigned addr) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(addr)
+               : "memory");
+}
+
+// Bulk copy of `bytes` (a multiple of 16; both addresses 16-B aligned) from
+// this block's shared memory to a peer's (`dst`, a map_rank address),
+// completing as transactions on the peer's mbarrier `bar` (a map_rank
+// address). The source's generic-proxy writes need fence_proxy_async first.
+__device__ __forceinline__ void bulk_copy_to_peer(unsigned dst, const void* src,
+                                                  unsigned bytes,
+                                                  unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "r"(smem_addr(src)), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 // -- named barriers ------------------------------------------------------------

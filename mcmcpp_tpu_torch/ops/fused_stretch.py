@@ -37,14 +37,20 @@ against its plain version run on those planes.
      (a thread a walker, Y in registers, all of L in shared memory), which
      evaluates the Gaussian logp in its own body: one launch a half-step;
   2. a GaussianTarget wider than ``MAX_P`` launches the wide kernel of
-     ``csrc/fused_stretch_wide.cu``: where L's split halves fit in shared
-     memory beside two Y tiles and their rings (P <= 112 on an H100) a
-     persistent, warp-specialised block on each SM (a producer warp
-     bulk-loads walker tiles into mbarrier rings, two consumer warpgroups
-     form Y and take Y·L with wgmma as 3xTF32, about float32's accuracy);
-     at wider P a block of 64 or 128 walkers with its Y tile, or past
-     P ≈ 825 on an H100 with Y streamed through the output rows, takes it
-     with mma.sync and L streamed, at any P: one launch a half-step;
+     ``csrc/fused_stretch_wide.cu``, one launch a half-step at any P, by
+     one of the routes of ``WIDE_ROUTES``: where L's split halves fit in
+     shared memory beside two Y tiles and their rings (P <= 117 on an H100)
+     a persistent, warp-specialised block on each SM (a producer warp
+     bulk-loads walker tiles into mbarrier rings, consumer warpgroups form
+     Y and take Y·L with wgmma as 3xTF32, about float32's accuracy); wider,
+     where a cluster's plan fits (P <= 296 on an H100), the same kernel on
+     thread-block clusters of 2, 4 or 8 blocks, each holding a column slice
+     of L and forming its share of every tile's proposal rows, which it
+     sends into the others' shared memory, the row sums reduced through
+     distributed shared memory; wider still a block of 64
+     or 128 walkers with its Y tile, or past P ≈ 825 on an H100 with Y
+     streamed through the output rows, takes it with mma.sync and L
+     streamed;
   3. any other batched logp takes the split path of ``csrc/
      stretch_split.cu``: the propose kernel, the logp as torch ops on the
      current stream, then the accept kernel (the Pallas kernel traced the
@@ -235,14 +241,17 @@ def _launch_wide(active, active_logp, other, shift, key, prec_chol, a,
 
 #: the routes of the wide kernel, by the number ``wide_layout`` gives
 WIDE_ROUTES = ("wgmma, warp-specialised", "mma.sync, Y tile",
-               "mma.sync, Y streamed")
+               "mma.sync, Y streamed", "wgmma, thread-block cluster")
 
 
 def wide_layout(p, device="cuda"):
     """The block the wide kernel launches at width ``p`` on ``device``, as
     the library plans it: route (an index of ``WIDE_ROUTES``), dynamic
-    shared memory in bytes, walkers a block, and for the warp-specialised
-    kernel rows a stage, stages a consumer and wgmma N (0 elsewhere)."""
+    shared memory in bytes, walkers a block holds at once, for the wgmma
+    kernels rows a stage, stages a consumer and wgmma N (a block's columns
+    of S on the cluster route; 0 elsewhere), blocks a cluster (1 but on the
+    cluster route) and the clusters the device holds at once (the cluster
+    route; 0 elsewhere)."""
     import ctypes
 
     from mcmcpp_tpu_torch._build import load_library
@@ -254,7 +263,7 @@ def wide_layout(p, device="cuda"):
         raise RuntimeError(f"wide kernel layout at P={p} failed "
                            f"(cudaError {err})")
     keys = ("route", "smem_bytes", "block_walkers", "stage_rows", "stages",
-            "wgmma_n")
+            "wgmma_n", "cluster", "active_clusters")
     return dict(zip(keys, list(out)))
 
 
@@ -262,8 +271,11 @@ def wide_loads_only(active, active_logp, other, shift, key, prec_chol, a=2.0,
                     row0=0):
     """The wide kernel's loads and stores without its product, through the
     library's debug entry point, on CUDA tensors: for measuring what the
-    loads alone take. lp_new is taken as lp_old, so its outputs are not a
-    half-step's. Nothing in the port calls it; it counts no launch."""
+    loads alone take on the wgmma routes (on the cluster route with the
+    proposal rows sent between the blocks and the exchange of the row
+    sums). lp_new is taken as lp_old,
+    so its outputs are not a half-step's. Nothing in the port calls it; it
+    counts no launch."""
     key = _check_key(key)
     _half_args(active, active_logp, other, shift, int(row0))
     return _launch_wide(active, active_logp, other, shift, key, prec_chol, a,

@@ -224,7 +224,7 @@ def test_kernel_matches_reference_on_card(cuda_device, n, p, shift):
 def test_kernels_refuse_planes_on_card(cuda_device):
     """On a CUDA tensor the wrapper takes a key; planes raise. (A
     GaussianTarget wider than ``fs.MAX_P`` does not raise: it runs the wide
-    kernel, ``test_wide_gaussian_runs_split_kernels_on_card``.)"""
+    kernel, ``test_wide_gaussian_launches_one_wide_kernel_on_card``.)"""
     n, p = 64, 2
     x = torch.zeros((n, p), device=cuda_device)
     lp = torch.zeros(n, device=cuda_device)
@@ -282,15 +282,17 @@ def _assert_near_reference(target, args, key, k_out, skip=None):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shift", ["mid", "last"])
-@pytest.mark.parametrize("p", [33, 64, 65, 66, 67, 100, 112, 113, 128, 200,
-                               257])
-def test_wide_gaussian_runs_split_kernels_on_card(cuda_device, p, shift):
+@pytest.mark.parametrize("p", [33, 64, 65, 66, 67, 100, 112, 113, 117, 118,
+                               128, 200, 257, 296, 297])
+def test_wide_gaussian_launches_one_wide_kernel_on_card(cuda_device, p,
+                                                        shift):
     """A GaussianTarget with P > ``fs.MAX_P`` (16, the fused kernel's own
     limit) launches the wide kernel once a half-step, and no split kernel;
     the half-step holds to its plain version (``_assert_near_reference``).
     The widths take each of the kernel's routes on an H100 (warp-specialised
-    to P = 112, the mma.sync kernel's 128- and 64-walker blocks past that)
-    and every P mod 4, so that the runs start at every offset from a 16-B
+    to P = 117, thread-block clusters of 2, 4 and 8 blocks from 118 to 296,
+    the mma.sync kernel's 128- and 64-walker blocks past that) and every
+    P mod 4, so that the runs start at every offset from a 16-B
     boundary."""
     target, args, key = _wide_case(cuda_device, 3000, p, shift, seed=p)
     before = dict(fs.LAUNCHES)
@@ -354,25 +356,90 @@ def _sum_truncated(acc, part):
     return out
 
 
+#: the shared memory an H100's block may opt into
+H100_SMEM = 232448
+#: the wgmma N (a block's columns of S) the cluster kernel is built for
+#: (``MCMCPP_CLUSTER_WIDTHS`` in ``csrc/fused_stretch_wide.cu``)
+CLUSTER_WIDTHS = (32, 40, 48, 56, 64, 72, 80, 88)
+
+
+def _ws_plan(p, optin=H100_SMEM):
+    """``plan_for`` of ``csrc/fused_stretch_wide.cu`` at width p: the
+    warp-specialised block's wgmma N where L's halves, two Y tiles and two
+    rings of three or more stages of 32, 16 or 8 rows fit (P <= 117 on an
+    H100), else None."""
+    if p > 128:
+        return None
+    kp = -(-p // 8) * 8
+    ys = kp if kp % 16 else kp + 8
+    nsub = 32 if p <= 32 else -(-p // 16) * 16
+    off = -(-(8 * kp * nsub) // 128) * 128 + 8 * 64 * ys + 8 * 4 * 64 + 256
+    off = -(-off // 128) * 128
+    for sr in (32, 16, 8):
+        slot = 2 * 4 * (-(-(sr * p + 10) // 4) * 4)
+        if min(8, (optin - off) // (2 * slot)) >= 3:
+            return nsub
+    return None
+
+
+def _cluster_plan(p, optin=H100_SMEM):
+    """``plan_cluster`` of ``csrc/fused_stretch_wide.cu`` at width p, for a
+    P that the warp-specialised block does not take (p > 117 on an H100):
+    (blocks a cluster c, a block's columns N), the smallest c of 2, 4, 8
+    whose block holds its slice of L's halves, the Y tile (as two halves of
+    k-steps), two staging buffers of its own 64/c rows and a ring of two or
+    more stages of them; None where none fits (the mma.sync kernel's
+    widths)."""
+    kp = -(-p // 8) * 8
+    ks = kp // 8
+    for c in (2, 4, 8):
+        nsub = -(-(-(-p // c)) // 8) * 8
+        if nsub not in CLUSTER_WIDTHS:
+            continue
+        own = 64 // c
+        # the Y tile's two halves of k-steps, each a whole number of groups
+        kg = 4 if nsub <= 80 else 2
+        ks0 = min(ks, max(1, (ks + kg) // (2 * kg)) * kg)
+        row = sum(k if k % 16 else k + 8 for k in (8 * ks0, 8 * (ks - ks0)))
+        off = sum(-(-x // 128) * 128
+                  for x in (8 * kp * nsub, 4 * 64 * row, 8 * own * row))
+        off = -(-(off + 5 * 256 + 2 * 256 + 8 * (2 * 8 + 10)) // 128) * 128
+        for sr in (16, 8):
+            slot = 2 * 4 * (-(-(sr * p + 10) // 4) * 4)
+            if sr <= own and min(8, (optin - off) // slot) >= 2:
+                return c, nsub
+    return None
+
+
 def _wide_width(p):
     """Columns of S that one product of the wide kernel takes at width p:
     the warp-specialised kernel's wgmma N (``nsub_for`` in
     ``csrc/fused_stretch_wide.cu``: P rounded up to 16, at least 32) where
-    ``plan_for`` takes P (P <= 112 with an H100's 232,448 B a block), else
-    the mma.sync kernel's panels of 64."""
-    if p <= 112:
-        return 32 if p <= 32 else -(-p // 16) * 16
-    return 64
+    ``plan_for`` takes P (P <= 117 with an H100's 232,448 B a block), a
+    cluster block's slice where ``plan_cluster`` does (to P = 296), else the
+    mma.sync kernel's panels of 64."""
+    if _ws_plan(p):
+        return _ws_plan(p)
+    plan = _cluster_plan(p)
+    return plan[1] if plan else 64
 
 
 def _wide_group(p):
     """k-steps whose products share a partial in the wide kernel at width
     p (``Product::KG``): four where the wgmma is at most 80 wide, two to
-    112 (the A fragments of the group fit beside the accumulators), one in
-    the mma.sync kernel."""
-    if p > 112:
+    112, one past (as the A fragments of the group fit beside the
+    accumulators), one in the mma.sync kernel."""
+    if not _ws_plan(p) and _cluster_plan(p) is None:
         return 1
-    return 4 if _wide_width(p) <= 80 else 2
+    n = _wide_width(p)
+    return 4 if n <= 80 else 2 if n <= 112 else 1
+
+
+def _wide_slices(p):
+    """Blocks whose partial row sums the wide kernel adds at width p: a
+    cluster's c on the cluster route, else 1."""
+    plan = None if _ws_plan(p) else _cluster_plan(p)
+    return plan[0] if plan else 1
 
 
 def _row_squares(acc, width):
@@ -393,7 +460,7 @@ def _row_squares(acc, width):
     return (q[0] + q[1]) + (q[2] + q[3])
 
 
-def _quad_3xtf32(y, L, partials=True, width=None, group=None):
+def _quad_3xtf32(y, L, partials=True, width=None, group=None, slices=None):
     """The wide kernel's lp = −½‖y·L‖² as its tensor cores compute it: per
     k-step of 8, the three TF32 products small·big, big·small and big·big,
     each summed exactly (float64 holds a TF32 product and a sum of eight)
@@ -403,7 +470,10 @@ def _quad_3xtf32(y, L, partials=True, width=None, group=None):
     nearest) puts into S; with ``partials`` False, into S itself. A
     column's value does not depend on the N tile that takes it; the
     squares are summed in the kernel's order over N tiles of ``width``
-    columns (``_wide_width(P)`` by default)."""
+    columns (``_wide_width(P)`` by default). With ``slices`` c > 1
+    (``_wide_slices(P)`` by default: the cluster route), block r of the
+    cluster sums the squares of its slice, columns r·width …, into a
+    partial, and the c partials are added in rank order."""
     yb, ys = _split(y)
     lb, ls = _split(L)
     p = L.shape[0]
@@ -418,13 +488,25 @@ def _quad_3xtf32(y, L, partials=True, width=None, group=None):
                     part,
                     a[:, k].astype(np.float64) @ b[k].astype(np.float64))
         acc = (acc + part).astype(np.float32) if partials else part
-    return np.float32(-0.5) * _row_squares(acc, width or _wide_width(p))
+    width = width or _wide_width(p)
+    slices = slices or _wide_slices(p)
+    if slices == 1:
+        return np.float32(-0.5) * _row_squares(acc, width)
+    total = None
+    for r in range(slices):
+        cols = np.zeros((acc.shape[0], width), np.float32)
+        part = acc[:, r * width:(r + 1) * width]
+        cols[:, :part.shape[1]] = part
+        q = _row_squares(cols, width)
+        total = q if total is None else (total + q).astype(np.float32)
+    return np.float32(-0.5) * total
 
 
-@pytest.mark.parametrize("p", [65, 100, 112, 128, 200, 257])
+@pytest.mark.parametrize("p", [65, 100, 112, 113, 118, 128, 200, 257])
 def test_3xtf32_quadratic_form_keeps_float32_accuracy(p):
     """The wide kernel's product (3xTF32, a zeroed partial for each group of
-    k-steps, the squares in its order over its wgmma's N tiles) against
+    k-steps, the squares in its order over its wgmma's N tiles, on the
+    cluster route over each block's slice and then in rank order) against
     float64 and against the plain float32 ``GaussianTarget.forward`` on the
     CPU, on proposals from the near and the far partners (|lp| from ~10 to
     ~10^4): within rtol = 1e-5, the card tests' tolerance, in the kernel's
@@ -446,6 +528,47 @@ def test_3xtf32_quadratic_form_keeps_float32_accuracy(p):
         yb, lb = _tf32(y), _tf32(mat)
         tf32_only = -0.5 * np.sum((yb.astype(np.float64) @ lb) ** 2, -1)
         assert np.max(np.abs(tf32_only / want - 1)) > 1e-4
+
+
+@pytest.mark.parametrize("p,plan", [(117, "ws"), (118, (2, 64)),
+                                    (128, (2, 64)), (144, (2, 72)),
+                                    (200, (4, 56)), (257, (8, 40)),
+                                    (296, (8, 40)), (297, None)])
+def test_cluster_plan_on_an_h100(p, plan):
+    """The wide kernel's plan with an H100's shared memory, as the
+    emulation above slices the product: the warp-specialised block to
+    P = 117, then two blocks of 64 columns a cluster at P = 118 and 128,
+    eight blocks of 40 columns at P = 257 (the eighth slice past P), none
+    past P = 296 (``test_wide_layout_matches_the_emulated_plan_on_card``
+    holds the library's own plan to it)."""
+    if plan == "ws":
+        assert _ws_plan(p) == 128 and _wide_slices(p) == 1
+        assert _wide_group(p) == 1
+        return
+    assert _ws_plan(p) is None and _cluster_plan(p) == plan
+    if plan:
+        c, nsub = plan
+        assert nsub % 8 == 0 and c * nsub >= p
+        assert _wide_width(p) == nsub and _wide_slices(p) == c
+
+
+@pytest.mark.parametrize("slices", [2, 4, 8])
+def test_3xtf32_cluster_slices_keep_float32_accuracy(slices):
+    """At P = 257 the row sums taken over the column slices of a cluster of
+    2, 4 or 8 blocks (each block's squares over its slice, then the partials
+    in rank order) hold rtol = 1e-5 against float64 and the plain float32
+    forward, with the kernel's grouping of k-steps and with one k-step a
+    partial."""
+    p = 257
+    L = _prec_chol(p, seed=p)
+    _, y = _inputs(256, p, seed=p + slices)
+    want = _logp_np(y, L).astype(np.float64)
+    plain = GaussianTarget(L, device="cpu")(torch.from_numpy(y)).numpy()
+    width = -(-(-(-p // slices)) // 8) * 8
+    for group in (1, 4):
+        got = _quad_3xtf32(y, L, width=width, group=group, slices=slices)
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
+        np.testing.assert_allclose(got, plain, rtol=1e-5, atol=0)
 
 
 def test_3xtf32_partials_keep_float32_accuracy_at_large_k():
@@ -471,7 +594,8 @@ def test_3xtf32_partials_keep_float32_accuracy_at_large_k():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("p", [65, 66, 67, 100, 128, 257])
+@pytest.mark.parametrize("p", [65, 66, 67, 100, 117, 118, 128, 200, 257,
+                               296, 297])
 def test_wide_kernel_unaligned_row_shards_on_card(cuda_device, p):
     """Row shards that start at rows which are not multiples of 4 (so at
     P = 65–67 the runs of X start off a 16-B boundary, their heads and
@@ -493,12 +617,12 @@ def test_wide_kernel_unaligned_row_shards_on_card(cuda_device, p):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("p", [65, 100, 128, 257])
+@pytest.mark.parametrize("p", [65, 100, 117, 118, 128, 200, 257, 296, 297])
 def test_wide_kernel_ragged_tiles_and_nan_rows_on_card(cuda_device, p):
-    """A launch whose blocks walk several tiles each and whose last tile is
-    ragged (n = 64·301 + 17 rows over one block an SM), with lp_old = −inf
-    rows (which accept) and NaN rows of X (whose proposals are NaN: they
-    reject and keep their row): held to the plain version."""
+    """A launch whose blocks (or clusters) walk several tiles each and whose
+    last tile is ragged (n = 64·301 + 17 rows over one block an SM), with
+    lp_old = −inf rows (which accept) and NaN rows of X (whose proposals are
+    NaN: they reject and keep their row): held to the plain version."""
     n = 64 * 301 + 17
     target, args, key = _wide_case(cuda_device, n, p, "last", seed=p + 5)
     act, lp, oth, shift = args
@@ -512,6 +636,35 @@ def test_wide_kernel_ragged_tiles_and_nan_rows_on_card(cuda_device, p):
     assert torch.equal(k_out[0][nan_rows].isnan(), act[nan_rows].isnan())
     assert torch.equal(k_out[1][nan_rows], lp[nan_rows])
     _assert_near_reference(target, args, key, k_out, skip=nan_rows)
+
+
+@pytest.mark.cuda
+def test_wide_layout_matches_the_emulated_plan_on_card(cuda_device):
+    """The library's route at every P from 100 to 300 on this card is the
+    one ``_ws_plan`` and ``_cluster_plan`` emulate (with the card's own
+    shared memory): the warp-specialised block with its wgmma N where it
+    fits, else the cluster route with its blocks a cluster and its columns a
+    block where the emulation finds a plan, the mma.sync kernel with the Y
+    tile past it; and the device holds at least one cluster of each."""
+    optin = torch.cuda.get_device_properties(
+        cuda_device).shared_memory_per_block_optin
+    for p in range(100, 301):
+        layout = fs.wide_layout(p, cuda_device)
+        if _ws_plan(p, optin):
+            assert fs.WIDE_ROUTES[layout["route"]] == (
+                "wgmma, warp-specialised"), p
+            assert layout["wgmma_n"] == _ws_plan(p, optin), p
+            continue
+        plan = _cluster_plan(p, optin)
+        if plan is None:
+            assert fs.WIDE_ROUTES[layout["route"]] == "mma.sync, Y tile", p
+            assert layout["cluster"] == 1
+            continue
+        assert fs.WIDE_ROUTES[layout["route"]] == (
+            "wgmma, thread-block cluster"), p
+        assert (layout["cluster"], layout["wgmma_n"],
+                layout["block_walkers"]) == (*plan, 64), p
+        assert layout["active_clusters"] >= 1
 
 
 def _fake_cuda_half(monkeypatch, target, p):
@@ -547,19 +700,27 @@ def _fake_cuda_half(monkeypatch, target, p):
                                      (64, "_launch_wide"),
                                      (65, "_launch_wide"),
                                      (100, "_launch_wide"),
+                                     (118, "_launch_wide"),
+                                     (128, "_launch_wide"),
                                      (257, "_launch_wide"),
+                                     (296, "_launch_wide"),
+                                     (297, "_launch_wide"),
                                      (100, "stretch_propose")])
 def test_cuda_dispatch_routes_without_card(monkeypatch, p, route):
     """On a CUDA tensor a GaussianTarget of P <= MAX_P (16) goes to the fused
-    kernel, a wider one to the wide kernel, any other logp to the split
-    pair; without a card the launch raises (here the kernels cannot be
-    built) and no other route is tried: a wide GaussianTarget never reaches
-    the split kernels, and nothing counts a launch."""
+    kernel, a wider one to the wide kernel (whose library picks the route:
+    on an H100 the warp-specialised block to P = 117, the cluster route,
+    index 3 of ``fs.WIDE_ROUTES``, to 296, the mma.sync kernel past it), any
+    other logp to the split pair; without a card the launch raises (here the
+    kernels cannot be built) and no other route is tried: a wide
+    GaussianTarget never reaches the split kernels, and nothing counts a
+    launch."""
     if torch.cuda.is_available():
         pytest.skip("checks the dispatch where no kernel can launch")
     L = np.eye(p, dtype=np.float32)
     target = (GaussianTarget(L, device="cpu") if route != "stretch_propose"
               else (lambda x: -0.5 * torch.sum(x * x, -1)))
+    assert fs.WIDE_ROUTES[3] == "wgmma, thread-block cluster"
     before = dict(fs.LAUNCHES)
     called, err = _fake_cuda_half(monkeypatch, target, p)
     assert called == [route]
