@@ -126,10 +126,13 @@ def load_library():
         "mcmcpp_fused_stretch_half_f32":
             [ptr] * 4 + [u64] + [ptr] * 4 + [i32, i64, i64, i32, f32, ptr],
         "mcmcpp_fused_stretch_wide_f32":
-            [ptr] * 4 + [u64] + [ptr] * 4 + [i32, i64, i64, i32, f32, ptr],
+            [ptr] * 4 + [u64] + [ptr] * 4 + [i32, i64, i64, i32, f32, ptr,
+                                              ptr],
         "mcmcpp_fused_stretch_wide_loads_only_f32":
-            [ptr] * 4 + [u64] + [ptr] * 4 + [i32, i64, i64, i32, f32, ptr],
+            [ptr] * 4 + [u64] + [ptr] * 4 + [i32, i64, i64, i32, f32, ptr,
+                                              ptr],
         "mcmcpp_fused_stretch_wide_layout": [i32, ptr],
+        "mcmcpp_fused_stretch_wide_split_l_f32": [ptr, i32, ptr, ptr],
         "mcmcpp_stretch_propose_f32":
             [ptr] * 3 + [u64] + [ptr] * 2 + [i64, i64, i64, i32, f32, ptr],
         "mcmcpp_stretch_accept_f32":

@@ -19,11 +19,25 @@
 // TFLOP/s, so the kernel is memory-bound up to P ≈ 290 (at n = 2^20 and
 // P = 100: 0.379 ms of bytes against 0.127 ms of tensor work).
 //
-// Three kernels, chosen by P and the device's shared memory (route):
+// Five routes (the numbers mcmcpp_fused_stretch_wide_layout gives), chosen
+// by P and the device's shared memory, tried in the order 0, 3, 4, 1–2; on
+// an H100 (227 KB a block):
+// - route 0, P <= 117: L's halves resident in one block with two Y tiles;
+//   bound by the bytes (the product is under the loads);
+// - route 3, 117 < P <= 296: L's columns split over a thread-block cluster;
+//   bound by the bytes, held back by one tile a cluster at a time;
+// - route 4, 296 < P <= 784: the Y tile resident, L split once a launch and
+//   streamed; bound by the product (past P ≈ 296 above the bytes), held
+//   back by the rate at which an SM takes in L's stages and by the next
+//   tile's formation, which waits for this tile's product;
+// - routes 1 and 2, P > 784: the mma.sync kernel with the Y tile (to
+//   P ≈ 824) or with Y streamed through the output rows (no cap on P);
+//   kept for the widths whose Y tile no longer fits beside route 4's ring.
+// PERF.md §6 has each route's times against its bound.
 //
-// 1. Where L's split halves fit beside two Y tiles and two rings of at
-//    least three stages (P <= 117 on an H100, whose blocks may opt into
-//    227 KB): a persistent, warp-specialised block on each SM.
+// 1. Route 0. Where L's split halves fit beside two Y tiles and two rings
+//    of at least three stages (P <= 117 on an H100, whose blocks may opt
+//    into 227 KB): a persistent, warp-specialised block on each SM.
 // - The grid is one block an SM. A block walks walker tiles of 64 rows (one
 //   wgmma M), tile blockIdx.x, blockIdx.x + gridDim.x, …; its two consumer
 //   warpgroups take every other tile, each with its own Y tile and ring.
@@ -79,18 +93,26 @@
 //   (P = 257: every tile re-reads L, and the few chunks the shared memory
 //   holds do not hide their L2 latency).
 //
-// 2. Past those widths, where a cluster's plan fits (plan_cluster: on an
-//    H100 117 < P <= 296), the same product spread over a thread-block
+// 2. Route 3. Past those widths, where a cluster's plan fits (plan_cluster:
+//    on an H100 117 < P <= 296), the same product spread over a thread-block
 //    cluster of 2, 4 or 8 blocks: each holds a column slice of L's halves
 //    and forms its share of every tile's proposal rows, which it sends to
 //    the others' shared memory, and the row sums are reduced through
 //    distributed shared memory; its notes are above its code below.
 //
-// 3. Elsewhere, the mma.sync kernel: a block of four warps owns 64 or 128
-//    walkers (the Y tile in shared memory, or past P ≈ 825 on an H100 Y
-//    streamed through the output rows), streams L in 32 × 64 panels by
-//    4-byte cp.async, and takes Y·L as 3xTF32 on mma.sync m16n8k8 with a
-//    zeroed partial a k-step; its notes are above its code below.
+// 3. Route 4. Past those, while a 64-row Y tile fits beside two slots of a
+//    ring (plan_stream: on an H100 P <= 784), one block an SM keeps the Y
+//    tile and streams L: a prologue of the same launch splits L once into
+//    scratch in the order of the product's stages, which a producer warp
+//    bulk-copies into the ring that also takes the walker stages, under
+//    two consumer warpgroups' wgmma; its notes are above its code below.
+//
+// 4. Routes 1 and 2. Elsewhere, the mma.sync kernel: a block of four warps
+//    owns 64 or 128 walkers (the Y tile in shared memory, or past P ≈ 825
+//    on an H100 Y streamed through the output rows), streams L in 32 × 64
+//    panels by 4-byte cp.async, and takes Y·L as 3xTF32 on mma.sync
+//    m16n8k8 with a zeroed partial a k-step; its notes are above its code
+//    below.
 //
 // The partner index, z, the uniforms and the accept rule are the device
 // functions of stretch_common.cuh, shared with the other stretch kernels.
@@ -180,6 +202,9 @@ struct Plan {
   // the cluster route only: blocks a cluster, k-steps in the first half of
   // the Y tile and the second half's row stride, offsets
   int cluster, ks0, ystride1, off_stg, off_xch;
+  // the L-streamed route only: bytes of a slot of its ring (an L stage),
+  // column panels of 2·nsub columns, k-steps of 8 an L stage
+  int lstage, panels, lkc;
 };
 
 // The head and tail (up to 3 floats each) of a run, or all of a run under
@@ -1077,37 +1102,57 @@ bool plan_cluster(int P, int optin, Plan* out) {
   return false;
 }
 
-// The clusters of `plan` that the device holds at once, cached by device.
-template <int NSUB>
-cudaError_t active_clusters(const Plan& plan, int* clusters) {
-  auto kernel = wide_cluster_kernel<NSUB>;
-  static bool asked[kMaxDevices] = {};
-  static int known[kMaxDevices][2] = {};  // (cluster · 2^20 + smem, count)
+// A launch of `blocks` blocks of `threads` threads in clusters of `cluster`
+// blocks, on `stream` (used in place: cfg points at attr).
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  ClusterLaunch(int blocks, int threads, int smem, int cluster,
+                cudaStream_t stream) {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3(blocks);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+// The clusters of plan.cluster blocks of `kernel` (`threads` threads, one
+// block an SM) that the device holds at once, cached by device in `known`
+// as (cluster · 2^20 + smem, count); `asked` is the kernel's opt-in record.
+template <typename Kernel>
+cudaError_t max_active_clusters(Kernel kernel, int threads, const Plan& plan,
+                                bool* asked, int (*known)[2],
+                                int* clusters) {
   cudaError_t err = allow_smem(kernel, plan.smem, asked);
   int device = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   const int tag = (plan.cluster << 20) + plan.smem;
   if (known[device][0] != tag) {
-    cudaLaunchConfig_t cfg = {};
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = plan.cluster;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.gridDim = dim3(plan.cluster);
-    cfg.blockDim = dim3(kThreadsCluster);
-    cfg.dynamicSmemBytes = plan.smem;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
+    ClusterLaunch l(plan.cluster, threads, plan.smem, plan.cluster, nullptr);
     int count = 0;
-    err = cudaOccupancyMaxActiveClusters(&count, (void*)kernel, &cfg);
+    err = cudaOccupancyMaxActiveClusters(&count, (void*)kernel, &l.cfg);
     if (err != cudaSuccess) return err;
     known[device][0] = tag;
     known[device][1] = count;
   }
   *clusters = known[device][1];
   return cudaSuccess;
+}
+
+// The clusters of `plan` that the device holds at once, cached by device.
+template <int NSUB>
+cudaError_t active_clusters(const Plan& plan, int* clusters) {
+  static bool asked[kMaxDevices] = {};
+  static int known[kMaxDevices][2] = {};
+  return max_active_clusters(wide_cluster_kernel<NSUB>, kThreadsCluster, plan,
+                             asked, known, clusters);
 }
 
 template <int NSUB>
@@ -1125,19 +1170,9 @@ cudaError_t launch_cluster(const float* act, const float* lp_old,
   if (clusters < 1) return cudaErrorLaunchOutOfResources;
   const int n_tiles = (n + kTileRows - 1) / kTileRows;
   const int grid = std::min(clusters, n_tiles);
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = plan.cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.gridDim = dim3(grid * plan.cluster);
-  cfg.blockDim = dim3(kThreadsCluster);
-  cfg.dynamicSmemBytes = plan.smem;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, wide_cluster_kernel<NSUB>, act, lp_old,
+  ClusterLaunch l(grid * plan.cluster, kThreadsCluster, plan.smem,
+                  plan.cluster, stream);
+  err = cudaLaunchKernelEx(&l.cfg, wide_cluster_kernel<NSUB>, act, lp_old,
                            other, shift, key, prec_chol, out_act, out_lp,
                            out_acc, n, row0, m, a, plan, loads_only);
   if (err != cudaSuccess) return err;
@@ -1171,6 +1206,453 @@ cudaError_t cluster_occupancy(const Plan& plan, int* clusters) {
   return cudaErrorInvalidValue;
 }
 #undef MCMCPP_CLUSTER_WIDTHS
+
+// ===========================================================================
+// The L-streamed route: L split once a launch, streamed through a multicast
+// ring
+// ===========================================================================
+//
+// Past the widths the cluster route takes (P > 296 on an H100) L's halves do
+// not fit in shared memory even split over a cluster of 8, but a 64-row Y
+// tile still does. So L streams, and the Y tile stays:
+// - A prologue kernel of the same launch (split_l_stages) splits L once into
+//   its TF32 big and small halves, into scratch the caller allocates, laid
+//   out in the order the product reads them: for each column panel of 2·N
+//   columns and each chunk of 32 k-rows (four k-steps; 16 and two where the
+//   Y tile leaves room for two slots of those only: on an H100 from P = 577
+//   at the widest N, from 673 at every N), one stage, the big half then the
+//   small half, each in wgmma's K-major core-matrix layout of split_l (k in
+//   the k-step's order), zeros past P. Each stage is one contiguous, 16-B
+//   aligned run of 512·N (256·N) bytes, so one cp.async.bulk fills it
+//   whatever P and L's alignment, and nothing is split again.
+// - One block an SM, persistent over 64-row walker tiles. Warp 8, the
+//   producer, fills one ring in the order the consumers read it: for each
+//   tile the X and partner runs of its rows (the warp-specialised kernel's
+//   stages: cp.async.bulk of each run's aligned middle, 4-B cp.async of its
+//   head and tail), then L's stages, panels × chunks. The formation and the
+//   product are each bound by the latency of their loads, so each gets all
+//   of the ring: a slot holds an L stage or as many walker rows as fit it,
+//   and the next tile's walker stages land under this tile's last L
+//   stages. (Two rings, one for each, measured slower: PERF.md §6.) A
+//   row's scalars (z, ue, the consumers' sums, the accept flag) sit in the
+//   Y tile's padding columns, which no product reads.
+// - The blocks of a cluster of kStreamCluster need the same L stages, so
+//   block r issues the r-th part of every stage with cp.async.bulk
+//   .multicast::cluster into every block's slot: L is read from L2 once a
+//   cluster. A slot is refilled only once the consumers of every block have
+//   read it: its empty barrier counts a remote arrival of every consumer
+//   warp of the cluster. The full barrier of a slot is armed by its own
+//   producer for the whole stage; a peer's part may land first (the
+//   transaction count goes below zero until the arming arrival). Every
+//   block of a cluster fills the same slots in the same order: every
+//   iteration of the cluster has the walker stages of a whole tile (empty
+//   ones where a block's rows end or it has no tile) and all L stages.
+// - Warps 0–7, two consumer warpgroups, form the tile's Y = p + z·(X − p)
+//   into the Y tile (row stride ≡ 8 mod 16 floats, as the warp-specialised
+//   kernel's) and write X to the output rows, then walk S's column panels:
+//   consumer c takes columns c·N … c·N + N − 1 of each panel of 2·N, a
+//   stage's k-steps at a time, 3xTF32 wgmma m64nNk8 with A from the Y tile
+//   (split in registers) and B from the staged halves, into a partial that
+//   the stage's first wgmma zeroes and an fp32 add puts into S (Product).
+//   When a panel's chunks are done its columns are squared into the rows'
+//   sums; a row's sum is consumer 0's plus consumer 1's, each over its
+//   columns in panel order: one order whatever block, cluster or iteration
+//   takes the tile, so row shards equal one launch bit for bit.
+// - N (48–80) is the built width whose panels cover P with the fewest
+//   padding columns (P = 297: 80; 384, 512: 64; 704: 72; 784: 56).
+// - What bounds it: the 3xTF32 product (past P ≈ 296 above the bytes), and
+//   each SM's intake of L, 8·P² bytes a tile for 384·P² FLOP: ~78 GB/s into
+//   every SM at the tensor cores' rate. With one Y tile the next tile's
+//   formation waits for this one's last panel; only the walker ring's loads
+//   run under the product.
+
+// k-steps of 8 in a stage of L: four where the plan fits such stages,
+// else two (plan_stream)
+constexpr int kStreamKcs[] = {4, 2};
+// consumer warpgroups on the one Y tile, each with half of every panel
+constexpr int kStreamConsumers = 2;
+// warps 0–7 the consumers, 8 the producer
+constexpr int kThreadsStream = kStreamConsumers * kWgThreads + 32;
+// blocks of a cluster that share every L stage
+constexpr int kStreamCluster = 2;
+
+// A consumer's wgmma N on the L-streamed route.
+#define MCMCPP_STREAM_WIDTHS(X) X(80) X(72) X(64) X(56) X(48)
+
+// The built N whose panels of 2·N columns cover P with the fewest columns,
+// the wider of a tie.
+int stream_width(int P) {
+  int best = 0, best_cols = 0;
+#define MCMCPP_SW(NS)                                        \
+  {                                                          \
+    const int cols = 2 * NS * ((P + 2 * NS - 1) / (2 * NS)); \
+    if (best == 0 || cols < best_cols) {                     \
+      best = NS;                                             \
+      best_cols = cols;                                      \
+    }                                                        \
+  }
+  MCMCPP_STREAM_WIDTHS(MCMCPP_SW)
+#undef MCMCPP_SW
+  return best;
+}
+
+// The prologue: L's halves into `out` in the L-streamed route's stage order
+// (stage s = panel·chunks + chunk: the big half, then the small half, each
+// krows k-rows × 2·nsub columns in split_l's layout), `total` elements of a
+// half in all.
+__global__ void split_l_stages(const float* __restrict__ L, int P, int nsub,
+                               int krows, int chunks, int total,
+                               float* __restrict__ out) {
+  const int cols = 2 * nsub;
+  const int half = krows * cols;  // floats of a stage's half
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < total;
+       e += gridDim.x * blockDim.x) {
+    const int s = e / half, rem = e - s * half;
+    const int pn = s / chunks, ch = s - pn * chunks;
+    const int nb = rem / (8 * krows), w = rem - nb * (8 * krows);
+    const int kl = (w >> 5) * 4 + (w & 3), r = (w >> 2) & 7;
+    const int j = kl & 7;
+    const int k = ch * krows + (kl & ~7) + (j < 4 ? 2 * j : 2 * (j - 4) + 1);
+    const int col = pn * cols + nb * 8 + r;
+    const float v = k < P && col < P ? L[(long long)k * P + col] : 0.0f;
+    unsigned b, sm;
+    split_tf32(v, b, sm);
+    float* st = out + (size_t)s * 2 * half;
+    st[rem] = __uint_as_float(b);
+    st[half + rem] = __uint_as_float(sm);
+  }
+}
+
+template <int NSUB, int KC>
+__global__ void __launch_bounds__(kThreadsStream, 1)
+wide_stream_kernel(const float* __restrict__ act,
+                   const float* __restrict__ lp_old,
+                   const float* __restrict__ other,
+                   const int* __restrict__ shift, unsigned long long key,
+                   const float* __restrict__ lsplit,
+                   float* __restrict__ out_act, float* __restrict__ out_lp,
+                   int* __restrict__ out_acc, int n, long long row0,
+                   long long m, float a, const Plan plan, int loads_only) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int kKRows = 8 * KC;  // k-rows of a stage of L
+  const int P = plan.P, Kp = plan.Kp, ys = plan.ystride;
+  const int SR = plan.sr, S = plan.slots, C = plan.cluster;
+  const int chunks = Kp / kKRows;
+  const int n_stages = plan.panels * chunks;           // L stages a tile
+  const int w_stages = (kTileRows + SR - 1) / SR;      // walker stages a tile
+  const unsigned slot_bytes = plan.lstage;
+  float* yt = reinterpret_cast<float*>(smem + plan.off_y);
+  unsigned char* ring = smem + plan.off_ring;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + plan.off_bar);
+  uint64_t* empty = full + kMaxSlots;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const unsigned rank = cluster_rank();
+  const long long cid = cluster_index(), ncl = cluster_count();
+  const long long n_tiles = (n + kTileRows - 1) / kTileRows;
+  const int sh = *shift;
+  constexpr int kConsumerWarps = 4 * kStreamConsumers;
+  constexpr int kThreadsC = kStreamConsumers * kWgThreads;
+  // a tile row's scalars, in its padding columns Kp … Kp + 7, which no
+  // product reads: z, ue, consumer 0's and 1's sum of squares, the accept
+  // flag
+  auto row_at = [&](int r) { return yt + r * ys + Kp; };
+
+  if (tid == 0) {
+    for (int s = 0; s < kMaxSlots; ++s) {
+      mbar_init(&full[s], 1);
+      // every consumer warp of every block of the cluster
+      mbar_init(&empty[s], kConsumerWarps * C);
+    }
+    mbar_init_fence();
+  }
+  // the Y tile zeroed once: its columns past P stay zero
+  for (int e = tid; e < kTileRows * ys; e += blockDim.x) yt[e] = 0.0f;
+  __syncthreads();
+  // every block's barriers exist before a peer's copy or arrival reaches them
+  cluster_sync();
+
+  if (warp == kConsumerWarps) {
+    // ---------------- producer: every stage, in the consumers' order -----
+    // Each cluster iteration: the tile's walker stages (empty ones where its
+    // rows end, so every block of the cluster fills the same slots in the
+    // same order), then L's stages, this block's part multicast to all.
+    const unsigned part = slot_bytes / C;
+    const unsigned short mask = (unsigned short)((1u << C) - 1);
+    const unsigned char* lsrc =
+        reinterpret_cast<const unsigned char*>(lsplit) + rank * part;
+    int g = 0;
+    for (long long j = 0; (j * ncl + cid) * C < n_tiles; ++j) {
+      const long long tile = (j * ncl + cid) * C + rank;
+      const long long i0 = tile * kTileRows;
+      const int rows =
+          tile < n_tiles ? (int)min((long long)kTileRows, (long long)n - i0)
+                         : 0;
+      for (int st = 0; st < w_stages; ++st, ++g) {
+        const int slot = g % S, round = g / S;
+        if (round > 0) mbar_wait(&empty[slot], (round - 1) & 1);
+        const int rs = min(SR, rows - st * SR);
+        if (rs <= 0) {
+          if (lane == 0) mbar_arrive(&full[slot]);
+          continue;
+        }
+        const Stage w = stage_at(act, other, i0 + st * SR, rs, row0, sh, m, P);
+        float* ax = reinterpret_cast<float*>(ring + (size_t)slot * slot_bytes);
+        float* ap = ax + plan.area;
+        fill(&full[slot], lane, ax + w.xo, w.x, rs * P, ap + w.pao, w.pa,
+             w.r1 * P, ap + w.pbo, other, (rs - w.r1) * P);
+      }
+      for (int s = 0; s < n_stages; ++s, ++g) {
+        const int slot = g % S, round = g / S;
+        if (round > 0) mbar_wait(&empty[slot], (round - 1) & 1);
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&full[slot], slot_bytes);
+          bulk_load_multicast(ring + (size_t)slot * slot_bytes + rank * part,
+                              lsrc + (size_t)s * slot_bytes, part, &full[slot],
+                              mask);
+        }
+        __syncwarp();
+      }
+    }
+    cp_async_wait_all();
+  } else if (warp < kConsumerWarps) {
+    // ---------------- consumers ----------------
+    const int ci = warp >> 2, wq = warp & 3, ct = tid;  // ct: 0 … 255
+    const int g = lane >> 2, t = lane & 3;
+    const float* yrow = yt + (16 * wq + g) * ys + 2 * t;
+    // this consumer's n-blocks of 8 columns in a stage's half (each kKRows
+    // k-rows × 8 columns), the small half after the big
+    constexpr unsigned kNBlock = kKRows * 8 * 4;
+    const unsigned lbase = smem_addr(ring) + ci * (NSUB / 8) * kNBlock;
+    const unsigned half = slot_bytes / 2;
+    // a stage read: freed in every block of the cluster
+    auto release = [&](int slot) {
+      __syncwarp();
+      if (lane < C) {
+        mbar_arrive_cluster(map_rank(smem_addr(&empty[slot]), lane));
+      }
+    };
+    int g_at = 0;
+    for (long long j = 0; (j * ncl + cid) * C < n_tiles; ++j) {
+      const long long tile = (j * ncl + cid) * C + rank;
+      const bool has = tile < n_tiles;
+      const long long i0 = has ? tile * kTileRows : 0;
+      const int rows =
+          has ? (int)min((long long)kTileRows, (long long)n - i0) : 0;
+      // lp_old is loaded here and first read after the product
+      const float lo = ct < rows ? lp_old[i0 + ct] : 0.0f;
+      if (ct < rows) {
+        const float2 uu =
+            unit_uniforms(key, (unsigned long long)(row0 + i0 + ct));
+        row_at(ct)[0] = stretch_z(uu.x, a);
+        row_at(ct)[1] = uu.y;
+      }
+      named_bar(1, kThreadsC);
+
+      // the proposal rows into the Y tile, X into the output rows
+      for (int st = 0; st < w_stages; ++st, ++g_at) {
+        const int slot = g_at % S;
+        mbar_wait(&full[slot], (g_at / S) & 1);
+        const int rs = min(SR, rows - st * SR);
+        if (rs > 0) {
+          const Stage sg =
+              stage_at(act, other, i0 + st * SR, rs, row0, sh, m, P);
+          const float* ax =
+              reinterpret_cast<const float*>(ring + (size_t)slot * slot_bytes);
+          const float* xs = ax + sg.xo;
+          const float* pa = ax + plan.area + sg.pao;
+          const float* pb = ax + plan.area + sg.pbo;
+          const int split = sg.r1 * P;
+          float* out = out_act + (i0 + st * SR) * P;
+          float* ydst = yt + st * SR * ys;
+          for (TileWalk<1> w(P, ct, kThreadsC); w.e < rs * P; w.next(P)) {
+            const float x = xs[w.e];
+            const float p = w.e < split ? pa[w.e] : pb[w.e - split];
+            float* yr = ydst + w.row * ys;
+            yr[w.k] = fmaf(yr[Kp], x - p, p);
+            out[w.e] = x;
+          }
+        }
+        release(slot);
+      }
+      named_bar(1, kThreadsC);
+
+      // S = Y·L panel by panel (3xTF32 on wgmma), each panel's columns
+      // squared into the rows' sums when its chunks are done
+      const bool product = has && !loads_only;
+      float q0 = 0.0f, q1 = 0.0f;
+      for (int pn = 0; pn < plan.panels; ++pn) {
+        Product<NSUB> prod;
+        for (int ch = 0; ch < chunks; ++ch, ++g_at) {
+          const int slot = g_at % S;
+          mbar_wait(&full[slot], (g_at / S) & 1);
+          if (product) {
+            const unsigned lb = lbase + slot * slot_bytes;
+            prod.template group<KC>(yrow, ys, kKRows * ch, lb, lb + half, 0,
+                                    kNBlock);
+          }
+          release(slot);
+        }
+        if (product) prod.squares(q0, q1);
+      }
+      q0 += __shfl_xor_sync(0xffffffffu, q0, 1);
+      q0 += __shfl_xor_sync(0xffffffffu, q0, 2);
+      q1 += __shfl_xor_sync(0xffffffffu, q1, 1);
+      q1 += __shfl_xor_sync(0xffffffffu, q1, 2);
+      if (t == 0) {
+        row_at(16 * wq + g)[2 + ci] = q0;
+        row_at(16 * wq + g + 8)[2 + ci] = q1;
+      }
+      named_bar(1, kThreadsC);
+
+      if (ct < rows) {
+        float* rv = row_at(ct);
+        // loads only: lp_new = lp_old, the decision by the factor alone
+        const float lp_new = loads_only ? lo : -0.5f * (rv[2] + rv[3]);
+        const bool accept =
+            stretch_accepts(rv[1], (float)(P - 1) * logf(rv[0]), lp_new, lo);
+        out_lp[i0 + ct] = accept ? lp_new : lo;
+        out_acc[i0 + ct] = accept ? 1 : 0;
+        rv[4] = accept ? 1.0f : 0.0f;
+      }
+      named_bar(1, kThreadsC);
+      // the accepted rows get Y
+      float* out = out_act + i0 * P;
+      for (TileWalk<1> w(P, ct, kThreadsC); w.e < rows * P; w.next(P)) {
+        const float* yr = yt + w.row * ys;
+        if (yr[Kp + 4] != 0.0f) out[w.e] = yr[w.k];
+      }
+    }
+  }
+  // no block exits while a peer may still copy into its shared memory or
+  // arrive on its barriers
+  cluster_sync();
+}
+
+// The plan of the L-streamed route at P on a device whose blocks may have
+// `optin` bytes of shared memory: the Y tile of 64 rows (each row's scalars
+// in its padding columns) and one ring of at least two slots, each an L
+// stage of four k-steps where such a ring fits, else of two (at most
+// kMaxSlots slots); a walker stage takes as many rows (at most 64) as its
+// X and partner runs fit a slot. False where none fits.
+bool plan_stream(int P, int optin, Plan* out) {
+  if (P < 1) return false;
+  Plan p = {};
+  p.P = P;
+  p.nsub = stream_width(P);
+  p.cluster = kStreamCluster;
+  p.panels = (P + 2 * p.nsub - 1) / (2 * p.nsub);
+  for (int kc : kStreamKcs) {
+    p.lkc = kc;
+    p.Kp = round_up(P, 8 * kc);
+    p.ystride = p.Kp + 8;  // Kp ≡ 0 (mod 16): ≡ 8, and room for 8 scalars
+    p.lstage = 2 * 4 * 8 * kc * 2 * p.nsub;
+    p.off_y = 0;
+    p.off_bar = 4 * kTileRows * p.ystride;
+    p.off_ring = round_up(p.off_bar + 8 * 2 * kMaxSlots, 128);
+    const int slots =
+        std::min(kMaxSlots, (optin - p.off_ring) / p.lstage);
+    // X and partner areas of round_up(sr·P + 10, 4) floats each in a slot
+    const int sr = std::min(kTileRows, (p.lstage / 8 - 13) / P);
+    if (slots >= 2 && sr >= 1) {
+      p.slots = slots;
+      p.sr = sr;
+      p.area = round_up(sr * P + 10, 4);
+      p.smem = p.off_ring + slots * p.lstage;
+      *out = p;
+      return true;
+    }
+  }
+  return false;
+}
+
+// Bytes of the scratch that holds L's split stages.
+size_t stream_scratch_bytes(const Plan& plan) {
+  return (size_t)plan.panels * (plan.Kp / (8 * plan.lkc)) * plan.lstage;
+}
+
+// The prologue alone: L's split stages into `scratch`.
+cudaError_t split_for_stream(const float* prec_chol, const Plan& plan,
+                             float* scratch, cudaStream_t stream) {
+  const int total = (int)(stream_scratch_bytes(plan) / 8);
+  const int blocks = std::min((total + 255) / 256, 1024);
+  split_l_stages<<<blocks, 256, 0, stream>>>(
+      prec_chol, plan.P, plan.nsub, 8 * plan.lkc, plan.Kp / (8 * plan.lkc),
+      total, scratch);
+  return cudaGetLastError();
+}
+
+template <int NSUB, int KC>
+cudaError_t stream_clusters(const Plan& plan, int* clusters) {
+  static bool asked[kMaxDevices] = {};
+  static int known[kMaxDevices][2] = {};
+  return max_active_clusters(wide_stream_kernel<NSUB, KC>, kThreadsStream,
+                             plan, asked, known, clusters);
+}
+
+template <int NSUB, int KC>
+cudaError_t launch_stream(const float* act, const float* lp_old,
+                          const float* other, const int* shift,
+                          unsigned long long key, const float* prec_chol,
+                          float* out_act, float* out_lp, int* out_acc, int n,
+                          long long row0, long long m, float a,
+                          const Plan& plan, float* scratch, int loads_only,
+                          cudaStream_t stream) {
+  int clusters = 0;
+  cudaError_t err = stream_clusters<NSUB, KC>(plan, &clusters);
+  if (err != cudaSuccess) return err;
+  // no cluster of this shape fits the device: refused, no other route
+  if (clusters < 1) return cudaErrorLaunchOutOfResources;
+  err = split_for_stream(prec_chol, plan, scratch, stream);
+  if (err != cudaSuccess) return err;
+  const int n_tiles = (n + kTileRows - 1) / kTileRows;
+  const int grid =
+      std::min(clusters, (n_tiles + plan.cluster - 1) / plan.cluster);
+  ClusterLaunch l(grid * plan.cluster, kThreadsStream, plan.smem,
+                  plan.cluster, stream);
+  err = cudaLaunchKernelEx(&l.cfg, wide_stream_kernel<NSUB, KC>, act, lp_old,
+                           other, shift, key, (const float*)scratch, out_act,
+                           out_lp, out_acc, n, row0, m, a, plan, loads_only);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+cudaError_t launch_stream_planned(const float* act, const float* lp_old,
+                                  const float* other, const int* shift,
+                                  unsigned long long key,
+                                  const float* prec_chol, float* out_act,
+                                  float* out_lp, int* out_acc, int n,
+                                  long long row0, long long m, float a,
+                                  const Plan& plan, float* scratch,
+                                  int loads_only, cudaStream_t stream) {
+#define MCMCPP_ST(NS)                                                        \
+  if (plan.nsub == NS) {                                                     \
+    return plan.lkc == 4                                                     \
+               ? launch_stream<NS, 4>(act, lp_old, other, shift, key,        \
+                                      prec_chol, out_act, out_lp, out_acc,   \
+                                      n, row0, m, a, plan, scratch,          \
+                                      loads_only, stream)                    \
+               : launch_stream<NS, 2>(act, lp_old, other, shift, key,        \
+                                      prec_chol, out_act, out_lp, out_acc,   \
+                                      n, row0, m, a, plan, scratch,          \
+                                      loads_only, stream);                   \
+  }
+  MCMCPP_STREAM_WIDTHS(MCMCPP_ST)
+#undef MCMCPP_ST
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t stream_occupancy(const Plan& plan, int* clusters) {
+#define MCMCPP_ST(NS)                                                 \
+  if (plan.nsub == NS) {                                              \
+    return plan.lkc == 4 ? stream_clusters<NS, 4>(plan, clusters)     \
+                         : stream_clusters<NS, 2>(plan, clusters);    \
+  }
+  MCMCPP_STREAM_WIDTHS(MCMCPP_ST)
+#undef MCMCPP_ST
+  return cudaErrorInvalidValue;
+}
+#undef MCMCPP_STREAM_WIDTHS
 
 // ===========================================================================
 // The mma.sync kernel: every P the kernels above do not take
@@ -1720,12 +2202,19 @@ cudaError_t launch_shape(const float* act, const float* lp_old,
 }
 
 // The routes, as wide_layout numbers them.
-enum Route { kRouteWs = 0, kRouteTile = 1, kRouteStream = 2, kRouteCluster = 3 };
+enum Route {
+  kRouteWs = 0,
+  kRouteTile = 1,
+  kRouteStream = 2,
+  kRouteCluster = 3,
+  kRouteLStream = 4
+};
 
 // The route at P on this device: the warp-specialised kernel where plan_for
-// takes P, else the cluster kernel where plan_cluster does (`plan` for
-// either), else the mma.sync kernel with the Y tile or, past its shared
-// memory, with Y streamed.
+// takes P, else the cluster kernel where plan_cluster does, else the
+// L-streamed kernel where plan_stream does (`plan` for any of the three),
+// else the mma.sync kernel with the Y tile or, past its shared memory, with
+// Y streamed.
 cudaError_t route(int P, Plan* plan, Route* which) {
   int optin = 0;
   const cudaError_t err = smem_optin(&optin);
@@ -1734,6 +2223,8 @@ cudaError_t route(int P, Plan* plan, Route* which) {
     *which = kRouteWs;
   } else if (plan_cluster(P, optin, plan)) {
     *which = kRouteCluster;
+  } else if (plan_stream(P, optin, plan)) {
+    *which = kRouteLStream;
   } else {
     *which = wide_smem_bytes(P, false, 1) > (size_t)optin ? kRouteStream
                                                           : kRouteTile;
@@ -1744,7 +2235,8 @@ cudaError_t route(int P, Plan* plan, Route* which) {
 int launch(const float* act, const float* lp_old, const float* other,
            const int* shift, unsigned long long key, const float* prec_chol,
            float* out_act, float* out_lp, int* out_acc, int n, long long row0,
-           long long m, int P, float a, void* stream_ptr, int loads_only) {
+           long long m, int P, float a, void* stream_ptr, void* scratch,
+           int loads_only) {
   if (!mcmcpp::valid_rows(n, row0, m) || P <= 0) {
     return (int)cudaErrorInvalidValue;
   }
@@ -1763,6 +2255,14 @@ int launch(const float* act, const float* lp_old, const float* other,
                                        prec_chol, out_act, out_lp, out_acc, n,
                                        row0, m, a, plan, loads_only, stream);
   }
+  if (which == kRouteLStream) {
+    // L's split stages go to the caller's scratch: none, no launch
+    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+    return (int)launch_stream_planned(
+        act, lp_old, other, shift, key, prec_chol, out_act, out_lp, out_acc,
+        n, row0, m, a, plan, static_cast<float*>(scratch), loads_only,
+        stream);
+  }
   if (loads_only) return (int)cudaErrorInvalidValue;
   return (int)launch_shape(act, lp_old, other, shift, key, prec_chol, out_act,
                            out_lp, out_acc, n, row0, m, P, a, stream);
@@ -1771,20 +2271,24 @@ int launch(const float* act, const float* lp_old, const float* other,
 }  // namespace
 
 // The block the wide kernel launches at dimension P on the current device,
-// as eight ints: route (0: warp-specialised, wgmma; 1: mma.sync with the Y
-// tile; 2: mma.sync with Y streamed; 3: wgmma on a thread-block cluster),
-// dynamic shared memory (bytes), walkers a block holds at once, rows a stage
-// and a consumer's stages, wgmma N (a block's columns of S on route 3; 0
-// where these do not apply), blocks a cluster (1 but on route 3), and the
-// clusters the device holds at once (route 3; 0 elsewhere). Returns a
-// cudaError_t.
+// as ten ints: route (0: warp-specialised, wgmma; 1: mma.sync with the Y
+// tile; 2: mma.sync with Y streamed; 3: wgmma on a thread-block cluster; 4:
+// wgmma with L streamed), dynamic shared memory (bytes), walkers a block
+// holds at once, rows a walker stage and stages a ring (a consumer's on
+// route 0; on route 4 the one ring's slots, each a walker stage or an L
+// stage), wgmma N (a block's columns of S on route 3, a consumer's of a
+// panel on route 4; 0 where these do not apply), blocks a cluster (1 but on
+// routes 3 and 4), the clusters the device holds at once (routes 3 and 4; 0
+// elsewhere), the k-steps of 8 in an L stage and the bytes of L's split
+// stages that the caller allocates as scratch (route 4; 0 elsewhere).
+// Returns a cudaError_t.
 extern "C" int mcmcpp_fused_stretch_wide_layout(int P, int* out) {
   if (P <= 0) return (int)cudaErrorInvalidValue;
   Plan plan;
   Route which = kRouteTile;
   cudaError_t err = route(P, &plan, &which);
   if (err != cudaSuccess) return (int)err;
-  for (int i = 0; i < 8; ++i) out[i] = 0;
+  for (int i = 0; i < 10; ++i) out[i] = 0;
   out[6] = 1;
   if (which == kRouteWs) {
     const int v[6] = {kRouteWs, plan.smem, kConsumers * kTileRows, plan.sr,
@@ -1792,13 +2296,23 @@ extern "C" int mcmcpp_fused_stretch_wide_layout(int P, int* out) {
     for (int i = 0; i < 6; ++i) out[i] = v[i];
     return 0;
   }
-  if (which == kRouteCluster) {
+  if (which == kRouteCluster || which == kRouteLStream) {
     int clusters = 0;
-    err = cluster_occupancy(plan, &clusters);
+    err = which == kRouteCluster ? cluster_occupancy(plan, &clusters)
+                                 : stream_occupancy(plan, &clusters);
     if (err != cudaSuccess) return (int)err;
-    const int v[8] = {kRouteCluster, plan.smem, kTileRows, plan.sr,
-                      plan.slots, plan.nsub, plan.cluster, clusters};
-    for (int i = 0; i < 8; ++i) out[i] = v[i];
+    const bool streamed = which == kRouteLStream;
+    const int v[10] = {which,
+                       plan.smem,
+                       kTileRows,
+                       plan.sr,
+                       plan.slots,
+                       plan.nsub,
+                       plan.cluster,
+                       clusters,
+                       streamed ? plan.lkc : 0,
+                       streamed ? (int)stream_scratch_bytes(plan) : 0};
+    for (int i = 0; i < 10; ++i) out[i] = v[i];
     return 0;
   }
   out[0] = which;
@@ -1822,20 +2336,24 @@ extern "C" int mcmcpp_fused_stretch_wide_layout(int P, int* out) {
 // against `other`, the whole opposite half (unsharded: row0 = 0, m = n).
 // All pointers are device pointers; `prec_chol` is L, (P, P) row-major;
 // `shift` points at one int32 (any value); `key` is the half-step's Philox
-// key, local walker i drawing its u and ue from (key, row0 + i). Returns the
-// launch's cudaError_t (0 on success).
+// key, local walker i drawing its u and ue from (key, row0 + i). `scratch`
+// holds the bytes mcmcpp_fused_stretch_wide_layout gives (out[9]), 16-B
+// aligned, where that is not 0 (route 4 writes L's split stages there; a
+// null scratch refuses the launch), else may be null. Returns the launch's
+// cudaError_t (0 on success).
 extern "C" int mcmcpp_fused_stretch_wide_f32(
     const float* act, const float* lp_old, const float* other,
     const int* shift, unsigned long long key, const float* prec_chol,
     float* out_act, float* out_lp, int* out_acc, int n, long long row0,
-    long long m, int P, float a, void* stream) {
+    long long m, int P, float a, void* stream, void* scratch) {
   return launch(act, lp_old, other, shift, key, prec_chol, out_act, out_lp,
-                out_acc, n, row0, m, P, a, stream, 0);
+                out_acc, n, row0, m, P, a, stream, scratch, 0);
 }
 
 // Debug entry for measurement, not called by the port: the wgmma kernels'
 // loads and stores without their product: every X and partner run through
-// the ring, the proposal rows (on route 3 also sent between the blocks of
+// the ring (on route 4 also every stage of L through its ring, after the
+// prologue), the proposal rows (on route 3 also sent between the blocks of
 // the cluster, whose exchange of the row sums runs on zeros), X and the
 // accepted rows written, lp_new taken as lp_old (so the decisions follow
 // the factor alone). Refuses (cudaErrorInvalidValue) a P the mma.sync
@@ -1844,7 +2362,23 @@ extern "C" int mcmcpp_fused_stretch_wide_loads_only_f32(
     const float* act, const float* lp_old, const float* other,
     const int* shift, unsigned long long key, const float* prec_chol,
     float* out_act, float* out_lp, int* out_acc, int n, long long row0,
-    long long m, int P, float a, void* stream) {
+    long long m, int P, float a, void* stream, void* scratch) {
   return launch(act, lp_old, other, shift, key, prec_chol, out_act, out_lp,
-                out_acc, n, row0, m, P, a, stream, 1);
+                out_acc, n, row0, m, P, a, stream, scratch, 1);
+}
+
+// Debug entry for measurement, not called by the port: route 4's prologue
+// alone, L's split stages into `scratch` (the layout's out[9] bytes).
+// Refuses (cudaErrorInvalidValue) a P that route 4 does not take.
+extern "C" int mcmcpp_fused_stretch_wide_split_l_f32(const float* prec_chol,
+                                                     int P, void* scratch,
+                                                     void* stream) {
+  if (P <= 0 || scratch == nullptr) return (int)cudaErrorInvalidValue;
+  Plan plan;
+  Route which = kRouteTile;
+  const cudaError_t err = route(P, &plan, &which);
+  if (err != cudaSuccess) return (int)err;
+  if (which != kRouteLStream) return (int)cudaErrorInvalidValue;
+  return (int)split_for_stream(prec_chol, plan, static_cast<float*>(scratch),
+                               static_cast<cudaStream_t>(stream));
 }

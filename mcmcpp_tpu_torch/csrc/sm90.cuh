@@ -1,8 +1,8 @@
 // Hopper (sm_90a) primitives of the wide kernel, as inline PTX: mbarriers,
-// the bulk asynchronous copy (also into a peer block's shared memory), the
-// cluster's ranks, barrier and distributed shared memory, the wgmma fences
-// and shared-memory matrix descriptors, and the named barriers of a
-// warpgroup.
+// the bulk asynchronous copy (also multicast to the blocks of a cluster, and
+// into a peer block's shared memory), the cluster's ranks, barrier and
+// distributed shared memory, the wgmma fences and shared-memory matrix
+// descriptors, and the named barriers of a warpgroup.
 
 #pragma once
 
@@ -79,6 +79,20 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
       "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// The same bulk copy into the same offset of the shared memory of every
+// block of the cluster whose bit (its rank) is set in `mask`, completing as
+// transactions on the mbarrier at `bar`'s offset in each of them.
+__device__ __forceinline__ void bulk_load_multicast(void* dst, const void* src,
+                                                    unsigned bytes,
+                                                    uint64_t* bar,
+                                                    unsigned short mask) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar)), "h"(mask)
       : "memory");
 }
 

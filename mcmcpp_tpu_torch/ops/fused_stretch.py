@@ -47,10 +47,15 @@ against its plain version run on those planes.
      thread-block clusters of 2, 4 or 8 blocks, each holding a column slice
      of L and forming its share of every tile's proposal rows, which it
      sends into the others' shared memory, the row sums reduced through
-     distributed shared memory; wider still a block of 64
-     or 128 walkers with its Y tile, or past P ≈ 825 on an H100 with Y
-     streamed through the output rows, takes it with mma.sync and L
-     streamed;
+     distributed shared memory; wider, while a 64-row Y tile fits beside
+     two slots of a ring (P <= 784 on an H100), the L-streamed kernel (a
+     prologue splits L once a launch into scratch this module allocates,
+     in the order of its stages, which a producer warp bulk-copies,
+     multicast to a cluster's blocks, into the ring that also takes the
+     walker rows, under two consumer warpgroups' wgmma); wider still a
+     block of 64
+     walkers with its Y tile, or past P ≈ 825 on an H100 with Y streamed
+     through the output rows, takes it with mma.sync and L streamed;
   3. any other batched logp takes the split path of ``csrc/
      stretch_split.cu``: the propose kernel, the logp as torch ops on the
      current stream, then the accept kernel (the Pallas kernel traced the
@@ -228,12 +233,14 @@ def _launch_wide(active, active_logp, other, shift, key, prec_chol, a,
     out_lp = torch.empty_like(active_logp)
     out_acc = torch.empty((n,), dtype=torch.int32, device=active.device)
     with torch.cuda.device(active.device):
+        scratch = _wide_scratch(p, active.device)
         err = entry(
             active.data_ptr(), active_logp.data_ptr(), other.data_ptr(),
             shift.data_ptr(), key, prec_chol.data_ptr(),
             out_act.data_ptr(), out_lp.data_ptr(),
             out_acc.data_ptr(), n, row0, other.shape[0], p, float(a),
             _stream(active.device),
+            None if scratch is None else scratch.data_ptr(),
         )
     _checked(err, "fused_stretch_wide", count=not loads_only)
     return out_act, out_lp, out_acc
@@ -241,30 +248,77 @@ def _launch_wide(active, active_logp, other, shift, key, prec_chol, a,
 
 #: the routes of the wide kernel, by the number ``wide_layout`` gives
 WIDE_ROUTES = ("wgmma, warp-specialised", "mma.sync, Y tile",
-               "mma.sync, Y streamed", "wgmma, thread-block cluster")
+               "mma.sync, Y streamed", "wgmma, thread-block cluster",
+               "wgmma, L streamed")
+
+#: bytes of L's split stages the wide kernel needs as scratch, by (device
+#: index, P): 0 but on the L-streamed route
+_SCRATCH_BYTES = {}
+
+
+def _wide_scratch(p, device):
+    """The scratch of a wide launch at width ``p`` on ``device``: a new
+    ``torch.empty`` buffer where the library's route writes L's split stages
+    there (the L-streamed route), else None."""
+    at = (torch.device(device).index, p)
+    if at not in _SCRATCH_BYTES:
+        _SCRATCH_BYTES[at] = wide_layout(p, device)["scratch_bytes"]
+    nbytes = _SCRATCH_BYTES[at]
+    if not nbytes:
+        return None
+    return torch.empty((nbytes // 4,), dtype=torch.float32, device=device)
 
 
 def wide_layout(p, device="cuda"):
     """The block the wide kernel launches at width ``p`` on ``device``, as
     the library plans it: route (an index of ``WIDE_ROUTES``), dynamic
     shared memory in bytes, walkers a block holds at once, for the wgmma
-    kernels rows a stage, stages a consumer and wgmma N (a block's columns
-    of S on the cluster route; 0 elsewhere), blocks a cluster (1 but on the
-    cluster route) and the clusters the device holds at once (the cluster
-    route; 0 elsewhere)."""
+    kernels rows a walker stage, stages a ring (a consumer's on the
+    warp-specialised route; on the L-streamed route the one ring's slots,
+    each a walker stage or a stage of L) and wgmma N (a block's columns of
+    S on the cluster route, a consumer's of a panel on the L-streamed
+    route; 0 elsewhere), blocks a cluster (1 but on the cluster and
+    L-streamed routes), the clusters the device holds at once (those two
+    routes; 0 elsewhere), the k-steps of 8 in a stage of L and the bytes of
+    L's split stages, the launch's scratch (the L-streamed route; 0
+    elsewhere)."""
     import ctypes
 
     from mcmcpp_tpu_torch._build import load_library
 
-    out = (ctypes.c_int * 8)()
+    out = (ctypes.c_int * 10)()
     with torch.cuda.device(device):
         err = load_library().mcmcpp_fused_stretch_wide_layout(int(p), out)
     if err != 0:
         raise RuntimeError(f"wide kernel layout at P={p} failed "
                            f"(cudaError {err})")
     keys = ("route", "smem_bytes", "block_walkers", "stage_rows", "stages",
-            "wgmma_n", "cluster", "active_clusters")
+            "wgmma_n", "cluster", "active_clusters", "l_ksteps",
+            "scratch_bytes")
     return dict(zip(keys, list(out)))
+
+
+def wide_split_l(prec_chol):
+    """The L-streamed route's prologue alone on a CUDA ``prec_chol`` (P, P):
+    L's split stages, as the wide kernel writes them into its scratch, for
+    measuring what the prologue takes. Nothing in the port calls it; it
+    counts no launch. Raises where that route does not take P."""
+    from mcmcpp_tpu_torch._build import load_library
+
+    p = prec_chol.shape[0]
+    _check_args({"prec_chol": prec_chol}, {"prec_chol": (p, p)},
+                prec_chol.device)
+    with torch.cuda.device(prec_chol.device):
+        scratch = _wide_scratch(p, prec_chol.device)
+        if scratch is None:
+            raise RuntimeError(f"the L-streamed route does not take P={p}")
+        err = load_library().mcmcpp_fused_stretch_wide_split_l_f32(
+            prec_chol.data_ptr(), p, scratch.data_ptr(),
+            _stream(prec_chol.device))
+    if err != 0:
+        raise RuntimeError(f"wide kernel prologue at P={p} failed "
+                           f"(cudaError {err})")
+    return scratch
 
 
 def wide_loads_only(active, active_logp, other, shift, key, prec_chol, a=2.0,
@@ -273,7 +327,8 @@ def wide_loads_only(active, active_logp, other, shift, key, prec_chol, a=2.0,
     library's debug entry point, on CUDA tensors: for measuring what the
     loads alone take on the wgmma routes (on the cluster route with the
     proposal rows sent between the blocks and the exchange of the row
-    sums). lp_new is taken as lp_old,
+    sums, on the L-streamed route with the prologue and every stage of L
+    through its ring). lp_new is taken as lp_old,
     so its outputs are not a half-step's. Nothing in the port calls it; it
     counts no launch."""
     key = _check_key(key)

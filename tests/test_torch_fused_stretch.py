@@ -88,11 +88,11 @@ def _logp_np(x, L):
     return (-0.5 * np.sum(y * y, axis=-1)).astype(np.float32)
 
 
-@pytest.mark.parametrize("p", [2, 10, 65, 100])
+@pytest.mark.parametrize("p", [2, 10, 65, 100, 320])
 def test_reference_matches_pallas_interpret(p):
     """The plain half-step, which the CUDA kernels are held to (the fused
-    kernel's for P <= 64, the wide kernel's beyond), against the Pallas
-    kernel on the same numbers."""
+    kernel's for P <= 16, the wide kernel's beyond: at P = 320 its
+    L-streamed route), against the Pallas kernel on the same numbers."""
     n, tile = 64, 32
     L = _prec_chol(p, seed=p)
     act, oth = _inputs(n, p, seed=100 + p,
@@ -283,7 +283,8 @@ def _assert_near_reference(target, args, key, k_out, skip=None):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shift", ["mid", "last"])
 @pytest.mark.parametrize("p", [33, 64, 65, 66, 67, 100, 112, 113, 117, 118,
-                               128, 200, 257, 296, 297])
+                               128, 200, 257, 296, 297, 298, 299, 300, 384,
+                               512, 577, 704, 784, 785])
 def test_wide_gaussian_launches_one_wide_kernel_on_card(cuda_device, p,
                                                         shift):
     """A GaussianTarget with P > ``fs.MAX_P`` (16, the fused kernel's own
@@ -291,9 +292,10 @@ def test_wide_gaussian_launches_one_wide_kernel_on_card(cuda_device, p,
     the half-step holds to its plain version (``_assert_near_reference``).
     The widths take each of the kernel's routes on an H100 (warp-specialised
     to P = 117, thread-block clusters of 2, 4 and 8 blocks from 118 to 296,
-    the mma.sync kernel's 128- and 64-walker blocks past that) and every
-    P mod 4, so that the runs start at every offset from a 16-B
-    boundary."""
+    L streamed from 297 to 784 (N = 80, 64, 80, 72, 56; stages of four
+    k-steps, of two at P = 577–784), the mma.sync kernel's 64-walker block
+    past that) and every P mod 4 at the routes' edges, so that the runs
+    start at every offset from a 16-B boundary."""
     target, args, key = _wide_case(cuda_device, 3000, p, shift, seed=p)
     before = dict(fs.LAUNCHES)
     k_out = fs.fused_stretch_half(*args, key=key, logp_fn=target)
@@ -306,10 +308,11 @@ def test_wide_gaussian_launches_one_wide_kernel_on_card(cuda_device, p,
 @pytest.mark.cuda
 @pytest.mark.parametrize("shift", ["mid", "last"])
 def test_wide_kernel_streams_y_past_its_tile_on_card(cuda_device, shift):
-    """At P = 1000 the Y tile of 64 walkers needs more shared memory than a
-    block may have, so the wide kernel streams Y through the output rows:
-    one launch a half-step through the dispatch, held to the plain
-    version."""
+    """At P = 1000 the Y tile of 64 walkers no longer fits beside the
+    L-streamed route's ring (it stops at P = 784 on an H100) nor in the
+    mma.sync kernel's block, so the wide kernel streams Y through the
+    output rows: one launch a half-step through the dispatch, held to the
+    plain version."""
     p = 1000
     assert fs.WIDE_ROUTES[fs.wide_layout(p, cuda_device)["route"]] == (
         "mma.sync, Y streamed")
@@ -411,26 +414,71 @@ def _cluster_plan(p, optin=H100_SMEM):
     return None
 
 
+#: a consumer's wgmma N on the L-streamed route (``MCMCPP_STREAM_WIDTHS``)
+STREAM_WIDTHS = (80, 72, 64, 56, 48)
+
+
+def _stream_plan(p, optin=H100_SMEM):
+    """``plan_stream`` of ``csrc/fused_stretch_wide.cu`` at width p, for a P
+    that neither the warp-specialised block nor the cluster route takes
+    (p > 296 on an H100): (a consumer's N, k-steps of 8 an L stage, slots of
+    the ring, rows a walker stage). N is the built width whose panels of
+    2·N columns cover P with the fewest columns (the wider of a tie); beside
+    the 64-row Y tile (its rows' scalars in its padding) one ring of two or
+    more slots, each an L stage of four k-steps where such a ring fits, else
+    of two (8·k-steps rows × 2·N columns × two halves), a walker stage as
+    many rows (at most 64) as their X and partner runs fit a slot; None
+    where none fits."""
+    nsub = min(STREAM_WIDTHS, key=lambda n: (2 * n * -(-p // (2 * n)), -n))
+    for kc in (4, 2):
+        kp = -(-p // (8 * kc)) * 8 * kc
+        lstage = 2 * 4 * 8 * kc * 2 * nsub
+        off = -(-(4 * 64 * (kp + 8) + 8 * 2 * 8) // 128) * 128
+        slots = min(8, (optin - off) // lstage)
+        sr = min(64, (lstage // 8 - 13) // p)
+        if slots >= 2 and sr >= 1:
+            return nsub, kc, slots, sr
+    return None
+
+
+def _wide_route(p, optin=H100_SMEM):
+    """The wide kernel's route at width p, as ``route`` in
+    ``csrc/fused_stretch_wide.cu`` picks it: "ws" (the warp-specialised
+    block), "cluster", "stream" (L streamed) or "mma" (the mma.sync
+    kernel)."""
+    if _ws_plan(p, optin):
+        return "ws"
+    if _cluster_plan(p, optin):
+        return "cluster"
+    return "stream" if _stream_plan(p, optin) else "mma"
+
+
 def _wide_width(p):
     """Columns of S that one product of the wide kernel takes at width p:
     the warp-specialised kernel's wgmma N (``nsub_for`` in
     ``csrc/fused_stretch_wide.cu``: P rounded up to 16, at least 32) where
     ``plan_for`` takes P (P <= 117 with an H100's 232,448 B a block), a
-    cluster block's slice where ``plan_cluster`` does (to P = 296), else the
-    mma.sync kernel's panels of 64."""
-    if _ws_plan(p):
+    cluster block's slice where ``plan_cluster`` does (to P = 296), a
+    consumer's half of a panel on the L-streamed route (to P = 784), else
+    the mma.sync kernel's panels of 64."""
+    route = _wide_route(p)
+    if route == "ws":
         return _ws_plan(p)
-    plan = _cluster_plan(p)
-    return plan[1] if plan else 64
+    if route == "cluster":
+        return _cluster_plan(p)[1]
+    return _stream_plan(p)[0] if route == "stream" else 64
 
 
 def _wide_group(p):
     """k-steps whose products share a partial in the wide kernel at width
-    p (``Product::KG``): four where the wgmma is at most 80 wide, two to
-    112, one past (as the A fragments of the group fit beside the
-    accumulators), one in the mma.sync kernel."""
-    if not _ws_plan(p) and _cluster_plan(p) is None:
-        return 1
+    p (``Product::KG``): on the warp-specialised and cluster routes four
+    where the wgmma is at most 80 wide, two to 112, one past (as the A
+    fragments of the group fit beside the accumulators); on the L-streamed
+    route an L stage's (four, or two where only those fit); one in the
+    mma.sync kernel."""
+    route = _wide_route(p)
+    if route in ("stream", "mma"):
+        return _stream_plan(p)[1] if route == "stream" else 1
     n = _wide_width(p)
     return 4 if n <= 80 else 2 if n <= 112 else 1
 
@@ -438,8 +486,14 @@ def _wide_group(p):
 def _wide_slices(p):
     """Blocks whose partial row sums the wide kernel adds at width p: a
     cluster's c on the cluster route, else 1."""
-    plan = None if _ws_plan(p) else _cluster_plan(p)
-    return plan[0] if plan else 1
+    return _cluster_plan(p)[0] if _wide_route(p) == "cluster" else 1
+
+
+def _wide_consumers(p):
+    """Consumer warpgroups whose row sums the wide kernel adds at width p:
+    two on the L-streamed route (each over its half of every panel), else
+    one."""
+    return 2 if _wide_route(p) == "stream" else 1
 
 
 def _row_squares(acc, width):
@@ -460,7 +514,8 @@ def _row_squares(acc, width):
     return (q[0] + q[1]) + (q[2] + q[3])
 
 
-def _quad_3xtf32(y, L, partials=True, width=None, group=None, slices=None):
+def _quad_3xtf32(y, L, partials=True, width=None, group=None, slices=None,
+                 consumers=None):
     """The wide kernel's lp = −½‖y·L‖² as its tensor cores compute it: per
     k-step of 8, the three TF32 products small·big, big·small and big·big,
     each summed exactly (float64 holds a TF32 product and a sum of eight)
@@ -473,7 +528,11 @@ def _quad_3xtf32(y, L, partials=True, width=None, group=None, slices=None):
     columns (``_wide_width(P)`` by default). With ``slices`` c > 1
     (``_wide_slices(P)`` by default: the cluster route), block r of the
     cluster sums the squares of its slice, columns r·width …, into a
-    partial, and the c partials are added in rank order."""
+    partial, and the c partials are added in rank order. With
+    ``consumers`` 2 (``_wide_consumers(P)`` by default: the L-streamed
+    route), consumer c sums the squares of columns c·width … of each panel
+    of 2·width columns, panel by panel, and the row's sum is consumer 0's
+    plus consumer 1's."""
     yb, ys = _split(y)
     lb, ls = _split(L)
     p = L.shape[0]
@@ -490,6 +549,15 @@ def _quad_3xtf32(y, L, partials=True, width=None, group=None, slices=None):
         acc = (acc + part).astype(np.float32) if partials else part
     width = width or _wide_width(p)
     slices = slices or _wide_slices(p)
+    consumers = consumers or _wide_consumers(p)
+    if consumers == 2:
+        panels = -(-p // (2 * width))
+        cols = np.zeros((acc.shape[0], 2 * width * panels), np.float32)
+        cols[:, :p] = acc
+        q = [_row_squares(np.concatenate(
+            [cols[:, (2 * pn + c) * width:(2 * pn + c + 1) * width]
+             for pn in range(panels)], axis=1), width) for c in range(2)]
+        return np.float32(-0.5) * (q[0] + q[1]).astype(np.float32)
     if slices == 1:
         return np.float32(-0.5) * _row_squares(acc, width)
     total = None
@@ -593,9 +661,141 @@ def test_3xtf32_partials_keep_float32_accuracy_at_large_k():
     assert np.max(np.abs(in_s / want - 1)) > 1e-5
 
 
+@pytest.mark.parametrize("p", [297, 384, 512, 577, 784])
+def test_3xtf32_streamed_route_keeps_float32_accuracy(p):
+    """On the L-streamed route (P = 297–784 on an H100) the product's
+    partials of an L stage's k-steps (four; two at P = 577 and 784), each
+    consumer's squares over its half of every panel and their sum hold
+    rtol = 1e-5 against float64 and the plain float32 forward, with a full
+    L (its upper triangle too), as do partials of one k-step; TF32 alone
+    misses it."""
+    assert _wide_route(p) == "stream" and _wide_group(p) == (
+        4 if p <= 512 else 2)
+    L = _prec_chol(p, seed=p)
+    L = (L + np.triu(_prec_chol(p, seed=p + 1), 1) * 0.1).astype(np.float32)
+    _, y = _inputs(64, p, seed=p)
+    want = _logp_np(y, L).astype(np.float64)
+    plain = GaussianTarget(L, device="cpu")(torch.from_numpy(y)).numpy()
+    for group in (1, 2, 4):
+        got = _quad_3xtf32(y, L, group=group)
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
+        np.testing.assert_allclose(got, plain, rtol=1e-5, atol=0)
+    yb, lb = _tf32(y), _tf32(L)
+    tf32_only = -0.5 * np.sum((yb.astype(np.float64) @ lb) ** 2, -1)
+    assert np.max(np.abs(tf32_only / want - 1)) > 1e-5
+
+
+@pytest.mark.parametrize("p,plan", [(296, None), (297, (80, 4, 3, 17)),
+                                    (300, (80, 4, 3, 17)),
+                                    (384, (64, 4, 4, 10)),
+                                    (512, (64, 4, 3, 7)),
+                                    (576, (72, 4, 2, 7)),
+                                    (577, (80, 2, 3, 4)),
+                                    (704, (72, 2, 2, 3)),
+                                    (784, (56, 2, 2, 2)), (785, None)])
+def test_stream_plan_on_an_h100(p, plan):
+    """The L-streamed route's plan with an H100's shared memory: it takes
+    P = 297 (the cluster route's end) to 784 (the widest whose 64-row Y
+    tile fits beside two slots of its ring), with N = 80 at P = 297 (two
+    panels of 160 columns), 64 at 384 and 512 (panels of 128, no padding),
+    72 at 704, 56 at 784; four slots of L stages of four k-steps at P = 384,
+    three at 297 and 512, stages of two k-steps at 577 (a slot of four does
+    not fit twice beside the Y tile); walker stages of 17 rows at 297, 7 at
+    512, 2 at 784; the mma.sync kernel takes P = 785."""
+    route = {296: "cluster", 785: "mma"}.get(p, "stream")
+    assert _wide_route(p) == route
+    if plan is not None:
+        assert _stream_plan(p) == plan
+        assert _wide_width(p) == plan[0] and _wide_consumers(p) == 2
+    elif p > 296:
+        assert _stream_plan(p) is None
+
+
+def _stream_stages(L, nsub, kc):
+    """The L-streamed route's scratch as its prologue (``split_l_stages``)
+    writes it for stages of kc k-steps: for each panel of 2·nsub columns and
+    each chunk of 8·kc k-rows, the big half (L rounded to TF32) then the
+    small half (the exact float32 remainder), each n-block of 8 columns
+    holding its k-rows at (k / 4)·32 + (n % 8)·4 + k % 4, the rows of each
+    k-step in the A fragment's order (row 2t at position t, 2t + 1 at
+    t + 4), zeros past P."""
+    p, rows = L.shape[0], 8 * kc
+    kp = -(-p // rows) * rows
+    panels = -(-p // (2 * nsub))
+    full = np.zeros((kp, panels * 2 * nsub), np.float32)
+    full[:p, :p] = L
+    big = _tf32(full)
+    small = full - big
+    w = np.arange(8 * rows)
+    kl, r = (w >> 5) * 4 + (w & 3), (w >> 2) & 7
+    j = kl & 7
+    k = (kl & ~7) + np.where(j < 4, 2 * j, 2 * (j - 4) + 1)
+    return np.concatenate([
+        half[ch * rows + k, pn * 2 * nsub + nb * 8 + r]
+        for pn in range(panels) for ch in range(kp // rows)
+        for half in (big, small) for nb in range(2 * nsub // 8)])
+
+
+@pytest.mark.parametrize("p", [297, 300, 577, 784])
+def test_stream_stages_feed_the_product_in_wgmma_order(p):
+    """L's split stages read as the L-streamed kernel's wgmma read them
+    (stages of kc k-steps: consumer c's B at byte c·(N/8)·256·kc of a
+    stage's half, k-step i at 256·i, core matrices 128 B apart in K and
+    256·kc B apart in N, a core matrix's row n and column k at
+    16·(n % 8) + 4·(k % 4)), each k-step's A the Y tile's columns in the
+    fragment's order, big + small summed exactly: every panel's columns of
+    Y·L, zeros past P."""
+    nsub, kc = _stream_plan(p)[:2]
+    rows, sbo = 8 * kc, 256 * kc
+    L = _prec_chol(p, seed=p)
+    L = (L + np.triu(_prec_chol(p, seed=p + 1), 1) * 0.1).astype(np.float32)
+    stages = _stream_stages(L, nsub, kc)
+    kp, panels = -(-p // rows) * rows, -(-p // (2 * nsub))
+    y = np.random.default_rng(p).normal(size=(8, kp))
+    y[:, p:] = 0.0
+    half = rows * 2 * nsub
+    kk, n = np.arange(8)[:, None], np.arange(nsub)[None, :]
+    a_cols = np.where(kk[:, 0] < 4, 2 * kk[:, 0], 2 * (kk[:, 0] - 4) + 1)
+    s = np.zeros((8, panels * 2 * nsub))
+    for pn in range(panels):
+        for ch in range(kp // rows):
+            st = stages[(pn * (kp // rows) + ch) * 2 * half:][:2 * half]
+            for c in range(2):
+                for i in range(kc):
+                    at = (c * (nsub // 8) * sbo + 256 * i + (n // 8) * sbo
+                          + (kk // 4) * 128 + (n % 8) * 16
+                          + (kk % 4) * 4) // 4
+                    b = st[at].astype(np.float64) + st[half + at]
+                    cols = pn * 2 * nsub + c * nsub + np.arange(nsub)
+                    s[:, cols] += y[:, rows * ch + 8 * i + a_cols] @ b
+    want = y[:, :p] @ L.astype(np.float64)
+    np.testing.assert_allclose(s[:, :p], want, rtol=1e-12, atol=1e-12)
+    assert not s[:, p:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [297, 512, 577, 784])
+def test_stream_prologue_matches_its_emulation_on_card(cuda_device, p):
+    """The L-streamed route's prologue (``fs.wide_split_l``, the kernel
+    ``split_l_stages`` alone) writes L's split stages bit for bit as
+    ``_stream_stages`` lays them out, with the layout's N and scratch
+    bytes."""
+    layout = fs.wide_layout(p, cuda_device)
+    assert fs.WIDE_ROUTES[layout["route"]] == "wgmma, L streamed"
+    L = _prec_chol(p, seed=p)
+    L = (L + np.triu(_prec_chol(p, seed=p + 1), 1) * 0.1).astype(np.float32)
+    got = fs.wide_split_l(torch.from_numpy(L).to(cuda_device))
+    torch.cuda.synchronize()
+    want = _stream_stages(L, layout["wgmma_n"], layout["l_ksteps"])
+    assert got.numel() * 4 == layout["scratch_bytes"] == want.size * 4
+    assert np.array_equal(got.cpu().numpy().view(np.uint32),
+                          want.view(np.uint32))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("p", [65, 66, 67, 100, 117, 118, 128, 200, 257,
-                               296, 297])
+                               296, 297, 298, 299, 300, 384, 512, 577, 784,
+                               785])
 def test_wide_kernel_unaligned_row_shards_on_card(cuda_device, p):
     """Row shards that start at rows which are not multiples of 4 (so at
     P = 65–67 the runs of X start off a 16-B boundary, their heads and
@@ -617,10 +817,13 @@ def test_wide_kernel_unaligned_row_shards_on_card(cuda_device, p):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("p", [65, 100, 117, 118, 128, 200, 257, 296, 297])
+@pytest.mark.parametrize("p", [65, 100, 117, 118, 128, 200, 257, 296, 297,
+                               298, 384, 512, 577, 784, 785])
 def test_wide_kernel_ragged_tiles_and_nan_rows_on_card(cuda_device, p):
     """A launch whose blocks (or clusters) walk several tiles each and whose
-    last tile is ragged (n = 64·301 + 17 rows over one block an SM), with
+    last tile is ragged (n = 64·301 + 17 rows over one block an SM; on the
+    L-streamed route some blocks of a cluster have no last tile and still
+    take part in its stages of L), with
     lp_old = −inf rows (which accept) and NaN rows of X (whose proposals are
     NaN: they reject and keep their row): held to the plain version."""
     n = 64 * 301 + 17
@@ -640,15 +843,17 @@ def test_wide_kernel_ragged_tiles_and_nan_rows_on_card(cuda_device, p):
 
 @pytest.mark.cuda
 def test_wide_layout_matches_the_emulated_plan_on_card(cuda_device):
-    """The library's route at every P from 100 to 300 on this card is the
-    one ``_ws_plan`` and ``_cluster_plan`` emulate (with the card's own
-    shared memory): the warp-specialised block with its wgmma N where it
-    fits, else the cluster route with its blocks a cluster and its columns a
-    block where the emulation finds a plan, the mma.sync kernel with the Y
-    tile past it; and the device holds at least one cluster of each."""
+    """The library's route at every P from 100 to 800 on this card is the
+    one ``_ws_plan``, ``_cluster_plan`` and ``_stream_plan`` emulate (with
+    the card's own shared memory): the warp-specialised block with its
+    wgmma N where it fits, else the cluster route with its blocks a cluster
+    and its columns a block where the emulation finds a plan, else the
+    L-streamed route with its N, ring and scratch, the mma.sync kernel
+    with the Y tile past it; and the device holds at least one cluster of
+    each."""
     optin = torch.cuda.get_device_properties(
         cuda_device).shared_memory_per_block_optin
-    for p in range(100, 301):
+    for p in range(100, 801):
         layout = fs.wide_layout(p, cuda_device)
         if _ws_plan(p, optin):
             assert fs.WIDE_ROUTES[layout["route"]] == (
@@ -656,9 +861,22 @@ def test_wide_layout_matches_the_emulated_plan_on_card(cuda_device):
             assert layout["wgmma_n"] == _ws_plan(p, optin), p
             continue
         plan = _cluster_plan(p, optin)
+        stream = _stream_plan(p, optin)
+        if plan is None and stream is not None:
+            assert fs.WIDE_ROUTES[layout["route"]] == "wgmma, L streamed", p
+            nsub, kc = stream[:2]
+            assert (layout["wgmma_n"], layout["l_ksteps"], layout["stages"],
+                    layout["stage_rows"], layout["block_walkers"]) == (
+                        *stream, 64), p
+            # panels × chunks × a stage's 2·4·8kc·2N bytes
+            assert layout["scratch_bytes"] == (
+                -(-p // (2 * nsub)) * -(-p // (8 * kc)) * 128 * kc * nsub), p
+            assert layout["cluster"] in (1, 2, 4)
+            assert layout["active_clusters"] >= 1
+            continue
         if plan is None:
             assert fs.WIDE_ROUTES[layout["route"]] == "mma.sync, Y tile", p
-            assert layout["cluster"] == 1
+            assert layout["cluster"] == 1 and layout["scratch_bytes"] == 0
             continue
         assert fs.WIDE_ROUTES[layout["route"]] == (
             "wgmma, thread-block cluster"), p
@@ -705,22 +923,26 @@ def _fake_cuda_half(monkeypatch, target, p):
                                      (257, "_launch_wide"),
                                      (296, "_launch_wide"),
                                      (297, "_launch_wide"),
+                                     (384, "_launch_wide"),
+                                     (512, "_launch_wide"),
+                                     (1000, "_launch_wide"),
                                      (100, "stretch_propose")])
 def test_cuda_dispatch_routes_without_card(monkeypatch, p, route):
     """On a CUDA tensor a GaussianTarget of P <= MAX_P (16) goes to the fused
     kernel, a wider one to the wide kernel (whose library picks the route:
     on an H100 the warp-specialised block to P = 117, the cluster route,
-    index 3 of ``fs.WIDE_ROUTES``, to 296, the mma.sync kernel past it), any
-    other logp to the split pair; without a card the launch raises (here the
-    kernels cannot be built) and no other route is tried: a wide
-    GaussianTarget never reaches the split kernels, and nothing counts a
-    launch."""
+    index 3 of ``fs.WIDE_ROUTES``, to 296, the L-streamed route, index 4,
+    to 784, the mma.sync kernel past it), any other logp to the split pair;
+    without a card the launch raises (here the kernels cannot be built) and
+    no other route is tried: a wide GaussianTarget never reaches the split
+    kernels, and nothing counts a launch."""
     if torch.cuda.is_available():
         pytest.skip("checks the dispatch where no kernel can launch")
     L = np.eye(p, dtype=np.float32)
     target = (GaussianTarget(L, device="cpu") if route != "stretch_propose"
               else (lambda x: -0.5 * torch.sum(x * x, -1)))
     assert fs.WIDE_ROUTES[3] == "wgmma, thread-block cluster"
+    assert fs.WIDE_ROUTES[4] == "wgmma, L streamed"
     before = dict(fs.LAUNCHES)
     called, err = _fake_cuda_half(monkeypatch, target, p)
     assert called == [route]

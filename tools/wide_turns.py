@@ -1,18 +1,20 @@
-"""Time the wide Gaussian half-step of two checkouts in turns on one card.
+"""Time the wide Gaussian half-step of several checkouts in turns on one card.
 
-    python3 tools/wide_turns.py 113,128,257 build/parent
+    python3 tools/wide_turns.py 297,384,512 build/parent [OTHER_TREE ...]
 
-builds this checkout's kernel library and that of the other checkout (for
+builds this checkout's kernel library and those of the other checkouts (for
 example ``git archive <commit> mcmcpp_tpu_torch | tar -x -C build/parent``),
 each from its own sources into its own ``build/kernels/``, then for each
 width P at n = 2^20 walkers a half: holds each library's
 ``mcmcpp_fused_stretch_wide_f32`` to the plain half-step once (the accept
 masks equal but for a few rows, the logps within 1e-5 relative), and times
-the other checkout's entry point, this one's and this one's loads-only entry
-(where its route has one) in turns a, b, c, c, b, a: 20 launches a reading
-between CUDA events, queued behind some 6 ms of device work. Prints the
-milliseconds a launch with the card's name and power limit, and this
-checkout's route at each P. Needs a CUDA device.
+the other checkouts' entry points, this one's and this one's loads-only
+entry (where its route has one) in turns a, b, c, c, b, a: 20 launches a
+reading between CUDA events, queued behind some 6 ms of device work. A
+library whose entry takes a scratch pointer (route 4's L split stages) gets
+a buffer of the bytes its own layout entry names. Prints the milliseconds a
+launch with the card's name and power limit, and this checkout's route at
+each P. Needs a CUDA device.
 """
 
 import ctypes
@@ -28,33 +30,41 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def load(tree, label):
+    """The kernel library of checkout ``tree``, built and typed by that
+    checkout's own ``_build.py``."""
     path = os.path.join(tree, "mcmcpp_tpu_torch", "_build.py")
     spec = importlib.util.spec_from_file_location(f"wide_turns_{label}", path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    lib = module.load_library()
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for name in ("mcmcpp_fused_stretch_wide_f32",
-                 "mcmcpp_fused_stretch_wide_loads_only_f32"):
-        entry = getattr(lib, name)
-        entry.argtypes = ([ptr] * 4 + [ctypes.c_ulonglong] + [ptr] * 4
-                          + [i32, i64, i64, i32, ctypes.c_float, ptr])
-        entry.restype = i32
-    return lib
+    return module.load_library()
+
+
+def scratch_for(lib, p, dev):
+    """A scratch buffer for ``lib``'s wide entry at width p, or None where
+    its entry takes none (a checkout before route 4) or its route needs
+    none."""
+    if not hasattr(lib, "mcmcpp_fused_stretch_wide_split_l_f32"):
+        return None
+    out = (ctypes.c_int * 10)()
+    if lib.mcmcpp_fused_stretch_wide_layout(p, out):
+        raise RuntimeError(f"P={p}: layout failed")
+    return torch.empty(max(out[9], 4) // 4, device=dev)
 
 
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("wide_turns.py needs a CUDA device")
     widths = [int(x) for x in sys.argv[1].split(",")]
-    parent = os.path.abspath(sys.argv[2])
+    trees = [os.path.abspath(t) for t in sys.argv[2:]]
     sys.path.insert(0, ROOT)
     from mcmcpp_tpu_torch.models.targets import GaussianTarget
     from mcmcpp_tpu_torch.ops import fused_stretch as fs
     from mcmcpp_tpu_torch.ops.random import philox_unit_uniforms
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    libs = {"parent": load(parent, "parent"), "this": load(ROOT, "this")}
+    libs = {os.path.relpath(t, ROOT): load(t, f"tree{i}")
+            for i, t in enumerate(trees)}
+    libs["this"] = load(ROOT, "this")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
@@ -98,19 +108,23 @@ def main():
         outs = (torch.empty_like(act), torch.empty_like(lp),
                 torch.empty(n, dtype=torch.int32, device=dev))
 
-        def caller(entry):
+        def caller(lib, entry):
+            scratch = scratch_for(lib, p, dev)
+            extra = () if scratch is None else (scratch.data_ptr(),)
+
             def call():
                 err = entry(act.data_ptr(), lp.data_ptr(), other.data_ptr(),
                             shift.data_ptr(), key, target.prec_chol.data_ptr(),
                             outs[0].data_ptr(), outs[1].data_ptr(),
-                            outs[2].data_ptr(), n, 0, n, p, 2.0, stream)
+                            outs[2].data_ptr(), n, 0, n, p, 2.0, stream,
+                            *extra)
                 if err:
                     raise RuntimeError(f"P={p}: cudaError {err}")
             return call
 
         calls = {}
         for label, lib in libs.items():
-            calls[label] = caller(lib.mcmcpp_fused_stretch_wide_f32)
+            calls[label] = caller(lib, lib.mcmcpp_fused_stretch_wide_f32)
             calls[label]()
             torch.cuda.synchronize()
             same = outs[2] == want[2]
@@ -121,8 +135,15 @@ def main():
                                      f"masks differ, logp rel {float(rel)}")
         route = fs.WIDE_ROUTES[fs.wide_layout(p, dev)["route"]]
         if route.startswith("wgmma"):
-            calls["this_loads_only"] = caller(
-                libs["this"].mcmcpp_fused_stretch_wide_loads_only_f32)
+            # the loads-only entry of this checkout and of every other that
+            # takes the same route (one with route 4's scratch entry)
+            for label, lib in libs.items():
+                if label == "this" or (
+                        route == fs.WIDE_ROUTES[4]
+                        and hasattr(lib,
+                                    "mcmcpp_fused_stretch_wide_split_l_f32")):
+                    calls[f"{label}_loads_only"] = caller(
+                        lib, lib.mcmcpp_fused_stretch_wide_loads_only_f32)
         order = list(calls) + list(reversed(list(calls)))
         readings = {}
         for name in order:
