@@ -17,18 +17,19 @@ Builds the port's CUDA kernels from ``mcmcpp_tpu_torch/csrc/`` (into
    13, 16; n = 50, 160, 1000; shifts 0, 1, n - 1, a wrap in the middle of a
    tile, a negative and an out-of-range shift; rows with lp_old = -inf);
    times both at the main path's shape. Then the wide kernel (a
-   GaussianTarget wider than ``fs.MAX_P``): its routes from P = 100 to 720,
-   one launch a half-step and no other, against its plain version at
+   GaussianTarget wider than ``fs.MAX_P``): its routes from P = 100 to
+   3000, one launch a half-step and no other, against its plain version at
    n = 2^20 and P = 65, 100 (its warp-specialised block), 128, 257 (thread-
-   block clusters), 297, 384, 512 (L streamed) and 1000 (the mma.sync kernel,
-   Y streamed) and at edge shapes and shifts (the routes' first and widest P,
-   one past each), 4 row shards against one launch (at rows that are
-   multiples of 4 and at rows that are not), the old split route bit for
-   bit against the plain version, and the kernel's time in turns beside its
-   loads and stores alone (a debug entry point without the product), the
-   plain version's and the split route's, with the bytes and the product
-   bounds apart, and the L-streamed route's prologue alone; and its main
-   path, the samplers on GaussianTargets of P = 100, 257 and 512 at
+   block clusters), 297, 384, 512 (L streamed), 800, 1000 and 1536 (K split
+   over a cluster) and at edge shapes and shifts (the routes' first and widest
+   P, one past each; past the K-split route the mma.sync kernel with Y
+   streamed), 4 row shards against one launch (at rows that are multiples
+   of 4 and at rows that are not), the old split route bit for bit against
+   the plain version, and the kernel's time in turns beside its loads and
+   stores alone (a debug entry point without the product), the plain
+   version's and the split route's, with the bytes and the product bounds
+   apart, and the prologue alone of the routes that split L; and its main
+   path, the samplers on GaussianTargets of P = 100, 257, 512 and 1000 at
    W = 2^21 in turns with the split route (walker-updates/s, acceptance
    within 4 binomial SE, stored rows at P = 100);
 2b. holds the split path's propose and accept kernels (any torch logp)
@@ -614,25 +615,28 @@ def split_case(fs, rnd, target, n, seed, neg_inf_every=0, nan_every=0,
 # the wide kernel (csrc/fused_stretch_wide.cu, phase 2): the widths it is
 # checked and timed at (on an H100 P = 65 and 100 take its warp-specialised
 # wgmma block, 128 and 257 its thread-block clusters of 2 and 8 blocks, 297,
-# 384 and 512 its L-streamed route, 1000 the mma.sync kernel with Y
-# streamed),
+# 384 and 512 its L-streamed route, 800, 1000 and 1536 its K-split route),
 # the routes from the sampler's width to WIDE_SCAN_TO (the L-streamed route
 # from P = WIDE_LSTREAM_FROM, just past the widest P the cluster route
-# takes, to the widest whose Y tile fits beside its rings, the mma.sync
-# kernel with the Y tile past it, both found on the card) and past the Y
-# tile (Y streamed), row offsets of shards that are not multiples of 4, and
-# its main path, the sampler on GaussianTargets of P = 100, 257 and 512 at
-# the flagship's W: burn-in steps a reading (two readings a route, in turns
-# with the split route's) and, at P = 100, the stored steps after them (a
-# row of 2^21 walkers at P = 257 is 2.2 GB, past a chain's 2 GiB cap)
-WIDE_P = (65, 100, 128, 257, 297, 384, 512, 1000)
+# takes, to the widest whose Y tile fits beside its rings, the K-split route
+# from the next P to the widest whose Y slice fits a cluster of 8, the
+# mma.sync kernel with Y streamed past it, all found on the card; the
+# mma.sync kernel checked at WIDE_STREAMED_P at n = 1000 and 4096 only), row
+# offsets of shards that are not multiples of 4, and its main path, the
+# sampler on GaussianTargets of P = 100, 257, 512 and 1000 at the flagship's
+# W: burn-in steps a reading (two readings a route, in turns with the split
+# route's) and, at P = 100, the stored steps after them (a row of 2^21
+# walkers at P = 257 is 2.2 GB, past a chain's 2 GiB cap)
+WIDE_P = (65, 100, 128, 257, 297, 384, 512, 800, 1000, 1536)
 WIDE_ODD_SHARDS = (0, 262145, 524290, 786435)
-WIDE_STREAMED_P = 1000
+WIDE_STREAMED_P = 3000
 WIDE_LSTREAM_FROM = 297
-WIDE_SCAN_TO = 800
+WIDE_KSPLIT_FROM = 785
+WIDE_SCAN_TO = 3000
 WIDE_SAMPLER_P, WIDE_BURN, WIDE_STORE, WIDE_THIN = 100, 20, 4, 2
 WIDE_CLUSTER_SAMPLER_P = 257
 WIDE_LSTREAM_SAMPLER_P = 512
+WIDE_KSPLIT_SAMPLER_P = 1000
 
 
 def launches_only(fs, **counts):
@@ -643,17 +647,18 @@ def launches_only(fs, **counts):
 def wide_kernel(mt, fs, rnd, card, blocker):
     """Phase 2's wide block: the wide kernel against its plain version at
     n = 2^20 and the edge cases (one launch a half-step, no split launch),
-    at the L-streamed route's first and widest P and one past each edge,
-    also past the Y tile's shared memory (Y streamed), 4 row shards at
-    offsets that are multiples of 4 and at offsets that are not against one
-    launch, the old split route (propose, the torch logp, accept) bit for
-    bit against the plain version, and the kernel's time beside the plain
-    version's and the split route's and, on the wgmma routes, its loads
-    alone (the debug entry without the product), in turns, with the bytes
-    and the product bounds apart, and the L-streamed route's prologue alone;
-    then its main path, the sampler at P = 100, at P = 257 (the cluster
-    route) and at P = 512 (the L-streamed route) and W = 2^21 against the
-    split route. Returns the kernel line's entry."""
+    at the L-streamed and K-split routes' first and widest P and one past
+    each edge, also past the K-split route (the mma.sync kernel, Y
+    streamed), 4 row shards at offsets that are multiples of 4 and at
+    offsets that are not against one launch, the old split route (propose,
+    the torch logp, accept) bit for bit against the plain version, and the
+    kernel's time beside the plain version's and the split route's and, on
+    the wgmma routes, its loads alone (the debug entry without the
+    product), in turns, with the bytes and the product bounds apart, and
+    the prologue alone of the routes that split L; then its main path, the
+    sampler at P = 100, at P = 257 (the cluster route), at P = 512 (the
+    L-streamed route) and at P = 1000 (the K-split route) and W = 2^21
+    against the split route. Returns the kernel line's entry."""
     dev = torch.device("cuda")
     n = 1 << 20
     errs, by_p = [], {}
@@ -680,51 +685,62 @@ def wide_kernel(mt, fs, rnd, card, blocker):
     # the routes: the warp-specialised block to some P past the sampler's
     # width, then clusters (at 128 and 257 among them) to the widest P they
     # take, L streamed from the next P (at 384 and 512 among them) to the
-    # widest whose Y tile fits beside its rings, the mma.sync kernel's Y
-    # tile past that, Y streamed past the Y tile
-    ws_route, tile_route, streamed, cluster_route, lstream_route = (
-        fs.WIDE_ROUTES)
+    # widest whose Y tile fits beside its rings, K split over a cluster
+    # from the next P (at 800 and 1000 among them) to the widest whose Y
+    # slice fits a cluster of 8, the mma.sync kernel with Y streamed past it
+    (ws_route, tile_route, streamed, cluster_route, lstream_route,
+     ksplit_route) = fs.WIDE_ROUTES
     scan = {q: fs.WIDE_ROUTES[fs.wide_layout(q, dev)["route"]]
             for q in range(WIDE_SAMPLER_P, WIDE_SCAN_TO + 1)}
     first = min(q for q, r in scan.items() if r == cluster_route)
     widest = max(q for q, r in scan.items() if r == cluster_route)
     l_widest = max(q for q, r in scan.items() if r == lstream_route)
+    k_widest = max(q for q, r in scan.items() if r == ksplit_route)
     expect = {q: ws_route if q < first else
               cluster_route if q <= widest else
-              lstream_route if q <= l_widest else tile_route for q in scan}
+              lstream_route if q <= l_widest else
+              ksplit_route if q <= k_widest else streamed for q in scan}
     edges = (widest, widest + 1, widest + 2, widest + 3, widest + 4,
-             l_widest, l_widest + 1)
+             l_widest, l_widest + 1, l_widest + 2, l_widest + 3,
+             l_widest + 4, k_widest, k_widest + 1)
     routes = {q: fs.WIDE_ROUTES[fs.wide_layout(q, dev)["route"]]
-              for q in (*WIDE_P, *edges)}
+              for q in (*WIDE_P, *edges, WIDE_STREAMED_P)}
     if (routes[WIDE_STREAMED_P] != streamed or scan != expect
             or widest + 1 != WIDE_LSTREAM_FROM
+            or l_widest + 1 != WIDE_KSPLIT_FROM
             or routes[128] != cluster_route
             or routes[WIDE_CLUSTER_SAMPLER_P] != cluster_route
             or routes[384] != lstream_route
-            or routes[WIDE_LSTREAM_SAMPLER_P] != lstream_route):
+            or routes[WIDE_LSTREAM_SAMPLER_P] != lstream_route
+            or routes[800] != ksplit_route
+            or routes[WIDE_KSPLIT_SAMPLER_P] != ksplit_route):
         raise AssertionError(f"wide kernel routes {routes}, the cluster "
                              f"route from P = {first} to {widest}, L "
-                             f"streamed to {l_widest}: {scan}")
+                             f"streamed to {l_widest}, K split to "
+                             f"{k_widest}: {scan}")
     print(f"  the wide kernel on this card: warp-specialised to P = "
           f"{first - 1}, the cluster route from P = {first} to {widest}, "
-          f"L streamed from P = {widest + 1} to {l_widest}, mma.sync past "
+          f"L streamed from P = {widest + 1} to {l_widest}, K split from "
+          f"P = {l_widest + 1} to {k_widest}, mma.sync (Y streamed) past "
           "it; "
           + ", ".join(f"P={q}: {fs.wide_layout(q, dev)['cluster']} blocks a "
                       f"cluster, {fs.wide_layout(q, dev)['active_clusters']} "
                       "clusters at once"
                       for q in (first, 128, 200, 257, widest, widest + 1,
-                                384, 512, l_widest))
+                                384, 512, l_widest, l_widest + 1, 1000, 1536,
+                                k_widest))
           + f" [{card}]", flush=True)
     for q in (*edges[1:], WIDE_STREAMED_P):
         target = gauss(q)
         for n_case, neg, shift in [(1000, 7, "mid"), (4096, 5, "last")]:
             wide_case(target, n_case, seed=n_case + q, neg=neg, shift=shift)
-    # the L-streamed route's prologue alone (L split into its stages)
+    # the prologue alone (L split into its stages) of the L-streamed and
+    # K-split routes
     prologue = {}
-    for q in (widest + 1, 384, 512, l_widest):
+    for q in (widest + 1, 384, 512, l_widest, l_widest + 1, 1000, k_widest):
         prec = gauss(q).prec_chol
         prologue[q] = timed_ms(lambda: fs.wide_split_l(prec), 20, blocker)[0]
-    print("  the L-streamed route's prologue alone, ms: "
+    print("  the L-streamed and K-split routes' prologue alone, ms: "
           + ", ".join(f"P={q} {ms:.4f}" for q, ms in prologue.items())
           + f" [{card}]", flush=True)
 
@@ -772,7 +788,8 @@ def wide_kernel(mt, fs, rnd, card, blocker):
             lambda: fs.fused_stretch_half(*args, key=key,
                                           logp_fn=split_route(target)),
             lambda: fs.fused_stretch_half(*args, key=key, logp_fn=target)]
-        if routes[q] in (ws_route, cluster_route, lstream_route):
+        if routes[q] in (ws_route, cluster_route, lstream_route,
+                         ksplit_route):
             calls.append(lambda: fs.wide_loads_only(*args, key,
                                                     target.prec_chol))
         means, readings, _ = in_turns(calls, 20, blocker)
@@ -803,12 +820,14 @@ def wide_kernel(mt, fs, rnd, card, blocker):
         torch.cuda.empty_cache()
 
     # the main path: the sampler on a P = 100 GaussianTarget (the
-    # warp-specialised route), on a P = 257 one (the cluster route) and on a
-    # P = 512 one (the L-streamed route)
+    # warp-specialised route), on a P = 257 one (the cluster route), on a
+    # P = 512 one (the L-streamed route) and on a P = 1000 one (the K-split
+    # route)
     runs = {q: wide_sampler(mt, fs, gauss(q), q, card, store=store)
             for q, store in ((WIDE_SAMPLER_P, True),
                              (WIDE_CLUSTER_SAMPLER_P, False),
-                             (WIDE_LSTREAM_SAMPLER_P, False))}
+                             (WIDE_LSTREAM_SAMPLER_P, False),
+                             (WIDE_KSPLIT_SAMPLER_P, False))}
     main = by_p[WIDE_SAMPLER_P]
     launches = sum(r["launches"] for r in runs.values())
     steps = sum(r["steps"] for r in runs.values())
@@ -4888,7 +4907,8 @@ def main():
               + ", ".join(
                   f"P={q}: {lib.mcmcpp_fused_stretch_half_smem_bytes(q)} B"
                   for q in (2, 10, 16)))
-        for q in (65, 100, 128, 257, 297, 384, 512, 784, 1000):
+        for q in (65, 100, 128, 257, 297, 384, 512, 784, 785, 1000, 1536,
+                  3000):
             print(f"  fused_stretch_wide at P={q}: "
                   f"{fs.WIDE_ROUTES[fs.wide_layout(q, dev)['route']]}, "
                   f"{fs.wide_layout(q, dev)}")

@@ -19,9 +19,9 @@
 // TFLOP/s, so the kernel is memory-bound up to P ≈ 290 (at n = 2^20 and
 // P = 100: 0.379 ms of bytes against 0.127 ms of tensor work).
 //
-// Five routes (the numbers mcmcpp_fused_stretch_wide_layout gives), chosen
-// by P and the device's shared memory, tried in the order 0, 3, 4, 1–2; on
-// an H100 (227 KB a block):
+// Six routes (the numbers mcmcpp_fused_stretch_wide_layout gives), chosen
+// by P and the device's shared memory, tried in the order 0, 3, 4, 5, 1–2;
+// on an H100 (227 KB a block):
 // - route 0, P <= 117: L's halves resident in one block with two Y tiles;
 //   bound by the bytes (the product is under the loads);
 // - route 3, 117 < P <= 296: L's columns split over a thread-block cluster;
@@ -30,9 +30,15 @@
 //   streamed; bound by the product (past P ≈ 296 above the bytes), held
 //   back by the rate at which an SM takes in L's stages and by the next
 //   tile's formation, which waits for this tile's product;
-// - routes 1 and 2, P > 784: the mma.sync kernel with the Y tile (to
-//   P ≈ 824) or with Y streamed through the output rows (no cap on P);
-//   kept for the widths whose Y tile no longer fits beside route 4's ring.
+// - route 5, 784 < P <= the widest P whose Y slice fits a cluster of 8
+//   (plan_ksplit): the product's K split over a thread-block cluster of 4
+//   or 8 blocks, each with a k-slice of a 128-row Y tile, the partial
+//   products reduced in distributed shared memory; bound by the product,
+//   held back by the tile's formation, which waits for the last tile's
+//   product, and by L's stream;
+// - routes 1 and 2, past that: the mma.sync kernel with the Y tile or with
+//   Y streamed through the output rows (no cap on P); kept for the widths
+//   no wgmma route's plan fits.
 // PERF.md §6 has each route's times against its bound.
 //
 // 1. Route 0. Where L's split halves fit beside two Y tiles and two rings
@@ -107,7 +113,15 @@
 //    bulk-copies into the ring that also takes the walker stages, under
 //    two consumer warpgroups' wgmma; its notes are above its code below.
 //
-// 4. Routes 1 and 2. Elsewhere, the mma.sync kernel: a block of four warps
+// 4. Route 5. Past those, while a cluster's k-slices of a 128-row Y tile
+//    fit beside the exchange area of the partial products and two slots of
+//    a ring (plan_ksplit), each block of a cluster of 4 or 8 keeps its
+//    k-slice of the tile's Y and streams its rows of L (split once a launch
+//    by the same prologue) under two consumer warpgroups' wgmma; the
+//    partials of each column panel go to the blocks that own their rows,
+//    which add them in rank order; its notes are above its code below.
+//
+// 5. Routes 1 and 2. Elsewhere, the mma.sync kernel: a block of four warps
 //    owns 64 or 128 walkers (the Y tile in shared memory, or past P ≈ 825
 //    on an H100 Y streamed through the output rows), streams L in 32 × 64
 //    panels by 4-byte cp.async, and takes Y·L as 3xTF32 on mma.sync
@@ -197,13 +211,16 @@ struct Plan {
   int nsub;            // wgmma N: every column of S (the cluster route: a
                        // block's slice of them)
   int sr, slots, area; // rows a stage; a consumer's stages; floats of an X
-                       // or partner area of a stage
+                       // or partner area of a stage (the K-split route:
+                       // of a walker row in a slot)
   int off_l, off_ring, off_y, off_rows, off_bar, smem;
-  // the cluster route only: blocks a cluster, k-steps in the first half of
-  // the Y tile and the second half's row stride, offsets
+  // the cluster route (and, for cluster and off_xch, the K-split route):
+  // blocks a cluster, k-steps in the first half of the Y tile and the
+  // second half's row stride, offsets
   int cluster, ks0, ystride1, off_stg, off_xch;
-  // the L-streamed route only: bytes of a slot of its ring (an L stage),
-  // column panels of 2·nsub columns, k-steps of 8 an L stage
+  // the L-streamed and K-split routes: bytes of a slot of the ring (an L
+  // stage), column panels (of 2·nsub columns; of nsub on the K-split
+  // route), k-steps of 8 an L stage
   int lstage, panels, lkc;
 };
 
@@ -1296,14 +1313,14 @@ int stream_width(int P) {
   return best;
 }
 
-// The prologue: L's halves into `out` in the L-streamed route's stage order
-// (stage s = panel·chunks + chunk: the big half, then the small half, each
-// krows k-rows × 2·nsub columns in split_l's layout), `total` elements of a
-// half in all.
-__global__ void split_l_stages(const float* __restrict__ L, int P, int nsub,
+// The prologue: L's halves into `out` in the stage order of the L-streamed
+// and the K-split routes (stage s = panel·chunks + chunk: the big half, then
+// the small half, each krows k-rows × `cols` columns in split_l's layout),
+// `total` elements of a half in all. A panel is 2·N columns on the
+// L-streamed route (two consumers' halves), N on the K-split route.
+__global__ void split_l_stages(const float* __restrict__ L, int P, int cols,
                                int krows, int chunks, int total,
                                float* __restrict__ out) {
-  const int cols = 2 * nsub;
   const int half = krows * cols;  // floats of a stage's half
   for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < total;
        e += gridDim.x * blockDim.x) {
@@ -1566,19 +1583,21 @@ bool plan_stream(int P, int optin, Plan* out) {
   return false;
 }
 
-// Bytes of the scratch that holds L's split stages.
+// Bytes of the scratch that holds L's split stages (the L-streamed and the
+// K-split routes).
 size_t stream_scratch_bytes(const Plan& plan) {
   return (size_t)plan.panels * (plan.Kp / (8 * plan.lkc)) * plan.lstage;
 }
 
-// The prologue alone: L's split stages into `scratch`.
+// The prologue alone: L's split stages into `scratch` (a stage's columns:
+// its bytes over the two halves' 4-B elements of 8·lkc k-rows).
 cudaError_t split_for_stream(const float* prec_chol, const Plan& plan,
                              float* scratch, cudaStream_t stream) {
   const int total = (int)(stream_scratch_bytes(plan) / 8);
   const int blocks = std::min((total + 255) / 256, 1024);
   split_l_stages<<<blocks, 256, 0, stream>>>(
-      prec_chol, plan.P, plan.nsub, 8 * plan.lkc, plan.Kp / (8 * plan.lkc),
-      total, scratch);
+      prec_chol, plan.P, plan.lstage / (64 * plan.lkc), 8 * plan.lkc,
+      plan.Kp / (8 * plan.lkc), total, scratch);
   return cudaGetLastError();
 }
 
@@ -1653,6 +1672,555 @@ cudaError_t stream_occupancy(const Plan& plan, int* clusters) {
   return cudaErrorInvalidValue;
 }
 #undef MCMCPP_STREAM_WIDTHS
+
+// ===========================================================================
+// The K-split route: the product's K split over a thread-block cluster
+// ===========================================================================
+//
+// Past the widths the L-streamed route takes (P > 784 on an H100) its 64-row
+// Y tile no longer fits beside two slots of its ring. Here a cluster of c
+// blocks (4, or 8 where a block of 4 does not fit three ring slots beside
+// panels of N >= 64: on an H100 from P = 1025) shares a tile of 128
+// walker rows by splitting the product's K, so that each block keeps only a
+// k-slice of the tile's Y:
+// - The clusters are persistent: cluster q walks tiles q, q + Q, …, every
+//   block of it the same tile at the same time. Block r holds columns
+//   k0(r) … k1(r) − 1 of the tile's 128 proposal rows: whole chunks of
+//   8·KC k-rows (KC = 4 k-steps, 2 where only those fit), chunks/c each,
+//   the first chunks % c blocks one more, at route 0's bank-safe row stride
+//   (≡ 8 mod 16 floats). The slice's padding columns hold each row's
+//   scalars, which no product reads.
+// - A prologue of the same launch (split_l_stages, as on the L-streamed
+//   route) splits L once into its TF32 halves, in scratch the caller
+//   allocates, one stage for each column panel of N columns and each chunk
+//   of k-rows: one contiguous, 16-B aligned run, one cp.async.bulk a stage.
+//   The blocks read different rows of L, so nothing is multicast; the split
+//   L (8 MB at P = 1000) stays in the 50 MB L2.
+// - Warp 8, the producer, fills one ring in the consumers' order: the
+//   tile's walker stages (this block's slice of each X row and of its
+//   partner row: one run a row and array, a producer lane each, its 16-B
+//   aligned middle by cp.async.bulk and its head and tail by 4-B cp.async,
+//   at the source's offset from 16 B in the slot), then for each panel the
+//   block's L stages.
+// - Warps 0–7, two consumer warpgroups, form the slice of Y = p + z·(X − p)
+//   (z drawn by every block for all 128 rows, z and ue by the reducer for
+//   its own: Philox needs no exchange) and write the X slice to the output
+//   rows (as if rejected);
+//   then each takes 64 rows of every panel: S_r = Y[:, slice r]·L[slice r,
+//   panel] as 3xTF32 wgmma m64nNk8, A from the Y slice split in registers,
+//   B from the staged halves, a partial a stage added into S_r (Product).
+//   Both read every L stage, so each byte of L that enters an SM serves 128
+//   walkers.
+// - The partial products are reduced in distributed shared memory: block r
+//   owns rows 128·r/c … 128·(r + 1)/c − 1 of the tile. After each panel
+//   every consumer warp stores its fragment of S_r (16 rows × N) into the
+//   owner's exchange area by st.async (16 B a store, in the fragment's
+//   layout), completing as transaction bytes on the owner's mbarrier; a
+//   warp sends the next panel only once every owner has read this one (a
+//   barrier of c remote arrivals). Warp 9, the owner's reducer, adds the c
+//   partials of each element in rank order, S = ((S_0 + S_1) + S_2) + …,
+//   whatever its own rank, and squares the panel's columns into its rows'
+//   sums in the consumers' order (Product::squares): one order whatever
+//   cluster takes the tile, so row shards equal one launch bit for bit. It
+//   issues an element's c loads before adding them.
+// - After the last panel the reducer decides its rows, writes their logp
+//   and flag, and stores the accept flags into every block of the cluster
+//   (st.async on each block's barrier); each block then writes its slice of
+//   the accepted rows' Y.
+// - What bounds it: the 3xTF32 product (n·6P² FLOP); an SM takes in
+//   8·P²/c bytes of L per tile for 768·P²/c FLOP, half the L-streamed
+//   route's intake per FLOP. What holds it back (PERF.md §6): the
+//   ring's handshake a stage, both consumer warpgroups with the producer
+//   (the wgmma loop alone reaches 62–75% of the bound, with the handshakes
+//   but no data 48–51%), the exchange's round trip a panel, and a tile's
+//   formation, which waits for the last tile's product (one Y slice).
+
+// cluster sizes the plan tries, smallest first, and the ring slots each
+// needs: clusters of 4 only with three slots or more (PERF.md §6)
+constexpr int kKsplitClusters[] = {4, 8};
+constexpr int kKsplitMinSlots[] = {3, 2};
+// walker rows of a cluster's tile: two consumer warpgroups' wgmma M
+constexpr int kKsplitRows = 2 * kTileRows;
+// consumer warps (two warpgroups), then the producer and the reducer warps
+constexpr int kKsplitConsumerWarps = 8;
+constexpr int kThreadsKsplit = 32 * kKsplitConsumerWarps + 64;
+// walker rows a stage at most: a producer lane for each row's X run and
+// one for its partner run
+constexpr int kKsplitMaxStageRows = 16;
+
+// The wgmma N (a panel's columns) of the K-split route; the plan tries
+// those of at least kKsplitWideN with either cluster size before a
+// narrower one (N = 48 measured slower than a cluster of 8 with N = 80 on
+// an H100 at P = 1100–1280, where a cluster of 4 fits only N <= 56 in
+// three slots; PERF.md §6).
+#define MCMCPP_KSPLIT_WIDTHS(X) X(80) X(72) X(64) X(56) X(48)
+constexpr int kKsplitWidths[] = {80, 72, 64, 56, 48};
+constexpr int kKsplitWideN = 64;
+
+// The head and tail of a run of `count` floats (or all of it where it has
+// no 16-B aligned middle) by 4-B cp.async from this lane; returns the bytes
+// of the middle, which piece_bulk copies. dst ≡ src (mod 16 B).
+__device__ __forceinline__ unsigned run_scalars(float* dst, const float* src,
+                                                int count) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
+  const uintptr_t b = a + 4ull * (unsigned)count;
+  const uintptr_t a16 = (a + 15) & ~(uintptr_t)15, b16 = b & ~(uintptr_t)15;
+  const bool bulk = b16 > a16;
+  const int head = bulk ? (int)((a16 - a) >> 2) : count;
+  const int tail = bulk ? (int)((b - b16) >> 2) : 0;
+  for (int e = 0; e < head; ++e) cp_async4_to(dst + e, src + e);
+  for (int e = count - tail; e < count; ++e) cp_async4_to(dst + e, src + e);
+  return bulk ? (unsigned)(b16 - a16) : 0u;
+}
+
+// The reducer's sum of one panel's partials of its FRAGS fragments (16 rows
+// × NJ·8 columns each, in the consumers' fragment layout: `area` at this
+// lane's 4 floats), C blocks' in rank order, ((S_0 + S_1) + S_2) + …, each
+// square folded into the rows' sums in the consumers' order
+// (Product::squares). The C loads of an element are issued before its sum.
+template <int C, int FRAGS, int NJ>
+__device__ __forceinline__ void reduce_partials(const float* area,
+                                                float (&qs)[2][2]) {
+#pragma unroll
+  for (int f = 0; f < FRAGS; ++f) {
+#pragma unroll 3
+    for (int j = 0; j < NJ; ++j) {
+      float4 v[C];
+#pragma unroll
+      for (int r = 0; r < C; ++r) {
+        v[r] = *reinterpret_cast<const float4*>(
+            area + ((r * FRAGS + f) * NJ + j) * 128);
+      }
+      float4 s = v[0];
+#pragma unroll
+      for (int r = 1; r < C; ++r) {
+        s.x += v[r].x;
+        s.y += v[r].y;
+        s.z += v[r].z;
+        s.w += v[r].w;
+      }
+      qs[f][0] = fmaf(s.x, s.x, qs[f][0]);
+      qs[f][0] = fmaf(s.y, s.y, qs[f][0]);
+      qs[f][1] = fmaf(s.z, s.z, qs[f][1]);
+      qs[f][1] = fmaf(s.w, s.w, qs[f][1]);
+    }
+  }
+}
+
+template <int NSUB, int KC>
+__global__ void __launch_bounds__(kThreadsKsplit, 1)
+wide_ksplit_kernel(const float* __restrict__ act,
+                   const float* __restrict__ lp_old,
+                   const float* __restrict__ other,
+                   const int* __restrict__ shift, unsigned long long key,
+                   const float* __restrict__ lsplit,
+                   float* __restrict__ out_act, float* __restrict__ out_lp,
+                   int* __restrict__ out_acc, int n, long long row0,
+                   long long m, float a, const Plan plan, int loads_only) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int kKRows = 8 * KC;         // k-rows of a chunk (an L stage)
+  constexpr int kJ = NSUB / 8;           // 8-column blocks of a panel
+  constexpr int kThreadsC = 32 * kKsplitConsumerWarps;
+  const int P = plan.P, ys = plan.ystride, C = plan.cluster;
+  const int S = plan.slots, SR = plan.sr, area = plan.area;
+  const int pad = ys - 8;  // a row's scalars: z, its runs' offsets, its flag
+  const int chunks = plan.Kp / kKRows;
+  const unsigned rank = cluster_rank();
+  const long long cid = cluster_index(), ncl = cluster_count();
+  // this block's chunks of K: chunks / C, the first chunks % C blocks one
+  // more
+  const int q = chunks / C, rem = chunks % C;
+  const int c0 = (int)rank * q + min((int)rank, rem);
+  const int my_chunks = q + ((int)rank < rem ? 1 : 0);
+  const int k0 = c0 * kKRows;                       // the slice's first column
+  const int wr = min(P - k0, my_chunks * kKRows);   // its columns below P
+  const int own = kKsplitRows / C;                  // rows a block owns
+  const int frags = own / 16;                       // their 16-row fragments
+  const long long n_tiles = (n + kKsplitRows - 1) / kKsplitRows;
+  const unsigned slot_bytes = plan.lstage;
+  // partials of one panel an owner receives: c blocks × its rows × N
+  const unsigned xbytes = 4u * kKsplitRows * NSUB;
+  float* yt = reinterpret_cast<float*>(smem + plan.off_y);
+  // [rank][fragment][kJ][32 lanes][4]
+  float* xch = reinterpret_cast<float*>(smem + plan.off_xch);
+  unsigned char* ring = smem + plan.off_ring;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + plan.off_bar);
+  uint64_t* empty = full + kMaxSlots;
+  uint64_t* xfull = empty + kMaxSlots;  // a panel's partials of the own rows
+  uint64_t* xfree = xfull + 1;          // every owner has read a panel's
+  uint64_t* flagged = xfree + 1;        // the tile's accept flags landed
+  auto row_at = [&](int r) { return yt + r * ys + pad; };
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) {
+    for (int s = 0; s < kMaxSlots; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kKsplitConsumerWarps);
+    }
+    mbar_init(xfull, 1);
+    mbar_init(xfree, C);  // the reducer of every block
+    mbar_init(flagged, 1);
+    mbar_init_fence();
+    mbar_arrive_expect_tx(xfull, xbytes);  // the first panel's partials
+  }
+  // the Y slice zeroed once: its columns past P stay zero
+  for (int e = tid; e < kKsplitRows * ys; e += blockDim.x) yt[e] = 0.0f;
+  __syncthreads();
+  // every block's barriers exist before a peer's store or arrival reaches
+  // them
+  cluster_sync();
+
+  if (warp == kKsplitConsumerWarps) {
+    // ---------------- producer: every stage, in the consumers' order -----
+    const int sh = *shift;
+    const unsigned char* lsrc = reinterpret_cast<const unsigned char*>(lsplit);
+    int g = 0;
+    for (long long tile = cid; tile < n_tiles; tile += ncl) {
+      const long long i0 = tile * kKsplitRows;
+      const int rows = (int)min((long long)kKsplitRows, (long long)n - i0);
+      for (int st = 0; st * SR < rows; ++st, ++g) {
+        const int slot = g % S, round = g / S;
+        if (round > 0) mbar_wait(&empty[slot], (round - 1) & 1);
+        const int rs = min(SR, rows - st * SR);
+        float* ax = reinterpret_cast<float*>(ring + (size_t)slot * slot_bytes);
+        // lane l < rs: the X run of the stage's row l; rs <= l < 2·rs: the
+        // partner run of row l − rs
+        const bool mine = lane < 2 * rs;
+        const bool part = lane >= rs;
+        const int r = part ? lane - rs : lane;
+        const float* src = nullptr;
+        float* dst = nullptr;
+        unsigned bytes = 0;
+        if (mine) {
+          const long long gr = i0 + st * SR + r;
+          src = part ? other + partner_row(row0 + gr, sh, m) * P + k0
+                     : act + gr * P + k0;
+          dst = ax + (part ? SR + r : r) * area + align_off(src);
+          bytes = run_scalars(dst, src, wr);
+        }
+        cp_async_arrive(&full[slot]);
+        const unsigned total = __reduce_add_sync(0xffffffffu, bytes);
+        if (lane == 0) mbar_arrive_expect_tx(&full[slot], total);
+        __syncwarp();
+        if (mine) piece_bulk(dst, src, wr, &full[slot]);
+      }
+      for (int pn = 0; pn < plan.panels; ++pn) {
+        const unsigned char* stages =
+            lsrc + ((size_t)pn * chunks + c0) * slot_bytes;
+        for (int ch = 0; ch < my_chunks; ++ch, ++g) {
+          const int slot = g % S, round = g / S;
+          if (round > 0) mbar_wait(&empty[slot], (round - 1) & 1);
+          if (lane == 0) {
+            mbar_arrive_expect_tx(&full[slot], slot_bytes);
+            bulk_load(ring + (size_t)slot * slot_bytes,
+                      stages + (size_t)ch * slot_bytes, slot_bytes,
+                      &full[slot]);
+          }
+          __syncwarp();
+        }
+      }
+    }
+    cp_async_wait_all();
+  } else if (warp == kKsplitConsumerWarps + 1) {
+    // ---------------- reducer: the partials of this block's rows ---------
+    const int g = lane >> 2, t = lane & 3;
+    const int first = (int)rank * own;  // this block's rows of a tile
+    int panel = 0;
+    for (long long tile = cid; tile < n_tiles; tile += ncl) {
+      const long long i0 = tile * kKsplitRows;
+      const int rows = (int)min((long long)kKsplitRows, (long long)n - i0);
+      // rows first + 16f + g (h = 0) and + 8 (h = 1) of fragment f
+      float qs[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+      for (int pn = 0; pn < plan.panels; ++pn, ++panel) {
+        mbar_wait(xfull, panel & 1);
+        if (C == 4) {
+          reduce_partials<4, 2, kJ>(xch + lane * 4, qs);
+        } else {
+          reduce_partials<8, 1, kJ>(xch + lane * 4, qs);
+        }
+        __syncwarp();
+        // the next panel's partials may land from now on
+        if (lane == 0) mbar_arrive_expect_tx(xfull, xbytes);
+        if (lane < C) mbar_arrive_cluster(map_rank(smem_addr(xfree), lane));
+      }
+#pragma unroll
+      for (int f = 0; f < 2; ++f) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          qs[f][h] += __shfl_xor_sync(0xffffffffu, qs[f][h], 1);
+          qs[f][h] += __shfl_xor_sync(0xffffffffu, qs[f][h], 2);
+        }
+      }
+      if (t == 0) {
+#pragma unroll
+        for (int f = 0; f < 2; ++f) {
+          if (f >= frags) break;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = first + 16 * f + g + 8 * h;
+            float flag = 0.0f;
+            if (r < rows) {
+              const long long i = i0 + r;
+              const float lo = lp_old[i];
+              // z and ue drawn here too: the same Philox words as the
+              // consumers'
+              const float2 uu =
+                  unit_uniforms(key, (unsigned long long)(row0 + i));
+              // loads only: lp_new = lp_old, the decision by the factor
+              // alone
+              const float lp_new = loads_only ? lo : -0.5f * qs[f][h];
+              const bool accept = stretch_accepts(
+                  uu.y, (float)(P - 1) * logf(stretch_z(uu.x, a)), lp_new, lo);
+              out_lp[i] = accept ? lp_new : lo;
+              out_acc[i] = accept ? 1 : 0;
+              flag = accept ? 1.0f : 0.0f;
+            }
+            const unsigned at = smem_addr(row_at(r) + 2);
+            for (int b = 0; b < C; ++b) {
+              st_async_cluster(map_rank(at, b), flag,
+                               map_rank(smem_addr(flagged), b));
+            }
+          }
+        }
+      }
+      __syncwarp();
+    }
+  } else {
+    // ---------------- consumers ----------------
+    const int ci = warp >> 2, wq = warp & 3, ct = tid;  // ct: 0 … 255
+    const int g = lane >> 2, t = lane & 3;
+    const float* yrow = yt + (kTileRows * ci + 16 * wq + g) * ys + 2 * t;
+    // a stage's n-blocks of 8 columns (kKRows k-rows each), the small half
+    // after the big
+    constexpr unsigned kNBlock = kKRows * 8 * 4;
+    const unsigned half = slot_bytes / 2;
+    // this warp's rows go to the block that owns them: the slot of this
+    // block's rank, the fragment of those rows
+    const int owner = 16 * warp / own, f = 16 * warp % own / 16;
+    const unsigned xdst = map_rank(
+        smem_addr(xch + (((size_t)rank * frags + f) * kJ) * 128 + lane * 4),
+        owner);
+    const unsigned xbar = map_rank(smem_addr(xfull), owner);
+    const int sh = *shift;
+    auto release = [&](int slot) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[slot]);
+    };
+    int g_at = 0, panel = 0, j = 0;
+    for (long long tile = cid; tile < n_tiles; tile += ncl, ++j) {
+      const long long i0 = tile * kKsplitRows;
+      const int rows = (int)min((long long)kKsplitRows, (long long)n - i0);
+      // the flags of this tile, which the owners store
+      if (ct == 0) mbar_arrive_expect_tx(flagged, 4 * kKsplitRows);
+      if (ct < rows) {
+        const long long gr = i0 + ct;
+        const float2 uu = unit_uniforms(key, (unsigned long long)(row0 + gr));
+        float* rv = row_at(ct);
+        rv[0] = stretch_z(uu.x, a);
+        // the row's X and partner runs' offsets from 16 B in the slot
+        const float* p = other + partner_row(row0 + gr, sh, m) * P + k0;
+        rv[1] = __int_as_float(align_off(act + gr * P + k0) +
+                               4 * align_off(p));
+      }
+      named_bar(1, kThreadsC);
+
+      // this block's slice of the proposal rows into the Y slice, of X
+      // into the output rows
+      for (int st = 0; st * SR < rows; ++st, ++g_at) {
+        const int slot = g_at % S;
+        mbar_wait(&full[slot], (g_at / S) & 1);
+        const int rs = min(SR, rows - st * SR);
+        const float* ax =
+            reinterpret_cast<const float*>(ring + (size_t)slot * slot_bytes);
+        float* out = out_act + (i0 + st * SR) * P + k0;
+        for (TileWalk<1> w(wr, ct, kThreadsC); w.e < rs * wr; w.next(wr)) {
+          float* yr = yt + (st * SR + w.row) * ys;
+          const int offs = __float_as_int(yr[pad + 1]);
+          const float x = ax[w.row * area + (offs & 3) + w.k];
+          const float p = ax[(SR + w.row) * area + (offs >> 2) + w.k];
+          yr[w.k] = fmaf(yr[pad], x - p, p);
+          out[(long long)w.row * P + w.k] = x;
+        }
+        release(slot);
+      }
+      named_bar(1, kThreadsC);
+
+      // S_r = Y[:, slice]·L[slice, panel] panel by panel (3xTF32 on wgmma),
+      // each panel's partial sent to the rows' owners
+      for (int pn = 0; pn < plan.panels; ++pn, ++panel) {
+        Product<NSUB> prod;
+        for (int ch = 0; ch < my_chunks; ++ch, ++g_at) {
+          const int slot = g_at % S;
+          mbar_wait(&full[slot], (g_at / S) & 1);
+          if (!loads_only) {
+            const unsigned lb = smem_addr(ring) + slot * slot_bytes;
+            prod.template group<KC>(yrow, ys, kKRows * ch, lb, lb + half, 0,
+                                    kNBlock);
+          }
+          release(slot);
+        }
+        // every owner has read the last panel's partials
+        if (panel > 0) mbar_wait(xfree, (panel - 1) & 1);
+#pragma unroll
+        for (int jj = 0; jj < kJ; ++jj) {
+          st_async_cluster_v4(xdst + 512 * jj, prod.acc[4 * jj],
+                              prod.acc[4 * jj + 1], prod.acc[4 * jj + 2],
+                              prod.acc[4 * jj + 3], xbar);
+        }
+      }
+
+      // the accepted rows get this block's slice of Y
+      mbar_wait(flagged, j & 1);
+      float* out = out_act + i0 * P + k0;
+      for (TileWalk<1> w(wr, ct, kThreadsC); w.e < rows * wr; w.next(wr)) {
+        const float* yr = yt + w.row * ys;
+        if (yr[pad + 2] != 0.0f) out[(long long)w.row * P + w.k] = yr[w.k];
+      }
+      named_bar(1, kThreadsC);
+    }
+  }
+  // no block exits while a peer may still store into its shared memory or
+  // arrive on its barriers
+  cluster_sync();
+}
+
+// The K-split route's plan at P with L stages of kc k-steps, clusters of
+// kKsplitClusters[ci] blocks and panels of nsub columns, on a device whose
+// blocks may have `optin` bytes of shared memory: each block holds its Y
+// slice of 128 rows (the widest slice, ⌈chunks / c⌉ chunks; a row's
+// scalars in its padding), the exchange area of one panel's partials of its
+// own rows (c · 128/c rows × N floats) and one ring of at least
+// kKsplitMinSlots[ci] slots, each an L stage (at most kMaxSlots); a walker
+// stage takes as many rows (at most kKsplitMaxStageRows) as their X and
+// partner runs fit a slot. False where they do not fit.
+bool plan_ksplit_at(int P, int optin, int kc, int ci, int nsub, Plan* out) {
+  const int krows = 8 * kc, c = kKsplitClusters[ci];
+  const int chunks = (P + krows - 1) / krows;
+  if (chunks < c) return false;
+  const int wpad = (chunks + c - 1) / c * krows;  // the widest slice
+  Plan p = {};
+  p.P = P;
+  p.nsub = nsub;
+  p.panels = (P + nsub - 1) / nsub;
+  p.cluster = c;
+  p.lkc = kc;
+  p.Kp = chunks * krows;
+  p.ystride = wpad + 8;  // wpad ≡ 0 (mod 16): ≡ 8, room for 8 scalars
+  p.lstage = 2 * 4 * krows * nsub;
+  p.off_y = 0;
+  p.off_xch = 4 * kKsplitRows * p.ystride;
+  p.off_bar = p.off_xch + 4 * kKsplitRows * nsub;
+  p.off_ring = round_up(p.off_bar + 8 * (2 * kMaxSlots + 3), 128);
+  const int slots = std::min(kMaxSlots, (optin - p.off_ring) / p.lstage);
+  // a walker row in a slot: its run at the source's offset from 16 B
+  p.area = round_up(std::min(wpad, P), 4) + 4;
+  const int sr = std::min(kKsplitMaxStageRows, p.lstage / (8 * p.area));
+  if (slots < kKsplitMinSlots[ci] || sr < 1) return false;
+  p.slots = slots;
+  p.sr = sr;
+  p.smem = p.off_ring + slots * p.lstage;
+  *out = p;
+  return true;
+}
+
+// The plan of the K-split route at P: the first that fits of L stages of
+// four k-steps, then of two; N of at least kKsplitWideN, then narrower;
+// clusters of 4, then of 8 blocks; and those N in the order of the columns
+// their panels pad P to (the fewest first, the wider of a tie). False where
+// none fits.
+bool plan_ksplit(int P, int optin, Plan* out) {
+  if (P < 1) return false;
+  constexpr int kWidths = sizeof(kKsplitWidths) / sizeof(int);
+  int widths[kWidths];
+  for (int i = 0; i < kWidths; ++i) widths[i] = kKsplitWidths[i];
+  std::stable_sort(widths, widths + kWidths, [P](int x, int y) {
+    return x * ((P + x - 1) / x) < y * ((P + y - 1) / y);
+  });
+  for (int kc : kStreamKcs) {
+    for (int narrow = 0; narrow < 2; ++narrow) {
+      for (int ci = 0; ci < 2; ++ci) {
+        for (int nsub : widths) {
+          if ((nsub < kKsplitWideN) == (narrow == 1) &&
+              plan_ksplit_at(P, optin, kc, ci, nsub, out)) {
+            return true;
+          }
+        }
+      }
+    }
+  }
+  return false;
+}
+
+template <int NSUB, int KC>
+cudaError_t ksplit_clusters(const Plan& plan, int* clusters) {
+  static bool asked[kMaxDevices] = {};
+  static int known[kMaxDevices][2] = {};
+  return max_active_clusters(wide_ksplit_kernel<NSUB, KC>, kThreadsKsplit,
+                             plan, asked, known, clusters);
+}
+
+template <int NSUB, int KC>
+cudaError_t launch_ksplit(const float* act, const float* lp_old,
+                          const float* other, const int* shift,
+                          unsigned long long key, const float* prec_chol,
+                          float* out_act, float* out_lp, int* out_acc, int n,
+                          long long row0, long long m, float a,
+                          const Plan& plan, float* scratch, int loads_only,
+                          cudaStream_t stream) {
+  int clusters = 0;
+  cudaError_t err = ksplit_clusters<NSUB, KC>(plan, &clusters);
+  if (err != cudaSuccess) return err;
+  // no cluster of this shape fits the device: refused, no other route
+  if (clusters < 1) return cudaErrorLaunchOutOfResources;
+  err = split_for_stream(prec_chol, plan, scratch, stream);
+  if (err != cudaSuccess) return err;
+  const long long n_tiles = (n + kKsplitRows - 1) / kKsplitRows;
+  const int grid = (int)std::min((long long)clusters, n_tiles);
+  ClusterLaunch l(grid * plan.cluster, kThreadsKsplit, plan.smem,
+                  plan.cluster, stream);
+  err = cudaLaunchKernelEx(&l.cfg, wide_ksplit_kernel<NSUB, KC>, act, lp_old,
+                           other, shift, key, (const float*)scratch, out_act,
+                           out_lp, out_acc, n, row0, m, a, plan, loads_only);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+cudaError_t launch_ksplit_planned(const float* act, const float* lp_old,
+                                  const float* other, const int* shift,
+                                  unsigned long long key,
+                                  const float* prec_chol, float* out_act,
+                                  float* out_lp, int* out_acc, int n,
+                                  long long row0, long long m, float a,
+                                  const Plan& plan, float* scratch,
+                                  int loads_only, cudaStream_t stream) {
+#define MCMCPP_KS(NS)                                                        \
+  if (plan.nsub == NS) {                                                     \
+    return plan.lkc == 4                                                     \
+               ? launch_ksplit<NS, 4>(act, lp_old, other, shift, key,        \
+                                      prec_chol, out_act, out_lp, out_acc,   \
+                                      n, row0, m, a, plan, scratch,          \
+                                      loads_only, stream)                    \
+               : launch_ksplit<NS, 2>(act, lp_old, other, shift, key,        \
+                                      prec_chol, out_act, out_lp, out_acc,   \
+                                      n, row0, m, a, plan, scratch,          \
+                                      loads_only, stream);                   \
+  }
+  MCMCPP_KSPLIT_WIDTHS(MCMCPP_KS)
+#undef MCMCPP_KS
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t ksplit_occupancy(const Plan& plan, int* clusters) {
+#define MCMCPP_KS(NS)                                                 \
+  if (plan.nsub == NS) {                                              \
+    return plan.lkc == 4 ? ksplit_clusters<NS, 4>(plan, clusters)     \
+                         : ksplit_clusters<NS, 2>(plan, clusters);    \
+  }
+  MCMCPP_KSPLIT_WIDTHS(MCMCPP_KS)
+#undef MCMCPP_KS
+  return cudaErrorInvalidValue;
+}
+#undef MCMCPP_KSPLIT_WIDTHS
 
 // ===========================================================================
 // The mma.sync kernel: every P the kernels above do not take
@@ -2207,14 +2775,15 @@ enum Route {
   kRouteTile = 1,
   kRouteStream = 2,
   kRouteCluster = 3,
-  kRouteLStream = 4
+  kRouteLStream = 4,
+  kRouteKSplit = 5
 };
 
 // The route at P on this device: the warp-specialised kernel where plan_for
 // takes P, else the cluster kernel where plan_cluster does, else the
-// L-streamed kernel where plan_stream does (`plan` for any of the three),
-// else the mma.sync kernel with the Y tile or, past its shared memory, with
-// Y streamed.
+// L-streamed kernel where plan_stream does, else the K-split kernel where
+// plan_ksplit does (`plan` for any of the four), else the mma.sync kernel
+// with the Y tile or, past its shared memory, with Y streamed.
 cudaError_t route(int P, Plan* plan, Route* which) {
   int optin = 0;
   const cudaError_t err = smem_optin(&optin);
@@ -2225,6 +2794,8 @@ cudaError_t route(int P, Plan* plan, Route* which) {
     *which = kRouteCluster;
   } else if (plan_stream(P, optin, plan)) {
     *which = kRouteLStream;
+  } else if (plan_ksplit(P, optin, plan)) {
+    *which = kRouteKSplit;
   } else {
     *which = wide_smem_bytes(P, false, 1) > (size_t)optin ? kRouteStream
                                                           : kRouteTile;
@@ -2255,13 +2826,14 @@ int launch(const float* act, const float* lp_old, const float* other,
                                        prec_chol, out_act, out_lp, out_acc, n,
                                        row0, m, a, plan, loads_only, stream);
   }
-  if (which == kRouteLStream) {
+  if (which == kRouteLStream || which == kRouteKSplit) {
     // L's split stages go to the caller's scratch: none, no launch
     if (scratch == nullptr) return (int)cudaErrorInvalidValue;
-    return (int)launch_stream_planned(
-        act, lp_old, other, shift, key, prec_chol, out_act, out_lp, out_acc,
-        n, row0, m, a, plan, static_cast<float*>(scratch), loads_only,
-        stream);
+    auto planned = which == kRouteLStream ? launch_stream_planned
+                                          : launch_ksplit_planned;
+    return (int)planned(act, lp_old, other, shift, key, prec_chol, out_act,
+                        out_lp, out_acc, n, row0, m, a, plan,
+                        static_cast<float*>(scratch), loads_only, stream);
   }
   if (loads_only) return (int)cudaErrorInvalidValue;
   return (int)launch_shape(act, lp_old, other, shift, key, prec_chol, out_act,
@@ -2273,15 +2845,17 @@ int launch(const float* act, const float* lp_old, const float* other,
 // The block the wide kernel launches at dimension P on the current device,
 // as ten ints: route (0: warp-specialised, wgmma; 1: mma.sync with the Y
 // tile; 2: mma.sync with Y streamed; 3: wgmma on a thread-block cluster; 4:
-// wgmma with L streamed), dynamic shared memory (bytes), walkers a block
-// holds at once, rows a walker stage and stages a ring (a consumer's on
-// route 0; on route 4 the one ring's slots, each a walker stage or an L
-// stage), wgmma N (a block's columns of S on route 3, a consumer's of a
-// panel on route 4; 0 where these do not apply), blocks a cluster (1 but on
-// routes 3 and 4), the clusters the device holds at once (routes 3 and 4; 0
-// elsewhere), the k-steps of 8 in an L stage and the bytes of L's split
-// stages that the caller allocates as scratch (route 4; 0 elsewhere).
-// Returns a cudaError_t.
+// wgmma with L streamed; 5: wgmma with K split over a thread-block
+// cluster), dynamic shared memory (bytes), walkers a block holds at once
+// (on route 5 the rows of its Y slice: a cluster's tile), rows a walker
+// stage and stages a ring (a consumer's on route 0; on routes 4 and 5 the
+// one ring's slots, each a walker stage or an L stage), wgmma N (a block's
+// columns of S on route 3, a consumer's of a panel on routes 4 and 5; 0
+// where these do not apply), blocks a cluster (1 but on routes 3, 4 and 5),
+// the clusters the device holds at once (routes 3, 4 and 5; 0 elsewhere),
+// the k-steps of 8 in an L stage and the bytes of L's split stages that the
+// caller allocates as scratch (routes 4 and 5; 0 elsewhere). Returns a
+// cudaError_t.
 extern "C" int mcmcpp_fused_stretch_wide_layout(int P, int* out) {
   if (P <= 0) return (int)cudaErrorInvalidValue;
   Plan plan;
@@ -2296,15 +2870,17 @@ extern "C" int mcmcpp_fused_stretch_wide_layout(int P, int* out) {
     for (int i = 0; i < 6; ++i) out[i] = v[i];
     return 0;
   }
-  if (which == kRouteCluster || which == kRouteLStream) {
+  if (which == kRouteCluster || which == kRouteLStream ||
+      which == kRouteKSplit) {
     int clusters = 0;
-    err = which == kRouteCluster ? cluster_occupancy(plan, &clusters)
-                                 : stream_occupancy(plan, &clusters);
+    err = which == kRouteCluster  ? cluster_occupancy(plan, &clusters)
+          : which == kRouteLStream ? stream_occupancy(plan, &clusters)
+                                   : ksplit_occupancy(plan, &clusters);
     if (err != cudaSuccess) return (int)err;
-    const bool streamed = which == kRouteLStream;
+    const bool streamed = which != kRouteCluster;
     const int v[10] = {which,
                        plan.smem,
-                       kTileRows,
+                       which == kRouteKSplit ? kKsplitRows : kTileRows,
                        plan.sr,
                        plan.slots,
                        plan.nsub,
@@ -2338,8 +2914,8 @@ extern "C" int mcmcpp_fused_stretch_wide_layout(int P, int* out) {
 // `shift` points at one int32 (any value); `key` is the half-step's Philox
 // key, local walker i drawing its u and ue from (key, row0 + i). `scratch`
 // holds the bytes mcmcpp_fused_stretch_wide_layout gives (out[9]), 16-B
-// aligned, where that is not 0 (route 4 writes L's split stages there; a
-// null scratch refuses the launch), else may be null. Returns the launch's
+// aligned, where that is not 0 (routes 4 and 5 write L's split stages
+// there; a null scratch refuses the launch), else may be null. Returns the launch's
 // cudaError_t (0 on success).
 extern "C" int mcmcpp_fused_stretch_wide_f32(
     const float* act, const float* lp_old, const float* other,
@@ -2352,12 +2928,12 @@ extern "C" int mcmcpp_fused_stretch_wide_f32(
 
 // Debug entry for measurement, not called by the port: the wgmma kernels'
 // loads and stores without their product: every X and partner run through
-// the ring (on route 4 also every stage of L through its ring, after the
-// prologue), the proposal rows (on route 3 also sent between the blocks of
-// the cluster, whose exchange of the row sums runs on zeros), X and the
-// accepted rows written, lp_new taken as lp_old (so the decisions follow
-// the factor alone). Refuses (cudaErrorInvalidValue) a P the mma.sync
-// kernel takes.
+// the ring (on routes 4 and 5 also every stage of L through its ring, after
+// the prologue), the proposal rows (on route 3 also sent between the blocks
+// of the cluster, whose exchange of the row sums runs on zeros; on route 5
+// the exchange of the partial products runs on zeros), X and the accepted
+// rows written, lp_new taken as lp_old (so the decisions follow the factor
+// alone). Refuses (cudaErrorInvalidValue) a P the mma.sync kernel takes.
 extern "C" int mcmcpp_fused_stretch_wide_loads_only_f32(
     const float* act, const float* lp_old, const float* other,
     const int* shift, unsigned long long key, const float* prec_chol,
@@ -2367,9 +2943,9 @@ extern "C" int mcmcpp_fused_stretch_wide_loads_only_f32(
                 out_acc, n, row0, m, P, a, stream, scratch, 1);
 }
 
-// Debug entry for measurement, not called by the port: route 4's prologue
-// alone, L's split stages into `scratch` (the layout's out[9] bytes).
-// Refuses (cudaErrorInvalidValue) a P that route 4 does not take.
+// Debug entry for measurement, not called by the port: the prologue of
+// routes 4 and 5 alone, L's split stages into `scratch` (the layout's
+// out[9] bytes). Refuses (cudaErrorInvalidValue) a P that neither takes.
 extern "C" int mcmcpp_fused_stretch_wide_split_l_f32(const float* prec_chol,
                                                      int P, void* scratch,
                                                      void* stream) {
@@ -2378,7 +2954,9 @@ extern "C" int mcmcpp_fused_stretch_wide_split_l_f32(const float* prec_chol,
   Route which = kRouteTile;
   const cudaError_t err = route(P, &plan, &which);
   if (err != cudaSuccess) return (int)err;
-  if (which != kRouteLStream) return (int)cudaErrorInvalidValue;
+  if (which != kRouteLStream && which != kRouteKSplit) {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)split_for_stream(prec_chol, plan, static_cast<float*>(scratch),
                                static_cast<cudaStream_t>(stream));
 }

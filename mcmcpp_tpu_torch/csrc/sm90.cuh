@@ -175,6 +175,18 @@ __device__ __forceinline__ void st_async_cluster(unsigned addr, float v,
       : "memory");
 }
 
+// Four floats (16 B; `addr` 16-B aligned) stored as st_async_cluster stores
+// one: 16 transaction bytes on the peer's mbarrier `bar`.
+__device__ __forceinline__ void st_async_cluster_v4(unsigned addr, float a,
+                                                    float b, float c, float d,
+                                                    unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(addr),
+      "f"(a), "f"(b), "f"(c), "f"(d), "r"(bar)
+      : "memory");
+}
+
 // Arrive on a peer's mbarrier (a map_rank address). Release at CTA scope,
 // the default: this thread's reads of its own shared memory are done before
 // the peer, once its wait completes, overwrites them (a bulk copy). (At

@@ -11,13 +11,16 @@ version, and the logp picks the kernel, one of three routes:
   the fused kernel (``csrc/fused_stretch.cu``);
 - a wider GaussianTarget: one launch a half-step of the wide kernel
   (``csrc/fused_stretch_wide.cu``: Y·L as 3xTF32 on the tensor cores, any
-  P), by one of its four kernels (``ops/fused_stretch.WIDE_ROUTES``): on an
+  P), by one of its five kernels (``ops/fused_stretch.WIDE_ROUTES``): on an
   H100 to P = 117 a warp-specialised block an SM with L resident in shared
   memory (``wgmma``), to P = 296 the same on thread-block clusters, each
   block holding a column slice of L, to P = 784 a block an SM with its Y
   tile resident and L, split once a launch into scratch, streamed through a
-  ring shared by a cluster's blocks (``wgmma``), and wider the ``mma.sync``
-  kernel with L streamed through shared memory;
+  ring shared by a cluster's blocks (``wgmma``), to P = 2944 the product's
+  K split over a thread-block cluster, each block with a k-slice of a
+  128-row Y tile and its rows of L streamed, the partial products added in
+  rank order through distributed shared memory (``wgmma``), and wider the
+  ``mma.sync`` kernel with L streamed through shared memory;
 - any other logp: the propose and accept kernels around the torch logp
   (``csrc/stretch_split.cu``).
 

@@ -52,10 +52,15 @@ against its plain version run on those planes.
      prologue splits L once a launch into scratch this module allocates,
      in the order of its stages, which a producer warp bulk-copies,
      multicast to a cluster's blocks, into the ring that also takes the
-     walker rows, under two consumer warpgroups' wgmma); wider still a
-     block of 64
-     walkers with its Y tile, or past P ≈ 825 on an H100 with Y streamed
-     through the output rows, takes it with mma.sync and L streamed;
+     walker rows, under two consumer warpgroups' wgmma); wider, while a
+     cluster's k-slices of a 128-row Y tile fit (P = 785–2944 on an H100:
+     ``WIDE_ROUTES[5]``), the K-split kernel (each block of a cluster of
+     4 or 8 keeps its k-slice of the tile's Y and streams its rows of L,
+     split by the same prologue, under two consumer warpgroups' wgmma; the
+     partial products of each column panel are added in rank order by the
+     blocks that own their rows, through distributed shared memory); wider
+     still a block of 64 walkers with Y streamed through the output rows
+     takes it with mma.sync and L streamed;
   3. any other batched logp takes the split path of ``csrc/
      stretch_split.cu``: the propose kernel, the logp as torch ops on the
      current stream, then the accept kernel (the Pallas kernel traced the
@@ -249,17 +254,17 @@ def _launch_wide(active, active_logp, other, shift, key, prec_chol, a,
 #: the routes of the wide kernel, by the number ``wide_layout`` gives
 WIDE_ROUTES = ("wgmma, warp-specialised", "mma.sync, Y tile",
                "mma.sync, Y streamed", "wgmma, thread-block cluster",
-               "wgmma, L streamed")
+               "wgmma, L streamed", "wgmma, K split over a cluster")
 
 #: bytes of L's split stages the wide kernel needs as scratch, by (device
-#: index, P): 0 but on the L-streamed route
+#: index, P): 0 but on the L-streamed and K-split routes
 _SCRATCH_BYTES = {}
 
 
 def _wide_scratch(p, device):
     """The scratch of a wide launch at width ``p`` on ``device``: a new
     ``torch.empty`` buffer where the library's route writes L's split stages
-    there (the L-streamed route), else None."""
+    there (the L-streamed and K-split routes), else None."""
     at = (torch.device(device).index, p)
     if at not in _SCRATCH_BYTES:
         _SCRATCH_BYTES[at] = wide_layout(p, device)["scratch_bytes"]
@@ -272,16 +277,17 @@ def _wide_scratch(p, device):
 def wide_layout(p, device="cuda"):
     """The block the wide kernel launches at width ``p`` on ``device``, as
     the library plans it: route (an index of ``WIDE_ROUTES``), dynamic
-    shared memory in bytes, walkers a block holds at once, for the wgmma
+    shared memory in bytes, walkers a block holds at once (on the K-split
+    route the 128 rows of its Y slice, a cluster's tile), for the wgmma
     kernels rows a walker stage, stages a ring (a consumer's on the
-    warp-specialised route; on the L-streamed route the one ring's slots,
-    each a walker stage or a stage of L) and wgmma N (a block's columns of
-    S on the cluster route, a consumer's of a panel on the L-streamed
-    route; 0 elsewhere), blocks a cluster (1 but on the cluster and
-    L-streamed routes), the clusters the device holds at once (those two
-    routes; 0 elsewhere), the k-steps of 8 in a stage of L and the bytes of
-    L's split stages, the launch's scratch (the L-streamed route; 0
-    elsewhere)."""
+    warp-specialised route; on the L-streamed and K-split routes the one
+    ring's slots, each a walker stage or a stage of L) and wgmma N (a
+    block's columns of S on the cluster route, a consumer's of a panel on
+    the L-streamed and K-split routes; 0 elsewhere), blocks a cluster (1
+    but on the cluster, L-streamed and K-split routes), the clusters the
+    device holds at once (those three routes; 0 elsewhere), the k-steps of
+    8 in a stage of L and the bytes of L's split stages, the launch's
+    scratch (the L-streamed and K-split routes; 0 elsewhere)."""
     import ctypes
 
     from mcmcpp_tpu_torch._build import load_library
@@ -299,10 +305,11 @@ def wide_layout(p, device="cuda"):
 
 
 def wide_split_l(prec_chol):
-    """The L-streamed route's prologue alone on a CUDA ``prec_chol`` (P, P):
-    L's split stages, as the wide kernel writes them into its scratch, for
-    measuring what the prologue takes. Nothing in the port calls it; it
-    counts no launch. Raises where that route does not take P."""
+    """The prologue of the L-streamed and K-split routes alone on a CUDA
+    ``prec_chol`` (P, P): L's split stages, as the wide kernel writes them
+    into its scratch, for measuring what the prologue takes. Nothing in the
+    port calls it; it counts no launch. Raises where neither route takes
+    P."""
     from mcmcpp_tpu_torch._build import load_library
 
     p = prec_chol.shape[0]
@@ -311,7 +318,8 @@ def wide_split_l(prec_chol):
     with torch.cuda.device(prec_chol.device):
         scratch = _wide_scratch(p, prec_chol.device)
         if scratch is None:
-            raise RuntimeError(f"the L-streamed route does not take P={p}")
+            raise RuntimeError(f"neither the L-streamed nor the K-split "
+                               f"route takes P={p}")
         err = load_library().mcmcpp_fused_stretch_wide_split_l_f32(
             prec_chol.data_ptr(), p, scratch.data_ptr(),
             _stream(prec_chol.device))
@@ -327,8 +335,9 @@ def wide_loads_only(active, active_logp, other, shift, key, prec_chol, a=2.0,
     library's debug entry point, on CUDA tensors: for measuring what the
     loads alone take on the wgmma routes (on the cluster route with the
     proposal rows sent between the blocks and the exchange of the row
-    sums, on the L-streamed route with the prologue and every stage of L
-    through its ring). lp_new is taken as lp_old,
+    sums, on the L-streamed and K-split routes with the prologue and every
+    stage of L through its ring, on the K-split route with the exchange of
+    the partial products). lp_new is taken as lp_old,
     so its outputs are not a half-step's. Nothing in the port calls it; it
     counts no launch."""
     key = _check_key(key)

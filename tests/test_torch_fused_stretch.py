@@ -14,6 +14,8 @@ JAX is imported inside the helpers only, so the ``cuda`` test runs on a
 machine that has no JAX.
 """
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -28,6 +30,12 @@ FLOOR = 2.0 ** -25
 # float32 ULP-level agreement: the same formula, one matmul summed in
 # another order
 RTOL = ATOL = 1e-6
+
+#: a panel's wgmma N on the K-split route (``MCMCPP_KSPLIT_WIDTHS``)
+KSPLIT_WIDTHS = (80, 72, 64, 56, 48)
+#: the widest P whose K-split plan fits an H100's block (a cluster of 8,
+#: stages of two k-steps, N = 48)
+KSPLIT_WIDEST = 2944
 
 
 def _prec_chol(p, seed):
@@ -284,7 +292,9 @@ def _assert_near_reference(target, args, key, k_out, skip=None):
 @pytest.mark.parametrize("shift", ["mid", "last"])
 @pytest.mark.parametrize("p", [33, 64, 65, 66, 67, 100, 112, 113, 117, 118,
                                128, 200, 257, 296, 297, 298, 299, 300, 384,
-                               512, 577, 704, 784, 785])
+                               512, 577, 704, 784, 785, 786, 787, 788, 1000,
+                               1024, 1025, 1536, KSPLIT_WIDEST,
+                               KSPLIT_WIDEST + 1])
 def test_wide_gaussian_launches_one_wide_kernel_on_card(cuda_device, p,
                                                         shift):
     """A GaussianTarget with P > ``fs.MAX_P`` (16, the fused kernel's own
@@ -293,9 +303,10 @@ def test_wide_gaussian_launches_one_wide_kernel_on_card(cuda_device, p,
     The widths take each of the kernel's routes on an H100 (warp-specialised
     to P = 117, thread-block clusters of 2, 4 and 8 blocks from 118 to 296,
     L streamed from 297 to 784 (N = 80, 64, 80, 72, 56; stages of four
-    k-steps, of two at P = 577–784), the mma.sync kernel's 64-walker block
-    past that) and every P mod 4 at the routes' edges, so that the runs
-    start at every offset from a 16-B boundary."""
+    k-steps, of two at P = 577–784), K split over clusters of 4 blocks from
+    785 to 1024 and of 8 to ``KSPLIT_WIDEST``, the mma.sync kernel past
+    that) and every P mod 4 at the routes' edges, so that the runs start at
+    every offset from a 16-B boundary."""
     target, args, key = _wide_case(cuda_device, 3000, p, shift, seed=p)
     before = dict(fs.LAUNCHES)
     k_out = fs.fused_stretch_half(*args, key=key, logp_fn=target)
@@ -310,12 +321,13 @@ def test_wide_gaussian_launches_one_wide_kernel_on_card(cuda_device, p,
 def test_wide_kernel_streams_y_past_its_tile_on_card(cuda_device, shift):
     """At P = 1000 the Y tile of 64 walkers no longer fits beside the
     L-streamed route's ring (it stops at P = 784 on an H100) nor in the
-    mma.sync kernel's block, so the wide kernel streams Y through the
-    output rows: one launch a half-step through the dispatch, held to the
-    plain version."""
+    mma.sync kernel's block, which streamed Y through the output rows
+    before the K-split route: now each block of a cluster keeps a k-slice
+    of a 128-row Y tile. One launch a half-step through the dispatch, held
+    to the plain version."""
     p = 1000
     assert fs.WIDE_ROUTES[fs.wide_layout(p, cuda_device)["route"]] == (
-        "mma.sync, Y streamed")
+        "wgmma, K split over a cluster")
     target, args, key = _wide_case(cuda_device, 1000, p, shift, seed=p)
     before = dict(fs.LAUNCHES)
     k_out = fs.fused_stretch_half(*args, key=key, logp_fn=target)
@@ -441,16 +453,60 @@ def _stream_plan(p, optin=H100_SMEM):
     return None
 
 
+def _ksplit_plan(p, optin=H100_SMEM):
+    """``plan_ksplit`` of ``csrc/fused_stretch_wide.cu`` at width p, for a P
+    that the routes before it do not take (p > 784 on an H100): (blocks a
+    cluster c, a panel's N, k-steps of 8 an L stage, slots of the ring, rows
+    a walker stage), the first fit of L stages of four k-steps then two, N
+    of at least 64 then narrower, clusters of 4 then 8, and those N in the
+    order of the columns its panels pad P to (the fewest first, the wider
+    of a tie), whose block holds the
+    widest k-slice of the 128-row Y tile (⌈chunks / c⌉ chunks of 8·kc
+    k-rows, row stride + 8), one panel's partials of its own rows (128·N
+    floats) and a ring of L stages, three or more for clusters of 4, two or
+    more for clusters of 8; a walker stage as many rows (at most 16) as
+    their X and partner runs (each at its offset from 16 B) fit a slot;
+    None where none fits."""
+    widths = sorted(KSPLIT_WIDTHS, key=lambda n: n * -(-p // n))
+    for kc, narrow, (c, need) in itertools.product(
+            (4, 2), (False, True), ((4, 3), (8, 2))):
+        chunks = -(-p // (8 * kc))
+        if chunks >= c:
+            wpad = -(-chunks // c) * 8 * kc
+            for nsub in (n for n in widths if (n < 64) == narrow):
+                lstage = 64 * kc * nsub
+                off = 4 * 128 * (wpad + 8) + 4 * 128 * nsub + 8 * 19
+                slots = min(8, (optin - -(-off // 128) * 128) // lstage)
+                area = -(-min(wpad, p) // 4) * 4 + 4
+                sr = min(16, lstage // (8 * area))
+                if slots >= need and sr >= 1:
+                    return c, nsub, kc, slots, sr
+    return None
+
+
+def _ksplit_slices(p):
+    """The k-rows [k0, k1) of each block of the K-split route's cluster at
+    width p: chunks of 8·kc k-rows, chunks // c a block and one more for
+    each of the first chunks % c blocks, cut at P."""
+    c, _, kc = _ksplit_plan(p)[:3]
+    chunks = -(-p // (8 * kc))
+    q, rem = divmod(chunks, c)
+    starts = [8 * kc * (r * q + min(r, rem)) for r in range(c + 1)]
+    return [(k0, min(k1, p)) for k0, k1 in zip(starts[:-1], starts[1:])]
+
+
 def _wide_route(p, optin=H100_SMEM):
     """The wide kernel's route at width p, as ``route`` in
     ``csrc/fused_stretch_wide.cu`` picks it: "ws" (the warp-specialised
-    block), "cluster", "stream" (L streamed) or "mma" (the mma.sync
-    kernel)."""
+    block), "cluster", "stream" (L streamed), "ksplit" (K split over a
+    cluster) or "mma" (the mma.sync kernel)."""
     if _ws_plan(p, optin):
         return "ws"
     if _cluster_plan(p, optin):
         return "cluster"
-    return "stream" if _stream_plan(p, optin) else "mma"
+    if _stream_plan(p, optin):
+        return "stream"
+    return "ksplit" if _ksplit_plan(p, optin) else "mma"
 
 
 def _wide_width(p):
@@ -459,13 +515,16 @@ def _wide_width(p):
     ``csrc/fused_stretch_wide.cu``: P rounded up to 16, at least 32) where
     ``plan_for`` takes P (P <= 117 with an H100's 232,448 B a block), a
     cluster block's slice where ``plan_cluster`` does (to P = 296), a
-    consumer's half of a panel on the L-streamed route (to P = 784), else
-    the mma.sync kernel's panels of 64."""
+    consumer's half of a panel on the L-streamed route (to P = 784), a
+    panel on the K-split route (to ``KSPLIT_WIDEST``), else the mma.sync
+    kernel's panels of 64."""
     route = _wide_route(p)
     if route == "ws":
         return _ws_plan(p)
     if route == "cluster":
         return _cluster_plan(p)[1]
+    if route == "ksplit":
+        return _ksplit_plan(p)[1]
     return _stream_plan(p)[0] if route == "stream" else 64
 
 
@@ -474,9 +533,11 @@ def _wide_group(p):
     p (``Product::KG``): on the warp-specialised and cluster routes four
     where the wgmma is at most 80 wide, two to 112, one past (as the A
     fragments of the group fit beside the accumulators); on the L-streamed
-    route an L stage's (four, or two where only those fit); one in the
-    mma.sync kernel."""
+    and K-split routes an L stage's (four, or two where only those fit);
+    one in the mma.sync kernel."""
     route = _wide_route(p)
+    if route == "ksplit":
+        return _ksplit_plan(p)[2]
     if route in ("stream", "mma"):
         return _stream_plan(p)[1] if route == "stream" else 1
     n = _wide_width(p)
@@ -487,6 +548,13 @@ def _wide_slices(p):
     """Blocks whose partial row sums the wide kernel adds at width p: a
     cluster's c on the cluster route, else 1."""
     return _cluster_plan(p)[0] if _wide_route(p) == "cluster" else 1
+
+
+def _wide_kslices(p):
+    """The k-rows whose products the wide kernel sums apart at width p
+    before adding them in rank order: each block's k-slice on the K-split
+    route (``_ksplit_slices``), else all of K."""
+    return _ksplit_slices(p) if _wide_route(p) == "ksplit" else [(0, p)]
 
 
 def _wide_consumers(p):
@@ -515,7 +583,7 @@ def _row_squares(acc, width):
 
 
 def _quad_3xtf32(y, L, partials=True, width=None, group=None, slices=None,
-                 consumers=None):
+                 consumers=None, kslices=None):
     """The wide kernel's lp = −½‖y·L‖² as its tensor cores compute it: per
     k-step of 8, the three TF32 products small·big, big·small and big·big,
     each summed exactly (float64 holds a TF32 product and a sum of eight)
@@ -532,21 +600,28 @@ def _quad_3xtf32(y, L, partials=True, width=None, group=None, slices=None,
     ``consumers`` 2 (``_wide_consumers(P)`` by default: the L-streamed
     route), consumer c sums the squares of columns c·width … of each panel
     of 2·width columns, panel by panel, and the row's sum is consumer 0's
-    plus consumer 1's."""
+    plus consumer 1's. With ``kslices`` (``_wide_kslices(P)`` by default:
+    each block's k-rows on the K-split route, else all of K), the groups of
+    each k-slice are summed into that slice's S from zero, and the slices'
+    S are added in rank order, ((S_0 + S_1) + S_2) + …, before the
+    squares."""
     yb, ys = _split(y)
     lb, ls = _split(L)
     p = L.shape[0]
     group = group or _wide_group(p)
-    acc = np.zeros((y.shape[0], p), np.float32)
-    for g0 in range(0, p, 8 * group):
-        part = np.zeros_like(acc) if partials else acc
-        for k0 in range(g0, min(p, g0 + 8 * group), 8):
-            k = slice(k0, k0 + 8)
-            for a, b in ((ys, lb), (yb, ls), (yb, lb)):
-                part = _sum_truncated(
-                    part,
-                    a[:, k].astype(np.float64) @ b[k].astype(np.float64))
-        acc = (acc + part).astype(np.float32) if partials else part
+    acc = None
+    for k_lo, k_hi in kslices or _wide_kslices(p):
+        s_r = np.zeros((y.shape[0], p), np.float32)
+        for g0 in range(k_lo, k_hi, 8 * group):
+            part = np.zeros_like(s_r) if partials else s_r
+            for k0 in range(g0, min(k_hi, g0 + 8 * group), 8):
+                k = slice(k0, k0 + 8)
+                for a, b in ((ys, lb), (yb, ls), (yb, lb)):
+                    part = _sum_truncated(
+                        part,
+                        a[:, k].astype(np.float64) @ b[k].astype(np.float64))
+            s_r = (s_r + part).astype(np.float32) if partials else part
+        acc = s_r if acc is None else (acc + s_r).astype(np.float32)
     width = width or _wide_width(p)
     slices = slices or _wide_slices(p)
     consumers = consumers or _wide_consumers(p)
@@ -640,11 +715,12 @@ def test_3xtf32_cluster_slices_keep_float32_accuracy(slices):
 
 
 def test_3xtf32_partials_keep_float32_accuracy_at_large_k():
-    """At P = 1000 (the width past the Y tile, where the kernel streams Y)
-    the kernel's product still holds rtol = 1e-5 against float64 and the
-    plain float32 forward, because each k-step's products go into a zeroed
-    partial; accumulated into S itself, each mma's truncated sum is a bias
-    toward zero that grows with K and misses it."""
+    """At P = 1000 (the K-split route: four k-slices of 256 k-rows) the
+    kernel's product still holds rtol = 1e-5 against float64 and the plain
+    float32 forward, because each group of k-steps' products goes into a
+    zeroed partial; accumulated into S itself in one pass over K, each
+    mma's truncated sum is a bias toward zero that grows with K and misses
+    it."""
     p = 1000
     L = _prec_chol(p, seed=p)
     _, y = _inputs(256, p, seed=p)
@@ -657,7 +733,7 @@ def test_3xtf32_partials_keep_float32_accuracy_at_large_k():
         got = _quad_3xtf32(y, L, group=group)
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
         np.testing.assert_allclose(got, plain, rtol=1e-5, atol=0)
-    in_s = _quad_3xtf32(y, L, partials=False)
+    in_s = _quad_3xtf32(y, L, partials=False, kslices=[(0, p)])
     assert np.max(np.abs(in_s / want - 1)) > 1e-5
 
 
@@ -701,8 +777,8 @@ def test_stream_plan_on_an_h100(p, plan):
     72 at 704, 56 at 784; four slots of L stages of four k-steps at P = 384,
     three at 297 and 512, stages of two k-steps at 577 (a slot of four does
     not fit twice beside the Y tile); walker stages of 17 rows at 297, 7 at
-    512, 2 at 784; the mma.sync kernel takes P = 785."""
-    route = {296: "cluster", 785: "mma"}.get(p, "stream")
+    512, 2 at 784; the K-split route takes P = 785."""
+    route = {296: "cluster", 785: "ksplit"}.get(p, "stream")
     assert _wide_route(p) == route
     if plan is not None:
         assert _stream_plan(p) == plan
@@ -711,18 +787,20 @@ def test_stream_plan_on_an_h100(p, plan):
         assert _stream_plan(p) is None
 
 
-def _stream_stages(L, nsub, kc):
+def _stream_stages(L, nsub, kc, cols=None):
     """The L-streamed route's scratch as its prologue (``split_l_stages``)
-    writes it for stages of kc k-steps: for each panel of 2·nsub columns and
-    each chunk of 8·kc k-rows, the big half (L rounded to TF32) then the
-    small half (the exact float32 remainder), each n-block of 8 columns
-    holding its k-rows at (k / 4)·32 + (n % 8)·4 + k % 4, the rows of each
-    k-step in the A fragment's order (row 2t at position t, 2t + 1 at
-    t + 4), zeros past P."""
+    writes it for stages of kc k-steps: for each panel of ``cols`` columns
+    (2·nsub by default; the K-split route's panels are nsub) and each chunk
+    of 8·kc k-rows, the big half (L rounded to TF32) then the small half
+    (the exact float32 remainder), each n-block of 8 columns holding its
+    k-rows at (k / 4)·32 + (n % 8)·4 + k % 4, the rows of each k-step in
+    the A fragment's order (row 2t at position t, 2t + 1 at t + 4), zeros
+    past P."""
     p, rows = L.shape[0], 8 * kc
+    cols = cols or 2 * nsub
     kp = -(-p // rows) * rows
-    panels = -(-p // (2 * nsub))
-    full = np.zeros((kp, panels * 2 * nsub), np.float32)
+    panels = -(-p // cols)
+    full = np.zeros((kp, panels * cols), np.float32)
     full[:p, :p] = L
     big = _tf32(full)
     small = full - big
@@ -731,9 +809,9 @@ def _stream_stages(L, nsub, kc):
     j = kl & 7
     k = (kl & ~7) + np.where(j < 4, 2 * j, 2 * (j - 4) + 1)
     return np.concatenate([
-        half[ch * rows + k, pn * 2 * nsub + nb * 8 + r]
+        half[ch * rows + k, pn * cols + nb * 8 + r]
         for pn in range(panels) for ch in range(kp // rows)
-        for half in (big, small) for nb in range(2 * nsub // 8)])
+        for half in (big, small) for nb in range(cols // 8)])
 
 
 @pytest.mark.parametrize("p", [297, 300, 577, 784])
@@ -791,11 +869,136 @@ def test_stream_prologue_matches_its_emulation_on_card(cuda_device, p):
     assert np.array_equal(got.cpu().numpy().view(np.uint32),
                           want.view(np.uint32))
 
+def _full_l(p):
+    """A precision factor with an upper triangle too (the kernel takes the
+    whole matrix): the lower factor plus a tenth of its transpose above the
+    diagonal."""
+    L = _prec_chol(p, seed=p)
+    return (L + 0.1 * np.triu(L.T, 1)).astype(np.float32)
+
+
+@pytest.mark.parametrize("p", [785, 800, 1000, 1536, KSPLIT_WIDEST])
+def test_3xtf32_ksplit_route_keeps_float32_accuracy(p):
+    """On the K-split route (P = 785 to ``KSPLIT_WIDEST`` on an H100) each
+    block's product over its k-slice (a partial for each L stage's k-steps,
+    four or two), the slices' sums added in rank order and the squares
+    over panels of N columns hold rtol = 1e-5 against float64 and the plain
+    float32 forward, with a full L, as do partials of one k-step; TF32
+    alone misses it."""
+    assert _wide_route(p) == "ksplit" and _wide_consumers(p) == 1
+    assert len(_wide_kslices(p)) == _ksplit_plan(p)[0]
+    L = _full_l(p)
+    _, y = _inputs(32, p, seed=p)
+    want = _logp_np(y, L).astype(np.float64)
+    plain = GaussianTarget(L, device="cpu")(torch.from_numpy(y)).numpy()
+    for group in sorted({1, _wide_group(p)}):
+        got = _quad_3xtf32(y, L, group=group)
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
+        np.testing.assert_allclose(got, plain, rtol=1e-5, atol=0)
+    yb, lb = _tf32(y), _tf32(L)
+    tf32_only = -0.5 * np.sum((yb.astype(np.float64) @ lb) ** 2, -1)
+    assert np.max(np.abs(tf32_only / want - 1)) > 1e-5
+
+
+@pytest.mark.parametrize("p,plan", [(784, "stream"),
+                                    (785, (4, 72, 4, 4, 10)),
+                                    (1000, (4, 72, 4, 3, 8)),
+                                    (1024, (4, 64, 4, 3, 7)),
+                                    (1025, (8, 80, 4, 5, 15)),
+                                    (1280, (8, 80, 4, 5, 15)),
+                                    (1536, (8, 64, 4, 5, 10)),
+                                    (KSPLIT_WIDEST, (8, 48, 2, 2, 2)),
+                                    (KSPLIT_WIDEST + 1, None)])
+def test_ksplit_plan_on_an_h100(p, plan):
+    """The K-split route's plan with an H100's shared memory: it takes every
+    P from 785 (where the L-streamed route's Y tile no longer fits) to
+    ``KSPLIT_WIDEST``: clusters of 4 blocks to P = 1024 (N = 72 at 785 and
+    1000, four and three slots of L stages of four k-steps; a Y slice of
+    7 chunks of 32 k-rows at 785, split 7/6/6/6), where three slots fit
+    with N >= 64; clusters of 8 from 1025 (N = 80 to 1280); stages of two
+    k-steps and N = 48 only near the widest P; the mma.sync kernel past
+    it."""
+    if plan == "stream":
+        assert _wide_route(p) == "stream" and _ksplit_plan(p) is not None
+        return
+    assert _wide_route(p) == ("ksplit" if plan else "mma")
+    assert _ksplit_plan(p) == plan
+    if plan is None:
+        assert all(_ksplit_plan(q) for q in range(785, p))
+        return
+    c, nsub, kc = plan[:3]
+    assert _wide_width(p) == nsub and _wide_group(p) == kc
+    assert _wide_slices(p) == 1 and _wide_consumers(p) == 1
+    bounds = _ksplit_slices(p)
+    assert len(bounds) == c and bounds[0][0] == 0 and bounds[-1][1] == p
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    chunks = [-(-(k1 - k0) // (8 * kc)) for k0, k1 in bounds]
+    assert max(chunks) - min(chunks) <= 1 and chunks == sorted(chunks)[::-1]
+    if p == 785:
+        assert bounds == [(0, 224), (224, 416), (416, 608), (608, 785)]
+
+
+@pytest.mark.parametrize("p", [785, 1000, 1025, 1536])
+def test_ksplit_stages_feed_each_block_in_wgmma_order(p):
+    """L's split stages in panels of N columns (``_stream_stages`` with
+    ``cols`` = N) read as block r of the K-split route's cluster reads them:
+    stage pn·chunks + c0(r) + ch for its chunks ch of each panel pn in
+    turn, both consumers' B at byte 0 of a stage's half, k-step i at
+    256·i, core matrices 128 B apart in K and 256·kc B apart in N, a core
+    matrix's row n and column k at 16·(n % 8) + 4·(k % 4), each k-step's A
+    the Y slice's columns in the fragment's order, big + small summed
+    exactly: the blocks' products summed over the cluster are every
+    panel's columns of Y·L, zeros past P."""
+    _, nsub, kc = _ksplit_plan(p)[:3]
+    rows, sbo = 8 * kc, 256 * kc
+    L = _full_l(p)
+    stages = _stream_stages(L, nsub, kc, cols=nsub)
+    chunks, panels = -(-p // rows), -(-p // nsub)
+    y = np.random.default_rng(p).normal(size=(8, chunks * rows))
+    y[:, p:] = 0.0
+    half = rows * nsub
+    kk, n = np.arange(8)[:, None], np.arange(nsub)[None, :]
+    a_cols = np.where(kk[:, 0] < 4, 2 * kk[:, 0], 2 * (kk[:, 0] - 4) + 1)
+    s = np.zeros((8, panels * nsub))
+    for k0, k1 in _ksplit_slices(p):
+        for pn in range(panels):
+            for ch in range(-(-(k1 - k0) // rows)):
+                st = stages[(pn * chunks + k0 // rows + ch) * 2 * half:]
+                for i in range(kc):
+                    at = (256 * i + (n // 8) * sbo + (kk // 4) * 128
+                          + (n % 8) * 16 + (kk % 4) * 4) // 4
+                    b = st[at].astype(np.float64) + st[half + at]
+                    s[:, pn * nsub + np.arange(nsub)] += (
+                        y[:, k0 + rows * ch + 8 * i + a_cols] @ b)
+    want = y[:, :p] @ L.astype(np.float64)
+    np.testing.assert_allclose(s[:, :p], want, rtol=1e-12, atol=1e-12)
+    assert not s[:, p:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [785, 1000, 1025, 1536, KSPLIT_WIDEST])
+def test_ksplit_prologue_matches_its_emulation_on_card(cuda_device, p):
+    """The K-split route's prologue (``fs.wide_split_l``: ``split_l_stages``
+    with panels of N columns) writes L's split stages bit for bit as
+    ``_stream_stages`` lays them out, with the layout's N and scratch
+    bytes."""
+    layout = fs.wide_layout(p, cuda_device)
+    assert fs.WIDE_ROUTES[layout["route"]] == "wgmma, K split over a cluster"
+    L = _full_l(p)
+    got = fs.wide_split_l(torch.from_numpy(L).to(cuda_device))
+    torch.cuda.synchronize()
+    want = _stream_stages(L, layout["wgmma_n"], layout["l_ksteps"],
+                          cols=layout["wgmma_n"])
+    assert got.numel() * 4 == layout["scratch_bytes"] == want.size * 4
+    assert np.array_equal(got.cpu().numpy().view(np.uint32),
+                          want.view(np.uint32))
+
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("p", [65, 66, 67, 100, 117, 118, 128, 200, 257,
                                296, 297, 298, 299, 300, 384, 512, 577, 784,
-                               785])
+                               785, 786, 787, 788, 1000, 1025, 1536,
+                               KSPLIT_WIDEST, KSPLIT_WIDEST + 1])
 def test_wide_kernel_unaligned_row_shards_on_card(cuda_device, p):
     """Row shards that start at rows which are not multiples of 4 (so at
     P = 65–67 the runs of X start off a 16-B boundary, their heads and
@@ -818,12 +1021,14 @@ def test_wide_kernel_unaligned_row_shards_on_card(cuda_device, p):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("p", [65, 100, 117, 118, 128, 200, 257, 296, 297,
-                               298, 384, 512, 577, 784, 785])
+                               298, 384, 512, 577, 784, 785, 786, 1000, 1025,
+                               1536, KSPLIT_WIDEST])
 def test_wide_kernel_ragged_tiles_and_nan_rows_on_card(cuda_device, p):
     """A launch whose blocks (or clusters) walk several tiles each and whose
     last tile is ragged (n = 64·301 + 17 rows over one block an SM; on the
     L-streamed route some blocks of a cluster have no last tile and still
-    take part in its stages of L), with
+    take part in its stages of L; on the K-split route a cluster's last
+    tile of 128 rows holds 81), with
     lp_old = −inf rows (which accept) and NaN rows of X (whose proposals are
     NaN: they reject and keep their row): held to the plain version."""
     n = 64 * 301 + 17
@@ -843,17 +1048,18 @@ def test_wide_kernel_ragged_tiles_and_nan_rows_on_card(cuda_device, p):
 
 @pytest.mark.cuda
 def test_wide_layout_matches_the_emulated_plan_on_card(cuda_device):
-    """The library's route at every P from 100 to 800 on this card is the
-    one ``_ws_plan``, ``_cluster_plan`` and ``_stream_plan`` emulate (with
-    the card's own shared memory): the warp-specialised block with its
-    wgmma N where it fits, else the cluster route with its blocks a cluster
-    and its columns a block where the emulation finds a plan, else the
-    L-streamed route with its N, ring and scratch, the mma.sync kernel
-    with the Y tile past it; and the device holds at least one cluster of
-    each."""
+    """The library's route at every P from 100 to 3000 on this card is the
+    one ``_ws_plan``, ``_cluster_plan``, ``_stream_plan`` and
+    ``_ksplit_plan`` emulate (with the card's own shared memory): the
+    warp-specialised block with its wgmma N where it fits, else the cluster
+    route with its blocks a cluster and its columns a block where the
+    emulation finds a plan, else the L-streamed route with its N, ring and
+    scratch, else the K-split route with its cluster, N, ring and scratch,
+    the mma.sync kernel past it; and the device holds at least one cluster
+    of each."""
     optin = torch.cuda.get_device_properties(
         cuda_device).shared_memory_per_block_optin
-    for p in range(100, 801):
+    for p in range(100, 3001):
         layout = fs.wide_layout(p, cuda_device)
         if _ws_plan(p, optin):
             assert fs.WIDE_ROUTES[layout["route"]] == (
@@ -874,8 +1080,21 @@ def test_wide_layout_matches_the_emulated_plan_on_card(cuda_device):
             assert layout["cluster"] in (1, 2, 4)
             assert layout["active_clusters"] >= 1
             continue
+        ksplit = _ksplit_plan(p, optin)
+        if plan is None and ksplit is not None:
+            assert fs.WIDE_ROUTES[layout["route"]] == (
+                "wgmma, K split over a cluster"), p
+            c, nsub, kc = ksplit[:3]
+            assert (layout["cluster"], layout["wgmma_n"], layout["l_ksteps"],
+                    layout["stages"], layout["stage_rows"],
+                    layout["block_walkers"]) == (*ksplit, 128), p
+            # panels × chunks × a stage's 2·4·8kc·N bytes
+            assert layout["scratch_bytes"] == (
+                -(-p // nsub) * -(-p // (8 * kc)) * 64 * kc * nsub), p
+            assert layout["active_clusters"] >= 1
+            continue
         if plan is None:
-            assert fs.WIDE_ROUTES[layout["route"]] == "mma.sync, Y tile", p
+            assert fs.WIDE_ROUTES[layout["route"]].startswith("mma.sync"), p
             assert layout["cluster"] == 1 and layout["scratch_bytes"] == 0
             continue
         assert fs.WIDE_ROUTES[layout["route"]] == (
@@ -925,14 +1144,17 @@ def _fake_cuda_half(monkeypatch, target, p):
                                      (297, "_launch_wide"),
                                      (384, "_launch_wide"),
                                      (512, "_launch_wide"),
+                                     (800, "_launch_wide"),
                                      (1000, "_launch_wide"),
+                                     (1536, "_launch_wide"),
                                      (100, "stretch_propose")])
 def test_cuda_dispatch_routes_without_card(monkeypatch, p, route):
     """On a CUDA tensor a GaussianTarget of P <= MAX_P (16) goes to the fused
     kernel, a wider one to the wide kernel (whose library picks the route:
     on an H100 the warp-specialised block to P = 117, the cluster route,
     index 3 of ``fs.WIDE_ROUTES``, to 296, the L-streamed route, index 4,
-    to 784, the mma.sync kernel past it), any other logp to the split pair;
+    to 784, the K-split route, index 5, to ``KSPLIT_WIDEST``, the mma.sync
+    kernel past it), any other logp to the split pair;
     without a card the launch raises (here the kernels cannot be built) and
     no other route is tried: a wide GaussianTarget never reaches the split
     kernels, and nothing counts a launch."""
@@ -943,6 +1165,7 @@ def test_cuda_dispatch_routes_without_card(monkeypatch, p, route):
               else (lambda x: -0.5 * torch.sum(x * x, -1)))
     assert fs.WIDE_ROUTES[3] == "wgmma, thread-block cluster"
     assert fs.WIDE_ROUTES[4] == "wgmma, L streamed"
+    assert fs.WIDE_ROUTES[5] == "wgmma, K split over a cluster"
     before = dict(fs.LAUNCHES)
     called, err = _fake_cuda_half(monkeypatch, target, p)
     assert called == [route]
