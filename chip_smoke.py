@@ -18,20 +18,23 @@ Builds the port's CUDA kernels from ``mcmcpp_tpu_torch/csrc/`` (into
    tile, a negative and an out-of-range shift; rows with lp_old = -inf);
    times both at the main path's shape. Then the wide kernel (a
    GaussianTarget wider than ``fs.MAX_P``): its routes from P = 100 to
-   3000, one launch a half-step and no other, against its plain version at
+   4096, one launch a half-step and no other, against its plain version at
    n = 2^20 and P = 65, 100 (its warp-specialised block), 128, 257 (thread-
-   block clusters), 297, 384, 512 (L streamed), 800, 1000 and 1536 (K split
-   over a cluster) and at edge shapes and shifts (the routes' first and widest
-   P, one past each; past the K-split route the mma.sync kernel with Y
-   streamed), 4 row shards against one launch (at rows that are multiples
-   of 4 and at rows that are not), the old split route bit for bit against
-   the plain version, and the kernel's time in turns beside its loads and
-   stores alone (a debug entry point without the product), the plain
-   version's and the split route's, with the bytes and the product bounds
-   apart, and the prologue alone of the routes that split L; and its main
-   path, the samplers on GaussianTargets of P = 100, 257, 512 and 1000 at
-   W = 2^21 in turns with the split route (walker-updates/s, acceptance
-   within 4 binomial SE, stored rows at P = 100);
+   block clusters), 297, 384, 512 (L streamed), 800, 1000, 1536 (K split
+   over a cluster) and 3000 (Y and L streamed, route 6) and at edge shapes
+   and shifts (the routes' first and widest P, one past each, 3000 and
+   4096), 4 row shards against one launch (at rows that are multiples of 4
+   and at rows that are not), the old split route bit for bit against the
+   plain version, the mma.sync kernel (which the dispatch no longer
+   reaches) forced through a debug entry point against its plain version,
+   and the kernel's time in turns beside its loads and stores alone (a
+   debug entry point without the product), the plain version's and the
+   split route's (route 6 also beside the forced mma.sync kernel), with the
+   bytes and the product bounds apart, and the prologue alone of the routes
+   that split L; and its main path, the samplers on GaussianTargets of
+   P = 100, 257, 512, 1000 and 3000 at W = 2^21 in turns with the split
+   route (walker-updates/s, acceptance within 4 binomial SE, stored rows
+   at P = 100);
 2b. holds the split path's propose and accept kernels (any torch logp)
    against their plain versions, each alone bit for bit: Neal's funnel at
    n = 2^20, P = 10 and at the edge shapes and shifts above, the Rosenbrock
@@ -363,14 +366,14 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def timed_ms(fn, iters, blocker):
-    """Mean ms per call of ``fn`` between CUDA events, after a warm-up, and
-    the host's microseconds to enqueue one call. The calls queue up behind
-    BLOCKER_FILLS fills of ``blocker`` (1 GiB: some 6 ms of device work), so
-    the device runs them back to back and the time between the events is
-    the device's, also when the host needs longer to enqueue a call than
-    the device to run it."""
-    for _ in range(3):
+def timed_ms(fn, iters, blocker, warmup=3):
+    """Mean ms per call of ``fn`` between CUDA events, after ``warmup``
+    calls, and the host's microseconds to enqueue one call. The calls queue
+    up behind BLOCKER_FILLS fills of ``blocker`` (1 GiB: some 6 ms of
+    device work), so the device runs them back to back and the time between
+    the events is the device's, also when the host needs longer to enqueue
+    a call than the device to run it."""
+    for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -387,14 +390,14 @@ def timed_ms(fn, iters, blocker):
     return start.elapsed_time(end) / iters, host_us
 
 
-def in_turns(fns, iters, blocker):
+def in_turns(fns, iters, blocker, warmup=3):
     """Mean ms per call of each of ``fns``, timed in turns a, b, …, …, b, a
     on one card: (the means in the order given, each one's two readings,
     each one's mean host microseconds per enqueue)."""
     order = list(fns) + list(reversed(fns))
     times, host = {}, {}
     for f in order:
-        ms, us = timed_ms(f, iters, blocker)
+        ms, us = timed_ms(f, iters, blocker, warmup)
         times.setdefault(f, []).append(ms)
         host.setdefault(f, []).append(us)
     return ([sum(times[f]) / 2 for f in fns], [times[f] for f in fns],
@@ -544,19 +547,24 @@ def compare_half(label, k_out, r_out, log_ratio, ue, must_accept=None,
     return err
 
 
-def kernel_case(fs, rnd, target, n, seed, neg_inf_every=0, shift=None):
+def kernel_case(fs, rnd, target, n, seed, neg_inf_every=0, shift=None,
+                half=None, name="fused"):
     """Fused kernel (uniforms from the key) vs plain version (the key's
-    planes) on one input set; returns (max_abs_err, tensor args, key,
-    planes)."""
+    planes) on one input set; ``half(*args, key)`` launches another kernel
+    in its place (``name`` in the printed label). Returns (max_abs_err,
+    tensor args, key, planes)."""
     args, key, (u, ue) = half_inputs(rnd, target.dim, n, seed, neg_inf_every,
                                      target, shift)
-    k_out = fs.fused_stretch_half(*args, key=key, logp_fn=target)
+    if half is None:
+        k_out = fs.fused_stretch_half(*args, key=key, logp_fn=target)
+    else:
+        k_out = half(*args, key)
     torch.cuda.synchronize()
     r_out = fs.fused_stretch_half_reference(*args, u, ue, logp_fn=target)
     _, _, log_ratio = fs.stretch_proposal(*args, u, logp_fn=target)
     torch.cuda.synchronize()
     neg = slice(None, None, neg_inf_every) if neg_inf_every else None
-    err = compare_half(f"fused n={n} P={target.dim} shift={int(args[3])}",
+    err = compare_half(f"{name} n={n} P={target.dim} shift={int(args[3])}",
                        k_out, r_out, log_ratio, ue, must_accept=neg)
     return err, args, key, (u, ue)
 
@@ -616,27 +624,38 @@ def split_case(fs, rnd, target, n, seed, neg_inf_every=0, nan_every=0,
 # checked and timed at (on an H100 P = 65 and 100 take its warp-specialised
 # wgmma block, 128 and 257 its thread-block clusters of 2 and 8 blocks, 297,
 # 384 and 512 its L-streamed route, 800, 1000 and 1536 its K-split route),
-# the routes from the sampler's width to WIDE_SCAN_TO (the L-streamed route
-# from P = WIDE_LSTREAM_FROM, just past the widest P the cluster route
-# takes, to the widest whose Y tile fits beside its rings, the K-split route
-# from the next P to the widest whose Y slice fits a cluster of 8, the
-# mma.sync kernel with Y streamed past it, all found on the card; the
-# mma.sync kernel checked at WIDE_STREAMED_P at n = 1000 and 4096 only), row
-# offsets of shards that are not multiples of 4, and its main path, the
-# sampler on GaussianTargets of P = 100, 257, 512 and 1000 at the flagship's
-# W: burn-in steps a reading (two readings a route, in turns with the split
-# route's) and, at P = 100, the stored steps after them (a row of 2^21
-# walkers at P = 257 is 2.2 GB, past a chain's 2 GiB cap)
+# with WIDE_TIMED_ITERS launches a reading; the routes from the sampler's
+# width to WIDE_SCAN_TO (the L-streamed route from P = WIDE_LSTREAM_FROM,
+# just past the widest P the cluster route takes, to the widest whose Y
+# tile fits beside its rings, the K-split route from the next P to the
+# widest whose Y slice fits a cluster of 8, route 6 (Y and L streamed) from
+# the next P on, all found on the card; the mma.sync kernel at no width);
+# route 6's widths (WIDE_YL_P: its first P on an H100, 3000 and 4096),
+# timed at 2^20 with WIDE_YL_ITERS launches a reading (the plain version
+# and the split route at 2^18 where 2^20 does not fit the card beside them,
+# P = 4096), route 6 held to the plain version at 2^20 and over 4 row
+# shards at WIDE_YL_SAMPLER_P, the mma.sync kernel forced
+# (``fs.wide_forced_mma``) at WIDE_YL_SAMPLER_P; row offsets of shards that
+# are not multiples of 4; and its main path, the sampler on GaussianTargets
+# of P = 100, 257, 512, 1000 and 3000 at the flagship's W: burn-in steps a
+# reading (WIDE_BURN, WIDE_YL_BURN at P = 3000; two readings a route, in
+# turns with the split route's) and, at P = 100, the stored steps after
+# them (a row of 2^21 walkers at P = 257 is 2.2 GB, past a chain's 2 GiB
+# cap)
 WIDE_P = (65, 100, 128, 257, 297, 384, 512, 800, 1000, 1536)
+WIDE_TIMED_ITERS = 10
 WIDE_ODD_SHARDS = (0, 262145, 524290, 786435)
-WIDE_STREAMED_P = 3000
 WIDE_LSTREAM_FROM = 297
 WIDE_KSPLIT_FROM = 785
-WIDE_SCAN_TO = 3000
+WIDE_YL_FROM = 2945
+WIDE_YL_P = (WIDE_YL_FROM, 3000, 4096)
+WIDE_YL_ITERS = 1
+WIDE_SCAN_TO = 4096
 WIDE_SAMPLER_P, WIDE_BURN, WIDE_STORE, WIDE_THIN = 100, 20, 4, 2
 WIDE_CLUSTER_SAMPLER_P = 257
 WIDE_LSTREAM_SAMPLER_P = 512
 WIDE_KSPLIT_SAMPLER_P = 1000
+WIDE_YL_SAMPLER_P, WIDE_YL_BURN = 3000, 5
 
 
 def launches_only(fs, **counts):
@@ -648,17 +667,20 @@ def wide_kernel(mt, fs, rnd, card, blocker):
     """Phase 2's wide block: the wide kernel against its plain version at
     n = 2^20 and the edge cases (one launch a half-step, no split launch),
     at the L-streamed and K-split routes' first and widest P and one past
-    each edge, also past the K-split route (the mma.sync kernel, Y
-    streamed), 4 row shards at offsets that are multiples of 4 and at
-    offsets that are not against one launch, the old split route (propose,
-    the torch logp, accept) bit for bit against the plain version, and the
-    kernel's time beside the plain version's and the split route's and, on
-    the wgmma routes, its loads alone (the debug entry without the
-    product), in turns, with the bytes and the product bounds apart, and
-    the prologue alone of the routes that split L; then its main path, the
-    sampler at P = 100, at P = 257 (the cluster route), at P = 512 (the
-    L-streamed route) and at P = 1000 (the K-split route) and W = 2^21
-    against the split route. Returns the kernel line's entry."""
+    each edge, route 6's first P and the next, 3000 and 4096, 4 row shards
+    at offsets that are multiples of 4 and at offsets that are not against
+    one launch, the old split route (propose, the torch logp, accept) bit
+    for bit against the plain version, and the kernel's time beside the
+    plain version's and the split route's and, on the wgmma routes, its
+    loads alone (the debug entry without the product), in turns, with the
+    bytes and the product bounds apart, and the prologue alone of the
+    routes that split L; route 6 at P = 3000 and n = 2^20 against its plain
+    version and over row shards, timed at its widths in turns with the
+    mma.sync kernel (forced: the dispatch reaches it at no width), which
+    is held to its plain version too; then its main path, the sampler at
+    P = 100, at P = 257 (the cluster route), at P = 512 (the L-streamed
+    route), at P = 1000 (the K-split route) and at P = 3000 (route 6) and
+    W = 2^21 against the split route. Returns the kernel line's entry."""
     dev = torch.device("cuda")
     n = 1 << 20
     errs, by_p = [], {}
@@ -687,9 +709,10 @@ def wide_kernel(mt, fs, rnd, card, blocker):
     # take, L streamed from the next P (at 384 and 512 among them) to the
     # widest whose Y tile fits beside its rings, K split over a cluster
     # from the next P (at 800 and 1000 among them) to the widest whose Y
-    # slice fits a cluster of 8, the mma.sync kernel with Y streamed past it
+    # slice fits a cluster of 8, route 6 (Y and L streamed) past it; the
+    # mma.sync kernel (routes 1-2) at no width
     (ws_route, tile_route, streamed, cluster_route, lstream_route,
-     ksplit_route) = fs.WIDE_ROUTES
+     ksplit_route, yl_route) = fs.WIDE_ROUTES
     scan = {q: fs.WIDE_ROUTES[fs.wide_layout(q, dev)["route"]]
             for q in range(WIDE_SAMPLER_P, WIDE_SCAN_TO + 1)}
     first = min(q for q, r in scan.items() if r == cluster_route)
@@ -699,15 +722,18 @@ def wide_kernel(mt, fs, rnd, card, blocker):
     expect = {q: ws_route if q < first else
               cluster_route if q <= widest else
               lstream_route if q <= l_widest else
-              ksplit_route if q <= k_widest else streamed for q in scan}
+              ksplit_route if q <= k_widest else yl_route for q in scan}
     edges = (widest, widest + 1, widest + 2, widest + 3, widest + 4,
              l_widest, l_widest + 1, l_widest + 2, l_widest + 3,
-             l_widest + 4, k_widest, k_widest + 1)
+             l_widest + 4, k_widest, k_widest + 1, k_widest + 2)
     routes = {q: fs.WIDE_ROUTES[fs.wide_layout(q, dev)["route"]]
-              for q in (*WIDE_P, *edges, WIDE_STREAMED_P)}
-    if (routes[WIDE_STREAMED_P] != streamed or scan != expect
+              for q in (*WIDE_P, *edges, *WIDE_YL_P)}
+    if (scan != expect or tile_route in scan.values()
+            or streamed in scan.values()
+            or any(routes[q] != yl_route for q in WIDE_YL_P)
             or widest + 1 != WIDE_LSTREAM_FROM
             or l_widest + 1 != WIDE_KSPLIT_FROM
+            or k_widest + 1 != WIDE_YL_FROM
             or routes[128] != cluster_route
             or routes[WIDE_CLUSTER_SAMPLER_P] != cluster_route
             or routes[384] != lstream_route
@@ -721,16 +747,16 @@ def wide_kernel(mt, fs, rnd, card, blocker):
     print(f"  the wide kernel on this card: warp-specialised to P = "
           f"{first - 1}, the cluster route from P = {first} to {widest}, "
           f"L streamed from P = {widest + 1} to {l_widest}, K split from "
-          f"P = {l_widest + 1} to {k_widest}, mma.sync (Y streamed) past "
-          "it; "
+          f"P = {l_widest + 1} to {k_widest}, Y and L streamed from "
+          f"P = {k_widest + 1} to {WIDE_SCAN_TO} (mma.sync at no P); "
           + ", ".join(f"P={q}: {fs.wide_layout(q, dev)['cluster']} blocks a "
                       f"cluster, {fs.wide_layout(q, dev)['active_clusters']} "
                       "clusters at once"
                       for q in (first, 128, 200, 257, widest, widest + 1,
                                 384, 512, l_widest, l_widest + 1, 1000, 1536,
-                                k_widest))
+                                k_widest, k_widest + 1, WIDE_SCAN_TO))
           + f" [{card}]", flush=True)
-    for q in (*edges[1:], WIDE_STREAMED_P):
+    for q in (*edges[1:], *WIDE_YL_P[1:]):
         target = gauss(q)
         for n_case, neg, shift in [(1000, 7, "mid"), (4096, 5, "last")]:
             wide_case(target, n_case, seed=n_case + q, neg=neg, shift=shift)
@@ -792,7 +818,7 @@ def wide_kernel(mt, fs, rnd, card, blocker):
                          ksplit_route):
             calls.append(lambda: fs.wide_loads_only(*args, key,
                                                     target.prec_chol))
-        means, readings, _ = in_turns(calls, 20, blocker)
+        means, readings, _ = in_turns(calls, WIDE_TIMED_ITERS, blocker)
         plain_ms, split_ms, wide_ms = means[:3]
         loads_ms = means[3] if len(means) > 3 else None
         loads_text = (f"its loads and stores alone {loads_ms:.4f} "
@@ -819,15 +845,22 @@ def wide_kernel(mt, fs, rnd, card, blocker):
         del args, u, ue, r_out, s_out, whole, parts, act, lp, other
         torch.cuda.empty_cache()
 
+    errs.append(wide_yl(fs, rnd, gauss, card, blocker, by_p, prologue))
+
     # the main path: the sampler on a P = 100 GaussianTarget (the
     # warp-specialised route), on a P = 257 one (the cluster route), on a
-    # P = 512 one (the L-streamed route) and on a P = 1000 one (the K-split
-    # route)
-    runs = {q: wide_sampler(mt, fs, gauss(q), q, card, store=store)
-            for q, store in ((WIDE_SAMPLER_P, True),
-                             (WIDE_CLUSTER_SAMPLER_P, False),
-                             (WIDE_LSTREAM_SAMPLER_P, False),
-                             (WIDE_KSPLIT_SAMPLER_P, False))}
+    # P = 512 one (the L-streamed route), on a P = 1000 one (the K-split
+    # route) and on a P = 3000 one (route 6; a new sampler a reading: two
+    # ensembles of 25 GB and the split route's intermediates do not fit the
+    # card at once)
+    runs = {q: wide_sampler(mt, fs, gauss(q), q, card, store=store,
+                            burn=burn, fresh=fresh)
+            for q, store, burn, fresh in (
+                (WIDE_SAMPLER_P, True, WIDE_BURN, False),
+                (WIDE_CLUSTER_SAMPLER_P, False, WIDE_BURN, False),
+                (WIDE_LSTREAM_SAMPLER_P, False, WIDE_BURN, False),
+                (WIDE_KSPLIT_SAMPLER_P, False, WIDE_BURN, False),
+                (WIDE_YL_SAMPLER_P, False, WIDE_YL_BURN, True))}
     main = by_p[WIDE_SAMPLER_P]
     launches = sum(r["launches"] for r in runs.values())
     steps = sum(r["steps"] for r in runs.values())
@@ -844,41 +877,218 @@ def wide_kernel(mt, fs, rnd, card, blocker):
             "sampler_by_p": runs, "by_p": by_p, "prologue_ms": prologue}
 
 
-def wide_sampler(mt, fs, target, p, card, store):
-    """The sampler on a wide GaussianTarget at W = 2^21: WIDE_BURN burn-in
+def wide_yl_full(fs, rnd, target, chunked, card):
+    """Route 6 at WIDE_YL_SAMPLER_P and n = 2^20 against its plain version,
+    2^18 rows at a time, and 4 row shards against one launch (at rows that
+    are and are not multiples of 4); returns the errors against the plain
+    version. Its own function, so that the 2^20 rows' tensors are freed
+    when it returns."""
+    n, q = 1 << 20, WIDE_YL_SAMPLER_P
+    errs = []
+    args, key, (u, ue) = half_inputs(rnd, q, n, q, 11, chunked(target))
+    act, lp, other, shift = args
+    reset_launches(fs)
+    whole = fs.fused_stretch_half(*args, key=key, logp_fn=target)
+    torch.cuda.synchronize()
+    if fs.LAUNCHES != launches_only(fs, fused_stretch_wide=1):
+        raise AssertionError(f"a P={q} half-step launched {fs.LAUNCHES}")
+    chunk = 1 << 18
+    for r0 in range(0, n, chunk):
+        rows = slice(r0, r0 + chunk)
+        part = (act[rows], lp[rows], other, shift)
+        r_out = fs.fused_stretch_half_reference(*part, u[rows], ue[rows],
+                                                logp_fn=target, row0=r0)
+        log_ratio = fs.stretch_proposal(*part, u[rows], logp_fn=target,
+                                        row0=r0)[2]
+        errs.append(compare_half(
+            f"route 6 n=2^20 P={q} rows {r0}…{r0 + chunk - 1}",
+            tuple(k[rows] for k in whole), r_out, log_ratio, ue[rows],
+            must_accept=slice(-r0 % 11, None, 11)))
+    for bounds in ((0, n // 4, n // 2, 3 * n // 4, n), (*WIDE_ODD_SHARDS, n)):
+        parts = [fs.fused_stretch_half(act[r0:r1], lp[r0:r1], other, shift,
+                                       key=key, logp_fn=target, row0=r0)
+                 for r0, r1 in zip(bounds[:-1], bounds[1:])]
+        if not all(torch.equal(torch.cat([pt[k] for pt in parts]), whole[k])
+                   for k in range(3)):
+            raise AssertionError(f"P={q}: 4 row shards at rows "
+                                 f"{bounds[:-1]} differ from one launch")
+        del parts
+    print(f"  route 6 n=2^20 P={q}: held to the plain version in chunks of "
+          f"2^18 rows; 4 row shards == one launch, at rows {WIDE_ODD_SHARDS} "
+          f"too [{card}]", flush=True)
+    return errs
+
+
+def wide_yl(fs, rnd, gauss, card, blocker, by_p, prologue):
+    """Route 6 (Y and L streamed) beyond the edge cases: the mma.sync
+    kernel, which the dispatch no longer reaches, forced and held to its
+    plain version at WIDE_YL_SAMPLER_P (n = 1000 and 4096); route 6 there
+    at n = 2^20 against its plain version (row chunks of 2^18: the plain
+    version of the whole half beside the kernel's outputs would not fit
+    the card) and 4 row shards at offsets that are multiples of 4 and
+    that are not against one launch; and its time at WIDE_YL_P, n = 2^20,
+    in turns with its loads alone, its prologue alone, the mma.sync kernel
+    forced and, where they fit the card beside the inputs (not at P =
+    4096, whose plain version and split route are timed at 2^18 in turns
+    with route 6 there), the plain version and the split route, with the
+    bytes and the product bounds apart. Fills ``by_p`` and ``prologue``;
+    returns the largest error against a plain version."""
+    dev = torch.device("cuda")
+    n = 1 << 20
+    q = WIDE_YL_SAMPLER_P
+    target = gauss(q)
+    errs = []
+
+    def chunked(target):
+        # the target's logp 2^18 rows at a time: at P = 4096 the whole
+        # half's Y·L and its squares beside the inputs would not fit
+        return lambda x: torch.cat([target(c) for c in x.split(1 << 18)])
+
+    def forced(*args):
+        return fs.wide_forced_mma(*args, target.prec_chol)
+
+    for n_case, neg, shift in [(1000, 7, "mid"), (4096, 5, "last")]:
+        reset_launches(fs)
+        err = kernel_case(fs, rnd, target, n_case, seed=n_case + q + 1,
+                          neg_inf_every=neg, shift=shift, half=forced,
+                          name="mma.sync forced")[0]
+        if fs.LAUNCHES != launches_only(fs):
+            raise AssertionError(f"the forced mma.sync kernel counted "
+                                 f"{fs.LAUNCHES}")
+        errs.append(err)
+
+    errs.extend(wide_yl_full(fs, rnd, target, chunked, card))
+
+    for q in WIDE_YL_P:
+        target = gauss(q)
+        prec = target.prec_chol
+        fits = q <= WIDE_YL_SAMPLER_P
+        turns = []
+        for log2n in (20,) if fits else (20, 18):
+            args, key, (u, ue) = half_inputs(rnd, q, 1 << log2n, q, 0,
+                                             chunked(target))
+            calls = {"wide": lambda: fs.fused_stretch_half(
+                *args, key=key, logp_fn=target)}
+            if fits or log2n == 18:
+                calls["plain"] = lambda: fs.fused_stretch_half_reference(
+                    *args, u, ue, logp_fn=target)
+                calls["split"] = lambda: fs.fused_stretch_half(
+                    *args, key=key, logp_fn=lambda x: target(x))
+            if log2n == 20:
+                calls["loads"] = lambda: fs.wide_loads_only(*args, key, prec)
+                calls["prologue"] = lambda: fs.wide_split_l(prec)
+                calls["mma_forced"] = lambda: fs.wide_forced_mma(*args, key,
+                                                                 prec)
+            means, readings, _ = in_turns(list(calls.values()),
+                                          WIDE_YL_ITERS, blocker, warmup=1)
+            turns.append((log2n, dict(zip(calls, means)),
+                          dict(zip(calls, readings))))
+            del args, u, ue, calls
+            torch.cuda.empty_cache()
+        t20, r20 = turns[0][1], turns[0][2]
+        bound, bound_by = wide_bound_ms(n, q)
+        bytes_ms, product_ms = wide_bound_parts(n, q)
+        prologue[q] = t20["prologue"]
+        by_p[q] = {"ms": t20["wide"], "plain_ms": t20.get("plain"),
+                   "split_route_ms": t20.get("split"),
+                   "loads_only_ms": t20["loads"],
+                   "mma_forced_ms": t20["mma_forced"],
+                   "bound_ms": bound, "bound_by": bound_by,
+                   "bytes_bound_ms": bytes_ms,
+                   "product_bound_ms": product_ms,
+                   "layout": fs.wide_layout(q, dev)}
+        small = ""
+        if not fits:
+            t18 = turns[1][1]
+            by_p[q]["at_2_18"] = t18
+            small = (f"; at n=2^18 in turns: wide {t18['wide']:.4f}, plain "
+                     f"{t18['plain']:.4f}, split route {t18['split']:.4f}")
+        else:
+            small = (f", plain {t20['plain']:.4f}, old split route "
+                     f"{t20['split']:.4f}")
+        print(f"  route 6 n=2^20 P={q}, ms per half-step (in turns): wide "
+              f"{t20['wide']:.4f} ({r20['wide'][0]:.4f}, "
+              f"{r20['wide'][1]:.4f}), its loads and stores alone "
+              f"{t20['loads']:.4f}, its prologue alone "
+              f"{t20['prologue']:.4f}, the mma.sync kernel forced "
+              f"{t20['mma_forced']:.4f} ({r20['mma_forced'][0]:.4f}, "
+              f"{r20['mma_forced'][1]:.4f}){small}; bound {bound:.4f} "
+              f"({bound_by}; bytes {bytes_ms:.4f}, 3xTF32 product "
+              f"{product_ms:.4f}), {bound / t20['wide']:.0%} of it; "
+              f"{fs.WIDE_ROUTES[by_p[q]['layout']['route']]}, "
+              f"{by_p[q]['layout']} [{card}]", flush=True)
+    return max(errs)
+
+
+def wide_sampler(mt, fs, target, p, card, store, burn=WIDE_BURN,
+                 fresh=False):
+    """The sampler on a wide GaussianTarget at W = 2^21: ``burn`` burn-in
     steps a reading in turns with the split route (the same seeds), the
     acceptance within 4 binomial SE of the split route's, 2 wide launches a
     step and none of another kernel; with ``store``, WIDE_STORE stored steps
     after them (finite rows whose logp is the target's), else the final
-    state checked the same way. Returns the launches, steps, rates and
-    acceptances."""
-    runs = {}
-    for route, logp in (("wide", target), ("split", lambda x: target(x))):
+    state checked the same way. With ``fresh`` each reading runs a new
+    sampler (the wide and the split route's first readings from seed 0,
+    their second from seed 1), so that one ensemble is on the card at a
+    time, one step a ``run_mcmc`` call (a call keeps its starting state
+    until it returns, so a call of several steps holds two ensembles beside
+    a step's intermediates), and the split route's logp takes 2^18 rows at
+    a time (at P = 3000 the proposal's Y·L and its squares of a whole half
+    would not fit the card beside them). Returns the launches, steps, rates
+    and acceptances."""
+    def split_logp(x):
+        if not fresh:
+            return target(x)
+        return torch.cat([target(c) for c in x.split(1 << 18)])
+
+    def sampler(route, seed):
+        logp = target if route == "wide" else split_logp
         s = mt.EnsembleSampler(logp, n_walkers=W_FULL, n_params=p,
-                               mover=mt.FusedStretchMove(), seed=0,
+                               mover=mt.FusedStretchMove(), seed=seed,
                                batched=True, device="cuda")
         s.init_ball(np.zeros(p), 0.5)
-        runs[route] = (s, [], {k: 0 for k in fs.LAUNCHES})
+        return s
+
+    before_gib = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    runs = {route: ([None if fresh else sampler(route, 0)], [],
+                    {k: 0 for k in fs.LAUNCHES}, [])
+            for route in ("wide", "split")}
+    s = None
     for route in ("wide", "split", "split", "wide"):
-        s, secs, counted = runs[route]
+        held, secs, counted, accs = runs[route]
+        if fresh:
+            # the last reading's sampler freed before the next is made
+            s = None
+            for other in runs.values():
+                other[0][0] = None
+            torch.cuda.empty_cache()
+            held[0] = sampler(route, len(secs))
+        s = held[0]
         reset_launches(fs)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        s.run_mcmc(WIDE_BURN, store=False)
+        for _ in range(burn if fresh else 1):
+            s.run_mcmc(1 if fresh else burn, store=False)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
+        accs.append(s.acceptance_fraction)
         for k, v in fs.LAUNCHES.items():
             counted[k] += v
-    s, _, counted = runs["wide"]
-    acc = {r: runs[r][0].acceptance_fraction for r in runs}
-    walker_steps = W_FULL * 2 * WIDE_BURN
+    s, counted = runs["wide"][0][0], runs["wide"][2]
+    runs["split"][0][0] = None
+    # fresh: the mean of the readings' fractions (the same walker-steps
+    # each); else the one sampler's fraction over both readings
+    acc = {r: (float(np.mean(runs[r][3])) if fresh else runs[r][3][-1])
+           for r in runs}
+    walker_steps = W_FULL * 2 * burn
     se = np.sqrt(sum(f * (1 - f) for f in acc.values()) / walker_steps)
     if not 0 < acc["wide"] < 1 or abs(acc["wide"] - acc["split"]) > 4 * se:
         raise AssertionError(f"P={p}: acceptance of the wide route "
                              f"{acc['wide']} against the split route's "
                              f"{acc['split']}: more than 4 binomial SE "
                              f"({se:.2e}) apart")
-    steps = 2 * WIDE_BURN
+    steps = 2 * burn
     if store:
         reset_launches(fs)
         if not s.run_mcmc(WIDE_STORE, thin=WIDE_THIN):
@@ -892,30 +1102,35 @@ def wide_sampler(mt, fs, target, p, card, store):
         stored = f"{samples.shape[0]} stored rows"
         del samples
     else:
-        x = torch.cat([s.state.red, s.state.black])
-        lp = torch.cat([s.state.logp_red, s.state.logp_black])
-        if x.shape != (W_FULL, p) or not bool(torch.isfinite(x).all()):
-            raise AssertionError(f"wide sampler P={p}: state {x.shape} "
-                                 "not finite")
+        # each half on its own: at P = 3000 the whole state is 25 GB
         rows = slice(None, None, 997)
-        torch.testing.assert_close(lp[rows], target(x[rows]), rtol=RTOL,
-                                   atol=ATOL)
+        for x, lp in ((s.state.red, s.state.logp_red),
+                      (s.state.black, s.state.logp_black)):
+            if (x.shape != (W_FULL // 2, p)
+                    or not bool(torch.isfinite(x).all())):
+                raise AssertionError(f"wide sampler P={p}: state "
+                                     f"{x.shape} not finite")
+            torch.testing.assert_close(lp[rows], target(x[rows]), rtol=RTOL,
+                                       atol=ATOL)
         stored = "final state finite, its logp the target's"
     if counted != launches_only(fs, fused_stretch_wide=2 * steps):
         raise AssertionError(f"the wide sampler at P={p} launched {counted}")
     split_counted = runs["split"][2]
-    if split_counted != launches_only(fs, stretch_propose=4 * WIDE_BURN,
-                                      stretch_accept=4 * WIDE_BURN):
+    if split_counted != launches_only(fs, stretch_propose=4 * burn,
+                                      stretch_accept=4 * burn):
         raise AssertionError(f"the split-route sampler at P={p} launched "
                              f"{split_counted}")
-    rates = {r: [W_FULL * WIDE_BURN / t for t in runs[r][1]] for r in runs}
-    print(f"  sampler W=2^21 P={p}, {WIDE_BURN} burn-in steps a reading, in "
+    rates = {r: [W_FULL * burn / t for t in runs[r][1]] for r in runs}
+    print(f"  sampler W=2^21 P={p}, {burn} burn-in steps a reading"
+          f"{' (a new sampler a reading)' if fresh else ''}, in "
           f"turns: wide kernel "
           f"{', '.join(f'{x:.6e}' for x in rates['wide'])} walker-updates/s, "
           f"split route {', '.join(f'{x:.6e}' for x in rates['split'])} "
           f"({np.mean(rates['wide']) / np.mean(rates['split']):.2f}x); "
           f"acceptance {acc['wide']:.5f} vs {acc['split']:.5f} (4 SE "
-          f"{4 * se:.1e}); launches {counted}; {stored} [{card}]",
+          f"{4 * se:.1e}); launches {counted}; {stored}; device memory "
+          f"{before_gib:.2f} GiB before, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]",
           flush=True)
     del runs, s
     torch.cuda.empty_cache()
@@ -4908,7 +5123,7 @@ def main():
                   f"P={q}: {lib.mcmcpp_fused_stretch_half_smem_bytes(q)} B"
                   for q in (2, 10, 16)))
         for q in (65, 100, 128, 257, 297, 384, 512, 784, 785, 1000, 1536,
-                  3000):
+                  2944, 2945, 3000, 4096):
             print(f"  fused_stretch_wide at P={q}: "
                   f"{fs.WIDE_ROUTES[fs.wide_layout(q, dev)['route']]}, "
                   f"{fs.wide_layout(q, dev)}")

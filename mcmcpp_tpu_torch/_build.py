@@ -131,7 +131,10 @@ def load_library():
         "mcmcpp_fused_stretch_wide_loads_only_f32":
             [ptr] * 4 + [u64] + [ptr] * 4 + [i32, i64, i64, i32, f32, ptr,
                                               ptr],
+        "mcmcpp_fused_stretch_wide_forced_mma_f32":
+            [ptr] * 4 + [u64] + [ptr] * 4 + [i32, i64, i64, i32, f32, ptr],
         "mcmcpp_fused_stretch_wide_layout": [i32, ptr],
+        "mcmcpp_fused_stretch_wide_scratch_bytes": [i32, ptr],
         "mcmcpp_fused_stretch_wide_split_l_f32": [ptr, i32, ptr, ptr],
         "mcmcpp_stretch_propose_f32":
             [ptr] * 3 + [u64] + [ptr] * 2 + [i64, i64, i64, i32, f32, ptr],

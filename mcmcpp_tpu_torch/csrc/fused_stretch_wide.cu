@@ -19,9 +19,9 @@
 // TFLOP/s, so the kernel is memory-bound up to P ≈ 290 (at n = 2^20 and
 // P = 100: 0.379 ms of bytes against 0.127 ms of tensor work).
 //
-// Six routes (the numbers mcmcpp_fused_stretch_wide_layout gives), chosen
-// by P and the device's shared memory, tried in the order 0, 3, 4, 5, 1–2;
-// on an H100 (227 KB a block):
+// Seven routes (the numbers mcmcpp_fused_stretch_wide_layout gives), chosen
+// by P and the device's shared memory, tried in the order 0, 3, 4, 5, 6,
+// 1–2; on an H100 (227 KB a block):
 // - route 0, P <= 117: L's halves resident in one block with two Y tiles;
 //   bound by the bytes (the product is under the loads);
 // - route 3, 117 < P <= 296: L's columns split over a thread-block cluster;
@@ -36,9 +36,16 @@
 //   products reduced in distributed shared memory; bound by the product,
 //   held back by the tile's formation, which waits for the last tile's
 //   product, and by L's stream;
-// - routes 1 and 2, past that: the mma.sync kernel with the Y tile or with
-//   Y streamed through the output rows (no cap on P); kept for the widths
-//   no wgmma route's plan fits.
+// - route 6, past that (no cap on P): Y and L both streamed, Y formed once
+//   into a buffer in the scratch, each operand's stages multicast over a
+//   4 × 2 cluster (Y to the blocks of a tile's two column groups, L to
+//   those of a column group's four tiles); bound by the product, held back
+//   by its loads, which overlap the wgmma loop only in part;
+// - routes 1 and 2: the mma.sync kernel with the Y tile or with Y streamed
+//   through the output rows (no cap on P); kept for a device whose blocks
+//   no wgmma route's plan fits (on an H100 the dispatch takes them at no
+//   width; mcmcpp_fused_stretch_wide_forced_mma_f32 launches them for
+//   checking and timing).
 // PERF.md §6 has each route's times against its bound.
 //
 // 1. Route 0. Where L's split halves fit beside two Y tiles and two rings
@@ -121,7 +128,13 @@
 //    partials of each column panel go to the blocks that own their rows,
 //    which add them in rank order; its notes are above its code below.
 //
-// 5. Routes 1 and 2. Elsewhere, the mma.sync kernel: a block of four warps
+// 5. Route 6. Past those, two stages of a ring of Y stages beside L stages
+//    fit at any P (plan_yl): a 2-D cluster of 4 × 2 blocks forms each
+//    tile's Y once into scratch and streams it back beside L's stages,
+//    each multicast to the blocks that share it, under two consumer
+//    warpgroups' wgmma; its notes are above its code below.
+//
+// 6. Routes 1 and 2. Elsewhere, the mma.sync kernel: a block of four warps
 //    owns 64 or 128 walkers (the Y tile in shared memory, or past P ≈ 825
 //    on an H100 Y streamed through the output rows), streams L in 32 × 64
 //    panels by 4-byte cp.async, and takes Y·L as 3xTF32 on mma.sync
@@ -132,6 +145,7 @@
 // functions of stretch_common.cuh, shared with the other stretch kernels.
 
 #include <algorithm>
+#include <climits>
 
 #include "sm90.cuh"
 #include "stretch_common.cuh"
@@ -363,19 +377,23 @@ struct Product {
   }
 
   // CNT k-steps from column kcol0: A from the Y tile (rows yr and yr + 8 at
-  // `yrow`, this thread's float2 of each k-step at column kcol0 + 8·i), B at
-  // byte `off` + 256·i of the halves `lb`, `ls` with `sbo` bytes between
-  // n-blocks. CNT is a compile-time count: no wgmma sits in a branch.
+  // `yrow`, this thread's float2 of each k-step at column
+  // (kcol0 + 8·i) ^ sw: sw swizzles whole k-steps, 0 on every route but
+  // route 6), B at byte `off` + 256·i of the halves `lb`, `ls` with `sbo`
+  // bytes between n-blocks. CNT is a compile-time count: no wgmma sits in a
+  // branch.
   template <int CNT>
   __device__ __forceinline__ void group(const float* yrow, int ystride,
                                         int kcol0, unsigned lb, unsigned ls,
-                                        unsigned off, unsigned sbo) {
+                                        unsigned off, unsigned sbo,
+                                        int sw = 0) {
     unsigned ab[CNT][4], as[CNT][4];
 #pragma unroll
     for (int i = 0; i < CNT; ++i) {
-      const float2 y0 = *reinterpret_cast<const float2*>(yrow + kcol0 + 8 * i);
-      const float2 y1 = *reinterpret_cast<const float2*>(
-          yrow + 8 * ystride + kcol0 + 8 * i);
+      const int col = (kcol0 + 8 * i) ^ sw;
+      const float2 y0 = *reinterpret_cast<const float2*>(yrow + col);
+      const float2 y1 =
+          *reinterpret_cast<const float2*>(yrow + 8 * ystride + col);
       split_tf32(y0.x, ab[i][0], as[i][0]);
       split_tf32(y1.x, ab[i][1], as[i][1]);
       split_tf32(y0.y, ab[i][2], as[i][2]);
@@ -2223,6 +2241,392 @@ cudaError_t ksplit_occupancy(const Plan& plan, int* clusters) {
 #undef MCMCPP_KSPLIT_WIDTHS
 
 // ===========================================================================
+// Route 6: Y and L streamed, each multicast over a 2-D thread-block cluster
+// ===========================================================================
+//
+// Past the widths the K-split route takes (P > 2944 on an H100) neither
+// operand fits on chip: a 128-row tile's k-slices of Y no longer fit a
+// cluster of 8, and L's split stages (8·P² bytes, 72 MB at P = 3000) no
+// longer fit the 50 MB L2. Both stream, and each byte that enters an SM
+// feeds two of them:
+// - Clusters of kYlRowGroups × kYlColGroups = 4 × 2 blocks, block rank
+//   rg·kYlColGroups + cg, one an SM, persistent: in its j-th iteration
+//   cluster q takes the tiles of 128 walkers (j·Q + q)·4 + rg, the two
+//   blocks of row group rg the same tile. (Clusters of 2 × 2, 2 × 4 and
+//   2 × 1 measured 1–4% slower on an H100 at P = 3000: PERF.md §6.)
+// - The tile's proposal rows are formed once, Y = p + z·(X − p), by the
+//   blocks of its row group, 64 rows each (the rows a block owns: cg·64 …),
+//   with coalesced loads (kYlFormBatch of them in flight a thread), into a Y
+//   buffer in the scratch (one for each row group of each cluster the
+//   device holds), laid out stage by stage: a stage is 32 k-rows of the 128
+//   rows, a row's 32 floats contiguous with its k-steps of 8 swizzled by
+//   8·(row % 4) (the consumers' float2 A loads then fall into distinct
+//   banks with no padding), zeros from P to K padded (yl_at). X goes to the
+//   output rows as it is read, as if every row were rejected; z, ue and
+//   lp_old of the owned rows stay in shared memory. The writers fence their
+//   stores for the async proxy, and the cluster synchronises before any of
+//   the tile's stages is loaded.
+// - L's split stages come from the prologue of routes 4 and 5
+//   (split_l_stages, panels of N = 128 columns, chunks of 32 k-rows), the
+//   panels padded with zero columns to a multiple of kYlColGroups.
+// - One ring a block, each slot a Y stage (16 KB) beside an L stage (32
+//   KB), filled by warp 8 in the consumers' order: in round pr block
+//   (rg, cg) takes panel pr·2 + cg, and for each chunk of K its slot gets
+//   the tile's Y stage and the panel's L stage. The block issues part cg of
+//   the Y stage, multicast to its row group, and part rg of the L stage,
+//   multicast to its column group (cp.async.bulk .multicast::cluster): each
+//   byte of L read from L2 feeds 512 walker rows, each byte of Y 256
+//   columns of S. The slot's full barrier, armed by its own producer for
+//   the whole slot, completes when the six parts have landed (a peer's may
+//   land before the arming). A slot is refilled only once the consumers of
+//   every block have read it: its empty barrier counts a remote arrival of
+//   every consumer warp of the cluster, and every block fills the same
+//   slots in the same order (a block past the last tile takes part with a
+//   tile it does not compute).
+// - Warps 0–7, two consumer warpgroups, take 64 rows each of every stage:
+//   3xTF32 wgmma m64n128k8, A from the Y stage (split in registers), B from
+//   the staged halves, a partial a stage added into S (Product). When a
+//   panel's chunks are done its columns are squared into the rows' sums
+//   (Product::squares), panel after panel.
+// - Each block then stores its sums of the tile's 128 rows into the
+//   shared memory of the blocks that own them (one float a row), and after
+//   a second cluster barrier the owner adds them in rank order, s_0 + s_1,
+//   decides its rows, writes their logp and flag, and copies the accepted
+//   rows' Y from the buffer into the output rows. Every row's sum is taken
+//   in one order whatever cluster, block or iteration takes it, so row
+//   shards equal one launch bit for bit.
+// - What bounds it: the 3xTF32 product (n·6P² FLOP). What it adds to the
+//   half-step's bytes: Y written once, read once a round from device
+//   memory where the buffers outgrow L2 (n·4P·P/256 B: 44 ms at P = 3000,
+//   n = 2^20), the accepted rows' Y read again. What holds it back
+//   (PERF.md §6): the wgmma loop alone reaches ~77% of the bound (a drain
+//   a stage), every stage's loads alone take as long, and the two overlap
+//   only in part; a tile's formation (kYlFormBatch loads in flight a
+//   thread) and decisions do not overlap its product (one Y buffer a row
+//   group, two cluster barriers a tile).
+
+constexpr int kYlRowGroups = 4;
+constexpr int kYlColGroups = 2;
+constexpr int kYlCluster = kYlRowGroups * kYlColGroups;
+// walker rows of a tile (two consumer warpgroups' wgmma M), and those a
+// block forms and owns
+constexpr int kYlRows = 2 * kTileRows;
+constexpr int kYlOwn = kYlRows / kYlColGroups;
+// wgmma N (a panel's columns) and k-steps of 8 a stage
+constexpr int kYlN = 128;
+constexpr int kYlKc = 4;
+constexpr int kYlKRows = 8 * kYlKc;
+// consumer warps (two warpgroups), then the producer warp
+constexpr int kYlConsumerWarps = 8;
+constexpr int kThreadsYl = 32 * kYlConsumerWarps + 32;
+// bytes of a Y stage (128 rows × 32 k-rows) and of an L stage (two halves
+// of 32 k-rows × 128 columns)
+constexpr unsigned kYlYStage = 4u * kYlRows * kYlKRows;
+constexpr unsigned kYlLStage = 2u * 4u * kYlKRows * kYlN;
+// loads a consumer thread starts before its first store in the formation
+constexpr int kYlFormBatch = 16;
+
+// Position of tile row r's k-row k in a Y buffer.
+__device__ __forceinline__ int yl_at(int r, int k) {
+  return (k / kYlKRows) * (kYlRows * kYlKRows) + r * kYlKRows +
+         ((k % kYlKRows) ^ ((r & 3) << 3));
+}
+
+__global__ void __launch_bounds__(kThreadsYl, 1)
+wide_yl_kernel(const float* __restrict__ act, const float* __restrict__ lp_old,
+               const float* __restrict__ other, const int* __restrict__ shift,
+               unsigned long long key, const float* __restrict__ lsplit,
+               float* ybufs, float* __restrict__ out_act,
+               float* __restrict__ out_lp, int* __restrict__ out_acc, int n,
+               long long row0, long long m, float a, const Plan plan,
+               int loads_only) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int P = plan.P, Kp = plan.Kp, S = plan.slots;
+  const int chunks = Kp / kYlKRows;
+  const int rounds = plan.panels / kYlColGroups;
+  const unsigned slot_bytes = kYlYStage + kYlLStage;
+  const unsigned rank = cluster_rank();
+  const int rg = (int)rank / kYlColGroups, cg = (int)rank % kYlColGroups;
+  const long long cid = cluster_index(), ncl = cluster_count();
+  const long long n_tiles = (n + kYlRows - 1) / kYlRows;
+  // the owned rows' offsets of X and of the partner row, z, ue, lp_old and
+  // the accept flag; the sums of the tile's rows from each column group
+  long long* xoff = reinterpret_cast<long long*>(smem + plan.off_y);
+  long long* poff = xoff + kYlOwn;
+  float* zs = reinterpret_cast<float*>(smem + plan.off_rows);
+  float* ues = zs + kYlOwn;
+  float* los = ues + kYlOwn;
+  float* flags = los + kYlOwn;
+  float* xch = reinterpret_cast<float*>(smem + plan.off_xch);
+  unsigned char* ring = smem + plan.off_ring;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + plan.off_bar);
+  uint64_t* empty = full + kMaxSlots;
+  // this row group's Y buffer
+  float* ybuf = ybufs + (size_t)(cid * kYlRowGroups + rg) * chunks *
+                            (kYlRows * kYlKRows);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) {
+    for (int s = 0; s < kMaxSlots; ++s) {
+      mbar_init(&full[s], 1);
+      // every consumer warp of every block of the cluster
+      mbar_init(&empty[s], kYlConsumerWarps * kYlCluster);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  // every block's barriers exist before a peer's copy or arrival reaches them
+  cluster_sync();
+
+  if (warp == kYlConsumerWarps) {
+    // ---------------- producer: every stage, in the consumers' order -----
+    const unsigned ypart = kYlYStage / kYlColGroups;
+    const unsigned lpart = kYlLStage / kYlRowGroups;
+    const unsigned short ymask = (unsigned short)(((1u << kYlColGroups) - 1)
+                                                  << (rg * kYlColGroups));
+    unsigned short lmask = 0;
+    for (int r = 0; r < kYlRowGroups; ++r) {
+      lmask |= (unsigned short)(1u << (r * kYlColGroups + cg));
+    }
+    const unsigned char* ysrc =
+        reinterpret_cast<const unsigned char*>(ybuf) + cg * ypart;
+    const unsigned char* lsrc =
+        reinterpret_cast<const unsigned char*>(lsplit) + rg * lpart;
+    int g = 0;
+    for (long long j = 0; (j * ncl + cid) * kYlRowGroups < n_tiles; ++j) {
+      // the tiles' rows formed in every block
+      cluster_sync();
+      for (int pr = 0; pr < rounds; ++pr) {
+        const int pn = pr * kYlColGroups + cg;
+        for (int ch = 0; ch < chunks; ++ch, ++g) {
+          const int slot = g % S, round = g / S;
+          if (round > 0) mbar_wait(&empty[slot], (round - 1) & 1);
+          if (lane == 0) {
+            unsigned char* dst = ring + (size_t)slot * slot_bytes;
+            mbar_arrive_expect_tx(&full[slot], slot_bytes);
+            bulk_load_multicast(dst + cg * ypart,
+                                ysrc + (size_t)ch * kYlYStage, ypart,
+                                &full[slot], ymask);
+            bulk_load_multicast(
+                dst + kYlYStage + rg * lpart,
+                lsrc + ((size_t)pn * chunks + ch) * kYlLStage, lpart,
+                &full[slot], lmask);
+          }
+          __syncwarp();
+        }
+      }
+      // the row sums exchanged
+      cluster_sync();
+    }
+  } else {
+    // ---------------- consumers ----------------
+    constexpr int kThreadsC = 32 * kYlConsumerWarps;
+    // a stage's n-blocks of 8 columns (32 k-rows each), the small half
+    // after the big
+    constexpr unsigned kNBlock = kYlKRows * 8 * 4;
+    const int ci = warp >> 2, wq = warp & 3, ct = tid;  // ct: 0 … 255
+    const int gq = lane >> 2, t = lane & 3;
+    // this thread's tile rows r0 and r0 + 8, and their k-steps' swizzle
+    const int r0 = kTileRows * ci + 16 * wq + gq;
+    const int sw = (r0 & 3) << 3;
+    const int first = cg * kYlOwn;
+    const int sh = *shift;
+    // a stage read: freed in every block of the cluster
+    auto release = [&](int slot) {
+      __syncwarp();
+      if (lane < kYlCluster) {
+        mbar_arrive_cluster(map_rank(smem_addr(&empty[slot]), lane));
+      }
+    };
+    int g_at = 0;
+    for (long long j = 0; (j * ncl + cid) * kYlRowGroups < n_tiles; ++j) {
+      const long long tile = (j * ncl + cid) * kYlRowGroups + rg;
+      const bool has = tile < n_tiles;
+      const long long i0 = has ? tile * kYlRows : 0;
+      const int rows =
+          has ? (int)min((long long)kYlRows, (long long)n - i0) : 0;
+      const int mine = max(0, min(kYlOwn, rows - first));
+      if (ct < mine) {
+        const long long gr = i0 + first + ct;
+        const float2 uu = unit_uniforms(key, (unsigned long long)(row0 + gr));
+        zs[ct] = stretch_z(uu.x, a);
+        ues[ct] = uu.y;
+        los[ct] = lp_old[gr];
+        xoff[ct] = gr * P;
+        poff[ct] = partner_row(row0 + gr, sh, m) * P;
+      }
+      named_bar(1, kThreadsC);
+
+      // the owned proposal rows into the Y buffer, X into the output rows
+      const int count = mine * Kp;
+      for (TileWalk<1> w(Kp, ct, kThreadsC); w.e < count;) {
+        float xv[kYlFormBatch], pv[kYlFormBatch];
+        int rr[kYlFormBatch], kk[kYlFormBatch];
+#pragma unroll
+        for (int b = 0; b < kYlFormBatch; ++b) {
+          rr[b] = -1;
+          kk[b] = 0;
+          xv[b] = pv[b] = 0.0f;
+          if (w.e < count) {
+            rr[b] = w.row;
+            kk[b] = w.k;
+            if (w.k < P) {
+              xv[b] = act[xoff[w.row] + w.k];
+              pv[b] = other[poff[w.row] + w.k];
+            }
+          }
+          w.next(Kp);
+        }
+#pragma unroll
+        for (int b = 0; b < kYlFormBatch; ++b) {
+          if (rr[b] >= 0) {
+            ybuf[yl_at(first + rr[b], kk[b])] =
+                fmaf(zs[rr[b]], xv[b] - pv[b], pv[b]);
+            if (kk[b] < P) out_act[xoff[rr[b]] + kk[b]] = xv[b];
+          }
+        }
+      }
+      // the Y rows written before any block's producer loads them
+      fence_proxy_async_global();
+      cluster_sync();
+
+      // S = Y·L panel by panel (3xTF32 on wgmma), each panel's columns
+      // squared into the rows' sums when its chunks are done
+      const bool product = has && !loads_only;
+      float q0 = 0.0f, q1 = 0.0f;
+      for (int pr = 0; pr < rounds; ++pr) {
+        Product<kYlN> prod;
+        for (int ch = 0; ch < chunks; ++ch, ++g_at) {
+          const int slot = g_at % S;
+          mbar_wait(&full[slot], (g_at / S) & 1);
+          if (product) {
+            const float* ys =
+                reinterpret_cast<const float*>(ring + (size_t)slot * slot_bytes);
+            const unsigned lb =
+                smem_addr(ring) + slot * slot_bytes + kYlYStage;
+            prod.group<kYlKc>(ys + r0 * kYlKRows + 2 * t, kYlKRows, 0, lb,
+                              lb + kYlLStage / 2, 0, kNBlock, sw);
+          }
+          release(slot);
+        }
+        if (product) prod.squares(q0, q1);
+      }
+      q0 += __shfl_xor_sync(0xffffffffu, q0, 1);
+      q0 += __shfl_xor_sync(0xffffffffu, q0, 2);
+      q1 += __shfl_xor_sync(0xffffffffu, q1, 1);
+      q1 += __shfl_xor_sync(0xffffffffu, q1, 2);
+      // the sums of rows r0 and r0 + 8 to the blocks that own them
+      if (t == 0) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = r0 + 8 * h;
+          const unsigned owner = rg * kYlColGroups + r / kYlOwn;
+          st_cluster(map_rank(smem_addr(xch + cg * kYlRows + r), owner),
+                     h ? q1 : q0);
+        }
+      }
+      cluster_sync();
+
+      if (ct < mine) {
+        const int r = first + ct;
+        float sum = xch[r];
+#pragma unroll
+        for (int c = 1; c < kYlColGroups; ++c) sum += xch[c * kYlRows + r];
+        const float lo = los[ct];
+        // loads only: lp_new = lp_old, the decision by the factor alone
+        const float lp_new = loads_only ? lo : -0.5f * sum;
+        const bool accept = stretch_accepts(
+            ues[ct], (float)(P - 1) * logf(zs[ct]), lp_new, lo);
+        out_lp[i0 + r] = accept ? lp_new : lo;
+        out_acc[i0 + r] = accept ? 1 : 0;
+        flags[ct] = accept ? 1.0f : 0.0f;
+      }
+      named_bar(1, kThreadsC);
+      // the accepted rows get Y
+      for (TileWalk<1> w(P, ct, kThreadsC); w.e < mine * P; w.next(P)) {
+        if (flags[w.row] != 0.0f) {
+          out_act[xoff[w.row] + w.k] = ybuf[yl_at(first + w.row, w.k)];
+        }
+      }
+      named_bar(1, kThreadsC);
+    }
+  }
+  // no block exits while a peer may still copy into its shared memory or
+  // arrive on its barriers
+  cluster_sync();
+}
+
+// The plan of route 6 at P on a device whose blocks may have `optin` bytes
+// of shared memory: the owned rows' offsets and scalars, the exchange of
+// the row sums and one ring of at least two slots (at most kMaxSlots), each
+// a Y stage beside an L stage. The same block at every P; false where two
+// slots do not fit.
+bool plan_yl(int P, int optin, Plan* out) {
+  if (P < 1) return false;
+  Plan p = {};
+  p.P = P;
+  p.nsub = kYlN;
+  p.cluster = kYlCluster;
+  p.lkc = kYlKc;
+  p.Kp = round_up(P, kYlKRows);
+  p.panels = round_up((P + kYlN - 1) / kYlN, kYlColGroups);
+  p.lstage = kYlLStage;
+  p.sr = kYlRows;
+  p.off_y = 0;
+  p.off_rows = 8 * 2 * kYlOwn;
+  p.off_xch = p.off_rows + 4 * 4 * kYlOwn;
+  p.off_bar = p.off_xch + 4 * kYlColGroups * kYlRows;
+  p.off_ring = round_up(p.off_bar + 8 * 2 * kMaxSlots, 128);
+  const int slot = (int)(kYlYStage + kYlLStage);
+  const int slots = std::min(kMaxSlots, (optin - p.off_ring) / slot);
+  if (slots < 2) return false;
+  p.slots = slots;
+  p.smem = p.off_ring + slots * slot;
+  *out = p;
+  return true;
+}
+
+// Bytes of route 6's scratch: L's split stages, then a Y buffer for each
+// row group of each of `clusters` clusters.
+size_t yl_scratch_bytes(const Plan& plan, int clusters) {
+  return stream_scratch_bytes(plan) + (size_t)clusters * kYlRowGroups *
+                                          (plan.Kp / kYlKRows) * kYlYStage;
+}
+
+cudaError_t yl_clusters(const Plan& plan, int* clusters) {
+  static bool asked[kMaxDevices] = {};
+  static int known[kMaxDevices][2] = {};
+  return max_active_clusters(wide_yl_kernel, kThreadsYl, plan, asked, known,
+                             clusters);
+}
+
+cudaError_t launch_yl(const float* act, const float* lp_old,
+                      const float* other, const int* shift,
+                      unsigned long long key, const float* prec_chol,
+                      float* out_act, float* out_lp, int* out_acc, int n,
+                      long long row0, long long m, float a, const Plan& plan,
+                      float* scratch, int loads_only, cudaStream_t stream) {
+  int clusters = 0;
+  cudaError_t err = yl_clusters(plan, &clusters);
+  if (err != cudaSuccess) return err;
+  // no cluster of this shape fits the device: refused, no other route
+  if (clusters < 1) return cudaErrorLaunchOutOfResources;
+  err = split_for_stream(prec_chol, plan, scratch, stream);
+  if (err != cudaSuccess) return err;
+  const long long n_tiles = (n + kYlRows - 1) / kYlRows;
+  const int grid = (int)std::min(
+      (long long)clusters, (n_tiles + kYlRowGroups - 1) / kYlRowGroups);
+  float* ybufs = scratch + stream_scratch_bytes(plan) / 4;
+  ClusterLaunch l(grid * kYlCluster, kThreadsYl, plan.smem, kYlCluster,
+                  stream);
+  err = cudaLaunchKernelEx(&l.cfg, wide_yl_kernel, act, lp_old, other, shift,
+                           key, (const float*)scratch, ybufs, out_act,
+                           out_lp, out_acc, n, row0, m, a, plan, loads_only);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// ===========================================================================
 // The mma.sync kernel: every P the kernels above do not take
 // ===========================================================================
 //
@@ -2776,14 +3180,16 @@ enum Route {
   kRouteStream = 2,
   kRouteCluster = 3,
   kRouteLStream = 4,
-  kRouteKSplit = 5
+  kRouteKSplit = 5,
+  kRouteYl = 6
 };
 
 // The route at P on this device: the warp-specialised kernel where plan_for
 // takes P, else the cluster kernel where plan_cluster does, else the
 // L-streamed kernel where plan_stream does, else the K-split kernel where
-// plan_ksplit does (`plan` for any of the four), else the mma.sync kernel
-// with the Y tile or, past its shared memory, with Y streamed.
+// plan_ksplit does, else route 6 where plan_yl does (`plan` for any of the
+// five), else the mma.sync kernel with the Y tile or, past its shared
+// memory, with Y streamed.
 cudaError_t route(int P, Plan* plan, Route* which) {
   int optin = 0;
   const cudaError_t err = smem_optin(&optin);
@@ -2796,6 +3202,8 @@ cudaError_t route(int P, Plan* plan, Route* which) {
     *which = kRouteLStream;
   } else if (plan_ksplit(P, optin, plan)) {
     *which = kRouteKSplit;
+  } else if (plan_yl(P, optin, plan)) {
+    *which = kRouteYl;
   } else {
     *which = wide_smem_bytes(P, false, 1) > (size_t)optin ? kRouteStream
                                                           : kRouteTile;
@@ -2835,9 +3243,27 @@ int launch(const float* act, const float* lp_old, const float* other,
                         out_lp, out_acc, n, row0, m, a, plan,
                         static_cast<float*>(scratch), loads_only, stream);
   }
+  if (which == kRouteYl) {
+    // L's split stages and the Y buffers go to the caller's scratch
+    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+    return (int)launch_yl(act, lp_old, other, shift, key, prec_chol, out_act,
+                          out_lp, out_acc, n, row0, m, a, plan,
+                          static_cast<float*>(scratch), loads_only, stream);
+  }
   if (loads_only) return (int)cudaErrorInvalidValue;
   return (int)launch_shape(act, lp_old, other, shift, key, prec_chol, out_act,
                            out_lp, out_acc, n, row0, m, P, a, stream);
+}
+
+// Bytes of the scratch a wide launch of `plan` takes (`clusters` those the
+// device holds at once): L's split stages on routes 4 and 5, those and the
+// Y buffers on route 6, else 0.
+long long scratch_bytes(const Plan& plan, Route which, int clusters) {
+  if (which == kRouteYl) return (long long)yl_scratch_bytes(plan, clusters);
+  if (which == kRouteLStream || which == kRouteKSplit) {
+    return (long long)stream_scratch_bytes(plan);
+  }
+  return 0;
 }
 
 }  // namespace
@@ -2846,15 +3272,18 @@ int launch(const float* act, const float* lp_old, const float* other,
 // as ten ints: route (0: warp-specialised, wgmma; 1: mma.sync with the Y
 // tile; 2: mma.sync with Y streamed; 3: wgmma on a thread-block cluster; 4:
 // wgmma with L streamed; 5: wgmma with K split over a thread-block
-// cluster), dynamic shared memory (bytes), walkers a block holds at once
-// (on route 5 the rows of its Y slice: a cluster's tile), rows a walker
-// stage and stages a ring (a consumer's on route 0; on routes 4 and 5 the
-// one ring's slots, each a walker stage or an L stage), wgmma N (a block's
-// columns of S on route 3, a consumer's of a panel on routes 4 and 5; 0
-// where these do not apply), blocks a cluster (1 but on routes 3, 4 and 5),
-// the clusters the device holds at once (routes 3, 4 and 5; 0 elsewhere),
-// the k-steps of 8 in an L stage and the bytes of L's split stages that the
-// caller allocates as scratch (routes 4 and 5; 0 elsewhere). Returns a
+// cluster; 6: wgmma with Y and L streamed, multicast over a 2-D cluster),
+// dynamic shared memory (bytes), walkers a block holds at once (on routes
+// 5 and 6 a cluster's tile of 128 rows), rows a walker stage and stages a
+// ring (a consumer's on route 0; on routes 4 and 5 the one ring's slots,
+// each a walker stage or an L stage; on route 6 the 128 rows of a Y stage
+// and the ring's slots, each a Y stage beside an L stage), wgmma N (a
+// block's columns of S on route 3, a consumer's of a panel on routes 4–6;
+// 0 where these do not apply), blocks a cluster (1 but on routes 3–6), the
+// clusters the device holds at once (routes 3–6; 0 elsewhere), the k-steps
+// of 8 in an L stage and the bytes of the scratch the caller allocates
+// (routes 4–6; 0 elsewhere; −1 where they exceed an int:
+// mcmcpp_fused_stretch_wide_scratch_bytes gives them). Returns a
 // cudaError_t.
 extern "C" int mcmcpp_fused_stretch_wide_layout(int P, int* out) {
   if (P <= 0) return (int)cudaErrorInvalidValue;
@@ -2871,23 +3300,27 @@ extern "C" int mcmcpp_fused_stretch_wide_layout(int P, int* out) {
     return 0;
   }
   if (which == kRouteCluster || which == kRouteLStream ||
-      which == kRouteKSplit) {
+      which == kRouteKSplit || which == kRouteYl) {
     int clusters = 0;
-    err = which == kRouteCluster  ? cluster_occupancy(plan, &clusters)
+    err = which == kRouteCluster   ? cluster_occupancy(plan, &clusters)
           : which == kRouteLStream ? stream_occupancy(plan, &clusters)
-                                   : ksplit_occupancy(plan, &clusters);
+          : which == kRouteKSplit  ? ksplit_occupancy(plan, &clusters)
+                                   : yl_clusters(plan, &clusters);
     if (err != cudaSuccess) return (int)err;
+    const long long bytes = scratch_bytes(plan, which, clusters);
     const bool streamed = which != kRouteCluster;
     const int v[10] = {which,
                        plan.smem,
-                       which == kRouteKSplit ? kKsplitRows : kTileRows,
+                       which == kRouteKSplit ? kKsplitRows
+                       : which == kRouteYl   ? kYlRows
+                                             : kTileRows,
                        plan.sr,
                        plan.slots,
                        plan.nsub,
                        plan.cluster,
                        clusters,
                        streamed ? plan.lkc : 0,
-                       streamed ? (int)stream_scratch_bytes(plan) : 0};
+                       bytes > INT_MAX ? -1 : (int)bytes};
     for (int i = 0; i < 10; ++i) out[i] = v[i];
     return 0;
   }
@@ -2913,10 +3346,11 @@ extern "C" int mcmcpp_fused_stretch_wide_layout(int P, int* out) {
 // All pointers are device pointers; `prec_chol` is L, (P, P) row-major;
 // `shift` points at one int32 (any value); `key` is the half-step's Philox
 // key, local walker i drawing its u and ue from (key, row0 + i). `scratch`
-// holds the bytes mcmcpp_fused_stretch_wide_layout gives (out[9]), 16-B
-// aligned, where that is not 0 (routes 4 and 5 write L's split stages
-// there; a null scratch refuses the launch), else may be null. Returns the launch's
-// cudaError_t (0 on success).
+// holds the bytes mcmcpp_fused_stretch_wide_scratch_bytes gives (out[0]),
+// 16-B aligned, where that is not 0 (routes 4 and 5 write L's split stages
+// there, route 6 those and its Y buffers; a null scratch refuses the
+// launch), else may be null. Returns the launch's cudaError_t (0 on
+// success).
 extern "C" int mcmcpp_fused_stretch_wide_f32(
     const float* act, const float* lp_old, const float* other,
     const int* shift, unsigned long long key, const float* prec_chol,
@@ -2931,7 +3365,9 @@ extern "C" int mcmcpp_fused_stretch_wide_f32(
 // the ring (on routes 4 and 5 also every stage of L through its ring, after
 // the prologue), the proposal rows (on route 3 also sent between the blocks
 // of the cluster, whose exchange of the row sums runs on zeros; on route 5
-// the exchange of the partial products runs on zeros), X and the accepted
+// the exchange of the partial products runs on zeros; on route 6 formed
+// into the Y buffers, every Y and L stage through the ring after the
+// prologue, the exchange of the row sums on zeros), X and the accepted
 // rows written, lp_new taken as lp_old (so the decisions follow the factor
 // alone). Refuses (cudaErrorInvalidValue) a P the mma.sync kernel takes.
 extern "C" int mcmcpp_fused_stretch_wide_loads_only_f32(
@@ -2944,8 +3380,9 @@ extern "C" int mcmcpp_fused_stretch_wide_loads_only_f32(
 }
 
 // Debug entry for measurement, not called by the port: the prologue of
-// routes 4 and 5 alone, L's split stages into `scratch` (the layout's
-// out[9] bytes). Refuses (cudaErrorInvalidValue) a P that neither takes.
+// routes 4–6 alone, L's split stages into `scratch` (at least the bytes
+// mcmcpp_fused_stretch_wide_scratch_bytes gives as out[1]). Refuses
+// (cudaErrorInvalidValue) a P that none of them takes.
 extern "C" int mcmcpp_fused_stretch_wide_split_l_f32(const float* prec_chol,
                                                      int P, void* scratch,
                                                      void* stream) {
@@ -2954,9 +3391,46 @@ extern "C" int mcmcpp_fused_stretch_wide_split_l_f32(const float* prec_chol,
   Route which = kRouteTile;
   const cudaError_t err = route(P, &plan, &which);
   if (err != cudaSuccess) return (int)err;
-  if (which != kRouteLStream && which != kRouteKSplit) {
+  if (which != kRouteLStream && which != kRouteKSplit && which != kRouteYl) {
     return (int)cudaErrorInvalidValue;
   }
   return (int)split_for_stream(prec_chol, plan, static_cast<float*>(scratch),
                                static_cast<cudaStream_t>(stream));
+}
+
+// The scratch of a wide launch at P on the current device as two 64-bit
+// counts: out[0] the bytes the launch takes (the layout's out[9], which an
+// int may not hold), out[1] those of L's split stages at its start, which
+// the prologue writes (routes 4–6; both 0 elsewhere). Returns a
+// cudaError_t.
+extern "C" int mcmcpp_fused_stretch_wide_scratch_bytes(int P,
+                                                       long long* out) {
+  if (P <= 0) return (int)cudaErrorInvalidValue;
+  Plan plan;
+  Route which = kRouteTile;
+  cudaError_t err = route(P, &plan, &which);
+  if (err != cudaSuccess) return (int)err;
+  int clusters = 0;
+  if (which == kRouteYl) err = yl_clusters(plan, &clusters);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = scratch_bytes(plan, which, clusters);
+  out[1] = which == kRouteYl ? (long long)stream_scratch_bytes(plan) : out[0];
+  return 0;
+}
+
+// Debug entry for checking and timing, not called by the port: the mma.sync
+// kernel (route 1 where its Y tile fits the device's block, else route 2,
+// Y streamed) at any P, whatever route the dispatch takes there, with the
+// arguments and outputs of mcmcpp_fused_stretch_wide_f32 but the scratch.
+extern "C" int mcmcpp_fused_stretch_wide_forced_mma_f32(
+    const float* act, const float* lp_old, const float* other,
+    const int* shift, unsigned long long key, const float* prec_chol,
+    float* out_act, float* out_lp, int* out_acc, int n, long long row0,
+    long long m, int P, float a, void* stream) {
+  if (!mcmcpp::valid_rows(n, row0, m) || P <= 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)launch_shape(act, lp_old, other, shift, key, prec_chol, out_act,
+                           out_lp, out_acc, n, row0, m, P, a,
+                           static_cast<cudaStream_t>(stream));
 }

@@ -122,6 +122,13 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// Orders this thread's generic-proxy writes to device memory before later
+// async-proxy reads of them (bulk copies issued, after a barrier, by any
+// thread of the cluster).
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
 // -- thread-block clusters -----------------------------------------------------
 
 // This block's rank in its cluster, the cluster's index in the grid and the
@@ -173,6 +180,13 @@ __device__ __forceinline__ void st_async_cluster(unsigned addr, float v,
       "[%2];\n" ::"r"(addr),
       "f"(v), "r"(bar)
       : "memory");
+}
+
+// A plain float store into a peer's shared memory (a map_rank address),
+// visible to the peer after the next cluster_sync.
+__device__ __forceinline__ void st_cluster(unsigned addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v)
+               : "memory");
 }
 
 // Four floats (16 B; `addr` 16-B aligned) stored as st_async_cluster stores

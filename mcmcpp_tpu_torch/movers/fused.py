@@ -11,7 +11,7 @@ version, and the logp picks the kernel, one of three routes:
   the fused kernel (``csrc/fused_stretch.cu``);
 - a wider GaussianTarget: one launch a half-step of the wide kernel
   (``csrc/fused_stretch_wide.cu``: Y·L as 3xTF32 on the tensor cores, any
-  P), by one of its five kernels (``ops/fused_stretch.WIDE_ROUTES``): on an
+  P), by one of its kernels (``ops/fused_stretch.WIDE_ROUTES``): on an
   H100 to P = 117 a warp-specialised block an SM with L resident in shared
   memory (``wgmma``), to P = 296 the same on thread-block clusters, each
   block holding a column slice of L, to P = 784 a block an SM with its Y
@@ -19,8 +19,11 @@ version, and the logp picks the kernel, one of three routes:
   ring shared by a cluster's blocks (``wgmma``), to P = 2944 the product's
   K split over a thread-block cluster, each block with a k-slice of a
   128-row Y tile and its rows of L streamed, the partial products added in
-  rank order through distributed shared memory (``wgmma``), and wider the
-  ``mma.sync`` kernel with L streamed through shared memory;
+  rank order through distributed shared memory (``wgmma``), and wider, at
+  any P, Y formed once into scratch and streamed back beside L's stages,
+  each multicast over a 4 × 2 cluster (``wgmma``); the ``mma.sync`` kernel
+  with L streamed through shared memory is kept for a device whose blocks
+  no ``wgmma`` plan fits;
 - any other logp: the propose and accept kernels around the torch logp
   (``csrc/stretch_split.cu``).
 

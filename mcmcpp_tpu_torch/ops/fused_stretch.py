@@ -59,8 +59,16 @@ against its plain version run on those planes.
      split by the same prologue, under two consumer warpgroups' wgmma; the
      partial products of each column panel are added in rank order by the
      blocks that own their rows, through distributed shared memory); wider
-     still a block of 64 walkers with Y streamed through the output rows
-     takes it with mma.sync and L streamed;
+     still, at any P (``WIDE_ROUTES[6]``), Y and L both streamed (a
+     4 × 2 thread-block cluster forms each tile's Y once into the scratch
+     and streams it back beside the same prologue's L stages, each stage
+     multicast to the blocks that share it, under two consumer warpgroups'
+     wgmma; the row sums of each column group are added in rank order by
+     the block that owns the rows). The mma.sync kernel (a block of 64 or
+     128 walkers, L streamed, Y in a tile or streamed through the output
+     rows) stays in the library for a device whose blocks no wgmma plan
+     fits; on an H100 the dispatch reaches it at no width, and
+     :func:`wide_forced_mma` launches it for checking and timing;
   3. any other batched logp takes the split path of ``csrc/
      stretch_split.cu``: the propose kernel, the logp as torch ops on the
      current stream, then the accept kernel (the Pallas kernel traced the
@@ -254,21 +262,41 @@ def _launch_wide(active, active_logp, other, shift, key, prec_chol, a,
 #: the routes of the wide kernel, by the number ``wide_layout`` gives
 WIDE_ROUTES = ("wgmma, warp-specialised", "mma.sync, Y tile",
                "mma.sync, Y streamed", "wgmma, thread-block cluster",
-               "wgmma, L streamed", "wgmma, K split over a cluster")
+               "wgmma, L streamed", "wgmma, K split over a cluster",
+               "wgmma, Y and L streamed")
 
-#: bytes of L's split stages the wide kernel needs as scratch, by (device
-#: index, P): 0 but on the L-streamed and K-split routes
+#: bytes of the scratch a wide launch takes and of L's split stages at its
+#: start, by (device index, P): both 0 but on the L-streamed, K-split and
+#: Y-and-L-streamed routes (the last also keeps its Y buffers there)
 _SCRATCH_BYTES = {}
+
+
+def _scratch_bytes(p, device):
+    """(scratch bytes of a wide launch at width ``p``, bytes of L's split
+    stages at its start), as the library sizes them on ``device``."""
+    import ctypes
+
+    from mcmcpp_tpu_torch._build import load_library
+
+    at = (torch.device(device).index, p)
+    if at not in _SCRATCH_BYTES:
+        out = (ctypes.c_longlong * 2)()
+        with torch.cuda.device(device):
+            err = load_library().mcmcpp_fused_stretch_wide_scratch_bytes(
+                int(p), out)
+        if err != 0:
+            raise RuntimeError(f"wide kernel scratch at P={p} failed "
+                               f"(cudaError {err})")
+        _SCRATCH_BYTES[at] = (out[0], out[1])
+    return _SCRATCH_BYTES[at]
 
 
 def _wide_scratch(p, device):
     """The scratch of a wide launch at width ``p`` on ``device``: a new
-    ``torch.empty`` buffer where the library's route writes L's split stages
-    there (the L-streamed and K-split routes), else None."""
-    at = (torch.device(device).index, p)
-    if at not in _SCRATCH_BYTES:
-        _SCRATCH_BYTES[at] = wide_layout(p, device)["scratch_bytes"]
-    nbytes = _SCRATCH_BYTES[at]
+    ``torch.empty`` buffer where the library's route keeps L's split stages
+    there (the L-streamed and K-split routes; on the Y-and-L-streamed route
+    also its Y buffers), else None."""
+    nbytes = _scratch_bytes(p, device)[0]
     if not nbytes:
         return None
     return torch.empty((nbytes // 4,), dtype=torch.float32, device=device)
@@ -286,8 +314,13 @@ def wide_layout(p, device="cuda"):
     the L-streamed and K-split routes; 0 elsewhere), blocks a cluster (1
     but on the cluster, L-streamed and K-split routes), the clusters the
     device holds at once (those three routes; 0 elsewhere), the k-steps of
-    8 in a stage of L and the bytes of L's split stages, the launch's
-    scratch (the L-streamed and K-split routes; 0 elsewhere)."""
+    8 in a stage of L and the bytes of the launch's scratch (the L-streamed
+    and K-split routes: L's split stages; 0 elsewhere). On the
+    Y-and-L-streamed route (index 6) the walkers are a cluster's tile of
+    128 rows, the rows a stage the 128 of a Y stage, the stages the ring's
+    slots (each a Y stage beside an L stage), N a panel's columns, the
+    cluster its 4 × 2 blocks, and the scratch L's split stages and the Y
+    buffers of as many clusters as the device holds."""
     import ctypes
 
     from mcmcpp_tpu_torch._build import load_library
@@ -301,32 +334,37 @@ def wide_layout(p, device="cuda"):
     keys = ("route", "smem_bytes", "block_walkers", "stage_rows", "stages",
             "wgmma_n", "cluster", "active_clusters", "l_ksteps",
             "scratch_bytes")
-    return dict(zip(keys, list(out)))
+    layout = dict(zip(keys, list(out)))
+    # the library's int gives −1 past 2^31 − 1 bytes
+    layout["scratch_bytes"] = _scratch_bytes(p, device)[0]
+    return layout
 
 
 def wide_split_l(prec_chol):
-    """The prologue of the L-streamed and K-split routes alone on a CUDA
-    ``prec_chol`` (P, P): L's split stages, as the wide kernel writes them
-    into its scratch, for measuring what the prologue takes. Nothing in the
-    port calls it; it counts no launch. Raises where neither route takes
-    P."""
+    """The prologue of the L-streamed, K-split and Y-and-L-streamed routes
+    alone on a CUDA ``prec_chol`` (P, P): L's split stages, as the wide
+    kernel writes them at the start of its scratch, for measuring what the
+    prologue takes. Nothing in the port calls it; it counts no launch.
+    Raises where none of those routes takes P."""
     from mcmcpp_tpu_torch._build import load_library
 
     p = prec_chol.shape[0]
     _check_args({"prec_chol": prec_chol}, {"prec_chol": (p, p)},
                 prec_chol.device)
     with torch.cuda.device(prec_chol.device):
-        scratch = _wide_scratch(p, prec_chol.device)
-        if scratch is None:
-            raise RuntimeError(f"neither the L-streamed nor the K-split "
-                               f"route takes P={p}")
+        l_bytes = _scratch_bytes(p, prec_chol.device)[1]
+        if not l_bytes:
+            raise RuntimeError(f"none of the routes that split L takes "
+                               f"P={p}")
+        stages = torch.empty((l_bytes // 4,), dtype=torch.float32,
+                             device=prec_chol.device)
         err = load_library().mcmcpp_fused_stretch_wide_split_l_f32(
-            prec_chol.data_ptr(), p, scratch.data_ptr(),
+            prec_chol.data_ptr(), p, stages.data_ptr(),
             _stream(prec_chol.device))
     if err != 0:
         raise RuntimeError(f"wide kernel prologue at P={p} failed "
                            f"(cudaError {err})")
-    return scratch
+    return stages
 
 
 def wide_loads_only(active, active_logp, other, shift, key, prec_chol, a=2.0,
@@ -337,13 +375,44 @@ def wide_loads_only(active, active_logp, other, shift, key, prec_chol, a=2.0,
     proposal rows sent between the blocks and the exchange of the row
     sums, on the L-streamed and K-split routes with the prologue and every
     stage of L through its ring, on the K-split route with the exchange of
-    the partial products). lp_new is taken as lp_old,
+    the partial products, on the Y-and-L-streamed route with the Y buffers
+    formed and every Y and L stage through the ring). lp_new is taken as
+    lp_old,
     so its outputs are not a half-step's. Nothing in the port calls it; it
     counts no launch."""
     key = _check_key(key)
     _half_args(active, active_logp, other, shift, int(row0))
     return _launch_wide(active, active_logp, other, shift, key, prec_chol, a,
                         int(row0), loads_only=True)
+
+
+def wide_forced_mma(active, active_logp, other, shift, key, prec_chol,
+                    a=2.0, row0=0):
+    """The wide kernel's mma.sync route (``WIDE_ROUTES[1]`` where its Y tile
+    fits the device's block, else ``WIDE_ROUTES[2]``, Y streamed) at any
+    width, whatever route the dispatch takes there, through the library's
+    debug entry point, on CUDA tensors: a half-step's outputs, for holding
+    that kernel against its plain version and timing it. Nothing in the
+    port calls it; it counts no launch."""
+    from mcmcpp_tpu_torch._build import load_library
+
+    key = _check_key(key)
+    row0 = int(row0)
+    _half_args(active, active_logp, other, shift, row0)
+    n, p = active.shape
+    _check_args({"prec_chol": prec_chol}, {"prec_chol": (p, p)},
+                active.device)
+    out_act = torch.empty_like(active)
+    out_lp = torch.empty_like(active_logp)
+    out_acc = torch.empty((n,), dtype=torch.int32, device=active.device)
+    with torch.cuda.device(active.device):
+        err = load_library().mcmcpp_fused_stretch_wide_forced_mma_f32(
+            active.data_ptr(), active_logp.data_ptr(), other.data_ptr(),
+            shift.data_ptr(), key, prec_chol.data_ptr(),
+            out_act.data_ptr(), out_lp.data_ptr(), out_acc.data_ptr(), n,
+            row0, other.shape[0], p, float(a), _stream(active.device))
+    _checked(err, "fused_stretch_wide", count=False)
+    return out_act, out_lp, out_acc
 
 
 def stretch_propose(active, other, shift, key, a=2.0, row0=0):

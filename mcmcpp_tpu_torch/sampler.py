@@ -219,14 +219,17 @@ def run_nostore(state: EnsembleState, step_fn, n_steps: int):
 
 def sample_ball(gen, center, scale, n_walkers, dtype=torch.float32,
                 device="cuda"):
-    """Gaussian ball initializer for walker positions (emcee-style)."""
+    """Gaussian ball initializer for walker positions (emcee-style):
+    center + scale·z, computed in place in z's buffer (the same two roundings
+    as out of place), so that a (W, P) ensemble needs no more than its own
+    memory on the device."""
     center = torch.as_tensor(center, dtype=dtype, device=device)
     scale = torch.broadcast_to(
         torch.as_tensor(scale, dtype=dtype, device=device), center.shape
     )
     z = torch.randn((n_walkers, center.shape[0]), generator=gen, dtype=dtype,
                     device=device)
-    return center[None, :] + scale[None, :] * z
+    return z.mul_(scale[None, :]).add_(center[None, :])
 
 
 class EnsembleSampler:

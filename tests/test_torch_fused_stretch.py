@@ -36,6 +36,11 @@ KSPLIT_WIDTHS = (80, 72, 64, 56, 48)
 #: the widest P whose K-split plan fits an H100's block (a cluster of 8,
 #: stages of two k-steps, N = 48)
 KSPLIT_WIDEST = 2944
+#: route 6's block (``plan_yl``): a cluster of row groups × column groups,
+#: a panel's wgmma N, k-steps of 8 a stage, and the bytes of a Y stage (128
+#: rows × 32 k-rows) and of an L stage (two halves of 32 k-rows × N)
+YL_GROUPS, YL_N, YL_KC = (4, 2), 128, 4
+YL_SLOT = 4 * 128 * 32 + 2 * 4 * 32 * 128
 
 
 def _prec_chol(p, seed):
@@ -294,7 +299,9 @@ def _assert_near_reference(target, args, key, k_out, skip=None):
                                128, 200, 257, 296, 297, 298, 299, 300, 384,
                                512, 577, 704, 784, 785, 786, 787, 788, 1000,
                                1024, 1025, 1536, KSPLIT_WIDEST,
-                               KSPLIT_WIDEST + 1])
+                               KSPLIT_WIDEST + 1, KSPLIT_WIDEST + 2,
+                               KSPLIT_WIDEST + 3, KSPLIT_WIDEST + 4, 3000,
+                               4096])
 def test_wide_gaussian_launches_one_wide_kernel_on_card(cuda_device, p,
                                                         shift):
     """A GaussianTarget with P > ``fs.MAX_P`` (16, the fused kernel's own
@@ -304,9 +311,9 @@ def test_wide_gaussian_launches_one_wide_kernel_on_card(cuda_device, p,
     to P = 117, thread-block clusters of 2, 4 and 8 blocks from 118 to 296,
     L streamed from 297 to 784 (N = 80, 64, 80, 72, 56; stages of four
     k-steps, of two at P = 577–784), K split over clusters of 4 blocks from
-    785 to 1024 and of 8 to ``KSPLIT_WIDEST``, the mma.sync kernel past
-    that) and every P mod 4 at the routes' edges, so that the runs start at
-    every offset from a 16-B boundary."""
+    785 to 1024 and of 8 to ``KSPLIT_WIDEST``, route 6 (Y and L streamed)
+    past that) and every P mod 4 at the routes' edges, so that the runs
+    start at every offset from a 16-B boundary."""
     target, args, key = _wide_case(cuda_device, 3000, p, shift, seed=p)
     before = dict(fs.LAUNCHES)
     k_out = fs.fused_stretch_half(*args, key=key, logp_fn=target)
@@ -321,10 +328,12 @@ def test_wide_gaussian_launches_one_wide_kernel_on_card(cuda_device, p,
 def test_wide_kernel_streams_y_past_its_tile_on_card(cuda_device, shift):
     """At P = 1000 the Y tile of 64 walkers no longer fits beside the
     L-streamed route's ring (it stops at P = 784 on an H100) nor in the
-    mma.sync kernel's block, which streamed Y through the output rows
-    before the K-split route: now each block of a cluster keeps a k-slice
-    of a 128-row Y tile. One launch a half-step through the dispatch, held
-    to the plain version."""
+    mma.sync kernel's block, which streams Y through the output rows (the
+    dispatch reaches it at no width on an H100: ``fs.wide_forced_mma``
+    launches it); each block of a K-split cluster keeps a k-slice of a
+    128-row Y tile instead, and past ``KSPLIT_WIDEST`` route 6 streams Y
+    from a buffer it forms once. One launch a half-step through the
+    dispatch, held to the plain version."""
     p = 1000
     assert fs.WIDE_ROUTES[fs.wide_layout(p, cuda_device)["route"]] == (
         "wgmma, K split over a cluster")
@@ -495,18 +504,34 @@ def _ksplit_slices(p):
     return [(k0, min(k1, p)) for k0, k1 in zip(starts[:-1], starts[1:])]
 
 
+def _yl_plan(p, optin=H100_SMEM):
+    """``plan_yl`` of ``csrc/fused_stretch_wide.cu`` (route 6) at width p,
+    for a P that the routes before it do not take (p > ``KSPLIT_WIDEST`` on
+    an H100): (row groups, column groups, a panel's N, k-steps of 8 a
+    stage, slots of the ring), the same block at every P: beside the owned
+    rows' offsets and scalars and the exchange of the row sums (3200 bytes
+    with the barriers) a ring of two or more slots (at most 8), each a Y
+    stage beside an L stage; None where two slots do not fit."""
+    off = 8 * 2 * 64 + 4 * 4 * 64 + 4 * 2 * 128 + 8 * 2 * 8
+    slots = min(8, (optin - -(-off // 128) * 128) // YL_SLOT)
+    return (*YL_GROUPS, YL_N, YL_KC, slots) if p >= 1 and slots >= 2 else None
+
+
 def _wide_route(p, optin=H100_SMEM):
     """The wide kernel's route at width p, as ``route`` in
     ``csrc/fused_stretch_wide.cu`` picks it: "ws" (the warp-specialised
     block), "cluster", "stream" (L streamed), "ksplit" (K split over a
-    cluster) or "mma" (the mma.sync kernel)."""
+    cluster), "yl" (route 6: Y and L streamed) or "mma" (the mma.sync
+    kernel, where no wgmma plan fits the device's block)."""
     if _ws_plan(p, optin):
         return "ws"
     if _cluster_plan(p, optin):
         return "cluster"
     if _stream_plan(p, optin):
         return "stream"
-    return "ksplit" if _ksplit_plan(p, optin) else "mma"
+    if _ksplit_plan(p, optin):
+        return "ksplit"
+    return "yl" if _yl_plan(p, optin) else "mma"
 
 
 def _wide_width(p):
@@ -516,8 +541,8 @@ def _wide_width(p):
     ``plan_for`` takes P (P <= 117 with an H100's 232,448 B a block), a
     cluster block's slice where ``plan_cluster`` does (to P = 296), a
     consumer's half of a panel on the L-streamed route (to P = 784), a
-    panel on the K-split route (to ``KSPLIT_WIDEST``), else the mma.sync
-    kernel's panels of 64."""
+    panel on the K-split route (to ``KSPLIT_WIDEST``) and on route 6 (past
+    it), else the mma.sync kernel's panels of 64."""
     route = _wide_route(p)
     if route == "ws":
         return _ws_plan(p)
@@ -525,6 +550,8 @@ def _wide_width(p):
         return _cluster_plan(p)[1]
     if route == "ksplit":
         return _ksplit_plan(p)[1]
+    if route == "yl":
+        return YL_N
     return _stream_plan(p)[0] if route == "stream" else 64
 
 
@@ -534,10 +561,12 @@ def _wide_group(p):
     where the wgmma is at most 80 wide, two to 112, one past (as the A
     fragments of the group fit beside the accumulators); on the L-streamed
     and K-split routes an L stage's (four, or two where only those fit);
-    one in the mma.sync kernel."""
+    on route 6 a stage's four; one in the mma.sync kernel."""
     route = _wide_route(p)
     if route == "ksplit":
         return _ksplit_plan(p)[2]
+    if route == "yl":
+        return YL_KC
     if route in ("stream", "mma"):
         return _stream_plan(p)[1] if route == "stream" else 1
     n = _wide_width(p)
@@ -555,6 +584,14 @@ def _wide_kslices(p):
     before adding them in rank order: each block's k-slice on the K-split
     route (``_ksplit_slices``), else all of K."""
     return _ksplit_slices(p) if _wide_route(p) == "ksplit" else [(0, p)]
+
+
+def _wide_colgroups(p):
+    """Column groups whose row sums the wide kernel adds in rank order at
+    width p: on route 6 each block of a row group squares the panels
+    g, g + G, … (its column group g of G) and the owner adds the G sums;
+    else 1."""
+    return YL_GROUPS[1] if _wide_route(p) == "yl" else 1
 
 
 def _wide_consumers(p):
@@ -583,7 +620,7 @@ def _row_squares(acc, width):
 
 
 def _quad_3xtf32(y, L, partials=True, width=None, group=None, slices=None,
-                 consumers=None, kslices=None):
+                 consumers=None, kslices=None, colgroups=None):
     """The wide kernel's lp = −½‖y·L‖² as its tensor cores compute it: per
     k-step of 8, the three TF32 products small·big, big·small and big·big,
     each summed exactly (float64 holds a TF32 product and a sum of eight)
@@ -604,7 +641,10 @@ def _quad_3xtf32(y, L, partials=True, width=None, group=None, slices=None,
     each block's k-rows on the K-split route, else all of K), the groups of
     each k-slice are summed into that slice's S from zero, and the slices'
     S are added in rank order, ((S_0 + S_1) + S_2) + …, before the
-    squares."""
+    squares. With ``colgroups`` G > 1 (``_wide_colgroups(P)`` by default:
+    route 6), column group g sums the squares of panels g, g + G, … of
+    ``width`` columns in that order, and the G sums are added in rank
+    order."""
     yb, ys = _split(y)
     lb, ls = _split(L)
     p = L.shape[0]
@@ -625,6 +665,19 @@ def _quad_3xtf32(y, L, partials=True, width=None, group=None, slices=None,
     width = width or _wide_width(p)
     slices = slices or _wide_slices(p)
     consumers = consumers or _wide_consumers(p)
+    colgroups = colgroups or _wide_colgroups(p)
+    if colgroups > 1:
+        panels = -(-p // width)
+        cols = np.zeros((acc.shape[0], width * panels), np.float32)
+        cols[:, :p] = acc
+        total = None
+        for g in range(colgroups):
+            mine = [cols[:, pn * width:(pn + 1) * width]
+                    for pn in range(g, panels, colgroups)]
+            q = (_row_squares(np.concatenate(mine, axis=1), width) if mine
+                 else np.zeros(acc.shape[0], np.float32))
+            total = q if total is None else (total + q).astype(np.float32)
+        return np.float32(-0.5) * total
     if consumers == 2:
         panels = -(-p // (2 * width))
         cols = np.zeros((acc.shape[0], 2 * width * panels), np.float32)
@@ -916,12 +969,12 @@ def test_ksplit_plan_on_an_h100(p, plan):
     1000, four and three slots of L stages of four k-steps; a Y slice of
     7 chunks of 32 k-rows at 785, split 7/6/6/6), where three slots fit
     with N >= 64; clusters of 8 from 1025 (N = 80 to 1280); stages of two
-    k-steps and N = 48 only near the widest P; the mma.sync kernel past
-    it."""
+    k-steps and N = 48 only near the widest P; route 6 (Y and L streamed)
+    past it."""
     if plan == "stream":
         assert _wide_route(p) == "stream" and _ksplit_plan(p) is not None
         return
-    assert _wide_route(p) == ("ksplit" if plan else "mma")
+    assert _wide_route(p) == ("ksplit" if plan else "yl")
     assert _ksplit_plan(p) == plan
     if plan is None:
         assert all(_ksplit_plan(q) for q in range(785, p))
@@ -994,11 +1047,160 @@ def test_ksplit_prologue_matches_its_emulation_on_card(cuda_device, p):
                           want.view(np.uint32))
 
 
+@pytest.mark.parametrize("p,route,plan", [
+    (KSPLIT_WIDEST, "ksplit", None),
+    (KSPLIT_WIDEST + 1, "yl", H100_SMEM),
+    (3000, "yl", H100_SMEM),
+    (4096, "yl", H100_SMEM),
+    (8192, "yl", H100_SMEM),
+    (16384, "yl", H100_SMEM),
+    (3000, "yl", 120 * 1024),
+    (3000, "mma", 96 * 1024)])
+def test_yl_plan_on_an_h100(p, route, plan):
+    """Route 6's plan: past ``KSPLIT_WIDEST`` with an H100's shared memory
+    every P takes it, with no cap (the same block at every P: clusters of
+    4 × 2 blocks, panels of 128 columns, stages of four k-steps, four slots
+    of a Y stage beside an L stage); with 120 KB a block it still fits two
+    slots; only a block that cannot hold two slots (96 KB) leaves the
+    mma.sync kernel."""
+    optin = plan or H100_SMEM
+    assert _wide_route(p, optin) == route
+    if route == "ksplit":
+        assert _ksplit_plan(p) is not None and _yl_plan(p) is not None
+        return
+    if route == "mma":
+        assert _yl_plan(p, optin) is None
+        return
+    assert _yl_plan(p, optin) == (
+        *YL_GROUPS, YL_N, YL_KC, 4 if optin == H100_SMEM else 2)
+    if optin == H100_SMEM:
+        assert _wide_width(p) == YL_N and _wide_group(p) == YL_KC
+        assert _wide_colgroups(p) == 2 and _wide_kslices(p) == [(0, p)]
+        assert _wide_slices(p) == 1 and _wide_consumers(p) == 1
+
+
+@pytest.mark.parametrize("p", [3000])
+def test_3xtf32_yl_route_keeps_float32_accuracy(p):
+    """On route 6 (past ``KSPLIT_WIDEST`` on an H100) the product over all
+    of K (a partial for each stage's four k-steps), the squares of panels
+    of 128 columns taken by two column groups (panels g, g + 2, …) and the
+    groups' sums added in rank order hold rtol = 1e-5 against float64 and
+    the plain float32 forward, with a full L, as do partials of one k-step
+    and one column group; TF32 alone misses it."""
+    assert _wide_route(p) == "yl" and _wide_colgroups(p) == 2
+    L = _full_l(p)
+    _, y = _inputs(6, p, seed=p)
+    want = _logp_np(y, L).astype(np.float64)
+    plain = GaussianTarget(L, device="cpu")(torch.from_numpy(y)).numpy()
+    for group, colgroups in ((YL_KC, None), (1, 1)):
+        got = _quad_3xtf32(y, L, group=group, colgroups=colgroups)
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
+        np.testing.assert_allclose(got, plain, rtol=1e-5, atol=0)
+    yb, lb = _tf32(y), _tf32(L)
+    tf32_only = -0.5 * np.sum((yb.astype(np.float64) @ lb) ** 2, -1)
+    assert np.max(np.abs(tf32_only / want - 1)) > 1e-5
+
+
+def _yl_buffer(y, kc=YL_KC):
+    """Route 6's Y buffer of a 128-row tile as its formation writes it
+    (``yl_at``): stage by stage of 8·kc k-rows, a row's 8·kc floats
+    contiguous, its k-steps of 8 swizzled by 8·(row % 4), zeros past P."""
+    rows, p = y.shape
+    krows = 8 * kc
+    kp = -(-p // krows) * krows
+    buf = np.zeros(kp // krows * rows * krows)
+    r = np.arange(rows)[:, None]
+    k = np.arange(p)[None, :]
+    buf[(k // krows) * rows * krows + r * krows
+        + ((k % krows) ^ ((r & 3) << 3))] = y
+    return buf
+
+
+@pytest.mark.parametrize("p", [KSPLIT_WIDEST + 1, 3003])
+def test_yl_stages_feed_the_product_in_wgmma_order(p):
+    """Route 6's stages read as its consumers read them: the Y stage of
+    chunk ch (``_yl_buffer``) with thread t of row r's quad taking the
+    float2 at (8·i ^ 8·(r % 4)) + 2t of the row's 32 floats for k-step i
+    (the A fragment's positions t and t + 4), the L stage of panel pn and
+    chunk ch (``_stream_stages`` with ``cols`` = 128: both consumers' B at
+    byte 0 of a stage's half, k-step i at 256·i, core matrices 128 B apart
+    in K and 1024 B apart in N), big + small summed exactly; column group g
+    of the two takes panels g, g + 2, …: the panels' products are every
+    column of Y·L, zeros past P."""
+    kc, rows, sbo = YL_KC, 8 * YL_KC, 256 * YL_KC
+    # any full matrix: the layout does not care what L holds
+    L = np.random.default_rng(p + 1).normal(size=(p, p)).astype(np.float32)
+    chunks, panels = -(-p // rows), -(-p // YL_N)
+    half = rows * YL_N
+    stages = _stream_stages(L, YL_N, kc, cols=YL_N).reshape(
+        panels, chunks, 2, half)
+    y = np.random.default_rng(p).normal(size=(128, p))
+    ys = _yl_buffer(y).reshape(chunks, 128, rows)
+    # A in the fragments' order (chunk, k-step i, position): position t
+    # holds k-row 2t of the k-step, t + 4 k-row 2t + 1
+    r = np.arange(128)[:, None, None]
+    i, t = np.arange(kc)[None, :, None], np.arange(4)[None, None, :]
+    at = ((8 * i) ^ ((r & 3) << 3)) + 2 * t
+    a = np.concatenate([ys[:, r, at], ys[:, r, at + 1]], axis=-1)
+    a = a.transpose(1, 0, 2, 3).reshape(128, chunks * rows)
+    kk, n = np.arange(8)[:, None], np.arange(YL_N)[None, :]
+    b_at = (256 * np.arange(kc)[:, None, None] + ((n // 8) * sbo
+            + (kk // 4) * 128 + (n % 8) * 16 + (kk % 4) * 4)[None]) // 4
+    s = np.zeros((128, panels * YL_N))
+    for g in range(YL_GROUPS[1]):
+        for pn in range(g, panels, YL_GROUPS[1]):
+            st = stages[pn]
+            b = (st[:, 0, b_at].astype(np.float64) + st[:, 1, b_at])
+            s[:, pn * YL_N:(pn + 1) * YL_N] = a @ b.reshape(chunks * rows,
+                                                            YL_N)
+    want = y @ L.astype(np.float64)
+    np.testing.assert_allclose(s[:, :p], want, rtol=1e-9, atol=1e-9)
+    assert not s[:, p:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [KSPLIT_WIDEST + 1, 3000, 4096])
+def test_yl_prologue_matches_its_emulation_on_card(cuda_device, p):
+    """Route 6's prologue (``fs.wide_split_l``: ``split_l_stages`` with
+    panels of 128 columns, padded to an even count) writes L's split stages
+    bit for bit as ``_stream_stages`` lays them out, and zeros in the padded
+    panel."""
+    layout = fs.wide_layout(p, cuda_device)
+    assert fs.WIDE_ROUTES[layout["route"]] == "wgmma, Y and L streamed"
+    L = _full_l(p)
+    got = fs.wide_split_l(torch.from_numpy(L).to(cuda_device))
+    torch.cuda.synchronize()
+    want = _stream_stages(L, YL_N, YL_KC, cols=YL_N)
+    panels = -(-(-(-p // YL_N)) // 2) * 2
+    chunks = -(-p // (8 * YL_KC))
+    assert got.numel() * 4 == panels * chunks * (YL_SLOT - 4 * 128 * 32)
+    assert layout["scratch_bytes"] > got.numel() * 4
+    got = got.cpu().numpy()
+    assert np.array_equal(got[:want.size].view(np.uint32),
+                          want.view(np.uint32))
+    assert not got[want.size:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,n", [(1000, 1000), (KSPLIT_WIDEST + 1, 1000),
+                                 (3000, 4096)])
+def test_forced_mma_kernel_matches_reference_on_card(cuda_device, p, n):
+    """The mma.sync kernel, which the dispatch no longer reaches on an H100,
+    launched through ``fs.wide_forced_mma`` (route 2, Y streamed, at these
+    widths): held to the plain version, counting no launch."""
+    target, args, key = _wide_case(cuda_device, n, p, "mid", seed=p + 11)
+    before = dict(fs.LAUNCHES)
+    k_out = fs.wide_forced_mma(*args, key, target.prec_chol)
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES == before
+    _assert_near_reference(target, args, key, k_out)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("p", [65, 66, 67, 100, 117, 118, 128, 200, 257,
                                296, 297, 298, 299, 300, 384, 512, 577, 784,
                                785, 786, 787, 788, 1000, 1025, 1536,
-                               KSPLIT_WIDEST, KSPLIT_WIDEST + 1])
+                               KSPLIT_WIDEST, KSPLIT_WIDEST + 1, 3000])
 def test_wide_kernel_unaligned_row_shards_on_card(cuda_device, p):
     """Row shards that start at rows which are not multiples of 4 (so at
     P = 65–67 the runs of X start off a 16-B boundary, their heads and
@@ -1022,13 +1224,14 @@ def test_wide_kernel_unaligned_row_shards_on_card(cuda_device, p):
 @pytest.mark.cuda
 @pytest.mark.parametrize("p", [65, 100, 117, 118, 128, 200, 257, 296, 297,
                                298, 384, 512, 577, 784, 785, 786, 1000, 1025,
-                               1536, KSPLIT_WIDEST])
+                               1536, KSPLIT_WIDEST, KSPLIT_WIDEST + 1, 3000])
 def test_wide_kernel_ragged_tiles_and_nan_rows_on_card(cuda_device, p):
     """A launch whose blocks (or clusters) walk several tiles each and whose
     last tile is ragged (n = 64·301 + 17 rows over one block an SM; on the
     L-streamed route some blocks of a cluster have no last tile and still
     take part in its stages of L; on the K-split route a cluster's last
-    tile of 128 rows holds 81), with
+    tile of 128 rows holds 81, and on route 6 too, whose last cluster has
+    a row group with no tile that still takes part in its stages), with
     lp_old = −inf rows (which accept) and NaN rows of X (whose proposals are
     NaN: they reject and keep their row): held to the plain version."""
     n = 64 * 301 + 17
@@ -1048,18 +1251,20 @@ def test_wide_kernel_ragged_tiles_and_nan_rows_on_card(cuda_device, p):
 
 @pytest.mark.cuda
 def test_wide_layout_matches_the_emulated_plan_on_card(cuda_device):
-    """The library's route at every P from 100 to 3000 on this card is the
-    one ``_ws_plan``, ``_cluster_plan``, ``_stream_plan`` and
-    ``_ksplit_plan`` emulate (with the card's own shared memory): the
+    """The library's route at every P from 100 to 4096 on this card is the
+    one ``_ws_plan``, ``_cluster_plan``, ``_stream_plan``, ``_ksplit_plan``
+    and ``_yl_plan`` emulate (with the card's own shared memory): the
     warp-specialised block with its wgmma N where it fits, else the cluster
     route with its blocks a cluster and its columns a block where the
     emulation finds a plan, else the L-streamed route with its N, ring and
     scratch, else the K-split route with its cluster, N, ring and scratch,
-    the mma.sync kernel past it; and the device holds at least one cluster
-    of each."""
+    else route 6 with its cluster, N, ring and scratch (L's stages and a
+    Y buffer for each row group of each cluster the device holds), the
+    mma.sync kernel nowhere; and the device holds at least one cluster of
+    each."""
     optin = torch.cuda.get_device_properties(
         cuda_device).shared_memory_per_block_optin
-    for p in range(100, 3001):
+    for p in range(100, 4097):
         layout = fs.wide_layout(p, cuda_device)
         if _ws_plan(p, optin):
             assert fs.WIDE_ROUTES[layout["route"]] == (
@@ -1091,6 +1296,24 @@ def test_wide_layout_matches_the_emulated_plan_on_card(cuda_device):
             # panels × chunks × a stage's 2·4·8kc·N bytes
             assert layout["scratch_bytes"] == (
                 -(-p // nsub) * -(-p // (8 * kc)) * 64 * kc * nsub), p
+            assert layout["active_clusters"] >= 1
+            continue
+        yl = _yl_plan(p, optin)
+        if plan is None and yl is not None:
+            assert fs.WIDE_ROUTES[layout["route"]] == (
+                "wgmma, Y and L streamed"), p
+            rg, cg, nsub, kc, slots = yl
+            assert (layout["cluster"], layout["wgmma_n"], layout["l_ksteps"],
+                    layout["stages"], layout["stage_rows"],
+                    layout["block_walkers"]) == (
+                        rg * cg, nsub, kc, slots, 128, 128), p
+            chunks = -(-p // (8 * kc))
+            # panels (an even count) × chunks × a stage's 2·4·8kc·N bytes,
+            # then the Y buffers: clusters × row groups × chunks × 128 rows
+            # × 8kc k-rows × 4 bytes
+            assert layout["scratch_bytes"] == (
+                -(-(-(-p // nsub)) // cg) * cg * chunks * 64 * kc * nsub
+                + layout["active_clusters"] * rg * chunks * 128 * 32 * kc), p
             assert layout["active_clusters"] >= 1
             continue
         if plan is None:
@@ -1147,14 +1370,18 @@ def _fake_cuda_half(monkeypatch, target, p):
                                      (800, "_launch_wide"),
                                      (1000, "_launch_wide"),
                                      (1536, "_launch_wide"),
+                                     (3000, "_launch_wide"),
+                                     (4096, "_launch_wide"),
                                      (100, "stretch_propose")])
 def test_cuda_dispatch_routes_without_card(monkeypatch, p, route):
     """On a CUDA tensor a GaussianTarget of P <= MAX_P (16) goes to the fused
     kernel, a wider one to the wide kernel (whose library picks the route:
     on an H100 the warp-specialised block to P = 117, the cluster route,
     index 3 of ``fs.WIDE_ROUTES``, to 296, the L-streamed route, index 4,
-    to 784, the K-split route, index 5, to ``KSPLIT_WIDEST``, the mma.sync
-    kernel past it), any other logp to the split pair;
+    to 784, the K-split route, index 5, to ``KSPLIT_WIDEST``, route 6, Y
+    and L streamed, past it; the mma.sync kernel, indices 1 and 2, only on
+    a device whose blocks no wgmma plan fits), any other logp to the split
+    pair;
     without a card the launch raises (here the kernels cannot be built) and
     no other route is tried: a wide GaussianTarget never reaches the split
     kernels, and nothing counts a launch."""
@@ -1166,6 +1393,7 @@ def test_cuda_dispatch_routes_without_card(monkeypatch, p, route):
     assert fs.WIDE_ROUTES[3] == "wgmma, thread-block cluster"
     assert fs.WIDE_ROUTES[4] == "wgmma, L streamed"
     assert fs.WIDE_ROUTES[5] == "wgmma, K split over a cluster"
+    assert fs.WIDE_ROUTES[6] == "wgmma, Y and L streamed"
     before = dict(fs.LAUNCHES)
     called, err = _fake_cuda_half(monkeypatch, target, p)
     assert called == [route]

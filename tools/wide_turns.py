@@ -1,6 +1,8 @@
 """Time the wide Gaussian half-step of several checkouts in turns on one card.
 
     python3 tools/wide_turns.py 297,384,512 build/parent [OTHER_TREE ...]
+    python3 tools/wide_turns.py 3000 build/parent --iters 3
+    python3 tools/wide_turns.py 3000 build/variants/a build/variants/b --no-check
 
 builds this checkout's kernel library and those of the other checkouts (for
 example ``git archive <commit> mcmcpp_tpu_torch | tar -x -C build/parent``),
@@ -10,11 +12,15 @@ width P at n = 2^20 walkers a half: holds each library's
 masks equal but for a few rows, the logps within 1e-5 relative), and times
 the other checkouts' entry points, this one's and this one's loads-only
 entry (where its route has one) in turns a, b, c, c, b, a: 20 launches a
-reading between CUDA events, queued behind some 6 ms of device work. A
-library whose entry takes a scratch pointer (route 4's L split stages) gets
-a buffer of the bytes its own layout entry names. Prints the milliseconds a
-launch with the card's name and power limit, and this checkout's route at
-each P. Needs a CUDA device.
+reading (``--iters``: fewer past P ≈ 2000, where a launch takes hundreds of
+ms) between CUDA events, queued behind some 6 ms of device work. A library
+whose entry takes a scratch pointer (L's split stages from route 4 on,
+route 6's Y buffers) gets a buffer of the bytes its own layout entry names.
+Prints the milliseconds a launch with the card's name and power limit, and
+this checkout's route at each P. With ``--no-check`` the other checkouts
+are timed without being held to the plain half-step: for throwaway variants
+that drop a piece of the kernel on purpose (its formation, its loads), to
+see what each piece costs. Needs a CUDA device.
 """
 
 import ctypes
@@ -54,8 +60,16 @@ def scratch_for(lib, p, dev):
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("wide_turns.py needs a CUDA device")
-    widths = [int(x) for x in sys.argv[1].split(",")]
-    trees = [os.path.abspath(t) for t in sys.argv[2:]]
+    args = sys.argv[1:]
+    iters = 20
+    check = "--no-check" not in args
+    args = [a for a in args if a != "--no-check"]
+    if "--iters" in args:
+        at = args.index("--iters")
+        iters = int(args[at + 1])
+        del args[at:at + 2]
+    widths = [int(x) for x in args[0].split(",")]
+    trees = [os.path.abspath(t) for t in args[1:]]
     sys.path.insert(0, ROOT)
     from mcmcpp_tpu_torch.models.targets import GaussianTarget
     from mcmcpp_tpu_torch.ops import fused_stretch as fs
@@ -73,7 +87,7 @@ def main():
     stream = torch.cuda.current_stream().cuda_stream
     n = 1 << 20
 
-    def timed(fn, iters=20):
+    def timed(fn):
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
@@ -127,6 +141,8 @@ def main():
             calls[label] = caller(lib, lib.mcmcpp_fused_stretch_wide_f32)
             calls[label]()
             torch.cuda.synchronize()
+            if not check and label != "this":
+                continue
             same = outs[2] == want[2]
             rel = ((outs[1][same] - want[1][same]).abs()
                    / want[1][same].abs().clamp(min=1.0)).max()
@@ -137,11 +153,14 @@ def main():
         if route.startswith("wgmma"):
             # the loads-only entry of this checkout and of every other that
             # takes the same route (one with route 4's scratch entry)
+            # (one with route 4's scratch entry, or with route 6's forced
+            # mma.sync entry)
+            since = {fs.WIDE_ROUTES[4]: "mcmcpp_fused_stretch_wide_split_l_f32",
+                     fs.WIDE_ROUTES[6]:
+                         "mcmcpp_fused_stretch_wide_forced_mma_f32"}
             for label, lib in libs.items():
-                if label == "this" or (
-                        route == fs.WIDE_ROUTES[4]
-                        and hasattr(lib,
-                                    "mcmcpp_fused_stretch_wide_split_l_f32")):
+                if label == "this" or (route in since
+                                       and hasattr(lib, since[route])):
                     calls[f"{label}_loads_only"] = caller(
                         lib, lib.mcmcpp_fused_stretch_wide_loads_only_f32)
         order = list(calls) + list(reversed(list(calls)))
