@@ -30,6 +30,8 @@ under either torch.
 import numpy as np
 import torch
 
+from mcmcpp_tpu_torch.utils.metrics import span
+
 _BITS = {
     "bfloat16": (torch.bfloat16, torch.int16),
     "float8_e4m3fn": (torch.float8_e4m3fn, torch.uint8),
@@ -301,25 +303,27 @@ class Chain:
         if logps is not None and (
                 tuple(logps.shape) != tuple(positions.shape[:2])):
             raise ValueError("logps shape must be (S, W)")
-        positions = to_held(positions, self.dtype)
-        if logps is None:
-            logps = np.zeros(positions.shape[:2], getattr(
-                self.logp_dtype, "bits", self.logp_dtype))
-        else:
-            logps = to_held(logps, self.logp_dtype)
-        if self._native is not None:
-            self._cache = None
-            self._logp_cache = None
-            return self._native.append(positions, logps)
-        room = (self.max_bytes - self._bytes) // self._row_bytes()
-        take = min(positions.shape[0], max(room, 0))
-        if take > 0:
-            self._blocks.append(positions[:take])
-            self._logp_blocks.append(logps[:take])
-            self._bytes += take * self._row_bytes()
-            self._cache = None
-            self._logp_cache = None
-        return take == positions.shape[0]
+        with span("mcmcpp.chain.append"):
+            with span("mcmcpp.chain.fetch"):
+                positions = to_held(positions, self.dtype)
+                if logps is not None:
+                    logps = to_held(logps, self.logp_dtype)
+            if logps is None:
+                logps = np.zeros(positions.shape[:2], getattr(
+                    self.logp_dtype, "bits", self.logp_dtype))
+            if self._native is not None:
+                self._cache = None
+                self._logp_cache = None
+                return self._native.append(positions, logps)
+            room = (self.max_bytes - self._bytes) // self._row_bytes()
+            take = min(positions.shape[0], max(room, 0))
+            if take > 0:
+                self._blocks.append(positions[:take])
+                self._logp_blocks.append(logps[:take])
+                self._bytes += take * self._row_bytes()
+                self._cache = None
+                self._logp_cache = None
+            return take == positions.shape[0]
 
     def clear(self):
         """Drop all stored steps (≙ Chain reset via sampler.reset)."""

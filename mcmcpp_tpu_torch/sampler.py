@@ -43,6 +43,7 @@ from mcmcpp_tpu_torch.ops.random import (
     STEP_STREAM,
     make_generator,
 )
+from mcmcpp_tpu_torch.utils.metrics import span
 
 # per-walker accept counters are int32 on the device and gain at most one
 # per step, so a device run between two harvests stays below 2^30 steps
@@ -418,19 +419,29 @@ class EnsembleSampler:
     def _accum_accept(self, acc_red, acc_black):
         """Fold per-walker device accept counters into the host int64
         vector (one device->host copy)."""
-        vec = torch.cat([acc_red, acc_black]).cpu().numpy().astype(np.int64)
-        if self._accepted_walkers_host is None:
-            self._accepted_walkers_host = vec
-        else:
-            self._accepted_walkers_host += vec
+        with span("mcmcpp.harvest"):
+            self._fold_accept(acc_red, acc_black)
+
+    def _fold_accept(self, acc_red, acc_black):
+        """:meth:`_accum_accept`'s work, inside the caller's harvest span."""
+        with span("mcmcpp.harvest.fetch"):
+            counts = torch.cat([acc_red, acc_black]).cpu()
+        with span("mcmcpp.harvest.fold"):
+            vec = counts.numpy().astype(np.int64)
+            if self._accepted_walkers_host is None:
+                self._accepted_walkers_host = vec
+            else:
+                self._accepted_walkers_host += vec
 
     def _harvest_counters(self):
         """Move device accept counters into the host accumulator."""
-        self._accum_accept(self.state.accepted_red, self.state.accepted_black)
-        self.state = self.state._replace(
-            accepted_red=torch.zeros_like(self.state.accepted_red),
-            accepted_black=torch.zeros_like(self.state.accepted_black),
-        )
+        with span("mcmcpp.harvest"):
+            self._fold_accept(self.state.accepted_red,
+                              self.state.accepted_black)
+            self.state = self.state._replace(
+                accepted_red=torch.zeros_like(self.state.accepted_red),
+                accepted_black=torch.zeros_like(self.state.accepted_black),
+            )
 
     def _current_ensemble(self):
         pos = torch.cat([self.state.red, self.state.black])
@@ -463,7 +474,8 @@ class EnsembleSampler:
         remaining = int(n_steps)
         while remaining > 0:
             take = min(remaining, self._max_steps_per_harvest)
-            self.state = run_nostore(self.state, self._step_fn, take)
+            with span("mcmcpp.steps"):
+                self.state = run_nostore(self.state, self._step_fn, take)
             self._harvest_counters()
             remaining -= take
 
@@ -487,45 +499,46 @@ class EnsembleSampler:
         in-flight chunk is landed before each save, so a snapshot is
         consistent (state == chain == counters); saves are atomic.
         """
-        self._require_state()
-        n_steps = int(n_steps)
-        thin = self._default_thin if thin is None else int(thin)
-        if thin < 1:
-            raise ValueError("thin must be >= 1")
-        self.step_metrics = None
-        if not store:
-            self._run_nostore(n_steps)
+        with span("mcmcpp.run_mcmc"):
+            self._require_state()
+            n_steps = int(n_steps)
+            thin = self._default_thin if thin is None else int(thin)
+            if thin < 1:
+                raise ValueError("thin must be >= 1")
+            self.step_metrics = None
+            if not store:
+                self._run_nostore(n_steps)
+                return True
+            n_store = n_steps // thin
+            leftover = n_steps - n_store * thin
+            metric_chunks = []
+
+            def land(pos, logp, metrics):
+                self.chain, ok = append_device_chunk(self.chain, pos, logp)
+                if metrics is not None:
+                    metric_chunks.append(
+                        _tree_map(lambda t: t.cpu().numpy(), metrics))
+                if chunk_action is not None:
+                    chunk_action(self.chain)
+                return ok
+
+            if thin > self._max_steps_per_harvest:
+                ok = self._run_micro_chunks(n_store, thin, step_action, land)
+            else:
+                ok = self._run_chunks(n_store, thin, step_action, land,
+                                      checkpoint_path, checkpoint_every)
+            if metric_chunks:
+                self.step_metrics = _tree_stack(
+                    metric_chunks, lambda xs: np.concatenate(xs, axis=0))
+            if not ok:
+                return False
+            if leftover:
+                self._run_nostore(leftover)
+            if checkpoint_path is not None:
+                from mcmcpp_tpu_torch.io.checkpoint import save_checkpoint
+
+                save_checkpoint(self, checkpoint_path)  # final snapshot
             return True
-        n_store = n_steps // thin
-        leftover = n_steps - n_store * thin
-        metric_chunks = []
-
-        def land(pos, logp, metrics):
-            self.chain, ok = append_device_chunk(self.chain, pos, logp)
-            if metrics is not None:
-                metric_chunks.append(
-                    _tree_map(lambda t: t.cpu().numpy(), metrics))
-            if chunk_action is not None:
-                chunk_action(self.chain)
-            return ok
-
-        if thin > self._max_steps_per_harvest:
-            ok = self._run_micro_chunks(n_store, thin, step_action, land)
-        else:
-            ok = self._run_chunks(n_store, thin, step_action, land,
-                                  checkpoint_path, checkpoint_every)
-        if metric_chunks:
-            self.step_metrics = _tree_stack(
-                metric_chunks, lambda xs: np.concatenate(xs, axis=0))
-        if not ok:
-            return False
-        if leftover:
-            self._run_nostore(leftover)
-        if checkpoint_path is not None:
-            from mcmcpp_tpu_torch.io.checkpoint import save_checkpoint
-
-            save_checkpoint(self, checkpoint_path)  # final snapshot
-        return True
 
     def _run_chunks(self, n_store, thin, step_action, land,
                     checkpoint_path=None, checkpoint_every=1):
@@ -534,10 +547,11 @@ class EnsembleSampler:
         chunk = min(self._chunk, self._max_steps_per_harvest // thin)
 
         def launch(take):
-            self.state, pos, logp, metrics, acc = run_scan(
-                self.state, self._step_fn, take, thin, step_action,
-                store_dtype=self._store_dtype,
-            )
+            with span("mcmcpp.steps"):
+                self.state, pos, logp, metrics, acc = run_scan(
+                    self.state, self._step_fn, take, thin, step_action,
+                    store_dtype=self._store_dtype,
+                )
             return pos, logp, metrics, acc
 
         def fetch(chunk_data):
